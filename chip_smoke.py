@@ -1,0 +1,542 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, each printing one JSON line; any failure raises and exits non-zero:
+
+  build     compile the CUDA kernels from tiny_llm_tpu_torch/csrc (nvcc, in
+            parallel, into build/), with the card's name and power limit
+  kernels   every kernel against its plain PyTorch version on the card at
+            the shapes the main path gives it; kernel, plain and library
+            times and the least time the card could take (the bound)
+  model     the main path: Qwen3-4B W4A16 (random weights from a seed, full
+            width and depth), max_seq 1024, B = 1: a 128-token prefill and
+            128 greedy decode steps in 16-step bursts, three times; the
+            kernels' launch counts over those runs
+  parity    the 4B widths at 4 layers: teacher-forced logits of the kernels
+            against the plain versions, on the card
+  generate  three ByteTokenizer prompts through simple_generate_with_kv_cache
+
+Then the nvidia-smi line, one {"kernels": [...]} line and, last,
+{"ok": true, "device": {...}}. Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
+PROMPT_LEN, DECODE_STEPS, BURST, MAX_SEQ = 128, 128, 16, 1024
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return r.stdout.strip().splitlines()[0]
+
+
+def graph_ms(fn, replays: int = 5) -> float:
+    """Device ms of one fn() call: fn's launches captured in a CUDA graph and
+    replayed, so host launch cost does not stretch the timing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Device-clock ms of one eager fn() call (host launch gaps included)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_: float, flops: float) -> tuple[float, str]:
+    tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+
+
+def phase_build():
+    from tiny_llm_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    log = build.build_all()
+    secs = time.perf_counter() - t0
+    regs = {
+        name: [ln.split(":", 1)[-1].strip() for ln in info["ptxas"].splitlines()
+               if "Used" in ln or "spill" in ln and not ln.strip().startswith("0 bytes")]
+        for name, info in log.items()
+    }
+    smi = nvidia_smi()
+    emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(log),
+          "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
+    return smi, regs
+
+
+def _k1_shapes(cfg):
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.num_attention_heads + 2 * cfg.num_key_value_heads) * cfg.head_dim
+    return {"qkv": (qkv, D, "wqkv", False), "o": (D, cfg.num_attention_heads * cfg.head_dim,
+            "wo", True), "gate_up": (2 * I, D, "w_gate_up", False),
+            "down": (D, I, "w_down", True), "lm_head": (V, D, None, False)}
+
+
+def _layer_weight(params, layer, attr):
+    if attr is None:
+        return params.embedding
+    holder = layer.attn if attr in ("wqkv", "wo") else layer.mlp
+    return getattr(holder, attr)
+
+
+def _k1_bytes(qt, M, residual):
+    N, Kp = qt.out_features, qt.k_padded
+    return N * Kp // 2 + 2 * N * (Kp // 128) * 2 + M * Kp * 2 + M * N * 2 * (2 if residual else 1)
+
+
+def _path_launches(cfg):
+    """Each kernel's launches on the main path: per decode step, per prefill."""
+    L = cfg.num_hidden_layers
+    per_step = {"quant_matmul": 4 * L + 1, "fused_decode_attention": L, "flash_attention": 0}
+    per_prefill = {"quant_matmul": 4 * L + 1, "fused_decode_attention": 0, "flash_attention": L}
+    return per_step, per_prefill
+
+
+def phase_kernels(model, cfg):
+    """Each kernel against its plain version on the card, and timed."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as k3
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as k2
+    from tiny_llm_tpu_torch.kernels import quant_matmul as k1
+    from tiny_llm_tpu_torch.ops.quantize import dequantize
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = model.params
+    layers = params.layers
+    cases, contract = [], {}
+
+    # K1 for each projection shape, with and without residual, at M = 1
+    # (decode) and 128 (prefill), the main path's, and at M = 4 and 20
+    # (batched decode: the GEMV's 4- and 8-row instances).
+    dense = {}  # (shape, layer) -> bf16 dequantized weight, for the library yardstick
+    for name, (N, K, attr, _) in _k1_shapes(cfg).items():
+        ws = [_layer_weight(params, L, attr) for L in (layers if attr else layers[:1])]
+        dense[name] = [dequantize(w) for w in ws]
+        for M in (1, 4, 20, 128):
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            for residual in (False, True):
+                r = torch.randn((M, N), generator=gen, device=dev).to(torch.bfloat16) \
+                    if residual else None
+                got = k1.quant_matmul_cuda(x, ws[0], r)
+                want = k1.quant_matmul_plain(x, ws[0], r)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                tol = 1e-2 * float(want.float().abs().max())
+                check(err <= tol, f"quant_matmul {name} M={M} res={residual}: {err} > {tol}")
+                n_w = len(ws)
+                kern = graph_ms(lambda: [k1.quant_matmul_cuda(x, w, r) for w in ws]) / n_w
+                plain = event_ms(lambda: k1.quant_matmul_plain(x, ws[0], r), reps=2)
+                lib_fn = (lambda: [torch.addmm(r, x, w.T) for w in dense[name]]) if residual \
+                    else (lambda: [torch.matmul(x, w.T) for w in dense[name]])
+                lib = graph_ms(lib_fn) / n_w
+                bms, by = bound(_k1_bytes(ws[0], M, residual), 2 * M * N * K)
+                cases.append({"kernel": "quant_matmul", "tpu_kernel": k1.TPU_KERNEL,
+                              "shape": f"{name} N={N} K={K} M={M}" + (" +res" if residual else ""),
+                              "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                              "library_ms": lib, "bound_ms": bms, "bound_by": by})
+
+    # K1 over one decode step: 145 launches in model order (36 layers x
+    # qkv, o+res, gate_up, down+res, then the LM head), distinct weights.
+    D = cfg.hidden_size
+    xs = {n: torch.randn((1, K), generator=gen, device=dev).to(torch.bfloat16)
+          for n, (_, K, _, _) in _k1_shapes(cfg).items()}
+    res = torch.randn((1, D), generator=gen, device=dev).to(torch.bfloat16)
+    order = [(n, i) for i in range(len(layers)) for n in ("qkv", "o", "gate_up", "down")]
+    order.append(("lm_head", 0))
+    wq = {n: [_layer_weight(params, L, a) for L in (layers if a else layers[:1])]
+          for n, (_, _, a, _) in _k1_shapes(cfg).items()}
+    shapes = _k1_shapes(cfg)
+
+    def step(fn):
+        return lambda: [fn(xs[n], wq[n][i], res if shapes[n][3] else None, dense[n][i])
+                        for n, i in order]
+
+    # The step's 145 outputs against the plain version's, each within 1 % of
+    # its max |plain|, as in the cases above.
+    step_got = step(lambda x, w, r, d: k1.quant_matmul_cuda(x, w, r))()
+    step_want = step(lambda x, w, r, d: k1.quant_matmul_plain(x, w, r))()
+    torch.cuda.synchronize()
+    step_err = 0.0
+    for (n, i), got, want in zip(order, step_got, step_want):
+        err, tol = max_err(got, want), 1e-2 * float(want.float().abs().max())
+        check(err <= tol, f"quant_matmul decode step {n}[{i}]: {err} > {tol}")
+        step_err = max(step_err, err)
+    del step_got, step_want
+    step_kern = graph_ms(step(lambda x, w, r, d: k1.quant_matmul_cuda(x, w, r)), replays=3)
+    step_plain = event_ms(step(lambda x, w, r, d: k1.quant_matmul_plain(x, w, r)), reps=1)
+    step_lib = graph_ms(step(lambda x, w, r, d: torch.addmm(r, x, d.T) if r is not None
+                             else torch.matmul(x, d.T)), replays=3)
+    step_bytes = sum(_k1_bytes(wq[n][i], 1, shapes[n][3]) for n, i in order)
+    step_flops = sum(2 * shapes[n][0] * shapes[n][1] for n, _ in order)
+    bms, by = bound(step_bytes, step_flops)
+    contract["quant_matmul"] = {
+        "name": "quant_matmul", "route": "cuda", "source": k1.SOURCE,
+        "replaces": "tiny_llm_tpu/kernels/quant_matmul.py:154",
+        "case": "one 4B decode step: 145 launches at M=1 (36 x qkv, o+res, gate_up, "
+                "down+res; lm_head)",
+        "max_abs_err": step_err,
+        "ms": step_kern, "plain_ms": step_plain, "bound_ms": bms, "bound_by": by,
+        "library_ms": step_lib,
+    }
+    del dense
+    torch.cuda.empty_cache()
+
+    # K2 at B = 1 and 4, offsets 128..255, on a 1024-slot slab of 36 layers.
+    Hkv, D_h = cfg.num_key_value_heads, cfg.head_dim
+    n_rep = cfg.num_attention_heads // Hkv
+    Ly = cfg.num_hidden_layers
+    eps, scale = cfg.rms_norm_eps, D_h**-0.5
+    cos_t, sin_t = model._rope_tables
+    # Distinct, non-unit QK-norm weights (the synthetic model's are all ones),
+    # so a kernel that drops or swaps them disagrees with its plain version.
+    qw = (1 + 0.1 * torch.randn(D_h, generator=gen, device=dev)).to(torch.bfloat16)
+    kw = (1 + 0.1 * torch.randn(D_h, generator=gen, device=dev)).to(torch.bfloat16)
+    k2_errs = []
+    for offs in ([128], [255], [128, 170, 213, 255], [192]):
+        B = len(offs)
+        keys = torch.randn((Ly, B, Hkv, MAX_SEQ, D_h), generator=gen, device=dev).to(torch.bfloat16)
+        values = torch.randn_like(keys, dtype=torch.float32).to(torch.bfloat16)
+        qkv = torch.randn((B, Hkv, n_rep + 2, D_h), generator=gen, device=dev).to(torch.bfloat16)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        cr, sr = cos_t[off.long()], sin_t[off.long()]
+        args = (qkv, keys, values, off, cr, sr, qw, kw)
+        got = k2.fused_decode_attention_cuda(*args, layer_idx=3, scale=scale, eps=eps)
+        want = k2.fused_decode_attention_plain(*args, layer_idx=3, scale=scale, eps=eps)
+        torch.cuda.synchronize()
+        err = max_err(got[0], want[0])
+        tol = 2e-2
+        check(err <= tol, f"fused_decode_attention offs={offs}: {err} > {tol}")
+        kerr = max_err(got[1], want[1])
+        check(kerr <= 2**-7 * float(want[1].float().abs().max()), f"k_row {kerr}")
+        check(torch.equal(got[2], want[2]), "v_row not bit-equal")
+        k2_errs.append(err)
+        kern = graph_ms(lambda: [k2.fused_decode_attention_cuda(
+            *args, layer_idx=i, scale=scale, eps=eps) for i in range(Ly)]) / Ly
+        plain = event_ms(lambda: k2.fused_decode_attention_plain(
+            *args, layer_idx=3, scale=scale, eps=eps))
+        # Library yardstick: SDPA over the same rows and the current token
+        # (already normed/roped), which is the attention part of K2's work.
+        q = got[0].new_empty((B, Hkv * n_rep, 1, D_h)).normal_(generator=gen)
+        n_ctx = max(offs) + 1
+        lib = graph_ms(lambda: [torch.nn.functional.scaled_dot_product_attention(
+            q, keys[i][:, :, :n_ctx], values[i][:, :, :n_ctx], enable_gqa=True)
+            for i in range(Ly)]) / Ly
+        kv_bytes = sum(2 * Hkv * o * D_h * 2 for o in offs)
+        io_bytes = B * Hkv * (n_rep + 2) * D_h * 2 * 2
+        bms, by = bound(kv_bytes + io_bytes, sum(4 * Hkv * n_rep * (o + 1) * D_h for o in offs))
+        case = {"kernel": "fused_decode_attention", "tpu_kernel": k2.TPU_KERNEL,
+                "shape": f"B={B} offsets={offs} S={MAX_SEQ} Hkv={Hkv} n_rep={n_rep} D={D_h}",
+                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": bms, "bound_by": by}
+        cases.append(case)
+        if offs == [192]:
+            contract["fused_decode_attention"] = {
+                "name": "fused_decode_attention", "route": "cuda", "source": k2.SOURCE,
+                "replaces": "tiny_llm_tpu/kernels/fused_decode_attention.py:79",
+                "case": case["shape"], "max_abs_err": max(k2_errs), "ms": kern,
+                "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            }
+        del keys, values
+
+    # K3 at L = 128 (the prompt chunk) and L = 8 (a short prompt; the TPU's
+    # L <= 16 kernel), over a 1024-slot slab layer.
+    k3_errs = []
+    for L, lens_v in ((128, 128), (8, 8), (8, 200)):
+        Hq = Hkv * n_rep
+        q = torch.randn((1, Hq, L, D_h), generator=gen, device=dev).to(torch.bfloat16)
+        ks = torch.randn((Ly, 1, Hkv, MAX_SEQ, D_h), generator=gen, device=dev).to(torch.bfloat16)
+        vs = torch.randn_like(ks, dtype=torch.float32).to(torch.bfloat16)
+        lens = torch.tensor([lens_v], dtype=torch.int32, device=dev)
+        got = k3.flash_attention_cuda(q, ks[0], vs[0], lens, scale)
+        want = k3.flash_attention_plain(q, ks[0], vs[0], lens, scale)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = 2e-2
+        check(err <= tol, f"flash_attention L={L} lens={lens_v}: {err} > {tol}")
+        k3_errs.append(err)
+        kern = graph_ms(lambda: [k3.flash_attention_cuda(q, ks[i], vs[i], lens, scale)
+                                 for i in range(Ly)]) / Ly
+        plain = event_ms(lambda: k3.flash_attention_plain(q, ks[0], vs[0], lens, scale))
+        # Library yardstick: SDPA over the first lens keys, query i attending
+        # to keys j <= lens - L + i: plain causal when lens == L, else a
+        # boolean mask built outside the timing. It computes K3's function.
+        mask = None if lens_v == L else (torch.arange(lens_v, device=dev)[None, :]
+                                         <= torch.arange(lens_v - L, lens_v, device=dev)[:, None])
+
+        def sdpa(i):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, ks[i][:, :, :lens_v], vs[i][:, :, :lens_v], attn_mask=mask,
+                is_causal=mask is None, scale=scale, enable_gqa=True)
+
+        check(max_err(sdpa(0), want) <= tol, f"SDPA yardstick L={L} lens={lens_v} differs")
+        lib = graph_ms(lambda: [sdpa(i) for i in range(Ly)]) / Ly
+        pairs = sum(lens_v - L + i + 1 for i in range(L))
+        bms, by = bound(2 * Hq * L * D_h * 2 + 2 * Hkv * lens_v * D_h * 2,
+                        4 * Hq * pairs * D_h)
+        case = {"kernel": "flash_attention",
+                "tpu_kernel": k3.TPU_KERNEL if L > 16 else k3.TPU_KERNEL_SHORT,
+                "shape": f"B=1 L={L} lens={lens_v} S={MAX_SEQ} Hq={Hq} Hkv={Hkv} D={D_h}",
+                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": bms, "bound_by": by}
+        cases.append(case)
+        if L == 128:
+            contract["flash_attention"] = {
+                "name": "flash_attention", "route": "cuda", "source": k3.SOURCE,
+                "replaces": "tiny_llm_tpu/kernels/flash_attention_pallas.py:450",
+                "case": case["shape"], "max_abs_err": None, "ms": kern, "plain_ms": plain,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            }
+        del ks, vs
+    contract["flash_attention"]["max_abs_err"] = max(k3_errs)
+    torch.cuda.empty_cache()
+    per_step, per_prefill = _path_launches(cfg)
+    for c in cases:
+        c["launches"] = {"per_decode_step": per_step[c["kernel"]],
+                         "per_prefill": per_prefill[c["kernel"]]}
+    emit({"phase": "kernels", "cases": cases})
+    return contract
+
+
+def _decode_run(model, prompt):
+    """Prefill + DECODE_STEPS greedy steps in BURST-step bursts."""
+    cache = model.create_kv_cache(batch_size=prompt.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = model(prompt, 0, cache, logits_to_keep=1)
+    tok = logits[:, -1].float().argmax(-1).cpu().numpy()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits.float()).all()), "non-finite prefill logits")
+    check(tuple(logits.shape) == (prompt.shape[0], 1, model.vocab_size), "logits shape")
+    toks = [tok]
+    t0 = time.perf_counter()
+    done = 0
+    while done < DECODE_STEPS:
+        out = model.decode_burst_dense(cache, tok, BURST)
+        toks.extend(out)
+        tok = out[-1]
+        done += BURST
+    decode_s = time.perf_counter() - t0
+    cache.release()
+    return prefill_s, decode_s, np.stack(toks)
+
+
+def phase_model(model, cfg):
+    from tiny_llm_tpu_torch import kernels
+
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, PROMPT_LEN))
+    _decode_run(model, prompt)  # warm-up (allocator, kernel first calls)
+    runs = 3
+    kernels.reset_launches()
+    samples = [_decode_run(model, prompt) for _ in range(runs)]
+    counts = kernels.launches()
+    L = cfg.num_hidden_layers
+    per_step, per_prefill = _path_launches(cfg)
+    expected = {k: runs * (per_prefill[k] + DECODE_STEPS * per_step[k]) for k in counts}
+    check(counts == expected, f"launch counts {counts} != expected {expected}")
+    check(all(v > 0 for v in counts.values()), "a kernel of the path never launched")
+    toks = [s[2] for s in samples]
+    check(all(np.array_equal(t, toks[0]) for t in toks), "greedy runs disagree")
+    check(bool(((toks[0] >= 0) & (toks[0] < cfg.vocab_size)).all()), "token out of range")
+    dec = sorted(DECODE_STEPS / s[1] for s in samples)
+    pre = sorted(PROMPT_LEN / s[0] for s in samples)
+    busy = _profile_burst(model, prompt)
+    dev_ms = busy["device_ms_per_step"]  # None when the profiler saw no device time
+    busy["busy_share_unprofiled"] = None if dev_ms is None else dev_ms * dec[len(dec) // 2] / 1e3
+    emit({"phase": "model", "model": "qwen3-4b", "layers": L, "batch": 1,
+          "prompt_len": PROMPT_LEN, "decode_steps": DECODE_STEPS, "burst": BURST,
+          "max_seq": MAX_SEQ, "prefill_tok_s": pre[len(pre) // 2],
+          "decode_tok_s": dec[len(dec) // 2], "decode_tok_s_all": dec,
+          "launches": counts, "launches_per_decode_step": per_step,
+          "launches_per_prefill": per_prefill,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "first_tokens": toks[0][:8, 0].tolist(), "decode_profile": busy})
+    return counts
+
+
+def _profile_burst(model, prompt):
+    """Device time of one BURST-step decode burst by kernel name
+    (torch.profiler), outside the launch-counted runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = model.create_kv_cache()
+    tok = model(prompt, 0, cache, logits_to_keep=1)[:, -1].float().argmax(-1).cpu().numpy()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.decode_burst_dense(cache, tok, BURST)
+        torch.cuda.synchronize()
+    cache.release()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            by_name[e.key] = (e.self_device_time_total / 1e3 / BURST, e.count // BURST)
+    total = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"device_ms_per_step": total or None,
+            "top_kernels_ms_per_step": {k[:60]: [ms, n] for k, (ms, n) in top}}
+
+
+def phase_parity(cfg):
+    from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
+
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    params = synthetic_quantized_params(cfg4, seed=1)
+    fast = Qwen3Model(params, cfg4, max_seq_len=256)
+    plain = Qwen3Model(params, cfg4, max_seq_len=256, impl="torch")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(1, PROMPT_LEN))
+    cf, cp = fast.create_kv_cache(), plain.create_kv_cache()
+    lf, lp = fast(prompt, 0, cf), plain(prompt, 0, cp)
+    worst, decided, agree = 0.0, 0, 0
+    # Tolerance: 5 % of the largest plain logit. Kernel and plain version
+    # sum in f32 in other orders and round each projection to bf16 (an ulp is
+    # 0.4 %); four layers compound that.
+    for step in range(9):
+        a, b = lf[0].float(), lp[0].float()
+        tol = 5e-2 * float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / max(tol, 1e-30))
+        check(bool(torch.isfinite(a).all()) and err <= tol, f"parity step {step}: {err} > {tol}")
+        top2 = b.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol
+        decided += int(sure.sum())
+        agree += int((a.argmax(-1) == b.argmax(-1))[sure].sum())
+        tok = [[int(b[-1].argmax())]]  # teacher-forced: the plain path's token
+        if step < 8:
+            lf, lp = fast(tok, PROMPT_LEN + step, cf), plain(tok, PROMPT_LEN + step, cp)
+    check(agree == decided, f"top-1 disagrees on {decided - agree} decided positions")
+    emit({"phase": "parity", "layers": 4, "positions": PROMPT_LEN + 8,
+          "worst_err_over_tol": worst, "tol": "5% of max |plain logit|",
+          "top1_decided": decided, "top1_agree": agree})
+
+
+def phase_generate(model):
+    from tiny_llm_tpu_torch.generate import simple_generate_with_kv_cache
+    from tiny_llm_tpu_torch.tokenizer import ByteTokenizer
+
+    class Recording(ByteTokenizer):
+        """Records the longest id list decoded: the full output."""
+
+        def __init__(self):
+            self.ids: list[int] = []
+
+        def decode(self, ids):
+            ids = list(ids)
+            if len(ids) >= len(self.ids):
+                self.ids = ids
+            return super().decode(ids)
+
+    out = []
+    for prompt in ("hello", "The quick brown fox jumps over the lazy dog.",
+                   "def fibonacci(n):\n    return n if n < 2 else"):
+        tok = Recording()
+        t0 = time.perf_counter()
+        text = simple_generate_with_kv_cache(model, tok, prompt, max_tokens=16)
+        secs = time.perf_counter() - t0
+        out.append({"prompt": prompt, "prompt_tokens": len(tok.encode(prompt)),
+                    "tokens": len(tok.ids), "text": text, "ids": tok.ids, "seconds": secs})
+    # The per-step path and the burst path give the same greedy tokens.
+    first = out[0]
+    if len(first["ids"]) == 16:
+        cache = model.create_kv_cache()
+        logits = model([list(b"hello")], 0, cache, logits_to_keep=1)
+        t0 = int(logits[0, -1].float().argmax())
+        burst = model.decode_burst_dense(cache, [t0], 15)[:, 0].tolist()
+        check([t0] + burst == first["ids"], "generate and burst paths disagree")
+        cache.release()
+    check(all(r["tokens"] > 0 for r in out), "a request produced no token")
+    emit({"phase": "generate", "requests": out})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the kernel line, the card and ptxas's "
+                    "register and spill report to this JSON file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from tiny_llm_tpu_torch.models import QWEN3_CONFIGS, Qwen3Model, synthetic_quantized_params
+
+    torch.manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi, ptxas = phase_build()
+    cfg = QWEN3_CONFIGS["qwen3-4b"]
+    model = Qwen3Model(synthetic_quantized_params(cfg, seed=0), cfg, max_seq_len=MAX_SEQ)
+    contract = phase_kernels(model, cfg)
+    counts = phase_model(model, cfg)
+    phase_parity(cfg)
+    phase_generate(model)
+    for name, entry in contract.items():
+        entry["launches"] = counts[name]
+    kern_line = {"kernels": [contract[n] for n in
+                             ("quant_matmul", "fused_decode_attention", "flash_attention")]}
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"gpu": smi, "ptxas": ptxas, **kern_line}, indent=1))
+    print(smi, flush=True)
+    emit(kern_line)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

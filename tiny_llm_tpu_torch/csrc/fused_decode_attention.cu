@@ -1,0 +1,233 @@
+// K2: fused decode attention step for Hopper (sm_90a).
+//
+// Replaces tiny_llm_tpu/kernels/fused_decode_attention.py::_fused_step_kernel
+// (through fused_decode_attention). For one layer and one decode step it
+// splits the per-KV-head interleaved qkv row, applies QK-RMSNorm and RoPE,
+// runs an online softmax over the dense slab positions [0, off) and folds
+// the current token's own k/v in last. It returns the attention rows and
+// the normed+roped k row and the raw v row, which the caller writes into
+// the slab in place.
+//
+// Rounding points follow the TPU kernel: the normalized value rounds to
+// bf16 before the weight multiply, RoPE rotates in f32 and rounds to bf16,
+// q is pre-scaled and rounded to bf16, probabilities round to bf16 for the
+// PV product while the denominator sums them in f32.
+//
+// Bound on the H100: the bytes of the slab's K and V rows in [0, off) plus
+// the qkv row, over 3.35 TB/s — a few microseconds at 4B's shapes, so the
+// launch and the serial prologue dominate.
+//
+// Design: one block per (b, kv head), 8 warps. Warp w takes key tiles of 32
+// positions (w, w + 8, ...): each lane scores one key against all n_rep
+// query rows held in shared memory, the warp updates its (m, l, acc) with
+// shuffles, and the PV product runs with each lane owning D/32 output
+// dims. The 8 warp states merge in shared memory, then the current token
+// folds in. Known weakness: at B = 1 the grid is Hkv = 8 blocks on 132 SMs.
+#include "common.cuh"
+
+namespace {
+
+constexpr int WARPS = 8;
+
+template <int D, int NREP>
+__global__ void __launch_bounds__(WARPS * 32) fused_decode_step(
+    const __nv_bfloat16* __restrict__ qkv,   // [B, Hkv, NREP + 2, D]
+    const __nv_bfloat16* __restrict__ keys,  // [layers, B, Hkv, S, D]
+    const __nv_bfloat16* __restrict__ values,
+    const int* __restrict__ offsets,  // [B]
+    const float* __restrict__ cos_row, const float* __restrict__ sin_row,  // [B, D/2]
+    const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,  // [D]
+    __nv_bfloat16* __restrict__ out,    // [B, Hkv, NREP, D]
+    __nv_bfloat16* __restrict__ k_out,  // [B, Hkv, D]
+    __nv_bfloat16* __restrict__ v_out,  // [B, Hkv, D]
+    int layer, int B, int Hkv, int S, float scale, float eps) {
+  constexpr int HALF = D / 2, DPL = D / 32;
+  __shared__ float xrow[NREP + 1][D];  // normed rows before RoPE
+  __shared__ float qs[NREP][D];        // pre-scaled q (bf16 values)
+  __shared__ float kcur[D], vcur[D];
+  __shared__ float scur[NREP];
+  __shared__ float wm_s[WARPS][NREP], wl_s[WARPS][NREP];
+  __shared__ float wacc[WARPS][NREP][D];
+
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int off = offsets[bb];
+  const __nv_bfloat16* row = qkv + (size_t)(bb * Hkv + h) * (NREP + 2) * D;
+  const float* cs = cos_row + (size_t)bb * HALF;
+  const float* sn = sin_row + (size_t)bb * HALF;
+
+  // QK-RMSNorm: warp r normalizes row r (q rows 0..NREP-1, k row NREP).
+  for (int r = warp; r <= NREP; r += WARPS) {
+    const __nv_bfloat16* wt = r < NREP ? qw : kw;
+    float v[DPL];
+    float ss = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      v[e] = bf2f(row[r * D + lane + 32 * e]);
+      ss += v[e] * v[e];
+    }
+    const float inv = rsqrtf(warp_sum(ss) / D + eps);
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const float normed = round_bf16(__fmul_rn(v[e], inv));
+      xrow[r][lane + 32 * e] = round_bf16(__fmul_rn(normed, bf2f(wt[lane + 32 * e])));
+    }
+  }
+  if (tid < D) vcur[tid] = bf2f(row[(NREP + 1) * D + tid]);
+  __syncthreads();
+  // RoPE (f32 rotate, bf16 round), q pre-scale.
+  for (int idx = tid; idx < (NREP + 1) * HALF; idx += blockDim.x) {
+    const int r = idx / HALF, i = idx % HALF;
+    const float x1 = xrow[r][i], x2 = xrow[r][i + HALF];
+    const float c = cs[i], sv = sn[i];
+    const float re = round_bf16(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, sv)));
+    const float im = round_bf16(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, sv)));
+    if (r < NREP) {
+      qs[r][i] = round_bf16(re * scale);
+      qs[r][i + HALF] = round_bf16(im * scale);
+    } else {
+      kcur[i] = re;
+      kcur[i + HALF] = im;
+      const size_t o = (size_t)(bb * Hkv + h) * D;
+      k_out[o + i] = __float2bfloat16_rn(re);
+      k_out[o + i + HALF] = __float2bfloat16_rn(im);
+    }
+  }
+  if (tid < D) v_out[(size_t)(bb * Hkv + h) * D + tid] = row[(NREP + 1) * D + tid];
+  __syncthreads();
+  // Score of the current token, one warp per q row.
+  for (int r = warp; r < NREP; r += WARPS) {
+    float p = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) p += qs[r][lane + 32 * e] * kcur[lane + 32 * e];
+    p = warp_sum(p);
+    if (lane == 0) scur[r] = p;
+  }
+
+  // Online softmax over the slab positions [0, off).
+  const size_t base = ((size_t)(layer * B + bb) * Hkv + h) * (size_t)S * D;
+  const __nv_bfloat16* kb = keys + base;
+  const __nv_bfloat16* vb = values + base;
+  float m[NREP], l[NREP], acc[NREP][DPL];
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) {
+    m[r] = TLT_NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
+  }
+  for (int t0 = warp * 32; t0 < off; t0 += WARPS * 32) {
+    const int pos = t0 + lane;
+    float sc[NREP];
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) sc[r] = 0.f;
+    if (pos < off) {
+      const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)pos * D);
+#pragma unroll 4
+      for (int c = 0; c < D / 8; ++c) {
+        const uint4 kv = __ldg(kr + c);
+        const uint32_t kw4[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float k0 = lo_bf16(kw4[e]), k1 = hi_bf16(kw4[e]);
+          const int d0 = c * 8 + 2 * e;
+#pragma unroll
+          for (int r = 0; r < NREP; ++r) sc[r] += qs[r][d0] * k0 + qs[r][d0 + 1] * k1;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) sc[r] = TLT_NEG_INF;
+    }
+    float p[NREP];
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) {
+      const float m_new = fmaxf(m[r], warp_max(sc[r]));
+      const float alpha = expf(m[r] - m_new);
+      p[r] = expf(sc[r] - fmaxf(m_new, TLT_NEG_INF / 2));
+      l[r] = l[r] * alpha + warp_sum(p[r]);
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
+      p[r] = round_bf16(p[r]);
+    }
+    const int nvalid = min(32, off - t0);
+    for (int j = 0; j < nvalid; ++j) {
+      const __nv_bfloat16* vr = vb + (size_t)(t0 + j) * D + lane * DPL;
+      float vv[DPL];
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) vv[e] = bf2f(vr[e]);
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, p[r], j);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[r][e] += pj * vv[e];
+      }
+    }
+  }
+  // Merge the warps' states.
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) {
+    if (lane == 0) {
+      wm_s[warp][r] = m[r];
+      wl_s[warp][r] = l[r];
+    }
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) wacc[warp][r][lane * DPL + e] = acc[r][e];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < NREP * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx % D;
+    float mg = TLT_NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mg = fmaxf(mg, wm_s[w][r]);
+    float lg = 0.f, ag = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = expf(wm_s[w][r] - mg);
+      lg += wl_s[w][r] * f;
+      ag += wacc[w][r][d] * f;
+    }
+    // Fold the current token (always visible to its own query).
+    const float s_cur = scur[r];
+    const float m_new = fmaxf(mg, s_cur);
+    const float alpha = expf(mg - m_new);
+    const float pc = expf(s_cur - m_new);
+    const float lt = lg * alpha + pc;
+    const float at = ag * alpha + round_bf16(pc) * vcur[d];
+    out[((size_t)(bb * Hkv + h) * NREP + r) * D + d] = __float2bfloat16_rn(at / lt);
+  }
+}
+
+template <int D, int NREP>
+int launch(const void* qkv, const void* keys, const void* values, const void* offsets,
+           const void* cs, const void* sn, const void* qw, const void* kw, void* out,
+           void* k_out, void* v_out, int layer, int B, int Hkv, int S, float scale,
+           float eps, cudaStream_t st) {
+  fused_decode_step<D, NREP><<<dim3(Hkv, B), dim3(WARPS * 32), 0, st>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(keys),
+      static_cast<const __nv_bfloat16*>(values), static_cast<const int*>(offsets),
+      static_cast<const float*>(cs), static_cast<const float*>(sn),
+      static_cast<const __nv_bfloat16*>(qw), static_cast<const __nv_bfloat16*>(kw),
+      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(k_out),
+      static_cast<__nv_bfloat16*>(v_out), layer, B, Hkv, S, scale, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tlt_fused_decode_attention(const void* qkv, const void* keys, const void* values,
+                                          const void* offsets, const void* cs, const void* sn,
+                                          const void* qw, const void* kw, void* out, void* k_out,
+                                          void* v_out, int layer, int B, int Hkv, int S, int D,
+                                          int n_rep, float scale, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TLT_K2(DD, RR)                                                                     \
+  if (D == DD && n_rep == RR)                                                              \
+    return launch<DD, RR>(qkv, keys, values, offsets, cs, sn, qw, kw, out, k_out, v_out, \
+                          layer, B, Hkv, S, scale, eps, st);
+  TLT_K2(64, 1) TLT_K2(64, 2) TLT_K2(64, 4) TLT_K2(64, 8)
+  TLT_K2(128, 1) TLT_K2(128, 2) TLT_K2(128, 4) TLT_K2(128, 8)
+#undef TLT_K2
+  return (int)cudaErrorInvalidValue;
+}

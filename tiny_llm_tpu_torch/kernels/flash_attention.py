@@ -1,0 +1,101 @@
+"""K3: causal flash attention over dense K/V with per-row lengths.
+
+Replaces tiny_llm_tpu/kernels/flash_attention_pallas.py::_prefill_kernel
+(wrapper `_flash_prefill`, through `flash_attention_pallas` for L > 16)
+and covers its L <= 16 sibling `_decode_kernel` (`_flash_decode`): the
+CUDA kernel, csrc/flash_attention.cu, takes any L >= 1. Its header notes
+what bounds it on the H100 and what its design does about that.
+
+Conventions are the JAX package's: q [B, Hq, L, D], k/v [B, Hkv, S, D]
+(GQA, n_rep = Hq // Hkv), lens [B] — row b's valid KV length; query i sits
+at position lens[b] - L + i and sees keys at positions <= its own. Keys at
+positions >= lens[b] are never read, so k/v may be a whole preallocated
+slab layer.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .dispatch import resolve
+
+TPU_KERNEL = "tiny_llm_tpu/kernels/flash_attention_pallas.py:450 _prefill_kernel"
+TPU_KERNEL_SHORT = "tiny_llm_tpu/kernels/flash_attention_pallas.py:81 _decode_kernel"
+SOURCE = "tiny_llm_tpu_torch/csrc/flash_attention.cu"
+NEG_INF = -1e30
+
+LAUNCHES = 0  # kernel launches since the last reset (see kernels.reset_launches)
+
+
+def flash_attention_plain(q, k, v, lens, scale: float):
+    """Plain PyTorch version at the TPU kernel's rounding points: q*scale
+    rounded to bf16, f32 scores and softmax, bf16 probabilities in the PV
+    product, acc / max(l, 1e-30). A row that sees no key gives 0."""
+    B, Hq, L, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    n_rep = Hq // Hkv
+    qs = (q.to(torch.float32) * scale).to(torch.bfloat16).to(torch.float32)
+    qs = qs.reshape(B, Hkv, n_rep, L, D)
+    s = torch.einsum("bhrld,bhsd->bhrls", qs, k.to(torch.float32))
+    lens = lens.to(device=q.device, dtype=torch.int64)
+    q_pos = lens[:, None] - L + torch.arange(L, device=q.device)[None, :]  # [B, L]
+    k_pos = torch.arange(S, device=q.device)
+    ok = k_pos[None, None, :] <= q_pos[:, :, None]  # [B, L, S]
+    s = torch.where(ok[:, None, None], s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2))
+    l = p.sum(-1, keepdim=True)
+    pb = p.to(torch.bfloat16).to(torch.float32)
+    acc = torch.einsum("bhrls,bhsd->bhrld", pb, v.to(torch.float32))
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(B, Hq, L, D).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    fn = lib.tlt_flash_attention
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_cuda(q, k, v, lens, scale: float):
+    global LAUNCHES
+    B, Hq, L, D = q.shape
+    Bk, Hkv, S, Dk = k.shape
+    if (Bk, Dk) != (B, D) or v.shape != k.shape or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} do not match")
+    n_rep = Hq // Hkv
+    if D not in (64, 128) or n_rep not in (1, 2, 4, 8):
+        raise ValueError(f"flash_attention_cuda: unsupported D={D}, n_rep={n_rep}")
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError("q/k/v must be contiguous bf16 CUDA tensors")
+    lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = _lib()
+    err = lib.tlt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        B, Hkv, L, S, D, n_rep, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, "flash_attention")
+    LAUNCHES += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lens: torch.Tensor,
+    scale: float | None = None,
+    impl: str | None = None,
+) -> torch.Tensor:
+    """Causal attention of the last L positions of each row over k/v."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if resolve(impl, q) == "cuda":
+        return flash_attention_cuda(q, k, v, lens, scale)
+    return flash_attention_plain(q, k, v, lens, scale)

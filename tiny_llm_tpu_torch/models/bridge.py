@@ -1,0 +1,100 @@
+"""Carry the JAX package's weights across to the port, through numpy only.
+
+`from_jax_numpy` takes the JAX package's (unfused) `Qwen3Params` flattened
+to a nested dict of numpy arrays and static fields:
+
+    {"embedding": QT, "lm_head": QT | None, "final_norm": array,
+     "layers": [{"input_layernorm": array, "post_attention_layernorm": array,
+                 "attn": {"wq": QT, "wk": QT, "wv": QT, "wo": QT,
+                          "q_norm": array, "k_norm": array},
+                 "mlp": {"w_gate": QT, "w_up": QT, "w_down": QT}}, ...]}
+
+where QT is {"packed", "scales", "biases"} arrays plus "layout",
+"group_size", "bits", "out_features", "in_features", "k_padded". bf16
+arrays arrive with numpy dtype name "bfloat16" (ml_dtypes) and are
+reinterpreted bit for bit. The port never sees a JAX type.
+
+Packed words go through integer codes: the JAX layout ("magic_t" or "sg")
+is unpacked with this package's numpy unpackers and the codes repacked in
+the port's layout. Scales and biases are copied exactly, in their source
+dtype. A tied LM head is dropped: the JAX package keeps a second copy of
+the embedding's codes for it, the port reads the embedding itself.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels.dispatch import check_device
+from ..ops.quantize import QuantizedTensor, from_codes, unpack_magic_t, unpack_supergroup
+from .qwen3 import AttentionParams, BlockParams, MLPParams, Qwen3Config, Qwen3Params
+
+
+def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """numpy -> CPU tensor, keeping bf16 (ml_dtypes) bits exactly."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def quantized_from_numpy(d: dict) -> QuantizedTensor:
+    """One JAX QuantizedTensor (as numpy) -> the port's QuantizedTensor (CPU)."""
+    layout, kp = d["layout"], int(d["k_padded"])
+    if int(d["bits"]) != 4 or int(d["group_size"]) != 128:
+        raise ValueError("the port takes W4 g128 weights only")
+    packed = np.asarray(d["packed"])
+    if packed.ndim != 2:
+        raise ValueError("stacked (MoE) weights are not ported yet")
+    if layout == "magic_t":
+        codes = unpack_magic_t(packed, kp)
+        scales, biases = d["scales"].T, d["biases"].T  # [G, N] -> [N, G]
+    elif layout == "sg":
+        codes = unpack_supergroup(packed, kp, 128, 4)
+        scales, biases = d["scales"], d["biases"]
+    else:
+        raise ValueError(f"layout {layout!r} is not ported yet")
+    return from_codes(
+        torch.from_numpy(codes),
+        tensor_from_numpy(scales),
+        tensor_from_numpy(biases),
+        in_features=int(d["in_features"]),
+    )
+
+
+def from_jax_numpy(
+    tree: dict, cfg: Qwen3Config, device: str | torch.device = "cuda"
+) -> Qwen3Params:
+    """The port's params on `device` from the JAX params as numpy (see
+    module docstring). Unfused, as the loaders return them; the port's
+    Qwen3Model fuses them."""
+    dev = check_device(device)
+
+    def qt(d):
+        return quantized_from_numpy(d).to(dev)
+
+    def arr(a):
+        return tensor_from_numpy(np.asarray(a)).to(dev)
+
+    layers = []
+    for layer in tree["layers"]:
+        a, m = layer["attn"], layer["mlp"]
+        layers.append(BlockParams(
+            input_layernorm=arr(layer["input_layernorm"]),
+            post_attention_layernorm=arr(layer["post_attention_layernorm"]),
+            attn=AttentionParams(
+                wq=qt(a["wq"]), wk=qt(a["wk"]), wv=qt(a["wv"]), wo=qt(a["wo"]),
+                q_norm=arr(a["q_norm"]), k_norm=arr(a["k_norm"]),
+            ),
+            mlp=MLPParams(w_gate=qt(m["w_gate"]), w_up=qt(m["w_up"]), w_down=qt(m["w_down"])),
+        ))
+    lm_head = None
+    if not cfg.tie_word_embeddings:
+        lm_head = qt(tree["lm_head"])
+    return Qwen3Params(
+        embedding=qt(tree["embedding"]),
+        layers=layers,
+        final_norm=arr(tree["final_norm"]),
+        lm_head=lm_head,
+    )

@@ -1,0 +1,81 @@
+"""Synthetic weights and the test config — counterpart of the synthetic part
+of tiny_llm_tpu/models/loader.py. Loading real HF checkpoints is not ported
+yet (it needs safetensors and checkpoint files the repository does not hold).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.dispatch import check_device
+from ..ops.quantize import GROUP_SIZE, QuantizedTensor, padded_k
+from .qwen3 import AttentionParams, BlockParams, MLPParams, Qwen3Config, Qwen3Params
+
+
+def synthetic_quantized_params(
+    cfg: Qwen3Config, seed: int = 0, device: str | torch.device = "cuda"
+) -> Qwen3Params:
+    """Random W4A16 g128 params built straight on `device` in the port's
+    layout: random code words, scales uniform in [0.001, 0.005) and biases
+    -7.5 * scale (codes centred on 0), as the JAX package's
+    synthetic_quantized_params draws them. The tied LM head shares the
+    embedding tensor. For benchmarks, where shapes and bytes matter."""
+    dev = check_device(device)
+    if cfg.num_experts:
+        raise NotImplementedError("MoE layers are not ported yet")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def qlin(n: int, k: int) -> QuantizedTensor:
+        kp = padded_k(k)
+        packed = torch.randint(
+            -(2**31), 2**31, (n, kp // 8), dtype=torch.int32, generator=gen, device=dev
+        )
+        scales = (
+            torch.rand((n, kp // GROUP_SIZE), generator=gen, device=dev) * 0.004 + 0.001
+        ).to(torch.bfloat16)
+        biases = (-7.5 * scales.to(torch.float32)).to(torch.bfloat16)
+        return QuantizedTensor(packed=packed, scales=scales, biases=biases,
+                               out_features=n, in_features=k, k_padded=kp)
+
+    def ones(n: int) -> torch.Tensor:
+        return torch.ones((n,), dtype=torch.bfloat16, device=dev)
+
+    D, Dh = cfg.hidden_size, cfg.head_dim
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        attn = AttentionParams(
+            wq=qlin(cfg.num_attention_heads * Dh, D),
+            wk=qlin(cfg.num_key_value_heads * Dh, D),
+            wv=qlin(cfg.num_key_value_heads * Dh, D),
+            wo=qlin(D, cfg.num_attention_heads * Dh),
+            q_norm=ones(Dh),
+            k_norm=ones(Dh),
+        )
+        mlp = MLPParams(
+            w_gate=qlin(cfg.intermediate_size, D),
+            w_up=qlin(cfg.intermediate_size, D),
+            w_down=qlin(D, cfg.intermediate_size),
+        )
+        layers.append(BlockParams(ones(D), ones(D), attn, mlp))
+    embedding = qlin(cfg.vocab_size, D)
+    lm_head = None if cfg.tie_word_embeddings else qlin(cfg.vocab_size, D)
+    return Qwen3Params(embedding=embedding, layers=layers, final_norm=ones(D), lm_head=lm_head)
+
+
+def tiny_test_config(num_hidden_layers: int = 1, **overrides) -> Qwen3Config:
+    """The JAX package's tiny test shape (tiny_llm_tpu/models/loader.py)."""
+    d = dict(
+        num_hidden_layers=num_hidden_layers,
+        hidden_size=128,
+        vocab_size=128,
+        num_attention_heads=2,
+        num_key_value_heads=1,
+        head_dim=64,
+        intermediate_size=128,
+        rms_norm_eps=1e-5,
+        max_position_embeddings=256,
+        rope_theta=10000,
+        tie_word_embeddings=True,
+    )
+    d.update(overrides)
+    return Qwen3Config(**d)

@@ -1,0 +1,408 @@
+"""Qwen3 dense model — PyTorch/CUDA counterpart of tiny_llm_tpu/models/qwen3.py.
+
+W4A16 group-128 weights, GQA attention with QK-RMSNorm and RoPE, SwiGLU
+MLP, pre-norm residual blocks, tied or untied LM head. The same routes run
+on the card and on the CPU; only the bodies of the three kernels differ
+(kernels/dispatch.py):
+
+  * every projection and the LM head go through K1 (kernels/quant_matmul);
+  * a decode step (L == 1) goes through K2 (kernels/fused_decode_attention)
+    with the qkv projection fused and interleaved per KV head;
+  * a prompt chunk goes through K3 (kernels/flash_attention).
+
+The KV slab is updated in place. A decode burst is a Python loop of steps
+whose greedy argmax stays on the device; the host syncs once per burst.
+Not ported yet: MoE layers, dense (unquantized) weights, the paged cache,
+the mixed prefill+decode bursts and the W4A8 tier.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from ..kernels.fused_decode_attention import fused_decode_attention
+from ..kernels.quant_matmul import quant_matmul
+from ..kernels.dispatch import check_device
+from ..kv.cache import DenseKVCache
+from ..ops.basics import swiglu
+from ..ops.embedding import quantized_embedding_gather
+from ..ops.norm import rms_norm
+from ..ops.quantize import QuantizedTensor, concat_out_features, permute_out_features
+from ..ops.rope import apply_rope, rope_tables
+from ..ops.sampler import make_sampler
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen3Config:
+    num_hidden_layers: int
+    hidden_size: int
+    num_attention_heads: int
+    num_key_value_heads: int
+    head_dim: int
+    intermediate_size: int
+    vocab_size: int
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1_000_000.0
+    max_position_embeddings: int = 32768
+    tie_word_embeddings: bool = True
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    decoder_sparse_step: int = 1
+    mlp_only_layers: tuple[int, ...] = ()
+    norm_topk_prob: bool = False
+
+
+# ---------------------------------------------------------------------------
+# Params: plain dataclasses of tensors and QuantizedTensors.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class AttentionParams:
+    wq: QuantizedTensor | None
+    wk: QuantizedTensor | None
+    wv: QuantizedTensor | None
+    wo: QuantizedTensor
+    q_norm: torch.Tensor
+    k_norm: torch.Tensor
+    # Fused [q; k; v] projection (fuse_projections), rows ordered per KV
+    # head as [q_{h*n_rep} .. q_{(h+1)*n_rep-1}, k_h, v_h].
+    wqkv: QuantizedTensor | None = None
+
+
+@dataclasses.dataclass
+class MLPParams:
+    w_gate: QuantizedTensor | None
+    w_up: QuantizedTensor | None
+    w_down: QuantizedTensor
+    w_gate_up: QuantizedTensor | None = None  # fused [gate; up]
+
+
+@dataclasses.dataclass
+class BlockParams:
+    input_layernorm: torch.Tensor
+    post_attention_layernorm: torch.Tensor
+    attn: AttentionParams
+    mlp: MLPParams
+
+
+@dataclasses.dataclass
+class Qwen3Params:
+    embedding: QuantizedTensor
+    layers: list[BlockParams]
+    final_norm: torch.Tensor
+    lm_head: QuantizedTensor | None = None  # None: tied to the embedding
+
+
+def _linear(x, w: QuantizedTensor, residual=None, impl=None):
+    """x @ w.T (+ residual, added in f32 inside K1)."""
+    return quant_matmul(x, w, residual=residual, impl=impl)
+
+
+def _norm_linear(x, w: QuantizedTensor, norm_w, eps: float, impl=None):
+    """rms_norm(x) @ w.T. The JAX package keeps its fused-norm prologue off
+    (FUSE_NORM_ENABLED = False), so the norm is a separate op there too."""
+    if norm_w is not None:
+        x = rms_norm(x, norm_w, eps)
+    return _linear(x, w, impl=impl)
+
+
+def _embed(params: Qwen3Params, tokens: torch.Tensor) -> torch.Tensor:
+    return quantized_embedding_gather(params.embedding, tokens)
+
+
+def _lm_head(params: Qwen3Params, h: torch.Tensor, impl=None) -> torch.Tensor:
+    w = params.lm_head if params.lm_head is not None else params.embedding
+    return _linear(h, w, impl=impl)
+
+
+def _split_qkv_rope(cfg: Qwen3Config, p: AttentionParams, qkv, positions, rope_tabs):
+    """Interleaved fused qkv activation [B, L, F] -> QK-RMSNorm + RoPE ->
+    q [B, Hq, L, D], k/v [B, Hkv, L, D]."""
+    B, L, _ = qkv.shape
+    cos_t, sin_t = rope_tabs
+    hd, hq, hkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+    nr = hq // hkv
+    rows = qkv.reshape(B, L, hkv, (nr + 2) * hd)
+    q = rows[..., : nr * hd].reshape(B, L, hq, hd)
+    k = rows[..., nr * hd : (nr + 1) * hd]
+    v = rows[..., (nr + 1) * hd :]
+    q = apply_rope(rms_norm(q, p.q_norm, cfg.rms_norm_eps), cos_t, sin_t, positions, hd)
+    k = apply_rope(rms_norm(k, p.k_norm, cfg.rms_norm_eps), cos_t, sin_t, positions, hd)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _qkv(cfg, p: AttentionParams, x, positions, rope_tabs, norm_w=None, impl=None):
+    """[pre-norm +] fused qkv projection + QK-RMSNorm + RoPE."""
+    qkv = _norm_linear(x, p.wqkv, norm_w, cfg.rms_norm_eps, impl)
+    return _split_qkv_rope(cfg, p, qkv, positions, rope_tabs)
+
+
+def _mlp(cfg, p: MLPParams, x, norm_w=None, residual=None, impl=None):
+    """[pre-norm +] fused gate/up, SwiGLU, down [+ residual, added inside K1]."""
+    gu = _norm_linear(x, p.w_gate_up, norm_w, cfg.rms_norm_eps, impl)
+    half = gu.shape[-1] // 2
+    return _linear(swiglu(gu[..., :half], gu[..., half:]), p.w_down, residual=residual,
+                   impl=impl)
+
+
+def _qkv_interleave_perm(attn: AttentionParams) -> list[int]:
+    """Row order interleaving the fused [q; k; v] per KV head (see
+    AttentionParams.wqkv). Head counts come from the weights, D from the
+    QK-norm weight."""
+    d = attn.q_norm.shape[-1]
+    dq, dk, dv = (w.out_features for w in (attn.wq, attn.wk, attn.wv))
+    if dk != dv or dq % d or dk % d or dq % dk:
+        raise ValueError(f"q/k/v rows {dq}/{dk}/{dv} are not a GQA layout of head dim {d}")
+    hkv = dk // d
+    nr = dq // dk
+    idx: list[int] = []
+    for h in range(hkv):
+        idx.extend(range(h * nr * d, (h + 1) * nr * d))
+        idx.extend(range(dq + h * d, dq + (h + 1) * d))
+        idx.extend(range(dq + dk + h * d, dq + dk + (h + 1) * d))
+    return idx
+
+
+def fuse_projections(params: Qwen3Params) -> Qwen3Params:
+    """Fuse each layer's [q; k; v] (interleaved per KV head) and [gate; up]
+    into one weight each — an exact relayout (groups run along K). The
+    model's routes run on fused params only."""
+    layers = []
+    for layer in params.layers:
+        attn, mlp = layer.attn, layer.mlp
+        wqkv = permute_out_features(
+            concat_out_features([attn.wq, attn.wk, attn.wv]), _qkv_interleave_perm(attn)
+        )
+        attn = dataclasses.replace(attn, wq=None, wk=None, wv=None, wqkv=wqkv)
+        mlp = dataclasses.replace(
+            mlp, w_gate=None, w_up=None, w_gate_up=concat_out_features([mlp.w_gate, mlp.w_up])
+        )
+        layers.append(dataclasses.replace(layer, attn=attn, mlp=mlp))
+    return dataclasses.replace(params, layers=layers)
+
+
+def _write_rows(buf: torch.Tensor, layer: int, offsets: list[int], rows: torch.Tensor) -> None:
+    """buf[layer, b, :, offsets[b] : offsets[b] + L] = rows[b], IN PLACE —
+    the slab is preallocated, so writing the new rows where they belong
+    saves a copy of the slab per layer and step."""
+    L = rows.shape[2]
+    if len(set(offsets)) == 1:
+        o = offsets[0]
+        buf[layer, :, :, o : o + L] = rows
+        return
+    for b, o in enumerate(offsets):
+        buf[layer, b, :, o : o + L] = rows[b]
+
+
+def _offsets_tensor(offsets: list[int], device) -> torch.Tensor:
+    # A uniform offset is a device fill (no host-to-device copy, no sync).
+    if len(set(offsets)) == 1:
+        return torch.full((len(offsets),), offsets[0], dtype=torch.int32, device=device)
+    return torch.tensor(offsets, dtype=torch.int32, device=device)
+
+
+def forward_step(
+    params: Qwen3Params,
+    cfg: Qwen3Config,
+    rope_tabs: tuple[torch.Tensor, torch.Tensor],
+    tokens: torch.Tensor,  # [B, L] int on the model's device
+    offsets: list[int],  # per row: context length before this chunk
+    keys: torch.Tensor,  # [layers, B, Hkv, S, D] — written in place
+    values: torch.Tensor,
+    *,
+    logits_to_keep: int | None,
+    impl: str | None = None,
+) -> torch.Tensor:
+    """One cached step (prompt chunk or decode step): writes this chunk's
+    k/v into the slab at `offsets` and returns logits [B, L_keep, V]."""
+    B, L = tokens.shape
+    dev = tokens.device
+    scale = cfg.head_dim**-0.5
+    eps = cfg.rms_norm_eps
+    hkv = cfg.num_key_value_heads
+    n_rep = cfg.num_attention_heads // hkv
+    offs = _offsets_tensor(offsets, dev)
+    h = _embed(params, tokens)
+    decode = L == 1  # the decode route: K2 per layer; else K3
+    if decode:
+        # The RoPE rows are gathered once per step and shared by all layers.
+        pos = offs.to(torch.long)
+        cos_row, sin_row = rope_tabs[0][pos], rope_tabs[1][pos]
+    else:
+        positions = offs[:, None].to(torch.long) + torch.arange(L, device=dev)[None, :]
+        lens = offs + L
+    for i, layer in enumerate(params.layers):
+        if decode:
+            qkv = _norm_linear(h, layer.attn.wqkv, layer.input_layernorm, eps, impl)
+            attn_rows, k_row, v_row = fused_decode_attention(
+                qkv.reshape(B, hkv, n_rep + 2, cfg.head_dim), keys, values, offs,
+                cos_row, sin_row, layer.attn.q_norm, layer.attn.k_norm,
+                layer_idx=i, scale=scale, eps=eps, impl=impl,
+            )
+            _write_rows(keys, i, offsets, k_row)
+            _write_rows(values, i, offsets, v_row)
+            attn = attn_rows.reshape(B, 1, -1)
+        else:
+            q, k, v = _qkv(cfg, layer.attn, h, positions, rope_tabs,
+                           norm_w=layer.input_layernorm, impl=impl)
+            _write_rows(keys, i, offsets, k)
+            _write_rows(values, i, offsets, v)
+            attn = flash_attention(q.contiguous(), keys[i], values[i], lens,
+                                   scale=scale, impl=impl)
+            attn = attn.transpose(1, 2).reshape(B, L, -1)
+        h = _linear(attn, layer.attn.wo, residual=h, impl=impl)
+        h = _mlp(cfg, layer.mlp, h, norm_w=layer.post_attention_layernorm,
+                 residual=h, impl=impl)
+    if logits_to_keep is not None:
+        h = h[:, -logits_to_keep:, :]
+    h = rms_norm(h, params.final_norm, eps)
+    return _lm_head(params, h, impl)
+
+
+def forward_decode_burst_dense(
+    params: Qwen3Params,
+    cfg: Qwen3Config,
+    rope_tabs,
+    tokens0: torch.Tensor,  # [B] int on the device
+    offset: int,
+    keys: torch.Tensor,
+    values: torch.Tensor,
+    *,
+    steps: int,
+    impl: str | None = None,
+    temp: float = 0.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """`steps` decode steps from `tokens0` at `offset`; returns the emitted
+    tokens [steps, B] on the device. Greedy when temp == 0, else
+    temperature / top-k / top-p sampling on the device with `generator`.
+    Nothing here waits for the device."""
+    sample = make_sampler(temp, top_p, top_k)
+    B = tokens0.shape[0]
+    tokens = tokens0
+    out = []
+    for s in range(steps):
+        logits = forward_step(
+            params, cfg, rope_tabs, tokens[:, None], [offset + s] * B, keys, values,
+            logits_to_keep=1, impl=impl,
+        )
+        lp = logits[:, -1, :].to(torch.float32)
+        if temp != 0:
+            lp = torch.log_softmax(lp, dim=-1)
+        tokens = sample(lp, generator)
+        out.append(tokens)
+    return torch.stack(out)
+
+
+class Qwen3Model:
+    """Host-side wrapper owning the (fused) params and the RoPE tables.
+
+    API of the JAX package's Qwen3Model for the dense path:
+    __call__(inputs, offset, cache, logits_to_keep), create_kv_cache(),
+    decode_burst_dense(). `impl` plays the role of JAX's `attn_impl`: None
+    runs the kernels on the card and their plain versions on the CPU,
+    "torch" runs the plain versions on either device."""
+
+    def __init__(
+        self,
+        params: Qwen3Params,
+        cfg: Qwen3Config,
+        max_seq_len: int | None = None,
+        impl: str | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.device = check_device(device)
+        if params.embedding.device.type != self.device.type:
+            raise ValueError(
+                f"params live on {params.embedding.device}, model device is {self.device}"
+            )
+        if cfg.num_experts:
+            raise NotImplementedError("MoE layers are not ported yet")
+        self.params = fuse_projections(params)
+        self.cfg = cfg
+        self.impl = impl
+        self.num_hidden_layers = cfg.num_hidden_layers
+        self.vocab_size = cfg.vocab_size
+        self.max_seq_len = max_seq_len or cfg.max_position_embeddings
+        self.dtype = torch.bfloat16
+        self._rope_tables = rope_tables(
+            cfg.head_dim, self.max_seq_len, base=cfg.rope_theta, device=self.device
+        )
+
+    def create_kv_cache(self, batch_size: int = 1, max_seq_len: int | None = None) -> DenseKVCache:
+        return DenseKVCache(
+            num_layers=self.cfg.num_hidden_layers,
+            batch_size=batch_size,
+            num_kv_heads=self.cfg.num_key_value_heads,
+            max_seq_len=max_seq_len or self.max_seq_len,
+            head_dim=self.cfg.head_dim,
+            dtype=self.dtype,
+            device=self.device,
+        )
+
+    def _tokens(self, inputs) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(inputs) if not torch.is_tensor(inputs) else inputs)
+        t = t.to(device=self.device, dtype=torch.long)
+        return t[None] if t.ndim == 1 else t
+
+    def __call__(
+        self,
+        inputs,  # [B, L] token ids
+        offset: int | list | None = None,
+        cache: DenseKVCache | None = None,
+        logits_to_keep: int | None = None,
+    ) -> torch.Tensor:
+        tokens = self._tokens(inputs)
+        B, L = tokens.shape
+        if cache is None:
+            # The no-cache forward: the whole prefix as one chunk into a
+            # scratch cache of exactly its length.
+            cache = self.create_kv_cache(batch_size=B, max_seq_len=L)
+            offset = 0
+        if offset is None:
+            offset = cache.offset
+        offsets = [int(offset)] * B if np.ndim(offset) == 0 else [int(o) for o in offset]
+        if max(offsets) != cache.offset:
+            raise ValueError(f"offset {offsets} disagrees with cache offset {cache.offset}")
+        if cache.offset + L > cache.max_seq_len:
+            raise ValueError(f"context {cache.offset + L} exceeds capacity {cache.max_seq_len}")
+        logits = forward_step(
+            self.params, self.cfg, self._rope_tables, tokens, offsets,
+            cache.keys, cache.values, logits_to_keep=logits_to_keep, impl=self.impl,
+        )
+        cache.advance(L)
+        return logits
+
+    def decode_burst_dense(
+        self,
+        cache: DenseKVCache,
+        first_tokens,  # [B] int
+        steps: int,
+        *,
+        temp: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        generator: torch.Generator | None = None,
+    ) -> np.ndarray:
+        """`steps` decode steps over a dense cache with one host sync at the
+        end. Returns int32 [steps, B]."""
+        if cache.offset + steps > cache.max_seq_len:
+            raise ValueError(f"burst past capacity {cache.max_seq_len}")
+        if temp != 0 and generator is None:
+            raise ValueError("a sampled burst needs a torch.Generator")
+        tokens0 = self._tokens(first_tokens).reshape(-1)
+        toks = forward_decode_burst_dense(
+            self.params, self.cfg, self._rope_tables, tokens0, cache.offset,
+            cache.keys, cache.values, steps=steps, impl=self.impl,
+            temp=temp, top_k=top_k, top_p=top_p, generator=generator,
+        )
+        cache.advance(steps)
+        return toks.cpu().numpy().astype(np.int32)
