@@ -7,15 +7,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   build     compile the CUDA kernels from tiny_llm_tpu_torch/csrc (nvcc, in
             parallel, into build/), with the card's name and power limit
   kernels   every kernel against its plain PyTorch version on the card at
-            the shapes the main path gives it; kernel, plain and library
-            times and the least time the card could take (the bound)
-  model     the main path: Qwen3-4B W4A16 (random weights from a seed, full
+            the shapes the main paths give it; kernel, plain and library
+            times and the least time the card could take (the bound). The
+            paged kernels read a 57-page pool of 128 with shuffled page ids
+  model     the dense path: Qwen3-4B W4A16 (random weights from a seed, full
             width and depth), max_seq 1024, B = 1: a 128-token prefill and
             128 greedy decode steps in 16-step bursts, three times; the
             kernels' launch counts over those runs
   parity    the 4B widths at 4 layers: teacher-forced logits of the kernels
             against the plain versions, on the card
   generate  three ByteTokenizer prompts through simple_generate_with_kv_cache
+  paged_parity  the same over the page pool: three requests with interleaved
+            pages, chunks of 128 (offset 0), 128 and 8 (offset > 0), then 8
+            batched decode steps beside an idle slot
+  serving   the serving path: bench.py --mode serving's default campaign
+            (16 requests, batch 4, prompts 128-1024, paged pool of 57 pages)
+            through batch_generate, warm-up then three campaigns: output
+            tok/s, TTFT, occupancy, the kernels' launch counts, and a
+            profile of one serving decode burst
 
 Then the nvidia-smi line, one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Needs a CUDA device; imports nothing of JAX.
@@ -37,9 +46,17 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
 PROMPT_LEN, DECODE_STEPS, BURST, MAX_SEQ = 128, 128, 16, 1024
+# bench.py serving_bench's default pool: (max_seq // ps) * (batch + 2) + 9 pages.
+PAGE_SIZE, SERVING_BATCH, SERVING_REQUESTS = 128, 4, 16
+POOL_PAGES = (MAX_SEQ // PAGE_SIZE) * (SERVING_BATCH + 2) + 9
+PAGED = ("fused_paged_decode_attention", "paged_decode", "paged_prefill")
+
+
+PHASES: list[dict] = []  # every phase line printed, for --out
 
 
 def emit(obj) -> None:
+    PHASES.append(obj)
     print(json.dumps(obj), flush=True)
 
 
@@ -141,10 +158,12 @@ def _k1_bytes(qt, M, residual):
 
 
 def _path_launches(cfg):
-    """Each kernel's launches on the main path: per decode step, per prefill."""
+    """Each kernel's launches on the dense path: per decode step, per prefill."""
     L = cfg.num_hidden_layers
     per_step = {"quant_matmul": 4 * L + 1, "fused_decode_attention": L, "flash_attention": 0}
     per_prefill = {"quant_matmul": 4 * L + 1, "fused_decode_attention": 0, "flash_attention": L}
+    for name in PAGED:
+        per_step[name] = per_prefill[name] = 0
     return per_step, per_prefill
 
 
@@ -349,8 +368,166 @@ def phase_kernels(model, cfg):
     for c in cases:
         c["launches"] = {"per_decode_step": per_step[c["kernel"]],
                          "per_prefill": per_prefill[c["kernel"]]}
+    cases += phase_paged_kernels(model, cfg, gen, qw, kw, contract)
     emit({"phase": "kernels", "cases": cases})
     return contract
+
+
+def _tables(perm, ctxs, width):
+    """Block tables [B, width] (-1 padded) taking each row's pages in turn
+    from the shuffled page ids `perm`; a row of context 0 is idle (all -1)."""
+    bt = np.full((len(ctxs), width), -1, np.int32)
+    k = 0
+    for b, n in enumerate(ctxs):
+        m = -(-n // PAGE_SIZE)
+        bt[b, :m] = perm[k : k + m]
+        k += m
+    return torch.from_numpy(bt).cuda()
+
+
+def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
+    """The three paged kernels against their plain versions over a 36-layer
+    pool of POOL_PAGES pages with shuffled page ids, timed by CUDA-graph
+    replay over the 36 layers' page buffers."""
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    Hkv, D_h = cfg.num_key_value_heads, cfg.head_dim
+    n_rep = cfg.num_attention_heads // Hkv
+    Hq, Ly = Hkv * n_rep, cfg.num_hidden_layers
+    eps, scale = cfg.rms_norm_eps, D_h**-0.5
+    cos_t, sin_t = model._rope_tables
+    width = MAX_SEQ // PAGE_SIZE  # the model's block-table width at max_seq 1024
+    shape = (Ly, POOL_PAGES, Hkv, PAGE_SIZE, D_h)
+    kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    perm = (torch.randperm(POOL_PAGES - 1, generator=torch.Generator().manual_seed(2)) + 1).numpy()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases, errs = [], {name: [] for name in PAGED}
+    lib_label = "SDPA over the same keys gathered contiguous, offset-causal boolean mask " \
+                "(attention part only)"
+
+    # Fused paged decode, B = 4, and B = 4 with an idle row (row 1: table
+    # all -1, offset 0), whose output is discarded and not compared.
+    for offs, idle in (([130, 400, 777, 1000], None), ([300, 0, 650, 900], 1)):
+        B = len(offs)
+        live = [b for b in range(B) if b != idle]
+        bt = _tables(perm, [0 if b == idle else o + 1 for b, o in enumerate(offs)], width)
+        qkv = torch.randn((B, Hkv, n_rep + 2, D_h), generator=gen, device=dev).to(torch.bfloat16)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        cr, sr = cos_t[off.long()], sin_t[off.long()]
+
+        def args(i):
+            return (qkv, kp[i], vp[i], bt, off, cr, sr, qw, kw)
+
+        got = kf.fused_paged_decode_attention_cuda(*args(3), scale=scale, eps=eps)
+        want = kf.fused_paged_decode_attention_plain(*args(3), scale=scale, eps=eps)
+        torch.cuda.synchronize()
+        err, tol = max_err(got[0][live], want[0][live]), 2e-2
+        check(err <= tol, f"fused_paged_decode_attention offs={offs}: {err} > {tol}")
+        kerr = max_err(got[1][live], want[1][live])
+        check(kerr <= 2**-7 * float(want[1].float().abs().max()), f"paged k_row {kerr}")
+        check(torch.equal(got[2][live], want[2][live]), "paged v_row not bit-equal")
+        errs["fused_paged_decode_attention"].append(err)
+        kern = graph_ms(lambda: [kf.fused_paged_decode_attention_cuda(
+            *args(i), scale=scale, eps=eps) for i in range(Ly)]) / Ly
+        plain = event_ms(lambda: kf.fused_paged_decode_attention_plain(
+            *args(3), scale=scale, eps=eps))
+        q = torch.randn((B, Hq, 1, D_h), generator=gen, device=dev).to(torch.bfloat16)
+        gathered = [pa.gather_pages_dense(kp[i], vp[i], bt) for i in range(Ly)]
+        mask = (torch.arange(width * PAGE_SIZE, device=dev)[None, :] <= off[:, None])[:, None, None]
+        lib = graph_ms(lambda: [sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+                                for k, v in gathered]) / Ly
+        del gathered
+        ctx = [o for b, o in enumerate(offs) if b != idle]
+        bms, by = bound(sum(2 * Hkv * o * D_h * 2 for o in ctx)
+                        + len(ctx) * Hkv * (n_rep + 2) * D_h * 2 * 2,
+                        sum(4 * Hq * (o + 1) * D_h for o in ctx))
+        case = {"kernel": "fused_paged_decode_attention", "tpu_kernel": kf.TPU_KERNEL_PAGED,
+                "shape": f"B={B} offsets={offs}" + (f" row {idle} idle" if idle is not None else "")
+                + f" pool={POOL_PAGES}x{PAGE_SIZE} width={width} Hkv={Hkv} n_rep={n_rep} D={D_h}",
+                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                "library_ms": lib, "library": lib_label, "bound_ms": bms, "bound_by": by}
+        cases.append(case)
+        if idle is None:
+            contract["fused_paged_decode_attention"] = {
+                "name": "fused_paged_decode_attention", "route": "cuda", "source": kf.SOURCE,
+                "replaces": "tiny_llm_tpu/kernels/fused_decode_attention.py:275",
+                "case": case["shape"], "ms": kern, "plain_ms": plain, "bound_ms": bms,
+                "bound_by": by, "library_ms": lib,
+            }
+
+    # Paged decode (L <= 16) and paged prefill (L > 16), B = 1: a later
+    # prompt chunk at offset > 0, its K/V already in the pages.
+    for L, ctx in ((8, 508), (2, 131), (128, 512), (128, 1024)):
+        name = "paged_decode" if L <= pa.DECODE_MAX_L else "paged_prefill"
+        fn = pa.paged_decode_cuda if name == "paged_decode" else pa.paged_prefill_cuda
+        bt = _tables(perm, [ctx], width)
+        q = torch.randn((1, Hq, L, D_h), generator=gen, device=dev).to(torch.bfloat16)
+        lens = torch.tensor([ctx], dtype=torch.int32, device=dev)
+        got = fn(q, kp[3], vp[3], bt, lens, scale)
+        want = pa.paged_attention_plain(q, kp[3], vp[3], bt, lens, scale)
+        torch.cuda.synchronize()
+        err, tol = max_err(got, want), 2e-2
+        check(err <= tol, f"{name} L={L} ctx={ctx}: {err} > {tol}")
+        errs[name].append(err)
+        kern = graph_ms(lambda: [fn(q, kp[i], vp[i], bt, lens, scale) for i in range(Ly)]) / Ly
+        plain = event_ms(lambda: pa.paged_attention_plain(q, kp[3], vp[3], bt, lens, scale))
+        gathered = []
+        for i in range(Ly):
+            k_i, v_i = pa.gather_pages_dense(kp[i], vp[i], bt)
+            gathered.append((k_i[:, :, :ctx].contiguous(), v_i[:, :, :ctx].contiguous()))
+        mask = (torch.arange(ctx, device=dev)[None, :]
+                <= torch.arange(ctx - L, ctx, device=dev)[:, None])
+        check(max_err(sdpa(q, *gathered[3], attn_mask=mask, scale=scale, enable_gqa=True),
+                      want) <= tol, f"SDPA yardstick {name} L={L} ctx={ctx} differs")
+        lib = graph_ms(lambda: [sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+                                for k, v in gathered]) / Ly
+        del gathered
+        pairs = sum(ctx - L + i + 1 for i in range(L))
+        bms, by = bound(2 * Hkv * ctx * D_h * 2 + 2 * Hq * L * D_h * 2, 4 * Hq * pairs * D_h)
+        case = {"kernel": name,
+                "tpu_kernel": pa.TPU_KERNEL_DECODE if name == "paged_decode"
+                else pa.TPU_KERNEL_PREFILL,
+                "shape": f"B=1 L={L} ctx={ctx} pool={POOL_PAGES}x{PAGE_SIZE} width={width} "
+                         f"Hq={Hq} Hkv={Hkv} D={D_h}",
+                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                "library_ms": lib, "library": lib_label, "bound_ms": bms, "bound_by": by}
+        cases.append(case)
+        if (L, ctx) in ((8, 508), (128, 512)):
+            contract[name] = {
+                "name": name, "route": "cuda", "source": pa.SOURCE,
+                "replaces": "tiny_llm_tpu/kernels/paged_attention_pallas.py:"
+                + ("297" if name == "paged_decode" else "475"),
+                "case": case["shape"], "ms": kern, "plain_ms": plain, "bound_ms": bms,
+                "bound_by": by, "library_ms": lib,
+            }
+    del kp, vp
+
+    # The paged decode kernel at D = 64: the head dim on which the TPU takes
+    # its per-(page, head) walk kernel (_paged_decode_kernel), checked only.
+    kp64 = torch.randn((POOL_PAGES, Hkv, PAGE_SIZE, 64), generator=gen, device=dev)
+    vp64 = torch.randn_like(kp64).to(torch.bfloat16)
+    kp64 = kp64.to(torch.bfloat16)
+    bt = _tables(perm, [508, 131], width)
+    q = torch.randn((2, Hq, 8, 64), generator=gen, device=dev).to(torch.bfloat16)
+    lens = torch.tensor([508, 131], dtype=torch.int32, device=dev)
+    got = pa.paged_decode_cuda(q, kp64, vp64, bt, lens, 64**-0.5)
+    want = pa.paged_attention_plain(q, kp64, vp64, bt, lens, 64**-0.5)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    check(err <= 2e-2, f"paged_decode D=64: {err} > 2e-2")
+    errs["paged_decode"].append(err)
+    cases.append({"kernel": "paged_decode",
+                  "tpu_kernel": "tiny_llm_tpu/kernels/paged_attention_pallas.py:52 "
+                                "_paged_decode_kernel (D % 128 != 0)",
+                  "shape": f"B=2 L=8 ctx=[508, 131] Hq={Hq} Hkv={Hkv} D=64 (check only)",
+                  "max_err": err, "tol": 2e-2})
+    for name in PAGED:
+        contract[name]["max_abs_err"] = max(errs[name])
+    torch.cuda.empty_cache()
+    return cases
 
 
 def _decode_run(model, prompt):
@@ -389,7 +566,8 @@ def phase_model(model, cfg):
     per_step, per_prefill = _path_launches(cfg)
     expected = {k: runs * (per_prefill[k] + DECODE_STEPS * per_step[k]) for k in counts}
     check(counts == expected, f"launch counts {counts} != expected {expected}")
-    check(all(v > 0 for v in counts.values()), "a kernel of the path never launched")
+    check(all(v > 0 for k, v in counts.items() if k not in PAGED),
+          "a kernel of the path never launched")
     toks = [s[2] for s in samples]
     check(all(np.array_equal(t, toks[0]) for t in toks), "greedy runs disagree")
     check(bool(((toks[0] >= 0) & (toks[0] < cfg.vocab_size)).all()), "token out of range")
@@ -409,27 +587,38 @@ def phase_model(model, cfg):
     return counts
 
 
-def _profile_burst(model, prompt):
-    """Device time of one BURST-step decode burst by kernel name
-    (torch.profiler), outside the launch-counted runs."""
+def _device_profile(run, steps: int):
+    """Device time by kernel name over run() (torch.profiler), per step,
+    outside the launch-counted runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cache = model.create_kv_cache()
-    tok = model(prompt, 0, cache, logits_to_keep=1)[:, -1].float().argmax(-1).cpu().numpy()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.decode_burst_dense(cache, tok, BURST)
+        run()
         torch.cuda.synchronize()
-    cache.release()
-    by_name = {}
+    by_name, host = {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            by_name[e.key] = (e.self_device_time_total / 1e3 / BURST, e.count // BURST)
+            by_name[e.key] = (e.self_device_time_total / 1e3 / steps, e.count // steps)
+        elif e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0:
+            host[e.key] = (e.self_cpu_time_total / 1e3 / steps, e.count // steps)
     total = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
+    # Host times are the profiler's own (it adds cost to every op it records).
     return {"device_ms_per_step": total or None,
-            "top_kernels_ms_per_step": {k[:60]: [ms, n] for k, (ms, n) in top}}
+            "top_kernels_ms_per_step": {k[:60]: [ms, n] for k, (ms, n) in top},
+            "top_host_ops_ms_per_step_profiled": {k[:60]: [ms, n] for k, (ms, n) in top_host}}
+
+
+def _profile_burst(model, prompt):
+    """Device time of one BURST-step dense decode burst by kernel name."""
+    cache = model.create_kv_cache()
+    tok = model(prompt, 0, cache, logits_to_keep=1)[:, -1].float().argmax(-1).cpu().numpy()
+    out = _device_profile(lambda: model.decode_burst_dense(cache, tok, BURST), BURST)
+    cache.release()
+    return out
 
 
 def phase_parity(cfg):
@@ -503,10 +692,178 @@ def phase_generate(model):
     emit({"phase": "generate", "requests": out})
 
 
+def _parity_check(fast, plain, what, tally):
+    """Kernel-path logits against the plain path's: within 5 % of the
+    largest plain logit (the sums run in other orders and every projection
+    rounds to bf16, an ulp is 0.4 %; four layers compound that), top-1
+    equal wherever the plain top-2 gap exceeds the tolerance."""
+    a, b = fast.float(), plain.float()
+    tol = 5e-2 * float(b.abs().max())
+    err = float((a - b).abs().max())
+    tally["worst"] = max(tally["worst"], err / max(tol, 1e-30))
+    check(bool(torch.isfinite(a).all()) and err <= tol, f"{what}: {err} > {tol}")
+    top2 = b.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol
+    tally["decided"] += int(sure.sum())
+    tally["agree"] += int((a.argmax(-1) == b.argmax(-1))[sure].sum())
+
+
+def phase_paged_parity(cfg):
+    """The paged path's kernels against its plain versions, teacher-forced:
+    three requests prefilled round-robin (so their pages interleave in the
+    pool) in chunks of 128 at offset 0 (K3 on the chunk), 128 at offset 128
+    (paged prefill) and 8 at offset 256 (paged decode), then 8 decode steps
+    of the three in a 4-slot batching cache beside an idle slot (fused paged
+    decode); only installed rows are compared."""
+    from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
+
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    params = synthetic_quantized_params(cfg4, seed=2)
+    fast, plain = (Qwen3Model(params, cfg4, max_seq_len=MAX_SEQ, impl=impl)
+                   .enable_paged_attention(num_pages=16, page_size=PAGE_SIZE)
+                   for impl in (None, "torch"))
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(3, 264))
+    cf = [fast.create_kv_cache() for _ in range(3)]
+    cp = [plain.create_kv_cache() for _ in range(3)]
+    tally = {"worst": 0.0, "decided": 0, "agree": 0}
+    off, last = 0, [None] * 3
+    for L in (128, 128, 8):
+        for r in range(3):
+            chunk = prompts[r : r + 1, off : off + L]
+            lp = plain(chunk, off, cp[r])
+            _parity_check(fast(chunk, off, cf[r]), lp, f"request {r} chunk L={L} at {off}",
+                          tally)
+            last[r] = int(lp[0, -1].float().argmax())
+        off += L
+    check(cf[0].page_ids != list(range(1, len(cf[0].page_ids) + 1)), "pages did not interleave")
+    bf, bp = fast.create_batching_kv_cache(4), plain.create_batching_kv_cache(4)
+    for r in range(3):
+        bf.add_request(cf[r], r)
+        bp.add_request(cp[r], r)
+    for step in range(8):
+        toks = [[t] for t in last] + [[0]]  # slot 3 idle
+        lf, lp = fast(toks, None, bf, logits_to_keep=1), plain(toks, None, bp, logits_to_keep=1)
+        _parity_check(lf[:3], lp[:3], f"decode step {step}", tally)
+        last = lp[:3, -1].float().argmax(-1).tolist()  # teacher-forced: the plain path's
+    bf.release()
+    bp.release()
+    check(fast.page_pool.live_pages == 0 and plain.page_pool.live_pages == 0, "pages leaked")
+    check(tally["agree"] == tally["decided"],
+          f"top-1 disagrees on {tally['decided'] - tally['agree']} decided positions")
+    emit({"phase": "paged_parity", "layers": 4, "requests": 3, "chunks": [128, 128, 8],
+          "decode_steps": 8, "worst_err_over_tol": tally["worst"],
+          "tol": "5% of max |plain logit|", "top1_decided": tally["decided"],
+          "top1_agree": tally["agree"]})
+
+
+def phase_serving(model, cfg):
+    """bench.py serving_bench's default campaign through the port."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.serving import ServingMetrics, batch_generate
+    from tiny_llm_tpu_torch.tokenizer import ByteTokenizer
+
+    model.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
+    pool = model.page_pool
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, MAX_SEQ + 1, size=SERVING_REQUESTS)
+    max_out = int(rng.integers(32, 129, size=SERVING_REQUESTS).mean())
+    prompts = ["x" * int(n) for n in lens]  # one byte token per character
+
+    class Recorder(ByteTokenizer):
+        """No EOS (synthetic weights); records each finished request's ids,
+        in the order batch_generate returns them."""
+
+        eos_token_id = -1
+
+        def __init__(self):
+            self.decoded: list[list[int]] = []
+
+        def decode(self, ids):
+            self.decoded.append(list(ids))
+            return super().decode(ids)
+
+    kw = dict(max_seq_len=MAX_SEQ, batch_size=SERVING_BATCH, prefill_step=128,
+              decode_burst=BURST)
+    # Warm-up as bench.py: every power-of-two chunk, the 256 chunk's shape
+    # and the longest prompt.
+    batch_generate(model, Recorder(), ["x" * 255, "x" * 257, "x" * MAX_SEQ],
+                   max_output_tokens=max(8, BURST), **kw)
+    check(pool.free_pages == pool.num_pages - 1, "the warm-up leaked pages")
+    kernels.reset_launches()
+    runs = []
+    for _ in range(3):
+        tok = Recorder()
+        met = ServingMetrics(pool_capacity_pages=pool.num_pages, page_size=pool.page_size)
+        met._bytes_per_slot = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads \
+            * cfg.head_dim * 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = batch_generate(model, tok, prompts, max_output_tokens=max_out, metrics=met, **kw)
+        met.wall_s = time.perf_counter() - t0
+        check(sorted(i for i, _ in res) == list(range(SERVING_REQUESTS)),
+              "a request did not return")
+        check(pool.free_pages == pool.num_pages - 1, "a campaign leaked pages")
+        ids = {i: got for (i, _), got in zip(res, tok.decoded)}
+        for i, got in ids.items():
+            # Each request runs to the output cap, or to max_seq (its offset
+            # is prompt + outputs - 1: the first token comes from prefill).
+            check(len(got) == max_out or int(lens[i]) + len(got) - 1 == MAX_SEQ,
+                  f"request {i}: {len(got)} tokens")
+            check(all(0 <= t < cfg.vocab_size for t in got), f"request {i}: token out of range")
+        runs.append((met, ids))
+    counts = kernels.launches()
+    check(all(ids == runs[0][1] for _, ids in runs), "the campaigns' tokens differ")
+    for name in ("quant_matmul", "flash_attention", *PAGED):
+        check(counts[name] > 0, f"{name} never launched on the serving path")
+    check(counts["fused_decode_attention"] == 0, "the dense decode kernel ran on the paged path")
+    rows = [m.as_dict() for m, _ in runs]
+    tok_s = [r["output_tok_s"] for r in rows]
+    mid = sorted(range(3), key=lambda k: tok_s[k])[1]
+    profile = _profile_serving_burst(model, lens)
+    emit({"phase": "serving", "model": "qwen3-4b", "layers": cfg.num_hidden_layers,
+          "requests": SERVING_REQUESTS, "batch": SERVING_BATCH, "max_seq": MAX_SEQ,
+          "page_size": PAGE_SIZE, "pool_pages": POOL_PAGES, "prefill_step": 128,
+          "decode_burst": BURST, "max_output_tokens": max_out,
+          "prompt_tokens": int(lens.sum()), "output_tok_s": tok_s[mid],
+          "output_tok_s_all": tok_s, "req_s": rows[mid]["req_s"],
+          "ttft_p50_ms": rows[mid]["ttft_p50_ms"], "ttft_p95_ms": rows[mid]["ttft_p95_ms"],
+          "request_latency_p50_ms": rows[mid]["request_latency_p50_ms"],
+          "mean_batch_occupancy": rows[mid]["mean_batch_occupancy"],
+          "peak_live_pages": rows[mid]["peak_live_pages"],
+          "output_tokens": rows[mid]["output_tokens"], "decode_bursts": rows[mid]["decode_steps"],
+          "wall_s_all": [m.wall_s for m, _ in runs], "launches_3_campaigns": counts,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "decode_burst_profile": profile})
+    return counts
+
+
+def _profile_serving_burst(model, lens):
+    """One BURST-step serving decode burst over four installed requests (the
+    campaign's first four prompt lengths): device time by kernel name, and
+    the device busy share against the same burst's wall time unprofiled."""
+    batch = model.create_batching_kv_cache(SERVING_BATCH)
+    for slot, n in enumerate(lens[:SERVING_BATCH]):
+        c = model.create_kv_cache()
+        model([[ord("x")] * int(n)], 0, c, logits_to_keep=1)
+        batch.add_request(c, slot)
+    first = np.full((SERVING_BATCH,), ord("x"), np.int32)
+    out = _device_profile(lambda: model.decode_burst(batch, first, BURST), BURST)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.decode_burst(batch, first, BURST)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / BURST
+    batch.release()
+    out["wall_ms_per_step"] = wall_ms
+    dev_ms = out["device_ms_per_step"]
+    out["busy_share_unprofiled"] = None if dev_ms is None else dev_ms / wall_ms
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="also write the kernel line, the card and ptxas's "
-                    "register and spill report to this JSON file")
+    ap.add_argument("--out", help="also write every phase line, the kernel line, the card "
+                    "and ptxas's register and spill report to this JSON file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -524,13 +881,19 @@ def main() -> int:
     counts = phase_model(model, cfg)
     phase_parity(cfg)
     phase_generate(model)
+    phase_paged_parity(cfg)
+    serving_counts = phase_serving(model, cfg)
+    # Launches on each kernel's own path: the dense path's run for K1-K3,
+    # the serving campaigns for the paged kernels.
     for name, entry in contract.items():
-        entry["launches"] = counts[name]
+        entry["launches"] = serving_counts[name] if name in PAGED else counts[name]
     kern_line = {"kernels": [contract[n] for n in
-                             ("quant_matmul", "fused_decode_attention", "flash_attention")]}
+                             ("quant_matmul", "fused_decode_attention", "flash_attention",
+                              *PAGED)]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps({"gpu": smi, "ptxas": ptxas, **kern_line}, indent=1))
+        Path(args.out).write_text(json.dumps(
+            {"gpu": smi, "ptxas": ptxas, "phases": PHASES, **kern_line}, indent=1))
     print(smi, flush=True)
     emit(kern_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -208,10 +208,15 @@ sys.modules["jax"] = None
 import tiny_llm_tpu_torch
 from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params, tiny_test_config
 from tiny_llm_tpu_torch.generate import simple_generate_with_kv_cache
+from tiny_llm_tpu_torch.serving import batch_generate
 from tiny_llm_tpu_torch.tokenizer import ByteTokenizer
 cfg = tiny_test_config(num_hidden_layers=1, vocab_size=300)
 m = Qwen3Model(synthetic_quantized_params(cfg, device="cpu"), cfg, max_seq_len=64, device="cpu")
 text = simple_generate_with_kv_cache(m, ByteTokenizer(), "hi", max_tokens=3)
+m.enable_paged_attention(num_pages=8, page_size=16)
+served = batch_generate(m, ByteTokenizer(), ["hi", "there"], max_seq_len=64, batch_size=2,
+                        max_output_tokens=3)
+assert sorted(i for i, _ in served) == [0, 1]
 assert not any(n == "tiny_llm_tpu" or n.startswith("tiny_llm_tpu.") for n in sys.modules)
 print("OK", len(text))
 """
@@ -225,7 +230,10 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     bad = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+tiny_llm_tpu(\.|\s|$)"
                      r"|from\s+tiny_llm_tpu(\.|\s))", re.M)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    scanned = {f.relative_to(PORT).as_posix() for f in files if PORT in f.parents}
+    assert {"kv/cache.py", "kv/paged.py", "serving/batch.py", "serving/metrics.py",
+            "kernels/paged_attention.py", "kernels/fused_decode_attention.py",
+            "models/qwen3.py"} <= scanned
     for f in files:
         assert not bad.search(f.read_text()), f
 
@@ -233,14 +241,16 @@ def test_port_sources_import_no_jax_and_no_jax_package():
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is valid here")
-    from tiny_llm_tpu_torch.kv import DenseKVCache
+    from tiny_llm_tpu_torch.kv import BatchingKVCache, DenseKVCache, PagePool
     from tiny_llm_tpu_torch.models import synthetic_quantized_params
 
     cfg = tiny_test_config()
     params = synthetic_quantized_params(cfg, device="cpu")
     for call in (lambda: Qwen3Model(params, cfg),
                  lambda: synthetic_quantized_params(cfg),
-                 lambda: DenseKVCache(1, 1, 1, 8, 64)):
+                 lambda: DenseKVCache(1, 1, 1, 8, 64),
+                 lambda: BatchingKVCache(1, 2, 1, 8, 64),
+                 lambda: PagePool(1, 4, 1, 8, 64)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert jax.default_backend() == "cpu"

@@ -65,7 +65,7 @@ def test_rms_norm_matches_jax():
 def test_rope_tables_and_apply_match_jax():
     D, S = 64, 256
     cj, sj = jax_rope_tables(D, S, base=10000.0)
-    ct, st = rope_tables(D, S, base=10000.0)
+    ct, st = rope_tables(D, S, base=10000.0, device="cpu")
     # f32 ladder, absolute: cos/sin of arguments up to 255 rad from two libms.
     assert_allclose(f32(ct), f32(cj), precision=jnp.float32, atol=2e-6)
     assert_allclose(f32(st), f32(sj), precision=jnp.float32, atol=2e-6)

@@ -37,3 +37,25 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// Where the K (and V: both share one layout) row at position `pos` of one
+// (batch row, KV head) lives, as an element offset from the base pointer.
+// The attention kernels take one of these, so a dense slab and a page pool
+// run the same code.
+template <int D>
+struct SlabRows {  // a dense slab: the head's rows [0, S) from `base`
+  size_t base;
+  __device__ __forceinline__ size_t operator()(int pos) const {
+    return base + (size_t)pos * D;
+  }
+};
+
+template <int D>
+struct PageRows {  // a page pool [P, Hkv, ps, D] through one block-table row
+  const int* bt;   // the batch row's block table (-1 padded)
+  int ps, Hkv, h;
+  __device__ __forceinline__ size_t operator()(int pos) const {
+    const int page = max(__ldg(bt + pos / ps), 0);  // -1 -> trash page 0
+    return (((size_t)page * Hkv + h) * ps + pos % ps) * D;
+  }
+};

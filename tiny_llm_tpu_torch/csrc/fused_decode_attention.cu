@@ -1,46 +1,54 @@
-// K2: fused decode attention step for Hopper (sm_90a).
+// K2 and its paged twin: the fused decode attention step for Hopper
+// (sm_90a), over a dense slab (tlt_fused_decode_attention) or over one
+// layer's page pool through a block table (tlt_fused_paged_decode_attention).
 //
 // Replaces tiny_llm_tpu/kernels/fused_decode_attention.py::_fused_step_kernel
-// (through fused_decode_attention). For one layer and one decode step it
+// (through fused_decode_attention) and ::_fused_paged_step_kernel (through
+// fused_paged_decode_attention). For one layer and one decode step it
 // splits the per-KV-head interleaved qkv row, applies QK-RMSNorm and RoPE,
-// runs an online softmax over the dense slab positions [0, off) and folds
-// the current token's own k/v in last. It returns the attention rows and
-// the normed+roped k row and the raw v row, which the caller writes into
-// the slab in place.
+// runs an online softmax over the cached positions [0, off) and folds the
+// current token's own k/v in last. It returns the attention rows and the
+// normed+roped k row and the raw v row, which the caller writes into the
+// slab or the pages in place.
 //
-// Rounding points follow the TPU kernel: the normalized value rounds to
+// Rounding points follow the TPU kernels: the normalized value rounds to
 // bf16 before the weight multiply, RoPE rotates in f32 and rounds to bf16,
 // q is pre-scaled and rounded to bf16, probabilities round to bf16 for the
-// PV product while the denominator sums them in f32.
+// PV product while the denominator sums them in f32, and the current
+// token's probability rounds to bf16 too.
 //
-// Bound on the H100: the bytes of the slab's K and V rows in [0, off) plus
+// Bound on the H100: the bytes of the cached K and V rows in [0, off) plus
 // the qkv row, over 3.35 TB/s — a few microseconds at 4B's shapes, so the
 // launch and the serial prologue dominate.
 //
 // Design: one block per (b, kv head), 8 warps. Warp w takes key tiles of 32
-// positions (w, w + 8, ...): each lane scores one key against all n_rep
-// query rows held in shared memory, the warp updates its (m, l, acc) with
-// shuffles, and the PV product runs with each lane owning D/32 output
-// dims. The 8 warp states merge in shared memory, then the current token
-// folds in. Known weakness: at B = 1 the grid is Hkv = 8 blocks on 132 SMs.
+// positions (w, w + 8, ...): each lane looks up where its key row lives
+// (SlabRows / PageRows of common.cuh: for the pool, bt[b, pos / ps] and
+// pos % ps), scores that key against all n_rep query rows held in shared
+// memory, the warp updates its (m, l, acc) with shuffles, and the PV
+// product runs with each lane owning D/32 output dims, the row offsets
+// broadcast by shuffle. The walk stops at off (and at the block table's
+// width), so the -1 entries past a row's live pages are never read. The 8
+// warp states merge in shared memory, then the current token folds in.
+// Known weakness: at B = 1 the grid is Hkv = 8 blocks on 132 SMs.
 #include "common.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
 
-template <int D, int NREP>
-__global__ void __launch_bounds__(WARPS * 32) fused_decode_step(
-    const __nv_bfloat16* __restrict__ qkv,   // [B, Hkv, NREP + 2, D]
-    const __nv_bfloat16* __restrict__ keys,  // [layers, B, Hkv, S, D]
+template <int D, int NREP, class Rows>
+__device__ __forceinline__ void fused_step(
+    const __nv_bfloat16* __restrict__ qkv,  // [B, Hkv, NREP + 2, D]
+    const __nv_bfloat16* __restrict__ keys,  // base of the rows `rows` addresses
     const __nv_bfloat16* __restrict__ values,
-    const int* __restrict__ offsets,  // [B]
+    const Rows rows, int off, int limit,
     const float* __restrict__ cos_row, const float* __restrict__ sin_row,  // [B, D/2]
     const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,  // [D]
     __nv_bfloat16* __restrict__ out,    // [B, Hkv, NREP, D]
     __nv_bfloat16* __restrict__ k_out,  // [B, Hkv, D]
     __nv_bfloat16* __restrict__ v_out,  // [B, Hkv, D]
-    int layer, int B, int Hkv, int S, float scale, float eps) {
+    int h, int bb, int Hkv, float scale, float eps) {
   constexpr int HALF = D / 2, DPL = D / 32;
   __shared__ float xrow[NREP + 1][D];  // normed rows before RoPE
   __shared__ float qs[NREP][D];        // pre-scaled q (bf16 values)
@@ -49,9 +57,7 @@ __global__ void __launch_bounds__(WARPS * 32) fused_decode_step(
   __shared__ float wm_s[WARPS][NREP], wl_s[WARPS][NREP];
   __shared__ float wacc[WARPS][NREP][D];
 
-  const int h = blockIdx.x, bb = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int off = offsets[bb];
   const __nv_bfloat16* row = qkv + (size_t)(bb * Hkv + h) * (NREP + 2) * D;
   const float* cs = cos_row + (size_t)bb * HALF;
   const float* sn = sin_row + (size_t)bb * HALF;
@@ -104,10 +110,8 @@ __global__ void __launch_bounds__(WARPS * 32) fused_decode_step(
     if (lane == 0) scur[r] = p;
   }
 
-  // Online softmax over the slab positions [0, off).
-  const size_t base = ((size_t)(layer * B + bb) * Hkv + h) * (size_t)S * D;
-  const __nv_bfloat16* kb = keys + base;
-  const __nv_bfloat16* vb = values + base;
+  // Online softmax over the cached positions [0, n).
+  const int n = min(off, limit);
   float m[NREP], l[NREP], acc[NREP][DPL];
 #pragma unroll
   for (int r = 0; r < NREP; ++r) {
@@ -116,13 +120,14 @@ __global__ void __launch_bounds__(WARPS * 32) fused_decode_step(
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
   }
-  for (int t0 = warp * 32; t0 < off; t0 += WARPS * 32) {
+  for (int t0 = warp * 32; t0 < n; t0 += WARPS * 32) {
     const int pos = t0 + lane;
+    const unsigned long long my_row = pos < n ? rows(pos) : 0;
     float sc[NREP];
 #pragma unroll
     for (int r = 0; r < NREP; ++r) sc[r] = 0.f;
-    if (pos < off) {
-      const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)pos * D);
+    if (pos < n) {
+      const uint4* kr = reinterpret_cast<const uint4*>(keys + my_row);
 #pragma unroll 4
       for (int c = 0; c < D / 8; ++c) {
         const uint4 kv = __ldg(kr + c);
@@ -151,9 +156,10 @@ __global__ void __launch_bounds__(WARPS * 32) fused_decode_step(
       for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
       p[r] = round_bf16(p[r]);
     }
-    const int nvalid = min(32, off - t0);
+    const int nvalid = min(32, n - t0);
     for (int j = 0; j < nvalid; ++j) {
-      const __nv_bfloat16* vr = vb + (size_t)(t0 + j) * D + lane * DPL;
+      const unsigned long long rj = __shfl_sync(0xffffffffu, my_row, j);
+      const __nv_bfloat16* vr = values + rj + lane * DPL;
       float vv[DPL];
 #pragma unroll
       for (int e = 0; e < DPL; ++e) vv[e] = bf2f(vr[e]);
@@ -200,17 +206,60 @@ __global__ void __launch_bounds__(WARPS * 32) fused_decode_step(
 }
 
 template <int D, int NREP>
+__global__ void __launch_bounds__(WARPS * 32) fused_decode_step(
+    const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ keys,
+    const __nv_bfloat16* __restrict__ values,  // [layers, B, Hkv, S, D]
+    const int* __restrict__ offsets, const float* __restrict__ cs, const float* __restrict__ sn,
+    const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,
+    __nv_bfloat16* __restrict__ out, __nv_bfloat16* __restrict__ k_out,
+    __nv_bfloat16* __restrict__ v_out, int layer, int B, int Hkv, int S, float scale,
+    float eps) {
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const SlabRows<D> rows{((size_t)(layer * B + bb) * Hkv + h) * (size_t)S * D};
+  fused_step<D, NREP>(qkv, keys, values, rows, offsets[bb], S, cs, sn, qw, kw, out, k_out,
+                      v_out, h, bb, Hkv, scale, eps);
+}
+
+template <int D, int NREP>
+__global__ void __launch_bounds__(WARPS * 32) fused_paged_step(
+    const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp,  // [P, Hkv, ps, D]
+    const int* __restrict__ bt,            // [B, maxp], -1 padded
+    const int* __restrict__ offsets, const float* __restrict__ cs, const float* __restrict__ sn,
+    const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,
+    __nv_bfloat16* __restrict__ out, __nv_bfloat16* __restrict__ k_out,
+    __nv_bfloat16* __restrict__ v_out, int Hkv, int ps, int maxp, float scale, float eps) {
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const PageRows<D> rows{bt + (size_t)bb * maxp, ps, Hkv, h};
+  fused_step<D, NREP>(qkv, kp, vp, rows, offsets[bb], maxp * ps, cs, sn, qw, kw, out, k_out,
+                      v_out, h, bb, Hkv, scale, eps);
+}
+
+#define TLT_BF(p) static_cast<const __nv_bfloat16*>(p)
+#define TLT_BFW(p) static_cast<__nv_bfloat16*>(p)
+#define TLT_F(p) static_cast<const float*>(p)
+
+template <int D, int NREP>
 int launch(const void* qkv, const void* keys, const void* values, const void* offsets,
            const void* cs, const void* sn, const void* qw, const void* kw, void* out,
            void* k_out, void* v_out, int layer, int B, int Hkv, int S, float scale,
            float eps, cudaStream_t st) {
   fused_decode_step<D, NREP><<<dim3(Hkv, B), dim3(WARPS * 32), 0, st>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(keys),
-      static_cast<const __nv_bfloat16*>(values), static_cast<const int*>(offsets),
-      static_cast<const float*>(cs), static_cast<const float*>(sn),
-      static_cast<const __nv_bfloat16*>(qw), static_cast<const __nv_bfloat16*>(kw),
-      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(k_out),
-      static_cast<__nv_bfloat16*>(v_out), layer, B, Hkv, S, scale, eps);
+      TLT_BF(qkv), TLT_BF(keys), TLT_BF(values), static_cast<const int*>(offsets), TLT_F(cs),
+      TLT_F(sn), TLT_BF(qw), TLT_BF(kw), TLT_BFW(out), TLT_BFW(k_out), TLT_BFW(v_out), layer,
+      B, Hkv, S, scale, eps);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int NREP>
+int launch_paged(const void* qkv, const void* kp, const void* vp, const void* bt,
+                 const void* offsets, const void* cs, const void* sn, const void* qw,
+                 const void* kw, void* out, void* k_out, void* v_out, int B, int Hkv, int ps,
+                 int maxp, float scale, float eps, cudaStream_t st) {
+  fused_paged_step<D, NREP><<<dim3(Hkv, B), dim3(WARPS * 32), 0, st>>>(
+      TLT_BF(qkv), TLT_BF(kp), TLT_BF(vp), static_cast<const int*>(bt),
+      static_cast<const int*>(offsets), TLT_F(cs), TLT_F(sn), TLT_BF(qw), TLT_BF(kw),
+      TLT_BFW(out), TLT_BFW(k_out), TLT_BFW(v_out), Hkv, ps, maxp, scale, eps);
   return (int)cudaGetLastError();
 }
 
@@ -229,5 +278,21 @@ extern "C" int tlt_fused_decode_attention(const void* qkv, const void* keys, con
   TLT_K2(64, 1) TLT_K2(64, 2) TLT_K2(64, 4) TLT_K2(64, 8)
   TLT_K2(128, 1) TLT_K2(128, 2) TLT_K2(128, 4) TLT_K2(128, 8)
 #undef TLT_K2
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int tlt_fused_paged_decode_attention(
+    const void* qkv, const void* kp, const void* vp, const void* bt, const void* offsets,
+    const void* cs, const void* sn, const void* qw, const void* kw, void* out, void* k_out,
+    void* v_out, int B, int Hkv, int ps, int maxp, int D, int n_rep, float scale, float eps,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TLT_KP(DD, RR)                                                                   \
+  if (D == DD && n_rep == RR)                                                            \
+    return launch_paged<DD, RR>(qkv, kp, vp, bt, offsets, cs, sn, qw, kw, out, k_out,   \
+                                v_out, B, Hkv, ps, maxp, scale, eps, st);
+  TLT_KP(64, 1) TLT_KP(64, 2) TLT_KP(64, 4) TLT_KP(64, 8)
+  TLT_KP(128, 1) TLT_KP(128, 2) TLT_KP(128, 4) TLT_KP(128, 8)
+#undef TLT_KP
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,103 @@
+// Paged causal attention for Hopper (sm_90a): the paged decode kernel
+// (L <= 16) and the paged prefill kernel (L > 16), both reading K/V from
+// one layer's page pool [P, Hkv, ps, D] through a -1-padded block table.
+//
+// Replaces tiny_llm_tpu/kernels/paged_attention_pallas.py:
+//   tlt_paged_decode  -> _paged_decode_gather_kernel (paged_flash_decode_gather)
+//   tlt_paged_prefill -> _paged_prefill_kernel (paged_flash_prefill)
+// Both compute what the TPU kernels compute: query i of batch row b sits at
+// position lens[b] - L + i, where the chunk's own K/V are already in the
+// pages, and sees the keys at positions <= its own. -1 table entries read
+// the trash page 0 (idle batch rows: table all -1, their output is
+// discarded); nothing past the table's width is read.
+//
+// Bound on the H100: the bytes of the live pages' K and V rows plus q and
+// out, over 3.35 TB/s: ~2 MB and ~0.7 us for 8 KV heads at context 500 at
+// 4B's shapes. At decode sizes the kernels are latency-bound (the walk
+// over pages is serial in each block, and the grid is only B x Hkv).
+//
+// Design: flash_tile.cuh, the tile K3 runs, with PageRows addressing:
+// each lane that loads a key row looks its page up in the block table, so
+// a 32-key tile may straddle pages of any size. The walk is bounded by the
+// q tile's causal limit, i.e. by the row's live pages.
+//   decode:  one block per (batch row, KV head) holding all n_rep x L query
+//            rows (8 * RPW rows, RPW the least of 1, 2, 4, 8 that fits), so
+//            each page tile in shared memory serves all of them;
+//   prefill: 64-row q tiles (n_rep heads x 64/n_rep positions); tiles past
+//            a q tile's causal limit are skipped, as the TPU kernel's
+//            `live` predicate skips them.
+#include "flash_tile.cuh"
+
+namespace {
+
+template <int D, int NREP, int RPW>
+__global__ void __launch_bounds__(flash::WARPS * 32) paged_flash(
+    const __nv_bfloat16* __restrict__ q,   // [B, Hq, L, D]
+    const __nv_bfloat16* __restrict__ kp,  // [P, Hkv, ps, D]
+    const __nv_bfloat16* __restrict__ vp,
+    const int* __restrict__ bt,    // [B, maxp], -1 padded
+    const int* __restrict__ lens,  // [B]
+    __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
+    int Hkv, int L, int ps, int maxp, float scale) {
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const PageRows<D> rows{bt + (size_t)bb * maxp, ps, Hkv, h};
+  flash::tile<D, NREP, RPW>(q, kp, vp, out, rows, lens[bb], maxp * ps, blockIdx.x, h, bb, Hkv,
+                            L, scale);
+}
+
+template <int D, int NREP, int RPW>
+int launch(const void* q, const void* kp, const void* vp, const void* bt, const void* lens,
+           void* out, int B, int Hkv, int L, int ps, int maxp, float scale, cudaStream_t st) {
+  constexpr int BQ = flash::WARPS * RPW / NREP;
+  paged_flash<D, NREP, RPW><<<dim3((L + BQ - 1) / BQ, Hkv, B), dim3(flash::WARPS * 32), 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(bt),
+      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out), Hkv, L, ps, maxp, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int NREP>
+int launch_rows(int rpw, const void* q, const void* kp, const void* vp, const void* bt,
+                const void* lens, void* out, int B, int Hkv, int L, int ps, int maxp,
+                float scale, cudaStream_t st) {
+  switch (rpw) {
+    case 1: return launch<D, NREP, 1>(q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, st);
+    case 2: return launch<D, NREP, 2>(q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, st);
+    case 4: return launch<D, NREP, 4>(q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, st);
+    default: return launch<D, NREP, 8>(q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, st);
+  }
+}
+
+int dispatch(int rpw, const void* q, const void* kp, const void* vp, const void* bt,
+             const void* lens, void* out, int B, int Hkv, int L, int ps, int maxp, int D,
+             int n_rep, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TLT_PA(DD, RR)                                                                      \
+  if (D == DD && n_rep == RR)                                                               \
+    return launch_rows<DD, RR>(rpw, q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, \
+                               st);
+  TLT_PA(64, 1) TLT_PA(64, 2) TLT_PA(64, 4) TLT_PA(64, 8)
+  TLT_PA(128, 1) TLT_PA(128, 2) TLT_PA(128, 4) TLT_PA(128, 8)
+#undef TLT_PA
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// L <= 16: all n_rep * L query rows of a (batch row, KV head) in one block
+// when they fit in 64 rows.
+extern "C" int tlt_paged_decode(const void* q, const void* kp, const void* vp, const void* bt,
+                                const void* lens, void* out, int B, int Hkv, int L, int ps,
+                                int maxp, int D, int n_rep, float scale, void* stream) {
+  if (L < 1 || L > 16) return (int)cudaErrorInvalidValue;
+  const int need = n_rep * L;
+  const int rpw = need <= 8 ? 1 : need <= 16 ? 2 : need <= 32 ? 4 : 8;
+  return dispatch(rpw, q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, D, n_rep, scale, stream);
+}
+
+extern "C" int tlt_paged_prefill(const void* q, const void* kp, const void* vp, const void* bt,
+                                 const void* lens, void* out, int B, int Hkv, int L, int ps,
+                                 int maxp, int D, int n_rep, float scale, void* stream) {
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  return dispatch(8, q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, D, n_rep, scale, stream);
+}

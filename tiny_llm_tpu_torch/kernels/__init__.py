@@ -4,24 +4,28 @@ PyTorch version and a launch counter (counterparts of tiny_llm_tpu/kernels).
 Importing this package builds nothing; a kernel is compiled at its first
 launch (kernels/build.py)."""
 
-from . import flash_attention, fused_decode_attention, quant_matmul
+from . import flash_attention, fused_decode_attention, paged_attention, quant_matmul
 
-# Each module holds a wrapper of the same name, its plain version, its CUDA
-# launcher and its LAUNCHES counter.
-KERNEL_MODULES = {
-    "quant_matmul": quant_matmul,
-    "fused_decode_attention": fused_decode_attention,
-    "flash_attention": flash_attention,
+# Each kernel's name -> (its module, the name of its launch counter there).
+# A module holds its wrapper(s), plain version(s), CUDA launcher(s) and
+# counter(s); the CUDA launcher adds one to its counter per launch.
+KERNELS = {
+    "quant_matmul": (quant_matmul, "LAUNCHES"),
+    "fused_decode_attention": (fused_decode_attention, "LAUNCHES"),
+    "flash_attention": (flash_attention, "LAUNCHES"),
+    "fused_paged_decode_attention": (fused_decode_attention, "PAGED_LAUNCHES"),
+    "paged_decode": (paged_attention, "DECODE_LAUNCHES"),
+    "paged_prefill": (paged_attention, "PREFILL_LAUNCHES"),
 }
 
 
 def reset_launches() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.LAUNCHES = 0
+    for mod, counter in KERNELS.values():
+        setattr(mod, counter, 0)
 
 
 def launches() -> dict[str, int]:
-    return {name: mod.LAUNCHES for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, counter) for name, (mod, counter) in KERNELS.items()}
 
 
-__all__ = ["KERNEL_MODULES", "launches", "reset_launches"]
+__all__ = ["KERNELS", "launches", "reset_launches"]

@@ -1,15 +1,20 @@
-"""K2: fused decode attention step (qkv split + QK-norm + RoPE + attention).
+"""K2 and its paged twin: fused decode attention step (qkv split + QK-norm
++ RoPE + attention), over a dense slab or over a page pool.
 
 Replaces tiny_llm_tpu/kernels/fused_decode_attention.py::_fused_step_kernel
-(wrapper `fused_decode_attention`). The CUDA kernel is
-csrc/fused_decode_attention.cu; its header notes what bounds it on the
-H100 and what its design does about that.
+(wrapper `fused_decode_attention`) and ::_fused_paged_step_kernel (wrapper
+`fused_paged_decode_attention`). Both CUDA kernels are in
+csrc/fused_decode_attention.cu, one template over where a key row lives;
+its header notes what bounds them on the H100 and what the design does
+about that.
 
 Layouts are the JAX package's: the fused qkv row [B, Hkv, n_rep + 2, D]
 (per KV head: its n_rep q rows, then k, then v), the slab
-[layers, B, Hkv, S, D] holding positions [0, offsets[b]) of each row, and
-the RoPE rows [B, D/2] at each row's position. The current token is not in
-the slab yet; the caller writes the returned k/v rows at `offsets`.
+[layers, B, Hkv, S, D] or one layer's pages [P, Hkv, ps, D] with a -1
+padded block table [B, max_pages], holding positions [0, offsets[b]) of
+each row, and the RoPE rows [B, D/2] at each row's position. The current
+token is not cached yet; the caller writes the returned k/v rows at
+`offsets`.
 """
 
 from __future__ import annotations
@@ -20,12 +25,16 @@ import torch
 
 from . import build
 from .dispatch import resolve
+from .paged_attention import gather_pages_dense
 
 TPU_KERNEL = "tiny_llm_tpu/kernels/fused_decode_attention.py:79 _fused_step_kernel"
+TPU_KERNEL_PAGED = "tiny_llm_tpu/kernels/fused_decode_attention.py:275 _fused_paged_step_kernel"
 SOURCE = "tiny_llm_tpu_torch/csrc/fused_decode_attention.cu"
 NEG_INF = -1e30
 
-LAUNCHES = 0  # kernel launches since the last reset (see kernels.reset_launches)
+# Kernel launches since the last reset (see kernels.reset_launches).
+LAUNCHES = 0  # dense slab (K2)
+PAGED_LAUNCHES = 0  # page pool
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -82,7 +91,39 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
+    fn = lib.tlt_fused_paged_decode_attention
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
     return lib
+
+
+def _check_rows(qkv_rows, q_norm_w, k_norm_w, cos_row, sin_row, offsets):
+    """Validate the qkv rows; the small side inputs on the rows' device."""
+    B, Hkv, rows, D = qkv_rows.shape
+    if D not in (64, 128) or rows - 2 not in (1, 2, 4, 8):
+        raise ValueError(f"fused decode attention: unsupported D={D}, n_rep={rows - 2}")
+    if qkv_rows.dtype != torch.bfloat16 or not qkv_rows.is_cuda or not qkv_rows.is_contiguous():
+        raise ValueError("qkv_rows must be a contiguous bf16 CUDA tensor")
+    dev = qkv_rows.device
+    return (
+        offsets.to(device=dev, dtype=torch.int32).contiguous(),
+        cos_row.to(device=dev, dtype=torch.float32).contiguous(),
+        sin_row.to(device=dev, dtype=torch.float32).contiguous(),
+        q_norm_w.to(device=dev, dtype=torch.bfloat16).contiguous(),
+        k_norm_w.to(device=dev, dtype=torch.bfloat16).contiguous(),
+    )
+
+
+def _outputs(qkv_rows):
+    B, Hkv, rows, D = qkv_rows.shape
+    dev = qkv_rows.device
+    return (
+        torch.empty((B, Hkv, rows - 2, D), dtype=torch.bfloat16, device=dev),
+        torch.empty((B, Hkv, 1, D), dtype=torch.bfloat16, device=dev),
+        torch.empty((B, Hkv, 1, D), dtype=torch.bfloat16, device=dev),
+    )
 
 
 def fused_decode_attention_cuda(
@@ -91,33 +132,24 @@ def fused_decode_attention_cuda(
 ):
     global LAUNCHES
     B, Hkv, rows, D = qkv_rows.shape
-    n_rep = rows - 2
     Lyr, Bk, Hk, S, Dk = keys.shape
     if (Bk, Hk, Dk) != (B, Hkv, D) or values.shape != keys.shape:
         raise ValueError(f"slab {tuple(keys.shape)} does not match qkv {tuple(qkv_rows.shape)}")
-    if D not in (64, 128) or n_rep not in (1, 2, 4, 8):
-        raise ValueError(f"fused_decode_attention_cuda: unsupported D={D}, n_rep={n_rep}")
     if not 0 <= layer_idx < Lyr:
         raise ValueError(f"layer_idx {layer_idx} out of range")
-    for t in (qkv_rows, keys, values):
+    for t in (keys, values):
         if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError("qkv_rows/keys/values must be contiguous bf16 CUDA tensors")
-    dev = qkv_rows.device
-    offsets = offsets.to(device=dev, dtype=torch.int32).contiguous()
-    cos_row = cos_row.to(device=dev, dtype=torch.float32).contiguous()
-    sin_row = sin_row.to(device=dev, dtype=torch.float32).contiguous()
-    qw = q_norm_w.to(device=dev, dtype=torch.bfloat16).contiguous()
-    kw = k_norm_w.to(device=dev, dtype=torch.bfloat16).contiguous()
-    attn = torch.empty((B, Hkv, n_rep, D), dtype=torch.bfloat16, device=dev)
-    k_row = torch.empty((B, Hkv, 1, D), dtype=torch.bfloat16, device=dev)
-    v_row = torch.empty((B, Hkv, 1, D), dtype=torch.bfloat16, device=dev)
+            raise ValueError("keys/values must be contiguous bf16 CUDA tensors")
+    offsets, cos_row, sin_row, qw, kw = _check_rows(
+        qkv_rows, q_norm_w, k_norm_w, cos_row, sin_row, offsets)
+    attn, k_row, v_row = _outputs(qkv_rows)
     lib = _lib()
     err = lib.tlt_fused_decode_attention(
         qkv_rows.data_ptr(), keys.data_ptr(), values.data_ptr(), offsets.data_ptr(),
         cos_row.data_ptr(), sin_row.data_ptr(), qw.data_ptr(), kw.data_ptr(),
         attn.data_ptr(), k_row.data_ptr(), v_row.data_ptr(),
-        layer_idx, B, Hkv, S, D, n_rep, float(scale), float(eps),
-        torch.cuda.current_stream(dev).cuda_stream,
+        layer_idx, B, Hkv, S, D, rows - 2, float(scale), float(eps),
+        torch.cuda.current_stream(qkv_rows.device).cuda_stream,
     )
     build.check(lib, err, "fused_decode_attention")
     LAUNCHES += 1
@@ -150,4 +182,79 @@ def fused_decode_attention(
     return fn(
         qkv_rows, keys, values, offsets, cos_row, sin_row, q_norm_w, k_norm_w,
         layer_idx=layer_idx, scale=scale, eps=eps,
+    )
+
+
+def fused_paged_decode_attention_plain(
+    qkv_rows, key_pages, value_pages, block_table, offsets, cos_row, sin_row, q_norm_w,
+    k_norm_w, *, scale: float, eps: float,
+):
+    """Plain PyTorch version: K2's plain version over the gathered pages,
+    with the same rounding points."""
+    k, v = gather_pages_dense(key_pages, value_pages, block_table)
+    return fused_decode_attention_plain(
+        qkv_rows, k[None], v[None], offsets, cos_row, sin_row, q_norm_w, k_norm_w,
+        layer_idx=0, scale=scale, eps=eps,
+    )
+
+
+def fused_paged_decode_attention_cuda(
+    qkv_rows, key_pages, value_pages, block_table, offsets, cos_row, sin_row, q_norm_w,
+    k_norm_w, *, scale: float, eps: float,
+):
+    global PAGED_LAUNCHES
+    B, Hkv, rows, D = qkv_rows.shape
+    P, Hk, ps, Dk = key_pages.shape
+    if (Hk, Dk) != (Hkv, D) or value_pages.shape != key_pages.shape:
+        raise ValueError(
+            f"pages {tuple(key_pages.shape)} do not match qkv {tuple(qkv_rows.shape)}")
+    if block_table.ndim != 2 or block_table.shape[0] != B:
+        raise ValueError(f"block_table {tuple(block_table.shape)} does not match B={B}")
+    for t in (key_pages, value_pages):
+        if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError("the pages must be contiguous bf16 CUDA tensors")
+    offsets, cos_row, sin_row, qw, kw = _check_rows(
+        qkv_rows, q_norm_w, k_norm_w, cos_row, sin_row, offsets)
+    bt = block_table.to(device=qkv_rows.device, dtype=torch.int32).contiguous()
+    attn, k_row, v_row = _outputs(qkv_rows)
+    lib = _lib()
+    err = lib.tlt_fused_paged_decode_attention(
+        qkv_rows.data_ptr(), key_pages.data_ptr(), value_pages.data_ptr(), bt.data_ptr(),
+        offsets.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(), qw.data_ptr(),
+        kw.data_ptr(), attn.data_ptr(), k_row.data_ptr(), v_row.data_ptr(),
+        B, Hkv, ps, bt.shape[1], D, rows - 2, float(scale), float(eps),
+        torch.cuda.current_stream(qkv_rows.device).cuda_stream,
+    )
+    build.check(lib, err, "fused_paged_decode_attention")
+    PAGED_LAUNCHES += 1
+    return attn, k_row, v_row
+
+
+def fused_paged_decode_attention(
+    qkv_rows: torch.Tensor,  # [B, Hkv, n_rep + 2, D] bf16
+    key_pages: torch.Tensor,  # [P, Hkv, ps, D] — one layer's pages
+    value_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [B, max_pages] int32, -1 padded
+    offsets: torch.Tensor,  # [B] int32 — context length before this token
+    cos_row: torch.Tensor,  # [B, D // 2] f32 — RoPE rows at `offsets`
+    sin_row: torch.Tensor,
+    q_norm_w: torch.Tensor,  # [D]
+    k_norm_w: torch.Tensor,  # [D]
+    *,
+    scale: float,
+    eps: float,
+    impl: str | None = None,
+):
+    """One layer's decode attention over the page pool from the fused qkv row.
+
+    Returns (attn [B, Hkv, n_rep, D], k_row [B, Hkv, 1, D], v_row [B, Hkv, 1, D]);
+    the caller writes k_row/v_row at each row's (page, slot)."""
+    fn = (
+        fused_paged_decode_attention_cuda
+        if resolve(impl, qkv_rows) == "cuda"
+        else fused_paged_decode_attention_plain
+    )
+    return fn(
+        qkv_rows, key_pages, value_pages, block_table, offsets, cos_row, sin_row, q_norm_w,
+        k_norm_w, scale=scale, eps=eps,
     )

@@ -1,0 +1,131 @@
+"""Paged causal attention over a block-table-indexed page pool: the paged
+decode kernel (L <= 16) and the paged prefill kernel (L > 16).
+
+Counterpart of tiny_llm_tpu/kernels/paged_attention.py (`gather_pages_dense`,
+`paged_attention`) and of the two Pallas kernels the TPU dispatches to
+(`paged_attention_pallas`, paged_attention_pallas.py:862, 918):
+  * L <= 16: `_paged_decode_gather_kernel` (`paged_flash_decode_gather`)
+    -> `tlt_paged_decode` in csrc/paged_attention.cu;
+  * L > 16: `_paged_prefill_kernel` (`paged_flash_prefill`)
+    -> `tlt_paged_prefill` in the same file.
+The CUDA source's header notes what bounds them on the H100 and what
+their design does about it.
+
+Layout (the JAX package's): one layer's pages [P, Hkv, page_size, D],
+block_table int32 [B, max_pages] (-1 padded; -1 reads the trash page 0),
+context_lens int32 [B] counting every valid token INCLUDING the current
+queries — the chunk's K/V are already written to the pages. Query i of row
+b sits at position context_lens[b] - L + i and sees keys at positions <=
+its own.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .dispatch import resolve
+from .flash_attention import flash_attention_plain
+
+TPU_KERNEL_DECODE = "tiny_llm_tpu/kernels/paged_attention_pallas.py:297 _paged_decode_gather_kernel"
+TPU_KERNEL_PREFILL = "tiny_llm_tpu/kernels/paged_attention_pallas.py:475 _paged_prefill_kernel"
+SOURCE = "tiny_llm_tpu_torch/csrc/paged_attention.cu"
+DECODE_MAX_L = 16  # paged_attention_pallas.py:862
+
+# Kernel launches since the last reset (see kernels.reset_launches).
+DECODE_LAUNCHES = 0
+PREFILL_LAUNCHES = 0
+
+
+def gather_pages_dense(key_pages, value_pages, block_table):
+    """The logical K/V of each row: -> [B, Hkv, max_pages * page_size, D].
+    -1 entries gather page 0; those positions lie past context_lens and are
+    masked downstream."""
+    table = block_table.to(device=key_pages.device, dtype=torch.long).clamp(min=0)
+    B, n_pages = table.shape
+    _, H, ps, D = key_pages.shape
+    k = key_pages[table].permute(0, 2, 1, 3, 4).reshape(B, H, n_pages * ps, D)
+    v = value_pages[table].permute(0, 2, 1, 3, 4).reshape(B, H, n_pages * ps, D)
+    return k, v
+
+
+def paged_attention_plain(q, key_pages, value_pages, block_table, context_lens, scale: float):
+    """Plain PyTorch version of both kernels: gather the pages, then causal
+    attention with the mask k_pos <= context_lens - L + i at the kernels'
+    rounding points (K3's plain version, kernels/flash_attention.py)."""
+    k, v = gather_pages_dense(key_pages, value_pages, block_table)
+    return flash_attention_plain(q, k, v, context_lens, scale)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("paged_attention")
+    for fn in (lib.tlt_paged_decode, lib.tlt_paged_prefill):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _paged_cuda(entry: str, q, key_pages, value_pages, block_table, context_lens, scale):
+    B, Hq, L, D = q.shape
+    P, Hkv, ps, Dk = key_pages.shape
+    if Dk != D or value_pages.shape != key_pages.shape or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} / pages {tuple(key_pages.shape)} do not match")
+    n_rep = Hq // Hkv
+    if D not in (64, 128) or n_rep not in (1, 2, 4, 8):
+        raise ValueError(f"paged attention: unsupported D={D}, n_rep={n_rep}")
+    if block_table.ndim != 2 or block_table.shape[0] != B:
+        raise ValueError(f"block_table {tuple(block_table.shape)} does not match B={B}")
+    for t in (q, key_pages, value_pages):
+        if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError("q and the pages must be contiguous bf16 CUDA tensors")
+    dev = q.device
+    bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
+    lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = _lib()
+    err = getattr(lib, entry)(
+        q.data_ptr(), key_pages.data_ptr(), value_pages.data_ptr(), bt.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), B, Hkv, L, ps, bt.shape[1], D, n_rep, float(scale),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, entry)
+    return out
+
+
+def paged_decode_cuda(q, key_pages, value_pages, block_table, context_lens, scale: float):
+    """The paged decode kernel (L <= 16)."""
+    global DECODE_LAUNCHES
+    if not 1 <= q.shape[2] <= DECODE_MAX_L:
+        raise ValueError(f"paged decode takes 1 <= L <= {DECODE_MAX_L}, got L={q.shape[2]}")
+    out = _paged_cuda("tlt_paged_decode", q, key_pages, value_pages, block_table,
+                      context_lens, scale)
+    DECODE_LAUNCHES += 1
+    return out
+
+
+def paged_prefill_cuda(q, key_pages, value_pages, block_table, context_lens, scale: float):
+    """The paged prefill kernel (any L >= 1; the dispatch sends L > 16)."""
+    global PREFILL_LAUNCHES
+    out = _paged_cuda("tlt_paged_prefill", q, key_pages, value_pages, block_table,
+                      context_lens, scale)
+    PREFILL_LAUNCHES += 1
+    return out
+
+
+def paged_attention(
+    q: torch.Tensor,  # [B, Hq, L, D] — the last L tokens of each context
+    key_pages: torch.Tensor,  # [P, Hkv, ps, D] — one layer's pages
+    value_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [B, max_pages] int32, -1 padded
+    context_lens: torch.Tensor,  # [B] int32, including the current queries
+    scale: float | None = None,
+    impl: str | None = None,
+) -> torch.Tensor:
+    """Causal attention of the last L positions of each row over its pages."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if resolve(impl, q) == "torch":
+        return paged_attention_plain(q, key_pages, value_pages, block_table, context_lens, scale)
+    fn = paged_decode_cuda if q.shape[2] <= DECODE_MAX_L else paged_prefill_cuda
+    return fn(q, key_pages, value_pages, block_table, context_lens, scale)

@@ -1,7 +1,8 @@
-"""Dense KV cache — counterpart of tiny_llm_tpu/kv/cache.py (DenseKVCache).
+"""Dense KV caches — counterpart of tiny_llm_tpu/kv/cache.py (DenseKVCache,
+BatchingKVCache).
 
 A preallocated bf16 slab [num_layers, B, H_kv, max_seq, D] per tensor, the
-JAX package's layout, plus a host-side offset. The model writes each new
+JAX package's layout, plus a host-side offset (per slot for batching). The model writes each new
 k/v row into the slab IN PLACE (JAX's functional update needs donated
 buffers for the same effect); no step reallocates or copies the slab.
 Rewind is an O(1) offset decrement: stale rows past the offset are never
@@ -10,6 +11,7 @@ read (the kernels clamp at each row's length) and get overwritten.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels.dispatch import check_device
@@ -64,6 +66,55 @@ class DenseKVCache:
         if n > self._offset:
             raise ValueError(f"rewind {n} past offset {self._offset}")
         self._offset -= n
+
+    def release(self) -> None:
+        self.keys = None
+        self.values = None
+
+
+class BatchingKVCache:
+    """Slot-multiplexed dense cache for continuous batching: one slab
+    [layers, max_active, Hkv, max_seq, D] allocated once. Adding a request
+    copies its prefilled rows into the slot; removing it zeroes the slot's
+    offset. Idle slots decode discarded rows at offset 0."""
+
+    def __init__(
+        self,
+        num_layers: int,
+        max_active_requests: int,
+        num_kv_heads: int,
+        max_seq_len: int,
+        head_dim: int,
+        dtype: torch.dtype = torch.bfloat16,
+        device: str | torch.device = "cuda",
+    ):
+        self.device = check_device(device)
+        self.max_active_requests = max_active_requests
+        self.max_seq_len = max_seq_len
+        shape = (num_layers, max_active_requests, num_kv_heads, max_seq_len, head_dim)
+        self.keys = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.values = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.offsets = np.zeros((max_active_requests,), np.int32)
+        self.active = np.zeros((max_active_requests,), bool)
+
+    def add_request(self, prefilled: DenseKVCache, slot: int) -> None:
+        if not 0 <= slot < self.max_active_requests:
+            raise ValueError(f"slot {slot} out of range")
+        if prefilled.batch_size != 1:
+            raise ValueError("only a single-request cache can be installed in a slot")
+        n = prefilled.offset
+        if n > self.max_seq_len:
+            raise ValueError(f"prefilled {n} positions exceed the slot's {self.max_seq_len}")
+        self.keys[:, slot, :, :n] = prefilled.keys[:, 0, :, :n]
+        self.values[:, slot, :, :n] = prefilled.values[:, 0, :, :n]
+        self.offsets[slot] = n
+        self.active[slot] = True
+
+    def remove_request(self, slot: int) -> None:
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        self.offsets[slot] = 0
+        self.active[slot] = False
 
     def release(self) -> None:
         self.keys = None

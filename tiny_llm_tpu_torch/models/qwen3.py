@@ -7,13 +7,18 @@ on the card and on the CPU; only the bodies of the three kernels differ
 
   * every projection and the LM head go through K1 (kernels/quant_matmul);
   * a decode step (L == 1) goes through K2 (kernels/fused_decode_attention)
-    with the qkv projection fused and interleaved per KV head;
-  * a prompt chunk goes through K3 (kernels/flash_attention).
+    with the qkv projection fused and interleaved per KV head — over the
+    dense slab, or its paged twin over the page pool;
+  * a prompt chunk goes through K3 (kernels/flash_attention) over the slab,
+    or, over the page pool: K3 on the chunk's own K/V when the chunk is the
+    whole context (offset 0), else the paged decode (L <= 16) or paged
+    prefill kernel (kernels/paged_attention).
 
-The KV slab is updated in place. A decode burst is a Python loop of steps
-whose greedy argmax stays on the device; the host syncs once per burst.
-Not ported yet: MoE layers, dense (unquantized) weights, the paged cache,
-the mixed prefill+decode bursts and the W4A8 tier.
+The KV slab and the pages are updated in place. A decode burst is a Python
+loop of steps whose greedy argmax stays on the device; the host syncs once
+per burst. Not ported yet: MoE layers, dense (unquantized) weights, the
+split paged prefill (chunks of >= 1024 tokens at offset > 0), the mixed
+prefill+decode bursts and the W4A8 tier.
 """
 
 from __future__ import annotations
@@ -24,10 +29,15 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention import flash_attention
-from ..kernels.fused_decode_attention import fused_decode_attention
+from ..kernels.fused_decode_attention import (
+    fused_decode_attention,
+    fused_paged_decode_attention,
+)
+from ..kernels.paged_attention import paged_attention
 from ..kernels.quant_matmul import quant_matmul
 from ..kernels.dispatch import check_device
-from ..kv.cache import DenseKVCache
+from ..kv.cache import BatchingKVCache, DenseKVCache, bucket_for
+from ..kv.paged import PagedBatchingKVCache, PagedKVCache, PagePool
 from ..ops.basics import swiglu
 from ..ops.embedding import quantized_embedding_gather
 from ..ops.norm import rms_norm
@@ -285,16 +295,23 @@ def forward_decode_burst_dense(
     tokens [steps, B] on the device. Greedy when temp == 0, else
     temperature / top-k / top-p sampling on the device with `generator`.
     Nothing here waits for the device."""
-    sample = make_sampler(temp, top_p, top_k)
     B = tokens0.shape[0]
-    tokens = tokens0
-    out = []
-    for s in range(steps):
-        logits = forward_step(
+    return _decode_loop(
+        lambda tokens, s: forward_step(
             params, cfg, rope_tabs, tokens[:, None], [offset + s] * B, keys, values,
             logits_to_keep=1, impl=impl,
-        )
-        lp = logits[:, -1, :].to(torch.float32)
+        ),
+        tokens0, steps, temp, top_k, top_p, generator,
+    )
+
+
+def _decode_loop(step, tokens0, steps, temp, top_k, top_p, generator) -> torch.Tensor:
+    """`steps` decode steps: step(tokens [B], s) gives step s's logits and
+    the chosen tokens feed the next step on the device. Returns [steps, B]."""
+    sample = make_sampler(temp, top_p, top_k)
+    tokens, out = tokens0, []
+    for s in range(steps):
+        lp = step(tokens, s)[:, -1, :].to(torch.float32)
         if temp != 0:
             lp = torch.log_softmax(lp, dim=-1)
         tokens = sample(lp, generator)
@@ -302,14 +319,147 @@ def forward_decode_burst_dense(
     return torch.stack(out)
 
 
-class Qwen3Model:
-    """Host-side wrapper owning the (fused) params and the RoPE tables.
+# Offset > 0 chunks of at least this many tokens take the split paged
+# prefill in the JAX package (models/qwen3.py split_prefill_min_chunk).
+SPLIT_PREFILL_MIN_CHUNK = 1024
 
-    API of the JAX package's Qwen3Model for the dense path:
+
+def _page_targets(block_table: torch.Tensor, positions: torch.Tensor, ps: int):
+    """(page, slot) of each appended position, [B, L] each. -1 entries land
+    on the trash page 0; a position past the table's width lands in its
+    last column, as the JAX package's clamped gather does (only burst steps
+    past max_seq_len, whose tokens the scheduler discards, get there)."""
+    col = torch.clamp(positions // ps, max=block_table.shape[1] - 1)
+    page = torch.gather(block_table.to(torch.long), 1, col).clamp(min=0)
+    return page, positions % ps
+
+
+def _write_pages(pages: torch.Tensor, layer: int, page_idx, slot, rows: torch.Tensor) -> None:
+    """pages[layer, page_idx[b, t], :, slot[b, t]] = rows[b, :, t] IN PLACE:
+    replaces the JAX package's scatter into donated page buffers."""
+    pages[layer][page_idx, :, slot, :] = rows.transpose(1, 2)
+
+
+def forward_step_paged(
+    params: Qwen3Params,
+    cfg: Qwen3Config,
+    rope_tabs: tuple[torch.Tensor, torch.Tensor],
+    tokens: torch.Tensor,  # [B, L] int on the model's device
+    offsets: torch.Tensor,  # [B] int32 on the device: context length before the chunk
+    key_pages: torch.Tensor,  # [layers, P, Hkv, ps, D] — written in place
+    value_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [B, max_pages] int32 on the device, -1 padded
+    *,
+    logits_to_keep: int | None,
+    impl: str | None = None,
+    local_attention: bool = False,
+    split_attention: bool = False,
+) -> torch.Tensor:
+    """One model step over the page pool (prompt chunk or decode step):
+    writes this chunk's k/v into the pages the block table names and
+    returns logits [B, L_keep, V].
+
+    A decode step (L == 1) runs the fused paged kernel and writes the k/v
+    rows after it. A chunk writes its k/v first, then attends:
+    `local_attention` (every offset 0, so the chunk is the whole context)
+    runs K3 on the chunk's own k/v; otherwise paged attention reads the
+    pages."""
+    if split_attention:
+        raise NotImplementedError(
+            "the split paged prefill (offset > 0 chunks of >= "
+            f"{SPLIT_PREFILL_MIN_CHUNK} tokens) is not ported yet; see ROADMAP.md"
+        )
+    B, L = tokens.shape
+    dev = tokens.device
+    ps = key_pages.shape[3]
+    scale = cfg.head_dim**-0.5
+    eps = cfg.rms_norm_eps
+    hkv = cfg.num_key_value_heads
+    n_rep = cfg.num_attention_heads // hkv
+    positions = offsets[:, None].to(torch.long) + torch.arange(L, device=dev)[None, :]
+    page_idx, slot = _page_targets(block_table, positions, ps)
+    # RoPE rows past the table exist only in discarded burst steps (see
+    # _page_targets); clamp rather than index out of range.
+    rope_pos = positions.clamp(max=rope_tabs[0].shape[0] - 1)
+    h = _embed(params, tokens)
+    decode = L == 1
+    if decode:
+        cos_row, sin_row = rope_tabs[0][rope_pos[:, 0]], rope_tabs[1][rope_pos[:, 0]]
+    else:
+        lens = offsets + L
+    for i, layer in enumerate(params.layers):
+        if decode:
+            qkv = _norm_linear(h, layer.attn.wqkv, layer.input_layernorm, eps, impl)
+            attn_rows, k_row, v_row = fused_paged_decode_attention(
+                qkv.reshape(B, hkv, n_rep + 2, cfg.head_dim), key_pages[i], value_pages[i],
+                block_table, offsets, cos_row, sin_row, layer.attn.q_norm, layer.attn.k_norm,
+                scale=scale, eps=eps, impl=impl,
+            )
+            _write_pages(key_pages, i, page_idx, slot, k_row)
+            _write_pages(value_pages, i, page_idx, slot, v_row)
+            attn = attn_rows.reshape(B, 1, -1)
+        else:
+            q, k, v = _qkv(cfg, layer.attn, h, rope_pos, rope_tabs,
+                           norm_w=layer.input_layernorm, impl=impl)
+            _write_pages(key_pages, i, page_idx, slot, k)
+            _write_pages(value_pages, i, page_idx, slot, v)
+            if local_attention:
+                attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), lens,
+                                       scale=scale, impl=impl)
+            else:
+                attn = paged_attention(q.contiguous(), key_pages[i], value_pages[i],
+                                       block_table, lens, scale=scale, impl=impl)
+            attn = attn.transpose(1, 2).reshape(B, L, -1)
+        h = _linear(attn, layer.attn.wo, residual=h, impl=impl)
+        h = _mlp(cfg, layer.mlp, h, norm_w=layer.post_attention_layernorm,
+                 residual=h, impl=impl)
+    if logits_to_keep is not None:
+        h = h[:, -logits_to_keep:, :]
+    h = rms_norm(h, params.final_norm, eps)
+    return _lm_head(params, h, impl)
+
+
+def forward_decode_burst_paged(
+    params: Qwen3Params,
+    cfg: Qwen3Config,
+    rope_tabs,
+    tokens0: torch.Tensor,  # [B] int on the device
+    offsets0: torch.Tensor,  # [B] int32 on the device
+    key_pages: torch.Tensor,
+    value_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [B, width] — must cover offsets0 + steps
+    *,
+    steps: int,
+    impl: str | None = None,
+    temp: float = 0.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """`steps` paged decode steps for every row; returns the emitted tokens
+    [steps, B] on the device. Greedy when temp == 0, else sampled on the
+    device with `generator`. Nothing here waits for the device. Rows that
+    hit EOS keep decoding until the host reads the burst: their tokens are
+    discarded and their pages need `steps` tokens of slack."""
+    return _decode_loop(
+        lambda tokens, s: forward_step_paged(
+            params, cfg, rope_tabs, tokens[:, None], offsets0 + s, key_pages, value_pages,
+            block_table, logits_to_keep=1, impl=impl,
+        ),
+        tokens0, steps, temp, top_k, top_p, generator,
+    )
+
+
+class Qwen3Model:
+    """Host-side wrapper owning the (fused) params, the RoPE tables and,
+    once enable_paged_attention() attached one, the page pool.
+
+    API of the JAX package's Qwen3Model for the dense and paged paths:
     __call__(inputs, offset, cache, logits_to_keep), create_kv_cache(),
-    decode_burst_dense(). `impl` plays the role of JAX's `attn_impl`: None
-    runs the kernels on the card and their plain versions on the CPU,
-    "torch" runs the plain versions on either device."""
+    create_batching_kv_cache(), decode_burst_dense(), enable_paged_attention(),
+    decode_burst(). `impl` plays the role of JAX's `attn_impl`: None runs the
+    kernels on the card and their plain versions on the CPU, "torch" runs
+    the plain versions on either device."""
 
     def __init__(
         self,
@@ -336,11 +486,54 @@ class Qwen3Model:
         self._rope_tables = rope_tables(
             cfg.head_dim, self.max_seq_len, base=cfg.rope_theta, device=self.device
         )
+        self.page_pool: PagePool | None = None
 
-    def create_kv_cache(self, batch_size: int = 1, max_seq_len: int | None = None) -> DenseKVCache:
+    def enable_paged_attention(self, num_pages: int | None = None, page_size: int = 128):
+        """Attach a page pool: create_kv_cache() and create_batching_kv_cache()
+        then return paged handles."""
+        if num_pages is None:
+            num_pages = max(self.max_seq_len // page_size * 4, 8) + 1
+        self.page_pool = PagePool(
+            num_layers=self.cfg.num_hidden_layers,
+            num_pages=num_pages,
+            num_kv_heads=self.cfg.num_key_value_heads,
+            page_size=page_size,
+            head_dim=self.cfg.head_dim,
+            dtype=self.dtype,
+            device=self.device,
+        )
+        # One fixed block-table width for every step, as in the JAX package.
+        self._paged_width = bucket_for(-(-self.max_seq_len // page_size), minimum=2)
+        return self
+
+    @property
+    def supports_mixed(self) -> bool:
+        """Mixed prefill+decode bursts are not ported yet (ROADMAP.md)."""
+        return False
+
+    def create_kv_cache(
+        self, batch_size: int = 1, max_seq_len: int | None = None
+    ) -> DenseKVCache | PagedKVCache:
+        if self.page_pool is not None:
+            return PagedKVCache(self.page_pool)
         return DenseKVCache(
             num_layers=self.cfg.num_hidden_layers,
             batch_size=batch_size,
+            num_kv_heads=self.cfg.num_key_value_heads,
+            max_seq_len=max_seq_len or self.max_seq_len,
+            head_dim=self.cfg.head_dim,
+            dtype=self.dtype,
+            device=self.device,
+        )
+
+    def create_batching_kv_cache(
+        self, max_active_requests: int, max_seq_len: int | None = None
+    ) -> BatchingKVCache | PagedBatchingKVCache:
+        if self.page_pool is not None:
+            return PagedBatchingKVCache(self.page_pool, max_active_requests)
+        return BatchingKVCache(
+            num_layers=self.cfg.num_hidden_layers,
+            max_active_requests=max_active_requests,
             num_kv_heads=self.cfg.num_key_value_heads,
             max_seq_len=max_seq_len or self.max_seq_len,
             head_dim=self.cfg.head_dim,
@@ -357,15 +550,23 @@ class Qwen3Model:
         self,
         inputs,  # [B, L] token ids
         offset: int | list | None = None,
-        cache: DenseKVCache | None = None,
+        cache=None,
         logits_to_keep: int | None = None,
     ) -> torch.Tensor:
         tokens = self._tokens(inputs)
         B, L = tokens.shape
+        if isinstance(cache, (PagedKVCache, PagedBatchingKVCache)):
+            return self._call_paged(tokens, offset, cache, logits_to_keep)
+        if isinstance(cache, BatchingKVCache):
+            return self._call_batching(tokens, offset, cache, logits_to_keep)
         if cache is None:
             # The no-cache forward: the whole prefix as one chunk into a
-            # scratch cache of exactly its length.
-            cache = self.create_kv_cache(batch_size=B, max_seq_len=L)
+            # scratch dense cache of exactly its length.
+            cache = DenseKVCache(
+                num_layers=self.cfg.num_hidden_layers, batch_size=B,
+                num_kv_heads=self.cfg.num_key_value_heads, max_seq_len=L,
+                head_dim=self.cfg.head_dim, dtype=self.dtype, device=self.device,
+            )
             offset = 0
         if offset is None:
             offset = cache.offset
@@ -379,6 +580,67 @@ class Qwen3Model:
             cache.keys, cache.values, logits_to_keep=logits_to_keep, impl=self.impl,
         )
         cache.advance(L)
+        return logits
+
+    @staticmethod
+    def _slot_offsets(cache, B: int, offset) -> np.ndarray:
+        """Each batching slot's offset: the caller's for active slots when
+        given, the cache's own otherwise (idle slots keep theirs)."""
+        if B != cache.max_active_requests:
+            raise ValueError(f"batch {B} != {cache.max_active_requests} slots")
+        if offset is None:
+            return cache.offsets
+        return np.where(cache.active, np.asarray(offset, np.int32).reshape(-1), cache.offsets)
+
+    def _call_batching(self, tokens, offset, cache: BatchingKVCache, logits_to_keep):
+        """A step over the dense batching slots at per-slot offsets; idle
+        slots compute discarded rows and keep their offsets."""
+        B, L = tokens.shape
+        offs = self._slot_offsets(cache, B, offset)
+        if int(offs.max(initial=0)) + L > cache.max_seq_len:
+            raise ValueError(f"context {int(offs.max()) + L} exceeds {cache.max_seq_len}")
+        logits = forward_step(
+            self.params, self.cfg, self._rope_tables, tokens, [int(o) for o in offs],
+            cache.keys, cache.values, logits_to_keep=logits_to_keep, impl=self.impl,
+        )
+        cache.offsets = np.where(cache.active, offs + L, cache.offsets).astype(np.int32)
+        return logits
+
+    def _call_paged(self, tokens, offset, cache, logits_to_keep):
+        """A step over the page pool for one request (PagedKVCache) or for
+        the batching slots (PagedBatchingKVCache)."""
+        B, L = tokens.shape
+        width = self._paged_width
+        if isinstance(cache, PagedBatchingKVCache):
+            offs = self._slot_offsets(cache, B, offset)
+            for c in cache.slots:
+                if c is not None:
+                    c.ensure_capacity(c.offset + L)
+            table = cache.block_table(width)
+        else:
+            if offset is None:
+                offset = cache.offset
+            offs = np.full((B,), int(np.max(offset)), np.int32)
+            if int(offs[0]) != cache.offset:
+                raise ValueError(f"offset {offs} disagrees with cache offset {cache.offset}")
+            cache.ensure_capacity(cache.offset + L)
+            table = np.asarray([cache.block_table_row(width)] * B, np.int32)
+        logits = forward_step_paged(
+            self.params, self.cfg, self._rope_tables, tokens,
+            torch.from_numpy(offs).to(self.device), cache.pool.key_pages,
+            cache.pool.value_pages, torch.from_numpy(table).to(self.device),
+            logits_to_keep=logits_to_keep, impl=self.impl,
+            # The first chunk is the whole context: no page walk (L > 1 keeps
+            # decode steps on the fused paged kernel even at offset 0).
+            local_attention=bool(L > 1 and np.all(offs == 0)),
+            split_attention=bool(L >= SPLIT_PREFILL_MIN_CHUNK and np.any(offs > 0)),
+        )
+        if isinstance(cache, PagedBatchingKVCache):
+            for c in cache.slots:
+                if c is not None:
+                    c.advance(L)
+        else:
+            cache.advance(L)
         return logits
 
     def decode_burst_dense(
@@ -406,3 +668,39 @@ class Qwen3Model:
         )
         cache.advance(steps)
         return toks.cpu().numpy().astype(np.int32)
+
+    def decode_burst(
+        self,
+        cache: PagedBatchingKVCache,
+        first_tokens,  # [B] int — next token per slot
+        steps: int,
+        *,
+        temp: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        generator: torch.Generator | None = None,
+    ) -> np.ndarray:
+        """`steps` decode steps for every slot of a paged batching cache with
+        one host sync at the end. Returns int32 [steps, B]; idle slots give
+        garbage. Every installed slot advances by `steps` (the scheduler
+        truncates at EOS and evicts afterwards)."""
+        if not isinstance(cache, PagedBatchingKVCache):
+            raise TypeError("decode_burst runs over a PagedBatchingKVCache")
+        if temp != 0 and generator is None:
+            raise ValueError("a sampled burst needs a torch.Generator")
+        offs = cache.offsets
+        for c in cache.slots:
+            if c is not None:
+                c.ensure_capacity(c.offset + steps)
+        table = cache.block_table(self._paged_width)
+        toks = forward_decode_burst_paged(
+            self.params, self.cfg, self._rope_tables, self._tokens(first_tokens).reshape(-1),
+            torch.from_numpy(offs).to(self.device), cache.pool.key_pages,
+            cache.pool.value_pages, torch.from_numpy(table).to(self.device), steps=steps,
+            impl=self.impl, temp=temp, top_k=top_k, top_p=top_p, generator=generator,
+        )
+        out = toks.cpu().numpy().astype(np.int32)
+        for c in cache.slots:
+            if c is not None:
+                c.advance(steps)
+        return out

@@ -12,7 +12,7 @@ import torch
 from .basics import softmax
 
 
-def causal_mask(L: int, S: int, device="cpu") -> torch.Tensor:
+def causal_mask(L: int, S: int, *, device: str | torch.device) -> torch.Tensor:
     """[L, S] additive mask: query i sees keys j <= i + (S - L)."""
     q_pos = torch.arange(L, device=device)[:, None] + (S - L)
     k_pos = torch.arange(S, device=device)[None, :]

@@ -6,7 +6,7 @@ import torch
 
 
 def rope_tables(
-    dims: int, max_seq_len: int, base: float = 10000.0, device="cpu"
+    dims: int, max_seq_len: int, base: float = 10000.0, *, device: str | torch.device
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) tables [max_seq_len, dims // 2] in f32.
 
