@@ -9,11 +9,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   kernels   every kernel against its plain PyTorch version on the card at
             the shapes the main paths give it; kernel, plain and library
             times and the least time the card could take (the bound). The
-            paged kernels read a 57-page pool of 128 with shuffled page ids
+            paged kernels read a 57-page pool of 128 with shuffled page ids.
+            Qwen3-4B's shapes (n_rep 4), then Qwen3-30B-A3B's: the grouped
+            expert matmul (gate and down at T = 8, 32, 1024 and edge cases,
+            a whole decode step's 144 calls) and the attention kernels at
+            Hkv 4, n_rep 8
   model     the dense path: Qwen3-4B W4A16 (random weights from a seed, full
             width and depth), max_seq 1024, B = 1: a 128-token prefill and
             128 greedy decode steps in 16-step bursts, three times; the
-            kernels' launch counts over those runs
+            kernels' launch counts over those runs; one burst under
+            torch.cuda.set_sync_debug_mode("error")
   parity    the 4B widths at 4 layers: teacher-forced logits of the kernels
             against the plain versions, on the card
   generate  three ByteTokenizer prompts through simple_generate_with_kv_cache
@@ -25,6 +30,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             through batch_generate, warm-up then three campaigns: output
             tok/s, TTFT, occupancy, the kernels' launch counts, and a
             profile of one serving decode burst
+  moe_model     the model phase on Qwen3-30B-A3B W4A16 (48 layers, 128
+            experts, top-8; full width and depth): exact launch counts
+            (K1 145, grouped 144, K2 or K3 48 per step), a sync-free burst
+  moe_parity    parity and paged_parity at the 30B-A3B widths, 4 layers; the
+            plain path takes the kernel path's expert choice where the two
+            differ at a near-tie (counted, and held under a 1e-3 margin)
+  moe_serving   the serving phase on Qwen3-30B-A3B
 
 Then the nvidia-smi line, one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Needs a CUDA device; imports nothing of JAX.
@@ -33,6 +45,7 @@ Then the nvidia-smi line, one {"kernels": [...]} line and, last,
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import subprocess
@@ -50,6 +63,7 @@ PROMPT_LEN, DECODE_STEPS, BURST, MAX_SEQ = 128, 128, 16, 1024
 PAGE_SIZE, SERVING_BATCH, SERVING_REQUESTS = 128, 4, 16
 POOL_PAGES = (MAX_SEQ // PAGE_SIZE) * (SERVING_BATCH + 2) + 9
 PAGED = ("fused_paged_decode_attention", "paged_decode", "paged_prefill")
+TIE_MARGIN = 1e-3  # routing near-tie: k-th minus (k+1)-th router probability
 
 
 PHASES: list[dict] = []  # every phase line printed, for --out
@@ -158,24 +172,59 @@ def _k1_bytes(qt, M, residual):
 
 
 def _path_launches(cfg):
-    """Each kernel's launches on the dense path: per decode step, per prefill."""
+    """Each kernel's launches on the dense path: per decode step, per
+    prefill. K1 runs qkv and o in every layer, gate_up and down in a dense
+    layer and the router in a MoE layer, then the LM head; the grouped
+    kernel runs gate, up and down in a MoE layer."""
     L = cfg.num_hidden_layers
-    per_step = {"quant_matmul": 4 * L + 1, "fused_decode_attention": L, "flash_attention": 0}
-    per_prefill = {"quant_matmul": 4 * L + 1, "fused_decode_attention": 0, "flash_attention": L}
+    moe = sum(cfg.is_moe_layer(i) for i in range(L))
+    k1 = 2 * L + 2 * (L - moe) + moe + 1
+    per_step = {"quant_matmul": k1, "fused_decode_attention": L, "flash_attention": 0,
+                "grouped_quant_matmul": 3 * moe}
+    per_prefill = {"quant_matmul": k1, "fused_decode_attention": 0, "flash_attention": L,
+                   "grouped_quant_matmul": 3 * moe}
     for name in PAGED:
         per_step[name] = per_prefill[name] = 0
     return per_step, per_prefill
 
 
-def phase_kernels(model, cfg):
-    """Each kernel against its plain version on the card, and timed."""
-    from tiny_llm_tpu_torch.kernels import flash_attention as k3
-    from tiny_llm_tpu_torch.kernels import fused_decode_attention as k2
+def phase_kernels(model, cfg, moe_model, moe_cfg):
+    """Each kernel against its plain version on the card, and timed: K1 and
+    the attention kernels at Qwen3-4B's shapes, then the grouped expert
+    matmul and the attention kernels at Qwen3-30B-A3B's (n_rep 8)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases, contract = _k1_cases(model, cfg, gen)
+    # Distinct, non-unit QK-norm weights (the synthetic model's are all ones),
+    # so a kernel that drops or swaps them disagrees with its plain version.
+    D_h = cfg.head_dim
+    qw = (1 + 0.1 * torch.randn(D_h, generator=gen, device=dev)).to(torch.bfloat16)
+    kw = (1 + 0.1 * torch.randn(D_h, generator=gen, device=dev)).to(torch.bfloat16)
+    cases += _attention_cases(model, cfg, gen, qw, kw, contract)
+    cases += phase_paged_kernels(model, cfg, gen, qw, kw, contract)
+    moe_cases = _grouped_cases(moe_model, moe_cfg, gen, contract)
+    moe_cases += _attention_cases(moe_model, moe_cfg, gen, qw, kw, None)
+    moe_cases += phase_paged_kernels(moe_model, moe_cfg, gen, qw, kw, None)
+    for c in moe_cases:
+        c["model"] = "qwen3-30b-a3b"
+    emit({"phase": "kernels", "cases": cases + moe_cases})
+    return contract
+
+
+def _annotate_launches(cases, cfg):
+    """Each dense-path case's launches per decode step and per prefill."""
+    per_step, per_prefill = _path_launches(cfg)
+    for c in cases:
+        c["launches"] = {"per_decode_step": per_step[c["kernel"]],
+                         "per_prefill": per_prefill[c["kernel"]]}
+    return cases
+
+
+def _k1_cases(model, cfg, gen):
     from tiny_llm_tpu_torch.kernels import quant_matmul as k1
     from tiny_llm_tpu_torch.ops.quantize import dequantize
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
     params = model.params
     layers = params.layers
     cases, contract = [], {}
@@ -255,17 +304,23 @@ def phase_kernels(model, cfg):
     }
     del dense
     torch.cuda.empty_cache()
+    return _annotate_launches(cases, cfg), contract
 
-    # K2 at B = 1 and 4, offsets 128..255, on a 1024-slot slab of 36 layers.
+
+def _attention_cases(model, cfg, gen, qw, kw, contract):
+    """K2 and K3 against their plain versions at the model's head shape;
+    `contract` (None: not recorded) takes the main cases' numbers."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as k3
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as k2
+
+    dev = torch.device("cuda")
+    cases = []
+    # K2 at B = 1 and 4, offsets 128..255, on a 1024-slot slab of all layers.
     Hkv, D_h = cfg.num_key_value_heads, cfg.head_dim
     n_rep = cfg.num_attention_heads // Hkv
     Ly = cfg.num_hidden_layers
     eps, scale = cfg.rms_norm_eps, D_h**-0.5
     cos_t, sin_t = model._rope_tables
-    # Distinct, non-unit QK-norm weights (the synthetic model's are all ones),
-    # so a kernel that drops or swaps them disagrees with its plain version.
-    qw = (1 + 0.1 * torch.randn(D_h, generator=gen, device=dev)).to(torch.bfloat16)
-    kw = (1 + 0.1 * torch.randn(D_h, generator=gen, device=dev)).to(torch.bfloat16)
     k2_errs = []
     for offs in ([128], [255], [128, 170, 213, 255], [192]):
         B = len(offs)
@@ -304,7 +359,7 @@ def phase_kernels(model, cfg):
                 "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
                 "library_ms": lib, "bound_ms": bms, "bound_by": by}
         cases.append(case)
-        if offs == [192]:
+        if offs == [192] and contract is not None:
             contract["fused_decode_attention"] = {
                 "name": "fused_decode_attention", "route": "cuda", "source": k2.SOURCE,
                 "replaces": "tiny_llm_tpu/kernels/fused_decode_attention.py:79",
@@ -354,7 +409,7 @@ def phase_kernels(model, cfg):
                 "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
                 "library_ms": lib, "bound_ms": bms, "bound_by": by}
         cases.append(case)
-        if L == 128:
+        if L == 128 and contract is not None:
             contract["flash_attention"] = {
                 "name": "flash_attention", "route": "cuda", "source": k3.SOURCE,
                 "replaces": "tiny_llm_tpu/kernels/flash_attention_pallas.py:450",
@@ -362,15 +417,137 @@ def phase_kernels(model, cfg):
                 "bound_ms": bms, "bound_by": by, "library_ms": lib,
             }
         del ks, vs
-    contract["flash_attention"]["max_abs_err"] = max(k3_errs)
+    if contract is not None:
+        contract["flash_attention"]["max_abs_err"] = max(k3_errs)
     torch.cuda.empty_cache()
-    per_step, per_prefill = _path_launches(cfg)
-    for c in cases:
-        c["launches"] = {"per_decode_step": per_step[c["kernel"]],
-                         "per_prefill": per_prefill[c["kernel"]]}
-    cases += phase_paged_kernels(model, cfg, gen, qw, kw, contract)
-    emit({"phase": "kernels", "cases": cases})
-    return contract
+    return _annotate_launches(cases, cfg)
+
+
+def _routing(rng, tokens: int, E: int, k: int) -> np.ndarray:
+    """Group sizes [E] of `tokens` tokens routed to their top-k experts
+    under seeded random router logits."""
+    ids = np.argsort(-rng.standard_normal((tokens, E)), axis=1, kind="stable")[:, :k]
+    return np.bincount(ids.reshape(-1), minlength=E)
+
+
+def _active(qt, sizes: np.ndarray):
+    """The stacked weight cut to the experts that have rows."""
+    idx = torch.as_tensor(np.nonzero(sizes)[0], device=qt.packed.device)
+    return dataclasses.replace(qt, packed=qt.packed[idx], scales=qt.scales[idx],
+                               biases=qt.biases[idx])
+
+
+def _grouped_library(x, qts, sizes):
+    """torch._grouped_mm on the active experts' bf16-dequantized weights:
+    (fn(i) computing x's grouped product with weight i, its output for
+    weight 0, a label). The yardstick only; the port never calls it."""
+    from tiny_llm_tpu_torch.ops.quantize import dequantize
+
+    dense = [dequantize(_active(q, sizes)) for q in qts]  # [A, N, K] bf16
+    offs = torch.as_tensor(np.cumsum(sizes[sizes > 0]), dtype=torch.int32, device=x.device)
+
+    def fn(i):
+        return torch._grouped_mm(x, dense[i].transpose(-2, -1), offs=offs)
+
+    return fn, fn(0), "torch._grouped_mm, active experts' bf16-dequantized weights"
+
+
+def _grouped_bytes(qt, sizes, T):
+    """Active experts' packed codes, scales and biases, plus x and out."""
+    N, Kp = qt.out_features, qt.k_padded
+    return int((sizes > 0).sum()) * (N * Kp // 2 + 2 * N * (Kp // 128) * 2) \
+        + T * Kp * 2 + T * N * 2
+
+
+def _grouped_cases(model, cfg, gen, contract):
+    """The grouped expert matmul against its plain version at Qwen3-30B-A3B's
+    expert shapes, timed over the 48 layers' weights, and one decode step's
+    144 calls (each layer its own routing) for the kernel line."""
+    from tiny_llm_tpu_torch.kernels import moe_matmul as km
+
+    dev = torch.device("cuda")
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    mlps = [layer.mlp for layer in model.params.layers]
+    rng = np.random.default_rng(3)
+    one = lambda T: np.bincount([17] * T, minlength=E)  # noqa: E731
+    ends = lambda T: np.concatenate([np.zeros(5, int), rng.multinomial(  # noqa: E731
+        T, np.full(E - 12, 1 / (E - 12))), np.zeros(7, int)])
+    specs = [("T=8: one token's top-8", _routing(rng, 1, E, k)),
+             ("T=32: four tokens' top-8", _routing(rng, 4, E, k)),
+             ("T=1024: 128 tokens' top-8", _routing(rng, 128, E, k)),
+             ("T=32, one expert holds every row", one(32)),
+             ("T=128, one expert holds every row", one(128)),
+             ("T=24, experts 0-4 and 121-127 empty", ends(24)),
+             ("T=200, experts 0-4 and 121-127 empty", ends(200))]
+    cases = []
+    for what, sizes in specs:
+        T = int(sizes.sum())
+        sizes_t = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+        for proj in ("w_gate", "w_down"):
+            ws = [getattr(m, proj) for m in mlps]
+            N, K = ws[0].out_features, ws[0].in_features
+            x = torch.randn((T, K), generator=gen, device=dev).to(torch.bfloat16)
+            got = km.grouped_quant_matmul_cuda(x, ws[0], sizes_t)
+            want = km.grouped_quant_matmul_plain(x, ws[0], sizes_t)
+            torch.cuda.synchronize()
+            err, tol = max_err(got, want), 1e-2 * float(want.float().abs().max())
+            check(err <= tol, f"grouped_quant_matmul {proj} {what}: {err} > {tol}")
+            kern = graph_ms(lambda: [km.grouped_quant_matmul_cuda(x, w, sizes_t)
+                                     for w in ws]) / len(ws)
+            plain = event_ms(lambda: km.grouped_quant_matmul_plain(x, ws[0], sizes_t), reps=1)
+            lib_fn, lib_out, lib_name = _grouped_library(x, ws[:8], sizes)
+            check(max_err(lib_out, want) <= tol, f"library yardstick {proj} {what} differs")
+            lib = graph_ms(lambda: [lib_fn(i) for i in range(8)]) / 8
+            del lib_fn, lib_out
+            bms, by = bound(_grouped_bytes(ws[0], sizes, T), 2 * T * N * K)
+            cases.append({"kernel": "grouped_quant_matmul", "tpu_kernel": km.TPU_KERNEL,
+                          "shape": f"{proj[2:]} N={N} K={K} E={E} {what}, "
+                                   f"{int((sizes > 0).sum())} experts active",
+                          "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                          "library_ms": lib, "library": lib_name, "bound_ms": bms,
+                          "bound_by": by})
+            torch.cuda.empty_cache()
+
+    # One decode step: 48 layers x (gate, up, down) at T = 8, in model order.
+    step_sizes = [_routing(rng, 1, E, k) for _ in mlps]
+    sizes_t = [torch.as_tensor(sz, dtype=torch.int32, device=dev) for sz in step_sizes]
+    xs = {K: torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
+          for K in (cfg.hidden_size, cfg.moe_intermediate_size)}
+    order = [(i, proj) for i in range(len(mlps)) for proj in ("w_gate", "w_up", "w_down")]
+
+    def step(fn):
+        return lambda: [fn(xs[getattr(mlps[i], p).in_features], getattr(mlps[i], p),
+                           sizes_t[i]) for i, p in order]
+
+    step_got = step(km.grouped_quant_matmul_cuda)()
+    step_want = step(km.grouped_quant_matmul_plain)()
+    torch.cuda.synchronize()
+    step_err = 0.0
+    for (i, p), got, want in zip(order, step_got, step_want):
+        err, tol = max_err(got, want), 1e-2 * float(want.float().abs().max())
+        check(err <= tol, f"grouped_quant_matmul decode step {p}[{i}]: {err} > {tol}")
+        step_err = max(step_err, err)
+    del step_got, step_want
+    step_kern = graph_ms(step(km.grouped_quant_matmul_cuda), replays=3)
+    step_plain = event_ms(step(km.grouped_quant_matmul_plain), reps=1)
+    libs = [_grouped_library(xs[getattr(mlps[i], p).in_features], [getattr(mlps[i], p)],
+                             step_sizes[i]) for i, p in order]
+    step_lib = graph_ms(lambda: [fn(0) for fn, _, _ in libs], replays=3)
+    lib_name = libs[0][2]
+    del libs
+    bms, by = bound(sum(_grouped_bytes(getattr(mlps[i], p), step_sizes[i], 8) for i, p in order),
+                    sum(2 * 8 * getattr(mlps[i], p).out_features
+                        * getattr(mlps[i], p).in_features for i, p in order))
+    contract["grouped_quant_matmul"] = {
+        "name": "grouped_quant_matmul", "route": "cuda", "source": km.SOURCE,
+        "replaces": "tiny_llm_tpu/kernels/moe_matmul.py:120",
+        "case": "one 30B-A3B decode step: 144 launches at T=8 (48 x gate, up, down), "
+                "each layer its own top-8 of 128 experts",
+        "max_abs_err": step_err, "ms": step_kern, "plain_ms": step_plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": step_lib, "library": lib_name,
+    }
+    torch.cuda.empty_cache()
+    return _annotate_launches(cases, cfg)
 
 
 def _tables(perm, ctxs, width):
@@ -386,9 +563,10 @@ def _tables(perm, ctxs, width):
 
 
 def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
-    """The three paged kernels against their plain versions over a 36-layer
-    pool of POOL_PAGES pages with shuffled page ids, timed by CUDA-graph
-    replay over the 36 layers' page buffers."""
+    """The three paged kernels against their plain versions over a pool of
+    POOL_PAGES pages per layer with shuffled page ids, timed by CUDA-graph
+    replay over the model's layers' page buffers. `contract` (None: not
+    recorded) takes the main cases' numbers."""
     from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
     from tiny_llm_tpu_torch.kernels import paged_attention as pa
 
@@ -450,7 +628,7 @@ def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
                 "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
                 "library_ms": lib, "library": lib_label, "bound_ms": bms, "bound_by": by}
         cases.append(case)
-        if idle is None:
+        if idle is None and contract is not None:
             contract["fused_paged_decode_attention"] = {
                 "name": "fused_paged_decode_attention", "route": "cuda", "source": kf.SOURCE,
                 "replaces": "tiny_llm_tpu/kernels/fused_decode_attention.py:275",
@@ -458,74 +636,84 @@ def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
                 "bound_by": by, "library_ms": lib,
             }
 
+    def paged_case(name, q, kps, vps, ctxs, tpu_kernel, what):
+        """One paged decode or prefill case: rows of contexts `ctxs`, each
+        query block the last L positions of its row, K/V in the pages."""
+        fn = pa.paged_decode_cuda if name == "paged_decode" else pa.paged_prefill_cuda
+        B, _, L, d = q.shape
+        sc = d**-0.5
+        bt = _tables(perm, ctxs, width)
+        lens = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+        got = fn(q, kps[3], vps[3], bt, lens, sc)
+        want = pa.paged_attention_plain(q, kps[3], vps[3], bt, lens, sc)
+        torch.cuda.synchronize()
+        err, tol = max_err(got, want), 2e-2
+        check(err <= tol, f"{name} {what}: {err} > {tol}")
+        errs[name].append(err)
+        kern = graph_ms(lambda: [fn(q, kps[i], vps[i], bt, lens, sc) for i in range(Ly)]) / Ly
+        plain = event_ms(lambda: pa.paged_attention_plain(q, kps[3], vps[3], bt, lens, sc))
+        n = max(ctxs)
+        gathered = []
+        for i in range(Ly):
+            k_i, v_i = pa.gather_pages_dense(kps[i], vps[i], bt)
+            gathered.append((k_i[:, :, :n].contiguous(), v_i[:, :, :n].contiguous()))
+        qpos = lens[:, None] - L + torch.arange(L, device=dev)[None, :]  # [B, L]
+        mask = (torch.arange(n, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
+        check(max_err(sdpa(q, *gathered[3], attn_mask=mask, scale=sc, enable_gqa=True),
+                      want) <= tol, f"SDPA yardstick {name} {what} differs")
+        lib = graph_ms(lambda: [sdpa(q, k, v, attn_mask=mask, scale=sc, enable_gqa=True)
+                                for k, v in gathered]) / Ly
+        del gathered
+        pairs = sum(c - L + i + 1 for c in ctxs for i in range(L))
+        bms, by = bound(sum(2 * Hkv * c * d * 2 for c in ctxs) + 2 * B * Hq * L * d * 2,
+                        4 * Hq * pairs * d)
+        case = {"kernel": name, "tpu_kernel": tpu_kernel,
+                "shape": f"B={B} L={L} ctx={ctxs} pool={POOL_PAGES}x{PAGE_SIZE} width={width} "
+                         f"Hq={Hq} Hkv={Hkv} D={d}",
+                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                "library_ms": lib, "library": lib_label, "bound_ms": bms, "bound_by": by}
+        cases.append(case)
+        return case
+
     # Paged decode (L <= 16) and paged prefill (L > 16), B = 1: a later
     # prompt chunk at offset > 0, its K/V already in the pages.
     for L, ctx in ((8, 508), (2, 131), (128, 512), (128, 1024)):
         name = "paged_decode" if L <= pa.DECODE_MAX_L else "paged_prefill"
-        fn = pa.paged_decode_cuda if name == "paged_decode" else pa.paged_prefill_cuda
-        bt = _tables(perm, [ctx], width)
         q = torch.randn((1, Hq, L, D_h), generator=gen, device=dev).to(torch.bfloat16)
-        lens = torch.tensor([ctx], dtype=torch.int32, device=dev)
-        got = fn(q, kp[3], vp[3], bt, lens, scale)
-        want = pa.paged_attention_plain(q, kp[3], vp[3], bt, lens, scale)
-        torch.cuda.synchronize()
-        err, tol = max_err(got, want), 2e-2
-        check(err <= tol, f"{name} L={L} ctx={ctx}: {err} > {tol}")
-        errs[name].append(err)
-        kern = graph_ms(lambda: [fn(q, kp[i], vp[i], bt, lens, scale) for i in range(Ly)]) / Ly
-        plain = event_ms(lambda: pa.paged_attention_plain(q, kp[3], vp[3], bt, lens, scale))
-        gathered = []
-        for i in range(Ly):
-            k_i, v_i = pa.gather_pages_dense(kp[i], vp[i], bt)
-            gathered.append((k_i[:, :, :ctx].contiguous(), v_i[:, :, :ctx].contiguous()))
-        mask = (torch.arange(ctx, device=dev)[None, :]
-                <= torch.arange(ctx - L, ctx, device=dev)[:, None])
-        check(max_err(sdpa(q, *gathered[3], attn_mask=mask, scale=scale, enable_gqa=True),
-                      want) <= tol, f"SDPA yardstick {name} L={L} ctx={ctx} differs")
-        lib = graph_ms(lambda: [sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
-                                for k, v in gathered]) / Ly
-        del gathered
-        pairs = sum(ctx - L + i + 1 for i in range(L))
-        bms, by = bound(2 * Hkv * ctx * D_h * 2 + 2 * Hq * L * D_h * 2, 4 * Hq * pairs * D_h)
-        case = {"kernel": name,
-                "tpu_kernel": pa.TPU_KERNEL_DECODE if name == "paged_decode"
-                else pa.TPU_KERNEL_PREFILL,
-                "shape": f"B=1 L={L} ctx={ctx} pool={POOL_PAGES}x{PAGE_SIZE} width={width} "
-                         f"Hq={Hq} Hkv={Hkv} D={D_h}",
-                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
-                "library_ms": lib, "library": lib_label, "bound_ms": bms, "bound_by": by}
-        cases.append(case)
-        if (L, ctx) in ((8, 508), (128, 512)):
+        case = paged_case(name, q, kp, vp, [ctx],
+                          pa.TPU_KERNEL_DECODE if name == "paged_decode" else pa.TPU_KERNEL_PREFILL,
+                          f"L={L} ctx={ctx}")
+        if (L, ctx) in ((8, 508), (128, 512)) and contract is not None:
             contract[name] = {
                 "name": name, "route": "cuda", "source": pa.SOURCE,
                 "replaces": "tiny_llm_tpu/kernels/paged_attention_pallas.py:"
                 + ("297" if name == "paged_decode" else "475"),
-                "case": case["shape"], "ms": kern, "plain_ms": plain, "bound_ms": bms,
-                "bound_by": by, "library_ms": lib,
+                "case": case["shape"], "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+                "library_ms": case["library_ms"],
             }
+    # The whole-page walk's case (_paged_decode_page_kernel, which the TPU
+    # runs inside its decode bursts): one query per row, every context a
+    # whole number of pages.
+    q = torch.randn((4, Hq, 1, D_h), generator=gen, device=dev).to(torch.bfloat16)
+    paged_case("paged_decode", q, kp, vp, [256, 512, 768, 1024],
+               "tiny_llm_tpu/kernels/paged_attention_pallas.py:154 _paged_decode_page_kernel "
+               "(whole pages)", "whole pages")
     del kp, vp
 
     # The paged decode kernel at D = 64: the head dim on which the TPU takes
-    # its per-(page, head) walk kernel (_paged_decode_kernel), checked only.
-    kp64 = torch.randn((POOL_PAGES, Hkv, PAGE_SIZE, 64), generator=gen, device=dev)
-    vp64 = torch.randn_like(kp64).to(torch.bfloat16)
-    kp64 = kp64.to(torch.bfloat16)
-    bt = _tables(perm, [508, 131], width)
+    # its per-(page, head) walk kernel (_paged_decode_kernel).
+    shape64 = (Ly, POOL_PAGES, Hkv, PAGE_SIZE, 64)
+    kp64 = torch.randn(shape64, generator=gen, device=dev).to(torch.bfloat16)
+    vp64 = torch.randn(shape64, generator=gen, device=dev).to(torch.bfloat16)
     q = torch.randn((2, Hq, 8, 64), generator=gen, device=dev).to(torch.bfloat16)
-    lens = torch.tensor([508, 131], dtype=torch.int32, device=dev)
-    got = pa.paged_decode_cuda(q, kp64, vp64, bt, lens, 64**-0.5)
-    want = pa.paged_attention_plain(q, kp64, vp64, bt, lens, 64**-0.5)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    check(err <= 2e-2, f"paged_decode D=64: {err} > 2e-2")
-    errs["paged_decode"].append(err)
-    cases.append({"kernel": "paged_decode",
-                  "tpu_kernel": "tiny_llm_tpu/kernels/paged_attention_pallas.py:52 "
-                                "_paged_decode_kernel (D % 128 != 0)",
-                  "shape": f"B=2 L=8 ctx=[508, 131] Hq={Hq} Hkv={Hkv} D=64 (check only)",
-                  "max_err": err, "tol": 2e-2})
-    for name in PAGED:
-        contract[name]["max_abs_err"] = max(errs[name])
+    paged_case("paged_decode", q, kp64, vp64, [508, 131],
+               "tiny_llm_tpu/kernels/paged_attention_pallas.py:52 _paged_decode_kernel "
+               "(D % 128 != 0)", "D=64")
+    del kp64, vp64
+    if contract is not None:
+        for name in PAGED:
+            contract[name]["max_abs_err"] = max(errs[name])
     torch.cuda.empty_cache()
     return cases
 
@@ -553,10 +741,32 @@ def _decode_run(model, prompt):
     return prefill_s, decode_s, np.stack(toks)
 
 
-def phase_model(model, cfg):
+def _sync_free_burst(model, prompt) -> dict:
+    """One BURST-step dense decode burst under sync-debug "error": any op
+    in it that waits for the device raises. Only the copy of the emitted
+    tokens to the host, after the burst, may sync."""
+    from tiny_llm_tpu_torch.models.qwen3 import forward_decode_burst_dense
+
+    cache = model.create_kv_cache()
+    tok = model(prompt, 0, cache, logits_to_keep=1)[:, -1].float().argmax(-1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = forward_decode_burst_dense(model.params, model.cfg, model._rope_tables, tok,
+                                          cache.offset, cache.keys, cache.values, steps=BURST)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = toks.cpu()
+    cache.release()
+    check(tuple(out.shape) == (BURST, 1), "sync-free burst shape")
+    return {"steps": BURST, "mode": "error", "host_syncs_in_burst": 0}
+
+
+def phase_model(model, cfg, phase, name):
     from tiny_llm_tpu_torch import kernels
 
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, PROMPT_LEN))
+    torch.cuda.reset_peak_memory_stats()
     _decode_run(model, prompt)  # warm-up (allocator, kernel first calls)
     runs = 3
     kernels.reset_launches()
@@ -566,7 +776,7 @@ def phase_model(model, cfg):
     per_step, per_prefill = _path_launches(cfg)
     expected = {k: runs * (per_prefill[k] + DECODE_STEPS * per_step[k]) for k in counts}
     check(counts == expected, f"launch counts {counts} != expected {expected}")
-    check(all(v > 0 for k, v in counts.items() if k not in PAGED),
+    check(all(counts[k] > 0 for k, v in per_step.items() if v > 0),
           "a kernel of the path never launched")
     toks = [s[2] for s in samples]
     check(all(np.array_equal(t, toks[0]) for t in toks), "greedy runs disagree")
@@ -576,14 +786,16 @@ def phase_model(model, cfg):
     busy = _profile_burst(model, prompt)
     dev_ms = busy["device_ms_per_step"]  # None when the profiler saw no device time
     busy["busy_share_unprofiled"] = None if dev_ms is None else dev_ms * dec[len(dec) // 2] / 1e3
-    emit({"phase": "model", "model": "qwen3-4b", "layers": L, "batch": 1,
+    sync_free = _sync_free_burst(model, prompt)
+    emit({"phase": phase, "model": name, "layers": L, "batch": 1,
           "prompt_len": PROMPT_LEN, "decode_steps": DECODE_STEPS, "burst": BURST,
           "max_seq": MAX_SEQ, "prefill_tok_s": pre[len(pre) // 2],
           "decode_tok_s": dec[len(dec) // 2], "decode_tok_s_all": dec,
           "launches": counts, "launches_per_decode_step": per_step,
           "launches_per_prefill": per_prefill,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "first_tokens": toks[0][:8, 0].tolist(), "decode_profile": busy})
+          "first_tokens": toks[0][:8, 0].tolist(), "decode_profile": busy,
+          "sync_free_burst": sync_free})
     return counts
 
 
@@ -621,7 +833,58 @@ def _profile_burst(model, prompt):
     return out
 
 
-def phase_parity(cfg):
+class RouteForcer:
+    """Inside `with`, the plain path (impl="torch") takes the kernel path's
+    expert choice wherever the two pick different experts for a row, and
+    records the plain router's k-th minus (k+1)-th probability there. The
+    kernel path routes first: each of its route_topk calls queues its ids
+    for the plain path's call of the same layer. `summary` fails unless
+    every such row was a near-tie (margin < TIE_MARGIN): a bf16 ulp of
+    router logit that flips one expert is not a kernel fault, and a flip
+    at a wide margin would be."""
+
+    def __init__(self):
+        self.queue: collections.deque = collections.deque()
+        self.forced: list[tuple[int, float]] = []  # (batch row, margin)
+
+    def __enter__(self):
+        import tiny_llm_tpu_torch.ops.moe as moe
+
+        self._moe, self._orig = moe, moe.route_topk
+        moe.route_topk = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route_topk = self._orig
+
+    def route(self, x, w_router, top_k, norm_topk_prob=False, impl=None):
+        probs, ids, scores = self._orig(x, w_router, top_k, norm_topk_prob, impl=impl)
+        if impl is None:
+            self.queue.append(ids)
+            return probs, ids, scores
+        fast = self.queue.popleft()
+        differ = (ids.sort(-1).values != fast.sort(-1).values).any(-1)  # [B, L]
+        if bool(differ.any()):
+            top = probs.sort(-1, descending=True).values
+            margin = (top[..., top_k - 1] - top[..., top_k])[differ]
+            self.forced += list(zip(differ.nonzero()[:, 0].tolist(), margin.tolist()))
+            ids = torch.where(differ[..., None], fast, ids)
+            scores = probs.gather(-1, ids)
+            if norm_topk_prob:
+                scores = scores / scores.sum(dim=-1, keepdim=True)
+        return probs, ids, scores
+
+    def summary(self, live) -> dict:
+        """Forced rows among the compared batch rows (live(b) true)."""
+        check(not self.queue, "kernel and plain paths routed a different number of times")
+        margins = [m for b, m in self.forced if live(b)]
+        check(all(m < TIE_MARGIN for m in margins),
+              f"experts differ at a router margin >= {TIE_MARGIN}: {max(margins, default=0)}")
+        self.forced.clear()
+        return {"routing_forced": len(margins), "max_forced_margin": max(margins, default=None)}
+
+
+def phase_parity(cfg, phase="parity", forcer=None):
     from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
 
     cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
@@ -649,9 +912,10 @@ def phase_parity(cfg):
         if step < 8:
             lf, lp = fast(tok, PROMPT_LEN + step, cf), plain(tok, PROMPT_LEN + step, cp)
     check(agree == decided, f"top-1 disagrees on {decided - agree} decided positions")
-    emit({"phase": "parity", "layers": 4, "positions": PROMPT_LEN + 8,
+    forced = forcer.summary(lambda b: True) if forcer is not None else {}
+    emit({"phase": phase, "path": "dense", "layers": 4, "positions": PROMPT_LEN + 8,
           "worst_err_over_tol": worst, "tol": "5% of max |plain logit|",
-          "top1_decided": decided, "top1_agree": agree})
+          "top1_decided": decided, "top1_agree": agree, **forced})
 
 
 def phase_generate(model):
@@ -708,7 +972,7 @@ def _parity_check(fast, plain, what, tally):
     tally["agree"] += int((a.argmax(-1) == b.argmax(-1))[sure].sum())
 
 
-def phase_paged_parity(cfg):
+def phase_paged_parity(cfg, phase="paged_parity", forcer=None):
     """The paged path's kernels against its plain versions, teacher-forced:
     three requests prefilled round-robin (so their pages interleave in the
     pool) in chunks of 128 at offset 0 (K3 on the chunk), 128 at offset 128
@@ -730,9 +994,9 @@ def phase_paged_parity(cfg):
     for L in (128, 128, 8):
         for r in range(3):
             chunk = prompts[r : r + 1, off : off + L]
+            lf = fast(chunk, off, cf[r])
             lp = plain(chunk, off, cp[r])
-            _parity_check(fast(chunk, off, cf[r]), lp, f"request {r} chunk L={L} at {off}",
-                          tally)
+            _parity_check(lf, lp, f"request {r} chunk L={L} at {off}", tally)
             last[r] = int(lp[0, -1].float().argmax())
         off += L
     check(cf[0].page_ids != list(range(1, len(cf[0].page_ids) + 1)), "pages did not interleave")
@@ -750,18 +1014,20 @@ def phase_paged_parity(cfg):
     check(fast.page_pool.live_pages == 0 and plain.page_pool.live_pages == 0, "pages leaked")
     check(tally["agree"] == tally["decided"],
           f"top-1 disagrees on {tally['decided'] - tally['agree']} decided positions")
-    emit({"phase": "paged_parity", "layers": 4, "requests": 3, "chunks": [128, 128, 8],
+    forced = forcer.summary(lambda b: b < 3) if forcer is not None else {}
+    emit({"phase": phase, "path": "paged", "layers": 4, "requests": 3, "chunks": [128, 128, 8],
           "decode_steps": 8, "worst_err_over_tol": tally["worst"],
           "tol": "5% of max |plain logit|", "top1_decided": tally["decided"],
-          "top1_agree": tally["agree"]})
+          "top1_agree": tally["agree"], **forced})
 
 
-def phase_serving(model, cfg):
+def phase_serving(model, cfg, phase, name):
     """bench.py serving_bench's default campaign through the port."""
     from tiny_llm_tpu_torch import kernels
     from tiny_llm_tpu_torch.serving import ServingMetrics, batch_generate
     from tiny_llm_tpu_torch.tokenizer import ByteTokenizer
 
+    torch.cuda.reset_peak_memory_stats()
     model.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
     pool = model.page_pool
     rng = np.random.default_rng(0)
@@ -813,14 +1079,16 @@ def phase_serving(model, cfg):
         runs.append((met, ids))
     counts = kernels.launches()
     check(all(ids == runs[0][1] for _, ids in runs), "the campaigns' tokens differ")
-    for name in ("quant_matmul", "flash_attention", *PAGED):
-        check(counts[name] > 0, f"{name} never launched on the serving path")
+    per_step, per_prefill = _path_launches(cfg)
+    for kern in [k for k in per_step if per_step[k] or per_prefill[k]] + list(PAGED):
+        if kern != "fused_decode_attention":
+            check(counts[kern] > 0, f"{kern} never launched on the serving path")
     check(counts["fused_decode_attention"] == 0, "the dense decode kernel ran on the paged path")
     rows = [m.as_dict() for m, _ in runs]
     tok_s = [r["output_tok_s"] for r in rows]
     mid = sorted(range(3), key=lambda k: tok_s[k])[1]
     profile = _profile_serving_burst(model, lens)
-    emit({"phase": "serving", "model": "qwen3-4b", "layers": cfg.num_hidden_layers,
+    emit({"phase": phase, "model": name, "layers": cfg.num_hidden_layers,
           "requests": SERVING_REQUESTS, "batch": SERVING_BATCH, "max_seq": MAX_SEQ,
           "page_size": PAGE_SIZE, "pool_pages": POOL_PAGES, "prefill_step": 128,
           "decode_burst": BURST, "max_output_tokens": max_out,
@@ -832,6 +1100,7 @@ def phase_serving(model, cfg):
           "peak_live_pages": rows[mid]["peak_live_pages"],
           "output_tokens": rows[mid]["output_tokens"], "decode_bursts": rows[mid]["decode_steps"],
           "wall_s_all": [m.wall_s for m, _ in runs], "launches_3_campaigns": counts,
+          "pool_full_after_each_campaign": True,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "decode_burst_profile": profile})
     return counts
@@ -877,19 +1146,30 @@ def main() -> int:
     smi, ptxas = phase_build()
     cfg = QWEN3_CONFIGS["qwen3-4b"]
     model = Qwen3Model(synthetic_quantized_params(cfg, seed=0), cfg, max_seq_len=MAX_SEQ)
-    contract = phase_kernels(model, cfg)
-    counts = phase_model(model, cfg)
+    moe_cfg = QWEN3_CONFIGS["qwen3-30b-a3b"]
+    moe = Qwen3Model(synthetic_quantized_params(moe_cfg, seed=0), moe_cfg, max_seq_len=MAX_SEQ)
+    contract = phase_kernels(model, cfg, moe, moe_cfg)
+    counts = phase_model(model, cfg, "model", "qwen3-4b")
     phase_parity(cfg)
     phase_generate(model)
     phase_paged_parity(cfg)
-    serving_counts = phase_serving(model, cfg)
-    # Launches on each kernel's own path: the dense path's run for K1-K3,
-    # the serving campaigns for the paged kernels.
+    serving_counts = phase_serving(model, cfg, "serving", "qwen3-4b")
+    del model
+    torch.cuda.empty_cache()
+    moe_counts = phase_model(moe, moe_cfg, "moe_model", "qwen3-30b-a3b")
+    with RouteForcer() as forcer:
+        phase_parity(moe_cfg, "moe_parity", forcer)
+        phase_paged_parity(moe_cfg, "moe_parity", forcer)
+    phase_serving(moe, moe_cfg, "moe_serving", "qwen3-30b-a3b")
+    # Launches on each kernel's own path: the dense 4B run for K1-K3, the
+    # 4B serving campaigns for the paged kernels, the dense 30B-A3B run for
+    # the grouped expert matmul.
     for name, entry in contract.items():
-        entry["launches"] = serving_counts[name] if name in PAGED else counts[name]
+        entry["launches"] = (serving_counts if name in PAGED else
+                             moe_counts if name == "grouped_quant_matmul" else counts)[name]
     kern_line = {"kernels": [contract[n] for n in
                              ("quant_matmul", "fused_decode_attention", "flash_attention",
-                              *PAGED)]}
+                              *PAGED, "grouped_quant_matmul")]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -4,7 +4,7 @@ PyTorch version and a launch counter (counterparts of tiny_llm_tpu/kernels).
 Importing this package builds nothing; a kernel is compiled at its first
 launch (kernels/build.py)."""
 
-from . import flash_attention, fused_decode_attention, paged_attention, quant_matmul
+from . import flash_attention, fused_decode_attention, moe_matmul, paged_attention, quant_matmul
 
 # Each kernel's name -> (its module, the name of its launch counter there).
 # A module holds its wrapper(s), plain version(s), CUDA launcher(s) and
@@ -16,6 +16,7 @@ KERNELS = {
     "fused_paged_decode_attention": (fused_decode_attention, "PAGED_LAUNCHES"),
     "paged_decode": (paged_attention, "DECODE_LAUNCHES"),
     "paged_prefill": (paged_attention, "PREFILL_LAUNCHES"),
+    "grouped_quant_matmul": (moe_matmul, "LAUNCHES"),
 }
 
 

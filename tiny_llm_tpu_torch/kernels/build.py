@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("quant_matmul", "fused_decode_attention", "flash_attention", "paged_attention")
+SOURCES = ("quant_matmul", "fused_decode_attention", "flash_attention", "paged_attention",
+           "moe_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

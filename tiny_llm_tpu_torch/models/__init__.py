@@ -6,6 +6,7 @@ from .qwen3 import (
     AttentionParams,
     BlockParams,
     MLPParams,
+    MoEParams,
     Qwen3Config,
     Qwen3Model,
     Qwen3Params,
@@ -19,6 +20,7 @@ __all__ = [
     "AttentionParams",
     "BlockParams",
     "MLPParams",
+    "MoEParams",
     "QWEN3_CONFIGS",
     "Qwen3Config",
     "Qwen3Model",

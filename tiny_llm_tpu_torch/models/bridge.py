@@ -9,6 +9,9 @@ to a nested dict of numpy arrays and static fields:
                           "q_norm": array, "k_norm": array},
                  "mlp": {"w_gate": QT, "w_up": QT, "w_down": QT}}, ...]}
 
+or, for a MoE layer, "mlp": {"w_router": QT, "w_gate": QT, "w_up": QT,
+"w_down": QT} with a 2-D router [E, D] and stacked experts [E, N, K],
+
 where QT is {"packed", "scales", "biases"} arrays plus "layout",
 "group_size", "bits", "out_features", "in_features", "k_padded". bf16
 arrays arrive with numpy dtype name "bfloat16" (ml_dtypes) and are
@@ -23,12 +26,14 @@ the embedding's codes for it, the port reads the embedding itself.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..kernels.dispatch import check_device
 from ..ops.quantize import QuantizedTensor, from_codes, unpack_magic_t, unpack_supergroup
-from .qwen3 import AttentionParams, BlockParams, MLPParams, Qwen3Config, Qwen3Params
+from .qwen3 import AttentionParams, BlockParams, MLPParams, MoEParams, Qwen3Config, Qwen3Params
 
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -40,21 +45,27 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
 
 
 def quantized_from_numpy(d: dict) -> QuantizedTensor:
-    """One JAX QuantizedTensor (as numpy) -> the port's QuantizedTensor (CPU)."""
+    """One JAX QuantizedTensor (as numpy) -> the port's QuantizedTensor (CPU).
+
+    A stacked expert weight (packed [E, Kp/8, N] and scales [E, G, N] in
+    magic_t, [E, N, Kp/8] and [E, N, G] in sg) keeps its leading E; the
+    codes are unpacked expert by expert and the JAX pad groups past
+    in_features are dropped."""
     layout, kp = d["layout"], int(d["k_padded"])
     if int(d["bits"]) != 4 or int(d["group_size"]) != 128:
         raise ValueError("the port takes W4 g128 weights only")
     packed = np.asarray(d["packed"])
-    if packed.ndim != 2:
-        raise ValueError("stacked (MoE) weights are not ported yet")
+    if packed.ndim not in (2, 3):
+        raise ValueError(f"packed weight of rank {packed.ndim}")
+    scales, biases = np.asarray(d["scales"]), np.asarray(d["biases"])
     if layout == "magic_t":
-        codes = unpack_magic_t(packed, kp)
-        scales, biases = d["scales"].T, d["biases"].T  # [G, N] -> [N, G]
+        unpack = functools.partial(unpack_magic_t, k_padded=kp)
+        scales, biases = scales.swapaxes(-1, -2), biases.swapaxes(-1, -2)  # [G, N] -> [N, G]
     elif layout == "sg":
-        codes = unpack_supergroup(packed, kp, 128, 4)
-        scales, biases = d["scales"], d["biases"]
+        unpack = functools.partial(unpack_supergroup, k_padded=kp, group_size=128, bits=4)
     else:
         raise ValueError(f"layout {layout!r} is not ported yet")
+    codes = unpack(packed) if packed.ndim == 2 else np.stack([unpack(p) for p in packed])
     return from_codes(
         torch.from_numpy(codes),
         tensor_from_numpy(scales),
@@ -87,7 +98,10 @@ def from_jax_numpy(
                 wq=qt(a["wq"]), wk=qt(a["wk"]), wv=qt(a["wv"]), wo=qt(a["wo"]),
                 q_norm=arr(a["q_norm"]), k_norm=arr(a["k_norm"]),
             ),
-            mlp=MLPParams(w_gate=qt(m["w_gate"]), w_up=qt(m["w_up"]), w_down=qt(m["w_down"])),
+            mlp=MoEParams(w_router=qt(m["w_router"]), w_gate=qt(m["w_gate"]),
+                          w_up=qt(m["w_up"]), w_down=qt(m["w_down"]))
+            if "w_router" in m else
+            MLPParams(w_gate=qt(m["w_gate"]), w_up=qt(m["w_up"]), w_down=qt(m["w_down"])),
         ))
     lm_head = None
     if not cfg.tie_word_embeddings:

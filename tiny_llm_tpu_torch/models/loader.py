@@ -9,7 +9,7 @@ import torch
 
 from ..kernels.dispatch import check_device
 from ..ops.quantize import GROUP_SIZE, QuantizedTensor, padded_k
-from .qwen3 import AttentionParams, BlockParams, MLPParams, Qwen3Config, Qwen3Params
+from .qwen3 import AttentionParams, BlockParams, MLPParams, MoEParams, Qwen3Config, Qwen3Params
 
 
 def synthetic_quantized_params(
@@ -18,20 +18,21 @@ def synthetic_quantized_params(
     """Random W4A16 g128 params built straight on `device` in the port's
     layout: random code words, scales uniform in [0.001, 0.005) and biases
     -7.5 * scale (codes centred on 0), as the JAX package's
-    synthetic_quantized_params draws them. The tied LM head shares the
-    embedding tensor. For benchmarks, where shapes and bytes matter."""
+    synthetic_quantized_params draws them. A MoE layer gets a W4A16 router
+    [E, D] and stacked experts: gate and up [E, I, D], down [E, D, I]. The
+    tied LM head shares the embedding tensor. For benchmarks, where shapes
+    and bytes matter."""
     dev = check_device(device)
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def qlin(n: int, k: int) -> QuantizedTensor:
+    def qlin(*shape: int) -> QuantizedTensor:  # ([E,] N, K)
+        *lead, n, k = shape
         kp = padded_k(k)
         packed = torch.randint(
-            -(2**31), 2**31, (n, kp // 8), dtype=torch.int32, generator=gen, device=dev
+            -(2**31), 2**31, (*lead, n, kp // 8), dtype=torch.int32, generator=gen, device=dev
         )
         scales = (
-            torch.rand((n, kp // GROUP_SIZE), generator=gen, device=dev) * 0.004 + 0.001
+            torch.rand((*lead, n, kp // GROUP_SIZE), generator=gen, device=dev) * 0.004 + 0.001
         ).to(torch.bfloat16)
         biases = (-7.5 * scales.to(torch.float32)).to(torch.bfloat16)
         return QuantizedTensor(packed=packed, scales=scales, biases=biases,
@@ -42,7 +43,7 @@ def synthetic_quantized_params(
 
     D, Dh = cfg.hidden_size, cfg.head_dim
     layers = []
-    for _ in range(cfg.num_hidden_layers):
+    for i in range(cfg.num_hidden_layers):
         attn = AttentionParams(
             wq=qlin(cfg.num_attention_heads * Dh, D),
             wk=qlin(cfg.num_key_value_heads * Dh, D),
@@ -51,11 +52,16 @@ def synthetic_quantized_params(
             q_norm=ones(Dh),
             k_norm=ones(Dh),
         )
-        mlp = MLPParams(
-            w_gate=qlin(cfg.intermediate_size, D),
-            w_up=qlin(cfg.intermediate_size, D),
-            w_down=qlin(D, cfg.intermediate_size),
-        )
+        if cfg.is_moe_layer(i):
+            E, I = cfg.num_experts, cfg.moe_intermediate_size
+            mlp = MoEParams(w_router=qlin(E, D), w_gate=qlin(E, I, D), w_up=qlin(E, I, D),
+                            w_down=qlin(E, D, I))
+        else:
+            mlp = MLPParams(
+                w_gate=qlin(cfg.intermediate_size, D),
+                w_up=qlin(cfg.intermediate_size, D),
+                w_down=qlin(D, cfg.intermediate_size),
+            )
         layers.append(BlockParams(ones(D), ones(D), attn, mlp))
     embedding = qlin(cfg.vocab_size, D)
     lm_head = None if cfg.tie_word_embeddings else qlin(cfg.vocab_size, D)

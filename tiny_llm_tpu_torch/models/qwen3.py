@@ -1,11 +1,14 @@
-"""Qwen3 dense model — PyTorch/CUDA counterpart of tiny_llm_tpu/models/qwen3.py.
+"""Qwen3 and Qwen3-MoE — PyTorch/CUDA counterpart of tiny_llm_tpu/models/qwen3.py.
 
 W4A16 group-128 weights, GQA attention with QK-RMSNorm and RoPE, SwiGLU
-MLP, pre-norm residual blocks, tied or untied LM head. The same routes run
-on the card and on the CPU; only the bodies of the three kernels differ
-(kernels/dispatch.py):
+MLP or a top-k mixture of SwiGLU experts per layer, pre-norm residual
+blocks, tied or untied LM head. The same routes run on the card and on the
+CPU; only the bodies of the kernels differ (kernels/dispatch.py):
 
-  * every projection and the LM head go through K1 (kernels/quant_matmul);
+  * every dense projection, the MoE router and the LM head go through K1
+    (kernels/quant_matmul);
+  * a MoE layer's expert projections go through the grouped expert matmul
+    (kernels/moe_matmul, via ops/moe.py);
   * a decode step (L == 1) goes through K2 (kernels/fused_decode_attention)
     with the qkv projection fused and interleaved per KV head — over the
     dense slab, or its paged twin over the page pool;
@@ -16,9 +19,9 @@ on the card and on the CPU; only the bodies of the three kernels differ
 
 The KV slab and the pages are updated in place. A decode burst is a Python
 loop of steps whose greedy argmax stays on the device; the host syncs once
-per burst. Not ported yet: MoE layers, dense (unquantized) weights, the
-split paged prefill (chunks of >= 1024 tokens at offset > 0), the mixed
-prefill+decode bursts and the W4A8 tier.
+per burst. Not ported yet: dense (unquantized) weights, the split paged
+prefill (chunks of >= 1024 tokens at offset > 0), the mixed prefill+decode
+bursts, the W4A8 tier and expert parallelism.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..kv.cache import BatchingKVCache, DenseKVCache, bucket_for
 from ..kv.paged import PagedBatchingKVCache, PagedKVCache, PagePool
 from ..ops.basics import swiglu
 from ..ops.embedding import quantized_embedding_gather
+from ..ops.moe import moe_forward
 from ..ops.norm import rms_norm
 from ..ops.quantize import QuantizedTensor, concat_out_features, permute_out_features
 from ..ops.rope import apply_rope, rope_tables
@@ -65,6 +69,14 @@ class Qwen3Config:
     decoder_sparse_step: int = 1
     mlp_only_layers: tuple[int, ...] = ()
     norm_topk_prob: bool = False
+
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        """Whether layer `layer_idx` is sparse (the JAX package's predicate)."""
+        return (
+            self.num_experts > 0
+            and layer_idx not in self.mlp_only_layers
+            and (layer_idx + 1) % max(self.decoder_sparse_step, 1) == 0
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -94,11 +106,19 @@ class MLPParams:
 
 
 @dataclasses.dataclass
+class MoEParams:
+    w_router: QuantizedTensor  # [E, D]
+    w_gate: QuantizedTensor  # stacked [E, I, D]
+    w_up: QuantizedTensor  # stacked [E, I, D]
+    w_down: QuantizedTensor  # stacked [E, D, I]
+
+
+@dataclasses.dataclass
 class BlockParams:
     input_layernorm: torch.Tensor
     post_attention_layernorm: torch.Tensor
     attn: AttentionParams
-    mlp: MLPParams
+    mlp: MLPParams | MoEParams
 
 
 @dataclasses.dataclass
@@ -153,8 +173,16 @@ def _qkv(cfg, p: AttentionParams, x, positions, rope_tabs, norm_w=None, impl=Non
     return _split_qkv_rope(cfg, p, qkv, positions, rope_tabs)
 
 
-def _mlp(cfg, p: MLPParams, x, norm_w=None, residual=None, impl=None):
-    """[pre-norm +] fused gate/up, SwiGLU, down [+ residual, added inside K1]."""
+def _mlp(cfg, p: MLPParams | MoEParams, x, norm_w=None, residual=None, impl=None):
+    """[pre-norm +] fused gate/up, SwiGLU, down [+ residual, added inside K1];
+    or, for a MoE layer, [pre-norm +] moe_forward [+ residual, a bf16 add
+    as in the JAX package]."""
+    if isinstance(p, MoEParams):
+        if norm_w is not None:
+            x = rms_norm(x, norm_w, cfg.rms_norm_eps)  # router and experts share it
+        out = moe_forward(x, p.w_router, p.w_gate, p.w_up, p.w_down,
+                          cfg.num_experts_per_tok, cfg.norm_topk_prob, impl=impl)
+        return out if residual is None else out + residual
     gu = _norm_linear(x, p.w_gate_up, norm_w, cfg.rms_norm_eps, impl)
     half = gu.shape[-1] // 2
     return _linear(swiglu(gu[..., :half], gu[..., half:]), p.w_down, residual=residual,
@@ -180,9 +208,10 @@ def _qkv_interleave_perm(attn: AttentionParams) -> list[int]:
 
 
 def fuse_projections(params: Qwen3Params) -> Qwen3Params:
-    """Fuse each layer's [q; k; v] (interleaved per KV head) and [gate; up]
-    into one weight each — an exact relayout (groups run along K). The
-    model's routes run on fused params only."""
+    """Fuse each layer's [q; k; v] (interleaved per KV head) and a dense
+    MLP's [gate; up] into one weight each — an exact relayout (groups run
+    along K). MoE experts stay unfused, as in the JAX package. The model's
+    routes run on fused params only."""
     layers = []
     for layer in params.layers:
         attn, mlp = layer.attn, layer.mlp
@@ -190,9 +219,11 @@ def fuse_projections(params: Qwen3Params) -> Qwen3Params:
             concat_out_features([attn.wq, attn.wk, attn.wv]), _qkv_interleave_perm(attn)
         )
         attn = dataclasses.replace(attn, wq=None, wk=None, wv=None, wqkv=wqkv)
-        mlp = dataclasses.replace(
-            mlp, w_gate=None, w_up=None, w_gate_up=concat_out_features([mlp.w_gate, mlp.w_up])
-        )
+        if isinstance(mlp, MLPParams):
+            mlp = dataclasses.replace(
+                mlp, w_gate=None, w_up=None,
+                w_gate_up=concat_out_features([mlp.w_gate, mlp.w_up]),
+            )
         layers.append(dataclasses.replace(layer, attn=attn, mlp=mlp))
     return dataclasses.replace(params, layers=layers)
 
@@ -474,8 +505,6 @@ class Qwen3Model:
             raise ValueError(
                 f"params live on {params.embedding.device}, model device is {self.device}"
             )
-        if cfg.num_experts:
-            raise NotImplementedError("MoE layers are not ported yet")
         self.params = fuse_projections(params)
         self.cfg = cfg
         self.impl = impl

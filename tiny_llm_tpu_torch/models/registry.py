@@ -1,6 +1,5 @@
-"""Published Qwen3 shapes — copy of tiny_llm_tpu/models/registry.py's table
-(the dense members; the MoE member is listed for its shape but the port
-does not run MoE layers yet)."""
+"""Published Qwen3 shapes — copy of tiny_llm_tpu/models/registry.py's table,
+the dense members and Qwen3-30B-A3B (MoE)."""
 
 from __future__ import annotations
 

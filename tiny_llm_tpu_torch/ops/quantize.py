@@ -13,6 +13,11 @@ Storage layout (the port's own, chosen for Hopper; the JAX package's
   scales  bf16 [N, G], G = K_pad / group_size.
   biases  bf16 [N, G].
 
+MoE expert weights stack E such matrices with a leading expert dim:
+packed [E, N, K_pad / 8], scales and biases [E, N, G]. K_pad stays the
+port's own (a multiple of 128), where the JAX "magic_t" layout pads K to
+a multiple of 512.
+
 Why: every output row's K is one contiguous run of bytes, so a warp that
 owns a row streams it with 16-byte loads (four words, 32 codes, which never
 straddle a group since 32 divides 128), and one 16-code fragment of a
@@ -42,11 +47,12 @@ MAGIC_SUPERGROUP = 512  # the JAX "magic_t"/"pair_t" K padding unit
 
 @dataclasses.dataclass
 class QuantizedTensor:
-    """Group-quantized 2-D weight, logical shape [out_features, in_features]."""
+    """Group-quantized weight, logical shape [out_features, in_features],
+    or [E, out_features, in_features] for stacked experts."""
 
-    packed: torch.Tensor  # int32 [N, k_padded // 8]
-    scales: torch.Tensor  # bf16 [N, G]
-    biases: torch.Tensor  # bf16 [N, G]
+    packed: torch.Tensor  # int32 [(E,) N, k_padded // 8]
+    scales: torch.Tensor  # bf16 [(E,) N, G]
+    biases: torch.Tensor  # bf16 [(E,) N, G]
     out_features: int
     in_features: int
     k_padded: int
@@ -56,6 +62,17 @@ class QuantizedTensor:
     @property
     def device(self) -> torch.device:
         return self.packed.device
+
+    @property
+    def num_experts(self) -> int | None:
+        """E of a stacked expert weight, None for a 2-D weight."""
+        return self.packed.shape[0] if self.packed.ndim == 3 else None
+
+    def expert(self, e: int) -> "QuantizedTensor":
+        """Expert e of a stacked weight as a 2-D weight (views, no copy)."""
+        return dataclasses.replace(
+            self, packed=self.packed[e], scales=self.scales[e], biases=self.biases[e]
+        )
 
     def to(self, device) -> "QuantizedTensor":
         return dataclasses.replace(
@@ -116,11 +133,11 @@ def unpack_supergroup(
 
 
 def pack_codes(q: torch.Tensor) -> torch.Tensor:
-    """int codes [N, K_pad] in 0..15 -> int32 words [N, K_pad / 8]."""
-    N, K = q.shape
+    """int codes [..., N, K_pad] in 0..15 -> int32 words [..., N, K_pad / 8]."""
+    K = q.shape[-1]
     if K % 8:
         raise ValueError(f"K={K} is not a multiple of 8 codes per word")
-    qv = q.to(torch.int64).reshape(N, K // 8, 8)
+    qv = q.to(torch.int64).reshape(*q.shape[:-1], K // 8, 8)
     shifts = torch.arange(0, 32, 4, dtype=torch.int64, device=q.device)
     words = (qv << shifts).sum(-1)  # disjoint bits: the sum is an OR
     # Wrap to the int32 range so the top nibble's bit 31 becomes the sign.
@@ -129,38 +146,39 @@ def pack_codes(q: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_codes(packed: torch.Tensor) -> torch.Tensor:
-    """int32 words [N, K_pad / 8] -> int32 codes [N, K_pad]."""
+    """int32 words [..., N, K_pad / 8] -> int32 codes [..., N, K_pad]."""
     shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=packed.device)
     # An arithmetic shift fills with sign bits above the nibble; the mask
     # drops them.
     vals = (packed.unsqueeze(-1) >> shifts) & 0xF
-    return vals.reshape(packed.shape[0], -1)
+    return vals.reshape(*packed.shape[:-1], -1)
 
 
 def from_codes(
-    codes: torch.Tensor,  # int [N, >= K]
-    scales: torch.Tensor,  # [N, >= ceil(K / group_size)]
+    codes: torch.Tensor,  # int [(E,) N, >= K]
+    scales: torch.Tensor,  # [(E,) N, >= ceil(K / group_size)]
     biases: torch.Tensor,
     in_features: int,
     group_size: int = GROUP_SIZE,
 ) -> QuantizedTensor:
-    """Pack integer codes and per-group scale/bias into the port's layout.
+    """Pack integer codes and per-group scale/bias into the port's layout
+    (a leading expert dim, if any, is kept).
 
     Codes and groups past `in_features` are dropped and the port's own
     padding (to a group multiple) is applied: code 0, scale 1, bias 0."""
     if group_size != GROUP_SIZE:
         raise ValueError("the port's layout is W4 g128 only")
-    N = codes.shape[0]
+    *lead, N = codes.shape[:-1]
     K = in_features
     kp = padded_k(K, group_size)
     G = kp // group_size
-    q = torch.zeros((N, kp), dtype=torch.int32, device=codes.device)
-    q[:, :K] = codes[:, :K].to(torch.int32)
-    s = torch.ones((N, G), dtype=torch.bfloat16, device=codes.device)
-    b = torch.zeros((N, G), dtype=torch.bfloat16, device=codes.device)
+    q = torch.zeros((*lead, N, kp), dtype=torch.int32, device=codes.device)
+    q[..., :K] = codes[..., :K].to(torch.int32)
+    s = torch.ones((*lead, N, G), dtype=torch.bfloat16, device=codes.device)
+    b = torch.zeros((*lead, N, G), dtype=torch.bfloat16, device=codes.device)
     g_real = -(-K // group_size)
-    s[:, :g_real] = scales[:, :g_real]
-    b[:, :g_real] = biases[:, :g_real]
+    s[..., :g_real] = scales[..., :g_real]
+    b[..., :g_real] = biases[..., :g_real]
     return QuantizedTensor(
         packed=pack_codes(q), scales=s, biases=b,
         out_features=N, in_features=K, k_padded=kp, group_size=group_size,
@@ -168,13 +186,14 @@ def from_codes(
 
 
 def dequantize(qt: QuantizedTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Dense weight [N, in_features]: w = q * scale + bias in f32, then cast."""
+    """Dense weight [(E,) N, in_features]: w = q * scale + bias in f32, then cast."""
     G = qt.k_padded // qt.group_size
-    vals = unpack_codes(qt.packed).reshape(qt.out_features, G, qt.group_size)
+    lead = qt.packed.shape[:-1]  # ([E,] N)
+    vals = unpack_codes(qt.packed).reshape(*lead, G, qt.group_size)
     w = vals.to(torch.float32) * qt.scales.to(torch.float32)[..., None] + qt.biases.to(
         torch.float32
     )[..., None]
-    return w.reshape(qt.out_features, qt.k_padded)[:, : qt.in_features].to(dtype)
+    return w.reshape(*lead, qt.k_padded)[..., : qt.in_features].to(dtype)
 
 
 def concat_out_features(qts: list[QuantizedTensor]) -> QuantizedTensor:
