@@ -30,6 +30,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             through batch_generate, warm-up then three campaigns: output
             tok/s, TTFT, occupancy, the kernels' launch counts, and a
             profile of one serving decode burst
+  split_kernels the split paged prefill's two kernels against their plain
+            versions at Qwen3-4B's and Qwen3-30B-A3B's head shapes: the
+            chunk-state flash prefill (L = 1024, 2048) and the prefix-state
+            walk (L = 1024, prefixes 1024, 4096, 7168, beside a prefix-0 row
+            that must give the identity state), and the whole split against
+            the paged prefill kernel over the same chunk and prefix
+  long_parity   4B widths, 4 layers: a 3072-token prompt in 1024-token chunks
+            over the pool, the kernel path against the plain path and the
+            split route against the unsplit (paged prefill) route
+  long_prefill  an 8192-token prompt through Qwen3-4B at full width and depth
+            (max_seq 8320, 66-page pool) in chunks of 1024 and 2048: prefill
+            tok/s and exact launch counts (the split's kernels 7 x 36 each at
+            1024, K3 36, the paged prefill kernel 0)
+  long_serving  8 prompts of 2048-8192 tokens through batch_generate on that
+            model (batch 4, prefill step 1024, 399-page pool), warm-up then
+            two campaigns: output and input tok/s, TTFT, launch counts
+  mixed_parity  4B widths, 4 layers: mixed prefill+decode bursts (4 decode
+            slots, a 512-token prompt in 32-token sub-chunks), the kernel
+            path against the plain path (teacher-forced) and against the
+            serialized schedule, and one burst under sync-debug "error"
+  mixed_serving the serving phase's campaign with mixed_prefill=True
   moe_model     the model phase on Qwen3-30B-A3B W4A16 (48 layers, 128
             experts, top-8; full width and depth): exact launch counts
             (K1 145, grouped 144, K2 or K3 48 per step), a sync-free burst
@@ -63,13 +84,26 @@ PROMPT_LEN, DECODE_STEPS, BURST, MAX_SEQ = 128, 128, 16, 1024
 PAGE_SIZE, SERVING_BATCH, SERVING_REQUESTS = 128, 4, 16
 POOL_PAGES = (MAX_SEQ // PAGE_SIZE) * (SERVING_BATCH + 2) + 9
 PAGED = ("fused_paged_decode_attention", "paged_decode", "paged_prefill")
+SPLIT = ("flash_prefill_state", "paged_prefix_state")  # the split paged prefill's kernels
+# Long prompts: bench_chunked_prefill.py's 8192-token prompt in chunks of
+# 1024 (offset > 0 chunks of 1024 take the split paged prefill), on a model
+# of max_seq 8320 with a 66-page pool (the prompt's 64 pages, the trash page
+# and one more).
+LONG_PROMPT, LONG_CHUNK, LONG_MAX_SEQ = 8192, 1024, 8320
+LONG_PAGES = LONG_MAX_SEQ // PAGE_SIZE + 1
+LONG_REQUESTS, LONG_MIN_PROMPT = 8, 2048
+MIXED_CHUNK = 32  # bench.py --mixed's sub-chunk
 TIE_MARGIN = 1e-3  # routing near-tie: k-th minus (k+1)-th router probability
 
 
 PHASES: list[dict] = []  # every phase line printed, for --out
+START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one phase line, stamped with the seconds since the script began."""
+    if "phase" in obj:
+        obj["t_s"] = round(time.perf_counter() - START, 1)
     PHASES.append(obj)
     print(json.dumps(obj), flush=True)
 
@@ -140,11 +174,7 @@ def phase_build():
     t0 = time.perf_counter()
     log = build.build_all()
     secs = time.perf_counter() - t0
-    regs = {
-        name: [ln.split(":", 1)[-1].strip() for ln in info["ptxas"].splitlines()
-               if "Used" in ln or "spill" in ln and not ln.strip().startswith("0 bytes")]
-        for name, info in log.items()
-    }
+    regs = {name: build.ptxas_registers(info["ptxas"]) for name, info in log.items()}
     smi = nvidia_smi()
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(log),
           "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -183,7 +213,7 @@ def _path_launches(cfg):
                 "grouped_quant_matmul": 3 * moe}
     per_prefill = {"quant_matmul": k1, "fused_decode_attention": 0, "flash_attention": L,
                    "grouped_quant_matmul": 3 * moe}
-    for name in PAGED:
+    for name in PAGED + SPLIT:
         per_step[name] = per_prefill[name] = 0
     return per_step, per_prefill
 
@@ -1021,24 +1051,12 @@ def phase_paged_parity(cfg, phase="paged_parity", forcer=None):
           "top1_agree": tally["agree"], **forced})
 
 
-def phase_serving(model, cfg, phase, name):
-    """bench.py serving_bench's default campaign through the port."""
-    from tiny_llm_tpu_torch import kernels
-    from tiny_llm_tpu_torch.serving import ServingMetrics, batch_generate
+def _recorder():
+    """A ByteTokenizer with no EOS (synthetic weights) that records each
+    finished request's ids, in the order batch_generate returns them."""
     from tiny_llm_tpu_torch.tokenizer import ByteTokenizer
 
-    torch.cuda.reset_peak_memory_stats()
-    model.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
-    pool = model.page_pool
-    rng = np.random.default_rng(0)
-    lens = rng.integers(128, MAX_SEQ + 1, size=SERVING_REQUESTS)
-    max_out = int(rng.integers(32, 129, size=SERVING_REQUESTS).mean())
-    prompts = ["x" * int(n) for n in lens]  # one byte token per character
-
     class Recorder(ByteTokenizer):
-        """No EOS (synthetic weights); records each finished request's ids,
-        in the order batch_generate returns them."""
-
         eos_token_id = -1
 
         def __init__(self):
@@ -1048,17 +1066,28 @@ def phase_serving(model, cfg, phase, name):
             self.decoded.append(list(ids))
             return super().decode(ids)
 
-    kw = dict(max_seq_len=MAX_SEQ, batch_size=SERVING_BATCH, prefill_step=128,
-              decode_burst=BURST)
-    # Warm-up as bench.py: every power-of-two chunk, the 256 chunk's shape
-    # and the longest prompt.
-    batch_generate(model, Recorder(), ["x" * 255, "x" * 257, "x" * MAX_SEQ],
-                   max_output_tokens=max(8, BURST), **kw)
+    return Recorder()
+
+
+def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs):
+    """A warm-up on the prompts `warm`, then n_runs campaigns of "x" * n
+    prompts (one byte token per character, all arriving at t = 0) through
+    batch_generate. Checks: every request returns, runs to the output cap
+    or to max_seq, with tokens in range; the pool is full again after each
+    campaign; the campaigns give identical tokens. Returns (each campaign's
+    metrics, with its wall time, and the launches over the campaigns)."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.serving import ServingMetrics, batch_generate
+
+    pool = model.page_pool
+    max_seq = kw["max_seq_len"]
+    prompts = ["x" * int(n) for n in lens]
+    batch_generate(model, _recorder(), warm, max_output_tokens=max(8, BURST), **kw)
     check(pool.free_pages == pool.num_pages - 1, "the warm-up leaked pages")
     kernels.reset_launches()
     runs = []
-    for _ in range(3):
-        tok = Recorder()
+    for _ in range(n_runs):
+        tok = _recorder()
         met = ServingMetrics(pool_capacity_pages=pool.num_pages, page_size=pool.page_size)
         met._bytes_per_slot = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads \
             * cfg.head_dim * 2
@@ -1066,60 +1095,107 @@ def phase_serving(model, cfg, phase, name):
         t0 = time.perf_counter()
         res = batch_generate(model, tok, prompts, max_output_tokens=max_out, metrics=met, **kw)
         met.wall_s = time.perf_counter() - t0
-        check(sorted(i for i, _ in res) == list(range(SERVING_REQUESTS)),
-              "a request did not return")
+        check(sorted(i for i, _ in res) == list(range(len(prompts))), "a request did not return")
         check(pool.free_pages == pool.num_pages - 1, "a campaign leaked pages")
         ids = {i: got for (i, _), got in zip(res, tok.decoded)}
         for i, got in ids.items():
             # Each request runs to the output cap, or to max_seq (its offset
             # is prompt + outputs - 1: the first token comes from prefill).
-            check(len(got) == max_out or int(lens[i]) + len(got) - 1 == MAX_SEQ,
+            check(len(got) == max_out or int(lens[i]) + len(got) - 1 == max_seq,
                   f"request {i}: {len(got)} tokens")
             check(all(0 <= t < cfg.vocab_size for t in got), f"request {i}: token out of range")
         runs.append((met, ids))
     counts = kernels.launches()
     check(all(ids == runs[0][1] for _, ids in runs), "the campaigns' tokens differ")
+    return [dict(m.as_dict(), wall_s=m.wall_s) for m, _ in runs], counts
+
+
+def phase_serving(model, cfg, phase, name, mixed=False):
+    """bench.py serving_bench's default campaign through the port; with
+    `mixed`, bench.py --mode serving --mixed's (mixed prefill+decode
+    bursts of MIXED_CHUNK-token sub-chunks)."""
+    torch.cuda.reset_peak_memory_stats()
+    model.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, MAX_SEQ + 1, size=SERVING_REQUESTS)
+    max_out = int(rng.integers(32, 129, size=SERVING_REQUESTS).mean())
+    kw = dict(max_seq_len=MAX_SEQ, batch_size=SERVING_BATCH, prefill_step=128,
+              decode_burst=BURST)
+    mixed_bursts = []
+    if mixed:
+        kw.update(mixed_prefill=True, mixed_chunk=MIXED_CHUNK)
+        orig = model.mixed_burst
+        model.mixed_burst = lambda *a, **k: mixed_bursts.append(1) or orig(*a, **k)
+    try:
+        # Warm-up as bench.py: every power-of-two chunk, the 256 chunk's
+        # shape and the longest prompt.
+        rows, counts = _campaigns(model, cfg, lens, max_out, kw,
+                                  ["x" * 255, "x" * 257, "x" * MAX_SEQ], 3)
+    finally:
+        if mixed:
+            del model.mixed_burst
     per_step, per_prefill = _path_launches(cfg)
-    for kern in [k for k in per_step if per_step[k] or per_prefill[k]] + list(PAGED):
-        if kern != "fused_decode_attention":
+    # A mixed campaign's sub-chunks (32 tokens) run paged prefill; only its
+    # classic chunks (a prefill with no active slot) may reach paged decode.
+    need = [k for k in per_step if per_step[k] or per_prefill[k]] + list(PAGED)
+    for kern in need:
+        if kern != "fused_decode_attention" and not (mixed and kern == "paged_decode"):
             check(counts[kern] > 0, f"{kern} never launched on the serving path")
     check(counts["fused_decode_attention"] == 0, "the dense decode kernel ran on the paged path")
-    rows = [m.as_dict() for m, _ in runs]
+    check(not mixed or len(mixed_bursts) > 0, "no mixed burst ran")
     tok_s = [r["output_tok_s"] for r in rows]
-    mid = sorted(range(3), key=lambda k: tok_s[k])[1]
-    profile = _profile_serving_burst(model, lens)
-    emit({"phase": phase, "model": name, "layers": cfg.num_hidden_layers,
-          "requests": SERVING_REQUESTS, "batch": SERVING_BATCH, "max_seq": MAX_SEQ,
-          "page_size": PAGE_SIZE, "pool_pages": POOL_PAGES, "prefill_step": 128,
-          "decode_burst": BURST, "max_output_tokens": max_out,
-          "prompt_tokens": int(lens.sum()), "output_tok_s": tok_s[mid],
-          "output_tok_s_all": tok_s, "req_s": rows[mid]["req_s"],
-          "ttft_p50_ms": rows[mid]["ttft_p50_ms"], "ttft_p95_ms": rows[mid]["ttft_p95_ms"],
-          "request_latency_p50_ms": rows[mid]["request_latency_p50_ms"],
-          "mean_batch_occupancy": rows[mid]["mean_batch_occupancy"],
-          "peak_live_pages": rows[mid]["peak_live_pages"],
-          "output_tokens": rows[mid]["output_tokens"], "decode_bursts": rows[mid]["decode_steps"],
-          "wall_s_all": [m.wall_s for m, _ in runs], "launches_3_campaigns": counts,
-          "pool_full_after_each_campaign": True,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "decode_burst_profile": profile})
+    mid = rows[sorted(range(3), key=lambda k: tok_s[k])[1]]
+    line = {"phase": phase, "model": name, "layers": cfg.num_hidden_layers,
+            "requests": SERVING_REQUESTS, "batch": SERVING_BATCH, "max_seq": MAX_SEQ,
+            "page_size": PAGE_SIZE, "pool_pages": POOL_PAGES, "prefill_step": 128,
+            "decode_burst": BURST, "max_output_tokens": max_out,
+            "prompt_tokens": int(lens.sum()), "output_tok_s": mid["output_tok_s"],
+            "output_tok_s_all": tok_s, "req_s": mid["req_s"],
+            "ttft_p50_ms": mid["ttft_p50_ms"], "ttft_p95_ms": mid["ttft_p95_ms"],
+            "request_latency_p50_ms": mid["request_latency_p50_ms"],
+            "mean_batch_occupancy": mid["mean_batch_occupancy"],
+            "peak_live_pages": mid["peak_live_pages"],
+            "output_tokens": mid["output_tokens"], "decode_bursts": mid["decode_steps"],
+            "wall_s_all": [r["wall_s"] for r in rows], "launches_3_campaigns": counts,
+            "pool_full_after_each_campaign": True,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if mixed:
+        line.update(mixed_chunk=MIXED_CHUNK, mixed_bursts_3_campaigns=len(mixed_bursts),
+                    mixed_burst_profile=_profile_serving_burst(model, lens, mixed=True))
+    else:
+        line["decode_burst_profile"] = _profile_serving_burst(model, lens)
+    emit(line)
     return counts
 
 
-def _profile_serving_burst(model, lens):
+def _profile_serving_burst(model, lens, mixed=False):
     """One BURST-step serving decode burst over four installed requests (the
     campaign's first four prompt lengths): device time by kernel name, and
-    the device busy share against the same burst's wall time unprofiled."""
+    the device busy share against the same burst's wall time unprofiled.
+    With `mixed`, a mixed burst whose steps also prefill BURST sub-chunks of
+    MIXED_CHUNK tokens of a fresh prompt."""
+    from tiny_llm_tpu_torch.models.qwen3 import MixedStep
+
     batch = model.create_batching_kv_cache(SERVING_BATCH)
     for slot, n in enumerate(lens[:SERVING_BATCH]):
         c = model.create_kv_cache()
         model([[ord("x")] * int(n)], 0, c, logits_to_keep=1)
         batch.add_request(c, slot)
     first = np.full((SERVING_BATCH,), ord("x"), np.int32)
-    out = _device_profile(lambda: model.decode_burst(batch, first, BURST), BURST)
+
+    def burst():
+        if not mixed:
+            return model.decode_burst(batch, first, BURST)
+        c = model.create_kv_cache()
+        model.mixed_burst(batch, first, BURST, [
+            MixedStep(cache=c, tokens=[ord("x")] * MIXED_CHUNK, offset=t * MIXED_CHUNK)
+            for t in range(BURST)], MIXED_CHUNK)
+        c.release()
+
+    out = _device_profile(burst, BURST)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.decode_burst(batch, first, BURST)
+    burst()
     wall_ms = (time.perf_counter() - t0) * 1e3 / BURST
     batch.release()
     out["wall_ms_per_step"] = wall_ms
@@ -1127,6 +1203,467 @@ def _profile_serving_burst(model, lens):
     out["busy_share_unprofiled"] = None if dev_ms is None else dev_ms / wall_ms
     return out
 
+
+
+def _state_err(what, got, want, tol):
+    """Kernel (o, m, l) against the plain version's: o within tol, m and l
+    within 1e-3 of max(1, |plain|) (f32 sums in other orders). Returns o's
+    max error."""
+    err = max_err(got[0], want[0])
+    check(err <= tol, f"{what}: o {err} > {tol}")
+    for i, part in ((1, "m"), (2, "l")):
+        gap = float(((got[i] - want[i]).abs() / want[i].abs().clamp(min=1.0)).max())
+        check(gap <= 1e-3, f"{what}: {part} differs by {gap} (relative)")
+    return err
+
+
+def phase_split_kernels(shapes, contract):
+    """The split paged prefill's two kernels against their plain versions on
+    the card, at Qwen3-4B's and Qwen3-30B-A3B's head shapes: the chunk-state
+    flash prefill at L = 1024 and 2048 (its own k/v, lens = L), and the
+    prefix-state walk at L = 1024 over prefixes of 1024, 4096 and 7168 in a
+    shuffled pool, beside a row of prefix 0 (which must give the identity
+    state exactly). Beside the walk: the whole split (both kernels and the
+    combine) against the paged prefill kernel over the same chunk and
+    prefix. Timed by CUDA-graph replay (the walk over 4 layers' pages)."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+    from tiny_llm_tpu_torch.kernels.split_prefill import split_paged_prefill
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tol = 2e-2
+    cases, errs = [], {n: [] for n in SPLIT}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for model_name, cfg in shapes:
+        Hkv, D = cfg.num_key_value_heads, cfg.head_dim
+        Hq = cfg.num_attention_heads
+        sc = D**-0.5
+        main = model_name == "qwen3-4b"
+        for L in (LONG_CHUNK, 2 * LONG_CHUNK):
+            q, k, v = randn(1, Hq, L, D), randn(1, Hkv, L, D), randn(1, Hkv, L, D)
+            lens = torch.full((1,), L, dtype=torch.int32, device=dev)
+            got = ka.flash_prefill_state_cuda(q, k, v, lens, sc)
+            want = ka.flash_prefill_state_plain(q, k, v, lens, sc)
+            torch.cuda.synchronize()
+            err = _state_err(f"flash_prefill_state L={L}", got, want, tol)
+            errs["flash_prefill_state"].append(err)
+            del got
+            kern = graph_ms(lambda: ka.flash_prefill_state_cuda(q, k, v, lens, sc))
+            plain = event_ms(lambda: ka.flash_prefill_state_plain(q, k, v, lens, sc), reps=1)
+
+            def lib_fn():
+                return sdpa(q, k, v, is_causal=True, scale=sc, enable_gqa=True)
+
+            check(max_err(lib_fn(), want[0]) <= tol, f"SDPA yardstick L={L} differs")
+            lib = graph_ms(lib_fn)
+            del want
+            bms, by = bound(2 * Hq * L * D * 2 + 2 * Hkv * L * D * 2 + 2 * Hq * L * 4,
+                            4 * Hq * (L * (L + 1) // 2) * D)
+            case = {"kernel": "flash_prefill_state", "tpu_kernel": ka.TPU_KERNEL_STATE,
+                    "model": model_name,
+                    "shape": f"B=1 L={L} lens={L} Hq={Hq} Hkv={Hkv} D={D}",
+                    "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                    "library_ms": lib, "library": "SDPA causal over the chunk",
+                    "bound_ms": bms, "bound_by": by}
+            cases.append(case)
+            if main and L == LONG_CHUNK:
+                contract["flash_prefill_state"] = {
+                    "name": "flash_prefill_state", "route": "cuda", "source": ka.SOURCE,
+                    "replaces": "tiny_llm_tpu/kernels/flash_attention_pallas.py:597",
+                    "case": case["shape"], "ms": kern, "plain_ms": plain, "bound_ms": bms,
+                    "bound_by": by, "library_ms": lib,
+                }
+            del q, k, v
+
+        # The prefix walk: row 0 a chunk of L at offset `prefix`, row 1 a
+        # chunk at offset 0; both chunks' k/v already in the pages.
+        L, layers = LONG_CHUNK, 4
+        width = LONG_PROMPT // PAGE_SIZE
+        n_pages = width + L // PAGE_SIZE + 8
+        kp = randn(layers, n_pages, Hkv, PAGE_SIZE, D)
+        vp = randn(layers, n_pages, Hkv, PAGE_SIZE, D)
+        perm = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(6)) + 1).numpy()
+        for prefix in (1024, 4096, LONG_PROMPT - L):
+            bt = _tables(perm, [prefix + L, L], width)
+            pre = torch.tensor([prefix, 0], dtype=torch.int32, device=dev)
+            q = randn(2, Hq, L, D)
+            got = pa.paged_prefix_state_cuda(q, kp[0], vp[0], bt, pre, sc)
+            want = pa.paged_prefix_state_plain(q, kp[0], vp[0], bt, pre, sc)
+            torch.cuda.synchronize()
+            what = f"paged_prefix_state prefix={prefix}"
+            err = _state_err(what, got, want, tol)
+            check(not bool(got[0][1].any()) and bool((got[1][1] == ka.NEG_INF).all())
+                  and not bool(got[2][1].any()), f"{what}: the prefix-0 row is not the identity")
+            errs["paged_prefix_state"].append(err)
+            del got
+            kern = graph_ms(lambda: [pa.paged_prefix_state_cuda(q, kp[i], vp[i], bt, pre, sc)
+                                     for i in range(layers)]) / layers
+            plain = event_ms(lambda: pa.paged_prefix_state_plain(q, kp[0], vp[0], bt, pre, sc),
+                             reps=1)
+            # Library yardstick: SDPA of row 0 over its prefix gathered
+            # contiguous (row 1 has no prefix).
+            pref = []
+            for i in range(layers):
+                k_i, v_i = pa.gather_pages_dense(kp[i], vp[i], bt[:1])
+                pref.append((k_i[:, :, :prefix].contiguous(), v_i[:, :, :prefix].contiguous()))
+            check(max_err(sdpa(q[:1], *pref[0], scale=sc, enable_gqa=True), want[0][:1]) <= tol,
+                  f"SDPA yardstick {what} differs")
+            lib = graph_ms(lambda: [sdpa(q[:1], k_i, v_i, scale=sc, enable_gqa=True)
+                                    for k_i, v_i in pref]) / layers
+            del pref, want
+            # The whole split against the paged prefill kernel (row 13) over
+            # the same chunk and prefix: both rows' chunk k/v, per layer.
+            chunks = []
+            for i in range(layers):
+                k_i, v_i = pa.gather_pages_dense(kp[i], vp[i], bt)
+                chunks.append(tuple(torch.stack([x[0, :, prefix : prefix + L], x[1, :, :L]])
+                                    .contiguous() for x in (k_i, v_i)))
+            split = split_paged_prefill(q, *chunks[0], kp[0], vp[0], bt, pre, sc)
+            unsplit = pa.paged_prefill_cuda(q, kp[0], vp[0], bt, pre + L, sc)
+            torch.cuda.synchronize()
+            split_err = max_err(split, unsplit)
+            check(split_err <= tol, f"split against paged prefill, prefix={prefix}: {split_err}")
+            split_ms = graph_ms(lambda: [split_paged_prefill(q, *chunks[i], kp[i], vp[i], bt, pre,
+                                                             sc) for i in range(layers)]) / layers
+            row13_ms = graph_ms(lambda: [pa.paged_prefill_cuda(q, kp[i], vp[i], bt, pre + L, sc)
+                                         for i in range(layers)]) / layers
+            del chunks, split, unsplit
+            # Row 0's prefix k/v, both rows' q and o (bf16), m and l (f32).
+            bms, by = bound(2 * Hkv * prefix * D * 2 + 2 * (2 * Hq * L * D * 2)
+                            + 2 * (2 * Hq * L * 4), 4 * Hq * L * prefix * D)
+            case = {"kernel": "paged_prefix_state", "tpu_kernel": pa.TPU_KERNEL_PREFIX,
+                    "model": model_name,
+                    "shape": f"B=2 L={L} prefix=[{prefix}, 0] pool={n_pages}x{PAGE_SIZE} "
+                             f"width={width} Hq={Hq} Hkv={Hkv} D={D}",
+                    "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                    "library_ms": lib, "library": "SDPA of row 0 over its prefix gathered "
+                    "contiguous", "bound_ms": bms, "bound_by": by,
+                    "split_ms": split_ms, "split_vs_paged_prefill_max_err": split_err,
+                    "paged_prefill_ms": row13_ms}
+            cases.append(case)
+            if main and prefix == LONG_PROMPT - L:
+                contract["paged_prefix_state"] = {
+                    "name": "paged_prefix_state", "route": "cuda", "source": pa.SOURCE,
+                    "replaces": "tiny_llm_tpu/kernels/paged_attention_pallas.py:716",
+                    "case": case["shape"], "ms": kern, "plain_ms": plain, "bound_ms": bms,
+                    "bound_by": by, "library_ms": lib,
+                }
+            del q
+        del kp, vp
+        torch.cuda.empty_cache()
+    for name in SPLIT:
+        contract[name]["max_abs_err"] = max(errs[name])
+    emit({"phase": "split_kernels", "cases": cases})
+
+
+def phase_long_parity(cfg):
+    """The split route on the card at 4B widths, 4 layers: a 3072-token
+    prompt in chunks of LONG_CHUNK over the pool (K3 on the first, the
+    split on the two at offset > 0). Last-row logits of the kernel path
+    against the plain path's, and of the split route against the unsplit
+    route (the paged prefill kernel, forward_step_paged(split_attention=
+    False), run first on the same pages: it writes the same k/v)."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
+    from tiny_llm_tpu_torch.models.qwen3 import forward_step_paged
+
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    params = synthetic_quantized_params(cfg4, seed=3)
+    n = 3 * LONG_CHUNK
+    fast, plain = (Qwen3Model(params, cfg4, max_seq_len=n + PAGE_SIZE, impl=impl)
+                   .enable_paged_attention(num_pages=n // PAGE_SIZE + 4, page_size=PAGE_SIZE)
+                   for impl in (None, "torch"))
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, n))
+    cf, cp = fast.create_kv_cache(), plain.create_kv_cache()
+    tally = {"worst": 0.0, "decided": 0, "agree": 0}
+    split_tally = {"worst": 0.0, "decided": 0, "agree": 0}
+    pool = fast.page_pool
+    kernels.reset_launches()
+    for off in range(0, n, LONG_CHUNK):
+        chunk = prompt[:, off : off + LONG_CHUNK]
+        if off:
+            cf.ensure_capacity(off + LONG_CHUNK)
+            table = torch.tensor([cf.block_table_row(fast._paged_width)], dtype=torch.int32,
+                                 device=fast.device)
+            unsplit = forward_step_paged(
+                fast.params, cfg4, fast._rope_tables, fast._tokens(chunk),
+                torch.tensor([off], dtype=torch.int32, device=fast.device), pool.key_pages,
+                pool.value_pages, table, logits_to_keep=1, split_attention=False)
+        lf = fast(chunk, off, cf, logits_to_keep=1)
+        lp = plain(chunk, off, cp, logits_to_keep=1)
+        _parity_check(lf, lp, f"long prompt chunk at {off}", tally)
+        if off:
+            _parity_check(lf, unsplit, f"split against unsplit at {off}", split_tally)
+    counts = kernels.launches()
+    want = {"flash_attention": 4, "flash_prefill_state": 8, "paged_prefix_state": 8,
+            "paged_prefill": 8}
+    check({k: counts[k] for k in want} == want, f"long_parity launches {counts}")
+    cf.release()
+    cp.release()
+    check(tally["agree"] == tally["decided"] and split_tally["agree"] == split_tally["decided"],
+          "top-1 disagrees on a decided position")
+    emit({"phase": "long_parity", "layers": 4, "prompt_tokens": n, "chunk": LONG_CHUNK,
+          "kernel_vs_plain_worst_err_over_tol": tally["worst"],
+          "split_vs_unsplit_worst_err_over_tol": split_tally["worst"],
+          "tol": "5% of max |reference logit|", "top1_decided": tally["decided"] +
+          split_tally["decided"], "top1_agree": tally["agree"] + split_tally["agree"],
+          "launches": {k: counts[k] for k in want}})
+
+
+def phase_long_prefill(long, cfg):
+    """One LONG_PROMPT-token prompt at full width and depth, prefilled in
+    chunks of LONG_CHUNK and of 2 * LONG_CHUNK (three runs each, after a
+    warm-up), with exact launch counts: the offset > 0 chunks take the
+    split, the first chunk K3, and no chunk the paged prefill kernel."""
+    from tiny_llm_tpu_torch import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    long.enable_paged_attention(num_pages=LONG_PAGES, page_size=PAGE_SIZE)
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, size=LONG_PROMPT)
+    Ly = cfg.num_hidden_layers
+    k1 = _path_launches(cfg)[1]["quant_matmul"]
+
+    def run(chunk):
+        c = long.create_kv_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for off in range(0, LONG_PROMPT, chunk):
+            logits = long([prompt[off : off + chunk]], off, c, logits_to_keep=1)
+        tok = int(logits[0, -1].float().argmax())
+        secs = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits.float()).all()), "non-finite long-prompt logits")
+        check(tuple(logits.shape) == (1, 1, long.vocab_size), "long-prompt logits shape")
+        c.release()
+        return secs, tok
+
+    run(LONG_CHUNK)  # warm-up
+    line, total = {}, collections.Counter()
+    for chunk in (LONG_CHUNK, 2 * LONG_CHUNK):
+        kernels.reset_launches()
+        runs = [run(chunk) for _ in range(3)]
+        counts = kernels.launches()
+        total.update(counts)
+        n_chunks = LONG_PROMPT // chunk
+        per_prefill = {name: 0 for name in counts}
+        per_prefill.update(quant_matmul=k1 * n_chunks, flash_attention=Ly,
+                           flash_prefill_state=Ly * (n_chunks - 1),
+                           paged_prefix_state=Ly * (n_chunks - 1))
+        check(counts == {k: 3 * v for k, v in per_prefill.items()},
+              f"chunk {chunk}: launches {counts} != 3 x {per_prefill}")
+        check(len({tok for _, tok in runs}) == 1, f"chunk {chunk}: the runs' tokens differ")
+        tok_s = sorted(LONG_PROMPT / secs for secs, _ in runs)
+        line[f"chunk_{chunk}"] = {"prefill_tok_s": tok_s[1], "prefill_tok_s_all": tok_s,
+                                  "launches_per_prefill": per_prefill}
+    # Device time of one prefill at chunks of LONG_CHUNK, by kernel name.
+    line["prefill_profile"] = _device_profile(lambda: run(LONG_CHUNK), 1)
+    emit({"phase": "long_prefill", "model": "qwen3-4b", "layers": Ly,
+          "prompt_tokens": LONG_PROMPT, "max_seq": LONG_MAX_SEQ, "pool_pages": LONG_PAGES,
+          "page_size": PAGE_SIZE, **line,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return dict(total)
+
+
+def phase_long_serving(long, cfg):
+    """Long prompts through batch_generate on the LONG_MAX_SEQ model:
+    LONG_REQUESTS prompts of LONG_MIN_PROMPT..LONG_PROMPT tokens, output
+    cap the mean of draws from 32..128, batch 4, prefill step LONG_CHUNK,
+    bench.py's pool rule (max_seq // ps) * (batch + 2) + 9, a warm-up and
+    two campaigns."""
+    torch.cuda.reset_peak_memory_stats()
+    pages = (LONG_MAX_SEQ // PAGE_SIZE) * (SERVING_BATCH + 2) + 9
+    long.enable_paged_attention(num_pages=pages, page_size=PAGE_SIZE)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LONG_MIN_PROMPT, LONG_PROMPT + 1, size=LONG_REQUESTS)
+    max_out = int(rng.integers(32, 129, size=LONG_REQUESTS).mean())
+    kw = dict(max_seq_len=LONG_MAX_SEQ, batch_size=SERVING_BATCH, prefill_step=LONG_CHUNK,
+              decode_burst=BURST)
+    rows, counts = _campaigns(long, cfg, lens, max_out, kw, ["x" * (LONG_MIN_PROMPT + 1)], 2)
+    for kern in ("quant_matmul", "flash_attention", "fused_paged_decode_attention",
+                 "paged_prefill", *SPLIT):
+        check(counts[kern] > 0, f"{kern} never launched on the long serving path")
+    emit({"phase": "long_serving", "model": "qwen3-4b", "layers": cfg.num_hidden_layers,
+          "requests": LONG_REQUESTS, "batch": SERVING_BATCH, "max_seq": LONG_MAX_SEQ,
+          "page_size": PAGE_SIZE, "pool_pages": pages, "prefill_step": LONG_CHUNK,
+          "decode_burst": BURST, "max_output_tokens": max_out, "prompt_lens": lens.tolist(),
+          "prompt_tokens": int(lens.sum()),
+          "output_tok_s_all": [r["output_tok_s"] for r in rows],
+          "input_tok_s_all": [int(lens.sum()) / r["wall_s"] for r in rows],
+          "ttft_p50_ms_all": [r["ttft_p50_ms"] for r in rows],
+          "ttft_p95_ms_all": [r["ttft_p95_ms"] for r in rows],
+          "request_latency_p50_ms_all": [r["request_latency_p50_ms"] for r in rows],
+          "mean_batch_occupancy_all": [r["mean_batch_occupancy"] for r in rows],
+          "wall_s_all": [r["wall_s"] for r in rows], "launches_2_campaigns": counts,
+          "pool_full_after_each_campaign": True,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return counts
+
+
+class LogitRecorder:
+    """Inside `with`, records every LM-head output of the port's model
+    steps (models/qwen3.py _lm_head), in call order."""
+
+    def __enter__(self):
+        import tiny_llm_tpu_torch.models.qwen3 as qwen3
+
+        self._mod, self._orig, self.out = qwen3, qwen3._lm_head, []
+
+        def lm_head(*a, **k):
+            y = self._orig(*a, **k)
+            self.out.append(y)
+            return y
+
+        qwen3._lm_head = lm_head
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._lm_head = self._orig
+
+
+def phase_mixed_parity(cfg):
+    """The mixed prefill+decode burst at 4B widths, 4 layers: 4 installed
+    decode slots and a 512-token prompt scheduled as 16 sub-chunks of
+    MIXED_CHUNK. (a) Kernel path against plain path, teacher-forced: 16
+    one-step mixed bursts fed the plain path's decode tokens, each step's
+    decode and completion logits within parity's tolerance. (b) One 16-step
+    mixed burst against the serialized schedule (a 16-step decode burst,
+    then the prompt's chunked prefill) on the kernel path: tokens equal
+    wherever the serialized logits decide them, up to a slot's first
+    undecided step that differs. (c) One mixed burst under
+    set_sync_debug_mode("error")."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
+    from tiny_llm_tpu_torch.models.qwen3 import MixedStep, forward_mixed_burst_paged
+
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    params = synthetic_quantized_params(cfg4, seed=4)
+    fast, plain = (Qwen3Model(params, cfg4, max_seq_len=MAX_SEQ, impl=impl)
+                   .enable_paged_attention(num_pages=48, page_size=PAGE_SIZE)
+                   for impl in (None, "torch"))
+    rng = np.random.default_rng(5)
+    slot_prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (130, 257, 300, 411)]
+    prompt = rng.integers(0, cfg.vocab_size, size=16 * MIXED_CHUNK).tolist()
+    steps, B = 16, len(slot_prompts)
+
+    def install(m):
+        batch = m.create_batching_kv_cache(B)
+        first = []
+        for slot, p in enumerate(slot_prompts):
+            c = m.create_kv_cache()
+            first.append(int(m([p], 0, c, logits_to_keep=1)[0, -1].float().argmax()))
+            batch.add_request(c, slot)
+        return batch, np.asarray(first, np.int32)
+
+    def schedule(cache):
+        return [MixedStep(cache=cache, tokens=prompt[t * MIXED_CHUNK : (t + 1) * MIXED_CHUNK],
+                          offset=t * MIXED_CHUNK) for t in range(steps)]
+
+    # (a) teacher-forced, one step per burst.
+    (bf, first), (bp, _) = install(fast), install(plain)
+    cf, cp = fast.create_kv_cache(), plain.create_kv_cache()
+    sf, sp = schedule(cf), schedule(cp)
+    tally = {"worst": 0.0, "decided": 0, "agree": 0}
+    toks = first
+    kernels.reset_launches()
+    for t in range(steps):
+        with LogitRecorder() as rf:
+            fast.mixed_burst(bf, toks, 1, [sf[t]], MIXED_CHUNK)
+        with LogitRecorder() as rp:
+            plain.mixed_burst(bp, toks, 1, [sp[t]], MIXED_CHUNK)
+        _parity_check(rf.out[0], rp.out[0], f"mixed step {t}", tally)
+        toks = rp.out[0][0, :B].float().argmax(-1).to(torch.int32).cpu().numpy()
+    counts = kernels.launches()
+    Ly = cfg4.num_hidden_layers
+    want = {"fused_paged_decode_attention": steps * Ly, "paged_prefill": steps * Ly}
+    check({k: counts[k] for k in want} == want, f"mixed step launches {counts}")
+    check(tally["agree"] == tally["decided"], "mixed: top-1 disagrees on a decided position")
+    for b, c in ((bf, cf), (bp, cp)):
+        b.release()
+        c.release()
+
+    # (b) one 16-step mixed burst against the serialized schedule.
+    def serialized():
+        batch, first = install(fast)
+        c = fast.create_kv_cache()
+        with LogitRecorder() as rec:
+            dec = fast.decode_burst(batch, first, steps)
+            for off in range(0, len(prompt), 128):
+                fast([prompt[off : off + 128]], off, c, logits_to_keep=1)
+        batch.release()
+        c.release()
+        dec_logits = torch.stack([y[:, -1] for y in rec.out[:steps]])  # [steps, B, V]
+        return dec, dec_logits, rec.out[-1][0, -1]
+
+    def mixed():
+        batch, first = install(fast)
+        c = fast.create_kv_cache()
+        dec, comp = fast.mixed_burst(batch, first, steps, schedule(c), MIXED_CHUNK)
+        batch.release()
+        c.release()
+        return dec, int(comp[-1])
+
+    (dec_s, logits_s, comp_logits), (dec_m, comp_m) = serialized(), mixed()
+    compared, skipped = 0, 0
+    for b in range(B):
+        for t in range(steps):
+            top2 = logits_s[t, b].float().topk(2).values
+            tol = 5e-2 * float(logits_s[t, b].float().abs().max())
+            if float(top2[0] - top2[1]) > tol:
+                check(dec_m[t, b] == dec_s[t, b], f"mixed against serialized: slot {b} step {t}")
+                compared += 1
+            elif dec_m[t, b] != dec_s[t, b]:
+                skipped += steps - t  # an undecided step went the other way
+                break
+    top2 = comp_logits.float().topk(2).values
+    if float(top2[0] - top2[1]) > 5e-2 * float(comp_logits.float().abs().max()):
+        check(comp_m == int(comp_logits.float().argmax()), "mixed completion token differs")
+        compared += 1
+
+    # (c) one mixed burst with no host sync inside.
+    batch, first = install(fast)
+    c = fast.create_kv_cache()
+    sched = schedule(c)
+    for s in sched:
+        c.ensure_capacity(s.offset + len(s.tokens))
+    for slot in batch.slots:
+        slot.ensure_capacity(slot.offset + steps)
+    width, dev = fast._paged_width, fast.device
+    args = dict(
+        tokens0=torch.as_tensor(first, device=dev),
+        offsets0=torch.as_tensor(batch.offsets, device=dev),
+        key_pages=fast.page_pool.key_pages, value_pages=fast.page_pool.value_pages,
+        block_table=torch.as_tensor(batch.block_table(width), device=dev),
+        p_chunks=torch.as_tensor([s.tokens for s in sched], device=dev),
+        p_offsets=torch.as_tensor([s.offset for s in sched], dtype=torch.int32, device=dev),
+        p_tables=torch.as_tensor([c.block_table_row(width)] * steps, dtype=torch.int32,
+                                 device=dev),
+        p_last=torch.full((steps,), MIXED_CHUNK - 1, device=dev),
+    )
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, comp = forward_mixed_burst_paged(fast.params, cfg4, fast._rope_tables, steps=steps,
+                                              **args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(tuple(out.cpu().shape) == (steps, B) and tuple(comp.cpu().shape) == (steps,),
+          "sync-free mixed burst shape")
+    batch.release()
+    c.release()
+    check(fast.page_pool.live_pages == 0 and plain.page_pool.live_pages == 0, "pages leaked")
+    emit({"phase": "mixed_parity", "layers": 4, "decode_slots": B,
+          "slot_prompt_tokens": [len(p) for p in slot_prompts], "prompt_tokens": len(prompt),
+          "mixed_chunk": MIXED_CHUNK, "steps": steps,
+          "kernel_vs_plain_worst_err_over_tol": tally["worst"],
+          "tol": "5% of max |plain logit|", "top1_decided": tally["decided"],
+          "top1_agree": tally["agree"], "launches_teacher_forced": {k: counts[k] for k in want},
+          "mixed_vs_serialized_decided_compared": compared,
+          "mixed_vs_serialized_steps_after_an_undecided_flip": skipped,
+          "sync_free_burst": {"steps": steps, "mode": "error", "host_syncs_in_burst": 0}})
 
 
 def main() -> int:
@@ -1145,7 +1682,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi, ptxas = phase_build()
     cfg = QWEN3_CONFIGS["qwen3-4b"]
-    model = Qwen3Model(synthetic_quantized_params(cfg, seed=0), cfg, max_seq_len=MAX_SEQ)
+    params = synthetic_quantized_params(cfg, seed=0)
+    model = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ)
     moe_cfg = QWEN3_CONFIGS["qwen3-30b-a3b"]
     moe = Qwen3Model(synthetic_quantized_params(moe_cfg, seed=0), moe_cfg, max_seq_len=MAX_SEQ)
     contract = phase_kernels(model, cfg, moe, moe_cfg)
@@ -1154,6 +1692,17 @@ def main() -> int:
     phase_generate(model)
     phase_paged_parity(cfg)
     serving_counts = phase_serving(model, cfg, "serving", "qwen3-4b")
+    # The long-prompt and mixed routes (Qwen3-4B; the kernels at both head shapes).
+    phase_split_kernels([("qwen3-4b", cfg), ("qwen3-30b-a3b", moe_cfg)], contract)
+    phase_long_parity(cfg)
+    long = Qwen3Model(params, cfg, max_seq_len=LONG_MAX_SEQ)  # the same weights, longer context
+    del params
+    long_counts = phase_long_prefill(long, cfg)
+    phase_long_serving(long, cfg)
+    del long
+    torch.cuda.empty_cache()
+    phase_mixed_parity(cfg)
+    phase_serving(model, cfg, "mixed_serving", "qwen3-4b", mixed=True)
     del model
     torch.cuda.empty_cache()
     moe_counts = phase_model(moe, moe_cfg, "moe_model", "qwen3-30b-a3b")
@@ -1163,13 +1712,14 @@ def main() -> int:
     phase_serving(moe, moe_cfg, "moe_serving", "qwen3-30b-a3b")
     # Launches on each kernel's own path: the dense 4B run for K1-K3, the
     # 4B serving campaigns for the paged kernels, the dense 30B-A3B run for
-    # the grouped expert matmul.
+    # the grouped expert matmul, the 4B long-prompt prefills for the split's.
     for name, entry in contract.items():
         entry["launches"] = (serving_counts if name in PAGED else
-                             moe_counts if name == "grouped_quant_matmul" else counts)[name]
+                             moe_counts if name == "grouped_quant_matmul" else
+                             long_counts if name in SPLIT else counts)[name]
     kern_line = {"kernels": [contract[n] for n in
                              ("quant_matmul", "fused_decode_attention", "flash_attention",
-                              *PAGED, "grouped_quant_matmul")]}
+                              *PAGED, "grouped_quant_matmul", *SPLIT)]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

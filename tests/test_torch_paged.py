@@ -287,17 +287,30 @@ def test_paged_and_dense_port_models_agree(paged_pair):
     assert pm.page_pool.live_pages == 0
 
 
-def test_split_size_chunk_and_mixed_raise():
-    """An offset > 0 chunk of >= 1024 tokens needs the split paged prefill,
-    which is not ported: it raises instead of taking another route."""
+def test_split_size_chunk_and_mixed_raise(monkeypatch):
+    """An offset > 0 chunk of >= 1024 tokens takes the split paged prefill
+    (it raised before the split was ported) and gives the unsplit route's
+    logits; the paged model supports mixed bursts."""
+    import tiny_llm_tpu_torch.models.qwen3 as port_qwen3
     from tiny_llm_tpu_torch.models import synthetic_quantized_params
 
     cfg = tiny_test_config(num_hidden_layers=1)
     m = Qwen3Model(synthetic_quantized_params(cfg, device="cpu"), cfg, max_seq_len=2048,
                    device="cpu").enable_paged_attention(num_pages=12, page_size=128)
+    calls = []
+    orig = port_qwen3.split_paged_prefill
+    monkeypatch.setattr(port_qwen3, "split_paged_prefill",
+                        lambda *a, **k: calls.append(a[0].shape[2]) or orig(*a, **k))
     c = m.create_kv_cache()
     m([[1]], 0, c)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m([[2] * 1024], 1, c)
-    assert m.supports_mixed is False
+    got = m([[2] * 1024], 1, c)
+    assert calls == [1024]
+    table = torch.tensor([c.block_table_row(m._paged_width)], dtype=torch.int32)
+    c.rewind(1024)
+    want = port_qwen3.forward_step_paged(
+        m.params, cfg, m._rope_tables, torch.full((1, 1024), 2), torch.tensor([1], dtype=torch.int32),
+        m.page_pool.key_pages, m.page_pool.value_pages, table, logits_to_keep=None,
+    )
+    torch.testing.assert_close(got, want, rtol=0, atol=LOGIT_ATOL)
+    assert m.supports_mixed is True
     c.release()

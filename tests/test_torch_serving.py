@@ -120,14 +120,18 @@ def test_open_loop_arrivals_and_unported_options_raise(params):
         batch_generate(pm, tok, ["a", "b"], arrival_times=[0.0])
     with pytest.raises(ValueError, match="non-decreasing"):
         batch_generate(pm, tok, ["a", "b"], arrival_times=[1.0, 0.5])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch_generate(pm, tok, ["a"], mixed_prefill=True)
     # Arrivals in the past admit at once: the same texts as offline.
     offline = batch_generate(pm, tok, ["hello world", "abc"], max_seq_len=48, batch_size=2,
                              prefill_step=8, max_output_tokens=3)
     open_loop = batch_generate(pm, tok, ["hello world", "abc"], max_seq_len=48, batch_size=2,
                                prefill_step=8, max_output_tokens=3, arrival_times=[0.0, 0.0])
     assert open_loop == offline
+    # Mixed prefill+decode bursts (once unported, they raised) give the
+    # classic run's texts on the same prompts.
+    mixed = batch_generate(pm, tok, ["hello world", "abc"], max_seq_len=48, batch_size=2,
+                           prefill_step=8, max_output_tokens=3, mixed_prefill=True,
+                           mixed_chunk=4)
+    assert dict(mixed) == dict(offline)
 
 
 def test_pool_too_small_for_any_prompt_raises(params):

@@ -16,6 +16,16 @@
 // read. A row that sees no key emits 0, not NaN (NEG_INF = -1e30 with the
 // NEG_INF/2 floor on the subtrahend).
 //
+// Two compile-time options serve the split paged prefill; the defaults are
+// the causal tile above, unchanged for K3 and the paged kernels:
+//   CAUSAL = false  every row's position is len - 1 (the chunk comes after
+//                   the whole prefix), so the walk ends at min(len, limit)
+//                   and every key below len is visible to every row;
+//   STATE = true    the epilogue also writes each row's m (max scaled score,
+//                   natural-log domain) and l (sum of the f32 p) as f32
+//                   [B, Hq, L]. A row that sees no key emits the combine
+//                   identity (o = 0, m = NEG_INF, l = 0).
+//
 // Rounding points follow the TPU kernels (flash_attention_pallas.py
 // _flash_inner): q * scale rounds to bf16, scores and the softmax state are
 // f32, probabilities round to bf16 for the PV product, the output is
@@ -29,14 +39,15 @@ namespace flash {
 
 constexpr int WARPS = 8, KT = 32;
 
-template <int D, int NREP, int RPW, class Rows>
+template <int D, int NREP, int RPW, bool CAUSAL = true, bool STATE = false, class Rows>
 __device__ __forceinline__ void tile(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ k,  // base of the rows `rows` addresses
     const __nv_bfloat16* __restrict__ v,
     __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
     const Rows rows, int len, int limit, int qt, int h, int bb, int Hkv, int L,
-    float scale) {
+    float scale, float* __restrict__ m_out = nullptr,  // [B, Hq, L], STATE only
+    float* __restrict__ l_out = nullptr) {
   constexpr int ROWS = WARPS * RPW, BQ = ROWS / NREP, DPL = D / 32;
   constexpr int KW = D / 2 + 1;  // padded K row, words
   static_assert(ROWS % NREP == 0, "a q tile holds whole query heads");
@@ -64,7 +75,8 @@ __device__ __forceinline__ void tile(
   for (int i = 0; i < RPW; ++i) {
     const int rr = warp * RPW + i;
     const int qi = q0 + rr % BQ;
-    qpos[i] = qi < L ? len - L + qi : -1;  // -1: padding row, sees nothing
+    // -1: padding row, sees nothing
+    qpos[i] = qi < L ? (CAUSAL ? len - L + qi : len - 1) : -1;
     m[i] = TLT_NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -72,7 +84,7 @@ __device__ __forceinline__ void tile(
   }
   // Keys visible to the tile's last row, clamped to the row's length and
   // to what the slab or block table holds.
-  const int kmax = min(min(len, len - L + min(q0 + BQ, L)), limit);
+  const int kmax = CAUSAL ? min(min(len, len - L + min(q0 + BQ, L)), limit) : min(len, limit);
 
   for (int t0 = 0; t0 < kmax; t0 += KT) {
     __syncthreads();  // previous tile consumed (and Qs written)
@@ -110,7 +122,8 @@ __device__ __forceinline__ void tile(
     const int kpos = t0 + lane;
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const float s_i = kpos <= qpos[i] ? sc[i] : TLT_NEG_INF;
+      const bool seen = CAUSAL ? kpos <= qpos[i] : kpos < kmax && qpos[i] >= 0;
+      const float s_i = seen ? sc[i] : TLT_NEG_INF;
       const float m_new = fmaxf(m[i], warp_max(s_i));
       const float alpha = expf(m[i] - m_new);
       const float p = expf(s_i - fmaxf(m_new, TLT_NEG_INF / 2));
@@ -142,6 +155,13 @@ __device__ __forceinline__ void tile(
     const int rep = rr / BQ, qi = q0 + rr % BQ;
     if (qi >= L) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if constexpr (STATE) {
+      if (lane == 0) {
+        const size_t row = ((size_t)bb * Hq + h * NREP + rep) * L + qi;
+        m_out[row] = m[i];
+        l_out[row] = l[i];
+      }
+    }
     __nv_bfloat16* o = out + (((size_t)bb * Hq + h * NREP + rep) * L + qi) * D + lane * DPL;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) o[e] = __float2bfloat16_rn(acc[i][e] * inv);

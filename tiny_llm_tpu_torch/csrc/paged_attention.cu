@@ -1,10 +1,12 @@
-// Paged causal attention for Hopper (sm_90a): the paged decode kernel
-// (L <= 16) and the paged prefill kernel (L > 16), both reading K/V from
-// one layer's page pool [P, Hkv, ps, D] through a -1-padded block table.
+// Paged attention for Hopper (sm_90a): the paged decode kernel (L <= 16),
+// the paged prefill kernel (L > 16) and the paged prefix-state walk, all
+// reading K/V from one layer's page pool [P, Hkv, ps, D] through a
+// -1-padded block table.
 //
 // Replaces tiny_llm_tpu/kernels/paged_attention_pallas.py:
-//   tlt_paged_decode  -> _paged_decode_gather_kernel (paged_flash_decode_gather)
-//   tlt_paged_prefill -> _paged_prefill_kernel (paged_flash_prefill)
+//   tlt_paged_decode       -> _paged_decode_gather_kernel (paged_flash_decode_gather)
+//   tlt_paged_prefill      -> _paged_prefill_kernel (paged_flash_prefill)
+//   tlt_paged_prefix_state -> _paged_prefix_state_kernel (paged_prefix_state)
 // Both compute what the TPU kernels compute: query i of batch row b sits at
 // position lens[b] - L + i, where the chunk's own K/V are already in the
 // pages, and sees the keys at positions <= its own. -1 table entries read
@@ -26,6 +28,17 @@
 //   prefill: 64-row q tiles (n_rep heads x 64/n_rep positions); tiles past
 //            a q tile's causal limit are skipped, as the TPU kernel's
 //            `live` predicate skips them.
+//
+// The prefix-state walk is the split paged prefill's other half: a chunk's
+// queries attend to the cached prefix, non-causally (every key below
+// prefix_lens[b] is visible to every row; the chunk's own rows, already
+// written into the prefix's tail page, are at or past it and never read),
+// emitting o and each row's m and l (the tile with CAUSAL = false and the
+// STATE epilogue). A row with prefix_len 0 emits the identity (0, NEG_INF,
+// 0). Bound on the H100 at 4B's shapes (L = 1024, prefix 7168): 120 GFLOP,
+// 0.122 ms at the bf16 peak, against 46 MB of K/V/q/o (14 us); the SIMT
+// tile runs on the FP32 pipes, far from either. Same 64-row q tiles, each
+// walking the whole prefix once for its n_rep heads.
 #include "flash_tile.cuh"
 
 namespace {
@@ -68,6 +81,37 @@ int launch_rows(int rpw, const void* q, const void* kp, const void* vp, const vo
   }
 }
 
+template <int D, int NREP>
+__global__ void __launch_bounds__(flash::WARPS * 32) paged_prefix_state(
+    const __nv_bfloat16* __restrict__ q,   // [B, Hq, L, D]
+    const __nv_bfloat16* __restrict__ kp,  // [P, Hkv, ps, D]
+    const __nv_bfloat16* __restrict__ vp,
+    const int* __restrict__ bt,           // [B, maxp], -1 padded
+    const int* __restrict__ prefix_lens,  // [B]: tokens before the chunk
+    __nv_bfloat16* __restrict__ out,      // [B, Hq, L, D]
+    float* __restrict__ m_out,            // [B, Hq, L]
+    float* __restrict__ l_out,
+    int Hkv, int L, int ps, int maxp, float scale) {
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const PageRows<D> rows{bt + (size_t)bb * maxp, ps, Hkv, h};
+  flash::tile<D, NREP, 8, false, true>(q, kp, vp, out, rows, prefix_lens[bb], maxp * ps,
+                                       blockIdx.x, h, bb, Hkv, L, scale, m_out, l_out);
+}
+
+template <int D, int NREP>
+int launch_prefix(const void* q, const void* kp, const void* vp, const void* bt,
+                  const void* lens, void* out, void* m, void* l, int B, int Hkv, int L, int ps,
+                  int maxp, float scale, cudaStream_t st) {
+  constexpr int BQ = flash::WARPS * 8 / NREP;
+  paged_prefix_state<D, NREP><<<dim3((L + BQ - 1) / BQ, Hkv, B), dim3(flash::WARPS * 32), 0,
+                                st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(bt),
+      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out), static_cast<float*>(m),
+      static_cast<float*>(l), Hkv, L, ps, maxp, scale);
+  return (int)cudaGetLastError();
+}
+
 int dispatch(int rpw, const void* q, const void* kp, const void* vp, const void* bt,
              const void* lens, void* out, int B, int Hkv, int L, int ps, int maxp, int D,
              int n_rep, float scale, void* stream) {
@@ -100,4 +144,20 @@ extern "C" int tlt_paged_prefill(const void* q, const void* kp, const void* vp, 
                                  int maxp, int D, int n_rep, float scale, void* stream) {
   if (L < 1) return (int)cudaErrorInvalidValue;
   return dispatch(8, q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, D, n_rep, scale, stream);
+}
+
+extern "C" int tlt_paged_prefix_state(const void* q, const void* kp, const void* vp,
+                                      const void* bt, const void* prefix_lens, void* out, void* m,
+                                      void* l, int B, int Hkv, int L, int ps, int maxp, int D,
+                                      int n_rep, float scale, void* stream) {
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TLT_PS(DD, RR)                                                                        \
+  if (D == DD && n_rep == RR)                                                                 \
+    return launch_prefix<DD, RR>(q, kp, vp, bt, prefix_lens, out, m, l, B, Hkv, L, ps, maxp, \
+                                 scale, st);
+  TLT_PS(64, 1) TLT_PS(64, 2) TLT_PS(64, 4) TLT_PS(64, 8)
+  TLT_PS(128, 1) TLT_PS(128, 2) TLT_PS(128, 4) TLT_PS(128, 8)
+#undef TLT_PS
+  return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,9 @@ from . import flash_attention, fused_decode_attention, moe_matmul, paged_attenti
 
 # Each kernel's name -> (its module, the name of its launch counter there).
 # A module holds its wrapper(s), plain version(s), CUDA launcher(s) and
-# counter(s); the CUDA launcher adds one to its counter per launch.
+# counter(s); the CUDA launcher adds one to its counter per launch. The split
+# paged prefill (kernels/split_prefill.py) combines the two state kernels
+# and has no kernel of its own.
 KERNELS = {
     "quant_matmul": (quant_matmul, "LAUNCHES"),
     "fused_decode_attention": (fused_decode_attention, "LAUNCHES"),
@@ -17,6 +19,8 @@ KERNELS = {
     "paged_decode": (paged_attention, "DECODE_LAUNCHES"),
     "paged_prefill": (paged_attention, "PREFILL_LAUNCHES"),
     "grouped_quant_matmul": (moe_matmul, "LAUNCHES"),
+    "flash_prefill_state": (flash_attention, "STATE_LAUNCHES"),
+    "paged_prefix_state": (paged_attention, "PREFIX_LAUNCHES"),
 }
 
 

@@ -5,15 +5,25 @@ use with `nvcc -shared` for sm_90a into `<repo>/build/`, named by a hash of
 its source (and the shared header) so an edited source is rebuilt. All
 missing libraries are compiled in parallel, one nvcc process per source.
 Nothing here runs at import time: the CPU tests import every module.
+
+    python -m tiny_llm_tpu_torch.kernels.build [CSRC_DIR]
+
+compiles every source of CSRC_DIR (default: the package's) with the same
+flags into a scratch directory and prints each kernel's registers and
+spill bytes as JSON, so two trees' kernels can be compared.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,3 +104,43 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         lib.tlt_errstr.restype = ctypes.c_char_p
         lib.tlt_errstr.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {err} ({lib.tlt_errstr(err).decode()})")
+
+
+def ptxas_registers(ptxas: str) -> dict[str, dict[str, int]]:
+    """Each kernel's registers and spill-store bytes from nvcc's
+    `-Xptxas -v` output, keyed by its mangled name without the per-file
+    hash of the anonymous namespace (so two builds of a kernel compare)."""
+    out: dict[str, dict[str, int]] = {}
+    fn = None
+    for ln in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1))
+            out[fn] = {"registers": -1, "spill_bytes": 0}
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and fn:
+            out[fn]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def main(argv: list[str]) -> int:
+    csrc = Path(argv[0]) if argv else CSRC
+    nvcc = _nvcc()
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(csrc.glob("*.cu")):
+            r = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o",
+                                str(Path(tmp) / f"{src.stem}.so"), str(src)],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
+            report[src.stem] = ptxas_registers(r.stdout + r.stderr)
+    print(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,10 +1,15 @@
-"""K3: causal flash attention over dense K/V with per-row lengths.
+"""K3: causal flash attention over dense K/V with per-row lengths, and its
+state-emitting twin.
 
-Replaces tiny_llm_tpu/kernels/flash_attention_pallas.py::_prefill_kernel
+K3 replaces tiny_llm_tpu/kernels/flash_attention_pallas.py::_prefill_kernel
 (wrapper `_flash_prefill`, through `flash_attention_pallas` for L > 16)
 and covers its L <= 16 sibling `_decode_kernel` (`_flash_decode`): the
-CUDA kernel, csrc/flash_attention.cu, takes any L >= 1. Its header notes
-what bounds it on the H100 and what its design does about that.
+CUDA kernel, csrc/flash_attention.cu, takes any L >= 1. The state twin,
+`flash_prefill_state`, replaces `_prefill_state_kernel`
+(`flash_prefill_state_pallas`): the same attention, returning the output
+locally normalised with each row's softmax state (m, l), for the split
+paged prefill (kernels/split_prefill.py). The CUDA source's header notes
+what bounds them on the H100 and what their design does about that.
 
 Conventions are the JAX package's: q [B, Hq, L, D], k/v [B, Hkv, S, D]
 (GQA, n_rep = Hq // Hkv), lens [B] — row b's valid KV length; query i sits
@@ -24,26 +29,26 @@ from .dispatch import resolve
 
 TPU_KERNEL = "tiny_llm_tpu/kernels/flash_attention_pallas.py:450 _prefill_kernel"
 TPU_KERNEL_SHORT = "tiny_llm_tpu/kernels/flash_attention_pallas.py:81 _decode_kernel"
+TPU_KERNEL_STATE = "tiny_llm_tpu/kernels/flash_attention_pallas.py:597 _prefill_state_kernel"
 SOURCE = "tiny_llm_tpu_torch/csrc/flash_attention.cu"
 NEG_INF = -1e30
 
 LAUNCHES = 0  # kernel launches since the last reset (see kernels.reset_launches)
+STATE_LAUNCHES = 0  # the state twin's
 
 
-def flash_attention_plain(q, k, v, lens, scale: float):
-    """Plain PyTorch version at the TPU kernel's rounding points: q*scale
-    rounded to bf16, f32 scores and softmax, bf16 probabilities in the PV
-    product, acc / max(l, 1e-30). A row that sees no key gives 0."""
+def attention_state_plain(q, k, v, ok, scale: float):
+    """Attention of q [B, Hq, L, D] over k/v [B, Hkv, S, D] where ok
+    [B, L, S] marks the visible keys, at the TPU kernels' rounding points:
+    q*scale rounded to bf16, f32 scores and softmax, bf16 probabilities in
+    the PV product, acc / max(l, 1e-30). Returns (out in q's dtype, m, l
+    [B, Hq, L] f32); a row that sees no key gives (0, NEG_INF, 0)."""
     B, Hq, L, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
+    Hkv = k.shape[1]
     n_rep = Hq // Hkv
     qs = (q.to(torch.float32) * scale).to(torch.bfloat16).to(torch.float32)
     qs = qs.reshape(B, Hkv, n_rep, L, D)
     s = torch.einsum("bhrld,bhsd->bhrls", qs, k.to(torch.float32))
-    lens = lens.to(device=q.device, dtype=torch.int64)
-    q_pos = lens[:, None] - L + torch.arange(L, device=q.device)[None, :]  # [B, L]
-    k_pos = torch.arange(S, device=q.device)
-    ok = k_pos[None, None, :] <= q_pos[:, :, None]  # [B, L, S]
     s = torch.where(ok[:, None, None], s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2))
@@ -51,7 +56,28 @@ def flash_attention_plain(q, k, v, lens, scale: float):
     pb = p.to(torch.bfloat16).to(torch.float32)
     acc = torch.einsum("bhrls,bhsd->bhrld", pb, v.to(torch.float32))
     out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(B, Hq, L, D).to(q.dtype)
+    return (out.reshape(B, Hq, L, D).to(q.dtype), m.reshape(B, Hq, L), l.reshape(B, Hq, L))
+
+
+def _causal_mask(lens, L: int, S: int, device):
+    """[B, L, S]: query i of row b (at position lens[b] - L + i) sees keys
+    at positions <= its own."""
+    lens = lens.to(device=device, dtype=torch.int64)
+    q_pos = lens[:, None] - L + torch.arange(L, device=device)[None, :]  # [B, L]
+    return torch.arange(S, device=device)[None, None, :] <= q_pos[:, :, None]
+
+
+def flash_attention_plain(q, k, v, lens, scale: float):
+    """K3's plain PyTorch version (attention_state_plain's rounding points);
+    a row that sees no key gives 0."""
+    ok = _causal_mask(lens, q.shape[2], k.shape[2], q.device)
+    return attention_state_plain(q, k, v, ok, scale)[0]
+
+
+def flash_prefill_state_plain(q, k, v, lens, scale: float):
+    """The state twin's plain version: K3's attention and each row's (m, l)."""
+    ok = _causal_mask(lens, q.shape[2], k.shape[2], q.device)
+    return attention_state_plain(q, k, v, ok, scale)
 
 
 def _lib() -> ctypes.CDLL:
@@ -59,21 +85,30 @@ def _lib() -> ctypes.CDLL:
     fn = lib.tlt_flash_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.tlt_flash_prefill_state
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
-def flash_attention_cuda(q, k, v, lens, scale: float):
-    global LAUNCHES
+def _check_args(what, q, k, v):
+    """(B, Hq, L, D, Hkv, S, n_rep) after the checks both kernels need."""
     B, Hq, L, D = q.shape
     Bk, Hkv, S, Dk = k.shape
     if (Bk, Dk) != (B, D) or v.shape != k.shape or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} do not match")
     n_rep = Hq // Hkv
     if D not in (64, 128) or n_rep not in (1, 2, 4, 8):
-        raise ValueError(f"flash_attention_cuda: unsupported D={D}, n_rep={n_rep}")
+        raise ValueError(f"{what}: unsupported D={D}, n_rep={n_rep}")
     for t in (q, k, v):
         if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
             raise ValueError("q/k/v must be contiguous bf16 CUDA tensors")
+    return B, Hq, L, D, Hkv, S, n_rep
+
+
+def flash_attention_cuda(q, k, v, lens, scale: float):
+    global LAUNCHES
+    B, Hq, L, D, Hkv, S, n_rep = _check_args("flash_attention_cuda", q, k, v)
     lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = _lib()
@@ -84,6 +119,24 @@ def flash_attention_cuda(q, k, v, lens, scale: float):
     build.check(lib, err, "flash_attention")
     LAUNCHES += 1
     return out
+
+
+def flash_prefill_state_cuda(q, k, v, lens, scale: float):
+    global STATE_LAUNCHES
+    B, Hq, L, D, Hkv, S, n_rep = _check_args("flash_prefill_state_cuda", q, k, v)
+    lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    m = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    lib = _lib()
+    err = lib.tlt_flash_prefill_state(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(), m.data_ptr(),
+        l.data_ptr(), B, Hkv, L, S, D, n_rep, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, "flash_prefill_state")
+    STATE_LAUNCHES += 1
+    return out, m, l
 
 
 def flash_attention(
@@ -99,3 +152,20 @@ def flash_attention(
     if resolve(impl, q) == "cuda":
         return flash_attention_cuda(q, k, v, lens, scale)
     return flash_attention_plain(q, k, v, lens, scale)
+
+
+def flash_prefill_state(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lens: torch.Tensor,
+    scale: float | None = None,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """flash_attention's attention as (o, m, l): o [B, Hq, L, D] locally
+    normalised in q's dtype, m (max scaled score) and l (sum of the f32
+    probabilities) [B, Hq, L] f32."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if resolve(impl, q) == "cuda":
+        return flash_prefill_state_cuda(q, k, v, lens, scale)
+    return flash_prefill_state_plain(q, k, v, lens, scale)

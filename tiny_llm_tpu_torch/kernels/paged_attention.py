@@ -1,5 +1,6 @@
-"""Paged causal attention over a block-table-indexed page pool: the paged
-decode kernel (L <= 16) and the paged prefill kernel (L > 16).
+"""Paged attention over a block-table-indexed page pool: the paged decode
+kernel (L <= 16), the paged prefill kernel (L > 16) and the paged
+prefix-state walk of the split paged prefill.
 
 Counterpart of tiny_llm_tpu/kernels/paged_attention.py (`gather_pages_dense`,
 `paged_attention`) and of the two Pallas kernels the TPU dispatches to
@@ -7,7 +8,11 @@ Counterpart of tiny_llm_tpu/kernels/paged_attention.py (`gather_pages_dense`,
   * L <= 16: `_paged_decode_gather_kernel` (`paged_flash_decode_gather`)
     -> `tlt_paged_decode` in csrc/paged_attention.cu;
   * L > 16: `_paged_prefill_kernel` (`paged_flash_prefill`)
-    -> `tlt_paged_prefill` in the same file.
+    -> `tlt_paged_prefill` in the same file;
+  * `paged_prefix_state`: `_paged_prefix_state_kernel` (same name,
+    paged_attention_pallas.py:771) -> `tlt_paged_prefix_state`: a chunk's
+    queries over the prefix pages before it, non-causally, emitting the
+    softmax state (o, m, l) that kernels/split_prefill.py combines.
 The CUDA source's header notes what bounds them on the H100 and what
 their design does about it.
 
@@ -27,16 +32,18 @@ import torch
 
 from . import build
 from .dispatch import resolve
-from .flash_attention import flash_attention_plain
+from .flash_attention import attention_state_plain, flash_attention_plain
 
 TPU_KERNEL_DECODE = "tiny_llm_tpu/kernels/paged_attention_pallas.py:297 _paged_decode_gather_kernel"
 TPU_KERNEL_PREFILL = "tiny_llm_tpu/kernels/paged_attention_pallas.py:475 _paged_prefill_kernel"
+TPU_KERNEL_PREFIX = "tiny_llm_tpu/kernels/paged_attention_pallas.py:716 _paged_prefix_state_kernel"
 SOURCE = "tiny_llm_tpu_torch/csrc/paged_attention.cu"
 DECODE_MAX_L = 16  # paged_attention_pallas.py:862
 
 # Kernel launches since the last reset (see kernels.reset_launches).
 DECODE_LAUNCHES = 0
 PREFILL_LAUNCHES = 0
+PREFIX_LAUNCHES = 0
 
 
 def gather_pages_dense(key_pages, value_pages, block_table):
@@ -59,15 +66,32 @@ def paged_attention_plain(q, key_pages, value_pages, block_table, context_lens, 
     return flash_attention_plain(q, k, v, context_lens, scale)
 
 
+def paged_prefix_state_plain(q, key_pages, value_pages, block_table, prefix_lens,
+                             scale: float):
+    """Plain version of the prefix walk: gather the pages, then every key
+    below prefix_lens[b] visible to every query of row b, at the kernels'
+    rounding points. Returns (o, m, l); a row with prefix 0 gives
+    (0, NEG_INF, 0)."""
+    k, v = gather_pages_dense(key_pages, value_pages, block_table)
+    B, _, L, _ = q.shape
+    lens = prefix_lens.to(device=q.device, dtype=torch.int64)
+    ok = torch.arange(k.shape[2], device=q.device)[None, None, :] < lens[:, None, None]
+    return attention_state_plain(q, k, v, ok.expand(B, L, k.shape[2]), scale)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     for fn in (lib.tlt_paged_decode, lib.tlt_paged_prefill):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = lib.tlt_paged_prefix_state
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
-def _paged_cuda(entry: str, q, key_pages, value_pages, block_table, context_lens, scale):
+def _check_paged(q, key_pages, value_pages, block_table):
+    """n_rep after the checks every paged kernel needs."""
     B, Hq, L, D = q.shape
     P, Hkv, ps, Dk = key_pages.shape
     if Dk != D or value_pages.shape != key_pages.shape or Hq % Hkv:
@@ -80,6 +104,13 @@ def _paged_cuda(entry: str, q, key_pages, value_pages, block_table, context_lens
     for t in (q, key_pages, value_pages):
         if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
             raise ValueError("q and the pages must be contiguous bf16 CUDA tensors")
+    return n_rep
+
+
+def _paged_cuda(entry: str, q, key_pages, value_pages, block_table, context_lens, scale):
+    B, Hq, L, D = q.shape
+    Hkv, ps = key_pages.shape[1], key_pages.shape[2]
+    n_rep = _check_paged(q, key_pages, value_pages, block_table)
     dev = q.device
     bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
@@ -112,6 +143,48 @@ def paged_prefill_cuda(q, key_pages, value_pages, block_table, context_lens, sca
                       context_lens, scale)
     PREFILL_LAUNCHES += 1
     return out
+
+
+def paged_prefix_state_cuda(q, key_pages, value_pages, block_table, prefix_lens, scale: float):
+    """The paged prefix-state walk: (o, m, l) of q over each row's prefix."""
+    global PREFIX_LAUNCHES
+    B, Hq, L, D = q.shape
+    Hkv, ps = key_pages.shape[1], key_pages.shape[2]
+    n_rep = _check_paged(q, key_pages, value_pages, block_table)
+    dev = q.device
+    bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
+    lens = prefix_lens.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    m = torch.empty((B, Hq, L), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    lib = _lib()
+    err = lib.tlt_paged_prefix_state(
+        q.data_ptr(), key_pages.data_ptr(), value_pages.data_ptr(), bt.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, L, ps,
+        bt.shape[1], D, n_rep, float(scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, "tlt_paged_prefix_state")
+    PREFIX_LAUNCHES += 1
+    return out, m, l
+
+
+def paged_prefix_state(
+    q: torch.Tensor,  # [B, Hq, L, D] — one chunk's queries
+    key_pages: torch.Tensor,  # [P, Hkv, ps, D] — one layer's pages
+    value_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [B, max_pages] int32, -1 padded
+    prefix_lens: torch.Tensor,  # [B] int32 — tokens BEFORE the chunk (0 is fine)
+    scale: float | None = None,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(o, m, l) of the chunk's queries attending non-causally to the keys
+    at positions < prefix_lens[b]; the chunk's own K/V may already sit in
+    the pages past them (offsets need not be page-aligned)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if resolve(impl, q) == "cuda":
+        return paged_prefix_state_cuda(q, key_pages, value_pages, block_table, prefix_lens,
+                                       scale)
+    return paged_prefix_state_plain(q, key_pages, value_pages, block_table, prefix_lens, scale)
 
 
 def paged_attention(

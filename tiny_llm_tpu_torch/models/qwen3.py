@@ -14,19 +14,25 @@ CPU; only the bodies of the kernels differ (kernels/dispatch.py):
     dense slab, or its paged twin over the page pool;
   * a prompt chunk goes through K3 (kernels/flash_attention) over the slab,
     or, over the page pool: K3 on the chunk's own K/V when the chunk is the
-    whole context (offset 0), else the paged decode (L <= 16) or paged
-    prefill kernel (kernels/paged_attention).
+    whole context (offset 0); the split paged prefill (kernels/split_prefill:
+    the chunk-state and prefix-state kernels, combined) for chunks of >= 1024
+    tokens at offset > 0; else the paged decode (L <= 16) or paged prefill
+    kernel (kernels/paged_attention);
+  * a mixed burst step (forward_mixed_burst_paged) runs B decode rows and a
+    c-token prefill sub-chunk through the same projections, the decode rows
+    through the fused paged step and the sub-chunk through paged attention
+    over its own pages.
 
-The KV slab and the pages are updated in place. A decode burst is a Python
-loop of steps whose greedy argmax stays on the device; the host syncs once
-per burst. Not ported yet: dense (unquantized) weights, the split paged
-prefill (chunks of >= 1024 tokens at offset > 0), the mixed prefill+decode
-bursts, the W4A8 tier and expert parallelism.
+The KV slab and the pages are updated in place. A decode burst, mixed or
+not, is a Python loop of steps whose greedy argmax stays on the device; the
+host syncs once per burst. Not ported yet: dense (unquantized) weights, the
+W4A8 tier and expert parallelism.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -39,6 +45,7 @@ from ..kernels.fused_decode_attention import (
 from ..kernels.paged_attention import paged_attention
 from ..kernels.quant_matmul import quant_matmul
 from ..kernels.dispatch import check_device
+from ..kernels.split_prefill import split_paged_prefill
 from ..kv.cache import BatchingKVCache, DenseKVCache, bucket_for
 from ..kv.paged import PagedBatchingKVCache, PagedKVCache, PagePool
 from ..ops.basics import swiglu
@@ -393,13 +400,9 @@ def forward_step_paged(
     A decode step (L == 1) runs the fused paged kernel and writes the k/v
     rows after it. A chunk writes its k/v first, then attends:
     `local_attention` (every offset 0, so the chunk is the whole context)
-    runs K3 on the chunk's own k/v; otherwise paged attention reads the
-    pages."""
-    if split_attention:
-        raise NotImplementedError(
-            "the split paged prefill (offset > 0 chunks of >= "
-            f"{SPLIT_PREFILL_MIN_CHUNK} tokens) is not ported yet; see ROADMAP.md"
-        )
+    runs K3 on the chunk's own k/v; `split_attention` runs the split paged
+    prefill (the chunk's own k/v causally, the prefix pages before it
+    non-causally, combined); otherwise paged attention reads the pages."""
     B, L = tokens.shape
     dev = tokens.device
     ps = key_pages.shape[3]
@@ -437,6 +440,10 @@ def forward_step_paged(
             if local_attention:
                 attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), lens,
                                        scale=scale, impl=impl)
+            elif split_attention:
+                attn = split_paged_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
+                                           key_pages[i], value_pages[i], block_table, offsets,
+                                           scale=scale, impl=impl)
             else:
                 attn = paged_attention(q.contiguous(), key_pages[i], value_pages[i],
                                        block_table, lens, scale=scale, impl=impl)
@@ -481,6 +488,123 @@ def forward_decode_burst_paged(
     )
 
 
+@dataclasses.dataclass
+class MixedStep:
+    """One scheduled prefill sub-chunk of a mixed burst step
+    (Qwen3Model.mixed_burst): `cache` owns the request's pages, `tokens`
+    are its 1..c real prompt tokens starting at context length `offset` (a
+    multiple of the mixed chunk), `generator` draws the completion token
+    when the sub-chunk ends the prompt under temp > 0 (the request's own)."""
+
+    cache: Any
+    tokens: Any
+    offset: int
+    generator: torch.Generator | None = None
+
+
+def forward_mixed_burst_paged(
+    params: Qwen3Params,
+    cfg: Qwen3Config,
+    rope_tabs,
+    tokens0: torch.Tensor,  # [B] int on the device — first decode token per slot
+    offsets0: torch.Tensor,  # [B] int32 on the device
+    key_pages: torch.Tensor,  # [layers, P, Hkv, ps, D] — written in place
+    value_pages: torch.Tensor,
+    block_table: torch.Tensor,  # [B, W] — decode slots; must cover offsets0 + steps
+    p_chunks: torch.Tensor,  # [steps, c] int — per-step prefill sub-chunks
+    p_offsets: torch.Tensor,  # [steps] int32 — context length before each sub-chunk
+    p_tables: torch.Tensor,  # [steps, W] int32 — per-step table row (-1 rows: idle)
+    p_last: torch.Tensor,  # [steps] int — index of the last real token per sub-chunk
+    p_generators: list | None = None,  # [steps] completion generators (None: argmax)
+    *,
+    steps: int,
+    impl: str | None = None,
+    temp: float = 0.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    generator: torch.Generator | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`steps` decode steps for every row AND one prefill sub-chunk per step,
+    through the same projections: each step's activation is [1, B + c, D],
+    so every weight matrix streams once for decode and prefill together.
+
+    The per-step arrays form a schedule: step t prefills c tokens of the
+    request whose pages p_tables[t] names; a sub-chunk whose prompt ends
+    mid-chunk carries padding, p_last[t] marks its last real token, and the
+    padding's k/v land in the request's own last page at slots its decode
+    overwrites before any read. Steps with nothing to prefill carry an all
+    -1 table row (the trash page). Each step: the sub-chunk's split,
+    QK-norm and RoPE at its own positions, its k/v written into its pages,
+    then paged attention over its own table row (kernels/paged_attention);
+    the decode rows through the fused paged step, their k/v rows written
+    after it; the LM head over the decode rows and the sub-chunk's last real
+    row only (M = B + 1); the argmax (or the samplers) on the device.
+
+    Returns (decode tokens [steps, B], completion tokens [steps]: step t's
+    draw at its sub-chunk's last real row, valid where that step completes
+    a prompt), on the device; nothing here waits for it. Completions draw
+    from p_generators[t] under temp > 0 where given, else take the argmax."""
+    B = tokens0.shape[0]
+    c = p_chunks.shape[1]
+    ps = key_pages.shape[3]
+    scale = cfg.head_dim**-0.5
+    eps = cfg.rms_norm_eps
+    hkv = cfg.num_key_value_heads
+    n_rep = cfg.num_attention_heads // hkv
+    dev = tokens0.device
+    sample = make_sampler(temp, top_p, top_k)
+    rope_max = rope_tabs[0].shape[0] - 1
+    ar = torch.arange(c, device=dev)
+    tokens, offsets = tokens0, offsets0
+    out, comp = [], []
+    for t in range(steps):
+        d_pos = offsets[:, None].to(torch.long)  # [B, 1]
+        d_page, d_slot = _page_targets(block_table, d_pos, ps)
+        d_rope = d_pos[:, 0].clamp(max=rope_max)
+        cos_row, sin_row = rope_tabs[0][d_rope], rope_tabs[1][d_rope]
+        p_pos = p_offsets[t].to(torch.long) + ar[None, :]  # [1, c]
+        p_tab = p_tables[t : t + 1]  # [1, W]
+        p_page, p_slot = _page_targets(p_tab, p_pos, ps)
+        p_len = p_offsets[t : t + 1] + c
+        h = torch.cat([_embed(params, tokens[None, :]), _embed(params, p_chunks[t][None, :])],
+                      dim=1)  # [1, B + c, D]
+        for i, layer in enumerate(params.layers):
+            qkv = _norm_linear(h, layer.attn.wqkv, layer.input_layernorm, eps, impl)
+            # The sub-chunk: its k/v go into its pages before it attends.
+            q_p, k_p, v_p = _split_qkv_rope(cfg, layer.attn, qkv[:, B:],
+                                            p_pos.clamp(max=rope_max), rope_tabs)
+            _write_pages(key_pages, i, p_page, p_slot, k_p)
+            _write_pages(value_pages, i, p_page, p_slot, v_p)
+            attn_d, k_row, v_row = fused_paged_decode_attention(
+                qkv[0, :B].reshape(B, hkv, n_rep + 2, cfg.head_dim), key_pages[i],
+                value_pages[i], block_table, offsets, cos_row, sin_row, layer.attn.q_norm,
+                layer.attn.k_norm, scale=scale, eps=eps, impl=impl,
+            )
+            _write_pages(key_pages, i, d_page, d_slot, k_row)
+            _write_pages(value_pages, i, d_page, d_slot, v_row)
+            attn_p = paged_attention(q_p.contiguous(), key_pages[i], value_pages[i], p_tab,
+                                     p_len, scale=scale, impl=impl)  # [1, Hq, c, D]
+            attn = torch.cat([attn_d.reshape(1, B, -1),
+                              attn_p.transpose(1, 2).reshape(1, c, -1)], dim=1)
+            h = _linear(attn, layer.attn.wo, residual=h, impl=impl)
+            h = _mlp(cfg, layer.mlp, h, norm_w=layer.post_attention_layernorm,
+                     residual=h, impl=impl)
+        h_sel = torch.cat([h[0, :B], h[0].index_select(0, B + p_last[t : t + 1])], dim=0)
+        logits = _lm_head(params, rms_norm(h_sel, params.final_norm, eps)[None], impl)[0]
+        lp, cp = logits[:B].to(torch.float32), logits[B:].to(torch.float32)
+        if temp != 0:
+            lp = torch.log_softmax(lp, dim=-1)
+        tokens = sample(lp, generator)
+        gen = p_generators[t] if p_generators is not None else None
+        if temp != 0 and gen is not None:
+            comp.append(sample(torch.log_softmax(cp, dim=-1), gen))
+        else:
+            comp.append(cp.argmax(dim=-1).to(torch.int32))
+        out.append(tokens)
+        offsets = offsets + 1
+    return torch.stack(out), torch.cat(comp)
+
+
 class Qwen3Model:
     """Host-side wrapper owning the (fused) params, the RoPE tables and,
     once enable_paged_attention() attached one, the page pool.
@@ -488,9 +612,9 @@ class Qwen3Model:
     API of the JAX package's Qwen3Model for the dense and paged paths:
     __call__(inputs, offset, cache, logits_to_keep), create_kv_cache(),
     create_batching_kv_cache(), decode_burst_dense(), enable_paged_attention(),
-    decode_burst(). `impl` plays the role of JAX's `attn_impl`: None runs the
-    kernels on the card and their plain versions on the CPU, "torch" runs
-    the plain versions on either device."""
+    decode_burst(), supports_mixed, mixed_burst(). `impl` plays the role of
+    JAX's `attn_impl`: None runs the kernels on the card and their plain
+    versions on the CPU, "torch" runs the plain versions on either device."""
 
     def __init__(
         self,
@@ -537,8 +661,87 @@ class Qwen3Model:
 
     @property
     def supports_mixed(self) -> bool:
-        """Mixed prefill+decode bursts are not ported yet (ROADMAP.md)."""
-        return False
+        """True when mixed prefill+decode bursts are available: a paged pool
+        and fused qkv weights on every layer (the shared projection matmul
+        is the point of the mixed step)."""
+        return self.page_pool is not None and all(
+            layer.attn.wqkv is not None for layer in self.params.layers
+        )
+
+    def mixed_burst(
+        self,
+        cache: PagedBatchingKVCache,  # the decode slots
+        first_tokens,  # [B] int — next token per slot
+        steps: int,
+        schedule: list,  # [steps] of MixedStep | None
+        chunk: int,  # c — prefill tokens per step (must divide the page size)
+        *,
+        temp: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        generator: torch.Generator | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """`steps` decode tokens for every slot AND up to steps * chunk
+        prefill tokens of the scheduled requests, with one host sync at the
+        end (forward_mixed_burst_paged). schedule[t] names the sub-chunk
+        step t prefills (None: an idle prefill row). Returns (decode tokens
+        [steps, B] int32, completion tokens [steps] int32, valid at steps
+        whose sub-chunk ends its prompt). Slots advance by `steps`; each
+        scheduled cache advances by its real token count."""
+        if not isinstance(cache, PagedBatchingKVCache):
+            raise TypeError("mixed_burst runs over a PagedBatchingKVCache")
+        if temp != 0 and generator is None:
+            raise ValueError("a sampled burst needs a torch.Generator")
+        if steps <= 0 or len(schedule) != steps:
+            raise ValueError(f"a schedule of {len(schedule)} entries for {steps} steps")
+        ps = cache.pool.page_size
+        # A sub-chunk stays inside one page: c divides the page size and
+        # offsets are c-aligned (the scheduler keeps both).
+        if not (0 < chunk <= ps and ps % chunk == 0):
+            raise ValueError(f"mixed chunk {chunk} must divide the page size {ps}")
+        for c in cache.slots:
+            if c is not None:
+                c.ensure_capacity(c.offset + steps)
+        width = self._paged_width
+        table = cache.block_table(width)
+        p_chunks = np.zeros((steps, chunk), np.int64)
+        p_offsets = np.zeros((steps,), np.int32)
+        p_tables = np.full((steps, width), -1, np.int32)
+        p_last = np.zeros((steps,), np.int64)
+        p_gens = [None] * steps
+        for t, entry in enumerate(schedule):
+            if entry is None:
+                continue
+            r = len(entry.tokens)
+            if not 0 < r <= chunk or entry.offset % chunk:
+                raise ValueError(f"sub-chunk of {r} tokens at offset {entry.offset}")
+            if entry.cache.pool is not cache.pool:
+                raise ValueError("the schedule must share the page pool")
+            entry.cache.ensure_capacity(entry.offset + r)
+            p_chunks[t, :r] = entry.tokens
+            p_offsets[t] = entry.offset
+            p_tables[t] = entry.cache.block_table_row(width)
+            p_last[t] = r - 1
+            p_gens[t] = entry.generator
+        dev = self.device
+        toks, comp = forward_mixed_burst_paged(
+            self.params, self.cfg, self._rope_tables, self._tokens(first_tokens).reshape(-1),
+            torch.from_numpy(cache.offsets).to(dev), cache.pool.key_pages,
+            cache.pool.value_pages, torch.from_numpy(table).to(dev),
+            torch.from_numpy(p_chunks).to(dev), torch.from_numpy(p_offsets).to(dev),
+            torch.from_numpy(p_tables).to(dev), torch.from_numpy(p_last).to(dev), p_gens,
+            steps=steps, impl=self.impl, temp=temp, top_k=top_k, top_p=top_p,
+            generator=generator,
+        )
+        both = torch.cat([toks.reshape(-1), comp]).cpu().numpy().astype(np.int32)
+        for c in cache.slots:
+            if c is not None:
+                c.advance(steps)
+        for entry in schedule:
+            if entry is not None:
+                entry.cache.advance(len(entry.tokens))
+        B = toks.shape[1]
+        return both[: steps * B].reshape(steps, B), both[steps * B :]
 
     def create_kv_cache(
         self, batch_size: int = 1, max_seq_len: int | None = None

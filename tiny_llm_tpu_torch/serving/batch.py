@@ -8,8 +8,13 @@ A request prefills into its own cache (dense or paged), then is installed
 into a batch slot: a copy into the dense slab, or O(1) metadata for the
 paged cache, whose pages already live in the shared pool. Sampling draws
 from explicit torch.Generators derived from `seed`: reproducible, but not
-the JAX package's random stream. The mixed prefill+decode bursts are not
-ported yet (ROADMAP.md).
+the JAX package's random stream.
+
+`mixed_prefill=True` runs the JAX package's mixed schedule as-is: while a
+prompt is pending beside active decode slots, each decode burst also
+prefills `mixed_chunk`-token sub-chunks of the pending prompt and then of
+the next arrived prompts, back to back (Qwen3Model.mixed_burst); requests
+whose prefill ends inside a burst wait in `ready` for a free slot.
 """
 
 from __future__ import annotations
@@ -148,6 +153,7 @@ def batch_generate(
     seed: int = 0,
     arrival_times: list[float] | None = None,
     mixed_prefill: bool = False,
+    mixed_chunk: int = 32,
 ) -> list[tuple[int, str]]:
     """Serve `prompts` with continuous batching; returns (prompt_idx, text).
 
@@ -159,9 +165,11 @@ def batch_generate(
     device. `arrival_times` (non-decreasing seconds from the campaign
     start, one per prompt) makes the campaign open-loop: a prompt enters
     the queue only once its time has come, and the scheduler idles until
-    then when nothing is in flight."""
-    if mixed_prefill:
-        raise NotImplementedError("mixed prefill+decode bursts are not ported yet; see ROADMAP.md")
+    then when nothing is in flight. `mixed_prefill` advances pending
+    prompts inside the decode bursts instead, in `mixed_chunk`-token
+    sub-chunks, where the model supports it (a paged pool whose page size
+    `mixed_chunk` divides); misaligned offsets and a prefill with no active
+    slot take the classic path."""
     sampler = make_sampler(temp, top_p, top_k) if temp > 0 else None
     burst_gen = torch.Generator(device=model.device).manual_seed(seed) if temp > 0 else None
     if arrival_times is not None:
@@ -186,13 +194,66 @@ def batch_generate(
     pending: Request | None = None
     start = time.monotonic()
 
+    mixed_ok = (
+        mixed_prefill
+        and decode_burst > 1
+        and getattr(model, "supports_mixed", False)
+        and paged
+        # Mixed sub-chunks stay inside one page: the chunk divides the page size.
+        and model.page_pool.page_size % mixed_chunk == 0
+    )
+    # Requests whose prefill completed inside a mixed burst, waiting for a
+    # free decode slot.
+    ready: list[Request] = []
+
+    def new_request(idx: int, prompt: str, arr_rel: float) -> Request:
+        return Request(
+            model, tokenizer, prompt, prefill_step, idx, sampler=sampler,
+            generator=(
+                _request_generator(model.device, seed, idx) if sampler is not None else None
+            ),
+            arrival_t=start + arr_rel,
+        )
+
+    def try_install(req: Request) -> bool:
+        """Install a prefilled request in the first free slot, if any."""
+        free = [i for i in range(batch_size) if decode_requests[i] is None]
+        if not free:
+            return False
+        kv_cache.add_request(req.kv_cache, free[0])
+        if not paged:
+            # The dense slot holds a copy; the request's own slab goes.
+            req.kv_cache.release()
+        decode_requests[free[0]] = req
+        return True
+
+    def mixed_handles_prefill() -> bool:
+        """Whether this iteration's burst advances the pending prefill as
+        mixed steps (so the classic chunk loop leaves it alone). Misaligned
+        offsets (a classic chunk smaller than the mixed chunk ran first)
+        take the classic path."""
+        return (
+            mixed_ok
+            and pending is not None
+            and not pending.is_prefill_done
+            and pending.offset % mixed_chunk == 0
+            and any(r is not None for r in decode_requests)
+        )
+
     while True:
-        if not queue and all(r is None for r in decode_requests) and pending is None:
+        if (not queue and all(r is None for r in decode_requests) and pending is None
+                and not ready):
             break
+
+        # Requests whose prefill completed inside a mixed burst take slots
+        # as they free, first come first served.
+        while ready and try_install(ready[0]):
+            ready.pop(0)
 
         # Open-loop idle: nothing in flight and the next request has not
         # arrived yet — sleep until it does (bounded naps).
-        if queue and pending is None and all(r is None for r in decode_requests):
+        if (queue and pending is None and not ready
+                and all(r is None for r in decode_requests)):
             wait = queue[0][2] - (time.monotonic() - start)
             if wait > 0:
                 time.sleep(min(wait, 0.05))
@@ -204,14 +265,7 @@ def batch_generate(
             if queue and pending is None and time.monotonic() - start >= queue[0][2]:
                 idx, prompt, arr_rel = queue.pop(0)
                 try:
-                    pending = Request(
-                        model, tokenizer, prompt, prefill_step, idx, sampler=sampler,
-                        generator=(
-                            _request_generator(model.device, seed, idx)
-                            if sampler is not None else None
-                        ),
-                        arrival_t=start + arr_rel,
-                    )
+                    pending = new_request(idx, prompt, arr_rel)
                 except PoolExhausted as e:
                     # Pool backpressure: requeue the prompt and let active
                     # requests retire. A pool that cannot fit it with
@@ -226,6 +280,8 @@ def batch_generate(
             if pending is None:
                 break
             if not pending.is_prefill_done:
+                if mixed_handles_prefill():
+                    break  # the burst below advances it as mixed steps
                 pending.try_prefill()
             if pending.is_prefill_done:
                 if pending.is_done:
@@ -236,14 +292,8 @@ def batch_generate(
                     pending.kv_cache.release()
                     pending = None
                     continue
-                free = [i for i in range(batch_size) if decode_requests[i] is None]
-                if not free:
+                if not try_install(pending):
                     break  # prefilled but no free slot: stop prefilling
-                kv_cache.add_request(pending.kv_cache, free[0])
-                if not paged:
-                    # The dense slot holds a copy; the request's own slab goes.
-                    pending.kv_cache.release()
-                decode_requests[free[0]] = pending
                 pending = None
 
         if any(r is not None for r in decode_requests):
@@ -251,7 +301,58 @@ def batch_generate(
             if metrics is not None:
                 metrics.observe_step(active, getattr(kv_cache, "pool", None))
             next_tokens = [(r.next_token if r is not None else 0) for r in decode_requests]
-            if decode_burst > 1 and paged:
+            if mixed_handles_prefill():
+                # The schedule gives each of the burst's steps one sub-chunk:
+                # the pending request's remaining prompt, then the next
+                # arrived prompts back to back, admitted into the burst.
+                from ..models.qwen3 import MixedStep
+
+                schedule: list = [None] * decode_burst
+                finishing: list[tuple[int, Request]] = []
+                cur, pending = pending, None
+                for t in range(decode_burst):
+                    if cur is None:
+                        if not (queue and time.monotonic() - start >= queue[0][2]):
+                            break
+                        try:
+                            cur = new_request(*queue[0])
+                        except PoolExhausted:
+                            # Backpressure mid-burst: the prompt stays queued
+                            # until retiring requests free pages.
+                            break
+                        queue.pop(0)
+                    remaining = len(cur.prefill_tokens) - cur.offset
+                    r = min(mixed_chunk, remaining)
+                    schedule[t] = MixedStep(
+                        cache=cur.kv_cache, tokens=cur.prefill_tokens[cur.offset : cur.offset + r],
+                        offset=cur.offset,
+                        # The completion draw uses the request's own stream,
+                        # as the classic path's post-prefill draw does.
+                        generator=cur.generator if r == remaining else None,
+                    )
+                    cur.offset += r
+                    if cur.offset == len(cur.prefill_tokens):
+                        cur.is_prefill_done = True
+                        finishing.append((t, cur))
+                        cur = None
+                pending = cur
+                toks, comp = model.mixed_burst(
+                    kv_cache, np.asarray(next_tokens, np.int32), decode_burst, schedule,
+                    mixed_chunk, temp=temp, top_k=top_k, top_p=top_p, generator=burst_gen,
+                )
+                for t, req in finishing:
+                    # comp[t]: the request's first output token, drawn at its
+                    # sub-chunk's last real row.
+                    req.decode_done(int(comp[t]), update_offset=False)
+                    if req.is_done:
+                        # EOS directly after prefill; never occupies a slot.
+                        result.append((req.prompt_idx, req.text()))
+                        if metrics is not None:
+                            metrics.observe_request(req)
+                        req.kv_cache.release()
+                    else:
+                        ready.append(req)
+            elif decode_burst > 1 and paged:
                 # One host sync for `decode_burst` tokens per slot; EOS
                 # reactions lag by less than one burst.
                 toks = model.decode_burst(
