@@ -50,14 +50,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             slots, a 512-token prompt in 32-token sub-chunks), the kernel
             path against the plain path (teacher-forced) and against the
             serialized schedule, and one burst under sync-debug "error"
-  mixed_serving the serving phase's campaign with mixed_prefill=True
+  mixed_serving the serving phase's campaign with mixed_prefill=True (two
+            campaigns)
   moe_model     the model phase on Qwen3-30B-A3B W4A16 (48 layers, 128
             experts, top-8; full width and depth): exact launch counts
             (K1 145, grouped 144, K2 or K3 48 per step), a sync-free burst
   moe_parity    parity and paged_parity at the 30B-A3B widths, 4 layers; the
             plain path takes the kernel path's expert choice where the two
             differ at a near-tie (counted, and held under a 1e-3 margin)
-  moe_serving   the serving phase on Qwen3-30B-A3B
+  moe_serving   the serving phase on Qwen3-30B-A3B (two campaigns)
+  quant_kernels (run after `kernels`) the quant tiers' four kernels against
+            their plain versions: the W4A8 matmul (4B qkv, gate_up, down +
+            res at M = 1, 4, 32; 30B-A3B qkv and o), the any-width matmul
+            (4B W8 g64 qkv, down + res, tied LM head at M = 1, 4, 128; W2
+            g32 and W4 g32 qkv), the grouped W4A8 matmul (30B-A3B gate and
+            down, T = 8, 32, 128, one expert, empty experts) and the grouped
+            any-width matmul (30B-A3B W4 g64, T = 8, 32, 1024); int8 bounds
+            at 1979 TOPS; one decode step each for the kernel line
+  a8_model  (run right after `model`, as sg_model) the model phase on
+            Qwen3-4B with act_quant="int8" (the same weights): per decode
+            step the W4A8 matmul 144, K1 1, K2 36; per prefill K1 145;
+            beside the W4A16 numbers, and both models' B = 1 runs taken in
+            turns (A B B A)
+  sg_model  Qwen3-4B at W8 g64: one decode run at full depth (the any-width
+            matmul 145 a step, K1 0), runs in turns with W4A16's, and
+            4-layer parity
+  a8_parity 4 layers, W4A8 kernel path against plain path, and the W4A8
+            drift from W4A16
+  a8_serving    the serving phase's campaign with act_quant="int8", two
+            campaigns, beside `serving`'s
+  a8_moe    (run right after `moe_model`) Qwen3-30B-A3B with
+            act_quant="int8" on moe_model's weights: one decode run (the
+            grouped W4A8 matmul 144, the W4A8 matmul 96, K1 49 a step; the
+            grouped W4A16 matmul 144 a prefill), runs in turns with
+            W4A16's, and 4-layer parity under RouteForcer
+  sg_moe    Qwen3-30B-A3B at W4 g64 (built once the W4 model is freed: one
+            30B model on the card at a time): the grouped any-width
+            matmul's decode step, one decode run (the any-width matmul 145,
+            the grouped any-width matmul 144 a step), 4-layer parity
 
 Then the nvidia-smi line, one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Needs a CUDA device; imports nothing of JAX.
@@ -79,6 +109,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
+INT8_OPS = 1979e12  # dense int8 tensor-core peak, NVIDIA data sheet
 PROMPT_LEN, DECODE_STEPS, BURST, MAX_SEQ = 128, 128, 16, 1024
 # bench.py serving_bench's default pool: (max_seq // ps) * (batch + 2) + 9 pages.
 PAGE_SIZE, SERVING_BATCH, SERVING_REQUESTS = 128, 4, 16
@@ -94,6 +125,15 @@ LONG_PAGES = LONG_MAX_SEQ // PAGE_SIZE + 1
 LONG_REQUESTS, LONG_MIN_PROMPT = 8, 2048
 MIXED_CHUNK = 32  # bench.py --mixed's sub-chunk
 TIE_MARGIN = 1e-3  # routing near-tie: k-th minus (k+1)-th router probability
+# W4A8 paths quantize their own activations: a bf16 ulp upstream that
+# crosses an int8 step (max|x| / 127 wide) flips a code, so two W4A8 paths drift
+# apart by ~1 % of the output per projection (a flip moves it by sx * w),
+# where two W4A16 paths differ by the ulp alone. Their parity tolerance
+# and near-tie router margin are wider by that much. At that width the
+# model-level parity is a drift gate only: it cannot tell W4A8 from W4A16
+# (their drift is 5 %). The W4A8 kernels' own checks (`_close` with codes)
+# can: kernel and plain version quantize the same x into the same codes.
+A8_PARITY_TOL, A8_TIE_MARGIN = 0.10, 1e-2
 
 
 PHASES: list[dict] = []  # every phase line printed, for --out
@@ -151,8 +191,8 @@ def event_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_: float, flops: float) -> tuple[float, str]:
-    tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound(bytes_: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+    tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -196,25 +236,40 @@ def _layer_weight(params, layer, attr):
     return getattr(holder, attr)
 
 
-def _k1_bytes(qt, M, residual):
+def _qmm_bytes(qt, M, residual):
+    """Packed codes, scales and biases, x, out (and the residual)."""
     N, Kp = qt.out_features, qt.k_padded
-    return N * Kp // 2 + 2 * N * (Kp // 128) * 2 + M * Kp * 2 + M * N * 2 * (2 if residual else 1)
+    return N * Kp * qt.bits // 8 + 2 * N * (Kp // qt.group_size) * 2 + M * Kp * 2 \
+        + M * N * 2 * (2 if residual else 1)
 
 
-def _path_launches(cfg):
-    """Each kernel's launches on the dense path: per decode step, per
-    prefill. K1 runs qkv and o in every layer, gate_up and down in a dense
-    layer and the router in a MoE layer, then the LM head; the grouped
-    kernel runs gate, up and down in a MoE layer."""
+def _path_launches(cfg, act="bf16", sg=False):
+    """Each kernel's launches on the dense path at B = 1: per decode step,
+    per PROMPT_LEN-token prefill. The projections (qkv and o in every layer,
+    gate_up and down in a dense layer), the router in a MoE layer and the
+    LM head run K1 at W4A16; at W4A8 (act "int8") the projections run the
+    W4A8 kernel at a decode step (1 row) and K1 at the prefill (128 rows),
+    the router and head K1; weights of another width (sg) run the
+    any-width kernel everywhere. The experts (gate, up, down in a MoE
+    layer) likewise run the grouped W4A16, W4A8 (T = 8 at a step; 1024 at
+    the prefill: W4A16) or any-width kernel."""
+    from tiny_llm_tpu_torch import kernels
+
     L = cfg.num_hidden_layers
     moe = sum(cfg.is_moe_layer(i) for i in range(L))
-    k1 = 2 * L + 2 * (L - moe) + moe + 1
-    per_step = {"quant_matmul": k1, "fused_decode_attention": L, "flash_attention": 0,
-                "grouped_quant_matmul": 3 * moe}
-    per_prefill = {"quant_matmul": k1, "fused_decode_attention": 0, "flash_attention": L,
-                   "grouped_quant_matmul": 3 * moe}
-    for name in PAGED + SPLIT:
-        per_step[name] = per_prefill[name] = 0
+    proj, head = 2 * L + 2 * (L - moe), moe + 1
+    per_step, per_prefill = dict.fromkeys(kernels.KERNELS, 0), dict.fromkeys(kernels.KERNELS, 0)
+    per_step["fused_decode_attention"] = per_prefill["flash_attention"] = L
+    if sg:
+        for d in (per_step, per_prefill):
+            d.update(quant_matmul_sg=proj + head, grouped_quant_matmul_sg=3 * moe)
+    else:
+        per_prefill.update(quant_matmul=proj + head, grouped_quant_matmul=3 * moe)
+        if act == "int8":
+            per_step.update(quant_matmul_a8=proj, quant_matmul=head,
+                            grouped_quant_matmul_a8=3 * moe)
+        else:
+            per_step.update(quant_matmul=proj + head, grouped_quant_matmul=3 * moe)
     return per_step, per_prefill
 
 
@@ -250,90 +305,146 @@ def _annotate_launches(cases, cfg):
     return cases
 
 
-def _k1_cases(model, cfg, gen):
-    from tiny_llm_tpu_torch.kernels import quant_matmul as k1
+def _close(got, want, codes=False):
+    """(max |got - want|, its ratio to the tolerance; <= 1 passes, NaN
+    fails). The tolerance is 1 % of max |want|, or, with `codes`, 2 bf16
+    ulps of each element plus 1e-3 of max |want| (a floor for outputs that
+    cancel): a W4A8 kernel and its plain version quantize x into the same
+    int8 codes, so they differ only by f32 summation order and the one bf16
+    rounding. W4A16 arithmetic on the same x misses that check several
+    times over (the int8 step's error, ~1 % of max |want|), so it tells
+    W4A8 from W4A16, where 1 % of max does not."""
+    w = want.float()
+    diff = (got.float() - w).abs()
+    peak = w.abs().max()
+    if codes:
+        _, e = torch.frexp(w)  # |w| in [2^(e-1), 2^e): one bf16 ulp is 2^(e-8)
+        tol = torch.ldexp(torch.full_like(w, 2.0), e - 8) * (w != 0) + 1e-3 * peak
+    else:
+        tol = 1e-2 * peak
+    return float(diff.max()), float((diff / tol).max())
+
+
+def _tol_rule(codes):
+    return "2 bf16 ulps + 1e-3 max|plain| per element" if codes else "1e-2 max|plain|"
+
+
+def _dense_cases(kernel, tpu_kernel, ws, Ms, residuals, gen, cuda_fn, plain_fn, peak, label,
+                 control=None):
+    """A dense matmul kernel against its plain version on ws[0] at each M
+    of `Ms` rows, with and without a residual as `residuals` says, timed
+    over every weight of `ws`; library: a bf16 matmul on the dequantized
+    weights. With `control` (the W4A16 plain version, for a W4A8 kernel),
+    the check is `_close`'s codes check, and `control` on the same x must
+    fail it."""
     from tiny_llm_tpu_torch.ops.quantize import dequantize
 
     dev = torch.device("cuda")
-    params = model.params
-    layers = params.layers
-    cases, contract = [], {}
-
-    # K1 for each projection shape, with and without residual, at M = 1
-    # (decode) and 128 (prefill), the main path's, and at M = 4 and 20
-    # (batched decode: the GEMV's 4- and 8-row instances).
-    dense = {}  # (shape, layer) -> bf16 dequantized weight, for the library yardstick
-    for name, (N, K, attr, _) in _k1_shapes(cfg).items():
-        ws = [_layer_weight(params, L, attr) for L in (layers if attr else layers[:1])]
-        dense[name] = [dequantize(w) for w in ws]
-        for M in (1, 4, 20, 128):
-            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-            for residual in (False, True):
-                r = torch.randn((M, N), generator=gen, device=dev).to(torch.bfloat16) \
-                    if residual else None
-                got = k1.quant_matmul_cuda(x, ws[0], r)
-                want = k1.quant_matmul_plain(x, ws[0], r)
-                torch.cuda.synchronize()
-                err = max_err(got, want)
-                tol = 1e-2 * float(want.float().abs().max())
-                check(err <= tol, f"quant_matmul {name} M={M} res={residual}: {err} > {tol}")
-                n_w = len(ws)
-                kern = graph_ms(lambda: [k1.quant_matmul_cuda(x, w, r) for w in ws]) / n_w
-                plain = event_ms(lambda: k1.quant_matmul_plain(x, ws[0], r), reps=2)
-                lib_fn = (lambda: [torch.addmm(r, x, w.T) for w in dense[name]]) if residual \
-                    else (lambda: [torch.matmul(x, w.T) for w in dense[name]])
-                lib = graph_ms(lib_fn) / n_w
-                bms, by = bound(_k1_bytes(ws[0], M, residual), 2 * M * N * K)
-                cases.append({"kernel": "quant_matmul", "tpu_kernel": k1.TPU_KERNEL,
-                              "shape": f"{name} N={N} K={K} M={M}" + (" +res" if residual else ""),
-                              "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
-                              "library_ms": lib, "bound_ms": bms, "bound_by": by})
-
-    # K1 over one decode step: 145 launches in model order (36 layers x
-    # qkv, o+res, gate_up, down+res, then the LM head), distinct weights.
-    D = cfg.hidden_size
-    xs = {n: torch.randn((1, K), generator=gen, device=dev).to(torch.bfloat16)
-          for n, (_, K, _, _) in _k1_shapes(cfg).items()}
-    res = torch.randn((1, D), generator=gen, device=dev).to(torch.bfloat16)
-    order = [(n, i) for i in range(len(layers)) for n in ("qkv", "o", "gate_up", "down")]
-    order.append(("lm_head", 0))
-    wq = {n: [_layer_weight(params, L, a) for L in (layers if a else layers[:1])]
-          for n, (_, _, a, _) in _k1_shapes(cfg).items()}
-    shapes = _k1_shapes(cfg)
-
-    def step(fn):
-        return lambda: [fn(xs[n], wq[n][i], res if shapes[n][3] else None, dense[n][i])
-                        for n, i in order]
-
-    # The step's 145 outputs against the plain version's, each within 1 % of
-    # its max |plain|, as in the cases above.
-    step_got = step(lambda x, w, r, d: k1.quant_matmul_cuda(x, w, r))()
-    step_want = step(lambda x, w, r, d: k1.quant_matmul_plain(x, w, r))()
-    torch.cuda.synchronize()
-    step_err = 0.0
-    for (n, i), got, want in zip(order, step_got, step_want):
-        err, tol = max_err(got, want), 1e-2 * float(want.float().abs().max())
-        check(err <= tol, f"quant_matmul decode step {n}[{i}]: {err} > {tol}")
-        step_err = max(step_err, err)
-    del step_got, step_want
-    step_kern = graph_ms(step(lambda x, w, r, d: k1.quant_matmul_cuda(x, w, r)), replays=3)
-    step_plain = event_ms(step(lambda x, w, r, d: k1.quant_matmul_plain(x, w, r)), reps=1)
-    step_lib = graph_ms(step(lambda x, w, r, d: torch.addmm(r, x, d.T) if r is not None
-                             else torch.matmul(x, d.T)), replays=3)
-    step_bytes = sum(_k1_bytes(wq[n][i], 1, shapes[n][3]) for n, i in order)
-    step_flops = sum(2 * shapes[n][0] * shapes[n][1] for n, _ in order)
-    bms, by = bound(step_bytes, step_flops)
-    contract["quant_matmul"] = {
-        "name": "quant_matmul", "route": "cuda", "source": k1.SOURCE,
-        "replaces": "tiny_llm_tpu/kernels/quant_matmul.py:154",
-        "case": "one 4B decode step: 145 launches at M=1 (36 x qkv, o+res, gate_up, "
-                "down+res; lm_head)",
-        "max_abs_err": step_err,
-        "ms": step_kern, "plain_ms": step_plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": step_lib,
-    }
+    N, K = ws[0].out_features, ws[0].in_features
+    dense = [dequantize(w) for w in ws]
+    codes = control is not None
+    cases = []
+    for M in Ms:
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        for residual in residuals:
+            r = torch.randn((M, N), generator=gen, device=dev).to(torch.bfloat16) \
+                if residual else None
+            got, want = cuda_fn(x, ws[0], r), plain_fn(x, ws[0], r)
+            torch.cuda.synchronize()
+            err, ratio = _close(got, want, codes)
+            what = f"{kernel} {label} M={M} res={residual}"
+            check(ratio <= 1, f"{what}: {err} is {ratio} x {_tol_rule(codes)}")
+            extra = {}
+            if codes:
+                extra["w4a16_err_over_tol"] = _close(control(x, ws[0], r), want, codes)[1]
+                check(extra["w4a16_err_over_tol"] > 1, f"{what}: W4A16 passes the W4A8 check")
+            kern = graph_ms(lambda: [cuda_fn(x, w, r) for w in ws]) / len(ws)
+            plain = event_ms(lambda: plain_fn(x, ws[0], r), reps=2)
+            lib = graph_ms(lambda: [torch.addmm(r, x, d.T) if residual else torch.matmul(x, d.T)
+                                    for d in dense]) / len(ws)
+            bms, by = bound(_qmm_bytes(ws[0], M, residual), 2 * M * N * K, peak)
+            cases.append({"kernel": kernel, "tpu_kernel": tpu_kernel,
+                          "shape": f"{label} N={N} K={K} W{ws[0].bits} g{ws[0].group_size} M={M}"
+                                   + (" +res" if residual else ""),
+                          "max_err": err, "err_over_tol": ratio, "tol": _tol_rule(codes), **extra,
+                          "kernel_ms": kern, "plain_ms": plain, "library_ms": lib,
+                          "library": "matmul on bf16-dequantized weights", "bound_ms": bms,
+                          "bound_by": by})
     del dense
     torch.cuda.empty_cache()
+    return cases
+
+
+def _dense_step(params, cfg, gen, cuda_fn, plain_fn, name, source, replaces, label, peak,
+                head, control=None):
+    """One B = 1 decode step of a dense matmul kernel: every layer's qkv,
+    o + res, gate_up, down + res in model order (and the LM head when
+    `head`), distinct weights: each output against the plain version's
+    (`_close`; with `control`, as in `_dense_cases`), kernel, plain and
+    library times, and the bound. Returns the kernel line's entry."""
+    from tiny_llm_tpu_torch.ops.quantize import dequantize
+
+    dev = torch.device("cuda")
+    shapes = _k1_shapes(cfg)
+    layers = params.layers
+    order = [(n, i) for i in range(len(layers)) for n in ("qkv", "o", "gate_up", "down")]
+    if head:
+        order.append(("lm_head", 0))
+    wq = {n: [_layer_weight(params, L, a) for L in (layers if a else layers[:1])]
+          for n, (_, _, a, _) in shapes.items()}
+    xs = {n: torch.randn((1, K), generator=gen, device=dev).to(torch.bfloat16)
+          for n, (_, K, _, _) in shapes.items()}
+    res = torch.randn((1, cfg.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+
+    def step(fn):
+        return lambda: [fn(xs[n], wq[n][i], res if shapes[n][3] else None) for n, i in order]
+
+    step_got, step_want = step(cuda_fn)(), step(plain_fn)()
+    step_ctl = step(control)() if control is not None else [None] * len(order)
+    torch.cuda.synchronize()
+    step_err, ctl_min, codes = 0.0, float("inf"), control is not None
+    for (n, i), got, want, ctl in zip(order, step_got, step_want, step_ctl):
+        err, ratio = _close(got, want, codes)
+        check(ratio <= 1, f"{name} decode step {n}[{i}]: {err} is {ratio} x {_tol_rule(codes)}")
+        step_err = max(step_err, err)
+        if codes:
+            ctl_min = min(ctl_min, _close(ctl, want, codes)[1])
+    check(not codes or ctl_min > 1, f"{name} decode step: W4A16 passes the W4A8 check")
+    del step_got, step_want, step_ctl
+    kern = graph_ms(step(cuda_fn), replays=3)
+    plain = event_ms(step(plain_fn), reps=1)
+    dense = {(n, i): dequantize(wq[n][i]) for n, i in order}
+    lib = graph_ms(lambda: [torch.addmm(res, xs[n], dense[n, i].T) if shapes[n][3]
+                            else torch.matmul(xs[n], dense[n, i].T) for n, i in order], replays=3)
+    del dense
+    torch.cuda.empty_cache()
+    bms, by = bound(sum(_qmm_bytes(wq[n][i], 1, shapes[n][3]) for n, i in order),
+                    sum(2 * shapes[n][0] * shapes[n][1] for n, _ in order), peak)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "case": f"one {label} decode step: {len(order)} launches at M=1 ({len(layers)} x "
+                    "qkv, o+res, gate_up, down+res" + ("; lm_head)" if head else ")"),
+            "max_abs_err": step_err, "tol": _tol_rule(codes),
+            **({"w4a16_min_err_over_tol": ctl_min} if codes else {}),
+            "ms": kern, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "library": "matmul on bf16-dequantized weights"}
+
+
+def _k1_cases(model, cfg, gen):
+    """K1 for each projection shape, with and without residual, at M = 1
+    (decode) and 128 (prefill), the main path's, and at M = 4 and 20
+    (batched decode: the GEMV's 4- and 8-row instances); then one decode
+    step, 145 launches in model order, for the kernel line."""
+    from tiny_llm_tpu_torch.kernels import quant_matmul as k1
+
+    params, layers = model.params, model.params.layers
+    cases = []
+    for name, (_, _, attr, _) in _k1_shapes(cfg).items():
+        ws = [_layer_weight(params, L, attr) for L in (layers if attr else layers[:1])]
+        cases += _dense_cases("quant_matmul", k1.TPU_KERNEL, ws, (1, 4, 20, 128), (False, True),
+                              gen, k1.quant_matmul_cuda, k1.quant_matmul_plain, BF16_FLOPS, name)
+    contract = {"quant_matmul": _dense_step(
+        params, cfg, gen, k1.quant_matmul_cuda, k1.quant_matmul_plain, "quant_matmul", k1.SOURCE,
+        "tiny_llm_tpu/kernels/quant_matmul.py:154", "4B", BF16_FLOPS, head=True)}
     return _annotate_launches(cases, cfg), contract
 
 
@@ -485,7 +596,7 @@ def _grouped_library(x, qts, sizes):
 def _grouped_bytes(qt, sizes, T):
     """Active experts' packed codes, scales and biases, plus x and out."""
     N, Kp = qt.out_features, qt.k_padded
-    return int((sizes > 0).sum()) * (N * Kp // 2 + 2 * N * (Kp // 128) * 2) \
+    return int((sizes > 0).sum()) * (N * Kp * qt.bits // 8 + 2 * N * (Kp // qt.group_size) * 2) \
         + T * Kp * 2 + T * N * 2
 
 
@@ -495,7 +606,6 @@ def _grouped_cases(model, cfg, gen, contract):
     144 calls (each layer its own routing) for the kernel line."""
     from tiny_llm_tpu_torch.kernels import moe_matmul as km
 
-    dev = torch.device("cuda")
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     mlps = [layer.mlp for layer in model.params.layers]
     rng = np.random.default_rng(3)
@@ -509,6 +619,29 @@ def _grouped_cases(model, cfg, gen, contract):
              ("T=128, one expert holds every row", one(128)),
              ("T=24, experts 0-4 and 121-127 empty", ends(24)),
              ("T=200, experts 0-4 and 121-127 empty", ends(200))]
+    cases = _grouped_kernel_cases(mlps, cfg, gen, specs, "grouped_quant_matmul",
+                                  km.grouped_quant_matmul_cuda, km.grouped_quant_matmul_plain,
+                                  km.TPU_KERNEL)
+    contract["grouped_quant_matmul"] = _grouped_step(
+        mlps, cfg, gen, rng, km.grouped_quant_matmul_cuda,
+        km.grouped_quant_matmul_plain, "grouped_quant_matmul", km.SOURCE,
+        "tiny_llm_tpu/kernels/moe_matmul.py:120", "30B-A3B")
+    torch.cuda.empty_cache()
+    return _annotate_launches(cases, cfg)
+
+
+def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_kernel,
+                          peak=BF16_FLOPS, control=None):
+    """A grouped kernel against its plain version at the gate and down
+    projections of `mlps` for each (label, group sizes) of `specs`, timed
+    over every layer's weights (`control`: as in `_dense_cases`); the
+    library yardstick (torch._grouped_mm on 8 layers' bf16-dequantized
+    weights) is checked against the W4A16-exact plain version."""
+    from tiny_llm_tpu_torch.kernels import moe_matmul as km
+
+    dev = torch.device("cuda")
+    E = cfg.num_experts
+    codes = control is not None
     cases = []
     for what, sizes in specs:
         T = int(sizes.sum())
@@ -517,28 +650,47 @@ def _grouped_cases(model, cfg, gen, contract):
             ws = [getattr(m, proj) for m in mlps]
             N, K = ws[0].out_features, ws[0].in_features
             x = torch.randn((T, K), generator=gen, device=dev).to(torch.bfloat16)
-            got = km.grouped_quant_matmul_cuda(x, ws[0], sizes_t)
-            want = km.grouped_quant_matmul_plain(x, ws[0], sizes_t)
+            got = cuda_fn(x, ws[0], sizes_t)
+            want = plain_fn(x, ws[0], sizes_t)
             torch.cuda.synchronize()
-            err, tol = max_err(got, want), 1e-2 * float(want.float().abs().max())
-            check(err <= tol, f"grouped_quant_matmul {proj} {what}: {err} > {tol}")
-            kern = graph_ms(lambda: [km.grouped_quant_matmul_cuda(x, w, sizes_t)
-                                     for w in ws]) / len(ws)
-            plain = event_ms(lambda: km.grouped_quant_matmul_plain(x, ws[0], sizes_t), reps=1)
+            err, ratio = _close(got, want, codes)
+            check(ratio <= 1, f"{kernel} {proj} {what}: {err} is {ratio} x {_tol_rule(codes)}")
+            extra = {}
+            if codes:
+                extra["w4a16_err_over_tol"] = _close(control(x, ws[0], sizes_t), want, codes)[1]
+                check(extra["w4a16_err_over_tol"] > 1,
+                      f"{kernel} {proj} {what}: W4A16 passes the W4A8 check")
+            kern = graph_ms(lambda: [cuda_fn(x, w, sizes_t) for w in ws]) / len(ws)
+            plain = event_ms(lambda: plain_fn(x, ws[0], sizes_t), reps=1)
             lib_fn, lib_out, lib_name = _grouped_library(x, ws[:8], sizes)
-            check(max_err(lib_out, want) <= tol, f"library yardstick {proj} {what} differs")
+            exact = want if plain_fn is km.grouped_quant_matmul_plain \
+                else km.grouped_quant_matmul_plain(x, ws[0], sizes_t)
+            check(max_err(lib_out, exact) <= 1e-2 * float(exact.float().abs().max()),
+                  f"library yardstick {proj} {what} differs")
             lib = graph_ms(lambda: [lib_fn(i) for i in range(8)]) / 8
-            del lib_fn, lib_out
-            bms, by = bound(_grouped_bytes(ws[0], sizes, T), 2 * T * N * K)
-            cases.append({"kernel": "grouped_quant_matmul", "tpu_kernel": km.TPU_KERNEL,
-                          "shape": f"{proj[2:]} N={N} K={K} E={E} {what}, "
+            del lib_fn, lib_out, exact
+            bms, by = bound(_grouped_bytes(ws[0], sizes, T), 2 * T * N * K, peak)
+            cases.append({"kernel": kernel, "tpu_kernel": tpu_kernel,
+                          "shape": f"{proj[2:]} N={N} K={K} E={E} W{ws[0].bits} "
+                                   f"g{ws[0].group_size} {what}, "
                                    f"{int((sizes > 0).sum())} experts active",
-                          "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
-                          "library_ms": lib, "library": lib_name, "bound_ms": bms,
-                          "bound_by": by})
+                          "max_err": err, "err_over_tol": ratio, "tol": _tol_rule(codes),
+                          **extra, "kernel_ms": kern, "plain_ms": plain, "library_ms": lib,
+                          "library": lib_name, "bound_ms": bms, "bound_by": by})
             torch.cuda.empty_cache()
+    return cases
 
-    # One decode step: 48 layers x (gate, up, down) at T = 8, in model order.
+
+def _grouped_step(mlps, cfg, gen, rng, cuda_fn, plain_fn, name, source, replaces, label,
+                  peak=BF16_FLOPS, control=None):
+    """One decode step of a grouped kernel: the layers' (gate, up, down) at
+    T = 8 in model order, each layer its own top-8 routing: each output
+    against the plain version's (`_close`; with `control`, as in
+    `_dense_cases`), the step's kernel, plain and library
+    (torch._grouped_mm) times and its bound. Returns the kernel line's
+    entry."""
+    dev = torch.device("cuda")
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
     step_sizes = [_routing(rng, 1, E, k) for _ in mlps]
     sizes_t = [torch.as_tensor(sz, dtype=torch.int32, device=dev) for sz in step_sizes]
     xs = {K: torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
@@ -549,17 +701,20 @@ def _grouped_cases(model, cfg, gen, contract):
         return lambda: [fn(xs[getattr(mlps[i], p).in_features], getattr(mlps[i], p),
                            sizes_t[i]) for i, p in order]
 
-    step_got = step(km.grouped_quant_matmul_cuda)()
-    step_want = step(km.grouped_quant_matmul_plain)()
+    step_got, step_want = step(cuda_fn)(), step(plain_fn)()
+    step_ctl = step(control)() if control is not None else [None] * len(order)
     torch.cuda.synchronize()
-    step_err = 0.0
-    for (i, p), got, want in zip(order, step_got, step_want):
-        err, tol = max_err(got, want), 1e-2 * float(want.float().abs().max())
-        check(err <= tol, f"grouped_quant_matmul decode step {p}[{i}]: {err} > {tol}")
+    step_err, ctl_min, codes = 0.0, float("inf"), control is not None
+    for (i, p), got, want, ctl in zip(order, step_got, step_want, step_ctl):
+        err, ratio = _close(got, want, codes)
+        check(ratio <= 1, f"{name} decode step {p}[{i}]: {err} is {ratio} x {_tol_rule(codes)}")
         step_err = max(step_err, err)
-    del step_got, step_want
-    step_kern = graph_ms(step(km.grouped_quant_matmul_cuda), replays=3)
-    step_plain = event_ms(step(km.grouped_quant_matmul_plain), reps=1)
+        if codes:
+            ctl_min = min(ctl_min, _close(ctl, want, codes)[1])
+    check(not codes or ctl_min > 1, f"{name} decode step: W4A16 passes the W4A8 check")
+    del step_got, step_want, step_ctl
+    step_kern = graph_ms(step(cuda_fn), replays=3)
+    step_plain = event_ms(step(plain_fn), reps=1)
     libs = [_grouped_library(xs[getattr(mlps[i], p).in_features], [getattr(mlps[i], p)],
                              step_sizes[i]) for i, p in order]
     step_lib = graph_ms(lambda: [fn(0) for fn, _, _ in libs], replays=3)
@@ -567,17 +722,17 @@ def _grouped_cases(model, cfg, gen, contract):
     del libs
     bms, by = bound(sum(_grouped_bytes(getattr(mlps[i], p), step_sizes[i], 8) for i, p in order),
                     sum(2 * 8 * getattr(mlps[i], p).out_features
-                        * getattr(mlps[i], p).in_features for i, p in order))
-    contract["grouped_quant_matmul"] = {
-        "name": "grouped_quant_matmul", "route": "cuda", "source": km.SOURCE,
-        "replaces": "tiny_llm_tpu/kernels/moe_matmul.py:120",
-        "case": "one 30B-A3B decode step: 144 launches at T=8 (48 x gate, up, down), "
-                "each layer its own top-8 of 128 experts",
-        "max_abs_err": step_err, "ms": step_kern, "plain_ms": step_plain, "bound_ms": bms,
-        "bound_by": by, "library_ms": step_lib, "library": lib_name,
-    }
+                        * getattr(mlps[i], p).in_features for i, p in order), peak)
     torch.cuda.empty_cache()
-    return _annotate_launches(cases, cfg)
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "case": f"one {label} decode step: {len(order)} launches at T=8 ({len(mlps)} x gate, "
+                f"up, down), each layer its own top-{k} of {E} experts",
+        "max_abs_err": step_err, "tol": _tol_rule(codes),
+        **({"w4a16_min_err_over_tol": ctl_min} if codes else {}),
+        "ms": step_kern, "plain_ms": step_plain, "bound_ms": bms, "bound_by": by,
+        "library_ms": step_lib, "library": lib_name,
+    }
 
 
 def _tables(perm, ctxs, width):
@@ -771,6 +926,21 @@ def _decode_run(model, prompt):
     return prefill_s, decode_s, np.stack(toks)
 
 
+def _alternating(models: dict, prompt) -> dict:
+    """Decode and prefill tok/s of the same B = 1 run on each model, taken
+    in turns (A B B A), medians per model: a difference between models of
+    one call that the host's drift over the call does not bias."""
+    names = list(models)
+    order = names + names[::-1]
+    got = {n: [] for n in names}
+    for n in order:
+        pre_s, dec_s, _ = _decode_run(models[n], prompt)
+        got[n].append((PROMPT_LEN / pre_s, DECODE_STEPS / dec_s))
+    return {n: {"prefill_tok_s": float(np.median([p for p, _ in v])),
+                "decode_tok_s": float(np.median([d for _, d in v])), "order": "ABBA"}
+            for n, v in got.items()}
+
+
 def _sync_free_burst(model, prompt) -> dict:
     """One BURST-step dense decode burst under sync-debug "error": any op
     in it that waits for the device raises. Only the copy of the emitted
@@ -792,18 +962,24 @@ def _sync_free_burst(model, prompt) -> dict:
     return {"steps": BURST, "mode": "error", "host_syncs_in_burst": 0}
 
 
-def phase_model(model, cfg, phase, name):
+def phase_model(model, cfg, phase, name, runs=3, beside=None):
+    """B = 1 dense decode at full width and depth: a PROMPT_LEN-token
+    prefill and DECODE_STEPS greedy steps in BURST-step bursts, `runs`
+    times after a warm-up, with exact launch counts (the model's act_quant
+    and its weights' width set which kernels), a device profile of one
+    burst and one sync-free burst.
+    `beside`: another phase's numbers to print beside these."""
     from tiny_llm_tpu_torch import kernels
 
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, PROMPT_LEN))
     torch.cuda.reset_peak_memory_stats()
     _decode_run(model, prompt)  # warm-up (allocator, kernel first calls)
-    runs = 3
     kernels.reset_launches()
     samples = [_decode_run(model, prompt) for _ in range(runs)]
     counts = kernels.launches()
     L = cfg.num_hidden_layers
-    per_step, per_prefill = _path_launches(cfg)
+    sg = not model.params.layers[0].attn.wqkv.is_w4g128
+    per_step, per_prefill = _path_launches(cfg, model.act_quant, sg)
     expected = {k: runs * (per_prefill[k] + DECODE_STEPS * per_step[k]) for k in counts}
     check(counts == expected, f"launch counts {counts} != expected {expected}")
     check(all(counts[k] > 0 for k, v in per_step.items() if v > 0),
@@ -817,15 +993,15 @@ def phase_model(model, cfg, phase, name):
     dev_ms = busy["device_ms_per_step"]  # None when the profiler saw no device time
     busy["busy_share_unprofiled"] = None if dev_ms is None else dev_ms * dec[len(dec) // 2] / 1e3
     sync_free = _sync_free_burst(model, prompt)
-    emit({"phase": phase, "model": name, "layers": L, "batch": 1,
-          "prompt_len": PROMPT_LEN, "decode_steps": DECODE_STEPS, "burst": BURST,
+    emit({"phase": phase, "model": name, "layers": L, "batch": 1, "act_quant": model.act_quant,
+          "prompt_len": PROMPT_LEN, "decode_steps": DECODE_STEPS, "burst": BURST, "runs": runs,
           "max_seq": MAX_SEQ, "prefill_tok_s": pre[len(pre) // 2],
           "decode_tok_s": dec[len(dec) // 2], "decode_tok_s_all": dec,
           "launches": counts, "launches_per_decode_step": per_step,
           "launches_per_prefill": per_prefill,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "first_tokens": toks[0][:8, 0].tolist(), "decode_profile": busy,
-          "sync_free_burst": sync_free})
+          "sync_free_burst": sync_free, **(beside or {})})
     return counts
 
 
@@ -869,11 +1045,12 @@ class RouteForcer:
     records the plain router's k-th minus (k+1)-th probability there. The
     kernel path routes first: each of its route_topk calls queues its ids
     for the plain path's call of the same layer. `summary` fails unless
-    every such row was a near-tie (margin < TIE_MARGIN): a bf16 ulp of
+    every such row was a near-tie (margin < `margin`): a bf16 ulp of
     router logit that flips one expert is not a kernel fault, and a flip
     at a wide margin would be."""
 
-    def __init__(self):
+    def __init__(self, margin: float = TIE_MARGIN):
+        self.margin = margin
         self.queue: collections.deque = collections.deque()
         self.forced: list[tuple[int, float]] = []  # (batch row, margin)
 
@@ -908,29 +1085,43 @@ class RouteForcer:
         """Forced rows among the compared batch rows (live(b) true)."""
         check(not self.queue, "kernel and plain paths routed a different number of times")
         margins = [m for b, m in self.forced if live(b)]
-        check(all(m < TIE_MARGIN for m in margins),
-              f"experts differ at a router margin >= {TIE_MARGIN}: {max(margins, default=0)}")
+        check(all(m < self.margin for m in margins),
+              f"experts differ at a router margin >= {self.margin}: {max(margins, default=0)}")
         self.forced.clear()
         return {"routing_forced": len(margins), "max_forced_margin": max(margins, default=None)}
 
 
-def phase_parity(cfg, phase="parity", forcer=None):
+def phase_parity(cfg, phase="parity", forcer=None, act_quant=None, bits=4, group_size=128):
+    """4 layers at full width, teacher-forced (the plain path's tokens): a
+    PROMPT_LEN-token prefill and 8 decode steps, the kernel path's logits
+    against the plain path's. With act_quant "int8", also the W4A8 kernel
+    path's drift from the W4A16 kernel path on the same inputs (dense
+    models)."""
     from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
 
     cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
-    params = synthetic_quantized_params(cfg4, seed=1)
-    fast = Qwen3Model(params, cfg4, max_seq_len=256)
-    plain = Qwen3Model(params, cfg4, max_seq_len=256, impl="torch")
+    params = synthetic_quantized_params(cfg4, seed=1, group_size=group_size, bits=bits)
+    fast = Qwen3Model(params, cfg4, max_seq_len=256, act_quant=act_quant)
+    plain = Qwen3Model(params, cfg4, max_seq_len=256, impl="torch", act_quant=act_quant)
+    # The W4A16 kernel path beside W4A8 (dense only: under a RouteForcer
+    # its routing would join the kernel path's queue).
+    a16 = Qwen3Model(params, cfg4, max_seq_len=256) if act_quant == "int8" and forcer is None \
+        else None
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(1, PROMPT_LEN))
     cf, cp = fast.create_kv_cache(), plain.create_kv_cache()
     lf, lp = fast(prompt, 0, cf), plain(prompt, 0, cp)
+    if a16 is not None:
+        ca = a16.create_kv_cache()
+        la = a16(prompt, 0, ca)
     worst, decided, agree = 0.0, 0, 0
+    tol_share = A8_PARITY_TOL if act_quant == "int8" else 5e-2
+    drift = []  # per decode step: max |W4A8 - W4A16| / max |W4A16|, and top-1 equal
     # Tolerance: 5 % of the largest plain logit. Kernel and plain version
     # sum in f32 in other orders and round each projection to bf16 (an ulp is
     # 0.4 %); four layers compound that.
     for step in range(9):
         a, b = lf[0].float(), lp[0].float()
-        tol = 5e-2 * float(b.abs().max())
+        tol = tol_share * float(b.abs().max())
         err = float((a - b).abs().max())
         worst = max(worst, err / max(tol, 1e-30))
         check(bool(torch.isfinite(a).all()) and err <= tol, f"parity step {step}: {err} > {tol}")
@@ -938,14 +1129,26 @@ def phase_parity(cfg, phase="parity", forcer=None):
         sure = (top2[:, 0] - top2[:, 1]) > tol
         decided += int(sure.sum())
         agree += int((a.argmax(-1) == b.argmax(-1))[sure].sum())
+        if a16 is not None and step > 0:
+            ref = la[0, -1].float()
+            drift.append((float((a[-1] - ref).abs().max() / ref.abs().max()),
+                          bool(a[-1].argmax() == ref.argmax())))
         tok = [[int(b[-1].argmax())]]  # teacher-forced: the plain path's token
         if step < 8:
             lf, lp = fast(tok, PROMPT_LEN + step, cf), plain(tok, PROMPT_LEN + step, cp)
+            if a16 is not None:
+                la = a16(tok, PROMPT_LEN + step, ca)
     check(agree == decided, f"top-1 disagrees on {decided - agree} decided positions")
     forced = forcer.summary(lambda b: True) if forcer is not None else {}
-    emit({"phase": phase, "path": "dense", "layers": 4, "positions": PROMPT_LEN + 8,
-          "worst_err_over_tol": worst, "tol": "5% of max |plain logit|",
-          "top1_decided": decided, "top1_agree": agree, **forced})
+    line = {"phase": phase, "path": "dense", "layers": 4, "positions": PROMPT_LEN + 8,
+            "act_quant": fast.act_quant, "bits": bits, "group_size": group_size,
+            "worst_err_over_tol": worst, "tol": f"{tol_share:.0%} of max |plain logit|",
+            "top1_decided": decided, "top1_agree": agree, **forced}
+    if drift:
+        line["w4a8_vs_w4a16_decode_logits"] = {
+            "max_rel_err": max(d for d, _ in drift), "mean_rel_err": sum(d for d, _ in drift)
+            / len(drift), "top1_equal": sum(t for _, t in drift), "steps": len(drift)}
+    emit(line)
 
 
 def phase_generate(model):
@@ -1110,10 +1313,12 @@ def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs):
     return [dict(m.as_dict(), wall_s=m.wall_s) for m, _ in runs], counts
 
 
-def phase_serving(model, cfg, phase, name, mixed=False):
-    """bench.py serving_bench's default campaign through the port; with
-    `mixed`, bench.py --mode serving --mixed's (mixed prefill+decode
-    bursts of MIXED_CHUNK-token sub-chunks)."""
+def phase_serving(model, cfg, phase, name, mixed=False, n_runs=3, beside=None):
+    """bench.py serving_bench's default campaign through the port, a
+    warm-up and `n_runs` campaigns; with `mixed`, bench.py --mode serving
+    --mixed's (mixed prefill+decode bursts of MIXED_CHUNK-token
+    sub-chunks). The model's act_quant sets which matmul kernels must run.
+    `beside`: another phase's numbers to print beside these."""
     torch.cuda.reset_peak_memory_stats()
     model.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
     rng = np.random.default_rng(0)
@@ -1130,11 +1335,11 @@ def phase_serving(model, cfg, phase, name, mixed=False):
         # Warm-up as bench.py: every power-of-two chunk, the 256 chunk's
         # shape and the longest prompt.
         rows, counts = _campaigns(model, cfg, lens, max_out, kw,
-                                  ["x" * 255, "x" * 257, "x" * MAX_SEQ], 3)
+                                  ["x" * 255, "x" * 257, "x" * MAX_SEQ], n_runs)
     finally:
         if mixed:
             del model.mixed_burst
-    per_step, per_prefill = _path_launches(cfg)
+    per_step, per_prefill = _path_launches(cfg, model.act_quant)
     # A mixed campaign's sub-chunks (32 tokens) run paged prefill; only its
     # classic chunks (a prefill with no active slot) may reach paged decode.
     need = [k for k in per_step if per_step[k] or per_prefill[k]] + list(PAGED)
@@ -1144,8 +1349,9 @@ def phase_serving(model, cfg, phase, name, mixed=False):
     check(counts["fused_decode_attention"] == 0, "the dense decode kernel ran on the paged path")
     check(not mixed or len(mixed_bursts) > 0, "no mixed burst ran")
     tok_s = [r["output_tok_s"] for r in rows]
-    mid = rows[sorted(range(3), key=lambda k: tok_s[k])[1]]
+    mid = rows[sorted(range(n_runs), key=lambda k: tok_s[k])[(n_runs - 1) // 2]]
     line = {"phase": phase, "model": name, "layers": cfg.num_hidden_layers,
+            "act_quant": model.act_quant,
             "requests": SERVING_REQUESTS, "batch": SERVING_BATCH, "max_seq": MAX_SEQ,
             "page_size": PAGE_SIZE, "pool_pages": POOL_PAGES, "prefill_step": 128,
             "decode_burst": BURST, "max_output_tokens": max_out,
@@ -1156,15 +1362,15 @@ def phase_serving(model, cfg, phase, name, mixed=False):
             "mean_batch_occupancy": mid["mean_batch_occupancy"],
             "peak_live_pages": mid["peak_live_pages"],
             "output_tokens": mid["output_tokens"], "decode_bursts": mid["decode_steps"],
-            "wall_s_all": [r["wall_s"] for r in rows], "launches_3_campaigns": counts,
+            "wall_s_all": [r["wall_s"] for r in rows], f"launches_{n_runs}_campaigns": counts,
             "pool_full_after_each_campaign": True,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     if mixed:
-        line.update(mixed_chunk=MIXED_CHUNK, mixed_bursts_3_campaigns=len(mixed_bursts),
+        line.update(mixed_chunk=MIXED_CHUNK, mixed_bursts=len(mixed_bursts),
                     mixed_burst_profile=_profile_serving_burst(model, lens, mixed=True))
     else:
         line["decode_burst_profile"] = _profile_serving_burst(model, lens)
-    emit(line)
+    emit(dict(line, **(beside or {})))
     return counts
 
 
@@ -1666,6 +1872,132 @@ def phase_mixed_parity(cfg):
           "sync_free_burst": {"steps": steps, "mode": "error", "host_syncs_in_burst": 0}})
 
 
+def _random_qt(gen, N, K, bits, group_size, copies=1):
+    """`copies` random weights [N, K] at the width, drawn as the port's
+    synthetic params (centred codes)."""
+    from tiny_llm_tpu_torch.ops.quantize import QuantizedTensor, padded_k
+
+    dev = torch.device("cuda")
+    kp, levels = padded_k(K), (1 << bits) - 1
+    out = []
+    for _ in range(copies):
+        packed = torch.randint(-(2**31), 2**31, (N, kp * bits // 32), dtype=torch.int32,
+                               generator=gen, device=dev)
+        sc = ((torch.rand((N, kp // group_size), generator=gen, device=dev) * 0.004 + 0.001)
+              * (15 / levels)).to(torch.bfloat16)
+        bi = (-(levels / 2) * sc.float()).to(torch.bfloat16)
+        out.append(QuantizedTensor(packed, sc, bi, N, K, kp, group_size, bits))
+    return out
+
+
+def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
+    """The quant tiers' kernels against their plain versions on the card,
+    timed by CUDA-graph replay over distinct weights (up to 8 layers'):
+    the W4A8 matmul at the 4B shapes (qkv, gate_up, down + res; M = 1, 4,
+    32) and 30B-A3B's qkv and o; the any-width matmul at 4B W8 g64 (qkv,
+    down + res, the tied LM head; M = 1, 4, 128) and at W2 g32 and W4 g32
+    on the qkv shape; the grouped W4A8 matmul at 30B-A3B's gate and down
+    (T = 8, 32, 128, one expert holding every row, empty experts); the
+    grouped any-width matmul at 30B-A3B W4 g64 (8 layers' experts; T = 8,
+    32, 1024). Then one decode step each of the W4A8 (4B), any-width (4B
+    W8 g64) and grouped W4A8 (30B-A3B) matmuls for the kernel line."""
+    from tiny_llm_tpu_torch.kernels import moe_matmul as km
+    from tiny_llm_tpu_torch.kernels import quant_matmul as qm
+    from tiny_llm_tpu_torch.models import synthetic_quantized_params
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = []
+    for mdl, c, names, label in ((model, cfg, ("qkv", "gate_up", "down"), "qwen3-4b"),
+                                 (moe, moe_cfg, ("qkv", "o"), "qwen3-30b-a3b")):
+        shapes = _k1_shapes(c)
+        for name in names:
+            _, _, attr, residual = shapes[name]
+            ws = [_layer_weight(mdl.params, L, attr) for L in mdl.params.layers[:8]]
+            cases += [dict(c, model=label) for c in _dense_cases(
+                "quant_matmul_a8", qm.TPU_KERNEL_A8, ws, (1, 4, 32), (residual,), gen,
+                qm.quant_matmul_a8_cuda, qm.quant_matmul_a8_plain, INT8_OPS, name,
+                control=qm.quant_matmul_plain)]
+    shapes = _k1_shapes(cfg)
+    for name in ("qkv", "down", "lm_head"):
+        _, _, attr, residual = shapes[name]
+        ws = [_layer_weight(sg_model.params, L, attr)
+              for L in (sg_model.params.layers[:8] if attr else sg_model.params.layers[:1])]
+        cases += _dense_cases("quant_matmul_sg", qm.TPU_KERNEL_SG, ws, (1, 4, 128), (residual,),
+                              gen, qm.quant_matmul_sg_cuda, qm.quant_matmul_plain, BF16_FLOPS,
+                              name)
+    N, K = shapes["qkv"][:2]
+    for bits in (2, 4):
+        ws = _random_qt(gen, N, K, bits, 32, copies=8)
+        cases += _dense_cases("quant_matmul_sg", qm.TPU_KERNEL_SG, ws, (1, 128), (False,), gen,
+                              qm.quant_matmul_sg_cuda, qm.quant_matmul_plain, BF16_FLOPS, "qkv")
+        del ws
+    rng = np.random.default_rng(8)
+    E, k = moe_cfg.num_experts, moe_cfg.num_experts_per_tok
+    mlps = [layer.mlp for layer in moe.params.layers]
+    specs = [("T=8: one token's top-8", _routing(rng, 1, E, k)),
+             ("T=32: four tokens' top-8", _routing(rng, 4, E, k)),
+             ("T=128: sixteen tokens' top-8", _routing(rng, 16, E, k)),
+             ("T=128, one expert holds every row", np.bincount([17] * 128, minlength=E)),
+             ("T=24, experts 0-4 and 121-127 empty", np.concatenate([
+                 np.zeros(5, int), rng.multinomial(24, np.full(E - 12, 1 / (E - 12))),
+                 np.zeros(7, int)]))]
+    cases += [dict(c, model="qwen3-30b-a3b") for c in _grouped_kernel_cases(
+        mlps, moe_cfg, gen, specs, "grouped_quant_matmul_a8", km.grouped_quant_matmul_a8_cuda,
+        km.grouped_quant_matmul_a8_plain, km.TPU_KERNEL_A8, INT8_OPS,
+        control=km.grouped_quant_matmul_plain)]
+    cut = dataclasses.replace(moe_cfg, num_hidden_layers=8)
+    sg_mlps = [layer.mlp for layer in synthetic_quantized_params(cut, seed=7, group_size=64).layers]
+    specs = [("T=8: one token's top-8", _routing(rng, 1, E, k)),
+             ("T=32: four tokens' top-8", _routing(rng, 4, E, k)),
+             ("T=1024: 128 tokens' top-8", _routing(rng, 128, E, k))]
+    cases += [dict(c, model="qwen3-30b-a3b") for c in _grouped_kernel_cases(
+        sg_mlps, moe_cfg, gen, specs, "grouped_quant_matmul_sg", km.grouped_quant_matmul_sg_cuda,
+        km.grouped_quant_matmul_plain, km.TPU_KERNEL_SG)]
+    del sg_mlps
+    torch.cuda.empty_cache()
+    contract["quant_matmul_a8"] = _dense_step(
+        model.params, cfg, gen, qm.quant_matmul_a8_cuda, qm.quant_matmul_a8_plain,
+        "quant_matmul_a8", qm.SOURCE, "tiny_llm_tpu/kernels/quant_matmul.py:278", "4B W4A8",
+        INT8_OPS, head=False, control=qm.quant_matmul_plain)
+    contract["quant_matmul_sg"] = _dense_step(
+        sg_model.params, cfg, gen, qm.quant_matmul_sg_cuda, qm.quant_matmul_plain,
+        "quant_matmul_sg", qm.SOURCE_SG, "tiny_llm_tpu/kernels/quant_matmul.py:79",
+        "4B W8 g64", BF16_FLOPS, head=True)
+    contract["grouped_quant_matmul_a8"] = _grouped_step(
+        mlps, moe_cfg, gen, rng, km.grouped_quant_matmul_a8_cuda, km.grouped_quant_matmul_a8_plain,
+        "grouped_quant_matmul_a8", km.SOURCE, "tiny_llm_tpu/kernels/moe_matmul.py:173",
+        "30B-A3B W4A8", INT8_OPS, control=km.grouped_quant_matmul_plain)
+    emit({"phase": "quant_kernels", "cases": cases})
+
+
+def phase_sg_moe(moe_cfg, contract, beside):
+    """Qwen3-30B-A3B at W4 g64 (mlx_lm.convert's default group size) from
+    synthetic params, full width and depth: one decode step of the grouped
+    any-width matmul for the kernel line (144 launches, every layer's
+    experts), B = 1 decode with exact launch counts (`beside`: the W4A16
+    numbers), and 4-layer parity under RouteForcer. Returns the decode
+    run's launches."""
+    from tiny_llm_tpu_torch.kernels import moe_matmul as km
+    from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
+
+    sg_moe = Qwen3Model(synthetic_quantized_params(moe_cfg, seed=0, group_size=64), moe_cfg,
+                        max_seq_len=MAX_SEQ)
+    contract["grouped_quant_matmul_sg"] = _grouped_step(
+        [layer.mlp for layer in sg_moe.params.layers], moe_cfg,
+        torch.Generator(device="cuda").manual_seed(9), np.random.default_rng(9),
+        km.grouped_quant_matmul_sg_cuda, km.grouped_quant_matmul_plain,
+        "grouped_quant_matmul_sg", km.SOURCE_SG, "tiny_llm_tpu/kernels/moe_matmul.py:74",
+        "30B-A3B W4 g64")
+    counts = phase_model(sg_moe, moe_cfg, "sg_moe", "qwen3-30b-a3b W4 g64", runs=1,
+                         beside=beside)
+    del sg_moe
+    torch.cuda.empty_cache()
+    with RouteForcer() as forcer:
+        phase_parity(moe_cfg, "sg_moe", forcer, bits=4, group_size=64)
+    return counts
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase line, the kernel line, the card "
@@ -1684,10 +2016,28 @@ def main() -> int:
     cfg = QWEN3_CONFIGS["qwen3-4b"]
     params = synthetic_quantized_params(cfg, seed=0)
     model = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ)
+    a8 = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, act_quant="int8")  # shares the weights
+    sg_model = Qwen3Model(synthetic_quantized_params(cfg, seed=0, group_size=64, bits=8), cfg,
+                          max_seq_len=MAX_SEQ)
     moe_cfg = QWEN3_CONFIGS["qwen3-30b-a3b"]
-    moe = Qwen3Model(synthetic_quantized_params(moe_cfg, seed=0), moe_cfg, max_seq_len=MAX_SEQ)
+    moe_params = synthetic_quantized_params(moe_cfg, seed=0)
+    moe = Qwen3Model(moe_params, moe_cfg, max_seq_len=MAX_SEQ)
     contract = phase_kernels(model, cfg, moe, moe_cfg)
+    phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract)
     counts = phase_model(model, cfg, "model", "qwen3-4b")
+    # The quant tiers' B = 1 runs, here: the W4A16 model still runs dense
+    # (the serving phase attaches a page pool to it), so each tier's runs
+    # alternate with its own.
+    w4a16 = {"w4a16_" + k: PHASES[-1][k] for k in ("decode_tok_s", "prefill_tok_s")}
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, PROMPT_LEN))
+    a8_counts = phase_model(a8, cfg, "a8_model", "qwen3-4b W4A8", beside={
+        **w4a16, "in_turns": _alternating({"w4a16": model, "w4a8": a8}, prompt)})
+    sg_counts = phase_model(sg_model, cfg, "sg_model", "qwen3-4b W8 g64", runs=1,
+                            beside={**w4a16, "in_turns": _alternating(
+                                {"w4a16": model, "w8g64": sg_model}, prompt)})
+    phase_parity(cfg, "sg_model", bits=8, group_size=64)
+    del sg_model
+    torch.cuda.empty_cache()
     phase_parity(cfg)
     phase_generate(model)
     phase_paged_parity(cfg)
@@ -1702,24 +2052,48 @@ def main() -> int:
     del long
     torch.cuda.empty_cache()
     phase_mixed_parity(cfg)
-    phase_serving(model, cfg, "mixed_serving", "qwen3-4b", mixed=True)
-    del model
+    # Two campaigns, not three: the script stays well inside its time limit.
+    phase_serving(model, cfg, "mixed_serving", "qwen3-4b", mixed=True, n_runs=2)
+    # The rest of W4A8 on Qwen3-4B: parity and serving.
+    serving = next(p for p in PHASES if p.get("phase") == "serving")
+    phase_parity(cfg, "a8_parity", act_quant="int8")
+    phase_serving(a8, cfg, "a8_serving", "qwen3-4b W4A8", n_runs=2, beside={
+        "w4a16_" + k: serving[k] for k in ("output_tok_s", "ttft_p50_ms", "ttft_p95_ms")})
+    del a8, model
     torch.cuda.empty_cache()
     moe_counts = phase_model(moe, moe_cfg, "moe_model", "qwen3-30b-a3b")
+    # W4A8 on the same weights, its runs in turns with the W4A16 model's
+    # while that still runs dense.
+    moe_w4a16 = {"w4a16_decode_tok_s": PHASES[-1]["decode_tok_s"]}
+    moe_a8 = Qwen3Model(moe_params, moe_cfg, max_seq_len=MAX_SEQ, act_quant="int8")
+    a8_moe_counts = phase_model(moe_a8, moe_cfg, "a8_moe", "qwen3-30b-a3b W4A8", runs=1, beside={
+        **moe_w4a16, "in_turns": _alternating({"w4a16": moe, "w4a8": moe_a8}, prompt)})
+    del moe_a8
+    with RouteForcer(A8_TIE_MARGIN) as forcer:
+        phase_parity(moe_cfg, "a8_moe", forcer, act_quant="int8")
     with RouteForcer() as forcer:
         phase_parity(moe_cfg, "moe_parity", forcer)
         phase_paged_parity(moe_cfg, "moe_parity", forcer)
-    phase_serving(moe, moe_cfg, "moe_serving", "qwen3-30b-a3b")
+    phase_serving(moe, moe_cfg, "moe_serving", "qwen3-30b-a3b", n_runs=2)
+    # W4 g64 on Qwen3-30B-A3B: one 30B model resident at a time.
+    del moe, moe_params
+    torch.cuda.empty_cache()
+    sg_moe_counts = phase_sg_moe(moe_cfg, contract, moe_w4a16)
     # Launches on each kernel's own path: the dense 4B run for K1-K3, the
     # 4B serving campaigns for the paged kernels, the dense 30B-A3B run for
-    # the grouped expert matmul, the 4B long-prompt prefills for the split's.
+    # the grouped expert matmul, the 4B long-prompt prefills for the split's,
+    # and each quant tier's dense run for its kernel.
+    own = {"quant_matmul_a8": a8_counts, "quant_matmul_sg": sg_counts,
+           "grouped_quant_matmul_a8": a8_moe_counts, "grouped_quant_matmul_sg": sg_moe_counts,
+           "grouped_quant_matmul": moe_counts, **{n: serving_counts for n in PAGED},
+           **{n: long_counts for n in SPLIT}}
     for name, entry in contract.items():
-        entry["launches"] = (serving_counts if name in PAGED else
-                             moe_counts if name == "grouped_quant_matmul" else
-                             long_counts if name in SPLIT else counts)[name]
+        entry["launches"] = own.get(name, counts)[name]
     kern_line = {"kernels": [contract[n] for n in
                              ("quant_matmul", "fused_decode_attention", "flash_attention",
-                              *PAGED, "grouped_quant_matmul", *SPLIT)]}
+                              *PAGED, "grouped_quant_matmul", *SPLIT, "quant_matmul_a8",
+                              "quant_matmul_sg", "grouped_quant_matmul_a8",
+                              "grouped_quant_matmul_sg")]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

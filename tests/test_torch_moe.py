@@ -124,23 +124,32 @@ def test_select_topk_matches_jax_with_ties(norm):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("layout", ["magic_t", "sg"])
-def test_stacked_bridge_dequantizes_bit_equal(layout):
-    """K = 384 pads to 512 in the JAX magic_t layout and to 384 in the
-    port's: the bridge drops the JAX pad group, every expert stays
-    bit-equal, and from_codes, .to() and expert() keep the stack."""
+@pytest.mark.parametrize("layout,bits,gs", [
+    pytest.param("magic_t", 4, 128, id="magic_t"),
+    pytest.param("sg", 4, 128, id="sg"),
+    pytest.param("pair_t", 4, 128, id="pair_t"),
+    pytest.param("sg", 2, 64, id="sg-W2g64"),
+    pytest.param("sg", 8, 64, id="sg-W8g64"),
+    pytest.param("sg", 4, 32, id="sg-W4g32"),
+])
+def test_stacked_bridge_dequantizes_bit_equal(layout, bits, gs):
+    """K = 384 pads to 512 in the JAX magic_t and pair_t layouts (and to
+    its sg supergroup, 32 / bits groups) and to 384 in the port's: the
+    bridge drops the JAX pad groups, every expert stays bit-equal, and
+    from_codes, .to() and expert() keep the stack."""
     E, N, K = 3, 48, 384
     rng = np.random.default_rng(1)
     jqt = quantize_stacked(jnp.asarray(rng.standard_normal((E, N, K)) * 0.1, jnp.float32),
-                           layout=layout)
+                           group_size=gs, bits=bits, layout=layout)
     port = quantized_from_numpy(qt_to_numpy(jqt))
     assert port.k_padded == 384 and port.num_experts == E
-    assert tuple(port.packed.shape) == (E, N, 384 // 8)
-    assert tuple(port.scales.shape) == (E, N, 3)
+    assert tuple(port.packed.shape) == (E, N, 384 * bits // 32)
+    assert tuple(port.scales.shape) == (E, N, 384 // gs)
     want = np.asarray(jax_dequantize(jqt, jnp.float32))
     np.testing.assert_array_equal(f32(dequantize(port, torch.float32)), want)
     np.testing.assert_array_equal(f32(dequantize(port.expert(2), torch.float32)), want[2])
-    again = from_codes(unpack_codes(port.packed), port.scales, port.biases, in_features=K)
+    again = from_codes(unpack_codes(port.packed, bits), port.scales, port.biases, in_features=K,
+                       group_size=gs, bits=bits)
     assert torch.equal(again.packed, port.packed)
     assert torch.equal(dequantize(port.to("cpu")), dequantize(port))
 

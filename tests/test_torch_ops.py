@@ -119,14 +119,23 @@ def test_grouped_and_simple_sdpa_match_jax(mask):
     assert_allclose(f32(got_s), f32(want_s), precision=jnp.float32, atol=1e-5)
 
 
-@pytest.mark.parametrize("layout", ["magic_t", "sg"])
-def test_dequantize_bit_equal_through_bridge(layout):
+@pytest.mark.parametrize("layout,bits,gs", [
+    pytest.param("magic_t", 4, 128, id="magic_t"),
+    pytest.param("sg", 4, 128, id="sg"),
+    pytest.param("pair_t", 4, 128, id="pair_t"),
+    pytest.param("sg", 2, 64, id="sg-W2g64"),
+    pytest.param("sg", 8, 64, id="sg-W8g64"),
+    pytest.param("sg", 4, 32, id="sg-W4g32"),
+])
+def test_dequantize_bit_equal_through_bridge(layout, bits, gs):
     """q*s is exact in f32, so the f32 multiply-add rounds once on both sides."""
     rng = np.random.default_rng(4)
     w = rng.standard_normal((96, 640)).astype(np.float32) * 0.05
-    qt = quantize(jnp.asarray(w), layout=layout)
+    qt = quantize(jnp.asarray(w), group_size=gs, bits=bits, layout=layout)
     port = quantized_from_numpy(qt_to_numpy(qt))
-    assert port.k_padded == 640 and port.packed.shape == (96, 80)
+    assert port.k_padded == 640 and port.packed.shape == (96, 640 * bits // 32)
+    assert (port.bits, port.group_size) == (bits, gs)
+    assert port.act == ("int8" if layout == "pair_t" else "bf16")
     for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
         _bit_equal(dequantize(port, dtype), jax_dequantize(qt, jdtype))
 

@@ -65,3 +65,43 @@ def bf16_numpy(x: np.ndarray):
     j = jnp.asarray(x, dtype=jnp.float32).astype(jnp.bfloat16)
     t = torch.from_numpy(np.asarray(x, dtype=np.float32)).to(torch.bfloat16)
     return j, t
+
+
+# Logit tolerance (bf16 ladder, absolute), as tests/test_torch_model.py.
+LOGIT_ATOL = 3e-2
+
+
+def teacher_forced(jm, pm, chunks, steps, seed: int = 11):
+    """Logits of a JAX and a port model over prompt chunks (one cache each)
+    then `steps` decode steps, both fed the JAX model's greedy tokens:
+    [(jax, port)] float32 numpy [L, V] per call."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    prompt = [int(t) for t in rng.integers(0, pm.vocab_size, size=sum(chunks))]
+    cj, cp = jm.create_kv_cache(), pm.create_kv_cache()
+    calls, off = [], 0
+    for L in chunks:
+        chunk = [prompt[off : off + L]]
+        calls.append((np.asarray(jm(jnp.asarray(chunk, jnp.int32), off, cj), np.float32)[0],
+                      f32(pm(chunk, off, cp)[0])))
+        off += L
+    for _ in range(steps):
+        tok = int(np.argmax(calls[-1][0][-1]))
+        calls.append((np.asarray(jm(jnp.asarray([[tok]], jnp.int32), off, cj), np.float32)[0],
+                      f32(pm([[tok]], off, cp)[0])))
+        off += 1
+    return calls
+
+
+def assert_logit_calls(calls, skip=frozenset(), atol: float = LOGIT_ATOL):
+    """Each call's port logits within `atol` of JAX's and top-1 equal where
+    JAX's top-2 gap exceeds 2 * atol; positions (call, row) in `skip` are
+    left out."""
+    for c, (want, got) in enumerate(calls):
+        keep = [t for t in range(want.shape[0]) if (c, t) not in skip]
+        want, got = want[keep], got[keep]
+        np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) > 2 * atol
+        np.testing.assert_array_equal(got.argmax(-1)[decided], want.argmax(-1)[decided])

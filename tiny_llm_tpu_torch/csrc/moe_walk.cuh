@@ -1,0 +1,147 @@
+// The grouped expert matmuls' walk over experts (moe_matmul.cu,
+// moe_matmul_sg.cu): rows x [T, Kp] sorted by expert, expert e owning the
+// segment [goffs[e], goffs[e + 1]) with goffs the exclusive prefix sum of
+// group_sizes [E]. group_sizes stays on the device: each block finds its
+// segment itself (warp prefix sums over group_sizes), so the host launches
+// a grid fixed by T, N and E and never reads the sizes (the TPU computes
+// its walk's metadata inside the jit, _group_metadata).
+#pragma once
+
+#include "qmm_tile.cuh"
+
+namespace moe {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int GEMV_MAX_T = 64;  // rows at and below this take the GEMV schedule
+
+__device__ __forceinline__ int warp_incl_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+// The units of work an expert with rows [start, end) owns: one GEMV block
+// row if it has rows, or its 64-row tiles for the tile walk.
+struct NonEmpty {
+  __device__ int operator()(int start, int end) const { return end > start ? 1 : 0; }
+};
+struct RowTiles {
+  __device__ int operator()(int start, int end) const {
+    return (end - start + qmm::BM - 1) / qmm::BM;
+  }
+};
+
+// Run by warp 0: which expert owns unit i, when the experts own units(start,
+// end) consecutive units each, in expert order (as the TPU's _group_metadata
+// numbers its logical tiles).
+// Writes meta = {expert (-1: no expert owns unit i), start, end (clamped to
+// T), i's index among the expert's units}. Scans group_sizes 32 experts at a
+// time with warp prefix sums.
+template <class Units>
+__device__ __forceinline__ void find_unit(const int* __restrict__ gs, int E, int T, int i,
+                                          Units units, int* meta) {
+  const int lane = threadIdx.x & 31;
+  int rows = 0, done = 0;
+  bool found = false;
+  for (int c = 0; c < E && !found; c += 32) {
+    const int e = c + lane;
+    const int sz = e < E ? __ldg(gs + e) : 0;
+    const int incl = warp_incl_scan(sz);
+    const int start = rows + incl - sz, end = rows + incl;
+    const int u = units(start, end);
+    const int incl_u = warp_incl_scan(u);
+    const int first = done + incl_u - u;
+    const unsigned hit = __ballot_sync(FULL, u > 0 && i >= first && i < first + u);
+    if (hit) {
+      if (lane == __ffs(hit) - 1) {
+        meta[0] = e;
+        meta[1] = start;
+        meta[2] = min(end, T);
+        meta[3] = i - first;
+      }
+      found = true;
+    }
+    rows += __shfl_sync(FULL, incl, 31);
+    done += __shfl_sync(FULL, incl_u, 31);
+  }
+  if (lane == 0 && !found) meta[0] = -1;
+}
+
+// Row bodies for gemv_expert: rows [m0, min(m0 + MT, end)) of out from
+// one expert's weights. The bf16 body is K1's GEMV at any width; the W4A8
+// body (W4 g128) quantizes the rows into `smem` first (qmm_tile.cuh).
+template <int BITS = 4, int GSZ = qmm::GS>
+struct Bf16Rows {
+  static constexpr int WPR = 32 / BITS;  // codes per packed word
+  template <int MT>
+  __device__ __forceinline__ void run(const __nv_bfloat16* x, const uint32_t* w,
+                                      const __nv_bfloat16* s, const __nv_bfloat16* b,
+                                      __nv_bfloat16* out, int m0, int end, int N,
+                                      int Kp) const {
+    qmm::gemv_rows<MT, BITS, GSZ>(x, w, s, b, nullptr, out, m0, end, N, Kp);
+  }
+};
+struct A8Rows {
+  static constexpr int WPR = 8;
+  unsigned char* smem;  // qmm::a8_smem_bytes(8, Kp) bytes
+  template <int MT>
+  __device__ __forceinline__ void run(const __nv_bfloat16* x, const uint32_t* w,
+                                      const __nv_bfloat16* s, const __nv_bfloat16* b,
+                                      __nv_bfloat16* out, int m0, int end, int N,
+                                      int Kp) const {
+    qmm::gemv_a8_rows<MT>(x, w, s, b, nullptr, out, m0, end, N, Kp, smem);
+  }
+};
+
+// Block row j of a grid (N / 8, min(E, T)) serves the j-th expert that has
+// rows: `rows`' warp-per-output-row GEMV over that expert's weights and
+// rows, up to 8 rows per pass over the weights. 256 threads.
+template <int GSZ = qmm::GS, class Rows = Bf16Rows<4, GSZ>>
+__device__ __forceinline__ void gemv_expert(
+    const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ b,
+    const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int T, int N, int Kp, int E,
+    Rows rows = Rows{}) {
+  __shared__ int meta[4];
+  if (threadIdx.x < 32) find_unit(gs, E, T, blockIdx.y, NonEmpty{}, meta);
+  __syncthreads();
+  const int e = meta[0], start = meta[1], end = meta[2];
+  if (e < 0) return;  // the whole block: meta is shared
+  const size_t G = Kp / GSZ;
+  const uint32_t* we = w + (size_t)e * N * (Kp / Rows::WPR);
+  const __nv_bfloat16* se = s + (size_t)e * N * G;
+  const __nv_bfloat16* be = b + (size_t)e * N * G;
+  if (end - start == 1) {
+    rows.template run<1>(x, we, se, be, out, start, end, N, Kp);
+  } else if (end - start <= 4) {
+    rows.template run<4>(x, we, se, be, out, start, end, N, Kp);
+  } else {
+    for (int m0 = start; m0 < end; m0 += 8)
+      rows.template run<8>(x, we, se, be, out, m0, end, N, Kp);
+  }
+}
+
+// Block row i of a grid (N / 64, tiles_m + E - 1) is logical tile i, the
+// (expert, 64-row block) pairs in expert order: one 64x64 tensor-core tile
+// from the expert's first row. 128 threads.
+template <int BITS = 4, int GSZ = qmm::GS>
+__device__ __forceinline__ void tile_expert(
+    const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ b,
+    const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int T, int N, int Kp, int E) {
+  __shared__ int meta[4];
+  if (threadIdx.x < 32) find_unit(gs, E, T, blockIdx.y, RowTiles{}, meta);
+  __syncthreads();
+  const int e = meta[0];
+  if (e < 0) return;
+  const size_t G = Kp / GSZ;
+  qmm::tile<BITS, GSZ>(x, w + (size_t)e * N * (Kp / (32 / BITS)), s + (size_t)e * N * G,
+                       b + (size_t)e * N * G, nullptr, out, meta[1] + meta[3] * qmm::BM,
+                       blockIdx.x * qmm::BN, meta[2], N, Kp);
+}
+
+}  // namespace moe

@@ -21,6 +21,10 @@ KERNELS = {
     "grouped_quant_matmul": (moe_matmul, "LAUNCHES"),
     "flash_prefill_state": (flash_attention, "STATE_LAUNCHES"),
     "paged_prefix_state": (paged_attention, "PREFIX_LAUNCHES"),
+    "quant_matmul_a8": (quant_matmul, "A8_LAUNCHES"),
+    "quant_matmul_sg": (quant_matmul, "SG_LAUNCHES"),
+    "grouped_quant_matmul_a8": (moe_matmul, "A8_LAUNCHES"),
+    "grouped_quant_matmul_sg": (moe_matmul, "SG_LAUNCHES"),
 }
 
 

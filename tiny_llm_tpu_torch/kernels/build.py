@@ -9,8 +9,9 @@ Nothing here runs at import time: the CPU tests import every module.
     python -m tiny_llm_tpu_torch.kernels.build [CSRC_DIR]
 
 compiles every source of CSRC_DIR (default: the package's) with the same
-flags into a scratch directory and prints each kernel's registers and
-spill bytes as JSON, so two trees' kernels can be compared.
+flags into a scratch directory and prints each kernel's registers, spill
+bytes and a digest of its SASS (`cuobjdump -sass`) as JSON, so two trees'
+kernels can be compared: equal digests, the same machine code.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("quant_matmul", "fused_decode_attention", "flash_attention", "paged_attention",
-           "moe_matmul")
+           "moe_matmul", "quant_matmul_sg", "moe_matmul_sg")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -115,7 +116,7 @@ def ptxas_registers(ptxas: str) -> dict[str, dict[str, int]]:
     for ln in ptxas.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            fn = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1))
+            fn = _kernel_name(m.group(1))
             out[fn] = {"registers": -1, "spill_bytes": 0}
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and fn:
@@ -124,6 +125,27 @@ def ptxas_registers(ptxas: str) -> dict[str, dict[str, int]]:
         if m and fn:
             out[fn]["registers"] = int(m.group(1))
     return out
+
+
+def _kernel_name(mangled: str) -> str:
+    return re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", mangled)
+
+
+def sass_digests(so: Path) -> dict[str, str]:
+    """Each kernel's SASS in a shared library, hashed (sha256, 16 hex
+    digits), keyed as `ptxas_registers` keys it."""
+    r = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass", str(so)],
+                       capture_output=True, text=True, check=True)
+    bodies: dict[str, list[str]] = {}
+    body = None
+    for ln in r.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            body = bodies.setdefault(_kernel_name(m.group(1)), [])
+        elif body is not None:
+            body.append(ln.strip())
+    return {fn: hashlib.sha256("\n".join(b).encode()).hexdigest()[:16]
+            for fn, b in bodies.items()}
 
 
 def main(argv: list[str]) -> int:
@@ -138,6 +160,8 @@ def main(argv: list[str]) -> int:
             if r.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
             report[src.stem] = ptxas_registers(r.stdout + r.stderr)
+            for fn, digest in sass_digests(Path(tmp) / f"{src.stem}.so").items():
+                report[src.stem].setdefault(fn, {})["sass"] = digest
     print(json.dumps(report, indent=1))
     return 0
 

@@ -1,15 +1,26 @@
-"""Grouped W4A16 group-128 expert matmul (the MoE layers' expert projections).
+"""Grouped (MoE expert) quantized matmuls: W4A16 group 128, W4A8, and any
+width.
 
-Replaces tiny_llm_tpu/kernels/moe_matmul.py::_gqmm_magic_kernel (wrapper
-`_gqmm_magic_pallas`, reached through `grouped_quantized_matmul`). The
-CUDA kernel is csrc/moe_matmul.cu; its header notes what bounds it on the
-H100 and how its two schedules (K1's GEMV per expert for T <= 64 rows, a
-walk over tensor-core tiles of 64 rows of one expert above) deal with that.
+  * The W4A16 kernel replaces tiny_llm_tpu/kernels/moe_matmul.py::
+    _gqmm_magic_kernel (wrapper `_gqmm_magic_pallas`); CUDA in
+    csrc/moe_matmul.cu, whose header notes what bounds it on the H100 and
+    how its two schedules (K1's GEMV per expert for T <= 64 rows, a walk
+    over tensor-core tiles of 64 rows of one expert above) deal with that.
+  * The W4A8 kernel replaces `_gqmm_pair_kernel` (wrapper
+    `_gqmm_pair_pallas`): act="int8" experts (W4 g128) at T <= 128 grouped
+    rows, per-row int8 activations and integer dots; csrc/moe_matmul.cu
+    (`tlt_grouped_quant_matmul_a8`). Above 128 rows the JAX package runs
+    W4A16-exact dots, and so does the port: the W4A16 kernel.
+  * The any-width kernel replaces `_gqmm_kernel` (wrapper `_gqmm_pallas`):
+    experts other than W4 g128; csrc/moe_matmul_sg.cu
+    (`tlt_grouped_quant_matmul_sg`), the W4A16 walk over the generic body.
 
-`grouped_quant_matmul` launches the kernel for CUDA tensors and runs the
-plain version, `grouped_quant_matmul_plain`, for CPU tensors (or when
-impl="torch"). The kernel never reads `group_sizes` on the host; the plain
-version does.
+`grouped_quant_matmul` dispatches as the JAX package's
+`grouped_quantized_matmul` does and launches the chosen kernel for CUDA
+tensors; for CPU tensors (or when impl="torch") it runs the plain version:
+per non-empty expert segment, the dense kernels' plain versions
+(kernels/quant_matmul.py). The kernels never read `group_sizes` on the
+host; the plain versions do.
 """
 
 from __future__ import annotations
@@ -21,19 +32,22 @@ import torch
 from ..ops.quantize import QuantizedTensor
 from . import build
 from .dispatch import resolve
-from .quant_matmul import quant_matmul_plain
+from .quant_matmul import quant_matmul_a8_plain, quant_matmul_plain
 
 TPU_KERNEL = "tiny_llm_tpu/kernels/moe_matmul.py:120 _gqmm_magic_kernel"
-SOURCE = "tiny_llm_tpu_torch/csrc/moe_matmul.cu"
+TPU_KERNEL_A8 = "tiny_llm_tpu/kernels/moe_matmul.py:173 _gqmm_pair_kernel"
+TPU_KERNEL_SG = "tiny_llm_tpu/kernels/moe_matmul.py:74 _gqmm_kernel"
+SOURCE = "tiny_llm_tpu_torch/csrc/moe_matmul.cu"  # the W4A16 and W4A8 kernels
+SOURCE_SG = "tiny_llm_tpu_torch/csrc/moe_matmul_sg.cu"
+A8_MAX_ROWS = 128  # the JAX pair walk's a8 gate (T <= 128)
 
-LAUNCHES = 0  # kernel launches since the last reset (see kernels.reset_launches)
+# Kernel launches since the last reset (see kernels.reset_launches).
+LAUNCHES = 0  # W4A16
+A8_LAUNCHES = 0
+SG_LAUNCHES = 0
 
 
-def grouped_quant_matmul_plain(
-    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
-) -> torch.Tensor:
-    """Per non-empty expert segment, K1's plain version (f32 dequant matmul,
-    bf16 out) on that expert's weight."""
+def _per_expert(plain, x, qt, group_sizes):
     ends = torch.cumsum(group_sizes, 0).tolist()
     if ends[-1] != x.shape[0]:
         raise ValueError(f"group sizes sum to {ends[-1]}, x has {x.shape[0]} rows")
@@ -41,32 +55,36 @@ def grouped_quant_matmul_plain(
     start = 0
     for e, end in enumerate(ends):
         if end > start:
-            out[start:end] = quant_matmul_plain(x[start:end], qt.expert(e))
+            out[start:end] = plain(x[start:end], qt.expert(e))
         start = end
     return out
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("moe_matmul")
-    fn = lib.tlt_grouped_quant_matmul
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def grouped_quant_matmul_cuda(
+def grouped_quant_matmul_plain(
     x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
 ) -> torch.Tensor:
-    """Launch the CUDA kernel. x [T, K] bf16 CUDA, rows sorted by expert;
-    group_sizes int32 [E] on the same device, summing to T. Returns
-    [T, N] bf16."""
-    global LAUNCHES
+    """Per non-empty expert segment, K1's plain version (f32 dequant matmul
+    at the weight's own width, bf16 out) on that expert's weight: the
+    W4A16 and any-width kernels' plain version."""
+    return _per_expert(quant_matmul_plain, x, qt, group_sizes)
+
+
+def grouped_quant_matmul_a8_plain(
+    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
+) -> torch.Tensor:
+    """Per non-empty expert segment, the W4A8 plain version (per-row int8
+    activations, so segment by segment is the same as all rows at once)."""
+    return _per_expert(quant_matmul_a8_plain, x, qt, group_sizes)
+
+
+def _launch(fn_name, x, qt, group_sizes, extra=()):
+    """Check the operands and launch `fn_name`: x [T, K] bf16 CUDA, rows
+    sorted by expert; group_sizes int32 [E] on the same device, summing to
+    T. Returns [T, N] bf16."""
     T, K = x.shape
     E, N = qt.num_experts, qt.out_features
     if x.dtype != torch.bfloat16 or not x.is_cuda or qt.packed.device != x.device:
-        raise ValueError("grouped_quant_matmul_cuda needs bf16 x and weights on one CUDA device")
-    if qt.group_size != 128 or qt.bits != 4:
-        raise ValueError("grouped_quant_matmul_cuda is W4 g128 only")
+        raise ValueError(f"{fn_name} needs bf16 x and weights on one CUDA device")
     if group_sizes.dtype != torch.int32 or group_sizes.shape != (E,) \
             or group_sizes.device != x.device:
         raise ValueError(f"group_sizes must be int32 [{E}] on {x.device}")
@@ -77,14 +95,52 @@ def grouped_quant_matmul_cuda(
         if not t.is_contiguous():
             raise ValueError("weight tensors and group_sizes must be contiguous")
     out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
-    lib = _lib()
-    err = lib.tlt_grouped_quant_matmul(
-        x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.biases.data_ptr(),
-        group_sizes.data_ptr(), out.data_ptr(), T, N, qt.k_padded, E,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, err, "grouped_quant_matmul")
+    lib = build.load("moe_matmul_sg" if fn_name.endswith("_sg") else "moe_matmul")
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * (4 + len(extra)) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.biases.data_ptr(),
+             group_sizes.data_ptr(), out.data_ptr(), T, N, qt.k_padded, E, *extra,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, fn_name)
+    return out
+
+
+def grouped_quant_matmul_cuda(
+    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
+) -> torch.Tensor:
+    """Launch the W4A16 kernel (W4 g128 experts)."""
+    global LAUNCHES
+    if not qt.is_w4g128:
+        raise ValueError("grouped_quant_matmul_cuda is W4 g128 only")
+    out = _launch("tlt_grouped_quant_matmul", x, qt, group_sizes)
     LAUNCHES += 1
+    return out
+
+
+def grouped_quant_matmul_a8_cuda(
+    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
+) -> torch.Tensor:
+    """Launch the W4A8 kernel (W4 g128 experts, T <= 128 rows)."""
+    global A8_LAUNCHES
+    if not qt.is_w4g128:
+        raise ValueError("grouped_quant_matmul_a8_cuda is W4 g128 only")
+    if x.shape[0] > A8_MAX_ROWS:
+        raise ValueError(f"grouped_quant_matmul_a8_cuda takes at most {A8_MAX_ROWS} rows")
+    out = _launch("tlt_grouped_quant_matmul_a8", x, qt, group_sizes)
+    A8_LAUNCHES += 1
+    return out
+
+
+def grouped_quant_matmul_sg_cuda(
+    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
+) -> torch.Tensor:
+    """Launch the any-width kernel (experts other than W4 g128)."""
+    global SG_LAUNCHES
+    if qt.is_w4g128:
+        raise ValueError("W4 g128 experts run grouped_quant_matmul_cuda")
+    out = _launch("tlt_grouped_quant_matmul_sg", x, qt, group_sizes, (qt.bits, qt.group_size))
+    SG_LAUNCHES += 1
     return out
 
 
@@ -95,11 +151,19 @@ def grouped_quant_matmul(
     impl: str | None = None,
 ) -> torch.Tensor:
     """out[t] = x[t] @ dequant(qt[e(t)]).T for rows x [T, in_features] sorted
-    by expert, expert e owning group_sizes[e] consecutive rows. -> [T, N] bf16."""
+    by expert, expert e owning group_sizes[e] consecutive rows. -> [T, N] bf16.
+
+    act="int8" experts at T <= A8_MAX_ROWS run W4A8; other widths than
+    W4 g128 the any-width kernel; the rest the W4A16 kernel."""
     if qt.num_experts is None:
         raise ValueError("grouped_quant_matmul needs stacked expert weights [E, N, K]")
     if x.ndim != 2 or x.shape[-1] != qt.in_features:
         raise ValueError(f"x {tuple(x.shape)} vs expert weight K={qt.in_features}")
-    if resolve(impl, x) == "cuda":
-        return grouped_quant_matmul_cuda(x.to(torch.bfloat16), qt, group_sizes)
-    return grouped_quant_matmul_plain(x, qt, group_sizes)
+    cuda = resolve(impl, x) == "cuda"
+    if qt.act == "int8" and x.shape[0] <= A8_MAX_ROWS:
+        fn = grouped_quant_matmul_a8_cuda if cuda else grouped_quant_matmul_a8_plain
+    elif not qt.is_w4g128:
+        fn = grouped_quant_matmul_sg_cuda if cuda else grouped_quant_matmul_plain
+    else:
+        fn = grouped_quant_matmul_cuda if cuda else grouped_quant_matmul_plain
+    return fn(x.to(torch.bfloat16) if cuda else x, qt, group_sizes)

@@ -1,13 +1,27 @@
-"""K1: W4A16 group-128 dequant-fused matmul (+ fused residual).
+"""Dequant-fused quantized matmuls (+ fused residual): K1 (W4A16 group 128),
+the W4A8 kernel and the any-width kernel.
 
-Replaces tiny_llm_tpu/kernels/quant_matmul.py::_magic_kernel (wrapper
-`_qmm_magic_pallas`, reached through `quantized_matmul`). The CUDA kernel
-is csrc/quant_matmul.cu; its header notes what bounds it on the H100 and
-how its two schedules (a warp-per-row GEMV for M <= 32, a tensor-core
-tiled kernel above) deal with that.
+  * K1 replaces tiny_llm_tpu/kernels/quant_matmul.py::_magic_kernel
+    (wrapper `_qmm_magic_pallas`); CUDA in csrc/quant_matmul.cu, whose
+    header notes what bounds it on the H100 and how its two schedules (a
+    warp-per-row GEMV for M <= 32, a tensor-core tiled kernel above) deal
+    with that.
+  * The W4A8 kernel replaces `_pair_kernel` (wrapper `_qmm_pair_pallas`):
+    act="int8" weights (W4 g128) at M <= 32 rows, per-row absmax int8
+    activations and integer dots; csrc/quant_matmul.cu
+    (`tlt_quant_matmul_a8`). Above 32 rows the JAX package runs
+    W4A16-exact dots on such weights, and so does the port: K1.
+  * The any-width kernel replaces `_qmm_kernel` (wrapper `_qmm_pallas`):
+    weights other than W4 g128 (bits 2, 4, 8; groups 32, 64, 128) at any
+    M; csrc/quant_matmul_sg.cu (`tlt_quant_matmul_sg`), K1's two schedules
+    made generic over the width.
 
-`quant_matmul` launches the kernel for CUDA tensors and runs the plain
-version, `quant_matmul_plain`, for CPU tensors (or when impl="torch").
+`quant_matmul` dispatches as the JAX package's `quantized_matmul` does and
+launches the chosen kernel for CUDA tensors; for CPU tensors (or when
+impl="torch") it runs the kernel's plain version: `quant_matmul_plain` for
+K1 and the any-width kernel (f32 dequant at the weight's own width),
+`quant_matmul_a8_plain` for the W4A8 kernel. On a CUDA tensor nothing
+falls back: a width no kernel takes raises.
 """
 
 from __future__ import annotations
@@ -16,45 +30,55 @@ import ctypes
 
 import torch
 
-from ..ops.quantize import QuantizedTensor, dequantize
+from ..ops.quantize import QuantizedTensor, dequantize, quantize_activations
 from . import build
 from .dispatch import resolve
 
 TPU_KERNEL = "tiny_llm_tpu/kernels/quant_matmul.py:154 _magic_kernel"
-SOURCE = "tiny_llm_tpu_torch/csrc/quant_matmul.cu"
+TPU_KERNEL_A8 = "tiny_llm_tpu/kernels/quant_matmul.py:278 _pair_kernel"
+TPU_KERNEL_SG = "tiny_llm_tpu/kernels/quant_matmul.py:79 _qmm_kernel"
+SOURCE = "tiny_llm_tpu_torch/csrc/quant_matmul.cu"  # K1 and the W4A8 kernel
+SOURCE_SG = "tiny_llm_tpu_torch/csrc/quant_matmul_sg.cu"
+A8_MAX_ROWS = 32  # the JAX pair dispatch's decode gate (rows <= 32)
 
-LAUNCHES = 0  # kernel launches since the last reset (see kernels.reset_launches)
+# Kernel launches since the last reset (see kernels.reset_launches).
+LAUNCHES = 0  # K1
+A8_LAUNCHES = 0
+SG_LAUNCHES = 0
 
 
 def quant_matmul_plain(
     x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """f32 dequant (q*s + b) matmul, + residual in f32, rounded to bf16."""
+    """f32 dequant (q*s + b) matmul, + residual in f32, rounded to bf16 (K1's
+    and the any-width kernel's plain version)."""
     out = torch.matmul(x.to(torch.float32), dequantize(qt, torch.float32).T)
     if residual is not None:
         out = out + residual.to(torch.float32)
     return out.to(torch.bfloat16)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("quant_matmul")
-    fn = lib.tlt_quant_matmul
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def quant_matmul_cuda(
+def quant_matmul_a8_plain(
     x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Launch the CUDA kernel. x [M, K] bf16 CUDA; returns [M, N] bf16."""
-    global LAUNCHES
+    """W4A8: (sx * xq) @ dequant_f32(W).T with per-row absmax int8 xq (the
+    JAX XLA twin's arithmetic, `_quantized_matmul_xla(a8=True)`), + residual
+    in f32, rounded to bf16."""
+    xq, sx = quantize_activations(x)
+    out = torch.matmul(sx * xq.to(torch.float32), dequantize(qt, torch.float32).T)
+    if residual is not None:
+        out = out + residual.to(torch.float32)
+    return out.to(torch.bfloat16)
+
+
+def _launch(fn_name, x, qt, residual, extra=()):
+    """Check the operands and launch `fn_name`: x [M, K] bf16 CUDA (zero-
+    padded to k_padded here), the weight on the same device, the residual
+    [M, N] or None. Returns [M, N] bf16."""
     M, K = x.shape
     N = qt.out_features
     if x.dtype != torch.bfloat16 or not x.is_cuda or qt.packed.device != x.device:
-        raise ValueError("quant_matmul_cuda needs bf16 x and weights on one CUDA device")
-    if qt.group_size != 128 or qt.bits != 4:
-        raise ValueError("quant_matmul_cuda is W4 g128 only")
+        raise ValueError(f"{fn_name} needs bf16 x and weights on one CUDA device")
     if K != qt.k_padded:
         x = torch.nn.functional.pad(x, (0, qt.k_padded - K))
     x = x.contiguous()
@@ -66,14 +90,55 @@ def quant_matmul_cuda(
         if residual.shape != (M, N) or residual.device != x.device:
             raise ValueError(f"residual {tuple(residual.shape)} != ({M}, {N})")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    lib = _lib()
-    err = lib.tlt_quant_matmul(
-        x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.biases.data_ptr(),
-        residual.data_ptr() if residual is not None else None, out.data_ptr(),
-        M, N, qt.k_padded, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, err, "quant_matmul")
+    lib = build.load("quant_matmul_sg" if fn_name.endswith("_sg") else "quant_matmul")
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * (3 + len(extra)) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.biases.data_ptr(),
+             residual.data_ptr() if residual is not None else None, out.data_ptr(), M, N,
+             qt.k_padded, *extra, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, fn_name)
+    return out
+
+
+def quant_matmul_cuda(
+    x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Launch K1. x [M, K] bf16 CUDA, W4 g128 weight; returns [M, N] bf16."""
+    global LAUNCHES
+    if not qt.is_w4g128:
+        raise ValueError("quant_matmul_cuda (K1) is W4 g128 only")
+    out = _launch("tlt_quant_matmul", x, qt, residual)
     LAUNCHES += 1
+    return out
+
+
+def quant_matmul_a8_cuda(
+    x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Launch the W4A8 kernel (the activation quantization is fused into
+    it). x [M <= 32, K] bf16 CUDA, W4 g128 weight; returns [M, N] bf16."""
+    global A8_LAUNCHES
+    if not qt.is_w4g128:
+        raise ValueError("quant_matmul_a8_cuda is W4 g128 only")
+    if x.shape[0] > A8_MAX_ROWS:
+        raise ValueError(f"quant_matmul_a8_cuda takes at most {A8_MAX_ROWS} rows")
+    out = _launch("tlt_quant_matmul_a8", x, qt, residual)
+    A8_LAUNCHES += 1
+    return out
+
+
+def quant_matmul_sg_cuda(
+    x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Launch the any-width kernel. x [M, K] bf16 CUDA, a weight of bits 2,
+    4 or 8 and groups of 32, 64 or 128 other than W4 g128 (K1's); returns
+    [M, N] bf16."""
+    global SG_LAUNCHES
+    if qt.is_w4g128:
+        raise ValueError("W4 g128 weights run K1 (quant_matmul_cuda)")
+    out = _launch("tlt_quant_matmul_sg", x, qt, residual, (qt.bits, qt.group_size))
+    SG_LAUNCHES += 1
     return out
 
 
@@ -83,14 +148,21 @@ def quant_matmul(
     residual: torch.Tensor | None = None,
     impl: str | None = None,
 ) -> torch.Tensor:
-    """y = x @ dequant(qt).T (+ residual). x [..., in_features] -> [..., N] bf16."""
+    """y = x @ dequant(qt).T (+ residual). x [..., in_features] -> [..., N] bf16.
+
+    act="int8" weights at <= A8_MAX_ROWS rows run W4A8; other widths than
+    W4 g128 the any-width kernel; the rest K1."""
     if x.shape[-1] != qt.in_features:
         raise ValueError(f"x K={x.shape[-1]} vs weight K={qt.in_features}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, qt.in_features)
     r2 = None if residual is None else residual.reshape(-1, qt.out_features)
-    if resolve(impl, x) == "cuda":
-        out = quant_matmul_cuda(x2.to(torch.bfloat16), qt, r2)
+    cuda = resolve(impl, x) == "cuda"
+    if qt.act == "int8" and x2.shape[0] <= A8_MAX_ROWS:
+        fn = quant_matmul_a8_cuda if cuda else quant_matmul_a8_plain
+    elif not qt.is_w4g128:
+        fn = quant_matmul_sg_cuda if cuda else quant_matmul_plain
     else:
-        out = quant_matmul_plain(x2, qt, r2)
+        fn = quant_matmul_cuda if cuda else quant_matmul_plain
+    out = fn(x2.to(torch.bfloat16) if cuda else x2, qt, r2)
     return out.reshape(*lead, qt.out_features)

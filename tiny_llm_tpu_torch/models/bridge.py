@@ -17,11 +17,14 @@ where QT is {"packed", "scales", "biases"} arrays plus "layout",
 arrays arrive with numpy dtype name "bfloat16" (ml_dtypes) and are
 reinterpreted bit for bit. The port never sees a JAX type.
 
-Packed words go through integer codes: the JAX layout ("magic_t" or "sg")
-is unpacked with this package's numpy unpackers and the codes repacked in
-the port's layout. Scales and biases are copied exactly, in their source
-dtype. A tied LM head is dropped: the JAX package keeps a second copy of
-the embedding's codes for it, the port reads the embedding itself.
+Packed words go through integer codes: the JAX layout ("magic_t",
+"pair_t" or "sg") is unpacked with this package's numpy unpackers and the
+codes repacked in the port's layout at the weight's own bits (2, 4 or 8)
+and group size (32, 64 or 128). Scales and biases are copied exactly, in
+their source dtype. A "pair_t" weight (the JAX package's W4A8 tier)
+arrives marked act="int8". A tied LM head is dropped: the JAX package
+keeps a second copy of the embedding's codes for it, the port reads the
+embedding itself.
 """
 
 from __future__ import annotations
@@ -32,7 +35,14 @@ import numpy as np
 import torch
 
 from ..kernels.dispatch import check_device
-from ..ops.quantize import QuantizedTensor, from_codes, unpack_magic_t, unpack_supergroup
+from ..ops.quantize import (
+    QuantizedTensor,
+    check_width,
+    from_codes,
+    unpack_magic_t,
+    unpack_pair_t,
+    unpack_supergroup,
+)
 from .qwen3 import AttentionParams, BlockParams, MLPParams, MoEParams, Qwen3Config, Qwen3Params
 
 
@@ -48,30 +58,37 @@ def quantized_from_numpy(d: dict) -> QuantizedTensor:
     """One JAX QuantizedTensor (as numpy) -> the port's QuantizedTensor (CPU).
 
     A stacked expert weight (packed [E, Kp/8, N] and scales [E, G, N] in
-    magic_t, [E, N, Kp/8] and [E, N, G] in sg) keeps its leading E; the
-    codes are unpacked expert by expert and the JAX pad groups past
-    in_features are dropped."""
+    magic_t and pair_t, [E, N, Kp/vpw] and [E, N, G] in sg) keeps its
+    leading E; the codes are unpacked expert by expert and the JAX pad
+    groups past in_features are dropped."""
     layout, kp = d["layout"], int(d["k_padded"])
-    if int(d["bits"]) != 4 or int(d["group_size"]) != 128:
-        raise ValueError("the port takes W4 g128 weights only")
+    bits, group_size = int(d["bits"]), int(d["group_size"])
+    check_width(bits, group_size)
     packed = np.asarray(d["packed"])
     if packed.ndim not in (2, 3):
         raise ValueError(f"packed weight of rank {packed.ndim}")
     scales, biases = np.asarray(d["scales"]), np.asarray(d["biases"])
-    if layout == "magic_t":
-        unpack = functools.partial(unpack_magic_t, k_padded=kp)
+    if layout in ("magic_t", "pair_t"):  # W4 g128 only in the JAX package
+        unpack = functools.partial(unpack_magic_t if layout == "magic_t" else unpack_pair_t,
+                                   k_padded=kp)
         scales, biases = scales.swapaxes(-1, -2), biases.swapaxes(-1, -2)  # [G, N] -> [N, G]
     elif layout == "sg":
-        unpack = functools.partial(unpack_supergroup, k_padded=kp, group_size=128, bits=4)
+        unpack = functools.partial(unpack_supergroup, k_padded=kp, group_size=group_size,
+                                   bits=bits)
     else:
         raise ValueError(f"layout {layout!r} is not ported yet")
     codes = unpack(packed) if packed.ndim == 2 else np.stack([unpack(p) for p in packed])
-    return from_codes(
+    qt = from_codes(
         torch.from_numpy(codes),
         tensor_from_numpy(scales),
         tensor_from_numpy(biases),
         in_features=int(d["in_features"]),
+        group_size=group_size,
+        bits=bits,
     )
+    if layout == "pair_t":
+        qt.act = "int8"
+    return qt
 
 
 def from_jax_numpy(

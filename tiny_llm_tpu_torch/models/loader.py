@@ -8,35 +8,48 @@ from __future__ import annotations
 import torch
 
 from ..kernels.dispatch import check_device
-from ..ops.quantize import GROUP_SIZE, QuantizedTensor, padded_k
+from ..ops.quantize import GROUP_SIZE, QuantizedTensor, check_width, padded_k
 from .qwen3 import AttentionParams, BlockParams, MLPParams, MoEParams, Qwen3Config, Qwen3Params
 
 
 def synthetic_quantized_params(
-    cfg: Qwen3Config, seed: int = 0, device: str | torch.device = "cuda"
+    cfg: Qwen3Config,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+    group_size: int = GROUP_SIZE,
+    bits: int = 4,
 ) -> Qwen3Params:
-    """Random W4A16 g128 params built straight on `device` in the port's
-    layout: random code words, scales uniform in [0.001, 0.005) and biases
-    -7.5 * scale (codes centred on 0), as the JAX package's
-    synthetic_quantized_params draws them. A MoE layer gets a W4A16 router
-    [E, D] and stacked experts: gate and up [E, I, D], down [E, D, I]. The
-    tied LM head shares the embedding tensor. For benchmarks, where shapes
-    and bytes matter."""
+    """Random quantized params at `bits` and `group_size`, built straight on
+    `device` in the port's layout: random code words, and per group a scale
+    and a bias that centre the codes on 0 at every width. With
+    levels = 2^bits - 1: scale uniform in [0.001, 0.005) * 15 / levels, so
+    that levels * scale spans what 15 * scale spans at W4, and bias
+    -(levels / 2) * scale. At W4 that is the JAX package's draw (scale in
+    [0.001, 0.005), bias -7.5 * scale) and the tensors are those of earlier
+    versions bit for bit; the JAX package keeps -7.5 * scale at every width,
+    which centres 4-bit codes only (W8 weights would all be positive).
+    A MoE layer gets a router [E, D] and stacked experts: gate and up
+    [E, I, D], down [E, D, I]. The tied LM head shares the embedding
+    tensor. For benchmarks, where shapes and bytes matter."""
+    check_width(bits, group_size)
     dev = check_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    levels = (1 << bits) - 1
 
     def qlin(*shape: int) -> QuantizedTensor:  # ([E,] N, K)
         *lead, n, k = shape
         kp = padded_k(k)
         packed = torch.randint(
-            -(2**31), 2**31, (*lead, n, kp // 8), dtype=torch.int32, generator=gen, device=dev
+            -(2**31), 2**31, (*lead, n, kp * bits // 32), dtype=torch.int32, generator=gen,
+            device=dev,
         )
         scales = (
-            torch.rand((*lead, n, kp // GROUP_SIZE), generator=gen, device=dev) * 0.004 + 0.001
+            (torch.rand((*lead, n, kp // group_size), generator=gen, device=dev) * 0.004 + 0.001)
+            * (15 / levels)
         ).to(torch.bfloat16)
-        biases = (-7.5 * scales.to(torch.float32)).to(torch.bfloat16)
-        return QuantizedTensor(packed=packed, scales=scales, biases=biases,
-                               out_features=n, in_features=k, k_padded=kp)
+        biases = (-(levels / 2) * scales.to(torch.float32)).to(torch.bfloat16)
+        return QuantizedTensor(packed=packed, scales=scales, biases=biases, out_features=n,
+                               in_features=k, k_padded=kp, group_size=group_size, bits=bits)
 
     def ones(n: int) -> torch.Tensor:
         return torch.ones((n,), dtype=torch.bfloat16, device=dev)

@@ -1,14 +1,17 @@
 """Qwen3 and Qwen3-MoE — PyTorch/CUDA counterpart of tiny_llm_tpu/models/qwen3.py.
 
-W4A16 group-128 weights, GQA attention with QK-RMSNorm and RoPE, SwiGLU
-MLP or a top-k mixture of SwiGLU experts per layer, pre-norm residual
-blocks, tied or untied LM head. The same routes run on the card and on the
-CPU; only the bodies of the kernels differ (kernels/dispatch.py):
+Group-quantized weights (2, 4 or 8 bits, groups of 32, 64 or 128; W4A16
+g128 by default, W4A8 with act_quant="int8"), GQA attention with
+QK-RMSNorm and RoPE, SwiGLU MLP or a top-k mixture of SwiGLU experts per
+layer, pre-norm residual blocks, tied or untied LM head. The same routes
+run on the card and on the CPU; only the bodies of the kernels differ
+(kernels/dispatch.py):
 
-  * every dense projection, the MoE router and the LM head go through K1
-    (kernels/quant_matmul);
-  * a MoE layer's expert projections go through the grouped expert matmul
-    (kernels/moe_matmul, via ops/moe.py);
+  * every dense projection, the MoE router and the LM head go through
+    kernels/quant_matmul: K1 for W4 g128 weights, the W4A8 kernel for
+    act="int8" weights at <= 32 rows, the any-width kernel for the others;
+  * a MoE layer's expert projections go through kernels/moe_matmul (via
+    ops/moe.py), which dispatches the same way (W4A8 at <= 128 rows);
   * a decode step (L == 1) goes through K2 (kernels/fused_decode_attention)
     with the qkv projection fused and interleaved per KV head — over the
     dense slab, or its paged twin over the page pool;
@@ -25,8 +28,8 @@ CPU; only the bodies of the kernels differ (kernels/dispatch.py):
 
 The KV slab and the pages are updated in place. A decode burst, mixed or
 not, is a Python loop of steps whose greedy argmax stays on the device; the
-host syncs once per burst. Not ported yet: dense (unquantized) weights, the
-W4A8 tier and expert parallelism.
+host syncs once per burst. Not ported yet: dense (unquantized) weights and
+expert parallelism.
 """
 
 from __future__ import annotations
@@ -232,6 +235,43 @@ def fuse_projections(params: Qwen3Params) -> Qwen3Params:
                 w_gate_up=concat_out_features([mlp.w_gate, mlp.w_up]),
             )
         layers.append(dataclasses.replace(layer, attn=attn, mlp=mlp))
+    return dataclasses.replace(params, layers=layers)
+
+
+def convert_projection_layouts(params: Qwen3Params, layout: str = "pair_t") -> Qwen3Params:
+    """The port's counterpart of the JAX function of this name, which
+    repacks every per-layer projection into "pair_t" for the W4A8 tier.
+    The port's single layout serves both tiers, so nothing is repacked:
+    every per-layer 2-D projection and every W4 g128 stacked expert tensor
+    is marked act="int8" and shares its tensors with the W4A16 weight (no
+    extra device memory). The embedding, the LM head and the MoE router
+    stay W4A16, as in the JAX package. A 2-D projection that is not W4 g128
+    raises ValueError (the JAX package asserts there too)."""
+    if layout != "pair_t":
+        raise ValueError(f"layout {layout!r}: the port converts to 'pair_t' only")
+
+    def mark(w: QuantizedTensor | None, stacked: bool = False):
+        if w is None:
+            return None
+        if not w.is_w4g128:
+            if stacked:
+                return w  # the JAX package leaves such experts on their own kernel too
+            raise ValueError(f"W4A8 needs W4 g128 projections, not bits={w.bits} "
+                             f"group_size={w.group_size}")
+        return dataclasses.replace(w, act="int8")
+
+    layers = []
+    for layer in params.layers:
+        a, m = layer.attn, layer.mlp
+        attn = dataclasses.replace(a, wq=mark(a.wq), wk=mark(a.wk), wv=mark(a.wv),
+                                   wqkv=mark(a.wqkv), wo=mark(a.wo))
+        if isinstance(m, MoEParams):
+            m = dataclasses.replace(m, w_gate=mark(m.w_gate, True), w_up=mark(m.w_up, True),
+                                    w_down=mark(m.w_down, True))
+        else:
+            m = dataclasses.replace(m, w_gate=mark(m.w_gate), w_up=mark(m.w_up),
+                                    w_gate_up=mark(m.w_gate_up), w_down=mark(m.w_down))
+        layers.append(dataclasses.replace(layer, attn=attn, mlp=m))
     return dataclasses.replace(params, layers=layers)
 
 
@@ -614,7 +654,10 @@ class Qwen3Model:
     create_batching_kv_cache(), decode_burst_dense(), enable_paged_attention(),
     decode_burst(), supports_mixed, mixed_burst(). `impl` plays the role of
     JAX's `attn_impl`: None runs the kernels on the card and their plain
-    versions on the CPU, "torch" runs the plain versions on either device."""
+    versions on the CPU, "torch" runs the plain versions on either device.
+    `act_quant` "int8" is the W4A8 tier (convert_projection_layouts after
+    fuse_projections, as in the JAX package); None or "bf16" keeps W4A16.
+    The port reads no environment default for it."""
 
     def __init__(
         self,
@@ -623,13 +666,19 @@ class Qwen3Model:
         max_seq_len: int | None = None,
         impl: str | None = None,
         device: str | torch.device = "cuda",
+        act_quant: str | None = None,
     ):
         self.device = check_device(device)
         if params.embedding.device.type != self.device.type:
             raise ValueError(
                 f"params live on {params.embedding.device}, model device is {self.device}"
             )
+        self.act_quant = act_quant or "bf16"
+        if self.act_quant not in ("bf16", "int8"):
+            raise ValueError(f"act_quant {act_quant!r}: expected None, 'bf16' or 'int8'")
         self.params = fuse_projections(params)
+        if self.act_quant == "int8":
+            self.params = convert_projection_layouts(self.params, "pair_t")
         self.cfg = cfg
         self.impl = impl
         self.num_hidden_layers = cfg.num_hidden_layers
