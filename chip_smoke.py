@@ -89,6 +89,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             matmul's decode step, one decode run (the any-width matmul 145,
             the grouped any-width matmul 144 a step), 4-layer parity
 
+Sequence-parallel attention, Qwen3-4B with its KV split over 8
+shards, every shard a view on this card (parallel.SPAttention), run after
+long_serving:
+  sp_kernels    the shard decode-state kernel (row 6: a slab of 8192 in
+            shards of 1024, B = 1 at 6000 keys and B = 4 at 1000-5000) and
+            the paged decode-state walk (row 14: a 400-page pool striped
+            over the shards, B = 4) against their plain versions on every
+            shard, the empty ones included, and the chunk-state kernel at
+            the virtual lengths sharded prefill gives it; each whole SP
+            attention against unsharded attention
+  sp_parity     4 layers: the SP kernel path against the SP plain path and
+            SP against unsharded attention, teacher-forced, dense and paged
+  sp_model      full depth, max_seq 8192: a 6000-token prompt in chunks of
+            2048 and two 16-step bursts, in turns with the unsharded model
+            (A B B A), exact launch counts (row 7 or row 6: 8 x 36 a chunk
+            or step), B = 4 batched steps, a profile, a sync-free burst
+  sp_serving    long_serving's prompts through batch_generate over the
+            striped pool, one campaign
+
 Then the nvidia-smi line, one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Needs a CUDA device; imports nothing of JAX.
 """
@@ -134,6 +153,15 @@ TIE_MARGIN = 1e-3  # routing near-tie: k-th minus (k+1)-th router probability
 # (their drift is 5 %). The W4A8 kernels' own checks (`_close` with codes)
 # can: kernel and plain version quantize the same x into the same codes.
 A8_PARITY_TOL, A8_TIE_MARGIN = 0.10, 1e-2
+# Sequence-parallel attention (the JAX tests' 8-shard mesh, every shard on
+# this card): a slab of 8192 positions in shards of 1024; a 6000-token
+# prompt leaves shards 6 and 7 empty at decode; B = 4 prompts whose lengths
+# cross shard boundaries; long_serving's pool rule at max_seq 8192 (393
+# pages), rounded up to a multiple of the shards.
+SP_SHARDS, SP_MAX_SEQ, SP_PROMPT, SP_CHUNK = 8, 8192, 6000, 2048
+SP_BATCH_PROMPTS = (1000, 2100, 3500, 5000)
+SP_PAGES = 400
+SP = ("flash_decode_state", "paged_decode_state")  # the sequence-parallel path's own kernels
 
 
 PHASES: list[dict] = []  # every phase line printed, for --out
@@ -1998,6 +2026,479 @@ def phase_sg_moe(moe_cfg, contract, beside):
 
 
 
+# ---------------------------------------------------------------------------
+# Sequence-parallel (sharded-KV) attention on Qwen3-4B: the KV slab or page
+# pool split over SP_SHARDS shards, all views on the one card.
+
+
+def _sp(impl=None):
+    """parallel.SPAttention over SP_SHARDS shards, every one on this card."""
+    from tiny_llm_tpu_torch.parallel import ShardingConfig, SPAttention, make_mesh
+
+    mesh = make_mesh(tp=SP_SHARDS, devices=[torch.device("cuda", 0)] * SP_SHARDS)
+    return SPAttention(ShardingConfig(mesh), impl=impl)
+
+
+def _sp_state_check(what, got, want, tol):
+    """_state_err, every output finite, and the identity (0, NEG_INF, 0)
+    exactly wherever the plain version's l is 0 (an empty shard or row)."""
+    from tiny_llm_tpu_torch.kernels.flash_attention import NEG_INF
+
+    err = _state_err(what, got, want, tol)
+    check(all(bool(torch.isfinite(x).all()) for x in got), f"{what}: not finite")
+    empty = want[2] == 0
+    check(not bool(got[0][empty].any()) and bool((got[1][empty] == NEG_INF).all())
+          and not bool(got[2][empty].any()), f"{what}: an empty row is not the identity")
+    return err, int(empty.sum())
+
+
+def _sp_kernel_entry(name, source, replaces, case, err, kern, plain, lib, bms, by):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "case": case,
+            "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib}
+
+
+def phase_sp_kernels(cfg, contract):
+    """The sequence-parallel path's kernels against their plain versions on
+    the card at Qwen3-4B's head shapes, on every shard (the empty ones too):
+    the shard decode-state kernel (row 6) over one layer's slab of SP_MAX_SEQ
+    positions in SP_SHARDS shards of 1024 (B = 1 at SP_PROMPT keys, B = 4 at
+    SP_BATCH_PROMPTS), the paged decode-state walk (row 14) over one
+    layer's striped pool (B = 4, contexts 6000, 2500, 130, 8000), and the
+    chunk-state kernel (row 7) at the virtual lengths sharded prefill gives
+    it (below 0, inside, past the shard). Beside each: the whole SP
+    attention (the shards and the combine) against unsharded attention
+    (K3, the paged decode kernel). Timed by CUDA-graph replay."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+    from tiny_llm_tpu_torch.kv import PagedKVCache, PagePool
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    sc, tol, n = D**-0.5, 2e-2, SP_SHARDS
+    S_loc = SP_MAX_SEQ // n
+    sp = _sp()
+    cases, errs = [], {"flash_decode_state": [], "paged_decode_state": []}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # Row 6: one layer's slab; shard s is the strided view [:, :, s*S_loc:(s+1)*S_loc].
+    k, v = randn(4, Hkv, SP_MAX_SEQ, D), randn(4, Hkv, SP_MAX_SEQ, D)
+    starts = torch.arange(0, SP_MAX_SEQ, S_loc, dtype=torch.int32, device=dev)[:, None]
+    for lens in ([SP_PROMPT], list(SP_BATCH_PROMPTS)):
+        B = len(lens)
+        q, kb, vb = randn(B, Hq, 1, D), k[:B], v[:B]
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        shard_lens = (lens_t[None] - starts).clamp(0, S_loc)
+        shards = [(kb[:, :, s * S_loc : (s + 1) * S_loc], vb[:, :, s * S_loc : (s + 1) * S_loc])
+                  for s in range(n)]
+        empty = 0
+        for s, (ks, vs) in enumerate(shards):
+            got = ka.flash_decode_state_cuda(q, ks, vs, shard_lens[s], sc)
+            want = ka.flash_decode_state_plain(q, ks, vs, shard_lens[s], sc)
+            torch.cuda.synchronize()
+            err, e = _sp_state_check(f"flash_decode_state B={B} shard {s}", got, want, tol)
+            errs["flash_decode_state"].append(err)
+            empty += e
+        whole = ka.flash_attention_cuda(q, kb, vb, lens_t, sc)
+        sp_err = max_err(sp.flash(q, kb, vb, lens_t, sc), whole)
+        check(sp_err <= tol, f"SP flash B={B} against K3: {sp_err}")
+        # One launch over a full shard (shard 0; row 0 of B = 4 holds 1000 keys there).
+        ks, vs = shards[0]
+        full = shard_lens[0]
+        kern = graph_ms(lambda: ka.flash_decode_state_cuda(q, ks, vs, full, sc))
+        plain = event_ms(lambda: ka.flash_decode_state_plain(q, ks, vs, full, sc), reps=2)
+        keys = [int(x) for x in full.tolist()]
+        kmax = max(keys)
+        mask = (torch.arange(kmax, device=dev)[None, :] < full[:, None])[:, None, None]
+
+        def lib_fn():
+            return sdpa(q, ks[:, :, :kmax], vs[:, :, :kmax], attn_mask=mask, scale=sc,
+                        enable_gqa=True)
+
+        want = ka.flash_decode_state_plain(q, ks, vs, full, sc)[0]
+        check(max_err(lib_fn(), want) <= tol, f"SDPA yardstick B={B} differs")
+        lib = graph_ms(lib_fn)
+        sp_ms = graph_ms(lambda: sp.flash(q, kb, vb, lens_t, sc))
+        k3_ms = graph_ms(lambda: ka.flash_attention_cuda(q, kb, vb, lens_t, sc))
+        bms, by = bound(sum(2 * Hkv * t * D * 2 for t in keys) + B * Hq * D * 2 * 2
+                        + B * Hq * 4 * 2, sum(4 * Hq * t * D for t in keys))
+        case = {"kernel": "flash_decode_state", "tpu_kernel": ka.TPU_KERNEL_DECODE_STATE,
+                "shape": f"B={B} L=1 shard 0 of {n} (S={SP_MAX_SEQ}, S_loc={S_loc}) keys={keys} "
+                         f"Hq={Hq} Hkv={Hkv} D={D}",
+                "max_err": max(errs["flash_decode_state"]), "tol": tol, "kernel_ms": kern,
+                "plain_ms": plain, "library_ms": lib, "library": "SDPA over the shard's keys",
+                "bound_ms": bms, "bound_by": by, "lens": lens, "empty_shard_rows": empty,
+                "sp_attention_ms": sp_ms, "sp_vs_k3_max_err": sp_err, "k3_unsharded_ms": k3_ms}
+        cases.append(case)
+        if B == 1:
+            contract["flash_decode_state"] = _sp_kernel_entry(
+                "flash_decode_state", ka.SOURCE, "tiny_llm_tpu/kernels/flash_attention_pallas.py:282",
+                case["shape"], 0.0, kern, plain, lib, bms, by)
+    del k, v
+
+    # Row 14: one layer's pool striped over the shards; requests admitted in turn.
+    ps, ctxs = PAGE_SIZE, [6000, 2500, 130, 8000]
+    pool = PagePool(1, SP_PAGES, Hkv, ps, D, device=dev, stripe_shards=n)
+    pool.key_pages.normal_(generator=gen)
+    pool.value_pages.normal_(generator=gen)
+    reqs = [PagedKVCache(pool) for _ in ctxs]
+    for r, c in zip(reqs, ctxs):
+        r.ensure_capacity(c)
+    width = SP_MAX_SEQ // ps
+    bt = torch.tensor([r.block_table_row(width) for r in reqs], dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+    kp, vp, P_loc = pool.key_pages[0], pool.value_pages[0], SP_PAGES // n
+    q = randn(len(ctxs), Hq, 1, D)
+    locs = [(kp[s * P_loc : (s + 1) * P_loc], vp[s * P_loc : (s + 1) * P_loc], s * P_loc)
+            for s in range(n)]
+    owned_keys, libs, empty = [], [], 0
+    kg, vg = pa.gather_pages_dense(kp, vp, bt)
+    for s, (kl, vl, base) in enumerate(locs):
+        got = pa.paged_decode_state_cuda(q, kl, vl, bt, lens_t, base, sc)
+        want = pa.paged_decode_state_plain(q, kl, vl, bt, lens_t, base, sc)
+        torch.cuda.synchronize()
+        err, e = _sp_state_check(f"paged_decode_state shard {s}", got, want, tol)
+        errs["paged_decode_state"].append(err)
+        empty += e
+        # The shard's live keys per row, gathered contiguous for the SDPA yardstick.
+        rows = []
+        for b, r in enumerate(reqs):
+            pos = [i * ps + j for i, page in enumerate(r.page_ids) if base <= page < base + P_loc
+                   for j in range(min(ps, ctxs[b] - i * ps))]
+            rows.append(pos)
+        owned_keys.append(sum(len(p) for p in rows))
+        kmax = max(len(p) for p in rows)
+        kd = torch.zeros((len(ctxs), Hkv, kmax, D), dtype=torch.bfloat16, device=dev)
+        vd = torch.zeros_like(kd)
+        for b, pos in enumerate(rows):
+            idx = torch.tensor(pos, dtype=torch.long, device=dev)
+            kd[b, :, : len(pos)], vd[b, :, : len(pos)] = kg[b, :, idx], vg[b, :, idx]
+        m = (torch.arange(kmax, device=dev)[None, :]
+             < torch.tensor([len(p) for p in rows], device=dev)[:, None])[:, None, None]
+        live = want[2][:, 0, 0] > 0
+        lib_out = sdpa(q, kd, vd, attn_mask=m, scale=sc, enable_gqa=True)
+        check(max_err(lib_out[live], want[0][live]) <= tol, f"SDPA yardstick shard {s} differs")
+        libs.append((kd, vd, m))
+    del kg, vg
+    kern = graph_ms(lambda: [pa.paged_decode_state_cuda(q, kl, vl, bt, lens_t, base, sc)
+                             for kl, vl, base in locs]) / n
+    plain = event_ms(lambda: pa.paged_decode_state_plain(q, locs[0][0], locs[0][1], bt, lens_t,
+                                                         0, sc), reps=2)
+    lib = graph_ms(lambda: [sdpa(q, kd, vd, attn_mask=m, scale=sc, enable_gqa=True)
+                            for kd, vd, m in libs]) / n
+    del libs
+    whole = pa.paged_decode_cuda(q, kp, vp, bt, lens_t, sc)
+    sp_err = max_err(sp.paged(q, kp, vp, bt, lens_t, sc), whole)
+    check(sp_err <= tol, f"SP paged against the paged decode kernel: {sp_err}")
+    sp_ms = graph_ms(lambda: sp.paged(q, kp, vp, bt, lens_t, sc))
+    row12_ms = graph_ms(lambda: pa.paged_decode_cuda(q, kp, vp, bt, lens_t, sc))
+    B = len(ctxs)
+    bms, by = bound(sum(owned_keys) / n * Hkv * D * 2 * 2 + B * Hq * D * 2 * 2 + B * Hq * 4 * 2,
+                    sum(owned_keys) / n * 4 * Hq * D)
+    case = {"kernel": "paged_decode_state", "tpu_kernel": pa.TPU_KERNEL_DECODE_STATE,
+            "shape": f"B={B} L=1 contexts={ctxs} pool={SP_PAGES}x{ps} striped over {n} shards "
+                     f"(P_loc={P_loc}) width={width} Hq={Hq} Hkv={Hkv} D={D}; mean of the {n} "
+                     "shards' launches",
+            "max_err": max(errs["paged_decode_state"]), "tol": tol, "kernel_ms": kern,
+            "plain_ms": plain, "library_ms": lib,
+            "library": "SDPA over the shard's live keys gathered contiguous (mean of shards)",
+            "bound_ms": bms, "bound_by": by, "owned_keys_per_shard": owned_keys,
+            "empty_shard_rows": empty, "sp_attention_ms": sp_ms, "sp_vs_paged_decode_max_err":
+            sp_err, "paged_decode_unsharded_ms": row12_ms}
+    cases.append(case)
+    contract["paged_decode_state"] = _sp_kernel_entry(
+        "paged_decode_state", pa.SOURCE, "tiny_llm_tpu/kernels/paged_attention_pallas.py:583",
+        case["shape"], 0.0, kern, plain, lib, bms, by)
+    for r in reqs:
+        r.release()
+    del pool, kp, vp, locs
+
+    # Row 7 at virtual lengths: a 1024-token chunk over one 1024-key shard.
+    L = LONG_CHUNK
+    vlens = [-512, 700, 1024 + 1500]
+    q, ks, vs = randn(3, Hq, L, D), randn(3, Hkv, S_loc, D), randn(3, Hkv, S_loc, D)
+    lv = torch.tensor(vlens, dtype=torch.int32, device=dev)
+    got = ka.flash_prefill_state_cuda(q, ks, vs, lv, sc)
+    want = ka.flash_prefill_state_plain(q, ks, vs, lv, sc)
+    torch.cuda.synchronize()
+    err, empty = _sp_state_check(f"flash_prefill_state at virtual lengths {vlens}", got, want, tol)
+    check(bool((got[2][2] > 0).all()), "past the shard, a row saw no key")
+    kern = graph_ms(lambda: ka.flash_prefill_state_cuda(q, ks, vs, lv, sc))
+    plain = event_ms(lambda: ka.flash_prefill_state_plain(q, ks, vs, lv, sc), reps=1)
+    pairs = sum(min(max(t - L + i + 1, 0), S_loc) for t in vlens for i in range(L))
+    bms, by = bound(3 * (2 * Hq * L * D * 2 + 2 * Hkv * S_loc * D * 2 + 2 * Hq * L * 4),
+                    4 * Hq * pairs * D)
+    cases.append({"kernel": "flash_prefill_state", "tpu_kernel": ka.TPU_KERNEL_STATE,
+                  "shape": f"B=3 L={L} S_loc={S_loc} virtual lens={vlens} Hq={Hq} Hkv={Hkv} D={D}",
+                  "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                  "library_ms": None, "bound_ms": bms, "bound_by": by, "identity_rows": empty})
+    del q, ks, vs
+    torch.cuda.empty_cache()
+    for name, e in errs.items():
+        contract[name]["max_abs_err"] = max(e)
+    emit({"phase": "sp_kernels", "shards": n, "cases": cases})
+
+
+def phase_sp_parity(cfg):
+    """4 layers at the 4B widths, teacher-forced (the SP plain path's tokens):
+    the SP kernel path against the SP plain path, and SP against unsharded
+    attention (the model with no attention strategy), dense and paged.
+    Dense, max_seq 2048 (S_loc 256): a 1500-token prompt in chunks of 1024
+    and 476 (row 7 per shard), 8 decode steps (row 6 per shard). Paged, a
+    32-page pool striped over the shards: request 0 in chunks of 1024
+    (offset 0: row 7 per shard on the chunk's own k/v), 468 (the paged
+    prefill kernel over the pool) and 8 (row 14 per shard, L = 8), request
+    1 in 256 and 12, then 8 decode steps of both in a 3-slot batching cache
+    beside an idle slot (row 14); only installed rows are compared."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.kv import PagePool
+    from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
+
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    params = synthetic_quantized_params(cfg4, seed=6)
+    max_seq, keep = 2048, 8
+    fast, plain, whole = (Qwen3Model(params, cfg4, max_seq_len=max_seq, impl=impl, attn_impl=a)
+                          for impl, a in ((None, _sp()), ("torch", _sp("torch")), (None, None)))
+    rng = np.random.default_rng(6)
+    tallies = {"kernel_vs_plain": {"worst": 0.0, "decided": 0, "agree": 0},
+               "sp_vs_unsharded": {"worst": 0.0, "decided": 0, "agree": 0}}
+
+    def compare(lf, lp, lw, what):
+        _parity_check(lf, lp, f"{what}: SP kernel against SP plain", tallies["kernel_vs_plain"])
+        _parity_check(lf, lw, f"{what}: SP against unsharded", tallies["sp_vs_unsharded"])
+
+    kernels.reset_launches()
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, 1500))
+    caches = [m.create_kv_cache() for m in (fast, plain, whole)]
+    off = 0
+    for L in (1024, 476):
+        out = [m(prompt[:, off : off + L], off, c, logits_to_keep=keep)
+               for m, c in zip((fast, plain, whole), caches)]
+        compare(*out, f"dense chunk L={L} at {off}")
+        off += L
+    for step in range(8):
+        tok = [[int(out[1][0, -1].float().argmax())]]
+        out = [m(tok, off, c) for m, c in zip((fast, plain, whole), caches)]
+        compare(*out, f"dense decode step {step}")
+        off += 1
+    for c in caches:
+        c.release()
+    dense_counts = kernels.launches()
+
+    kernels.reset_launches()
+    dims = (4, 32, cfg.num_key_value_heads, PAGE_SIZE, cfg.head_dim)
+    for m in (fast, plain, whole):
+        m.enable_paged_attention(num_pages=32, page_size=PAGE_SIZE)
+    for m in (fast, plain):
+        m.page_pool = PagePool(*dims, device=m.device, stripe_shards=SP_SHARDS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(1, 1500)),
+               rng.integers(0, cfg.vocab_size, size=(1, 268))]
+    reqs = [[m.create_kv_cache() for m in (fast, plain, whole)] for _ in prompts]
+    last = []
+    for r, chunks in enumerate(((1024, 468, 8), (256, 12))):
+        off = 0
+        for L in chunks:
+            out = [m(prompts[r][:, off : off + L], off, c, logits_to_keep=keep)
+                   for m, c in zip((fast, plain, whole), reqs[r])]
+            compare(*out, f"request {r} chunk L={L} at {off}")
+            off += L
+        last.append(int(out[1][0, -1].float().argmax()))
+    check(reqs[0][0].page_ids != reqs[0][2].page_ids, "the striped pool did not stripe")
+    batches = [m.create_batching_kv_cache(3) for m in (fast, plain, whole)]
+    for r in range(2):
+        for b, c in zip(batches, reqs[r]):
+            b.add_request(c, r)
+    for step in range(8):
+        toks = [[t] for t in last] + [[0]]  # slot 2 idle
+        out = [m(toks, None, b, logits_to_keep=1) for m, b in zip((fast, plain, whole), batches)]
+        compare(*(o[:2] for o in out), f"paged decode step {step}")
+        last = out[1][:2, -1].float().argmax(-1).tolist()
+    for b in batches:
+        b.release()
+    check(all(m.page_pool.live_pages == 0 for m in (fast, plain, whole)), "pages leaked")
+    paged_counts = kernels.launches()
+    for name, counts in (("flash_prefill_state", dense_counts),
+                         ("flash_decode_state", dense_counts),
+                         ("flash_prefill_state", paged_counts), ("paged_prefill", paged_counts),
+                         ("paged_decode_state", paged_counts)):
+        check(counts[name] > 0, f"{name} never launched in sp_parity")
+    for t in tallies.values():
+        check(t["agree"] == t["decided"], f"top-1 disagrees on a decided position: {tallies}")
+    emit({"phase": "sp_parity", "layers": 4, "shards": SP_SHARDS, "max_seq": max_seq,
+          "dense": "1500 tokens in chunks of 1024 and 476, 8 decode steps",
+          "paged": "requests of 1500 (chunks 1024, 468, 8) and 268 (256, 12), 8 decode steps, "
+                   "32-page pool striped",
+          "tol": "5% of max |reference logit|", **tallies,
+          "launches_dense": {k: v for k, v in dense_counts.items() if v},
+          "launches_paged": {k: v for k, v in paged_counts.items() if v}})
+
+
+def _sp_run(model, prompt, bursts=2):
+    """Prefill `prompt` in SP_CHUNK-token chunks into a dense cache, then
+    `bursts` greedy BURST-step bursts: (prefill s, decode s, tokens)."""
+    cache = model.create_kv_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for off in range(0, prompt.shape[1], SP_CHUNK):
+        logits = model(prompt[:, off : off + SP_CHUNK], off, cache, logits_to_keep=1)
+    tok = logits[:, -1].float().argmax(-1).cpu().numpy()
+    pre_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits.float()).all()), "non-finite SP prefill logits")
+    check(tuple(logits.shape) == (1, 1, model.vocab_size), "SP prefill logits shape")
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(bursts):
+        out = model.decode_burst_dense(cache, tok, BURST)
+        toks.extend(out)
+        tok = out[-1]
+    dec_s = time.perf_counter() - t0
+    cache.release()
+    return pre_s, dec_s, np.stack(toks)
+
+
+def phase_sp_model(sp, whole, cfg):
+    """Dense SP at full width and depth (Qwen3-4B, max_seq SP_MAX_SEQ over
+    SP_SHARDS shards): an SP_PROMPT-token prompt in SP_CHUNK-token chunks
+    (row 7 per shard at virtual lengths) and two BURST-step greedy bursts
+    (row 6 per shard; shards 6 and 7 hold none of the context), taken in
+    turns with the same runs on the unsharded model of the same weights
+    (A B B A), with exact launch counts over the SP runs; then B = 4 at
+    prompts of SP_BATCH_PROMPTS tokens (each prefilled alone, then BURST
+    batched steps over a batching cache), a device profile of one SP burst
+    after the whole prompt as one chunk, and one SP burst under sync-debug
+    "error"."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.models.qwen3 import forward_decode_burst_dense
+
+    torch.cuda.reset_peak_memory_stats()
+    Ly = cfg.num_hidden_layers
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, SP_PROMPT))
+    k1 = _path_launches(cfg)[1]["quant_matmul"]
+    per_step = dict.fromkeys(kernels.KERNELS, 0)
+    per_step.update(quant_matmul=k1, flash_decode_state=SP_SHARDS * Ly)
+    per_chunk = dict.fromkeys(kernels.KERNELS, 0)
+    per_chunk.update(quant_matmul=k1, flash_prefill_state=SP_SHARDS * Ly)
+    n_chunks = -(-SP_PROMPT // SP_CHUNK)
+    _sp_run(sp, prompt[:, :SP_CHUNK], bursts=1)  # warm-up
+    _sp_run(whole, prompt[:, :SP_CHUNK], bursts=1)
+    got = {"sp": [], "unsharded": []}
+    counts = collections.Counter()
+    for name in ("sp", "unsharded", "unsharded", "sp"):
+        kernels.reset_launches()
+        got[name].append(_sp_run(sp if name == "sp" else whole, prompt))
+        if name == "sp":
+            counts.update(kernels.launches())
+    expected = {k: 2 * (n_chunks * per_chunk[k] + 2 * BURST * per_step[k]) for k in per_step}
+    check({k: counts[k] for k in expected} == expected,
+          f"SP launch counts {dict(counts)} != expected {expected}")
+    toks = [r[2] for r in got["sp"]]
+    check(np.array_equal(toks[0], toks[1]), "the SP runs' tokens differ")
+    check(bool(((toks[0] >= 0) & (toks[0] < cfg.vocab_size)).all()), "token out of range")
+    agree = float((toks[0] == got["unsharded"][0][2]).mean())
+
+    def rates(runs):
+        return ({"prefill_tok_s": float(np.median([SP_PROMPT / r[0] for r in runs])),
+                 "decode_tok_s": float(np.median([2 * BURST / r[1] for r in runs]))})
+
+    # B = 4 at lengths crossing the shards: each prefilled alone, then batched steps.
+    batch = sp.create_batching_kv_cache(len(SP_BATCH_PROMPTS))
+    first = []
+    for slot, n_tok in enumerate(SP_BATCH_PROMPTS):
+        c = sp.create_kv_cache()
+        lg = sp(rng.integers(0, cfg.vocab_size, size=(1, n_tok)), 0, c, logits_to_keep=1)
+        first.append(int(lg[0, -1].float().argmax()))
+        batch.add_request(c, slot)
+        c.release()
+    toks_b = torch.tensor(first, device=sp.device)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BURST):
+        lg = sp(toks_b[:, None], None, batch, logits_to_keep=1)
+        toks_b = lg[:, -1].float().argmax(-1)
+    check(bool(torch.isfinite(lg.float()).all()), "non-finite B = 4 SP logits")
+    b4_s = time.perf_counter() - t0
+    b4_counts = kernels.launches()
+    check(b4_counts == {k: BURST * v for k, v in per_step.items()},
+          f"B = 4 SP launch counts {b4_counts}")
+    batch.release()
+    profile = _profile_burst(sp, prompt)  # one burst at the prompt's full context
+    # One burst under sync-debug "error" at the prompt's full context.
+    cache = sp.create_kv_cache()
+    for off in range(0, SP_PROMPT, SP_CHUNK):
+        tok = sp(prompt[:, off : off + SP_CHUNK], off, cache, logits_to_keep=1)
+    tok = tok[:, -1].float().argmax(-1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = forward_decode_burst_dense(sp.params, sp.cfg, sp._rope_tables, tok, cache.offset,
+                                         cache.keys, cache.values, steps=BURST,
+                                         attn_impl=sp.attn_impl)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(tuple(out.cpu().shape) == (BURST, 1), "sync-free SP burst shape")
+    cache.release()
+    emit({"phase": "sp_model", "model": "qwen3-4b", "layers": Ly, "shards": SP_SHARDS,
+          "max_seq": SP_MAX_SEQ, "s_loc": SP_MAX_SEQ // SP_SHARDS, "prompt_len": SP_PROMPT,
+          "prefill_chunk": SP_CHUNK, "decode_steps": 2 * BURST, "sp": rates(got["sp"]),
+          "unsharded_in_turns": rates(got["unsharded"]), "order": "ABBA",
+          "sp_unsharded_token_agreement": agree,
+          "sp_decode_tok_s_all": [2 * BURST / r[1] for r in got["sp"]],
+          "launches_2_runs": {k: v for k, v in counts.items() if v},
+          "launches_per_decode_step": {k: v for k, v in per_step.items() if v},
+          "launches_per_prefill_chunk": {k: v for k, v in per_chunk.items() if v},
+          "b4_prompts": list(SP_BATCH_PROMPTS), "b4_decode_tok_s": len(first) * BURST / b4_s,
+          "b4_launches": {k: v for k, v in b4_counts.items() if v}, "decode_profile": profile,
+          "sync_free_burst": {"steps": BURST, "mode": "error", "host_syncs_in_burst": 0},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return {k: counts.get(k, 0) for k in kernels.KERNELS}
+
+
+def phase_sp_serving(sp, cfg):
+    """long_serving's prompts (LONG_REQUESTS of LONG_MIN_PROMPT..LONG_PROMPT
+    tokens) through batch_generate on the SP model over a page pool of
+    SP_PAGES striped over SP_SHARDS shards (batch 4, prefill step 1024): a
+    warm-up and one campaign. Decode steps and chunks of <= 16 tokens run
+    row 14 per shard; first chunks row 7 per shard on their own k/v; later
+    chunks the paged prefill kernel over the pool."""
+    from tiny_llm_tpu_torch.kv import PagePool
+
+    torch.cuda.reset_peak_memory_stats()
+    sp.enable_paged_attention(num_pages=SP_SHARDS, page_size=PAGE_SIZE)  # the width; pool below
+    sp.page_pool = PagePool(cfg.num_hidden_layers, SP_PAGES, cfg.num_key_value_heads, PAGE_SIZE,
+                            cfg.head_dim, device=sp.device, stripe_shards=SP_SHARDS)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LONG_MIN_PROMPT, LONG_PROMPT + 1, size=LONG_REQUESTS)
+    max_out = int(rng.integers(32, 129, size=LONG_REQUESTS).mean())
+    kw = dict(max_seq_len=SP_MAX_SEQ, batch_size=SERVING_BATCH, prefill_step=LONG_CHUNK,
+              decode_burst=BURST)
+    rows, counts = _campaigns(sp, cfg, lens, max_out, kw, ["x" * (LONG_MIN_PROMPT + 1)], 1)
+    for kern in ("quant_matmul", "paged_decode_state", "flash_prefill_state", "paged_prefill"):
+        check(counts[kern] > 0, f"{kern} never launched on the SP serving path")
+    for kern in ("fused_paged_decode_attention", "paged_decode", "paged_prefix_state",
+                 "flash_decode_state"):
+        check(counts[kern] == 0, f"{kern} ran on the SP serving path")
+    r = rows[0]
+    emit({"phase": "sp_serving", "model": "qwen3-4b", "layers": cfg.num_hidden_layers,
+          "shards": SP_SHARDS, "requests": LONG_REQUESTS, "batch": SERVING_BATCH,
+          "max_seq": SP_MAX_SEQ, "page_size": PAGE_SIZE, "pool_pages": SP_PAGES,
+          "prefill_step": LONG_CHUNK, "decode_burst": BURST, "max_output_tokens": max_out,
+          "prompt_lens": lens.tolist(), "prompt_tokens": int(lens.sum()),
+          "output_tok_s": r["output_tok_s"], "input_tok_s": int(lens.sum()) / r["wall_s"],
+          "ttft_p50_ms": r["ttft_p50_ms"], "ttft_p95_ms": r["ttft_p95_ms"],
+          "request_latency_p50_ms": r["request_latency_p50_ms"],
+          "mean_batch_occupancy": r["mean_batch_occupancy"], "wall_s": r["wall_s"],
+          "launches_1_campaign": {k: v for k, v in counts.items() if v},
+          "pool_full_after_the_campaign": True,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase line, the kernel line, the card "
@@ -2046,10 +2547,22 @@ def main() -> int:
     phase_split_kernels([("qwen3-4b", cfg), ("qwen3-30b-a3b", moe_cfg)], contract)
     phase_long_parity(cfg)
     long = Qwen3Model(params, cfg, max_seq_len=LONG_MAX_SEQ)  # the same weights, longer context
+    # Sequence-parallel attention on the same weights, and the unsharded
+    # model it is taken in turns with.
+    sp = Qwen3Model(params, cfg, max_seq_len=SP_MAX_SEQ, attn_impl=_sp())
+    whole = Qwen3Model(params, cfg, max_seq_len=SP_MAX_SEQ)
     del params
     long_counts = phase_long_prefill(long, cfg)
     phase_long_serving(long, cfg)
     del long
+    torch.cuda.empty_cache()
+    phase_sp_kernels(cfg, contract)
+    phase_sp_parity(cfg)
+    sp_counts = phase_sp_model(sp, whole, cfg)
+    del whole
+    torch.cuda.empty_cache()
+    sp_serving_counts = phase_sp_serving(sp, cfg)
+    del sp
     torch.cuda.empty_cache()
     phase_mixed_parity(cfg)
     # Two campaigns, not three: the script stays well inside its time limit.
@@ -2082,8 +2595,10 @@ def main() -> int:
     # Launches on each kernel's own path: the dense 4B run for K1-K3, the
     # 4B serving campaigns for the paged kernels, the dense 30B-A3B run for
     # the grouped expert matmul, the 4B long-prompt prefills for the split's,
-    # and each quant tier's dense run for its kernel.
-    own = {"quant_matmul_a8": a8_counts, "quant_matmul_sg": sg_counts,
+    # each quant tier's dense run for its kernel, and the SP paths for theirs:
+    # the dense SP runs for row 6, the SP serving campaign for row 14.
+    own = {"flash_decode_state": sp_counts, "paged_decode_state": sp_serving_counts,
+           "quant_matmul_a8": a8_counts, "quant_matmul_sg": sg_counts,
            "grouped_quant_matmul_a8": a8_moe_counts, "grouped_quant_matmul_sg": sg_moe_counts,
            "grouped_quant_matmul": moe_counts, **{n: serving_counts for n in PAGED},
            **{n: long_counts for n in SPLIT}}
@@ -2093,7 +2608,7 @@ def main() -> int:
                              ("quant_matmul", "fused_decode_attention", "flash_attention",
                               *PAGED, "grouped_quant_matmul", *SPLIT, "quant_matmul_a8",
                               "quant_matmul_sg", "grouped_quant_matmul_a8",
-                              "grouped_quant_matmul_sg")]}
+                              "grouped_quant_matmul_sg", *SP)]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -3,8 +3,9 @@
 Imports torch and numpy only — never JAX, never the JAX package. Layout
 mirrors tiny_llm_tpu: ops/, kernels/ (hand-written CUDA in csrc/, each
 kernel beside its plain PyTorch version), kv/ (dense and paged caches),
-models/, serving/ (continuous batching), generate.py, tokenizer.py.
+models/, parallel/ (the sequence-parallel attention strategy), serving/
+(continuous batching), generate.py, tokenizer.py.
 Entry points run on the card unless given device="cpu".
 """
 
-__all__ = ["generate", "kernels", "kv", "models", "ops", "serving", "tokenizer"]
+__all__ = ["generate", "kernels", "kv", "models", "ops", "parallel", "serving", "tokenizer"]

@@ -25,6 +25,21 @@
 // chunk-local positions (lens = L). Bound on the H100 at 4B's shapes
 // (L = 1024, 32 heads): 8.6 GFLOP of causal pairs, 8.7 us at the bf16 peak,
 // against 21 MB of q/k/v/o (6.3 us); the SIMT tile is far from either.
+//
+// tlt_flash_decode_state replaces
+// tiny_llm_tpu/kernels/flash_attention_pallas.py::_decode_state_kernel
+// (flash_decode_state_pallas): decode (L <= 16) over ONE shard of a
+// sequence-sharded KV slab, emitting o locally normalised and each row's m
+// and l, which the sequence-parallel attention (parallel/sp_attention.py)
+// combines across shards. The shard is a strided view of the slab: K/V rows
+// of head h of batch row b start at b * stride_b + h * stride_h (elements),
+// so no shard is copied. A shard with no key for a row gives (0, NEG_INF,
+// 0). Design: the tile with decode-shaped rows, as the paged decode kernel
+// (all n_rep x L rows of a KV head in one block of 8 * RPW rows, RPW the
+// least of 1, 2, 4, 8 that fits). Bound on the H100 at Qwen3-4B's shapes
+// (B = 1, 8 KV heads, a full shard of 1024 keys): 4.2 MB of K/V, 1.25 us;
+// one block per KV head walks its 1024 keys serially, so the grid (8
+// blocks) and the walk's latency bound it, far from the bytes.
 #include "flash_tile.cuh"
 
 namespace {
@@ -82,6 +97,51 @@ int launch_state(const void* q, const void* k, const void* v, const void* lens, 
   return (int)cudaGetLastError();
 }
 
+template <int D, int NREP, int RPW>
+__global__ void __launch_bounds__(flash::WARPS * 32) flash_decode_state(
+    const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
+    const __nv_bfloat16* __restrict__ k,  // [B, Hkv, S, D] at strides (sb, sh, D, 1)
+    const __nv_bfloat16* __restrict__ v,
+    const int* __restrict__ lens,  // [B]: keys of the shard per row
+    __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
+    float* __restrict__ m_out,  // [B, Hq, L]
+    float* __restrict__ l_out,
+    int Hkv, int L, int S, long long sb, long long sh, float scale) {
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const SlabRows<D> rows{(size_t)bb * sb + (size_t)h * sh};
+  flash::tile<D, NREP, RPW, true, true>(q, k, v, out, rows, lens[bb], S, blockIdx.x, h, bb, Hkv,
+                                        L, scale, m_out, l_out);
+}
+
+template <int D, int NREP, int RPW>
+int launch_decode_state(const void* q, const void* k, const void* v, const void* lens,
+                        void* out, void* m, void* l, int B, int Hkv, int L, int S, long long sb,
+                        long long sh, float scale, cudaStream_t st) {
+  constexpr int BQ = flash::WARPS * RPW / NREP;
+  flash_decode_state<D, NREP, RPW><<<dim3((L + BQ - 1) / BQ, Hkv, B),
+                                     dim3(flash::WARPS * 32), 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lens),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(m), static_cast<float*>(l), Hkv, L,
+      S, sb, sh, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int NREP>
+int launch_decode_state_rows(int rpw, const void* q, const void* k, const void* v,
+                             const void* lens, void* out, void* m, void* l, int B, int Hkv, int L,
+                             int S, long long sb, long long sh, float scale, cudaStream_t st) {
+#define TLT_DS(RR) \
+  return launch_decode_state<D, NREP, RR>(q, k, v, lens, out, m, l, B, Hkv, L, S, sb, sh, scale, st)
+  switch (rpw) {
+    case 1: TLT_DS(1);
+    case 2: TLT_DS(2);
+    case 4: TLT_DS(4);
+    default: TLT_DS(8);
+  }
+#undef TLT_DS
+}
+
 }  // namespace
 
 extern "C" int tlt_flash_attention(const void* q, const void* k, const void* v, const void* lens,
@@ -107,5 +167,26 @@ extern "C" int tlt_flash_prefill_state(const void* q, const void* k, const void*
   TLT_ST(64, 1) TLT_ST(64, 2) TLT_ST(64, 4) TLT_ST(64, 8)
   TLT_ST(128, 1) TLT_ST(128, 2) TLT_ST(128, 4) TLT_ST(128, 8)
 #undef TLT_ST
+  return (int)cudaErrorInvalidValue;
+}
+
+// L <= 16: all n_rep * L query rows of a (batch row, KV head) in one block
+// when they fit in 64 rows.
+extern "C" int tlt_flash_decode_state(const void* q, const void* k, const void* v,
+                                      const void* lens, void* out, void* m, void* l, int B,
+                                      int Hkv, int L, int S, long long stride_b,
+                                      long long stride_h, int D, int n_rep, float scale,
+                                      void* stream) {
+  if (L < 1 || L > 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int need = n_rep * L;
+  const int rpw = need <= 8 ? 1 : need <= 16 ? 2 : need <= 32 ? 4 : 8;
+#define TLT_DSR(DD, RR)                                                                        \
+  if (D == DD && n_rep == RR)                                                                  \
+    return launch_decode_state_rows<DD, RR>(rpw, q, k, v, lens, out, m, l, B, Hkv, L, S,     \
+                                            stride_b, stride_h, scale, st);
+  TLT_DSR(64, 1) TLT_DSR(64, 2) TLT_DSR(64, 4) TLT_DSR(64, 8)
+  TLT_DSR(128, 1) TLT_DSR(128, 2) TLT_DSR(128, 4) TLT_DSR(128, 8)
+#undef TLT_DSR
   return (int)cudaErrorInvalidValue;
 }

@@ -26,6 +26,12 @@
 //                   [B, Hq, L]. A row that sees no key emits the combine
 //                   identity (o = 0, m = NEG_INF, l = 0).
 //
+// A `Rows` with MASKED (common.cuh OwnedPageRows, row 14's pool shard) may
+// not read some keys below the walk's end: such a key is masked like a
+// future one and never loaded, and a 32-key tile with no readable key is
+// skipped whole (it would leave every row's state exactly as it was). For
+// the other Rows every test of it folds away at compile time.
+//
 // Rounding points follow the TPU kernels (flash_attention_pallas.py
 // _flash_inner): q * scale rounds to bf16, scores and the softmax state are
 // f32, probabilities round to bf16 for the PV product, the output is
@@ -36,6 +42,12 @@
 #include "common.cuh"
 
 namespace flash {
+
+template <class Rows>
+__device__ __forceinline__ bool readable(const Rows& rows, int pos) {
+  if constexpr (Rows::MASKED) return rows.owned(pos);
+  else return true;
+}
 
 constexpr int WARPS = 8, KT = 32;
 
@@ -87,11 +99,15 @@ __device__ __forceinline__ void tile(
   const int kmax = CAUSAL ? min(min(len, len - L + min(q0 + BQ, L)), limit) : min(len, limit);
 
   for (int t0 = 0; t0 < kmax; t0 += KT) {
+    if constexpr (Rows::MASKED) {
+      // Block-uniform: the barrier's vote is every thread's.
+      if (!__syncthreads_or(tid < KT && t0 + tid < kmax && rows.owned(t0 + tid))) continue;
+    }
     __syncthreads();  // previous tile consumed (and Qs written)
     for (int idx = tid; idx < KT * D / 8; idx += blockDim.x) {
       const int j = idx / (D / 8), c = idx % (D / 8);
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (t0 + j < kmax) {
+      if (t0 + j < kmax && readable(rows, t0 + j)) {
         const size_t o = rows(t0 + j);
         kv4 = __ldg(reinterpret_cast<const uint4*>(k + o) + c);
         vv4 = __ldg(reinterpret_cast<const uint4*>(v + o) + c);
@@ -120,9 +136,11 @@ __device__ __forceinline__ void tile(
       }
     }
     const int kpos = t0 + lane;
+    bool kread = true;
+    if constexpr (Rows::MASKED) kread = kpos < kmax && rows.owned(kpos);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool seen = CAUSAL ? kpos <= qpos[i] : kpos < kmax && qpos[i] >= 0;
+      const bool seen = (CAUSAL ? kpos <= qpos[i] : kpos < kmax && qpos[i] >= 0) && kread;
       const float s_i = seen ? sc[i] : TLT_NEG_INF;
       const float m_new = fmaxf(m[i], warp_max(s_i));
       const float alpha = expf(m[i] - m_new);

@@ -7,6 +7,7 @@
 //   tlt_paged_decode       -> _paged_decode_gather_kernel (paged_flash_decode_gather)
 //   tlt_paged_prefill      -> _paged_prefill_kernel (paged_flash_prefill)
 //   tlt_paged_prefix_state -> _paged_prefix_state_kernel (paged_prefix_state)
+//   tlt_paged_decode_state -> _paged_decode_state_kernel (paged_decode_state)
 // Both compute what the TPU kernels compute: query i of batch row b sits at
 // position lens[b] - L + i, where the chunk's own K/V are already in the
 // pages, and sees the keys at positions <= its own. -1 table entries read
@@ -39,6 +40,19 @@
 // 0.122 ms at the bf16 peak, against 46 MB of K/V/q/o (14 us); the SIMT
 // tile runs on the FP32 pipes, far from either. Same 64-row q tiles, each
 // walking the whole prefix once for its n_rep heads.
+//
+// The paged decode-state walk is the sequence-parallel paged decode's per-
+// shard half (parallel/sp_attention.py): the pool's page axis is split over
+// shards, shard s holding the global pages [base, base + p_loc) as its own
+// [p_loc, Hkv, ps, D] slice; the block table keeps global ids. It is the
+// decode walk above over OwnedPageRows: a key on a page the shard does not
+// own (another shard's, or a -1 entry) is masked and never loaded, and a
+// 32-key tile with none of the shard's keys is skipped; causality on global
+// positions; the STATE epilogue (o, m, l), the identity (0, NEG_INF, 0) for
+// a row none of whose visible pages the shard owns. Bound on the H100: the
+// owned live pages' K/V bytes plus q, o, m and l over 3.35 TB/s, so 1/n of
+// the rows' context under the pool's balanced striping. The walk is as
+// serial as the decode kernel's, over the shard's pages only.
 #include "flash_tile.cuh"
 
 namespace {
@@ -112,6 +126,54 @@ int launch_prefix(const void* q, const void* kp, const void* vp, const void* bt,
   return (int)cudaGetLastError();
 }
 
+template <int D, int NREP, int RPW>
+__global__ void __launch_bounds__(flash::WARPS * 32) paged_decode_state(
+    const __nv_bfloat16* __restrict__ q,   // [B, Hq, L, D]
+    const __nv_bfloat16* __restrict__ kp,  // the shard's pages [p_loc, Hkv, ps, D]
+    const __nv_bfloat16* __restrict__ vp,
+    const int* __restrict__ bt,    // [B, maxp] global ids, -1 padded
+    const int* __restrict__ lens,  // [B] global context lengths
+    __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
+    float* __restrict__ m_out,        // [B, Hq, L]
+    float* __restrict__ l_out,
+    int Hkv, int L, int ps, int maxp, int base, int p_loc, float scale) {
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const OwnedPageRows<D> rows{bt + (size_t)bb * maxp, ps, Hkv, h, base, p_loc};
+  flash::tile<D, NREP, RPW, true, true>(q, kp, vp, out, rows, lens[bb], maxp * ps, blockIdx.x, h,
+                                        bb, Hkv, L, scale, m_out, l_out);
+}
+
+template <int D, int NREP, int RPW>
+int launch_decode_state(const void* q, const void* kp, const void* vp, const void* bt,
+                        const void* lens, void* out, void* m, void* l, int B, int Hkv, int L,
+                        int ps, int maxp, int base, int p_loc, float scale, cudaStream_t st) {
+  constexpr int BQ = flash::WARPS * RPW / NREP;
+  paged_decode_state<D, NREP, RPW><<<dim3((L + BQ - 1) / BQ, Hkv, B),
+                                     dim3(flash::WARPS * 32), 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(bt),
+      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out), static_cast<float*>(m),
+      static_cast<float*>(l), Hkv, L, ps, maxp, base, p_loc, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int NREP>
+int launch_decode_state_rows(int rpw, const void* q, const void* kp, const void* vp,
+                             const void* bt, const void* lens, void* out, void* m, void* l, int B,
+                             int Hkv, int L, int ps, int maxp, int base, int p_loc, float scale,
+                             cudaStream_t st) {
+#define TLT_PDS(RR)                                                                    \
+  return launch_decode_state<D, NREP, RR>(q, kp, vp, bt, lens, out, m, l, B, Hkv, L, ps, \
+                                          maxp, base, p_loc, scale, st)
+  switch (rpw) {
+    case 1: TLT_PDS(1);
+    case 2: TLT_PDS(2);
+    case 4: TLT_PDS(4);
+    default: TLT_PDS(8);
+  }
+#undef TLT_PDS
+}
+
 int dispatch(int rpw, const void* q, const void* kp, const void* vp, const void* bt,
              const void* lens, void* out, int B, int Hkv, int L, int ps, int maxp, int D,
              int n_rep, float scale, void* stream) {
@@ -159,5 +221,25 @@ extern "C" int tlt_paged_prefix_state(const void* q, const void* kp, const void*
   TLT_PS(64, 1) TLT_PS(64, 2) TLT_PS(64, 4) TLT_PS(64, 8)
   TLT_PS(128, 1) TLT_PS(128, 2) TLT_PS(128, 4) TLT_PS(128, 8)
 #undef TLT_PS
+  return (int)cudaErrorInvalidValue;
+}
+
+// L <= 16 over the shard's pages: rows grouped per block as tlt_paged_decode.
+extern "C" int tlt_paged_decode_state(const void* q, const void* kp, const void* vp,
+                                      const void* bt, const void* lens, void* out, void* m,
+                                      void* l, int B, int Hkv, int L, int ps, int maxp,
+                                      int base, int p_loc, int D, int n_rep, float scale,
+                                      void* stream) {
+  if (L < 1 || L > 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int need = n_rep * L;
+  const int rpw = need <= 8 ? 1 : need <= 16 ? 2 : need <= 32 ? 4 : 8;
+#define TLT_PDSR(DD, RR)                                                                      \
+  if (D == DD && n_rep == RR)                                                                 \
+    return launch_decode_state_rows<DD, RR>(rpw, q, kp, vp, bt, lens, out, m, l, B, Hkv, L, \
+                                            ps, maxp, base, p_loc, scale, st);
+  TLT_PDSR(64, 1) TLT_PDSR(64, 2) TLT_PDSR(64, 4) TLT_PDSR(64, 8)
+  TLT_PDSR(128, 1) TLT_PDSR(128, 2) TLT_PDSR(128, 4) TLT_PDSR(128, 8)
+#undef TLT_PDSR
   return (int)cudaErrorInvalidValue;
 }

@@ -25,6 +25,8 @@ KERNELS = {
     "quant_matmul_sg": (quant_matmul, "SG_LAUNCHES"),
     "grouped_quant_matmul_a8": (moe_matmul, "A8_LAUNCHES"),
     "grouped_quant_matmul_sg": (moe_matmul, "SG_LAUNCHES"),
+    "flash_decode_state": (flash_attention, "DECODE_STATE_LAUNCHES"),
+    "paged_decode_state": (paged_attention, "DECODE_STATE_LAUNCHES"),
 }
 
 

@@ -8,14 +8,22 @@ CUDA kernel, csrc/flash_attention.cu, takes any L >= 1. The state twin,
 `flash_prefill_state`, replaces `_prefill_state_kernel`
 (`flash_prefill_state_pallas`): the same attention, returning the output
 locally normalised with each row's softmax state (m, l), for the split
-paged prefill (kernels/split_prefill.py). The CUDA source's header notes
-what bounds them on the H100 and what their design does about that.
+paged prefill (kernels/split_prefill.py). `flash_decode_state` replaces
+`_decode_state_kernel` (`flash_decode_state_pallas`): decode (L <= 16)
+over one shard of a sequence-sharded slab, returning (o, m, l) for the
+sequence-parallel combine (parallel/sp_attention.py); its k/v may be
+strided views of the slab. The CUDA source's header notes what bounds them
+on the H100 and what their design does about that.
 
 Conventions are the JAX package's: q [B, Hq, L, D], k/v [B, Hkv, S, D]
 (GQA, n_rep = Hq // Hkv), lens [B] — row b's valid KV length; query i sits
 at position lens[b] - L + i and sees keys at positions <= its own. Keys at
 positions >= lens[b] are never read, so k/v may be a whole preallocated
 slab layer.
+
+`flash_attention` also takes an attention-strategy object as `impl` (one
+with `.flash`, as parallel.SPAttention): the call is then the strategy's,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,11 +38,14 @@ from .dispatch import resolve
 TPU_KERNEL = "tiny_llm_tpu/kernels/flash_attention_pallas.py:450 _prefill_kernel"
 TPU_KERNEL_SHORT = "tiny_llm_tpu/kernels/flash_attention_pallas.py:81 _decode_kernel"
 TPU_KERNEL_STATE = "tiny_llm_tpu/kernels/flash_attention_pallas.py:597 _prefill_state_kernel"
+TPU_KERNEL_DECODE_STATE = "tiny_llm_tpu/kernels/flash_attention_pallas.py:282 _decode_state_kernel"
+DECODE_MAX_L = 16
 SOURCE = "tiny_llm_tpu_torch/csrc/flash_attention.cu"
 NEG_INF = -1e30
 
 LAUNCHES = 0  # kernel launches since the last reset (see kernels.reset_launches)
 STATE_LAUNCHES = 0  # the state twin's
+DECODE_STATE_LAUNCHES = 0  # the shard decode-state kernel's
 
 
 def attention_state_plain(q, k, v, ok, scale: float):
@@ -80,6 +91,11 @@ def flash_prefill_state_plain(q, k, v, lens, scale: float):
     return attention_state_plain(q, k, v, ok, scale)
 
 
+# The shard decode-state kernel computes the state twin's function (a row
+# that sees no key of the shard gives (0, NEG_INF, 0)): one plain version.
+flash_decode_state_plain = flash_prefill_state_plain
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.tlt_flash_attention
@@ -88,11 +104,17 @@ def _lib() -> ctypes.CDLL:
     fn = lib.tlt_flash_prefill_state
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.tlt_flash_decode_state
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
 
 
-def _check_args(what, q, k, v):
-    """(B, Hq, L, D, Hkv, S, n_rep) after the checks both kernels need."""
+def _check_args(what, q, k, v, strided_kv: bool = False):
+    """(B, Hq, L, D, Hkv, S, n_rep) after the checks every kernel here
+    needs. `strided_kv`: k and v may be views with any batch and head
+    strides (one shard of a slab), their rows still contiguous."""
     B, Hq, L, D = q.shape
     Bk, Hkv, S, Dk = k.shape
     if (Bk, Dk) != (B, D) or v.shape != k.shape or Hq % Hkv:
@@ -101,8 +123,16 @@ def _check_args(what, q, k, v):
     if D not in (64, 128) or n_rep not in (1, 2, 4, 8):
         raise ValueError(f"{what}: unsupported D={D}, n_rep={n_rep}")
     for t in (q, k, v):
-        if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError("q/k/v must be contiguous bf16 CUDA tensors")
+        if t.dtype != torch.bfloat16 or not t.is_cuda:
+            raise ValueError("q/k/v must be bf16 CUDA tensors")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if strided_kv:
+        if k.stride() != v.stride() or k.stride()[2:] != (D, 1):
+            raise ValueError(f"k/v strides {k.stride()} / {v.stride()}: the rows must be "
+                             "contiguous and k and v alike")
+    elif not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("k/v must be contiguous")
     return B, Hq, L, D, Hkv, S, n_rep
 
 
@@ -139,15 +169,38 @@ def flash_prefill_state_cuda(q, k, v, lens, scale: float):
     return out, m, l
 
 
+def flash_decode_state_cuda(q, k, v, lens, scale: float):
+    global DECODE_STATE_LAUNCHES
+    B, Hq, L, D, Hkv, S, n_rep = _check_args("flash_decode_state_cuda", q, k, v,
+                                             strided_kv=True)
+    if not 1 <= L <= DECODE_MAX_L:
+        raise ValueError(f"flash_decode_state takes 1 <= L <= {DECODE_MAX_L}, got L={L}")
+    lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    m = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    lib = _lib()
+    err = lib.tlt_flash_decode_state(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(), m.data_ptr(),
+        l.data_ptr(), B, Hkv, L, S, k.stride(0), k.stride(1), D, n_rep, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, "flash_decode_state")
+    DECODE_STATE_LAUNCHES += 1
+    return out, m, l
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     lens: torch.Tensor,
     scale: float | None = None,
-    impl: str | None = None,
+    impl=None,
 ) -> torch.Tensor:
     """Causal attention of the last L positions of each row over k/v."""
+    if impl is not None and not isinstance(impl, str):
+        return impl.flash(q, k, v, lens, scale=scale)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if resolve(impl, q) == "cuda":
         return flash_attention_cuda(q, k, v, lens, scale)
@@ -169,3 +222,19 @@ def flash_prefill_state(
     if resolve(impl, q) == "cuda":
         return flash_prefill_state_cuda(q, k, v, lens, scale)
     return flash_prefill_state_plain(q, k, v, lens, scale)
+
+
+def flash_decode_state(
+    q: torch.Tensor,  # [B, Hq, L, D], L <= 16
+    k: torch.Tensor,  # [B, Hkv, S_loc, D] — one shard, rows contiguous
+    v: torch.Tensor,
+    lens: torch.Tensor,  # [B] int — the shard's valid keys per row (0 is fine)
+    scale: float | None = None,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode attention over one KV shard as (o, m, l): o [B, Hq, L, D]
+    normalised within the shard in q's dtype, m and l [B, Hq, L] f32."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if resolve(impl, q) == "cuda":
+        return flash_decode_state_cuda(q, k, v, lens, scale)
+    return flash_decode_state_plain(q, k, v, lens, scale)

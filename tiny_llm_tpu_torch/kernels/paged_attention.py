@@ -12,7 +12,12 @@ Counterpart of tiny_llm_tpu/kernels/paged_attention.py (`gather_pages_dense`,
   * `paged_prefix_state`: `_paged_prefix_state_kernel` (same name,
     paged_attention_pallas.py:771) -> `tlt_paged_prefix_state`: a chunk's
     queries over the prefix pages before it, non-causally, emitting the
-    softmax state (o, m, l) that kernels/split_prefill.py combines.
+    softmax state (o, m, l) that kernels/split_prefill.py combines;
+  * `paged_decode_state`: `_paged_decode_state_kernel` (same name,
+    paged_attention_pallas.py:640) -> `tlt_paged_decode_state`: decode
+    (L <= 16) over the pages ONE shard of a sequence-sharded pool owns,
+    emitting (o, m, l) for the sequence-parallel combine
+    (parallel/sp_attention.py).
 The CUDA source's header notes what bounds them on the H100 and what
 their design does about it.
 
@@ -22,6 +27,10 @@ context_lens int32 [B] counting every valid token INCLUDING the current
 queries — the chunk's K/V are already written to the pages. Query i of row
 b sits at position context_lens[b] - L + i and sees keys at positions <=
 its own.
+
+`paged_attention` also takes an attention-strategy object as `impl` (one
+with `.paged`, as parallel.SPAttention): the call is then the strategy's,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,11 +41,13 @@ import torch
 
 from . import build
 from .dispatch import resolve
-from .flash_attention import attention_state_plain, flash_attention_plain
+from .flash_attention import _causal_mask, attention_state_plain, flash_attention_plain
 
 TPU_KERNEL_DECODE = "tiny_llm_tpu/kernels/paged_attention_pallas.py:297 _paged_decode_gather_kernel"
 TPU_KERNEL_PREFILL = "tiny_llm_tpu/kernels/paged_attention_pallas.py:475 _paged_prefill_kernel"
 TPU_KERNEL_PREFIX = "tiny_llm_tpu/kernels/paged_attention_pallas.py:716 _paged_prefix_state_kernel"
+TPU_KERNEL_DECODE_STATE = (
+    "tiny_llm_tpu/kernels/paged_attention_pallas.py:583 _paged_decode_state_kernel")
 SOURCE = "tiny_llm_tpu_torch/csrc/paged_attention.cu"
 DECODE_MAX_L = 16  # paged_attention_pallas.py:862
 
@@ -44,6 +55,7 @@ DECODE_MAX_L = 16  # paged_attention_pallas.py:862
 DECODE_LAUNCHES = 0
 PREFILL_LAUNCHES = 0
 PREFIX_LAUNCHES = 0
+DECODE_STATE_LAUNCHES = 0
 
 
 def gather_pages_dense(key_pages, value_pages, block_table):
@@ -79,6 +91,24 @@ def paged_prefix_state_plain(q, key_pages, value_pages, block_table, prefix_lens
     return attention_state_plain(q, k, v, ok.expand(B, L, k.shape[2]), scale)
 
 
+def paged_decode_state_plain(q, key_pages_loc, value_pages_loc, block_table, context_lens,
+                             page_base: int, scale: float):
+    """Plain version of the shard walk: gather the shard's pages through the
+    table's owned entries (global ids in [page_base, page_base + P_loc)),
+    then causal attention over the keys on those pages only, at the kernels'
+    rounding points. Returns (o, m, l); a row none of whose visible keys
+    the shard owns gives (0, NEG_INF, 0)."""
+    P_loc, _, ps, _ = key_pages_loc.shape
+    bt = block_table.to(device=q.device, dtype=torch.long)
+    local = bt - page_base
+    owned = (local >= 0) & (local < P_loc)  # [B, maxp]; -1 entries are never owned
+    k, v = gather_pages_dense(key_pages_loc, value_pages_loc, local.clamp(0, P_loc - 1))
+    L = q.shape[2]
+    ok = _causal_mask(context_lens, L, k.shape[2], q.device)
+    ok = ok & owned.repeat_interleave(ps, dim=1)[:, None, :]
+    return attention_state_plain(q, k, v, ok, scale)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     for fn in (lib.tlt_paged_decode, lib.tlt_paged_prefill):
@@ -86,6 +116,9 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     fn = lib.tlt_paged_prefix_state
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.tlt_paged_decode_state
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -168,6 +201,52 @@ def paged_prefix_state_cuda(q, key_pages, value_pages, block_table, prefix_lens,
     return out, m, l
 
 
+def paged_decode_state_cuda(q, key_pages_loc, value_pages_loc, block_table, context_lens,
+                            page_base: int, scale: float):
+    """The paged decode-state walk over one shard's pages (L <= 16)."""
+    global DECODE_STATE_LAUNCHES
+    B, Hq, L, D = q.shape
+    P_loc, Hkv, ps = key_pages_loc.shape[:3]
+    if not 1 <= L <= DECODE_MAX_L:
+        raise ValueError(f"paged decode state takes 1 <= L <= {DECODE_MAX_L}, got L={L}")
+    n_rep = _check_paged(q, key_pages_loc, value_pages_loc, block_table)
+    dev = q.device
+    bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
+    lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    m = torch.empty((B, Hq, L), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    lib = _lib()
+    err = lib.tlt_paged_decode_state(
+        q.data_ptr(), key_pages_loc.data_ptr(), value_pages_loc.data_ptr(), bt.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, L, ps, bt.shape[1],
+        int(page_base), P_loc, D, n_rep, float(scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, "tlt_paged_decode_state")
+    DECODE_STATE_LAUNCHES += 1
+    return out, m, l
+
+
+def paged_decode_state(
+    q: torch.Tensor,  # [B, Hq, L, D], L <= 16
+    key_pages_loc: torch.Tensor,  # [P_loc, Hkv, ps, D] — the shard's pages
+    value_pages_loc: torch.Tensor,
+    block_table: torch.Tensor,  # [B, max_pages] int32 — GLOBAL ids, -1 padded
+    context_lens: torch.Tensor,  # [B] int32 — global context lengths
+    page_base: int,  # the first global page id the shard holds
+    scale: float | None = None,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(o, m, l) of decode attention over the pages of global ids
+    [page_base, page_base + P_loc) only; other entries contribute nothing."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if resolve(impl, q) == "cuda":
+        return paged_decode_state_cuda(q, key_pages_loc, value_pages_loc, block_table,
+                                       context_lens, page_base, scale)
+    return paged_decode_state_plain(q, key_pages_loc, value_pages_loc, block_table,
+                                    context_lens, page_base, scale)
+
+
 def paged_prefix_state(
     q: torch.Tensor,  # [B, Hq, L, D] — one chunk's queries
     key_pages: torch.Tensor,  # [P, Hkv, ps, D] — one layer's pages
@@ -194,9 +273,11 @@ def paged_attention(
     block_table: torch.Tensor,  # [B, max_pages] int32, -1 padded
     context_lens: torch.Tensor,  # [B] int32, including the current queries
     scale: float | None = None,
-    impl: str | None = None,
+    impl=None,
 ) -> torch.Tensor:
     """Causal attention of the last L positions of each row over its pages."""
+    if impl is not None and not isinstance(impl, str):
+        return impl.paged(q, key_pages, value_pages, block_table, context_lens, scale=scale)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if resolve(impl, q) == "torch":
         return paged_attention_plain(q, key_pages, value_pages, block_table, context_lens, scale)

@@ -17,6 +17,11 @@ per-request handles and the slot-multiplexed batch cache.
   metrics read. Pure Python, the JAX package's `native=False` semantics:
   free pages pop from the end of [P-1, ..., 1], so pages 1, 2, 3, ... come
   out first and freed pages are reused last-in first-out.
+* `stripe_shards` (a pool whose page axis the sequence-parallel attention
+  splits over that many shards, parallel/sp_attention.py): one such free
+  list per shard's page range, and each allocation takes from the shard
+  with the most free pages (the lowest on a tie), so every request's
+  context spreads evenly over the shards.
 """
 
 from __future__ import annotations
@@ -43,9 +48,12 @@ class PagePool:
         head_dim: int,
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
+        stripe_shards: int | None = None,
     ):
         if num_pages < 2:
             raise ValueError("a pool needs the trash page and at least one more")
+        if stripe_shards and num_pages % stripe_shards:
+            raise ValueError(f"num_pages {num_pages} must divide over {stripe_shards} shards")
         self.device = check_device(device)
         self.num_layers = num_layers
         self.num_pages = num_pages
@@ -56,13 +64,23 @@ class PagePool:
         shape = (num_layers, num_pages, num_kv_heads, page_size, head_dim)
         self.key_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.value_pages = torch.zeros(shape, dtype=dtype, device=self.device)
-        self._free: list[int] = list(range(num_pages - 1, 0, -1))
+        self.stripe_shards = stripe_shards
+        self.reset()
         self._reused = 0
         self._ever_allocated: set[int] = set()
 
+    def reset(self) -> None:
+        """Every page but the trash page free again (the ledger stays)."""
+        n, P = self.stripe_shards or 1, self.num_pages
+        p_loc = P // n
+        # One list per shard, each popping its lowest page first.
+        self._free_by_shard = [
+            [p for p in range((s + 1) * p_loc - 1, s * p_loc - 1, -1) if p != 0] for s in range(n)
+        ]
+
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free_by_shard)
 
     @property
     def reserved_pages(self) -> int:
@@ -77,19 +95,20 @@ class PagePool:
         return self._reused
 
     def allocate_page(self) -> int:
-        if not self._free:
+        free = max(self._free_by_shard, key=len)  # the first of the fullest shards
+        if not free:
             raise PoolExhausted(
                 f"page pool exhausted ({self.num_pages} pages); size the pool for "
                 "max_seq_len * max_active_requests"
             )
-        page = self._free.pop()
+        page = free.pop()
         if page in self._ever_allocated:
             self._reused += 1
         self._ever_allocated.add(page)
         return page
 
     def free_page(self, page: int) -> None:
-        self._free.append(page)
+        self._free_by_shard[page // (self.num_pages // len(self._free_by_shard))].append(page)
 
 
 class PagedKVCache:

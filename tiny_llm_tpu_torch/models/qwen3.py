@@ -24,7 +24,12 @@ run on the card and on the CPU; only the bodies of the kernels differ
   * a mixed burst step (forward_mixed_burst_paged) runs B decode rows and a
     c-token prefill sub-chunk through the same projections, the decode rows
     through the fused paged step and the sub-chunk through paged attention
-    over its own pages.
+    over its own pages;
+  * with an attention strategy (`attn_impl`, e.g. parallel.SPAttention) the
+    strategy runs every attention, as in the JAX package: a decode step
+    takes the unfused route (qkv, the k/v write, then the strategy's
+    attention), the split prefill and mixed bursts are off, and the
+    matmuls keep `impl`.
 
 The KV slab and the pages are updated in place. A decode burst, mixed or
 not, is a Python loop of steps whose greedy argmax stays on the device; the
@@ -306,9 +311,12 @@ def forward_step(
     *,
     logits_to_keep: int | None,
     impl: str | None = None,
+    attn_impl=None,
 ) -> torch.Tensor:
     """One cached step (prompt chunk or decode step): writes this chunk's
-    k/v into the slab at `offsets` and returns logits [B, L_keep, V]."""
+    k/v into the slab at `offsets` and returns logits [B, L_keep, V].
+    `attn_impl`: an attention strategy (with .flash), or None for `impl`'s
+    kernels."""
     B, L = tokens.shape
     dev = tokens.device
     scale = cfg.head_dim**-0.5
@@ -317,7 +325,7 @@ def forward_step(
     n_rep = cfg.num_attention_heads // hkv
     offs = _offsets_tensor(offsets, dev)
     h = _embed(params, tokens)
-    decode = L == 1  # the decode route: K2 per layer; else K3
+    decode = L == 1 and attn_impl is None  # the fused decode route: K2 per layer
     if decode:
         # The RoPE rows are gathered once per step and shared by all layers.
         pos = offs.to(torch.long)
@@ -341,8 +349,8 @@ def forward_step(
                            norm_w=layer.input_layernorm, impl=impl)
             _write_rows(keys, i, offsets, k)
             _write_rows(values, i, offsets, v)
-            attn = flash_attention(q.contiguous(), keys[i], values[i], lens,
-                                   scale=scale, impl=impl)
+            attn = flash_attention(q.contiguous(), keys[i], values[i], lens, scale=scale,
+                                   impl=impl if attn_impl is None else attn_impl)
             attn = attn.transpose(1, 2).reshape(B, L, -1)
         h = _linear(attn, layer.attn.wo, residual=h, impl=impl)
         h = _mlp(cfg, layer.mlp, h, norm_w=layer.post_attention_layernorm,
@@ -364,6 +372,7 @@ def forward_decode_burst_dense(
     *,
     steps: int,
     impl: str | None = None,
+    attn_impl=None,
     temp: float = 0.0,
     top_k: int | None = None,
     top_p: float | None = None,
@@ -377,7 +386,7 @@ def forward_decode_burst_dense(
     return _decode_loop(
         lambda tokens, s: forward_step(
             params, cfg, rope_tabs, tokens[:, None], [offset + s] * B, keys, values,
-            logits_to_keep=1, impl=impl,
+            logits_to_keep=1, impl=impl, attn_impl=attn_impl,
         ),
         tokens0, steps, temp, top_k, top_p, generator,
     )
@@ -430,6 +439,7 @@ def forward_step_paged(
     *,
     logits_to_keep: int | None,
     impl: str | None = None,
+    attn_impl=None,
     local_attention: bool = False,
     split_attention: bool = False,
 ) -> torch.Tensor:
@@ -442,7 +452,10 @@ def forward_step_paged(
     `local_attention` (every offset 0, so the chunk is the whole context)
     runs K3 on the chunk's own k/v; `split_attention` runs the split paged
     prefill (the chunk's own k/v causally, the prefix pages before it
-    non-causally, combined); otherwise paged attention reads the pages."""
+    non-causally, combined); otherwise paged attention reads the pages.
+    `attn_impl`: an attention strategy (with .flash and .paged) that runs
+    the attention of every step, decode steps unfused; None for `impl`'s
+    kernels."""
     B, L = tokens.shape
     dev = tokens.device
     ps = key_pages.shape[3]
@@ -456,7 +469,8 @@ def forward_step_paged(
     # _page_targets); clamp rather than index out of range.
     rope_pos = positions.clamp(max=rope_tabs[0].shape[0] - 1)
     h = _embed(params, tokens)
-    decode = L == 1
+    decode = L == 1 and attn_impl is None  # the fused paged decode route
+    attn_with = impl if attn_impl is None else attn_impl
     if decode:
         cos_row, sin_row = rope_tabs[0][rope_pos[:, 0]], rope_tabs[1][rope_pos[:, 0]]
     else:
@@ -479,14 +493,14 @@ def forward_step_paged(
             _write_pages(value_pages, i, page_idx, slot, v)
             if local_attention:
                 attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), lens,
-                                       scale=scale, impl=impl)
+                                       scale=scale, impl=attn_with)
             elif split_attention:
                 attn = split_paged_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
                                            key_pages[i], value_pages[i], block_table, offsets,
                                            scale=scale, impl=impl)
             else:
                 attn = paged_attention(q.contiguous(), key_pages[i], value_pages[i],
-                                       block_table, lens, scale=scale, impl=impl)
+                                       block_table, lens, scale=scale, impl=attn_with)
             attn = attn.transpose(1, 2).reshape(B, L, -1)
         h = _linear(attn, layer.attn.wo, residual=h, impl=impl)
         h = _mlp(cfg, layer.mlp, h, norm_w=layer.post_attention_layernorm,
@@ -509,6 +523,7 @@ def forward_decode_burst_paged(
     *,
     steps: int,
     impl: str | None = None,
+    attn_impl=None,
     temp: float = 0.0,
     top_k: int | None = None,
     top_p: float | None = None,
@@ -522,7 +537,7 @@ def forward_decode_burst_paged(
     return _decode_loop(
         lambda tokens, s: forward_step_paged(
             params, cfg, rope_tabs, tokens[:, None], offsets0 + s, key_pages, value_pages,
-            block_table, logits_to_keep=1, impl=impl,
+            block_table, logits_to_keep=1, impl=impl, attn_impl=attn_impl,
         ),
         tokens0, steps, temp, top_k, top_p, generator,
     )
@@ -653,8 +668,11 @@ class Qwen3Model:
     __call__(inputs, offset, cache, logits_to_keep), create_kv_cache(),
     create_batching_kv_cache(), decode_burst_dense(), enable_paged_attention(),
     decode_burst(), supports_mixed, mixed_burst(). `impl` plays the role of
-    JAX's `attn_impl`: None runs the kernels on the card and their plain
-    versions on the CPU, "torch" runs the plain versions on either device.
+    JAX's string `attn_impl`: None runs the kernels on the card and their
+    plain versions on the CPU, "torch" runs the plain versions on either
+    device. `attn_impl` takes JAX's strategy objects: None, or one with
+    `.flash` and `.paged` (parallel.SPAttention), which then runs every
+    attention while the matmuls keep `impl`.
     `act_quant` "int8" is the W4A8 tier (convert_projection_layouts after
     fuse_projections, as in the JAX package); None or "bf16" keeps W4A16.
     The port reads no environment default for it."""
@@ -667,8 +685,13 @@ class Qwen3Model:
         impl: str | None = None,
         device: str | torch.device = "cuda",
         act_quant: str | None = None,
+        attn_impl=None,
     ):
         self.device = check_device(device)
+        if attn_impl is not None and not (hasattr(attn_impl, "flash")
+                                          and hasattr(attn_impl, "paged")):
+            raise TypeError("attn_impl must be None or a strategy with .flash and .paged")
+        self.attn_impl = attn_impl
         if params.embedding.device.type != self.device.type:
             raise ValueError(
                 f"params live on {params.embedding.device}, model device is {self.device}"
@@ -710,10 +733,10 @@ class Qwen3Model:
 
     @property
     def supports_mixed(self) -> bool:
-        """True when mixed prefill+decode bursts are available: a paged pool
-        and fused qkv weights on every layer (the shared projection matmul
-        is the point of the mixed step)."""
-        return self.page_pool is not None and all(
+        """True when mixed prefill+decode bursts are available: a paged pool,
+        no attention strategy, and fused qkv weights on every layer (the
+        shared projection matmul is the point of the mixed step)."""
+        return self.page_pool is not None and self.attn_impl is None and all(
             layer.attn.wqkv is not None for layer in self.params.layers
         )
 
@@ -739,6 +762,8 @@ class Qwen3Model:
         scheduled cache advances by its real token count."""
         if not isinstance(cache, PagedBatchingKVCache):
             raise TypeError("mixed_burst runs over a PagedBatchingKVCache")
+        if not self.supports_mixed:
+            raise ValueError("this model has no mixed bursts (see supports_mixed)")
         if temp != 0 and generator is None:
             raise ValueError("a sampled burst needs a torch.Generator")
         if steps <= 0 or len(schedule) != steps:
@@ -859,6 +884,7 @@ class Qwen3Model:
         logits = forward_step(
             self.params, self.cfg, self._rope_tables, tokens, offsets,
             cache.keys, cache.values, logits_to_keep=logits_to_keep, impl=self.impl,
+            attn_impl=self.attn_impl,
         )
         cache.advance(L)
         return logits
@@ -883,6 +909,7 @@ class Qwen3Model:
         logits = forward_step(
             self.params, self.cfg, self._rope_tables, tokens, [int(o) for o in offs],
             cache.keys, cache.values, logits_to_keep=logits_to_keep, impl=self.impl,
+            attn_impl=self.attn_impl,
         )
         cache.offsets = np.where(cache.active, offs + L, cache.offsets).astype(np.int32)
         return logits
@@ -910,11 +937,12 @@ class Qwen3Model:
             self.params, self.cfg, self._rope_tables, tokens,
             torch.from_numpy(offs).to(self.device), cache.pool.key_pages,
             cache.pool.value_pages, torch.from_numpy(table).to(self.device),
-            logits_to_keep=logits_to_keep, impl=self.impl,
+            logits_to_keep=logits_to_keep, impl=self.impl, attn_impl=self.attn_impl,
             # The first chunk is the whole context: no page walk (L > 1 keeps
             # decode steps on the fused paged kernel even at offset 0).
             local_attention=bool(L > 1 and np.all(offs == 0)),
-            split_attention=bool(L >= SPLIT_PREFILL_MIN_CHUNK and np.any(offs > 0)),
+            split_attention=bool(self.attn_impl is None and L >= SPLIT_PREFILL_MIN_CHUNK
+                                 and np.any(offs > 0)),
         )
         if isinstance(cache, PagedBatchingKVCache):
             for c in cache.slots:
@@ -944,7 +972,7 @@ class Qwen3Model:
         tokens0 = self._tokens(first_tokens).reshape(-1)
         toks = forward_decode_burst_dense(
             self.params, self.cfg, self._rope_tables, tokens0, cache.offset,
-            cache.keys, cache.values, steps=steps, impl=self.impl,
+            cache.keys, cache.values, steps=steps, impl=self.impl, attn_impl=self.attn_impl,
             temp=temp, top_k=top_k, top_p=top_p, generator=generator,
         )
         cache.advance(steps)
@@ -978,7 +1006,8 @@ class Qwen3Model:
             self.params, self.cfg, self._rope_tables, self._tokens(first_tokens).reshape(-1),
             torch.from_numpy(offs).to(self.device), cache.pool.key_pages,
             cache.pool.value_pages, torch.from_numpy(table).to(self.device), steps=steps,
-            impl=self.impl, temp=temp, top_k=top_k, top_p=top_p, generator=generator,
+            impl=self.impl, attn_impl=self.attn_impl, temp=temp, top_k=top_k, top_p=top_p,
+            generator=generator,
         )
         out = toks.cpu().numpy().astype(np.int32)
         for c in cache.slots:

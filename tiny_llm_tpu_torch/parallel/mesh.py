@@ -1,0 +1,46 @@
+"""Device mesh — counterpart of tiny_llm_tpu/parallel/mesh.py.
+
+A mesh names its axes ("dp", optionally "ep", then "tp"), their sizes and
+the devices laid out on them in row-major order. The port's strategies run
+the shards of one axis in one process; a device list that repeats one
+device (`[torch.device("cuda", 0)] * 8`) puts every shard on it, as the JAX
+package's tests put their shards on 8 virtual CPU devices. Placing shards
+on several cards needs torch.distributed ranks, which the port does not
+have yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+    devices: tuple[torch.device, ...]  # row-major over the axes
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, as jax.sharding.Mesh.shape."""
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_mesh(dp: int = 1, tp: int | None = None, ep: int = 1, devices=None) -> Mesh:
+    """A (dp[, ep], tp) mesh over `devices` (default: every CUDA device);
+    tp defaults to what the devices leave after dp and ep."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device; pass devices= (e.g. [cpu] * 8)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = tuple(torch.device(d) for d in devices)
+    n = len(devices)
+    if tp is None:
+        tp = n // (dp * ep)
+    if dp * ep * tp != n:
+        raise ValueError(f"dp({dp}) * ep({ep}) * tp({tp}) != devices({n})")
+    if ep > 1:
+        return Mesh(("dp", "ep", "tp"), (dp, ep, tp), devices)
+    return Mesh(("dp", "tp"), (dp, tp), devices)
