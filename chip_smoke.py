@@ -12,8 +12,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             paged kernels read a 57-page pool of 128 with shuffled page ids.
             Qwen3-4B's shapes (n_rep 4), then Qwen3-30B-A3B's: the grouped
             expert matmul (gate and down at T = 8, 32, 1024 and edge cases,
-            a whole decode step's 144 calls) and the attention kernels at
-            Hkv 4, n_rep 8
+            a whole decode step's 144 calls; and at T = 64, 128, 256, the
+            regime of the JAX package's expert-gather schedule, which this
+            kernel covers) and the attention kernels at Hkv 4, n_rep 8
   model     the dense path: Qwen3-4B W4A16 (random weights from a seed, full
             width and depth), max_seq 1024, B = 1: a 128-token prefill and
             128 greedy decode steps in 16-step bursts, three times; the
@@ -27,9 +28,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             batched decode steps beside an idle slot
   serving   the serving path: bench.py --mode serving's default campaign
             (16 requests, batch 4, prompts 128-1024, paged pool of 57 pages)
-            through batch_generate, warm-up then three campaigns: output
-            tok/s, TTFT, occupancy, the kernels' launch counts, and a
-            profile of one serving decode burst
+            through batch_generate, warm-up then three campaigns, taken in
+            turns with paged3_serving's two: output tok/s, TTFT, occupancy,
+            the kernels' launch counts, and a profile of one serving decode
+            burst
   split_kernels the split paged prefill's two kernels against their plain
             versions at Qwen3-4B's and Qwen3-30B-A3B's head shapes: the
             chunk-state flash prefill (L = 1024, 2048) and the prefix-state
@@ -108,6 +110,29 @@ long_serving:
   sp_serving    long_serving's prompts through batch_generate over the
             striped pool, one campaign
 
+The last Pallas rows:
+  mask_kernels  (run after quant_kernels) the explicit-mask kernel against
+            its plain version at Qwen3-4B's heads and at n_rep 8: decode
+            with sliding windows and per-head masks, prefill with a shared
+            document mask and a per-head biased causal mask, S = 1000, fully
+            masked rows (exactly 0), an additive causal mask against K3;
+            each within a per-element tolerance (2 bf16 ulps plus the
+            probabilities' rounding drift), with a control (the mask
+            shifted by one key) that must miss it; SDPA with the same
+            float mask as the library; the bound counts the visible keys
+            only; then flash_attention(mask=...) as a user calls it
+  axpby     the tutorial kernel at 8192 x 8192, bf16 and f32, bit-equal to
+            its plain version; then axpby() as a user calls it
+  paged3_parity (run before serving) Qwen3Model(paged_fused_one=False), 4
+            layers: the three-launch route (the prep kernel, the page write,
+            the paged decode kernel) against its plain route and against
+            the fused route, teacher-forced; exact launches a step; a
+            sync-free burst; the prep kernel against its plain version
+  paged3_serving  (run after serving) the serving campaign through that
+            route at full depth, after its own warm-up: two campaigns, taken
+            in turns with `serving`'s three (A B A B A); exact launches of a
+            full-depth step (36 prep, 36 paged decode); a sync-free burst
+
 Then the nvidia-smi line, one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Needs a CUDA device; imports nothing of JAX.
 """
@@ -129,6 +154,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, NVIDIA data sheet
+FP32_FLOPS = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 PROMPT_LEN, DECODE_STEPS, BURST, MAX_SEQ = 128, 128, 16, 1024
 # bench.py serving_bench's default pool: (max_seq // ps) * (batch + 2) + 9 pages.
 PAGE_SIZE, SERVING_BATCH, SERVING_REQUESTS = 128, 4, 16
@@ -153,6 +179,8 @@ TIE_MARGIN = 1e-3  # routing near-tie: k-th minus (k+1)-th router probability
 # (their drift is 5 %). The W4A8 kernels' own checks (`_close` with codes)
 # can: kernel and plain version quantize the same x into the same codes.
 A8_PARITY_TOL, A8_TIE_MARGIN = 0.10, 1e-2
+# The masked attention kernel against its plain version, per element.
+TOL_ATTENTION = "2 bf16 ulps + min(2^-8 W|v|, 6 * 2^-9 sqrt(W v^2 / l)) (_attention_tol)"
 # Sequence-parallel attention (the JAX tests' 8-shard mesh, every shard on
 # this card): a slab of 8192 positions in shards of 1024; a 6000-token
 # prompt leaves shards 6 and 7 empty at decode; B = 4 prompts whose lengths
@@ -654,6 +682,16 @@ def _grouped_cases(model, cfg, gen, contract):
         mlps, cfg, gen, rng, km.grouped_quant_matmul_cuda,
         km.grouped_quant_matmul_plain, "grouped_quant_matmul", km.SOURCE,
         "tiny_llm_tpu/kernels/moe_matmul.py:120", "30B-A3B")
+    # Row 21, the JAX package's expert-gather schedule (TLT_MOE_DECODE=gather,
+    # T <= 256), computes this kernel's function: the kernel at its decode
+    # regime, 8, 16 and 32 tokens' random top-8 (own generators, so the
+    # cases above draw what they drew before).
+    rng21, gen21 = np.random.default_rng(21), torch.Generator(device=gen.device).manual_seed(21)
+    specs = [(f"T={8 * n}: {n} tokens' top-{k} (the gather schedule's regime)",
+              _routing(rng21, n, E, k)) for n in (8, 16, 32)]
+    cases += _grouped_kernel_cases(mlps, cfg, gen21, specs, "grouped_quant_matmul",
+                                   km.grouped_quant_matmul_cuda, km.grouped_quant_matmul_plain,
+                                   f"{km.TPU_KERNEL_GATHER}, {km.COVERED_GATHER}")
     torch.cuda.empty_cache()
     return _annotate_launches(cases, cfg)
 
@@ -1195,15 +1233,21 @@ def phase_generate(model):
                 self.ids = ids
             return super().decode(ids)
 
+    from tiny_llm_tpu_torch import kernels
+
     out = []
     for prompt in ("hello", "The quick brown fox jumps over the lazy dog.",
                    "def fibonacci(n):\n    return n if n < 2 else"):
         tok = Recording()
+        kernels.reset_launches()
         t0 = time.perf_counter()
         text = simple_generate_with_kv_cache(model, tok, prompt, max_tokens=16)
         secs = time.perf_counter() - t0
+        # K3's launches: the prompt's prefill (L = its tokens; a prompt of
+        # <= 16 tokens is the TPU's _decode_kernel case, row 4).
         out.append({"prompt": prompt, "prompt_tokens": len(tok.encode(prompt)),
-                    "tokens": len(tok.ids), "text": text, "ids": tok.ids, "seconds": secs})
+                    "tokens": len(tok.ids), "text": text, "ids": tok.ids, "seconds": secs,
+                    "k3_launches": kernels.launches()["flash_attention"]})
     # The per-step path and the burst path give the same greedy tokens.
     first = out[0]
     if len(first["ids"]) == 16:
@@ -1300,32 +1344,37 @@ def _recorder():
     return Recorder()
 
 
-def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs):
+def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs, turns=None):
     """A warm-up on the prompts `warm`, then n_runs campaigns of "x" * n
     prompts (one byte token per character, all arriving at t = 0) through
     batch_generate. Checks: every request returns, runs to the output cap
     or to max_seq, with tokens in range; the pool is full again after each
     campaign; the campaigns give identical tokens. Returns (each campaign's
-    metrics, with its wall time, and the launches over the campaigns)."""
+    metrics, with its wall time, and the launches over the campaigns).
+    `turns` ({"model": m, "warm": prompts}): a second model, warmed up the
+    same way, runs a campaign between each two of these (A B A B A for
+    three), under the same checks; its rows, the tokens of each campaign and
+    its launches over its campaigns go back into the dict as "rows", "ids"
+    and "launches", and this model's as "a_rows", "a_ids" and "a_launches"."""
     from tiny_llm_tpu_torch import kernels
     from tiny_llm_tpu_torch.serving import ServingMetrics, batch_generate
 
-    pool = model.page_pool
     max_seq = kw["max_seq_len"]
     prompts = ["x" * int(n) for n in lens]
-    batch_generate(model, _recorder(), warm, max_output_tokens=max(8, BURST), **kw)
-    check(pool.free_pages == pool.num_pages - 1, "the warm-up leaked pages")
-    kernels.reset_launches()
-    runs = []
-    for _ in range(n_runs):
+
+    def campaign(m):
+        """One campaign on m: (its metrics row, its tokens per request, its launches)."""
+        pool = m.page_pool
         tok = _recorder()
         met = ServingMetrics(pool_capacity_pages=pool.num_pages, page_size=pool.page_size)
         met._bytes_per_slot = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads \
             * cfg.head_dim * 2
         torch.cuda.synchronize()
+        kernels.reset_launches()
         t0 = time.perf_counter()
-        res = batch_generate(model, tok, prompts, max_output_tokens=max_out, metrics=met, **kw)
+        res = batch_generate(m, tok, prompts, max_output_tokens=max_out, metrics=met, **kw)
         met.wall_s = time.perf_counter() - t0
+        counts = kernels.launches()
         check(sorted(i for i, _ in res) == list(range(len(prompts))), "a request did not return")
         check(pool.free_pages == pool.num_pages - 1, "a campaign leaked pages")
         ids = {i: got for (i, _), got in zip(res, tok.decoded)}
@@ -1335,35 +1384,69 @@ def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs):
             check(len(got) == max_out or int(lens[i]) + len(got) - 1 == max_seq,
                   f"request {i}: {len(got)} tokens")
             check(all(0 <= t < cfg.vocab_size for t in got), f"request {i}: token out of range")
-        runs.append((met, ids))
-    counts = kernels.launches()
-    check(all(ids == runs[0][1] for _, ids in runs), "the campaigns' tokens differ")
-    return [dict(m.as_dict(), wall_s=m.wall_s) for m, _ in runs], counts
+        return dict(met.as_dict(), wall_s=met.wall_s), ids, counts
+
+    def add(total, counts):
+        return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+    for m, w in ([(turns["model"], turns["warm"])] if turns else []) + [(model, warm)]:
+        batch_generate(m, _recorder(), w, max_output_tokens=max(8, BURST), **kw)
+        check(m.page_pool.free_pages == m.page_pool.num_pages - 1, "the warm-up leaked pages")
+    rows, ids, counts = [], [], {}
+    if turns:
+        turns.update(rows=[], ids=[], launches={})
+    for r in range(n_runs):
+        if turns and r:
+            row, got, c = campaign(turns["model"])
+            turns["rows"].append(row)
+            turns["ids"].append(got)
+            turns["launches"] = add(turns["launches"], c)
+        row, got, c = campaign(model)
+        rows.append(row)
+        ids.append(got)
+        counts = add(counts, c)
+    check(all(got == ids[0] for got in ids), "the campaigns' tokens differ")
+    if turns:
+        check(all(got == turns["ids"][0] for got in turns["ids"]),
+              "the second model's campaigns' tokens differ")
+        turns.update(a_rows=rows, a_ids=ids, a_launches=counts)
+    return rows, counts
 
 
-def phase_serving(model, cfg, phase, name, mixed=False, n_runs=3, beside=None):
-    """bench.py serving_bench's default campaign through the port, a
-    warm-up and `n_runs` campaigns; with `mixed`, bench.py --mode serving
-    --mixed's (mixed prefill+decode bursts of MIXED_CHUNK-token
-    sub-chunks). The model's act_quant sets which matmul kernels must run.
-    `beside`: another phase's numbers to print beside these."""
-    torch.cuda.reset_peak_memory_stats()
-    model.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
+def _serving_campaign():
+    """bench.py serving_bench's default campaign: (prompt lengths, output
+    cap, batch_generate keywords)."""
     rng = np.random.default_rng(0)
     lens = rng.integers(128, MAX_SEQ + 1, size=SERVING_REQUESTS)
     max_out = int(rng.integers(32, 129, size=SERVING_REQUESTS).mean())
     kw = dict(max_seq_len=MAX_SEQ, batch_size=SERVING_BATCH, prefill_step=128,
               decode_burst=BURST)
+    return lens, max_out, kw
+
+
+# The serving warm-up, as bench.py's: every power-of-two chunk, the 256
+# chunk's shape and the longest prompt.
+SERVING_WARM = ["x" * 255, "x" * 257, "x" * MAX_SEQ]
+
+
+def phase_serving(model, cfg, phase, name, mixed=False, n_runs=3, beside=None, turns=None):
+    """bench.py serving_bench's default campaign through the port, a
+    warm-up and `n_runs` campaigns; with `mixed`, bench.py --mode serving
+    --mixed's (mixed prefill+decode bursts of MIXED_CHUNK-token
+    sub-chunks). The model's act_quant sets which matmul kernels must run.
+    `beside`: another phase's numbers to print beside these. `turns` (a
+    dict with "model" and "warm"): a second model whose campaigns are taken
+    in turns with these (_campaigns)."""
+    torch.cuda.reset_peak_memory_stats()
+    model.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
+    lens, max_out, kw = _serving_campaign()
     mixed_bursts = []
     if mixed:
         kw.update(mixed_prefill=True, mixed_chunk=MIXED_CHUNK)
         orig = model.mixed_burst
         model.mixed_burst = lambda *a, **k: mixed_bursts.append(1) or orig(*a, **k)
     try:
-        # Warm-up as bench.py: every power-of-two chunk, the 256 chunk's
-        # shape and the longest prompt.
-        rows, counts = _campaigns(model, cfg, lens, max_out, kw,
-                                  ["x" * 255, "x" * 257, "x" * MAX_SEQ], n_runs)
+        rows, counts = _campaigns(model, cfg, lens, max_out, kw, SERVING_WARM, n_runs, turns)
     finally:
         if mixed:
             del model.mixed_burst
@@ -2229,13 +2312,26 @@ def phase_sp_kernels(cfg, contract):
     check(bool((got[2][2] > 0).all()), "past the shard, a row saw no key")
     kern = graph_ms(lambda: ka.flash_prefill_state_cuda(q, ks, vs, lv, sc))
     plain = event_ms(lambda: ka.flash_prefill_state_plain(q, ks, vs, lv, sc), reps=1)
+    # Library: SDPA over the shard's keys, query i of row b seeing the keys
+    # at or before its virtual position vlens[b] - L + i (the mask built
+    # outside the timing); compared where the row sees a key.
+    qpos = lv[:, None] - L + torch.arange(L, device=dev)[None, :]  # [3, L]
+    vmask = (torch.arange(S_loc, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
+    live = want[2] > 0
+
+    def lib_fn():
+        return sdpa(q, ks, vs, attn_mask=vmask, scale=sc, enable_gqa=True)
+
+    check(max_err(lib_fn()[live], want[0][live]) <= tol, "SDPA yardstick at virtual lens differs")
+    lib = graph_ms(lib_fn)
     pairs = sum(min(max(t - L + i + 1, 0), S_loc) for t in vlens for i in range(L))
     bms, by = bound(3 * (2 * Hq * L * D * 2 + 2 * Hkv * S_loc * D * 2 + 2 * Hq * L * 4),
                     4 * Hq * pairs * D)
     cases.append({"kernel": "flash_prefill_state", "tpu_kernel": ka.TPU_KERNEL_STATE,
                   "shape": f"B=3 L={L} S_loc={S_loc} virtual lens={vlens} Hq={Hq} Hkv={Hkv} D={D}",
                   "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
-                  "library_ms": None, "bound_ms": bms, "bound_by": by, "identity_rows": empty})
+                  "library_ms": lib, "library": "SDPA over the shard's keys, virtual-length "
+                  "boolean mask", "bound_ms": bms, "bound_by": by, "identity_rows": empty})
     del q, ks, vs
     torch.cuda.empty_cache()
     for name, e in errs.items():
@@ -2499,6 +2595,546 @@ def phase_sp_serving(sp, cfg):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The last Pallas rows: explicit-mask attention (row 5), the three-launch
+# paged decode (row 8's prep kernel) and the axpby tutorial kernel (row 22).
+
+
+def _kernel_path(run, name):
+    """Launch counts over run(), every count set to 0 just before: `name`
+    must have launched and no other kernel. Returns the counts."""
+    from tiny_llm_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    check(counts[name] > 0 and not any(n for k, n in counts.items() if k != name),
+          f"{name}'s path launched {counts}")
+    return counts
+
+
+def _attention_tol(q, k, v, lens, mask, scale, want):
+    """Per element, how far the masked kernel may be from its plain version
+    `want` (the same rounding points, the same mask): 2 bf16 ulps of the
+    plain value (each side's final rounding), plus the drift of the
+    probabilities' bf16 rounding. The kernel rounds each p against its
+    running max and the plain version against the row's max, so each
+    weight w_i = p_i / l may move by 2^-8 of itself: at most
+    2^-8 * sum_i w_i |v_i| (attention over |v|); where many keys share the
+    weight the moves cancel, about 2^-9 * sqrt(sum_i w_i^2 v_i^2) a standard
+    deviation, which is at most sqrt(W v^2 / l) (every w_i <= 1 / l): six of
+    those. The smaller of the two bounds counts."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+
+    B, _, L, _ = q.shape
+    S = k.shape[2]
+    ok = (torch.arange(S, device=q.device)[None, :] < lens[:, None].long())[:, None, :]
+    ok = ok.expand(B, L, S)
+    vf = v.float()
+    over_abs = ka.attention_state_plain(q, k, vf.abs(), ok, scale, bias=mask)[0].float()
+    over_sq, _, l = ka.attention_state_plain(q, k, vf * vf, ok, scale, bias=mask)
+    spread = torch.sqrt(over_sq.float() / l.clamp(min=1.0)[..., None])
+    w = want.float()
+    _, e = torch.frexp(w)  # |w| in [2^(e-1), 2^e): one bf16 ulp is 2^(e-8)
+    ulps = torch.ldexp(torch.full_like(w, 2.0), e - 8) * (w != 0)
+    return ulps + torch.minimum(2.0**-8 * over_abs, 6 * 2.0**-9 * spread)
+
+
+def _over_tol(got, want, tol):
+    """Per batch row, max |got - want| / tol (0 where both are equal)."""
+    diff = (got.float() - want.float()).abs()
+    ratio = torch.where(diff == 0, 0.0, diff / tol)
+    return ratio.flatten(1).amax(1).tolist()
+
+
+def phase_mask_kernels(cfg, moe_cfg, contract):
+    """The explicit-mask kernel (row 5) against its plain version on the card
+    at Qwen3-4B's heads and at n_rep 8 (Qwen3-30B-A3B's): (a) decode, B = 4,
+    S = 8192, lens 8192/6000/2500/130, a 4096-key sliding window per row as
+    [B, L, S]; (b) decode, B = 2, L = 4, S = 4096, per-head windows and
+    bias; (c) prefill, L = S = 2048, a shared block-document mask [L, S]
+    (batch stride 0); (d) prefill, L = S = 1024, a per-head causal mask with
+    a random bias (128 MB of f32 planes); (e) S = 1000, not a multiple of the
+    32-key tile; then, at 4B's heads, (f) fully masked rows (-inf and -1e30),
+    which must give exactly 0 and no NaN, and (g) an additive causal mask at
+    L = 128 against K3. Each case within a per-element tolerance
+    (_attention_tol: 2 bf16 ulps plus the drift the probabilities' bf16
+    rounding against a running max allows), and the plain version with the
+    mask shifted by one key must miss it in every batch row (a control; not
+    for (f), whose rows are all zeros or all hidden). Kernel, plain and SDPA
+    times (the same float mask, lengths folded in, enable_gqa) and the bound:
+    K/V bytes and QK/PV operations of the keys the length and the mask leave
+    visible, the mask's bytes below each length in full. Then the route a
+    user calls, flash_attention(mask=...), with the counts set to 0 just
+    before: only the masked kernel launches."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    inf, lib_tol = float("inf"), 2e-2  # SDPA, a yardstick: its own rounding points
+    cases, errs = [], []
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def qkv(B, Hkv, n_rep, L, S, D=128):
+        return randn(B, Hkv * n_rep, L, D), randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+
+    def visible_from(pos, S, window):
+        """f32 [..., S]: 0 for the keys in (pos - window, pos], else -inf."""
+        k = torch.arange(S, device=dev)
+        ok = (k <= pos[..., None]) & (k > pos[..., None] - window)
+        return torch.where(ok, 0.0, -inf)
+
+    def run_case(label, what, q, k, v, lens, mask, shared_plane=False, control=True):
+        B, Hq, L, D = q.shape
+        Hkv, S = k.shape[1], k.shape[2]
+        sc = D**-0.5
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        m4 = None if mask is None else ka._mask_planes(mask, B, Hq, L, S, dev)
+        got = ka.flash_attention_masked_cuda(q, k, v, lens_t, m4, sc)
+        want = ka.flash_attention_masked_plain(q, k, v, lens_t, m4, sc)
+        torch.cuda.synchronize()
+        tol = _attention_tol(q, k, v, lens_t, m4, sc, want)
+        err, rows = max_err(got, want), _over_tol(got, want, tol)
+        check(bool(torch.isfinite(got.float()).all()), f"masked {label} {what}: not finite")
+        check(max(rows) <= 1, f"masked {label} {what}: {err}, {rows} of the tolerance")
+        errs.append(err)
+        # The control: the plain version with the mask shifted by one key
+        # (each row sees the key before each of its own instead) must miss
+        # the same tolerance in every batch row, or the check could not tell
+        # an off-by-one mask, even among a 4096-key window.
+        ctl = None
+        if control:
+            shifted = ka._mask_planes(torch.roll(mask, -1, dims=-1), B, Hq, L, S, dev)
+            ctl = _over_tol(got, ka.flash_attention_masked_plain(q, k, v, lens_t, shifted, sc),
+                            tol)
+            check(min(ctl) > 1, f"masked {label} {what}: the shifted-mask control passed {ctl}")
+        # The mask SDPA takes: the lengths folded in, hidden keys at -1e30
+        # rather than -inf (the same probabilities, 0), in q's dtype. Given
+        # the f32 mask with bf16 q, SDPA's default route on the H100 gives
+        # rows far off the plain version (recorded as library_f32_mask_err).
+        below = torch.arange(S, device=dev)[None, :] < lens_t[:, None]  # [B, S]
+        full = torch.where(below[:, None, None, :], 0.0 if m4 is None else m4, ka.NEG_INF)
+        full = full.clamp(min=ka.NEG_INF)
+        # The pairs (query row, key) the length and the mask leave visible,
+        # per head, and per KV head the keys any of its rows sees: the work
+        # the function needs (a hidden key's K/V need not be read).
+        vis = (full > ka.NEG_INF).expand(B, full.shape[1], L, S)
+        seen = vis.any(-1).expand(B, Hq, L)
+        if vis.shape[1] == 1:
+            pairs, kv_keys = int(vis.sum()) * Hq, int(vis.any(2).sum()) * Hkv
+        else:
+            pairs = int(vis.sum())
+            kv_keys = int(vis.reshape(B, Hkv, Hq // Hkv, L, S).any(3).any(2).sum())
+        f32_err = max_err(sdpa(q, k, v, attn_mask=full, scale=sc, enable_gqa=True)[seen],
+                          want[seen])
+        full = full.to(q.dtype)
+        check(not bool(got[~seen].any()), f"masked {label} {what}: a row with no key is not 0")
+
+        def lib_fn():
+            return sdpa(q, k, v, attn_mask=full, scale=sc, enable_gqa=True)
+
+        lib_err = max_err(lib_fn()[seen], want[seen])
+        check(lib_err <= lib_tol, f"SDPA yardstick {label} {what} differs: {lib_err}")
+        kern = graph_ms(lambda: ka.flash_attention_masked_cuda(q, k, v, lens_t, m4, sc))
+        plain = event_ms(lambda: ka.flash_attention_masked_plain(q, k, v, lens_t, m4, sc), reps=1)
+        lib = graph_ms(lib_fn)
+        # The mask's bytes: each plane's entries below each row's length,
+        # all read (the kernel cannot know a hidden entry without reading it).
+        keys = [min(t, S) for t in lens]
+        if m4 is None:
+            mask_bytes = 0
+        elif shared_plane:  # one [L, S] plane for the whole batch
+            mask_bytes = L * max(keys) * 4
+        else:
+            mask_bytes = m4.shape[1] * sum(L * t * 4 for t in keys)
+        bms, by = bound(2 * kv_keys * D * 2 + 2 * B * Hq * L * D * 2 + mask_bytes,
+                        4 * pairs * D)
+        case = {"kernel": "flash_attention_masked",
+                "tpu_kernel": ka.TPU_KERNEL_MASKED_SHORT if L <= ka.DECODE_MAX_L
+                else ka.TPU_KERNEL_MASKED,
+                "shape": f"{what}: B={B} L={L} S={S} lens={lens} Hq={Hq} Hkv={Hkv} D={D}, mask "
+                         + ("none" if m4 is None else f"{tuple(mask.shape)} {mask.dtype}"),
+                "head_shape": label, "max_err": err, "err_over_tol_per_batch_row": rows,
+                "tol": TOL_ATTENTION, "control_err_over_tol_per_batch_row": ctl,
+                "kernel_ms": kern, "plain_ms": plain, "library_ms": lib,
+                "library": "SDPA, the same mask in bf16 with the lengths folded in, enable_gqa",
+                "library_max_err": lib_err, "library_tol": lib_tol,
+                "library_f32_mask_err": f32_err,
+                "bound_ms": bms, "bound_by": by, "visible_pairs_all_heads": pairs,
+                "kv_keys_read": kv_keys, "mask_bytes": mask_bytes,
+                "rows_with_no_key": int((~seen).sum())}
+        cases.append(case)
+        return got, case
+
+    shapes = [("qwen3-4b", cfg.num_key_value_heads,
+               cfg.num_attention_heads // cfg.num_key_value_heads),
+              ("n_rep 8 (qwen3-30b-a3b)", moe_cfg.num_key_value_heads,
+               moe_cfg.num_attention_heads // moe_cfg.num_key_value_heads)]
+    path = []  # (q, k, v, lens, mask) of the cases the path run repeats
+    for label, Hkv, n_rep in shapes:
+        Hq = Hkv * n_rep
+        # (a) decode, per-row 4096-key sliding windows as [B, L, S].
+        lens = [8192, 6000, 2500, 130]
+        q, k, v = qkv(4, Hkv, n_rep, 1, 8192)
+        pos = torch.tensor(lens, device=dev)[:, None] - 1  # [B, L]: every row at lens - 1
+        mask = visible_from(pos, 8192, 4096)
+        _, case = run_case(label, "(a) decode, sliding window 4096", q, k, v, lens, mask)
+        if label == "qwen3-4b":
+            contract["flash_attention_masked"] = {
+                "name": "flash_attention_masked", "route": "cuda", "source": ka.SOURCE_MASKED,
+                "replaces": "tiny_llm_tpu/kernels/flash_attention_pallas.py:133",
+                "case": case["shape"], "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+                "library_ms": case["library_ms"]}
+            path.append((q, k, v, lens, mask))
+        # (b) decode, L = 4, per-head windows plus a random bias [B, Hq, L, S].
+        lens = [4096, 3000]
+        q, k, v = qkv(2, Hkv, n_rep, 4, 4096)
+        pos = torch.tensor(lens, device=dev)[:, None] - 4 + torch.arange(4, device=dev)
+        w = 256 * (1 + torch.arange(Hq, device=dev))[None, :, None, None]
+        kk = torch.arange(4096, device=dev)
+        ok = (kk <= pos[:, None, :, None]) & (kk > pos[:, None, :, None] - w)
+        mask = torch.where(ok, 0.5 * torch.randn((2, Hq, 4, 4096), generator=gen, device=dev),
+                           -inf)
+        run_case(label, "(b) decode L=4, per-head windows + bias", q, k, v, lens, mask)
+        if label == "qwen3-4b":
+            path.append((q, k, v, lens, mask))
+        # (c) prefill, a shared block-document mask [L, S] (three documents).
+        L = 2048
+        q, k, v = qkv(1, Hkv, n_rep, L, L)
+        doc = torch.bucketize(torch.arange(L, device=dev), torch.tensor([512, 1212], device=dev),
+                              right=True)
+        i = torch.arange(L, device=dev)
+        mask = torch.where((doc[:, None] == doc[None, :]) & (i[None, :] <= i[:, None]), 0.0, -inf)
+        run_case(label, "(c) prefill, shared document mask", q, k, v, [L], mask,
+                 shared_plane=True)
+        if label == "qwen3-4b":
+            path.append((q, k, v, [L], mask))
+        # (d) prefill, a per-head causal mask with a random bias [1, Hq, L, S].
+        L = 1024
+        q, k, v = qkv(1, Hkv, n_rep, L, L)
+        i = torch.arange(L, device=dev)
+        mask = torch.where(i[None, :] <= i[:, None],
+                           torch.randn((1, Hq, L, L), generator=gen, device=dev), -inf)
+        run_case(label, "(d) prefill, per-head causal + bias", q, k, v, [L], mask)
+        if label == "qwen3-4b":
+            path.append((q, k, v, [L], mask))
+        del mask
+        # (e) S = 1000 (not a multiple of the 32-key tile), L = 16, a random bias.
+        q, k, v = qkv(2, Hkv, n_rep, 16, 1000)
+        mask = torch.randn((2, 16, 1000), generator=gen, device=dev)
+        run_case(label, "(e) S=1000, bias", q, k, v, [1000, 777], mask)
+        torch.cuda.empty_cache()
+
+    Hkv, n_rep = shapes[0][1], shapes[0][2]
+    # (f) fully masked rows: row 7 all -inf, row 9 all -1e30.
+    q, k, v = qkv(1, Hkv, n_rep, 64, 512)
+    mask = torch.zeros((64, 512), device=dev)
+    mask[7], mask[9] = -inf, ka.NEG_INF
+    got, case = run_case("qwen3-4b", "(f) fully masked rows 7 and 9", q, k, v, [512], mask,
+                         control=False)  # shifting a row of zeros changes nothing
+    check(not bool(got[:, :, [7, 9]].any()) and case["rows_with_no_key"] == 2 * q.shape[1],
+          "fully masked rows are not exactly 0")
+    # (g) an additive causal mask through the masked kernel against K3.
+    q, k, v = qkv(1, Hkv, n_rep, 128, 128)
+    i = torch.arange(128, device=dev)
+    mask = torch.where(i[None, :] <= i[:, None], 0.0, -inf)
+    got, case = run_case("qwen3-4b", "(g) additive causal mask, against K3", q, k, v, [128], mask)
+    l128 = torch.tensor([128], dtype=torch.int32, device=dev)
+    k3 = ka.flash_attention_cuda(q, k, v, l128, 128**-0.5)
+    m4 = ka._mask_planes(mask, 1, q.shape[1], 128, 128, dev)
+    want = ka.flash_attention_masked_plain(q, k, v, l128, m4, 128**-0.5)
+    case["vs_k3_max_err"] = max_err(got, k3)
+    # Each kernel within the tolerance of the plain version: twice it apart.
+    case["vs_k3_err_over_tol"] = _over_tol(
+        got, k3, 2 * _attention_tol(q, k, v, l128, m4, 128**-0.5, want))[0]
+    case["k3_ms"] = graph_ms(lambda: ka.flash_attention_cuda(q, k, v, l128, 128**-0.5))
+    check(case["vs_k3_err_over_tol"] <= 1, f"masked causal against K3: {case['vs_k3_max_err']}")
+    contract["flash_attention_masked"]["max_abs_err"] = max(errs)
+
+    # The route a user calls: flash_attention(mask=...), as given (f32 or
+    # [L, S]), and mask=None (no causality), each once.
+    def route():
+        for q, k, v, lens, mask in path:
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            ka.flash_attention(q, k, v, lens_t, mask=mask)
+        q, k, v, lens, _ = path[0]
+        ka.flash_attention(q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev), mask=None)
+
+    counts = _kernel_path(route, "flash_attention_masked")
+    check(counts["flash_attention_masked"] == len(path) + 1, f"masked route launches {counts}")
+    del path
+    torch.cuda.empty_cache()
+    emit({"phase": "mask_kernels", "cases": cases,
+          "route_launches": {"flash_attention_masked": counts["flash_attention_masked"]}})
+    return counts
+
+
+def _prep_cases(contract, Ly):
+    """The prep kernel (row 8) against its plain version at B = 1 and 4 at
+    Qwen3-4B's heads (Hkv 8, n_rep 4) and at n_rep 8 (Hkv 4): q and the k row
+    within 2^-7 of max |plain| (one bf16 ulp: rsqrt's last bit may move a
+    rounding), the v row bit-equal; timed over Ly calls."""
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+    from tiny_llm_tpu_torch.ops.rope import rope_tables
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    D, eps = 128, 1e-6
+    cos_t, sin_t = rope_tables(D, MAX_SEQ, base=1e6, device=dev)
+    qw = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+    kw = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+    cases, worst = [], 0.0
+    for Hkv, n_rep in ((8, 4), (4, 8)):
+        for offs in ([700], [100, 700, 37, 999]):
+            B = len(offs)
+            qkv = (3 * torch.randn((B, Hkv, n_rep + 2, D), generator=gen, device=dev)).to(
+                torch.bfloat16)
+            off = torch.tensor(offs, dtype=torch.int32, device=dev)
+            args = (qkv, off, cos_t[off.long()], sin_t[off.long()], qw, kw)
+            got = kf.fused_qkv_prep_cuda(*args, eps=eps)
+            want = kf.fused_qkv_prep_plain(*args, eps=eps)
+            torch.cuda.synchronize()
+            for part, g, w in (("q", got[0], want[0]), ("k row", got[1], want[1])):
+                err = max_err(g, w)
+                check(err <= 2**-7 * float(w.float().abs().max()), f"prep {part} B={B}: {err}")
+                worst = max(worst, err)
+            check(torch.equal(got[2], want[2]), "prep v row not bit-equal")
+            kern = graph_ms(lambda: [kf.fused_qkv_prep_cuda(*args, eps=eps)
+                                     for _ in range(Ly)]) / Ly
+            plain = event_ms(lambda: kf.fused_qkv_prep_plain(*args, eps=eps))
+            rows = B * Hkv * (n_rep + 2) * D
+            # Read the rows, the RoPE rows and the weights; write q, k, v.
+            bms, by = bound(2 * rows * 2 + B * D * 4 + 2 * D * 2, 12 * rows, FP32_FLOPS)
+            case = {"kernel": "fused_qkv_prep", "tpu_kernel": kf.TPU_KERNEL_PREP,
+                    "shape": f"B={B} offsets={offs} Hkv={Hkv} n_rep={n_rep} D={D}",
+                    "max_err": worst, "tol": "2^-7 max|plain| (q, k row); v row bit-equal",
+                    "kernel_ms": kern, "plain_ms": plain, "library_ms": None,
+                    "bound_ms": bms, "bound_by": by}
+            cases.append(case)
+            if (Hkv, B) == (8, 4):
+                contract["fused_qkv_prep"] = {
+                    "name": "fused_qkv_prep", "route": "cuda", "source": kf.SOURCE,
+                    "replaces": "tiny_llm_tpu/kernels/fused_decode_attention.py:183",
+                    "case": case["shape"], "ms": kern, "plain_ms": plain, "bound_ms": bms,
+                    "bound_by": by, "library_ms": None}
+    contract["fused_qkv_prep"]["max_abs_err"] = worst
+    return cases
+
+
+def phase_paged3_parity(cfg, contract):
+    """The three-launch paged decode (Qwen3Model(paged_fused_one=False)) at
+    the 4B widths, 4 layers, teacher-forced as paged_parity (three requests
+    in chunks of 128, 128 and 8, then 8 batched decode steps beside an idle
+    slot; installed rows only): the kernel route against its plain route and
+    against the fused route, within 5 % of the largest reference logit; the
+    exact launches of one decode step (per layer: the prep kernel and the
+    paged decode kernel, no fused paged step); one paged burst under
+    set_sync_debug_mode("error"); and the prep kernel against its plain
+    version (_prep_cases)."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
+    from tiny_llm_tpu_torch.models.qwen3 import forward_decode_burst_paged
+
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    Ly = cfg4.num_hidden_layers
+    params = synthetic_quantized_params(cfg4, seed=2)
+    fast, plain, fused = (Qwen3Model(params, cfg4, max_seq_len=MAX_SEQ, impl=impl,
+                                     paged_fused_one=one)
+                          .enable_paged_attention(num_pages=16, page_size=PAGE_SIZE)
+                          for impl, one in ((None, False), ("torch", False), (None, True)))
+    models = (fast, plain, fused)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(3, 264))
+    caches = [[m.create_kv_cache() for _ in range(3)] for m in models]
+    vs_plain = {"worst": 0.0, "decided": 0, "agree": 0}
+    vs_fused = {"worst": 0.0, "decided": 0, "agree": 0}
+    off, last = 0, [None] * 3
+    for L in (128, 128, 8):
+        for r in range(3):
+            chunk = prompts[r : r + 1, off : off + L]
+            lf, lp, lu = (m(chunk, off, c[r]) for m, c in zip(models, caches))
+            _parity_check(lf, lp, f"three-launch request {r} chunk L={L} at {off}", vs_plain)
+            _parity_check(lf, lu, f"three-launch against fused, request {r} chunk L={L}",
+                          vs_fused)
+            last[r] = int(lp[0, -1].float().argmax())
+        off += L
+    batches = [m.create_batching_kv_cache(4) for m in models]
+    for b, c in zip(batches, caches):
+        for r in range(3):
+            b.add_request(c[r], r)
+    steps = {}
+    for step in range(8):
+        toks = [[t] for t in last] + [[0]]  # slot 3 idle
+        kernels.reset_launches()
+        lf = fast(toks, None, batches[0], logits_to_keep=1)
+        torch.cuda.synchronize()
+        steps = kernels.launches()
+        lp, lu = (m(toks, None, b, logits_to_keep=1) for m, b in zip(models[1:], batches[1:]))
+        _parity_check(lf[:3], lp[:3], f"three-launch decode step {step}", vs_plain)
+        _parity_check(lf[:3], lu[:3], f"three-launch against fused, decode step {step}", vs_fused)
+        last = lp[:3, -1].float().argmax(-1).tolist()  # teacher-forced: the plain route's
+    want = {"fused_qkv_prep": Ly, "paged_decode": Ly, "fused_paged_decode_attention": 0,
+            "fused_decode_attention": 0}
+    check({k: steps[k] for k in want} == want, f"three-launch step launches {steps}")
+    for tally, what in ((vs_plain, "plain"), (vs_fused, "fused")):
+        check(tally["agree"] == tally["decided"], f"three-launch against {what}: top-1 differs")
+    # One paged burst with no host sync inside.
+    batch, dev = batches[0], fast.device
+    for slot in batch.slots:
+        if slot is not None:
+            slot.ensure_capacity(slot.offset + BURST)
+    args = dict(tokens0=torch.as_tensor(last + [0], device=dev),
+                offsets0=torch.as_tensor(batch.offsets, device=dev),
+                key_pages=fast.page_pool.key_pages, value_pages=fast.page_pool.value_pages,
+                block_table=torch.as_tensor(batch.block_table(fast._paged_width), device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = forward_decode_burst_paged(fast.params, cfg4, fast._rope_tables, steps=BURST,
+                                         fused_one=False, **args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(tuple(out.cpu().shape) == (BURST, 4), "sync-free three-launch burst shape")
+    for b in batches:
+        b.release()
+    check(all(m.page_pool.live_pages == 0 for m in models), "pages leaked")
+    prep = _prep_cases(contract, cfg.num_hidden_layers)
+    emit({"phase": "paged3_parity", "path": "paged, paged_fused_one=False", "layers": Ly,
+          "requests": 3, "chunks": [128, 128, 8], "decode_steps": 8,
+          "vs_plain_worst_err_over_tol": vs_plain["worst"],
+          "vs_fused_worst_err_over_tol": vs_fused["worst"], "tol": "5% of max |reference logit|",
+          "top1_decided_vs_plain": vs_plain["decided"], "top1_decided_vs_fused":
+          vs_fused["decided"], "launches_per_decode_step": {k: steps[k] for k in want},
+          "sync_free_burst": {"steps": BURST, "mode": "error", "host_syncs_in_burst": 0},
+          "prep_cases": prep})
+
+
+def phase_paged3_serving(m3, cfg, turns):
+    """bench.py --mode serving's default campaign through Qwen3-4B with
+    paged_fused_one=False (m3) on the fused model's weights: its two
+    campaigns were taken in turns with `serving`'s three (fused,
+    three-launch, fused, three-launch, fused; `turns` holds both sides),
+    each model after its own warm-up: output tok/s and TTFT of both routes,
+    the three-launch campaigns' launches (the prep kernel and the paged
+    decode kernel, never the fused paged step), and, at full depth, one
+    decode step's exact launches (36 prep, 36 paged decode, 145 K1) and one
+    burst under set_sync_debug_mode("error")."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.models.qwen3 import forward_decode_burst_paged
+
+    lens, _, _ = _serving_campaign()
+    got = {"fused": turns["a_rows"], "three_launch": turns["rows"]}
+    counts, counts3 = turns["a_launches"], turns["launches"]
+    check(counts["fused_qkv_prep"] == 0 and counts["fused_paged_decode_attention"] > 0,
+          f"the fused route's campaigns launched {counts}")
+    check(counts3["fused_qkv_prep"] > 0 and counts3["paged_decode"] > 0
+          and counts3["fused_paged_decode_attention"] == 0
+          and counts3["fused_decode_attention"] == 0,
+          f"the three-launch campaigns launched {counts3}")
+    fused, three = turns["a_ids"][0], turns["ids"][0]
+    same = sum(a == b for r in fused for a, b in zip(fused[r], three[r]))
+    total = sum(len(t) for t in fused.values())
+    # One decode step at full depth over 4 installed requests, and one burst.
+    batch = m3.create_batching_kv_cache(SERVING_BATCH)
+    for slot, n in enumerate(lens[:SERVING_BATCH]):
+        c = m3.create_kv_cache()
+        m3([[ord("x")] * int(n)], 0, c, logits_to_keep=1)
+        batch.add_request(c, slot)
+    toks = [[ord("x")]] * SERVING_BATCH
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    m3(toks, None, batch, logits_to_keep=1)
+    torch.cuda.synchronize()
+    step = kernels.launches()
+    L = cfg.num_hidden_layers
+    want = {"fused_qkv_prep": L, "paged_decode": L, "fused_paged_decode_attention": 0,
+            "quant_matmul": 4 * L + 1}
+    check({k: step[k] for k in want} == want, f"three-launch decode step launches {step}")
+    for slot in batch.slots:
+        slot.ensure_capacity(slot.offset + BURST)
+    dev = m3.device
+    args = dict(tokens0=torch.full((SERVING_BATCH,), ord("x"), device=dev),
+                offsets0=torch.as_tensor(batch.offsets, device=dev),
+                key_pages=m3.page_pool.key_pages, value_pages=m3.page_pool.value_pages,
+                block_table=torch.as_tensor(batch.block_table(m3._paged_width), device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = forward_decode_burst_paged(m3.params, cfg, m3._rope_tables, steps=BURST,
+                                         fused_one=False, **args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(tuple(out.cpu().shape) == (BURST, SERVING_BATCH), "sync-free burst shape")
+    batch.release()
+    check(m3.page_pool.live_pages == 0, "pages leaked")
+
+    def med(name, key):
+        return float(np.median([r[key] for r in got[name]]))
+
+    emit({"phase": "paged3_serving", "model": "qwen3-4b", "layers": L,
+          "paged_fused_one": False, "requests": SERVING_REQUESTS, "batch": SERVING_BATCH,
+          "max_seq": MAX_SEQ, "pool_pages": POOL_PAGES,
+          "order": "fused, three-launch, fused, three-launch, fused (serving's campaigns)",
+          **{f"{n}_{k}": med(n, k) for n in got for k in
+             ("output_tok_s", "ttft_p50_ms", "ttft_p95_ms")},
+          **{f"{n}_output_tok_s_all": [r["output_tok_s"] for r in got[n]] for n in got},
+          f"three_launch_launches_{len(got['three_launch'])}_campaigns": counts3,
+          "launches_per_decode_step_full_depth": {k: step[k] for k in want},
+          "output_tokens_equal_to_fused": f"{same} of {total}",
+          "sync_free_burst": {"steps": BURST, "mode": "error", "host_syncs_in_burst": 0}})
+    return counts3
+
+
+def phase_axpby(contract):
+    """The tutorial kernel (row 22) against its plain version at 8192 x 8192
+    in bf16 and f32 (x, y and out: three arrays of 128 MB, then 256 MB),
+    alpha 0.1 and beta 0.7 (rounded to the dtype first): bit-equal, since
+    both round after every op in the dtype; kernel and plain times and the
+    bound (the three arrays' bytes; no PyTorch call computes alpha * x +
+    beta * y in one). Then the route a user calls, axpby(), once per dtype,
+    with the counts set to 0 just before."""
+    from tiny_llm_tpu_torch.kernels import axpby as kx
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    M = N = 8192
+    alpha, beta = 0.1, 0.7
+    cases, inputs = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((M, N), generator=gen, device=dev).to(dtype)
+        y = torch.randn((M, N), generator=gen, device=dev).to(dtype)
+        got, want = kx.axpby_cuda(x, y, alpha, beta), kx.axpby_plain(x, y, alpha, beta)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"axpby {dtype}: not bit-equal ({max_err(got, want)})")
+        del got, want
+        kern = graph_ms(lambda: kx.axpby_cuda(x, y, alpha, beta))
+        plain = event_ms(lambda: kx.axpby_plain(x, y, alpha, beta))
+        bms, by = bound(3 * M * N * x.element_size(), 3 * M * N, FP32_FLOPS)
+        case = {"kernel": "axpby", "tpu_kernel": kx.TPU_KERNEL,
+                "shape": f"{M}x{N} {str(dtype).split('.')[-1]}, alpha {alpha} beta {beta}",
+                "max_err": 0.0, "tol": "bit-equal", "kernel_ms": kern, "plain_ms": plain,
+                "library_ms": None, "bound_ms": bms, "bound_by": by}
+        cases.append(case)
+        inputs.append((x, y))
+        if dtype == torch.bfloat16:
+            contract["axpby"] = {"name": "axpby", "route": "cuda", "source": kx.SOURCE,
+                                 "replaces": "tiny_llm_tpu/kernels/axpby.py:38",
+                                 "case": case["shape"], "max_abs_err": 0.0, "ms": kern,
+                                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                                 "library_ms": None}
+    counts = _kernel_path(lambda: [kx.axpby(x, y, alpha, beta) for x, y in inputs], "axpby")
+    check(counts["axpby"] == 2, f"axpby route launches {counts}")
+    del inputs
+    torch.cuda.empty_cache()
+    emit({"phase": "axpby", "cases": cases, "route_launches": {"axpby": counts["axpby"]}})
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase line, the kernel line, the card "
@@ -2525,6 +3161,8 @@ def main() -> int:
     moe = Qwen3Model(moe_params, moe_cfg, max_seq_len=MAX_SEQ)
     contract = phase_kernels(model, cfg, moe, moe_cfg)
     phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract)
+    mask_counts = phase_mask_kernels(cfg, moe_cfg, contract)
+    axpby_counts = phase_axpby(contract)
     counts = phase_model(model, cfg, "model", "qwen3-4b")
     # The quant tiers' B = 1 runs, here: the W4A16 model still runs dense
     # (the serving phase attaches a page pool to it), so each tier's runs
@@ -2542,7 +3180,16 @@ def main() -> int:
     phase_parity(cfg)
     phase_generate(model)
     phase_paged_parity(cfg)
-    serving_counts = phase_serving(model, cfg, "serving", "qwen3-4b")
+    # The three-launch paged decode (paged_fused_one=False) on the same
+    # weights: its serving campaigns are taken in turns with `serving`'s.
+    phase_paged3_parity(cfg, contract)
+    m3 = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, paged_fused_one=False)
+    m3.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
+    turns = {"model": m3, "warm": SERVING_WARM}
+    serving_counts = phase_serving(model, cfg, "serving", "qwen3-4b", turns=turns)
+    paged3_counts = phase_paged3_serving(m3, cfg, turns)
+    del m3, turns
+    torch.cuda.empty_cache()
     # The long-prompt and mixed routes (Qwen3-4B; the kernels at both head shapes).
     phase_split_kernels([("qwen3-4b", cfg), ("qwen3-30b-a3b", moe_cfg)], contract)
     phase_long_parity(cfg)
@@ -2596,8 +3243,12 @@ def main() -> int:
     # 4B serving campaigns for the paged kernels, the dense 30B-A3B run for
     # the grouped expert matmul, the 4B long-prompt prefills for the split's,
     # each quant tier's dense run for its kernel, and the SP paths for theirs:
-    # the dense SP runs for row 6, the SP serving campaign for row 14.
+    # the dense SP runs for row 6, the SP serving campaign for row 14; the
+    # masked kernel's and axpby's routes as a user calls them, the prep
+    # kernel's three-launch serving campaigns.
     own = {"flash_decode_state": sp_counts, "paged_decode_state": sp_serving_counts,
+           "flash_attention_masked": mask_counts, "axpby": axpby_counts,
+           "fused_qkv_prep": paged3_counts,
            "quant_matmul_a8": a8_counts, "quant_matmul_sg": sg_counts,
            "grouped_quant_matmul_a8": a8_moe_counts, "grouped_quant_matmul_sg": sg_moe_counts,
            "grouped_quant_matmul": moe_counts, **{n: serving_counts for n in PAGED},
@@ -2608,7 +3259,8 @@ def main() -> int:
                              ("quant_matmul", "fused_decode_attention", "flash_attention",
                               *PAGED, "grouped_quant_matmul", *SPLIT, "quant_matmul_a8",
                               "quant_matmul_sg", "grouped_quant_matmul_a8",
-                              "grouped_quant_matmul_sg", *SP)]}
+                              "grouped_quant_matmul_sg", *SP, "flash_attention_masked",
+                              "fused_qkv_prep", "axpby")]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

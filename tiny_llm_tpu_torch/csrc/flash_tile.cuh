@@ -26,6 +26,18 @@
 //                   [B, Hq, L]. A row that sees no key emits the combine
 //                   identity (o = 0, m = NEG_INF, l = 0).
 //
+// A third option serves explicit additive masks (flash_attention_masked.cu);
+// its default, MASK_NONE, leaves every earlier instance as it was:
+//   MASK            with CAUSAL = false, adds mask[row, key] (f32) to each
+//                   visible key's score and floors the sum at NEG_INF, as
+//                   the TPU kernels' _flash_inner does: MASK_SHARED reads
+//                   one [L, ld] plane per batch row (every head alike),
+//                   MASK_HEAD one plane per query head. The plane of batch
+//                   row bb (and head hq) starts at mask + bb * msb (+ hq *
+//                   msh); msb = 0 shares one plane across the batch. Keys
+//                   past the length are never read, so the mask never
+//                   makes them visible.
+//
 // A `Rows` with MASKED (common.cuh OwnedPageRows, row 14's pool shard) may
 // not read some keys below the walk's end: such a key is masked like a
 // future one and never loaded, and a 32-key tile with no readable key is
@@ -50,8 +62,10 @@ __device__ __forceinline__ bool readable(const Rows& rows, int pos) {
 }
 
 constexpr int WARPS = 8, KT = 32;
+constexpr int MASK_NONE = 0, MASK_SHARED = 1, MASK_HEAD = 2;
 
-template <int D, int NREP, int RPW, bool CAUSAL = true, bool STATE = false, class Rows>
+template <int D, int NREP, int RPW, bool CAUSAL = true, bool STATE = false,
+          int MASK = MASK_NONE, class Rows>
 __device__ __forceinline__ void tile(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ k,  // base of the rows `rows` addresses
@@ -59,7 +73,10 @@ __device__ __forceinline__ void tile(
     __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
     const Rows rows, int len, int limit, int qt, int h, int bb, int Hkv, int L,
     float scale, float* __restrict__ m_out = nullptr,  // [B, Hq, L], STATE only
-    float* __restrict__ l_out = nullptr) {
+    float* __restrict__ l_out = nullptr,
+    const float* __restrict__ mask = nullptr,  // MASK only: additive f32 planes
+    long long msb = 0, long long msh = 0, int ld = 0) {
+  static_assert(MASK == MASK_NONE || !CAUSAL, "an explicit mask replaces causality");
   constexpr int ROWS = WARPS * RPW, BQ = ROWS / NREP, DPL = D / 32;
   constexpr int KW = D / 2 + 1;  // padded K row, words
   static_assert(ROWS % NREP == 0, "a q tile holds whole query heads");
@@ -83,12 +100,17 @@ __device__ __forceinline__ void tile(
 
   int qpos[RPW];
   float m[RPW], l[RPW], acc[RPW][DPL];
+  const float* mrow[RPW];  // MASK only: the row's mask, indexed by key position
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int rr = warp * RPW + i;
     const int qi = q0 + rr % BQ;
     // -1: padding row, sees nothing
     qpos[i] = qi < L ? (CAUSAL ? len - L + qi : len - 1) : -1;
+    if constexpr (MASK != MASK_NONE) {
+      const int hq = MASK == MASK_HEAD ? h * NREP + rr / BQ : 0;
+      mrow[i] = mask + bb * msb + hq * msh + (long long)min(qi, L - 1) * ld;
+    }
     m[i] = TLT_NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -141,7 +163,10 @@ __device__ __forceinline__ void tile(
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const bool seen = (CAUSAL ? kpos <= qpos[i] : kpos < kmax && qpos[i] >= 0) && kread;
-      const float s_i = seen ? sc[i] : TLT_NEG_INF;
+      float s_i = seen ? sc[i] : TLT_NEG_INF;
+      if constexpr (MASK != MASK_NONE) {
+        if (seen) s_i = fmaxf(s_i + __ldg(mrow[i] + kpos), TLT_NEG_INF);
+      }
       const float m_new = fmaxf(m[i], warp_max(s_i));
       const float alpha = expf(m[i] - m_new);
       const float p = expf(s_i - fmaxf(m_new, TLT_NEG_INF / 2));

@@ -31,6 +31,19 @@
 // width), so the -1 entries past a row's live pages are never read. The 8
 // warp states merge in shared memory, then the current token folds in.
 // Known weakness: at B = 1 the grid is Hkv = 8 blocks on 132 SMs.
+//
+// tlt_fused_qkv_prep replaces
+// tiny_llm_tpu/kernels/fused_decode_attention.py::_qkv_prep_kernel (through
+// fused_qkv_prep): K2's prologue alone, for the three-launch paged decode
+// (prep, the page write, then the paged decode kernel reads the pages with
+// the current token already in them). It returns q normed and roped but
+// NOT scaled (K2 keeps q pre-scaled; the attention kernel scales it), the
+// normed and roped k row and the raw v row, at K2's rounding points. A
+// kernel of its own rather than an option of fused_step, so K2's and the
+// paged twin's machine code stay as they were. Bound on the H100: it moves
+// B * Hkv * (2 * n_rep + 4) * D * 2 bytes (36 KB at Qwen3-4B's heads and B
+// = 4), 0.01 us at 3.35 TB/s; the launch bounds it. One block per (b, kv
+// head), a warp per row.
 #include "common.cuh"
 
 namespace {
@@ -294,5 +307,85 @@ extern "C" int tlt_fused_paged_decode_attention(
   TLT_KP(64, 1) TLT_KP(64, 2) TLT_KP(64, 4) TLT_KP(64, 8)
   TLT_KP(128, 1) TLT_KP(128, 2) TLT_KP(128, 4) TLT_KP(128, 8)
 #undef TLT_KP
+  return (int)cudaErrorInvalidValue;
+}
+
+// The prep kernel (tlt_fused_qkv_prep), after K2 and its twin so that their
+// machine code is what it was.
+namespace {
+
+template <int D, int NREP>
+__global__ void __launch_bounds__(WARPS * 32) qkv_prep(
+    const __nv_bfloat16* __restrict__ qkv,  // [B, Hkv, NREP + 2, D]
+    const float* __restrict__ cos_row, const float* __restrict__ sin_row,  // [B, D/2]
+    const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,  // [D]
+    __nv_bfloat16* __restrict__ q_out,  // [B, Hkv, NREP, D]
+    __nv_bfloat16* __restrict__ k_out,  // [B, Hkv, D]
+    __nv_bfloat16* __restrict__ v_out,  // [B, Hkv, D]
+    int Hkv, float eps) {
+  constexpr int HALF = D / 2, DPL = D / 32;
+  __shared__ float xrow[NREP + 1][D];  // normed rows before RoPE
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t head = (size_t)bb * Hkv + h;
+  const __nv_bfloat16* row = qkv + head * (NREP + 2) * D;
+  const float* cs = cos_row + (size_t)bb * HALF;
+  const float* sn = sin_row + (size_t)bb * HALF;
+
+  // QK-RMSNorm: warp r normalizes row r (q rows 0..NREP-1, k row NREP).
+  for (int r = warp; r <= NREP; r += WARPS) {
+    const __nv_bfloat16* wt = r < NREP ? qw : kw;
+    float x[DPL];
+    float ss = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      x[e] = bf2f(row[r * D + lane + 32 * e]);
+      ss += x[e] * x[e];
+    }
+    const float inv = rsqrtf(warp_sum(ss) / D + eps);
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const float normed = round_bf16(__fmul_rn(x[e], inv));
+      xrow[r][lane + 32 * e] = round_bf16(__fmul_rn(normed, bf2f(wt[lane + 32 * e])));
+    }
+  }
+  if (tid < D) v_out[head * D + tid] = row[(NREP + 1) * D + tid];
+  __syncthreads();
+  // RoPE: f32 rotate, bf16 round; q left unscaled.
+  for (int idx = tid; idx < (NREP + 1) * HALF; idx += blockDim.x) {
+    const int r = idx / HALF, i = idx % HALF;
+    const float x1 = xrow[r][i], x2 = xrow[r][i + HALF];
+    const float c = cs[i], sv = sn[i];
+    const __nv_bfloat16 re = __float2bfloat16_rn(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, sv)));
+    const __nv_bfloat16 im = __float2bfloat16_rn(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, sv)));
+    __nv_bfloat16* o = r < NREP ? q_out + (head * NREP + r) * D : k_out + head * D;
+    o[i] = re;
+    o[i + HALF] = im;
+  }
+}
+
+template <int D, int NREP>
+int launch_prep(const void* qkv, const void* cs, const void* sn, const void* qw, const void* kw,
+                void* q_out, void* k_out, void* v_out, int B, int Hkv, float eps,
+                cudaStream_t st) {
+  qkv_prep<D, NREP><<<dim3(Hkv, B), dim3(WARPS * 32), 0, st>>>(
+      TLT_BF(qkv), TLT_F(cs), TLT_F(sn), TLT_BF(qw), TLT_BF(kw), TLT_BFW(q_out), TLT_BFW(k_out),
+      TLT_BFW(v_out), Hkv, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tlt_fused_qkv_prep(const void* qkv, const void* cs, const void* sn,
+                                  const void* qw, const void* kw, void* q_out, void* k_out,
+                                  void* v_out, int B, int Hkv, int D, int n_rep, float eps,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TLT_QP(DD, RR)  \
+  if (D == DD && n_rep == RR) \
+    return launch_prep<DD, RR>(qkv, cs, sn, qw, kw, q_out, k_out, v_out, B, Hkv, eps, st);
+  TLT_QP(64, 1) TLT_QP(64, 2) TLT_QP(64, 4) TLT_QP(64, 8)
+  TLT_QP(128, 1) TLT_QP(128, 2) TLT_QP(128, 4) TLT_QP(128, 8)
+#undef TLT_QP
   return (int)cudaErrorInvalidValue;
 }

@@ -4,13 +4,22 @@ PyTorch version and a launch counter (counterparts of tiny_llm_tpu/kernels).
 Importing this package builds nothing; a kernel is compiled at its first
 launch (kernels/build.py)."""
 
-from . import flash_attention, fused_decode_attention, moe_matmul, paged_attention, quant_matmul
+from . import (
+    axpby,
+    flash_attention,
+    fused_decode_attention,
+    moe_matmul,
+    paged_attention,
+    quant_matmul,
+)
 
 # Each kernel's name -> (its module, the name of its launch counter there).
 # A module holds its wrapper(s), plain version(s), CUDA launcher(s) and
 # counter(s); the CUDA launcher adds one to its counter per launch. The split
 # paged prefill (kernels/split_prefill.py) combines the two state kernels
-# and has no kernel of its own.
+# and has no kernel of its own. The JAX package's expert-gather schedule
+# (moe_matmul.TPU_KERNEL_GATHER) computes grouped_quant_matmul's function
+# and has no entry: that kernel covers it.
 KERNELS = {
     "quant_matmul": (quant_matmul, "LAUNCHES"),
     "fused_decode_attention": (fused_decode_attention, "LAUNCHES"),
@@ -27,6 +36,9 @@ KERNELS = {
     "grouped_quant_matmul_sg": (moe_matmul, "SG_LAUNCHES"),
     "flash_decode_state": (flash_attention, "DECODE_STATE_LAUNCHES"),
     "paged_decode_state": (paged_attention, "DECODE_STATE_LAUNCHES"),
+    "flash_attention_masked": (flash_attention, "MASKED_LAUNCHES"),
+    "fused_qkv_prep": (fused_decode_attention, "PREP_LAUNCHES"),
+    "axpby": (axpby, "LAUNCHES"),
 }
 
 

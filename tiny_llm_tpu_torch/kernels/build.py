@@ -31,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("quant_matmul", "fused_decode_attention", "flash_attention", "paged_attention",
-           "moe_matmul", "quant_matmul_sg", "moe_matmul_sg")
+           "moe_matmul", "quant_matmul_sg", "moe_matmul_sg", "flash_attention_masked", "axpby")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -133,7 +133,10 @@ def _kernel_name(mangled: str) -> str:
 
 def sass_digests(so: Path) -> dict[str, str]:
     """Each kernel's SASS in a shared library, hashed (sha256, 16 hex
-    digits), keyed as `ptxas_registers` keys it."""
+    digits), keyed as `ptxas_registers` keys it. Runs of whitespace count as
+    one space: cuobjdump pads its columns to the widest instruction in the
+    whole library, so a kernel added to a source would otherwise change the
+    digests of the others."""
     r = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass", str(so)],
                        capture_output=True, text=True, check=True)
     bodies: dict[str, list[str]] = {}
@@ -143,7 +146,7 @@ def sass_digests(so: Path) -> dict[str, str]:
         if m:
             body = bodies.setdefault(_kernel_name(m.group(1)), [])
         elif body is not None:
-            body.append(ln.strip())
+            body.append(" ".join(ln.split()))
     return {fn: hashlib.sha256("\n".join(b).encode()).hexdigest()[:16]
             for fn, b in bodies.items()}
 

@@ -21,9 +21,17 @@ at position lens[b] - L + i and sees keys at positions <= its own. Keys at
 positions >= lens[b] are never read, so k/v may be a whole preallocated
 slab layer.
 
+`flash_attention` also takes an explicit additive mask (`mask=<tensor>`,
+the JAX package's contract): the mask replaces causality, every query row
+sits at position lens[b] - 1 so only the length bounds the keys, and the
+mask is added to the scores after that clamp. That route's kernel,
+csrc/flash_attention_masked.cu (`flash_attention_masked_cuda`), replaces
+`_decode_kernel_masked` (L <= 16) and `_prefill_kernel_masked` (L > 16);
+`mask=None` is the same route with no mask (no causality).
+
 `flash_attention` also takes an attention-strategy object as `impl` (one
 with `.flash`, as parallel.SPAttention): the call is then the strategy's,
-as in the JAX package.
+as in the JAX package; a strategy takes causal attention only.
 """
 
 from __future__ import annotations
@@ -39,21 +47,27 @@ TPU_KERNEL = "tiny_llm_tpu/kernels/flash_attention_pallas.py:450 _prefill_kernel
 TPU_KERNEL_SHORT = "tiny_llm_tpu/kernels/flash_attention_pallas.py:81 _decode_kernel"
 TPU_KERNEL_STATE = "tiny_llm_tpu/kernels/flash_attention_pallas.py:597 _prefill_state_kernel"
 TPU_KERNEL_DECODE_STATE = "tiny_llm_tpu/kernels/flash_attention_pallas.py:282 _decode_state_kernel"
+TPU_KERNEL_MASKED = "tiny_llm_tpu/kernels/flash_attention_pallas.py:401 _prefill_kernel_masked"
+TPU_KERNEL_MASKED_SHORT = "tiny_llm_tpu/kernels/flash_attention_pallas.py:133 _decode_kernel_masked"
 DECODE_MAX_L = 16
 SOURCE = "tiny_llm_tpu_torch/csrc/flash_attention.cu"
+SOURCE_MASKED = "tiny_llm_tpu_torch/csrc/flash_attention_masked.cu"
 NEG_INF = -1e30
 
 LAUNCHES = 0  # kernel launches since the last reset (see kernels.reset_launches)
 STATE_LAUNCHES = 0  # the state twin's
 DECODE_STATE_LAUNCHES = 0  # the shard decode-state kernel's
+MASKED_LAUNCHES = 0  # the explicit-mask kernel's
 
 
-def attention_state_plain(q, k, v, ok, scale: float):
+def attention_state_plain(q, k, v, ok, scale: float, bias=None):
     """Attention of q [B, Hq, L, D] over k/v [B, Hkv, S, D] where ok
     [B, L, S] marks the visible keys, at the TPU kernels' rounding points:
     q*scale rounded to bf16, f32 scores and softmax, bf16 probabilities in
-    the PV product, acc / max(l, 1e-30). Returns (out in q's dtype, m, l
-    [B, Hq, L] f32); a row that sees no key gives (0, NEG_INF, 0)."""
+    the PV product, acc / max(l, 1e-30). `bias` (an additive f32 mask
+    [B, 1 or Hq, L, S]) is added after the visibility clamp and the sum
+    floored at NEG_INF. Returns (out in q's dtype, m, l [B, Hq, L] f32); a
+    row that sees no key gives (0, NEG_INF, 0)."""
     B, Hq, L, D = q.shape
     Hkv = k.shape[1]
     n_rep = Hq // Hkv
@@ -61,6 +75,9 @@ def attention_state_plain(q, k, v, ok, scale: float):
     qs = qs.reshape(B, Hkv, n_rep, L, D)
     s = torch.einsum("bhrld,bhsd->bhrls", qs, k.to(torch.float32))
     s = torch.where(ok[:, None, None], s, NEG_INF)
+    if bias is not None:
+        heads = (Hkv, n_rep) if bias.shape[1] != 1 else (1, 1)
+        s = torch.clamp(s + bias.reshape(B, *heads, L, -1), min=NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2))
     l = p.sum(-1, keepdim=True)
@@ -96,6 +113,42 @@ def flash_prefill_state_plain(q, k, v, lens, scale: float):
 flash_decode_state_plain = flash_prefill_state_plain
 
 
+def normalize_mask(mask: torch.Tensor, B: int, L: int, S: int) -> torch.Tensor:
+    """An explicit additive mask as [B, 1 or H, L, S] (a view; the port's
+    copy of the JAX package's normalize_mask). Accepted: [L, S] (shared by
+    the batch), [B, L, S] (per row), [B, 1 or H, L, S]. A bare rank-3 mask
+    never aligns its batch axis with the heads."""
+    if mask.ndim == 2 and tuple(mask.shape) == (L, S):
+        return mask[None, None].expand(B, 1, L, S)
+    if mask.ndim == 3 and tuple(mask.shape) == (B, L, S):
+        return mask[:, None]
+    if mask.ndim == 4 and mask.shape[0] == B and tuple(mask.shape[2:]) == (L, S):
+        return mask
+    raise ValueError(f"mask {tuple(mask.shape)}: expected [L, S], [B, L, S] or [B, H, L, S] "
+                     f"with B={B}, L={L}, S={S}")
+
+
+def _mask_planes(mask: torch.Tensor, B: int, Hq: int, L: int, S: int, device) -> torch.Tensor:
+    """The mask as f32 [B, 1 or Hq, L, S] on `device` (an [L, S] mask stays
+    one plane, batch stride 0)."""
+    m4 = normalize_mask(mask.to(device=device, dtype=torch.float32), B, L, S)
+    if m4.shape[1] not in (1, Hq):
+        raise ValueError(f"per-head mask head axis {m4.shape[1]} != Hq {Hq}")
+    return m4
+
+
+def flash_attention_masked_plain(q, k, v, lens, mask, scale: float):
+    """The explicit-mask kernel's plain version: every query row sees the
+    keys below lens[b], plus `mask` (f32 [B, 1 or Hq, L, S], or None for no
+    mask), at attention_state_plain's rounding points; a row that sees no
+    key gives 0."""
+    B, _, L, _ = q.shape
+    S = k.shape[2]
+    lens = lens.to(device=q.device, dtype=torch.int64)
+    ok = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, :]
+    return attention_state_plain(q, k, v, ok.expand(B, L, S), scale, bias=mask)[0]
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.tlt_flash_attention
@@ -107,6 +160,15 @@ def _lib() -> ctypes.CDLL:
     fn = lib.tlt_flash_decode_state
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _lib_masked() -> ctypes.CDLL:
+    lib = build.load("flash_attention_masked")
+    fn = lib.tlt_flash_attention_masked
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -190,21 +252,66 @@ def flash_decode_state_cuda(q, k, v, lens, scale: float):
     return out, m, l
 
 
+def flash_attention_masked_cuda(q, k, v, lens, mask, scale: float):
+    """Launch the explicit-mask kernel; `mask` f32 [B, 1 or Hq, L, S] on
+    q's device (any batch and head strides, rows contiguous), or None."""
+    global MASKED_LAUNCHES
+    B, Hq, L, D, Hkv, S, n_rep = _check_args("flash_attention_masked_cuda", q, k, v)
+    lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
+    mode, msb, msh = 0, 0, 0
+    if mask is not None:
+        if mask.dtype != torch.float32 or mask.device != q.device \
+                or tuple(mask.shape) not in ((B, 1, L, S), (B, Hq, L, S)):
+            raise ValueError(f"mask must be f32 [B, 1 or Hq, L, S] on {q.device}")
+        if mask.stride(-1) != 1 or (L > 1 and mask.stride(-2) != S):
+            mask = mask.contiguous()
+        mode = 1 if mask.shape[1] == 1 else 2
+        msb, msh = mask.stride(0), mask.stride(1)
+    out = torch.empty_like(q)
+    lib = _lib_masked()
+    err = lib.tlt_flash_attention_masked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), B, Hkv, L, S, D, n_rep,
+        mode, msb, msh, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, "flash_attention_masked")
+    MASKED_LAUNCHES += 1
+    return out
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    lens: torch.Tensor,
+    lens: torch.Tensor | None = None,
     scale: float | None = None,
     impl=None,
+    mask: torch.Tensor | str | None = "causal",
 ) -> torch.Tensor:
-    """Causal attention of the last L positions of each row over k/v."""
+    """Attention of the last L positions of each row over k/v; `lens`
+    defaults to S. mask "causal": query i at position lens[b] - L + i sees
+    the keys at or before it. mask a tensor ([L, S], [B, L, S] or
+    [B, 1 or Hq, L, S], additive): every query sees the keys below
+    lens[b] plus the mask (a row that sees no key gives 0). mask None: the
+    keys below lens[b], no mask."""
+    if isinstance(mask, str) and mask != "causal":
+        raise ValueError(f"mask {mask!r}: expected 'causal', None or a tensor")
+    explicit = not isinstance(mask, str)
     if impl is not None and not isinstance(impl, str):
+        if explicit:
+            raise ValueError("an attention strategy takes causal attention only, not a mask")
         return impl.flash(q, k, v, lens, scale=scale)
+    B, Hq, L, _ = q.shape
+    S = k.shape[2]
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if resolve(impl, q) == "cuda":
-        return flash_attention_cuda(q, k, v, lens, scale)
-    return flash_attention_plain(q, k, v, lens, scale)
+    if lens is None:
+        lens = torch.full((B,), S, dtype=torch.int32, device=q.device)
+    cuda = resolve(impl, q) == "cuda"
+    if not explicit:
+        return (flash_attention_cuda if cuda else flash_attention_plain)(q, k, v, lens, scale)
+    m4 = None if mask is None else _mask_planes(mask, B, Hq, L, S, q.device)
+    fn = flash_attention_masked_cuda if cuda else flash_attention_masked_plain
+    return fn(q, k, v, lens, m4, scale)
 
 
 def flash_prefill_state(

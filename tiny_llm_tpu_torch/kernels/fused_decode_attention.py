@@ -6,7 +6,10 @@ Replaces tiny_llm_tpu/kernels/fused_decode_attention.py::_fused_step_kernel
 `fused_paged_decode_attention`). Both CUDA kernels are in
 csrc/fused_decode_attention.cu, one template over where a key row lives;
 its header notes what bounds them on the H100 and what the design does
-about that.
+about that. The same source holds the prep kernel, which replaces
+::_qkv_prep_kernel (wrapper `fused_qkv_prep`): the qkv split, QK-norm and
+RoPE alone, for the three-launch paged decode (models/qwen3.py,
+`paged_fused_one=False`: prep, the page write, then paged attention).
 
 Layouts are the JAX package's: the fused qkv row [B, Hkv, n_rep + 2, D]
 (per KV head: its n_rep q rows, then k, then v), the slab
@@ -29,12 +32,14 @@ from .paged_attention import gather_pages_dense
 
 TPU_KERNEL = "tiny_llm_tpu/kernels/fused_decode_attention.py:79 _fused_step_kernel"
 TPU_KERNEL_PAGED = "tiny_llm_tpu/kernels/fused_decode_attention.py:275 _fused_paged_step_kernel"
+TPU_KERNEL_PREP = "tiny_llm_tpu/kernels/fused_decode_attention.py:183 _qkv_prep_kernel"
 SOURCE = "tiny_llm_tpu_torch/csrc/fused_decode_attention.cu"
 NEG_INF = -1e30
 
 # Kernel launches since the last reset (see kernels.reset_launches).
 LAUNCHES = 0  # dense slab (K2)
 PAGED_LAUNCHES = 0  # page pool
+PREP_LAUNCHES = 0  # the prep kernel
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -84,8 +89,23 @@ def fused_decode_attention_plain(
     return attn, k_cur.to(torch.bfloat16), v_cur.clone()
 
 
+def fused_qkv_prep_plain(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, *, eps):
+    """Plain PyTorch version of the prep: K2's qkv split, QK-RMSNorm and
+    RoPE at the same rounding points, q left unscaled."""
+    n_rep = qkv_rows.shape[2] - 2
+    x = qkv_rows.to(torch.float32)
+    cos = cos_row.to(torch.float32)[:, None, None, :]
+    sin = sin_row.to(torch.float32)[:, None, None, :]
+    q = _rms_rope_heads(x[:, :, :n_rep], q_norm_w, cos, sin, eps)
+    k = _rms_rope_heads(x[:, :, n_rep : n_rep + 1], k_norm_w, cos, sin, eps)
+    return q.to(torch.bfloat16), k.to(torch.bfloat16), qkv_rows[:, :, n_rep + 1 :].clone()
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("fused_decode_attention")
+    fn = lib.tlt_fused_qkv_prep
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     fn = lib.tlt_fused_decode_attention
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
         ctypes.c_void_p
@@ -124,6 +144,42 @@ def _outputs(qkv_rows):
         torch.empty((B, Hkv, 1, D), dtype=torch.bfloat16, device=dev),
         torch.empty((B, Hkv, 1, D), dtype=torch.bfloat16, device=dev),
     )
+
+
+def fused_qkv_prep_cuda(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, *, eps):
+    global PREP_LAUNCHES
+    B, Hkv, rows, D = qkv_rows.shape
+    _, cos_row, sin_row, qw, kw = _check_rows(
+        qkv_rows, q_norm_w, k_norm_w, cos_row, sin_row, offsets)
+    q, k_row, v_row = _outputs(qkv_rows)
+    lib = _lib()
+    err = lib.tlt_fused_qkv_prep(
+        qkv_rows.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(), qw.data_ptr(),
+        kw.data_ptr(), q.data_ptr(), k_row.data_ptr(), v_row.data_ptr(), B, Hkv, D, rows - 2,
+        float(eps), torch.cuda.current_stream(qkv_rows.device).cuda_stream,
+    )
+    build.check(lib, err, "fused_qkv_prep")
+    PREP_LAUNCHES += 1
+    return q, k_row, v_row
+
+
+def fused_qkv_prep(
+    qkv_rows: torch.Tensor,  # [B, Hkv, n_rep + 2, D] bf16
+    offsets: torch.Tensor,  # [B] int32 — unused by the arithmetic, as in the JAX package
+    cos_row: torch.Tensor,  # [B, D // 2] f32 — RoPE rows at `offsets`
+    sin_row: torch.Tensor,
+    q_norm_w: torch.Tensor,  # [D]
+    k_norm_w: torch.Tensor,  # [D]
+    *,
+    eps: float,
+    impl: str | None = None,
+):
+    """The qkv split, QK-RMSNorm and RoPE of one layer's decode rows.
+
+    Returns (q [B, Hkv, n_rep, D] normed and roped, unscaled; k_row
+    [B, Hkv, 1, D] normed and roped; v_row [B, Hkv, 1, D] raw)."""
+    fn = fused_qkv_prep_cuda if resolve(impl, qkv_rows) == "cuda" else fused_qkv_prep_plain
+    return fn(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, eps=eps)
 
 
 def fused_decode_attention_cuda(

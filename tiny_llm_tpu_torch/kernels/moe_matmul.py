@@ -14,6 +14,12 @@ width.
   * The any-width kernel replaces `_gqmm_kernel` (wrapper `_gqmm_pallas`):
     experts other than W4 g128; csrc/moe_matmul_sg.cu
     (`tlt_grouped_quant_matmul_sg`), the W4A16 walk over the generic body.
+  * `_gqmm_gather_kernel` (wrapper `_gqmm_gather_pallas`), the JAX
+    package's expert-gather schedule of the W4A16 function for T <= 256
+    rows (TLT_MOE_DECODE=gather), is covered by the W4A16 kernel: the same
+    function, and the W4A16 kernel already runs a GEMV per expert at
+    T <= 64 and its tile walk above. The port reads no TLT_MOE_DECODE: on
+    the card it would pick the same kernel.
 
 `grouped_quant_matmul` dispatches as the JAX package's
 `grouped_quantized_matmul` does and launches the chosen kernel for CUDA
@@ -37,6 +43,8 @@ from .quant_matmul import quant_matmul_a8_plain, quant_matmul_plain
 TPU_KERNEL = "tiny_llm_tpu/kernels/moe_matmul.py:120 _gqmm_magic_kernel"
 TPU_KERNEL_A8 = "tiny_llm_tpu/kernels/moe_matmul.py:173 _gqmm_pair_kernel"
 TPU_KERNEL_SG = "tiny_llm_tpu/kernels/moe_matmul.py:74 _gqmm_kernel"
+TPU_KERNEL_GATHER = "tiny_llm_tpu/kernels/moe_matmul.py:533 _gqmm_gather_kernel"
+COVERED_GATHER = "covered by tlt_grouped_quant_matmul (the W4A16 kernel, the same function)"
 SOURCE = "tiny_llm_tpu_torch/csrc/moe_matmul.cu"  # the W4A16 and W4A8 kernels
 SOURCE_SG = "tiny_llm_tpu_torch/csrc/moe_matmul_sg.cu"
 A8_MAX_ROWS = 128  # the JAX pair walk's a8 gate (T <= 128)

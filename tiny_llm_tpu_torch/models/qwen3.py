@@ -14,7 +14,11 @@ run on the card and on the CPU; only the bodies of the kernels differ
     ops/moe.py), which dispatches the same way (W4A8 at <= 128 rows);
   * a decode step (L == 1) goes through K2 (kernels/fused_decode_attention)
     with the qkv projection fused and interleaved per KV head — over the
-    dense slab, or its paged twin over the page pool;
+    dense slab, or its paged twin over the page pool; with
+    `paged_fused_one=False` (TLT_PAGED_FUSED_ONE=0, read once at
+    construction, as in the JAX package) a paged decode step takes three
+    launches per layer instead: the prep kernel (qkv split, QK-norm, RoPE),
+    the page write, then the paged decode kernel over the pages;
   * a prompt chunk goes through K3 (kernels/flash_attention) over the slab,
     or, over the page pool: K3 on the chunk's own K/V when the chunk is the
     whole context (offset 0); the split paged prefill (kernels/split_prefill:
@@ -23,8 +27,10 @@ run on the card and on the CPU; only the bodies of the kernels differ
     kernel (kernels/paged_attention);
   * a mixed burst step (forward_mixed_burst_paged) runs B decode rows and a
     c-token prefill sub-chunk through the same projections, the decode rows
-    through the fused paged step and the sub-chunk through paged attention
-    over its own pages;
+    through the fused paged step (with `paged_fused_one=False`: the same
+    three launches as a decode step, whose values are the JAX package's
+    unfused mixed rows) and the sub-chunk through paged attention over its
+    own pages;
   * with an attention strategy (`attn_impl`, e.g. parallel.SPAttention) the
     strategy runs every attention, as in the JAX package: a decode step
     takes the unfused route (qkv, the k/v write, then the strategy's
@@ -40,6 +46,7 @@ expert parallelism.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import numpy as np
@@ -49,6 +56,7 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_decode_attention import (
     fused_decode_attention,
     fused_paged_decode_attention,
+    fused_qkv_prep,
 )
 from ..kernels.paged_attention import paged_attention
 from ..kernels.quant_matmul import quant_matmul
@@ -427,6 +435,33 @@ def _write_pages(pages: torch.Tensor, layer: int, page_idx, slot, rows: torch.Te
     pages[layer][page_idx, :, slot, :] = rows.transpose(1, 2)
 
 
+def _paged_decode_rows(cfg, attn_p: AttentionParams, layer: int, qkv_rows, key_pages,
+                       value_pages, block_table, offsets, cos_row, sin_row, page_idx, slot, *,
+                       impl, fused_one: bool) -> torch.Tensor:
+    """One layer's attention for B decode rows (the fused qkv rows
+    [B, Hkv, n_rep + 2, D] at `offsets`) over the page pool, their k/v rows
+    written into it at (page_idx, slot); returns [B, Hq * D]. `fused_one`:
+    the fused paged step, the write after it; else three launches, the prep
+    kernel, the write, then paged attention over the pages (the pool's
+    scatter-then-read order)."""
+    B, D = qkv_rows.shape[0], cfg.head_dim
+    scale, eps = D**-0.5, cfg.rms_norm_eps
+    if fused_one:
+        attn, k_row, v_row = fused_paged_decode_attention(
+            qkv_rows, key_pages[layer], value_pages[layer], block_table, offsets, cos_row,
+            sin_row, attn_p.q_norm, attn_p.k_norm, scale=scale, eps=eps, impl=impl,
+        )
+    else:
+        q, k_row, v_row = fused_qkv_prep(qkv_rows, offsets, cos_row, sin_row, attn_p.q_norm,
+                                         attn_p.k_norm, eps=eps, impl=impl)
+    _write_pages(key_pages, layer, page_idx, slot, k_row)
+    _write_pages(value_pages, layer, page_idx, slot, v_row)
+    if not fused_one:
+        attn = paged_attention(q.reshape(B, -1, 1, D), key_pages[layer], value_pages[layer],
+                               block_table, offsets + 1, scale=scale, impl=impl)
+    return attn.reshape(B, -1)
+
+
 def forward_step_paged(
     params: Qwen3Params,
     cfg: Qwen3Config,
@@ -442,13 +477,16 @@ def forward_step_paged(
     attn_impl=None,
     local_attention: bool = False,
     split_attention: bool = False,
+    fused_one: bool = True,
 ) -> torch.Tensor:
     """One model step over the page pool (prompt chunk or decode step):
     writes this chunk's k/v into the pages the block table names and
     returns logits [B, L_keep, V].
 
     A decode step (L == 1) runs the fused paged kernel and writes the k/v
-    rows after it. A chunk writes its k/v first, then attends:
+    rows after it; with `fused_one` False, the prep kernel, the k/v write,
+    then paged attention over the pages (the pool's scatter-then-read
+    order). A chunk writes its k/v first, then attends:
     `local_attention` (every offset 0, so the chunk is the whole context)
     runs K3 on the chunk's own k/v; `split_attention` runs the split paged
     prefill (the chunk's own k/v causally, the prefix pages before it
@@ -478,14 +516,11 @@ def forward_step_paged(
     for i, layer in enumerate(params.layers):
         if decode:
             qkv = _norm_linear(h, layer.attn.wqkv, layer.input_layernorm, eps, impl)
-            attn_rows, k_row, v_row = fused_paged_decode_attention(
-                qkv.reshape(B, hkv, n_rep + 2, cfg.head_dim), key_pages[i], value_pages[i],
-                block_table, offsets, cos_row, sin_row, layer.attn.q_norm, layer.attn.k_norm,
-                scale=scale, eps=eps, impl=impl,
-            )
-            _write_pages(key_pages, i, page_idx, slot, k_row)
-            _write_pages(value_pages, i, page_idx, slot, v_row)
-            attn = attn_rows.reshape(B, 1, -1)
+            attn = _paged_decode_rows(
+                cfg, layer.attn, i, qkv.reshape(B, hkv, n_rep + 2, cfg.head_dim), key_pages,
+                value_pages, block_table, offsets, cos_row, sin_row, page_idx, slot, impl=impl,
+                fused_one=fused_one,
+            )[:, None]
         else:
             q, k, v = _qkv(cfg, layer.attn, h, rope_pos, rope_tabs,
                            norm_w=layer.input_layernorm, impl=impl)
@@ -528,6 +563,7 @@ def forward_decode_burst_paged(
     top_k: int | None = None,
     top_p: float | None = None,
     generator: torch.Generator | None = None,
+    fused_one: bool = True,
 ) -> torch.Tensor:
     """`steps` paged decode steps for every row; returns the emitted tokens
     [steps, B] on the device. Greedy when temp == 0, else sampled on the
@@ -537,7 +573,7 @@ def forward_decode_burst_paged(
     return _decode_loop(
         lambda tokens, s: forward_step_paged(
             params, cfg, rope_tabs, tokens[:, None], offsets0 + s, key_pages, value_pages,
-            block_table, logits_to_keep=1, impl=impl, attn_impl=attn_impl,
+            block_table, logits_to_keep=1, impl=impl, attn_impl=attn_impl, fused_one=fused_one,
         ),
         tokens0, steps, temp, top_k, top_p, generator,
     )
@@ -578,6 +614,7 @@ def forward_mixed_burst_paged(
     top_k: int | None = None,
     top_p: float | None = None,
     generator: torch.Generator | None = None,
+    fused_one: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`steps` decode steps for every row AND one prefill sub-chunk per step,
     through the same projections: each step's activation is [1, B + c, D],
@@ -592,8 +629,10 @@ def forward_mixed_burst_paged(
     QK-norm and RoPE at its own positions, its k/v written into its pages,
     then paged attention over its own table row (kernels/paged_attention);
     the decode rows through the fused paged step, their k/v rows written
-    after it; the LM head over the decode rows and the sub-chunk's last real
-    row only (M = B + 1); the argmax (or the samplers) on the device.
+    after it (`fused_one` False: the prep kernel, the k/v rows written, then
+    paged attention; _paged_decode_rows); the LM head over the decode rows
+    and the sub-chunk's last real row only (M = B + 1); the argmax (or the
+    samplers) on the device.
 
     Returns (decode tokens [steps, B], completion tokens [steps]: step t's
     draw at its sub-chunk's last real row, valid where that step completes
@@ -630,16 +669,14 @@ def forward_mixed_burst_paged(
                                             p_pos.clamp(max=rope_max), rope_tabs)
             _write_pages(key_pages, i, p_page, p_slot, k_p)
             _write_pages(value_pages, i, p_page, p_slot, v_p)
-            attn_d, k_row, v_row = fused_paged_decode_attention(
-                qkv[0, :B].reshape(B, hkv, n_rep + 2, cfg.head_dim), key_pages[i],
-                value_pages[i], block_table, offsets, cos_row, sin_row, layer.attn.q_norm,
-                layer.attn.k_norm, scale=scale, eps=eps, impl=impl,
+            attn_d = _paged_decode_rows(
+                cfg, layer.attn, i, qkv[0, :B].reshape(B, hkv, n_rep + 2, cfg.head_dim),
+                key_pages, value_pages, block_table, offsets, cos_row, sin_row, d_page, d_slot,
+                impl=impl, fused_one=fused_one,
             )
-            _write_pages(key_pages, i, d_page, d_slot, k_row)
-            _write_pages(value_pages, i, d_page, d_slot, v_row)
             attn_p = paged_attention(q_p.contiguous(), key_pages[i], value_pages[i], p_tab,
                                      p_len, scale=scale, impl=impl)  # [1, Hq, c, D]
-            attn = torch.cat([attn_d.reshape(1, B, -1),
+            attn = torch.cat([attn_d[None],
                               attn_p.transpose(1, 2).reshape(1, c, -1)], dim=1)
             h = _linear(attn, layer.attn.wo, residual=h, impl=impl)
             h = _mlp(cfg, layer.mlp, h, norm_w=layer.post_attention_layernorm,
@@ -675,7 +712,11 @@ class Qwen3Model:
     attention while the matmuls keep `impl`.
     `act_quant` "int8" is the W4A8 tier (convert_projection_layouts after
     fuse_projections, as in the JAX package); None or "bf16" keeps W4A16.
-    The port reads no environment default for it."""
+    The port reads no environment default for it.
+    `paged_fused_one` (None: TLT_PAGED_FUSED_ONE, "1" unless set, read here
+    once, as the JAX package reads it at construction): False takes paged
+    decode steps through three launches per layer (the prep kernel, the
+    page write, paged attention) instead of the fused paged step."""
 
     def __init__(
         self,
@@ -686,6 +727,7 @@ class Qwen3Model:
         device: str | torch.device = "cuda",
         act_quant: str | None = None,
         attn_impl=None,
+        paged_fused_one: bool | None = None,
     ):
         self.device = check_device(device)
         if attn_impl is not None and not (hasattr(attn_impl, "flash")
@@ -712,6 +754,9 @@ class Qwen3Model:
             cfg.head_dim, self.max_seq_len, base=cfg.rope_theta, device=self.device
         )
         self.page_pool: PagePool | None = None
+        if paged_fused_one is None:
+            paged_fused_one = os.environ.get("TLT_PAGED_FUSED_ONE", "1") == "1"
+        self.paged_fused_one = bool(paged_fused_one)
 
     def enable_paged_attention(self, num_pages: int | None = None, page_size: int = 128):
         """Attach a page pool: create_kv_cache() and create_batching_kv_cache()
@@ -805,7 +850,7 @@ class Qwen3Model:
             torch.from_numpy(p_chunks).to(dev), torch.from_numpy(p_offsets).to(dev),
             torch.from_numpy(p_tables).to(dev), torch.from_numpy(p_last).to(dev), p_gens,
             steps=steps, impl=self.impl, temp=temp, top_k=top_k, top_p=top_p,
-            generator=generator,
+            generator=generator, fused_one=self.paged_fused_one,
         )
         both = torch.cat([toks.reshape(-1), comp]).cpu().numpy().astype(np.int32)
         for c in cache.slots:
@@ -943,6 +988,7 @@ class Qwen3Model:
             local_attention=bool(L > 1 and np.all(offs == 0)),
             split_attention=bool(self.attn_impl is None and L >= SPLIT_PREFILL_MIN_CHUNK
                                  and np.any(offs > 0)),
+            fused_one=self.paged_fused_one,
         )
         if isinstance(cache, PagedBatchingKVCache):
             for c in cache.slots:
@@ -1007,7 +1053,7 @@ class Qwen3Model:
             torch.from_numpy(offs).to(self.device), cache.pool.key_pages,
             cache.pool.value_pages, torch.from_numpy(table).to(self.device), steps=steps,
             impl=self.impl, attn_impl=self.attn_impl, temp=temp, top_k=top_k, top_p=top_p,
-            generator=generator,
+            generator=generator, fused_one=self.paged_fused_one,
         )
         out = toks.cpu().numpy().astype(np.int32)
         for c in cache.slots:
