@@ -143,6 +143,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -179,8 +180,9 @@ TIE_MARGIN = 1e-3  # routing near-tie: k-th minus (k+1)-th router probability
 # (their drift is 5 %). The W4A8 kernels' own checks (`_close` with codes)
 # can: kernel and plain version quantize the same x into the same codes.
 A8_PARITY_TOL, A8_TIE_MARGIN = 0.10, 1e-2
-# The masked attention kernel against its plain version, per element.
-TOL_ATTENTION = "2 bf16 ulps + min(2^-8 W|v|, 6 * 2^-9 sqrt(W v^2 / l)) (_attention_tol)"
+# The masked kernel and the split prefill's state kernels against their
+# plain versions, per element.
+TOL_ATTENTION = "2 bf16 ulps + min(2^-8 W|v|, 6 * 2^-9 sqrt(W v^2 / l)) (_state_tol)"
 # Sequence-parallel attention (the JAX tests' 8-shard mesh, every shard on
 # this card): a slab of 8192 positions in shards of 1024; a 6000-token
 # prompt leaves shards 6 and 7 empty at decode; B = 4 prompts whose lengths
@@ -271,8 +273,16 @@ def phase_build():
     log = build.build_all()
     secs = time.perf_counter() - t0
     regs = {name: build.ptxas_registers(info["ptxas"]) for name, info in log.items()}
+    # The split prefill's state kernels run their products on the tensor
+    # cores: their SASS holds HMMA / HGMMA instructions.
+    tc = {re.sub(r"^_ZN\d+_\w+_cu_[0-9a-f]{8}\d+", "", fn): info["tensor_core_ops"]
+          for src in ("flash_attention", "paged_attention")
+          for fn, info in build.sass_report(build._target(src)).items()
+          if "prefill_state" in fn or "prefix_state" in fn}
+    check(len(tc) == 16 and all(tc.values()), f"state kernels' tensor-core instructions: {tc}")
     smi = nvidia_smi()
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(log),
+          "state_kernels_tensor_core_ops": tc,
           "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi, regs
 
@@ -1523,39 +1533,155 @@ def _profile_serving_burst(model, lens, mixed=False):
 
 
 def _state_err(what, got, want, tol):
-    """Kernel (o, m, l) against the plain version's: o within tol, m and l
-    within 1e-3 of max(1, |plain|) (f32 sums in other orders). Returns o's
-    max error."""
-    err = max_err(got[0], want[0])
-    check(err <= tol, f"{what}: o {err} > {tol}")
+    """Kernel (o, m, l) against the plain version's: o within tol (a number,
+    or per element: _state_tol), m and l within 1e-3 of max(1, |plain|)
+    (f32 sums in other orders). Returns o's max error and, per batch row,
+    its largest ratio to tol."""
+    err, rows = max_err(got[0], want[0]), _over_tol(got[0], want[0], tol)
+    check(max(rows) <= 1, f"{what}: o {err}, {max(rows)} times its tolerance")
     for i, part in ((1, "m"), (2, "l")):
         gap = float(((got[i] - want[i]).abs() / want[i].abs().clamp(min=1.0)).max())
         check(gap <= 1e-3, f"{what}: {part} differs by {gap} (relative)")
-    return err
+    return err, rows
+
+
+def _state_control(what, got, tol, control, changed):
+    """`control` (the plain version with each row's visible keys shifted by
+    one) must miss o's tolerance in every batch row whose visible keys the
+    shift changed (`changed`, one bool a row). Returns the per-row ratios."""
+    ctl = _over_tol(got[0], control[0], tol)
+    check(any(changed) and all(c > 1 for c, ch in zip(ctl, changed) if ch),
+          f"{what}: the control is within tolerance in a row it changed: {ctl}")
+    return ctl
+
+
+def _chunk_state_check(what, q, k, v, lens, sc):
+    """Row 7 against its plain version on the card: (o, m, l) as
+    _sp_state_check holds them, o per element within _state_tol, and the
+    plain version at lens + 1 as the control. Returns the case's fields."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+
+    got = ka.flash_prefill_state_cuda(q, k, v, lens, sc)
+    want = ka.flash_prefill_state_plain(q, k, v, lens, sc)
+    torch.cuda.synchronize()
+    L, S = q.shape[2], k.shape[2]
+    ok = ka._causal_mask(lens, L, S, q.device)
+    tol = _state_tol(q, k, v, ok, sc, want[0])
+    err, rows, empty = _sp_state_check(what, got, want, tol)
+    changed = (ok != ka._causal_mask(lens + 1, L, S, q.device)).flatten(1).any(1).tolist()
+    ctl = _state_control(what, got, tol, ka.flash_prefill_state_plain(q, k, v, lens + 1, sc),
+                         changed)
+    return {"max_err": err, "err_over_tol_per_batch_row": rows, "tol": TOL_ATTENTION,
+            "control": "lens + 1", "control_err_over_tol_per_batch_row": ctl,
+            "identity_rows": empty}, want
+
+
+def _prefix_state_check(what, q, kp, vp, bt, pre, sc, clean=None):
+    """Row 15 against its plain version on the card, as _chunk_state_check,
+    with prefix_lens - 1 as the control. `clean`: the pages the plain
+    version reads, where the kernel's hold NaN and Inf in rows no query may
+    see (the function does not depend on them; the kernel must not read
+    them)."""
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+
+    got = pa.paged_prefix_state_cuda(q, kp, vp, bt, pre, sc)
+    kc, vc = clean or (kp, vp)
+    want = pa.paged_prefix_state_plain(q, kc, vc, bt, pre, sc)
+    torch.cuda.synchronize()
+    k, v = pa.gather_pages_dense(kc, vc, bt)
+    B, _, L, _ = q.shape
+    S = k.shape[2]
+    ok = torch.arange(S, device=q.device)[None, None, :] < pre[:, None, None].long()
+    tol = _state_tol(q, k, v, ok.expand(B, L, S), sc, want[0])
+    del k, v
+    err, rows, empty = _sp_state_check(what, got, want, tol)
+    ctl = _state_control(what, got, tol,
+                         pa.paged_prefix_state_plain(q, kc, vc, bt, (pre - 1).clamp(min=0), sc),
+                         (pre > 0).tolist())
+    return {"max_err": err, "err_over_tol_per_batch_row": rows, "tol": TOL_ATTENTION,
+            "control": "prefix_lens - 1", "control_err_over_tol_per_batch_row": ctl,
+            "identity_rows": empty}, want
+
+
+def _split_edges(randn, errs):
+    """Rows 7 and 15 where the tile's edges fall: D 64 and 128, n_rep 1, 4
+    and 8 over 2 KV heads, a 1000-token chunk (a ragged 128-row q tile and,
+    for row 7, a ragged 64-key tile over a 1000-key slab); row 15 over
+    prefixes of 1, 63, 64, 65, 1000 and 0 in pools of 16- and 128-token
+    pages whose trash page and whose rows at or past each prefix hold NaN in
+    K and Inf in V. Returns one summary line a case."""
+    dev = torch.device("cuda")
+    L, Hkv, pres = 1000, 2, [1, 63, 64, 65, 1000, 0]
+    out = []
+    for D in (64, 128):
+        for n_rep in (1, 4, 8):
+            Hq, sc = Hkv * n_rep, D**-0.5
+            q, k, v = randn(2, Hq, L, D), randn(2, Hkv, L, D), randn(2, Hkv, L, D)
+            lens = torch.full((2,), L, dtype=torch.int32, device=dev)
+            f, _ = _chunk_state_check(f"flash_prefill_state D={D} n_rep={n_rep} L={L}", q, k, v,
+                                      lens, sc)
+            errs["flash_prefill_state"].append(f["max_err"])
+            out.append({"kernel": "flash_prefill_state", "D": D, "n_rep": n_rep, "L": L,
+                        "lens": L, "err_over_tol": max(f["err_over_tol_per_batch_row"]),
+                        "control_min": min(f["control_err_over_tol_per_batch_row"])})
+            for ps in (16, 128):
+                used = [-(-(p + L) // ps) for p in pres]
+                P = sum(used) + 2
+                perm = np.random.default_rng(ps + D + n_rep).permutation(np.arange(1, P))
+                bt = np.full((len(pres), max(used) + 1), -1, np.int32)
+                unseen = np.zeros((P, ps), bool)
+                unseen[0] = True  # the trash page
+                j = 0
+                for b, (p, n) in enumerate(zip(pres, used)):
+                    bt[b, :n] = perm[j : j + n]
+                    j += n
+                    pos = np.arange(p, n * ps)
+                    unseen[bt[b, pos // ps], pos % ps] = True
+                bad = torch.from_numpy(unseen).to(dev)[:, None, :, None]
+                kc, vc = randn(P, Hkv, ps, D), randn(P, Hkv, ps, D)
+                kp, vp = kc.masked_fill(bad, float("nan")), vc.masked_fill(bad, float("inf"))
+                kc, vc = kc.masked_fill(bad, 0.0), vc.masked_fill(bad, 0.0)
+                q = randn(len(pres), Hq, L, D)
+                f, _ = _prefix_state_check(
+                    f"paged_prefix_state D={D} n_rep={n_rep} ps={ps} prefixes={pres}", q, kp,
+                    vp, torch.from_numpy(bt).to(dev), torch.tensor(pres, dtype=torch.int32,
+                                                                   device=dev), sc, (kc, vc))
+                errs["paged_prefix_state"].append(f["max_err"])
+                ctl = [c for c, p in zip(f["control_err_over_tol_per_batch_row"], pres) if p]
+                out.append({"kernel": "paged_prefix_state", "D": D, "n_rep": n_rep, "L": L,
+                            "page_size": ps, "prefixes": pres,
+                            "err_over_tol": max(f["err_over_tol_per_batch_row"]),
+                            "control_min": min(ctl)})
+    return out
 
 
 def phase_split_kernels(shapes, contract):
     """The split paged prefill's two kernels against their plain versions on
-    the card, at Qwen3-4B's and Qwen3-30B-A3B's head shapes: the chunk-state
-    flash prefill at L = 1024 and 2048 (its own k/v, lens = L), and the
+    the card, o per element within _state_tol (m and l within 1e-3, a row
+    that sees no key exactly the identity) and a control one key off that
+    must miss it: first at the tile's edges (_split_edges), then at
+    Qwen3-4B's and Qwen3-30B-A3B's head shapes, the chunk-state flash
+    prefill at L = 1024 and 2048 (its own k/v, lens = L), and the
     prefix-state walk at L = 1024 over prefixes of 1024, 4096 and 7168 in a
-    shuffled pool, beside a row of prefix 0 (which must give the identity
-    state exactly). Beside the walk: the whole split (both kernels and the
-    combine) against the paged prefill kernel over the same chunk and
-    prefix. Timed by CUDA-graph replay (the walk over 4 layers' pages)."""
+    shuffled pool, beside a row of prefix 0. Beside the walk: the whole
+    split (both kernels and the combine) against the paged prefill kernel
+    over the same chunk and prefix, and the combine alone. Timed by
+    CUDA-graph replay (the walk over 4 layers' pages)."""
     from tiny_llm_tpu_torch.kernels import flash_attention as ka
     from tiny_llm_tpu_torch.kernels import paged_attention as pa
-    from tiny_llm_tpu_torch.kernels.split_prefill import split_paged_prefill
+    from tiny_llm_tpu_torch.kernels.split_prefill import combine_state_pair, split_paged_prefill
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    tol = 2e-2
-    cases, errs = [], {n: [] for n in SPLIT}
+    tol = 2e-2  # the split against row 13, the SDPA yardsticks: other rounding points
+    errs = {n: [] for n in SPLIT}
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
+    edges = _split_edges(randn, errs)
+    cases = []
     for model_name, cfg in shapes:
         Hkv, D = cfg.num_key_value_heads, cfg.head_dim
         Hq = cfg.num_attention_heads
@@ -1564,12 +1690,8 @@ def phase_split_kernels(shapes, contract):
         for L in (LONG_CHUNK, 2 * LONG_CHUNK):
             q, k, v = randn(1, Hq, L, D), randn(1, Hkv, L, D), randn(1, Hkv, L, D)
             lens = torch.full((1,), L, dtype=torch.int32, device=dev)
-            got = ka.flash_prefill_state_cuda(q, k, v, lens, sc)
-            want = ka.flash_prefill_state_plain(q, k, v, lens, sc)
-            torch.cuda.synchronize()
-            err = _state_err(f"flash_prefill_state L={L}", got, want, tol)
-            errs["flash_prefill_state"].append(err)
-            del got
+            fields, want = _chunk_state_check(f"flash_prefill_state L={L}", q, k, v, lens, sc)
+            errs["flash_prefill_state"].append(fields["max_err"])
             kern = graph_ms(lambda: ka.flash_prefill_state_cuda(q, k, v, lens, sc))
             plain = event_ms(lambda: ka.flash_prefill_state_plain(q, k, v, lens, sc), reps=1)
 
@@ -1579,12 +1701,12 @@ def phase_split_kernels(shapes, contract):
             check(max_err(lib_fn(), want[0]) <= tol, f"SDPA yardstick L={L} differs")
             lib = graph_ms(lib_fn)
             del want
-            bms, by = bound(2 * Hq * L * D * 2 + 2 * Hkv * L * D * 2 + 2 * Hq * L * 4,
-                            4 * Hq * (L * (L + 1) // 2) * D)
+            flops = 4 * Hq * (L * (L + 1) // 2) * D
+            bms, by = bound(2 * Hq * L * D * 2 + 2 * Hkv * L * D * 2 + 2 * Hq * L * 4, flops)
             case = {"kernel": "flash_prefill_state", "tpu_kernel": ka.TPU_KERNEL_STATE,
                     "model": model_name,
-                    "shape": f"B=1 L={L} lens={L} Hq={Hq} Hkv={Hkv} D={D}",
-                    "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                    "shape": f"B=1 L={L} lens={L} Hq={Hq} Hkv={Hkv} D={D}", **fields,
+                    "kernel_ms": kern, "tflop_s": flops / kern / 1e9, "plain_ms": plain,
                     "library_ms": lib, "library": "SDPA causal over the chunk",
                     "bound_ms": bms, "bound_by": by}
             cases.append(case)
@@ -1609,15 +1731,9 @@ def phase_split_kernels(shapes, contract):
             bt = _tables(perm, [prefix + L, L], width)
             pre = torch.tensor([prefix, 0], dtype=torch.int32, device=dev)
             q = randn(2, Hq, L, D)
-            got = pa.paged_prefix_state_cuda(q, kp[0], vp[0], bt, pre, sc)
-            want = pa.paged_prefix_state_plain(q, kp[0], vp[0], bt, pre, sc)
-            torch.cuda.synchronize()
             what = f"paged_prefix_state prefix={prefix}"
-            err = _state_err(what, got, want, tol)
-            check(not bool(got[0][1].any()) and bool((got[1][1] == ka.NEG_INF).all())
-                  and not bool(got[2][1].any()), f"{what}: the prefix-0 row is not the identity")
-            errs["paged_prefix_state"].append(err)
-            del got
+            fields, want = _prefix_state_check(what, q, kp[0], vp[0], bt, pre, sc)
+            errs["paged_prefix_state"].append(fields["max_err"])
             kern = graph_ms(lambda: [pa.paged_prefix_state_cuda(q, kp[i], vp[i], bt, pre, sc)
                                      for i in range(layers)]) / layers
             plain = event_ms(lambda: pa.paged_prefix_state_plain(q, kp[0], vp[0], bt, pre, sc),
@@ -1649,19 +1765,27 @@ def phase_split_kernels(shapes, contract):
                                                              sc) for i in range(layers)]) / layers
             row13_ms = graph_ms(lambda: [pa.paged_prefill_cuda(q, kp[i], vp[i], bt, pre + L, sc)
                                          for i in range(layers)]) / layers
-            del chunks, split, unsplit
+            # The split's plain combine alone, on the two kernels' states.
+            full = torch.full((2,), L, dtype=torch.int32, device=dev)
+            states = (ka.flash_prefill_state_cuda(q, *chunks[0], full, sc)
+                      + pa.paged_prefix_state_cuda(q, kp[0], vp[0], bt, pre, sc))
+            combine_ms = graph_ms(lambda: combine_state_pair(*states))
+            del chunks, split, unsplit, states
             # Row 0's prefix k/v, both rows' q and o (bf16), m and l (f32).
+            flops = 4 * Hq * L * prefix * D
             bms, by = bound(2 * Hkv * prefix * D * 2 + 2 * (2 * Hq * L * D * 2)
-                            + 2 * (2 * Hq * L * 4), 4 * Hq * L * prefix * D)
+                            + 2 * (2 * Hq * L * 4), flops)
             case = {"kernel": "paged_prefix_state", "tpu_kernel": pa.TPU_KERNEL_PREFIX,
                     "model": model_name,
                     "shape": f"B=2 L={L} prefix=[{prefix}, 0] pool={n_pages}x{PAGE_SIZE} "
-                             f"width={width} Hq={Hq} Hkv={Hkv} D={D}",
-                    "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                             f"width={width} Hq={Hq} Hkv={Hkv} D={D}", **fields,
+                    "kernel_ms": kern, "tflop_s": flops / kern / 1e9, "plain_ms": plain,
                     "library_ms": lib, "library": "SDPA of row 0 over its prefix gathered "
                     "contiguous", "bound_ms": bms, "bound_by": by,
                     "split_ms": split_ms, "split_vs_paged_prefill_max_err": split_err,
-                    "paged_prefill_ms": row13_ms}
+                    "paged_prefill_ms": row13_ms, "split_speedup_over_paged_prefill":
+                    row13_ms / split_ms, "combine_ms": combine_ms,
+                    "combine_share_of_split": combine_ms / split_ms}
             cases.append(case)
             if main and prefix == LONG_PROMPT - L:
                 contract["paged_prefix_state"] = {
@@ -1675,7 +1799,7 @@ def phase_split_kernels(shapes, contract):
         torch.cuda.empty_cache()
     for name in SPLIT:
         contract[name]["max_abs_err"] = max(errs[name])
-    emit({"phase": "split_kernels", "cases": cases})
+    emit({"phase": "split_kernels", "edges": edges, "cases": cases})
 
 
 def phase_long_parity(cfg):
@@ -1776,8 +1900,13 @@ def phase_long_prefill(long, cfg):
         tok_s = sorted(LONG_PROMPT / secs for secs, _ in runs)
         line[f"chunk_{chunk}"] = {"prefill_tok_s": tok_s[1], "prefill_tok_s_all": tok_s,
                                   "launches_per_prefill": per_prefill}
-    # Device time of one prefill at chunks of LONG_CHUNK, by kernel name.
-    line["prefill_profile"] = _device_profile(lambda: run(LONG_CHUNK), 1)
+    # Device time of one prefill at chunks of LONG_CHUNK, by kernel name,
+    # and each kernel's share of it.
+    prof = _device_profile(lambda: run(LONG_CHUNK), 1)
+    dev_ms = prof["device_ms_per_step"]
+    prof["top_kernels_share"] = {name: ms / dev_ms for name, (ms, _) in
+                                 prof["top_kernels_ms_per_step"].items()} if dev_ms else None
+    line["prefill_profile"] = prof
     emit({"phase": "long_prefill", "model": "qwen3-4b", "layers": Ly,
           "prompt_tokens": LONG_PROMPT, "max_seq": LONG_MAX_SEQ, "pool_pages": LONG_PAGES,
           "page_size": PAGE_SIZE, **line,
@@ -2124,15 +2253,17 @@ def _sp(impl=None):
 
 def _sp_state_check(what, got, want, tol):
     """_state_err, every output finite, and the identity (0, NEG_INF, 0)
-    exactly wherever the plain version's l is 0 (an empty shard or row)."""
+    exactly wherever the plain version's l is 0 (an empty shard or row).
+    Returns o's max error, its ratio to tol per batch row and the count of
+    identity rows."""
     from tiny_llm_tpu_torch.kernels.flash_attention import NEG_INF
 
-    err = _state_err(what, got, want, tol)
+    err, rows = _state_err(what, got, want, tol)
     check(all(bool(torch.isfinite(x).all()) for x in got), f"{what}: not finite")
     empty = want[2] == 0
     check(not bool(got[0][empty].any()) and bool((got[1][empty] == NEG_INF).all())
           and not bool(got[2][empty].any()), f"{what}: an empty row is not the identity")
-    return err, int(empty.sum())
+    return err, rows, int(empty.sum())
 
 
 def _sp_kernel_entry(name, source, replaces, case, err, kern, plain, lib, bms, by):
@@ -2183,7 +2314,7 @@ def phase_sp_kernels(cfg, contract):
             got = ka.flash_decode_state_cuda(q, ks, vs, shard_lens[s], sc)
             want = ka.flash_decode_state_plain(q, ks, vs, shard_lens[s], sc)
             torch.cuda.synchronize()
-            err, e = _sp_state_check(f"flash_decode_state B={B} shard {s}", got, want, tol)
+            err, _, e = _sp_state_check(f"flash_decode_state B={B} shard {s}", got, want, tol)
             errs["flash_decode_state"].append(err)
             empty += e
         whole = ka.flash_attention_cuda(q, kb, vb, lens_t, sc)
@@ -2244,7 +2375,7 @@ def phase_sp_kernels(cfg, contract):
         got = pa.paged_decode_state_cuda(q, kl, vl, bt, lens_t, base, sc)
         want = pa.paged_decode_state_plain(q, kl, vl, bt, lens_t, base, sc)
         torch.cuda.synchronize()
-        err, e = _sp_state_check(f"paged_decode_state shard {s}", got, want, tol)
+        err, _, e = _sp_state_check(f"paged_decode_state shard {s}", got, want, tol)
         errs["paged_decode_state"].append(err)
         empty += e
         # The shard's live keys per row, gathered contiguous for the SDPA yardstick.
@@ -2305,11 +2436,11 @@ def phase_sp_kernels(cfg, contract):
     vlens = [-512, 700, 1024 + 1500]
     q, ks, vs = randn(3, Hq, L, D), randn(3, Hkv, S_loc, D), randn(3, Hkv, S_loc, D)
     lv = torch.tensor(vlens, dtype=torch.int32, device=dev)
-    got = ka.flash_prefill_state_cuda(q, ks, vs, lv, sc)
-    want = ka.flash_prefill_state_plain(q, ks, vs, lv, sc)
-    torch.cuda.synchronize()
-    err, empty = _sp_state_check(f"flash_prefill_state at virtual lengths {vlens}", got, want, tol)
-    check(bool((got[2][2] > 0).all()), "past the shard, a row saw no key")
+    # o per element within _state_tol; the control at lens + 1 changes only
+    # the row inside the shard (row 0 sees no key either way, row 2 all).
+    fields, want = _chunk_state_check(f"flash_prefill_state at virtual lengths {vlens}", q, ks, vs,
+                                      lv, sc)
+    check(bool((want[2][2] > 0).all()), "past the shard, a row saw no key")
     kern = graph_ms(lambda: ka.flash_prefill_state_cuda(q, ks, vs, lv, sc))
     plain = event_ms(lambda: ka.flash_prefill_state_plain(q, ks, vs, lv, sc), reps=1)
     # Library: SDPA over the shard's keys, query i of row b seeing the keys
@@ -2329,9 +2460,9 @@ def phase_sp_kernels(cfg, contract):
                     4 * Hq * pairs * D)
     cases.append({"kernel": "flash_prefill_state", "tpu_kernel": ka.TPU_KERNEL_STATE,
                   "shape": f"B=3 L={L} S_loc={S_loc} virtual lens={vlens} Hq={Hq} Hkv={Hkv} D={D}",
-                  "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
+                  **fields, "kernel_ms": kern, "plain_ms": plain,
                   "library_ms": lib, "library": "SDPA over the shard's keys, virtual-length "
-                  "boolean mask", "bound_ms": bms, "bound_by": by, "identity_rows": empty})
+                  "boolean mask", "bound_ms": bms, "bound_by": by})
     del q, ks, vs
     torch.cuda.empty_cache()
     for name, e in errs.items():
@@ -2615,31 +2746,38 @@ def _kernel_path(run, name):
     return counts
 
 
-def _attention_tol(q, k, v, lens, mask, scale, want):
-    """Per element, how far the masked kernel may be from its plain version
-    `want` (the same rounding points, the same mask): 2 bf16 ulps of the
-    plain value (each side's final rounding), plus the drift of the
-    probabilities' bf16 rounding. The kernel rounds each p against its
-    running max and the plain version against the row's max, so each
-    weight w_i = p_i / l may move by 2^-8 of itself: at most
-    2^-8 * sum_i w_i |v_i| (attention over |v|); where many keys share the
-    weight the moves cancel, about 2^-9 * sqrt(sum_i w_i^2 v_i^2) a standard
-    deviation, which is at most sqrt(W v^2 / l) (every w_i <= 1 / l): six of
-    those. The smaller of the two bounds counts."""
+def _state_tol(q, k, v, ok, scale, want, bias=None):
+    """Per element, how far an attention kernel's o may be from its plain
+    version `want` (the same rounding points; ok [B, L, S] marks each row's
+    visible keys, `bias` an additive mask): 2 bf16 ulps of the plain value
+    (each side's final rounding), plus the drift of the probabilities' bf16
+    rounding. A kernel rounds each p against its running max and the plain
+    version against the row's max, so each weight w_i = p_i / l may move by
+    2^-8 of itself: at most 2^-8 * sum_i w_i |v_i| (attention over |v|);
+    where many keys share the weight the moves cancel, about 2^-9 *
+    sqrt(sum_i w_i^2 v_i^2) a standard deviation, which is at most
+    sqrt(W v^2 / l) (every w_i <= 1 / l): six of those. The smaller of the
+    two bounds counts. Scores and sums in another order (SIMT lanes or
+    tensor-core fragments) move o by f32 ulps, far inside this."""
     from tiny_llm_tpu_torch.kernels import flash_attention as ka
 
-    B, _, L, _ = q.shape
-    S = k.shape[2]
-    ok = (torch.arange(S, device=q.device)[None, :] < lens[:, None].long())[:, None, :]
-    ok = ok.expand(B, L, S)
     vf = v.float()
-    over_abs = ka.attention_state_plain(q, k, vf.abs(), ok, scale, bias=mask)[0].float()
-    over_sq, _, l = ka.attention_state_plain(q, k, vf * vf, ok, scale, bias=mask)
+    over_abs = ka.attention_state_plain(q, k, vf.abs(), ok, scale, bias=bias)[0].float()
+    over_sq, _, l = ka.attention_state_plain(q, k, vf * vf, ok, scale, bias=bias)
     spread = torch.sqrt(over_sq.float() / l.clamp(min=1.0)[..., None])
     w = want.float()
     _, e = torch.frexp(w)  # |w| in [2^(e-1), 2^e): one bf16 ulp is 2^(e-8)
     ulps = torch.ldexp(torch.full_like(w, 2.0), e - 8) * (w != 0)
     return ulps + torch.minimum(2.0**-8 * over_abs, 6 * 2.0**-9 * spread)
+
+
+def _attention_tol(q, k, v, lens, mask, scale, want):
+    """_state_tol for the masked kernel: every key below lens[b] visible,
+    plus the additive mask."""
+    B, _, L, _ = q.shape
+    S = k.shape[2]
+    ok = (torch.arange(S, device=q.device)[None, :] < lens[:, None].long())[:, None, :]
+    return _state_tol(q, k, v, ok.expand(B, L, S), scale, want, bias=mask)
 
 
 def _over_tol(got, want, tol):

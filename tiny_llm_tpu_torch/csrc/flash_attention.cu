@@ -20,11 +20,18 @@
 // tlt_flash_prefill_state replaces
 // tiny_llm_tpu/kernels/flash_attention_pallas.py::_prefill_state_kernel
 // (flash_prefill_state_pallas): the same causal attention, emitting o
-// locally normalised and each row's m and l as f32 [B, Hq, L] (the tile's
-// STATE epilogue). The split paged prefill runs it on a chunk's own K/V at
-// chunk-local positions (lens = L). Bound on the H100 at 4B's shapes
-// (L = 1024, 32 heads): 8.6 GFLOP of causal pairs, 8.7 us at the bf16 peak,
-// against 21 MB of q/k/v/o (6.3 us); the SIMT tile is far from either.
+// locally normalised and each row's m and l as f32 [B, Hq, L]. The split
+// paged prefill runs it on a chunk's own K/V at chunk-local positions (lens
+// = L); sequence-parallel prefill runs it on each shard at virtual lengths
+// (below 0: the shard is past every query; above S: every key visible).
+// Bound on the H100: operations. At 4B's shapes (L = 2048, 32 heads) 34
+// GFLOP of causal pairs take 35 us at the bf16 peak against 42 MB of
+// q/k/v/o (13 us). Design: the tensor-core tile of flash_mma.cuh (both
+// products as warpgroup MMAs, 128-row q tiles of the KV head's n_rep heads,
+// a four-stage cp.async ring of 64-key K/V tiles, the softmax of one tile
+// under the P V of the one before), causal: each q tile's walk stops at its
+// last visible key, the longest walks are issued first, and only a tile
+// that crosses a row's position is masked element by element.
 //
 // tlt_flash_decode_state replaces
 // tiny_llm_tpu/kernels/flash_attention_pallas.py::_decode_state_kernel
@@ -40,6 +47,7 @@
 // (B = 1, 8 KV heads, a full shard of 1024 keys): 4.2 MB of K/V, 1.25 us;
 // one block per KV head walks its 1024 keys serially, so the grid (8
 // blocks) and the walk's latency bound it, far from the bytes.
+#include "flash_mma.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -69,7 +77,7 @@ int launch(const void* q, const void* k, const void* v, const void* lens, void* 
 }
 
 template <int D, int NREP>
-__global__ void __launch_bounds__(flash::WARPS * 32) flash_prefill_state(
+__global__ void __launch_bounds__(fmma::WARPS * 32, 1) flash_prefill_state(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ k,  // [B, Hkv, S, D]
     const __nv_bfloat16* __restrict__ v,
@@ -80,15 +88,19 @@ __global__ void __launch_bounds__(flash::WARPS * 32) flash_prefill_state(
     int Hkv, int L, int S, float scale) {
   const int h = blockIdx.y, bb = blockIdx.z;
   const SlabRows<D> rows{((size_t)bb * Hkv + h) * (size_t)S * D};
-  flash::tile<D, NREP, 8, true, true>(q, k, v, out, rows, lens[bb], S, blockIdx.x, h, bb, Hkv,
-                                      L, scale, m_out, l_out);
+  // The q tiles longest walk first: the last tile sees the most keys.
+  fmma::state_tile<D, NREP, true>(q, k, v, out, m_out, l_out, rows, lens[bb], S,
+                                  gridDim.x - 1 - blockIdx.x, h, bb, Hkv, L, scale);
 }
 
 template <int D, int NREP>
 int launch_state(const void* q, const void* k, const void* v, const void* lens, void* out,
                  void* m, void* l, int B, int Hkv, int L, int S, float scale, cudaStream_t st) {
-  constexpr int BQ = flash::WARPS * 8 / NREP;
-  flash_prefill_state<D, NREP><<<dim3((L + BQ - 1) / BQ, Hkv, B), dim3(flash::WARPS * 32), 0,
+  constexpr int BQ = fmma::WARPS * 16 / NREP, SMEM = fmma::smem_bytes<D>();
+  static const int attr = (int)cudaFuncSetAttribute(
+      flash_prefill_state<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr) return attr;
+  flash_prefill_state<D, NREP><<<dim3((L + BQ - 1) / BQ, Hkv, B), dim3(fmma::WARPS * 32), SMEM,
                                  st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lens),

@@ -1,0 +1,456 @@
+// Tensor-core flash-attention tile for Hopper (sm_90a), emitting each row's
+// softmax state: the split paged prefill's two kernels run on it, the
+// chunk-state flash prefill (flash_attention.cu, K/V in a dense slab,
+// causal) and the paged prefix-state walk (paged_attention.cu, K/V in a page
+// pool read through a block table, every prefix key visible to every row).
+// Where a key row lives is the `Rows` functor of common.cuh.
+//
+// What bounds the work on the H100: operations. At 4B's prefix walk (L =
+// 1024 over a 7168-token prefix) 120 GFLOP meet 46 MB of q/k/v/o, 0.12 ms
+// at the 989 TFLOP/s bf16 peak against 14 us of bytes. The SIMT tile
+// (flash_tile.cuh) ran these products on the FP32 pipes at 2 % of that
+// peak; the TPU kernels run them as MXU dots. Here both products run on
+// the tensor cores as warpgroup MMAs (wgmma.mma_async, HGMMA in SASS), the
+// only route to the card's full bf16 rate:
+//
+//   * One block of WARPS = 8 warps, two warpgroups, holds BM = 128 query
+//     rows: the KV head's NREP query heads times BQ = BM / NREP consecutive
+//     positions, so each K/V tile in shared memory serves every head that
+//     shares it. Each warpgroup owns 64 rows (wgmma's M), each warp 16.
+//   * q * scale is rounded to bf16 once and held in shared memory for the
+//     whole walk: S = Q K^T reads both operands by descriptor. (Held as
+//     register fragments instead, ptxas of CUDA 12.8 gave P's fragments the
+//     registers of Q's at D = 64 and the scores came out wrong; Q in shared
+//     memory costs no registers and no such hazard.)
+//   * Keys in tiles of BN = 64. K and V tiles move global -> shared with
+//     cp.async.cg, 16 bytes a thread, in a STAGES-deep ring, so later tiles
+//     load while this one computes. Each 16-byte chunk takes its row from
+//     `Rows` (a paged walk looks the page up in the block table, so a tile
+//     may straddle pages of any size; -1 entries read the trash page 0).
+//     Rows at or past the walk's end are zero-filled (src-size 0) and never
+//     read: no Inf or NaN in a trash page can meet a zero p. Nothing at or
+//     past `limit` (the slab length, or the block table's width in
+//     positions) is read.
+//   * Shared tiles are laid out as wgmma's 128-byte swizzle wants them
+//     (swz below), so the tensor cores read them without bank conflicts and
+//     without padding.
+//   * The online softmax runs on the f32 accumulator fragments: row max
+//     over a quad with two shuffles, exponentials as ex2 of a fused
+//     multiply-add in base 2 (m itself stays in the natural-log domain), row
+//     sums kept per thread and summed over the quad once, in the epilogue.
+//   * O += P V: P's f32 fragments convert in registers into bf16 A
+//     fragments (P never touches shared memory); V is read by descriptor as
+//     an MN-major operand.
+//   * The walk is software-pipelined: tile t + 1's scores are issued just
+//     before tile t's P V, and the warpgroup takes tile t + 1's softmax
+//     while the P V runs, so the tensor cores see the two products back to
+//     back.
+//   * CAUSAL: query i of batch row bb sits at position len - L + i (len may
+//     be virtual: below 0, or past the slab) and sees keys at positions <=
+//     its own. The walk stops at the q tile's last visible key, the q tiles
+//     are issued longest walk first, and only a tile that crosses a row's
+//     position or the walk's end is masked element by element. Otherwise
+//     every key below min(len, limit) is visible to every row.
+//
+// Rounding points are those of flash_tile.cuh and of the TPU kernels'
+// _flash_inner: q * scale rounds to bf16, scores and the softmax state are
+// f32, p rounds to bf16 for the PV product, o = acc / max(l, 1e-30) rounds
+// to bf16, NEG_INF / 2 floors the subtrahend. The epilogue writes o and
+// each row's m (max scaled score) and l (sum of the f32 p) as f32
+// [B, Hq, L]; a row that sees no key emits exactly (0, NEG_INF, 0), and
+// padding rows past L write nothing.
+#pragma once
+
+#include "common.cuh"
+
+namespace fmma {
+
+constexpr int WARPS = 8, BN = 64, STAGES = 4;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes = 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Warpgroup MMAs. D (64 x N, f32) lives in registers, d[4j + e] holding
+// rows g (e < 2) and g + 8 of each warp's 16 (g = lane / 4), columns 8j +
+// 2 (lane % 4) + (e & 1). A (64 x 16 bf16) comes from shared memory by
+// descriptor or from registers in the mma.sync A-fragment layout (each
+// warp its 16 rows); B (16 x N) from shared memory by descriptor.
+// D (64 x 64) = / += A B with both operands in shared memory by descriptor,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x N) += A B, A from registers, B MN-major (V: d contiguous).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Registers a wgmma reads are written before its wgmma.fence, and those it
+// writes are read after its wait: an empty asm over each register is that
+// barrier to the compiler.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+// Shared memory written through the generic proxy (cp.async, st.shared) is
+// read by wgmma through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A 128-byte-swizzled shared matrix descriptor: start address, the strides
+// between 64-element column blocks (lbo) and between 8-row groups (sbo).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte offset of 16-byte chunk c of row r in a [ROWS][D] bf16 tile laid out
+// as wgmma's 128-byte swizzle wants it: 64-element column blocks of ROWS
+// rows of 128 bytes, chunk c % 8 of row r stored at (c % 8) ^ (r & 7). Tiles
+// start 1024-byte aligned, so the hardware's swizzle (address bits 4-6 XOR
+// bits 7-9) is this one. K-major operands (Q, K: d contiguous) step 32
+// bytes along a row a k16 step; V, MN-major, steps 16 rows.
+template <int ROWS>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>((c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// Dynamic shared memory of one block: the ring of K and V tiles, then q.
+// Above 48 KB, so each kernel sets cudaFuncAttributeMaxDynamicSharedMemorySize
+// before its first launch.
+template <int D>
+constexpr int smem_bytes() {
+  return STAGES * 2 * BN * D * 2 + WARPS * 16 * D * 2 + 1024;  // + slack to align to 1024
+}
+
+// Issue S = Q K^T for the warpgroup's 64 rows (q at qa) and one key tile
+// (K at ka): KS k16 steps, one commit group.
+template <int KS>
+__device__ __forceinline__ void issue_qk(float (&s)[BN / 2], uint32_t qa, uint32_t ka) {
+  constexpr int BM = WARPS * 16;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_ss_n64(s, sw128_desc(qa + (kk >> 2) * BM * 128 + (kk & 3) * 32, 0, 1024),
+                 sw128_desc(ka + (kk >> 2) * BN * 128 + (kk & 3) * 32, 0, 1024), kk > 0);
+  wgmma_commit();
+}
+
+// Issue O += P V for one key tile (V at va): BN / 16 k16 steps, one commit
+// group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[BN / 16][4],
+                                         uint32_t va) {
+  fence_regs(acc);
+  fence_regs(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < BN / 16; ++kt) {
+    const uint64_t vd = sw128_desc(va + kt * 16 * 128, BN * 128, 1024);
+    if constexpr (D == 64) wgmma_rs_n64(acc, pa[kt], vd, 1);
+    else wgmma_rs_n128(acc, pa[kt], vd, 1);
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one key tile (keys t0 .. t0 + BN - 1) on its score
+// fragments, rows g (i & 2 == 0) and g + 8: masks the keys a row may not
+// see (only on a tile that crosses the walk's end or a row's position),
+// updates m and l, writes P as bf16 A fragments and the factors that
+// rescale the rows' earlier sums.
+template <bool CAUSAL>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], uint32_t (&pa)[BN / 16][4],
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             int t0, int kend, int qmin, const int (&qpos)[2],
+                                             int tig) {
+  if (t0 + BN > kend || (CAUSAL && t0 + BN - 1 > qmin)) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int kpos = t0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+      const bool seen = kpos < kend && (!CAUSAL || kpos <= qpos[(i >> 1) & 1]);
+      if (!seen) s[i] = TLT_NEG_INF;
+    }
+  }
+  float mf[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = m[hh];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    alpha[hh] = ex2((m[hh] - mx) * LOG2E);
+    mf[hh] = fmaxf(mx, TLT_NEG_INF / 2) * LOG2E;
+    m[hh] = mx;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = ex2(fmaf(s[4 * j + e], LOG2E, -mf[e >> 1]));
+      rs[e >> 1] += p[e];
+    }
+    pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
+}
+
+template <int D, int NREP, bool CAUSAL, class Rows>
+__device__ __forceinline__ void state_tile(
+    const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
+    const __nv_bfloat16* __restrict__ k,  // base of the rows `rows` addresses
+    const __nv_bfloat16* __restrict__ v,
+    __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
+    float* __restrict__ m_out,        // [B, Hq, L]
+    float* __restrict__ l_out,
+    const Rows rows, int len, int limit, int qt, int h, int bb, int Hkv, int L, float scale) {
+  constexpr int THREADS = WARPS * 32, BM = 16 * WARPS, BQ = BM / NREP;
+  constexpr int CH = D / 8;                     // 16-byte chunks in a row
+  constexpr int TILE = BN * D * 2;              // bytes of one K or V tile
+  constexpr int KV_CHUNKS = BN * CH / THREADS;  // a thread's chunks of one tile
+  static_assert(BM % NREP == 0, "a q tile holds whole query heads");
+  static_assert(STAGES >= 3, "tile t + 1 lands while tile t computes");
+  static_assert((BN * CH) % THREADS == 0 && (BM * CH) % THREADS == 0, "whole chunks a thread");
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sraw = smem_u32(smem), sbase = (sraw + 1023) & ~1023u;
+  const uint32_t qbase = sbase + STAGES * 2 * TILE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int Hq = Hkv * NREP;
+  const int q0 = qt * BQ;
+
+  // The keys this block may read, and where its walk ends.
+  const int kend = min(len, limit);
+  const int walk = CAUSAL ? min(kend, len - L + min(q0 + BQ, L)) : kend;
+  const int ntiles = walk > 0 ? (walk + BN - 1) / BN : 0;
+  const int qmin = len - L + q0;  // CAUSAL: the block's first row position
+
+  auto load_tile = [&](int t) {
+    const uint32_t ks = sbase + (t % STAGES) * 2 * TILE, vs = ks + TILE;
+#pragma unroll
+    for (int i = 0; i < KV_CHUNKS; ++i) {
+      const int idx = tid + i * THREADS, r = idx / CH, c = idx % CH;
+      const int pos = t * BN + r;
+      const bool ok = pos < walk;
+      const size_t o = ok ? rows(pos) + c * 8 : 0;
+      cp_async16(ks + swz<BN>(r, c), k + o, ok ? 16 : 0);
+      cp_async16(vs + swz<BN>(r, c), v + o, ok ? 16 : 0);
+    }
+  };
+  auto stage = [&](int t) { return sbase + (t % STAGES) * 2 * TILE; };
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < ntiles) load_tile(t);
+    cp_async_commit();
+  }
+
+  // q * scale, rounded to bf16, into shared memory: row rr = rep * BQ +
+  // (qi - q0); rows past L are zeros.
+  {
+    uint8_t* qs = smem + (qbase - sraw);
+#pragma unroll
+    for (int i = 0; i < BM * CH / THREADS; ++i) {
+      const int idx = tid + i * THREADS, rr = idx / CH, c = idx % CH;
+      const int rep = rr / BQ, qi = q0 + rr % BQ;
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (qi < L)
+        raw = __ldg(reinterpret_cast<const uint4*>(
+                        q + (((size_t)bb * Hq + h * NREP + rep) * L + qi) * D) + c);
+      uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = pack_bf16(lo_bf16(w[j]) * scale, hi_bf16(w[j]) * scale);
+      *reinterpret_cast<uint4*>(qs + swz<BM>(rr, c)) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  const uint32_t qa = qbase + (warp >> 2) * 64 * 128;  // the warpgroup's 64 rows
+
+  // This thread's two rows (g and g + 8 of the warp's 16): their positions.
+  int qpos[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rr = warp * 16 + g + 8 * hh;
+    qpos[hh] = len - L + q0 + rr % BQ;
+  }
+  float m[2] = {TLT_NEG_INF, TLT_NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[BN / 2];
+  uint32_t pa[BN / 16][4];  // P as bf16 A fragments, one per 16 keys
+
+  // Tile 0's scores and softmax (acc is still 0: nothing to rescale).
+  cp_async_wait<STAGES - 2>();
+  fence_proxy_async();
+  __syncthreads();  // tile 0 and q landed for every thread
+  if (ntiles > 0) {
+    issue_qk<D / 16>(s, qa, stage(0));
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax_tile<CAUSAL>(s, pa, m, l, alpha, 0, kend, qmin, qpos, tig);
+  }
+  // Step t: tile t + 1's scores, then tile t's P V; tile t + 1's softmax
+  // while the P V runs.
+  for (int t = 0; t + 1 < ntiles; ++t) {
+    cp_async_wait<STAGES - 3>();
+    fence_proxy_async();
+    __syncthreads();  // tile t + 1 landed for every thread; tile t - 1's stage is free
+    if (t + STAGES - 1 < ntiles) load_tile(t + STAGES - 1);
+    cp_async_commit();
+    issue_qk<D / 16>(s, qa, stage(t + 1));
+    issue_pv<D>(acc, pa, stage(t) + TILE);
+    wgmma_wait<1>();  // the scores
+    fence_regs(s);
+    uint32_t pn[BN / 16][4];
+    softmax_tile<CAUSAL>(s, pn, m, l, alpha, (t + 1) * BN, kend, qmin, qpos, tig);
+    wgmma_wait<0>();  // the P V
+    fence_regs(acc);
+    fence_regs(pa);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < BN / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[i][j] = pn[i][j];
+  }
+  if (ntiles > 0) {
+    issue_pv<D>(acc, pa, stage(ntiles - 1) + TILE);
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // Epilogue: the quad's row sums, o = acc / max(l, 1e-30), m and l.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const int rr = warp * 16 + g + 8 * hh;
+    const int rep = rr / BQ, qi = q0 + rr % BQ;
+    if (qi >= L) continue;
+    const size_t row = ((size_t)bb * Hq + h * NREP + rep) * L + qi;
+    const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+    uint32_t* o = reinterpret_cast<uint32_t*>(out + row * D) + tig;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      o[j * 4] = pack_bf16(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+    if (tig == 0) {
+      m_out[row] = m[hh];
+      l_out[row] = l[hh];
+    }
+  }
+}
+
+}  // namespace fmma

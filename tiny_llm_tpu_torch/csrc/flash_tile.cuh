@@ -16,8 +16,8 @@
 // read. A row that sees no key emits 0, not NaN (NEG_INF = -1e30 with the
 // NEG_INF/2 floor on the subtrahend).
 //
-// Two compile-time options serve the split paged prefill; the defaults are
-// the causal tile above, unchanged for K3 and the paged kernels:
+// Two compile-time options serve the state and masked kernels; the defaults
+// are the causal tile above, unchanged for K3 and the paged kernels:
 //   CAUSAL = false  every row's position is len - 1 (the chunk comes after
 //                   the whole prefix), so the walk ends at min(len, limit)
 //                   and every key below len is visible to every row;
@@ -47,8 +47,8 @@
 // Rounding points follow the TPU kernels (flash_attention_pallas.py
 // _flash_inner): q * scale rounds to bf16, scores and the softmax state are
 // f32, probabilities round to bf16 for the PV product, the output is
-// acc / max(l, 1e-30) rounded to bf16. SIMT only; tensor cores are later
-// work.
+// acc / max(l, 1e-30) rounded to bf16. SIMT only; the split prefill's two
+// kernels run flash_mma.cuh's tensor-core tile instead.
 #pragma once
 
 #include "common.cuh"

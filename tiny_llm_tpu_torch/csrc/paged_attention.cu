@@ -19,7 +19,8 @@
 // 4B's shapes. At decode sizes the kernels are latency-bound (the walk
 // over pages is serial in each block, and the grid is only B x Hkv).
 //
-// Design: flash_tile.cuh, the tile K3 runs, with PageRows addressing:
+// Design (decode, prefill and the decode-state walk): flash_tile.cuh, the
+// SIMT tile K3 runs, with PageRows addressing:
 // each lane that loads a key row looks its page up in the block table, so
 // a 32-key tile may straddle pages of any size. The walk is bounded by the
 // q tile's causal limit, i.e. by the row's live pages.
@@ -34,12 +35,14 @@
 // queries attend to the cached prefix, non-causally (every key below
 // prefix_lens[b] is visible to every row; the chunk's own rows, already
 // written into the prefix's tail page, are at or past it and never read),
-// emitting o and each row's m and l (the tile with CAUSAL = false and the
-// STATE epilogue). A row with prefix_len 0 emits the identity (0, NEG_INF,
-// 0). Bound on the H100 at 4B's shapes (L = 1024, prefix 7168): 120 GFLOP,
-// 0.122 ms at the bf16 peak, against 46 MB of K/V/q/o (14 us); the SIMT
-// tile runs on the FP32 pipes, far from either. Same 64-row q tiles, each
-// walking the whole prefix once for its n_rep heads.
+// emitting o and each row's m and l. A row with prefix_len 0 emits the
+// identity (0, NEG_INF, 0). Bound on the H100: operations. At 4B's shapes
+// (L = 1024, prefix 7168) 120 GFLOP take 0.122 ms at the bf16 peak against
+// 46 MB of K/V/q/o (14 us). Design: the tensor-core tile of flash_mma.cuh
+// (both products as warpgroup MMAs, 128-row q tiles of the KV head's n_rep
+// heads over a four-stage cp.async ring of 64-key K/V tiles), each 16-byte
+// chunk of a K/V row finding its page in the block table as PageRows does,
+// rows past the prefix zero-filled and masked in the last tile only.
 //
 // The paged decode-state walk is the sequence-parallel paged decode's per-
 // shard half (parallel/sp_attention.py): the pool's page axis is split over
@@ -53,6 +56,7 @@
 // owned live pages' K/V bytes plus q, o, m and l over 3.35 TB/s, so 1/n of
 // the rows' context under the pool's balanced striping. The walk is as
 // serial as the decode kernel's, over the shard's pages only.
+#include "flash_mma.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -96,7 +100,7 @@ int launch_rows(int rpw, const void* q, const void* kp, const void* vp, const vo
 }
 
 template <int D, int NREP>
-__global__ void __launch_bounds__(flash::WARPS * 32) paged_prefix_state(
+__global__ void __launch_bounds__(fmma::WARPS * 32, 1) paged_prefix_state(
     const __nv_bfloat16* __restrict__ q,   // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ kp,  // [P, Hkv, ps, D]
     const __nv_bfloat16* __restrict__ vp,
@@ -108,16 +112,19 @@ __global__ void __launch_bounds__(flash::WARPS * 32) paged_prefix_state(
     int Hkv, int L, int ps, int maxp, float scale) {
   const int h = blockIdx.y, bb = blockIdx.z;
   const PageRows<D> rows{bt + (size_t)bb * maxp, ps, Hkv, h};
-  flash::tile<D, NREP, 8, false, true>(q, kp, vp, out, rows, prefix_lens[bb], maxp * ps,
-                                       blockIdx.x, h, bb, Hkv, L, scale, m_out, l_out);
+  fmma::state_tile<D, NREP, false>(q, kp, vp, out, m_out, l_out, rows, prefix_lens[bb],
+                                   maxp * ps, blockIdx.x, h, bb, Hkv, L, scale);
 }
 
 template <int D, int NREP>
 int launch_prefix(const void* q, const void* kp, const void* vp, const void* bt,
                   const void* lens, void* out, void* m, void* l, int B, int Hkv, int L, int ps,
                   int maxp, float scale, cudaStream_t st) {
-  constexpr int BQ = flash::WARPS * 8 / NREP;
-  paged_prefix_state<D, NREP><<<dim3((L + BQ - 1) / BQ, Hkv, B), dim3(flash::WARPS * 32), 0,
+  constexpr int BQ = fmma::WARPS * 16 / NREP, SMEM = fmma::smem_bytes<D>();
+  static const int attr = (int)cudaFuncSetAttribute(
+      paged_prefix_state<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr) return attr;
+  paged_prefix_state<D, NREP><<<dim3((L + BQ - 1) / BQ, Hkv, B), dim3(fmma::WARPS * 32), SMEM,
                                 st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(bt),

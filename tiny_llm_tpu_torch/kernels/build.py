@@ -10,8 +10,9 @@ Nothing here runs at import time: the CPU tests import every module.
 
 compiles every source of CSRC_DIR (default: the package's) with the same
 flags into a scratch directory and prints each kernel's registers, spill
-bytes and a digest of its SASS (`cuobjdump -sass`) as JSON, so two trees'
-kernels can be compared: equal digests, the same machine code.
+bytes, a digest of its SASS (`cuobjdump -sass`) and its count of
+tensor-core instructions as JSON, so two trees' kernels can be compared:
+equal digests, the same machine code.
 """
 
 from __future__ import annotations
@@ -131,10 +132,13 @@ def _kernel_name(mangled: str) -> str:
     return re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", mangled)
 
 
-def sass_digests(so: Path) -> dict[str, str]:
-    """Each kernel's SASS in a shared library, hashed (sha256, 16 hex
-    digits), keyed as `ptxas_registers` keys it. Runs of whitespace count as
-    one space: cuobjdump pads its columns to the widest instruction in the
+def sass_report(so: Path) -> dict[str, dict]:
+    """Each kernel's SASS in a shared library, keyed as `ptxas_registers`
+    keys it: `sass`, its text hashed (sha256, 16 hex digits), and
+    `tensor_core_ops`, its count of tensor-core instructions (HMMA, from
+    mma.sync; HGMMA, from wgmma), which shows from the machine code where a
+    product runs on the tensor cores. Runs of whitespace count as one space
+    in the hash: cuobjdump pads its columns to the widest instruction in the
     whole library, so a kernel added to a source would otherwise change the
     digests of the others."""
     r = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass", str(so)],
@@ -147,7 +151,8 @@ def sass_digests(so: Path) -> dict[str, str]:
             body = bodies.setdefault(_kernel_name(m.group(1)), [])
         elif body is not None:
             body.append(" ".join(ln.split()))
-    return {fn: hashlib.sha256("\n".join(b).encode()).hexdigest()[:16]
+    return {fn: {"sass": hashlib.sha256("\n".join(b).encode()).hexdigest()[:16],
+                 "tensor_core_ops": sum(bool(re.search(r"\bHG?MMA\.", ln)) for ln in b)}
             for fn, b in bodies.items()}
 
 
@@ -163,8 +168,8 @@ def main(argv: list[str]) -> int:
             if r.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
             report[src.stem] = ptxas_registers(r.stdout + r.stderr)
-            for fn, digest in sass_digests(Path(tmp) / f"{src.stem}.so").items():
-                report[src.stem].setdefault(fn, {})["sass"] = digest
+            for fn, info in sass_report(Path(tmp) / f"{src.stem}.so").items():
+                report[src.stem].setdefault(fn, {}).update(info)
     print(json.dumps(report, indent=1))
     return 0
 
