@@ -5,7 +5,9 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
   build     compile the CUDA kernels from tiny_llm_tpu_torch/csrc (nvcc, in
-            parallel, into build/), with the card's name and power limit
+            parallel, into build/), with the card's name and power limit;
+            the split prefill's two kernels and the masked prefill walk must
+            hold HGMMA in their SASS, the masked decode walk HMMA
   kernels   every kernel against its plain PyTorch version on the card at
             the shapes the main paths give it; kernel, plain and library
             times and the least time the card could take (the bound). The
@@ -116,11 +118,17 @@ The last Pallas rows:
             with sliding windows and per-head masks, prefill with a shared
             document mask and a per-head biased causal mask, S = 1000, fully
             masked rows (exactly 0), an additive causal mask against K3;
-            each within a per-element tolerance (2 bf16 ulps plus the
-            probabilities' rounding drift), with a control (the mask
-            shifted by one key) that must miss it; SDPA with the same
+            then, at both heads and n_rep 1 and 2, the designs' edges (L = 16
+            and 17, D = 64, window edges on keys 63 / 64 / 65 and on a decode
+            split's boundary, a length below 64, a -1e29 row that averages
+            and a -inf / -1e30 row that gives 0, large finite values in
+            every hidden V row); each within a per-element tolerance (2 bf16
+            ulps plus the probabilities' rounding drift), with a control (the
+            mask shifted by one key) that must miss it; SDPA with the same
             float mask as the library; the bound counts the visible keys
-            only; then flash_attention(mask=...) as a user calls it
+            only; the share of map tiles live and the former SIMT kernel's
+            time beside each case; then flash_attention(mask=...) as a user
+            calls it
   axpby     the tutorial kernel at 8192 x 8192, bf16 and f32, bit-equal to
             its plain version; then axpby() as a user calls it
   paged3_parity (run before serving) Qwen3Model(paged_fused_one=False), 4
@@ -273,16 +281,24 @@ def phase_build():
     log = build.build_all()
     secs = time.perf_counter() - t0
     regs = {name: build.ptxas_registers(info["ptxas"]) for name, info in log.items()}
-    # The split prefill's state kernels run their products on the tensor
-    # cores: their SASS holds HMMA / HGMMA instructions.
-    tc = {re.sub(r"^_ZN\d+_\w+_cu_[0-9a-f]{8}\d+", "", fn): info["tensor_core_ops"]
-          for src in ("flash_attention", "paged_attention")
-          for fn, info in build.sass_report(build._target(src)).items()
-          if "prefill_state" in fn or "prefix_state" in fn}
+    # The split prefill's state kernels and the masked prefill walk run their
+    # products as warpgroup MMAs (HGMMA in SASS); the masked decode walk as
+    # mma.sync (HMMA).
+    def tensor_ops(src, key, kind):
+        return {re.sub(r"^_ZN\d+_\w+_cu_[0-9a-f]{8}\d+", "", fn): info[kind]
+                for fn, info in build.sass_report(build._target(src)).items() if key in fn}
+
+    tc = {**tensor_ops("flash_attention", "prefill_state", "tensor_core_ops"),
+          **tensor_ops("paged_attention", "prefix_state", "tensor_core_ops")}
     check(len(tc) == 16 and all(tc.values()), f"state kernels' tensor-core instructions: {tc}")
+    masked = tensor_ops("flash_attention_masked", "flash_masked_prefill", "hgmma")
+    check(len(masked) == 24 and all(masked.values()), f"masked prefill HGMMA: {masked}")
+    dec = tensor_ops("flash_attention_masked", "flash_masked_decode", "tensor_core_ops")
+    check(len(dec) == 24 and all(dec.values()), f"masked decode HMMA: {dec}")
     smi = nvidia_smi()
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(log),
-          "state_kernels_tensor_core_ops": tc,
+          "state_kernels_tensor_core_ops": tc, "masked_prefill_hgmma": masked,
+          "masked_decode_tensor_core_ops": dec,
           "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi, regs
 
@@ -2787,6 +2803,15 @@ def _over_tol(got, want, tol):
     return ratio.flatten(1).amax(1).tolist()
 
 
+# The masked kernel's times on the SIMT tile it ran before the split-key
+# and tensor-core walks (PERF.md's kernel table, NVIDIA H100 80GB HBM3 at
+# 700 W), by head shape and case letter.
+MASK_SIMT_MS = {("qwen3-4b", "a"): 1.0686, ("qwen3-4b", "b"): 0.5626, ("qwen3-4b", "c"): 3.600,
+               ("qwen3-4b", "d"): 1.046, ("qwen3-4b", "e"): 0.311, ("qwen3-4b", "g"): 0.0514,
+               ("n_rep 8", "a"): 0.859, ("n_rep 8", "b"): 0.729, ("n_rep 8", "c"): 3.531,
+               ("n_rep 8", "d"): 1.048}
+
+
 def phase_mask_kernels(cfg, moe_cfg, contract):
     """The explicit-mask kernel (row 5) against its plain version on the card
     at Qwen3-4B's heads and at n_rep 8 (Qwen3-30B-A3B's): (a) decode, B = 4,
@@ -2804,9 +2829,12 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
     for (f), whose rows are all zeros or all hidden). Kernel, plain and SDPA
     times (the same float mask, lengths folded in, enable_gqa) and the bound:
     K/V bytes and QK/PV operations of the keys the length and the mask leave
-    visible, the mask's bytes below each length in full. Then the route a
-    user calls, flash_attention(mask=...), with the counts set to 0 just
-    before: only the masked kernel launches."""
+    visible, the mask's bytes below each length in full; beside them the
+    share of (plane, 16-row group, 64-key tile) blocks below the lengths that
+    mask_tile_map_plain marks live, and the SIMT tile's time. Then the edges of the
+    two designs (_mask_edge_cases) at both head shapes and at n_rep 1 and 2.
+    Then the route a user calls, flash_attention(mask=...), with the counts
+    set to 0 just before: only the masked kernel launches."""
     from tiny_llm_tpu_torch.kernels import flash_attention as ka
 
     dev = torch.device("cuda")
@@ -2827,7 +2855,11 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
         ok = (k <= pos[..., None]) & (k > pos[..., None] - window)
         return torch.where(ok, 0.0, -inf)
 
-    def run_case(label, what, q, k, v, lens, mask, shared_plane=False, control=True):
+    def run_case(label, what, q, k, v, lens, mask, shared_plane=False, control=True,
+                 profile=False):
+        """Hold one case to the tolerance; returns (got, want, case). profile:
+        also the device ms of each kernel the entry launches (map and walk,
+        or split walk and combine), from torch.profiler over 5 calls."""
         B, Hq, L, D = q.shape
         Hkv, S = k.shape[1], k.shape[2]
         sc = D**-0.5
@@ -2905,9 +2937,19 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
                 "library_f32_mask_err": f32_err,
                 "bound_ms": bms, "bound_by": by, "visible_pairs_all_heads": pairs,
                 "kv_keys_read": kv_keys, "mask_bytes": mask_bytes,
-                "rows_with_no_key": int((~seen).sum())}
+                "rows_with_no_key": int((~seen).sum()),
+                "live_tile_share": _live_share(m4, lens_t, S),
+                "simt_tile_kernel_ms": MASK_SIMT_MS.get((label.split(" (")[0], what[1])),
+                "decode_chunk": (ka.decode_chunk(B, Hkv, S, _sms())
+                                 if L <= ka.DECODE_MAX_L else None)}
+        if profile:
+            def five():
+                for _ in range(5):
+                    ka.flash_attention_masked_cuda(q, k, v, lens_t, m4, sc)
+
+            case["device_ms_by_kernel"] = _device_profile(five, 5)["top_kernels_ms_per_step"]
         cases.append(case)
-        return got, case
+        return got, want, case
 
     shapes = [("qwen3-4b", cfg.num_key_value_heads,
                cfg.num_attention_heads // cfg.num_key_value_heads),
@@ -2921,7 +2963,8 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
         q, k, v = qkv(4, Hkv, n_rep, 1, 8192)
         pos = torch.tensor(lens, device=dev)[:, None] - 1  # [B, L]: every row at lens - 1
         mask = visible_from(pos, 8192, 4096)
-        _, case = run_case(label, "(a) decode, sliding window 4096", q, k, v, lens, mask)
+        _, _, case = run_case(label, "(a) decode, sliding window 4096", q, k, v, lens, mask,
+                              profile=True)
         if label == "qwen3-4b":
             contract["flash_attention_masked"] = {
                 "name": "flash_attention_masked", "route": "cuda", "source": ka.SOURCE_MASKED,
@@ -2939,7 +2982,8 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
         ok = (kk <= pos[:, None, :, None]) & (kk > pos[:, None, :, None] - w)
         mask = torch.where(ok, 0.5 * torch.randn((2, Hq, 4, 4096), generator=gen, device=dev),
                            -inf)
-        run_case(label, "(b) decode L=4, per-head windows + bias", q, k, v, lens, mask)
+        run_case(label, "(b) decode L=4, per-head windows + bias", q, k, v, lens, mask,
+                 profile=True)
         if label == "qwen3-4b":
             path.append((q, k, v, lens, mask))
         # (c) prefill, a shared block-document mask [L, S] (three documents).
@@ -2950,7 +2994,7 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
         i = torch.arange(L, device=dev)
         mask = torch.where((doc[:, None] == doc[None, :]) & (i[None, :] <= i[:, None]), 0.0, -inf)
         run_case(label, "(c) prefill, shared document mask", q, k, v, [L], mask,
-                 shared_plane=True)
+                 shared_plane=True, profile=True)
         if label == "qwen3-4b":
             path.append((q, k, v, [L], mask))
         # (d) prefill, a per-head causal mask with a random bias [1, Hq, L, S].
@@ -2959,14 +3003,14 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
         i = torch.arange(L, device=dev)
         mask = torch.where(i[None, :] <= i[:, None],
                            torch.randn((1, Hq, L, L), generator=gen, device=dev), -inf)
-        run_case(label, "(d) prefill, per-head causal + bias", q, k, v, [L], mask)
+        run_case(label, "(d) prefill, per-head causal + bias", q, k, v, [L], mask, profile=True)
         if label == "qwen3-4b":
             path.append((q, k, v, [L], mask))
         del mask
         # (e) S = 1000 (not a multiple of the 32-key tile), L = 16, a random bias.
         q, k, v = qkv(2, Hkv, n_rep, 16, 1000)
         mask = torch.randn((2, 16, 1000), generator=gen, device=dev)
-        run_case(label, "(e) S=1000, bias", q, k, v, [1000, 777], mask)
+        run_case(label, "(e) S=1000, bias", q, k, v, [1000, 777], mask, profile=True)
         torch.cuda.empty_cache()
 
     Hkv, n_rep = shapes[0][1], shapes[0][2]
@@ -2974,15 +3018,16 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
     q, k, v = qkv(1, Hkv, n_rep, 64, 512)
     mask = torch.zeros((64, 512), device=dev)
     mask[7], mask[9] = -inf, ka.NEG_INF
-    got, case = run_case("qwen3-4b", "(f) fully masked rows 7 and 9", q, k, v, [512], mask,
-                         control=False)  # shifting a row of zeros changes nothing
+    got, _, case = run_case("qwen3-4b", "(f) fully masked rows 7 and 9", q, k, v, [512], mask,
+                            control=False)  # shifting a row of zeros changes nothing
     check(not bool(got[:, :, [7, 9]].any()) and case["rows_with_no_key"] == 2 * q.shape[1],
           "fully masked rows are not exactly 0")
     # (g) an additive causal mask through the masked kernel against K3.
     q, k, v = qkv(1, Hkv, n_rep, 128, 128)
     i = torch.arange(128, device=dev)
     mask = torch.where(i[None, :] <= i[:, None], 0.0, -inf)
-    got, case = run_case("qwen3-4b", "(g) additive causal mask, against K3", q, k, v, [128], mask)
+    got, _, case = run_case("qwen3-4b", "(g) additive causal mask, against K3", q, k, v, [128],
+                            mask)
     l128 = torch.tensor([128], dtype=torch.int32, device=dev)
     k3 = ka.flash_attention_cuda(q, k, v, l128, 128**-0.5)
     m4 = ka._mask_planes(mask, 1, q.shape[1], 128, 128, dev)
@@ -2993,6 +3038,7 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
         got, k3, 2 * _attention_tol(q, k, v, l128, m4, 128**-0.5, want))[0]
     case["k3_ms"] = graph_ms(lambda: ka.flash_attention_cuda(q, k, v, l128, 128**-0.5))
     check(case["vs_k3_err_over_tol"] <= 1, f"masked causal against K3: {case['vs_k3_max_err']}")
+    _mask_edge_cases(shapes, qkv, run_case)
     contract["flash_attention_masked"]["max_abs_err"] = max(errs)
 
     # The route a user calls: flash_attention(mask=...), as given (f32 or
@@ -3011,6 +3057,106 @@ def phase_mask_kernels(cfg, moe_cfg, contract):
     emit({"phase": "mask_kernels", "cases": cases,
           "route_launches": {"flash_attention_masked": counts["flash_attention_masked"]}})
     return counts
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _live_share(m4, lens, S):
+    """The share of (plane, 16-row group, 64-key tile) blocks below each
+    batch row's length that mask_tile_map_plain marks live (None: no mask)."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+
+    if m4 is None:
+        return None
+    live = ka.mask_tile_map_plain(m4, lens)
+    tiles = (torch.clamp(lens.long(), 0, S) + ka.MAP_KEYS - 1) // ka.MAP_KEYS  # [B]
+    below = torch.arange(live.shape[-1], device=live.device)[None, :] < tiles[:, None]
+    return float(live.sum()) / max(1, int(below.sum()) * live.shape[1] * live.shape[2])
+
+
+def _mask_edge_cases(shapes, qkv, run_case):
+    """The masked kernel at the edges of its two designs, at both models'
+    heads and at n_rep 1 and 2 (8 KV heads), each case held by run_case:
+    (h) decode L = 16, D = 128, B = 3, S = 2048: one row's window per query
+    position, with edges on keys 63 / 64 / 65 and on the decode split's
+    chunk boundary (c - 1 / c / c + 1), batch row 2 at a length of 40; (i)
+    the same windows at L = 17, the first row of the tensor-core walk; (j)
+    decode L = 1, D = 64, per-head windows, head 0's row at -1e29 everywhere
+    (every key below the length visible at equal scores: the uniform
+    average) and head 1's mixing -inf and -1e30 (hidden: exactly 0); (k)
+    prefill L = 64, D = 64, per-head, the same special rows. Every V row no
+    query of its KV head may see holds 1e15: a skipped or partly hidden
+    tile that leaked would show at once."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+
+    dev = torch.device("cuda")
+    inf, big = float("inf"), 1e15
+    heads = [(label, Hkv, n_rep) for label, Hkv, n_rep in shapes] + [
+        ("n_rep 1", 8, 1), ("n_rep 2", 8, 2)]
+
+    def hide_v(v, mask, lens, n_rep):
+        """Fill the V rows no query row of their KV head sees with `big`."""
+        B, Hkv, S, _ = v.shape
+        m4 = ka._mask_planes(mask, B, Hkv * n_rep, mask.shape[-2], S, dev)
+        below = torch.arange(S, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        seen = (m4 > ka.NEG_INF) & below[:, None, None, :]
+        seen = seen.expand(B, Hkv * n_rep, *seen.shape[2:]).reshape(B, Hkv, n_rep, -1, S)
+        v = v.clone()
+        v[~seen.any(3).any(2)] = big
+        return v
+
+    def windows(L, S, c, short):
+        """[3, L, S]: query row i of batch row b sees keys lo .. hi."""
+        edges = [(0, 63), (64, 128), (65, c + 63), (63, c), (c, c + 64), (c + 1, S - 1),
+                 (c - 1, c + 1), (129, 191)]
+        lo = torch.tensor([edges[i % 8][0] for i in range(L)], device=dev)
+        hi = torch.tensor([edges[i % 8][1] for i in range(L)], device=dev)
+        k = torch.arange(S, device=dev)
+        rows = (k >= lo[:, None]) & (k <= hi[:, None])
+        near = (k >= (torch.arange(L, device=dev) % short)[:, None]) & (k < short)
+        ok = torch.stack([rows, rows.flip(0), near])
+        return torch.where(ok, 0.0, -inf)
+
+    def special(B, Hq, L, S, lens):
+        """[B, Hq, L, S] per-head windows with a bias; head 0's row 0 at
+        -1e29, head 1's row 0 alternating -inf and -1e30."""
+        k = torch.arange(S, device=dev)
+        w = 64 * (1 + torch.arange(Hq, device=dev))[None, :, None, None]
+        pos = torch.tensor(lens, device=dev)[:, None, None, None] - 1
+        ok = (k <= pos) & (k > pos - w - torch.arange(L, device=dev)[None, None, :, None])
+        m = torch.where(ok, 0.3 * torch.randn((B, Hq, L, S), device=dev), -inf)
+        m[:, 0, 0] = -1e29
+        m[:, 1, 0] = torch.where(k % 2 == 0, -inf, ka.NEG_INF)
+        return m
+
+    def check_special(what, got, want, v, lens):
+        check(not bool(got[:, 1, 0].any()), f"masked {what}: the -inf / -1e30 row is not 0")
+        for b, n in enumerate(lens):
+            mean = v[b, 0, :n].float().mean(0)
+            check(max_err(want[b, 0, 0], mean) < 2e-2 and bool(got[b, 0, 0].any()),
+                  f"masked {what}: the -1e29 row is not the uniform average")
+
+    S = 2048
+    for label, Hkv, n_rep in heads:
+        short = 40
+        c = ka.decode_chunk(3, Hkv, S, _sms())
+        lens = [S, 1500, short]
+        for L in (16, 17):
+            q, k, v = qkv(3, Hkv, n_rep, L, S)
+            mask = windows(L, S, c, short)
+            run_case(label, f"({'h' if L == 16 else 'i'}) edges L={L}, chunk {c}", q, k,
+                     hide_v(v, mask, lens, n_rep), lens, mask)
+        lens = [1000, 300]
+        for L, letter in ((1, "j"), (64, "k")):
+            q, k, v = qkv(2, Hkv, n_rep, L, 1000, D=64)
+            mask = special(2, Hkv * n_rep, L, 1000, lens)
+            v = hide_v(v, mask, lens, n_rep)
+            what = f"({letter}) D=64 L={L}, -1e29 and -inf/-1e30 rows"
+            got, want, _ = run_case(label, what, q, k, v, lens, mask)
+            check_special(what, got, want, v, lens)
+    torch.cuda.empty_cache()
 
 
 def _prep_cases(contract, Ly):

@@ -121,7 +121,7 @@ __global__ void __launch_bounds__(flash::WARPS * 32) flash_decode_state(
     int Hkv, int L, int S, long long sb, long long sh, float scale) {
   const int h = blockIdx.y, bb = blockIdx.z;
   const SlabRows<D> rows{(size_t)bb * sb + (size_t)h * sh};
-  flash::tile<D, NREP, RPW, true, true>(q, k, v, out, rows, lens[bb], S, blockIdx.x, h, bb, Hkv,
+  flash::tile<D, NREP, RPW, true>(q, k, v, out, rows, lens[bb], S, blockIdx.x, h, bb, Hkv,
                                         L, scale, m_out, l_out);
 }
 

@@ -51,6 +51,28 @@
 //     are issued longest walk first, and only a tile that crosses a row's
 //     position or the walk's end is masked element by element. Otherwise
 //     every key below min(len, limit) is visible to every row.
+//   * MASK (the explicit-mask kernel, flash_attention_masked.cu; the
+//     default MASK_NONE leaves the state kernels as they were): non-causal,
+//     an additive f32 mask tile of the block's rows moves in the cp.async
+//     ring beside each K/V tile, is added to the score fragments and the
+//     sum floored at NEG_INF, as the TPU kernels' _flash_inner does. Where
+//     four stages of K/V and mask fit (a shared plane at n_rep >= 2, or D =
+//     64) the mask rides in the K/V groups; 128 mask rows at D = 128 take
+//     three stages of each, the mask copied a step further ahead than K/V
+//     (kv_stages). The walk visits only the block's live key tiles: a
+//     first kernel marks, per (mask plane, 16-row group, 64-key tile),
+//     whether any entry below L and the row's length exceeds NEG_INF
+//     (flash_attention_masked.cu mask_tile_map); the block ORs its groups
+//     and planes into a list of live tiles in its prologue, and the ring's
+//     stages follow the position in that list. A skipped tile is exact:
+//     every score of it would be NEG_INF, so m, l and acc stay as they are.
+//     p is then ex2((s - m) log2 e), not an FMA of s log2 e: a row whose
+//     mask is -1e29 everywhere keeps s = m exactly and averages V, where
+//     the FMA's rounding of m log2 e alone would reach 1e21.
+//   * STATE = false (the masked kernel): q arrives by cp.async in a group
+//     of its own, first, and is scaled in place; o alone is written, staged
+//     through shared memory into 16-byte stores (a block's fixed cost
+//     weighs on the masked walk's short, sparse walks).
 //
 // Rounding points are those of flash_tile.cuh and of the TPU kernels'
 // _flash_inner: q * scale rounds to bf16, scores and the softmax state are
@@ -75,6 +97,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16 bytes global -> shared; src_bytes = 0 fills the 16 bytes with zeros.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared (any 4-byte alignment); src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
 }
@@ -220,12 +248,125 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return static_cast<uint32_t>((c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }
 
-// Dynamic shared memory of one block: the ring of K and V tiles, then q.
-// Above 48 KB, so each kernel sets cudaFuncAttributeMaxDynamicSharedMemorySize
-// before its first launch.
-template <int D>
+// The rings of a walk with MR mask rows a tile (0: no mask). The mask
+// tile rides in the K/V ring's groups, STAGES deep, where both fit in
+// shared memory (a shared plane at n_rep >= 2, or D = 64); otherwise (128
+// rows at D = 128) K/V and the mask take three stages each and the mask is
+// copied a step further ahead than K/V: the mask streams from device memory
+// (128 MB of per-head planes at 4B's heads), K/V mostly from L2.
+template <int D, int MR>
+__host__ __device__ constexpr int kv_stages() {
+  return MR == 0 || STAGES * (2 * BN * D * 2 + MR * BN * 4) + WARPS * 16 * D * 2 + 1024 <=
+                        227 * 1024
+             ? STAGES
+             : 3;
+}
+
+// Dynamic shared memory of one block: the ring of K and V tiles, then q,
+// then the ring of mask tiles. Above 48 KB, so each kernel sets
+// cudaFuncAttributeMaxDynamicSharedMemorySize before its first launch.
+template <int D, int MR = 0>
 constexpr int smem_bytes() {
-  return STAGES * 2 * BN * D * 2 + WARPS * 16 * D * 2 + 1024;  // + slack to align to 1024
+  return kv_stages<D, MR>() * (2 * BN * D * 2 + MR * BN * 4) + WARPS * 16 * D * 2 +
+         1024;  // + slack to align to 1024
+}
+
+// Explicit additive masks. MASK_SHARED: one [L, S] f32 plane per batch row,
+// every head alike; MASK_HEAD: one plane per query head. Plane p of batch
+// row bb starts at mask + bb * msb + p * msh; rows are contiguous (row
+// stride S).
+constexpr int MASK_NONE = 0, MASK_SHARED = 1, MASK_HEAD = 2;
+
+struct MaskPlanes {
+  const float* mask;
+  long long msb, msh;  // batch and head strides, elements
+  int S;               // a plane's row stride and key count
+  bool vec;            // planes, rows and strides 16-byte aligned: 16-byte copies
+  uint8_t* map;        // the live-tile map [B, P, G, NT] (mask_tile_map)
+  int planes, groups, ntk;  // P, G = ceil(L / 16), NT = ceil(S / 64)
+  int* list;                // the block's own list of live key tiles (workspace)
+};
+
+// A mask tile in shared memory: MR rows of BN f32, 16-byte chunk c of row r
+// at chunk c ^ 2 (r & 7), so the eight rows of a fragment read (rows g,
+// columns 2 tig + 8j) hit distinct banks.
+__device__ __forceinline__ uint32_t mswz(int r, int c) {
+  return static_cast<uint32_t>(r * BN * 4 + ((c ^ ((r & 7) << 1)) << 4));
+}
+
+// Copy key tile t (keys t * BN ..) of MR mask rows into a ring stage at ms;
+// rowp(r) is row r's start in its plane (nullptr: a padding row, zeros).
+// Keys at or past S are zero-filled: the walk masks them anyway.
+template <int MR, int THREADS, class RowPtr>
+__device__ __forceinline__ void load_mask_tile(uint32_t ms, const MaskPlanes& mp, int t, int tid,
+                                               RowPtr rowp) {
+  if (mp.vec) {
+    for (int i = tid; i < MR * BN / 4; i += THREADS) {
+      const int r = i / (BN / 4), c = i % (BN / 4), key = t * BN + 4 * c;
+      const float* src = rowp(r);
+      const bool ok = src != nullptr && key < mp.S;
+      cp_async16(ms + mswz(r, c), ok ? src + key : mp.mask, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < MR * BN; i += THREADS) {
+      const int r = i / BN, e = i % BN, key = t * BN + e;
+      const float* src = rowp(r);
+      const bool ok = src != nullptr && key < mp.S;
+      cp_async4(ms + mswz(r, e >> 2) + (e & 3) * 4, ok ? src + key : mp.mask, ok ? 4 : 0);
+    }
+  }
+}
+
+// Add a mask tile's values (at ms, generic) to NJ 8-column score fragments
+// of rows mr[0] and mr[1] (s[4j + e]: row mr[e >> 1], column c0 + 8j + 2 tig
+// + (e & 1)), the sums floored at NEG_INF.
+template <int NJ>
+__device__ __forceinline__ void add_mask(float (&s)[4 * NJ], const uint8_t* ms, const int (&mr)[2],
+                                         int c0, int tig) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = c0 + 8 * j + 2 * tig;
+      const float2 mk =
+          *reinterpret_cast<const float2*>(ms + mswz(mr[hh], col >> 2) + (col & 3) * 4);
+      s[4 * j + 2 * hh] = fmaxf(s[4 * j + 2 * hh] + mk.x, TLT_NEG_INF);
+      s[4 * j + 2 * hh + 1] = fmaxf(s[4 * j + 2 * hh + 1] + mk.y, TLT_NEG_INF);
+    }
+}
+
+// The masked walk's prologue: the block's live key tiles below ntiles,
+// ascending, into mp.list; returns their count. A tile is live when the
+// map marks it for any plane and 16-row group of the block's rows (BQ
+// positions from q0, and for MASK_HEAD the KV head's NREP query heads).
+template <int NREP, int MASK, int BQ>
+__device__ __forceinline__ int live_tiles(const MaskPlanes& mp, int ntiles, int bb, int h,
+                                          int q0, int L, int tid) {
+  constexpr int THREADS = WARPS * 32, NP = MASK == MASK_HEAD ? NREP : 1;
+  __shared__ int wcnt[WARPS];
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g0 = q0 / 16, g1 = (min(q0 + BQ, L) - 1) / 16;
+  const uint8_t* map =
+      mp.map + ((size_t)bb * mp.planes + (MASK == MASK_HEAD ? h * NREP : 0)) * mp.groups * mp.ntk;
+  int n = 0;
+  for (int base = 0; base < ntiles; base += THREADS) {
+    const int t = base + tid;
+    bool on = false;
+    if (t < ntiles)
+      for (int p = 0; p < NP; ++p)
+        for (int g = g0; g <= g1; ++g) on |= __ldg(map + ((size_t)p * mp.groups + g) * mp.ntk + t);
+    const unsigned bal = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) wcnt[warp] = __popc(bal);
+    __syncthreads();
+    int at = n;
+    for (int w = 0; w < WARPS; ++w) {
+      at += w < warp ? wcnt[w] : 0;
+      n += wcnt[w];
+    }
+    if (on) mp.list[at + __popc(bal & ((1u << lane) - 1))] = t;
+    __syncthreads();  // the list is written; wcnt may be reused
+  }
+  return n;
 }
 
 // Issue S = Q K^T for the warpgroup's 64 rows (q at qa) and one key tile
@@ -265,8 +406,9 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[BN 
 // fragments, rows g (i & 2 == 0) and g + 8: masks the keys a row may not
 // see (only on a tile that crosses the walk's end or a row's position),
 // updates m and l, writes P as bf16 A fragments and the factors that
-// rescale the rows' earlier sums.
-template <bool CAUSAL>
+// rescale the rows' earlier sums. EXACT (the masked walk): p = ex2((s - m)
+// log2 e), exact where s = m at any magnitude.
+template <bool CAUSAL, bool EXACT = false>
 __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], uint32_t (&pa)[BN / 16][4],
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              int t0, int kend, int qmin, const int (&qpos)[2],
@@ -288,7 +430,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], uint32_t (&pa)[
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     alpha[hh] = ex2((m[hh] - mx) * LOG2E);
-    mf[hh] = fmaxf(mx, TLT_NEG_INF / 2) * LOG2E;
+    if constexpr (EXACT) mf[hh] = fmaxf(mx, TLT_NEG_INF / 2);
+    else mf[hh] = fmaxf(mx, TLT_NEG_INF / 2) * LOG2E;
     m[hh] = mx;
   }
   float rs[2] = {0.f, 0.f};
@@ -297,7 +440,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], uint32_t (&pa)[
     float p[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      p[e] = ex2(fmaf(s[4 * j + e], LOG2E, -mf[e >> 1]));
+      if constexpr (EXACT) p[e] = ex2((s[4 * j + e] - mf[e >> 1]) * LOG2E);
+      else p[e] = ex2(fmaf(s[4 * j + e], LOG2E, -mf[e >> 1]));
       rs[e >> 1] += p[e];
     }
     pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
@@ -307,25 +451,39 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], uint32_t (&pa)[
   for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
 }
 
-template <int D, int NREP, bool CAUSAL, class Rows>
+// Mask rows of one tile in the masked walk: the block's BQ positions for a
+// shared plane, every one of its BM rows for per-head planes.
+template <int NREP, int MASK>
+__host__ __device__ constexpr int mask_rows() {
+  return MASK == MASK_NONE ? 0 : MASK == MASK_HEAD ? WARPS * 16 : WARPS * 16 / NREP;
+}
+
+template <int D, int NREP, bool CAUSAL, class Rows, int MASK = MASK_NONE, bool STATE = true>
 __device__ __forceinline__ void state_tile(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ k,  // base of the rows `rows` addresses
     const __nv_bfloat16* __restrict__ v,
     __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
-    float* __restrict__ m_out,        // [B, Hq, L]
+    float* __restrict__ m_out,        // [B, Hq, L] (STATE)
     float* __restrict__ l_out,
-    const Rows rows, int len, int limit, int qt, int h, int bb, int Hkv, int L, float scale) {
+    const Rows rows, int len, int limit, int qt, int h, int bb, int Hkv, int L, float scale,
+    const MaskPlanes mp = MaskPlanes{}) {
+  constexpr bool MASKED = MASK != MASK_NONE;
+  static_assert(!(MASKED && CAUSAL), "an explicit mask replaces causality");
   constexpr int THREADS = WARPS * 32, BM = 16 * WARPS, BQ = BM / NREP;
+  constexpr int MR = mask_rows<NREP, MASK>();   // mask rows of a tile
+  constexpr int MTILE = MR * BN * 4;            // bytes of one mask tile
   constexpr int CH = D / 8;                     // 16-byte chunks in a row
   constexpr int TILE = BN * D * 2;              // bytes of one K or V tile
   constexpr int KV_CHUNKS = BN * CH / THREADS;  // a thread's chunks of one tile
   static_assert(BM % NREP == 0, "a q tile holds whole query heads");
-  static_assert(STAGES >= 3, "tile t + 1 lands while tile t computes");
+  constexpr int KST = kv_stages<D, MR>();  // ring stages (the mask's as many)
+  static_assert(KST >= 3 && STAGES == 4, "tile t + 1 lands while tile t computes");
   static_assert((BN * CH) % THREADS == 0 && (BM * CH) % THREADS == 0, "whole chunks a thread");
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sraw = smem_u32(smem), sbase = (sraw + 1023) & ~1023u;
-  const uint32_t qbase = sbase + STAGES * 2 * TILE;
+  const uint32_t qbase = sbase + KST * 2 * TILE;
+  const uint32_t mbase = qbase + BM * D * 2;  // MASKED: the ring of mask tiles
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
@@ -338,11 +496,41 @@ __device__ __forceinline__ void state_tile(
   const int ntiles = walk > 0 ? (walk + BN - 1) / BN : 0;
   const int qmin = len - L + q0;  // CAUSAL: the block's first row position
 
-  auto load_tile = [&](int t) {
-    const uint32_t ks = sbase + (t % STAGES) * 2 * TILE, vs = ks + TILE;
+  // !STATE (the masked entry): q copied raw by cp.async in a group of its
+  // own, ahead of everything, and scaled in place once it lands; its
+  // latency hides under the list's and the first tiles'.
+  if constexpr (!STATE) {
 #pragma unroll
-    for (int i = 0; i < KV_CHUNKS; ++i) {
-      const int idx = tid + i * THREADS, r = idx / CH, c = idx % CH;
+    for (int i = 0; i < BM * CH / THREADS; ++i) {
+      const int idx = tid + i * THREADS, rr = idx / CH, c = idx % CH;
+      const int rep = rr / BQ, qi = q0 + rr % BQ;
+      const size_t o = qi < L ? (((size_t)bb * Hq + h * NREP + rep) * L + qi) * D + c * 8 : 0;
+      cp_async16(qbase + swz<BM>(rr, c), q + o, qi < L ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+
+  // MASKED: the walk visits the live tiles of the list, whose i-th entry
+  // is key tile tile_of(i); ring stages follow i. Otherwise tile i itself.
+  int nwalk = ntiles;
+  if constexpr (MASKED) nwalk = live_tiles<NREP, MASK, BQ>(mp, ntiles, bb, h, q0, L, tid);
+  auto tile_of = [&](int i) {
+    if constexpr (MASKED) return mp.list[i];
+    else return i;
+  };
+  // Mask row r of a tile: its row's start in its plane (nullptr past L).
+  auto mask_row = [&](int r) -> const float* {
+    const int qi = q0 + r % BQ;
+    const long long plane = MASK == MASK_HEAD ? (long long)(h * NREP + r / BQ) * mp.msh : 0;
+    return qi < L ? mp.mask + bb * mp.msb + plane + (long long)qi * mp.S : nullptr;
+  };
+
+  // Live position i's K and V tiles (key tile t) into its stage.
+  auto load_tile = [&](int i, int t) {
+    const uint32_t ks = sbase + (i % KST) * 2 * TILE, vs = ks + TILE;
+#pragma unroll
+    for (int j = 0; j < KV_CHUNKS; ++j) {
+      const int idx = tid + j * THREADS, r = idx / CH, c = idx % CH;
       const int pos = t * BN + r;
       const bool ok = pos < walk;
       const size_t o = ok ? rows(pos) + c * 8 : 0;
@@ -350,18 +538,26 @@ __device__ __forceinline__ void state_tile(
       cp_async16(vs + swz<BN>(r, c), v + o, ok ? 16 : 0);
     }
   };
-  auto stage = [&](int t) { return sbase + (t % STAGES) * 2 * TILE; };
+  // MASKED: live position i's mask tile (key tile t) into its stage.
+  auto load_mask = [&](int i, int t) {
+    load_mask_tile<MR, THREADS>(mbase + (i % KST) * MTILE, mp, t, tid, mask_row);
+  };
+  auto stage = [&](int i) { return sbase + (i % KST) * 2 * TILE; };
 
+  // Groups 0, 1, 2: K/V (below KST - 1) and the mask of positions 0, 1, 2.
 #pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < ntiles) load_tile(t);
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < nwalk) {
+      if (i < KST - 1) load_tile(i, tile_of(i));
+      if constexpr (MASKED) load_mask(i, tile_of(i));
+    }
     cp_async_commit();
   }
 
   // q * scale, rounded to bf16, into shared memory: row rr = rep * BQ +
   // (qi - q0); rows past L are zeros.
-  {
-    uint8_t* qs = smem + (qbase - sraw);
+  uint8_t* qs = smem + (qbase - sraw);
+  if constexpr (STATE) {
 #pragma unroll
     for (int i = 0; i < BM * CH / THREADS; ++i) {
       const int idx = tid + i * THREADS, rr = idx / CH, c = idx % CH;
@@ -378,13 +574,20 @@ __device__ __forceinline__ void state_tile(
   }
   const uint32_t qa = qbase + (warp >> 2) * 64 * 128;  // the warpgroup's 64 rows
 
-  // This thread's two rows (g and g + 8 of the warp's 16): their positions.
-  int qpos[2];
+  // This thread's two rows (g and g + 8 of the warp's 16): their positions
+  // and (MASKED) their rows of a mask tile.
+  int qpos[2], mr[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int rr = warp * 16 + g + 8 * hh;
     qpos[hh] = len - L + q0 + rr % BQ;
+    mr[hh] = MASK == MASK_HEAD ? rr : rr % BQ;
   }
+  // MASKED: add live position i's mask tile to the scores.
+  auto masked = [&](float(&sc)[BN / 2], int i) {
+    if constexpr (MASKED)
+      add_mask<BN / 8>(sc, smem + (mbase + (i % KST) * MTILE - sraw), mr, 0, tig);
+  };
   float m[2] = {TLT_NEG_INF, TLT_NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
   float acc[D / 2];
 #pragma unroll
@@ -394,28 +597,62 @@ __device__ __forceinline__ void state_tile(
 
   // Tile 0's scores and softmax (acc is still 0: nothing to rescale).
   cp_async_wait<STAGES - 2>();
+  if constexpr (!STATE) {  // this thread's q chunks landed: scale them
+#pragma unroll
+    for (int i = 0; i < BM * CH / THREADS; ++i) {
+      const int idx = tid + i * THREADS;
+      uint4* p = reinterpret_cast<uint4*>(qs + swz<BM>(idx / CH, idx % CH));
+      uint32_t w[4] = {p->x, p->y, p->z, p->w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = pack_bf16(lo_bf16(w[j]) * scale, hi_bf16(w[j]) * scale);
+      *p = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
   fence_proxy_async();
   __syncthreads();  // tile 0 and q landed for every thread
-  if (ntiles > 0) {
+  if (nwalk > 0) {
     issue_qk<D / 16>(s, qa, stage(0));
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile<CAUSAL>(s, pa, m, l, alpha, 0, kend, qmin, qpos, tig);
+    masked(s, 0);
+    softmax_tile<CAUSAL, MASKED>(s, pa, m, l, alpha, tile_of(0) * BN, kend, qmin, qpos, tig);
   }
   // Step t: tile t + 1's scores, then tile t's P V; tile t + 1's softmax
-  // while the P V runs.
-  for (int t = 0; t + 1 < ntiles; ++t) {
+  // while the P V runs. Each step copies the K/V of position t + KST - 1
+  // and (MASKED) the mask of position t + 3; with three K/V stages the K/V
+  // group is committed first, so the wait at step t + 1 covers it while the
+  // mask of t + 3 stays in flight. MASKED: the list entries the copies need
+  // are read a step ahead.
+  int t_kv = 0, t_mask = 0, t1 = 0;
+  auto tile_at = [&](int i) { return i < nwalk ? tile_of(i) : 0; };
+  if constexpr (MASKED) {
+    t_kv = tile_at(KST - 1);
+    t_mask = tile_at(STAGES - 1);
+  }
+  for (int t = 0; t + 1 < nwalk; ++t) {
     cp_async_wait<STAGES - 3>();
     fence_proxy_async();
     __syncthreads();  // tile t + 1 landed for every thread; tile t - 1's stage is free
-    if (t + STAGES - 1 < ntiles) load_tile(t + STAGES - 1);
+    if (t + KST - 1 < nwalk) load_tile(t + KST - 1, MASKED ? t_kv : tile_of(t + KST - 1));
+    if constexpr (MASKED) {
+      if constexpr (KST < STAGES) cp_async_commit();
+      if (t + STAGES - 1 < nwalk) load_mask(t + STAGES - 1, t_mask);
+    }
     cp_async_commit();
+    if constexpr (MASKED) {
+      t1 = tile_of(t + 1);
+      const int t4 = tile_at(t + STAGES);  // position t + 4: the next step's mask
+      t_kv = KST < STAGES ? t_mask : t4;
+      t_mask = t4;
+    }
     issue_qk<D / 16>(s, qa, stage(t + 1));
     issue_pv<D>(acc, pa, stage(t) + TILE);
     wgmma_wait<1>();  // the scores
     fence_regs(s);
+    masked(s, t + 1);
     uint32_t pn[BN / 16][4];
-    softmax_tile<CAUSAL>(s, pn, m, l, alpha, (t + 1) * BN, kend, qmin, qpos, tig);
+    softmax_tile<CAUSAL, MASKED>(s, pn, m, l, alpha, (MASKED ? t1 : t + 1) * BN, kend, qmin,
+                                 qpos, tig);
     wgmma_wait<0>();  // the P V
     fence_regs(acc);
     fence_regs(pa);
@@ -426,13 +663,41 @@ __device__ __forceinline__ void state_tile(
 #pragma unroll
       for (int j = 0; j < 4; ++j) pa[i][j] = pn[i][j];
   }
-  if (ntiles > 0) {
-    issue_pv<D>(acc, pa, stage(ntiles - 1) + TILE);
+  if (nwalk > 0) {
+    issue_pv<D>(acc, pa, stage(nwalk - 1) + TILE);
     wgmma_wait<0>();
     fence_regs(acc);
   }
 
   // Epilogue: the quad's row sums, o = acc / max(l, 1e-30), m and l.
+  // !STATE: o goes through shared memory (the q tile: each warpgroup's
+  // wgmmas, the only readers of its 64 rows, have completed), then out in
+  // 16-byte stores, whole rows a warp.
+  if constexpr (!STATE) {
+    __syncthreads();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      const int rr = warp * 16 + g + 8 * hh;
+      const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(qs + swz<BM>(rr, j) + 4 * tig) =
+            pack_bf16(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < BM * CH / THREADS; ++i) {
+      const int idx = tid + i * THREADS, rr = idx / CH, c = idx % CH;
+      const int rep = rr / BQ, qi = q0 + rr % BQ;
+      const size_t row = ((size_t)bb * Hq + h * NREP + rep) * L + qi;
+      if (qi < L)
+        *reinterpret_cast<uint4*>(out + row * D + c * 8) =
+            *reinterpret_cast<const uint4*>(qs + swz<BM>(rr, c));
+    }
+    return;
+  }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);

@@ -16,27 +16,13 @@
 // read. A row that sees no key emits 0, not NaN (NEG_INF = -1e30 with the
 // NEG_INF/2 floor on the subtrahend).
 //
-// Two compile-time options serve the state and masked kernels; the defaults
-// are the causal tile above, unchanged for K3 and the paged kernels:
-//   CAUSAL = false  every row's position is len - 1 (the chunk comes after
-//                   the whole prefix), so the walk ends at min(len, limit)
-//                   and every key below len is visible to every row;
+// A compile-time option serves the shard decode-state walks (rows 6 and
+// 14); its default is the tile above, unchanged for K3 and the paged
+// kernels:
 //   STATE = true    the epilogue also writes each row's m (max scaled score,
 //                   natural-log domain) and l (sum of the f32 p) as f32
 //                   [B, Hq, L]. A row that sees no key emits the combine
 //                   identity (o = 0, m = NEG_INF, l = 0).
-//
-// A third option serves explicit additive masks (flash_attention_masked.cu);
-// its default, MASK_NONE, leaves every earlier instance as it was:
-//   MASK            with CAUSAL = false, adds mask[row, key] (f32) to each
-//                   visible key's score and floors the sum at NEG_INF, as
-//                   the TPU kernels' _flash_inner does: MASK_SHARED reads
-//                   one [L, ld] plane per batch row (every head alike),
-//                   MASK_HEAD one plane per query head. The plane of batch
-//                   row bb (and head hq) starts at mask + bb * msb (+ hq *
-//                   msh); msb = 0 shares one plane across the batch. Keys
-//                   past the length are never read, so the mask never
-//                   makes them visible.
 //
 // A `Rows` with MASKED (common.cuh OwnedPageRows, row 14's pool shard) may
 // not read some keys below the walk's end: such a key is masked like a
@@ -62,10 +48,8 @@ __device__ __forceinline__ bool readable(const Rows& rows, int pos) {
 }
 
 constexpr int WARPS = 8, KT = 32;
-constexpr int MASK_NONE = 0, MASK_SHARED = 1, MASK_HEAD = 2;
 
-template <int D, int NREP, int RPW, bool CAUSAL = true, bool STATE = false,
-          int MASK = MASK_NONE, class Rows>
+template <int D, int NREP, int RPW, bool STATE = false, class Rows>
 __device__ __forceinline__ void tile(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ k,  // base of the rows `rows` addresses
@@ -73,10 +57,7 @@ __device__ __forceinline__ void tile(
     __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
     const Rows rows, int len, int limit, int qt, int h, int bb, int Hkv, int L,
     float scale, float* __restrict__ m_out = nullptr,  // [B, Hq, L], STATE only
-    float* __restrict__ l_out = nullptr,
-    const float* __restrict__ mask = nullptr,  // MASK only: additive f32 planes
-    long long msb = 0, long long msh = 0, int ld = 0) {
-  static_assert(MASK == MASK_NONE || !CAUSAL, "an explicit mask replaces causality");
+    float* __restrict__ l_out = nullptr) {
   constexpr int ROWS = WARPS * RPW, BQ = ROWS / NREP, DPL = D / 32;
   constexpr int KW = D / 2 + 1;  // padded K row, words
   static_assert(ROWS % NREP == 0, "a q tile holds whole query heads");
@@ -100,17 +81,11 @@ __device__ __forceinline__ void tile(
 
   int qpos[RPW];
   float m[RPW], l[RPW], acc[RPW][DPL];
-  const float* mrow[RPW];  // MASK only: the row's mask, indexed by key position
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int rr = warp * RPW + i;
     const int qi = q0 + rr % BQ;
-    // -1: padding row, sees nothing
-    qpos[i] = qi < L ? (CAUSAL ? len - L + qi : len - 1) : -1;
-    if constexpr (MASK != MASK_NONE) {
-      const int hq = MASK == MASK_HEAD ? h * NREP + rr / BQ : 0;
-      mrow[i] = mask + bb * msb + hq * msh + (long long)min(qi, L - 1) * ld;
-    }
+    qpos[i] = qi < L ? len - L + qi : -1;  // -1: padding row, sees nothing
     m[i] = TLT_NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -118,7 +93,7 @@ __device__ __forceinline__ void tile(
   }
   // Keys visible to the tile's last row, clamped to the row's length and
   // to what the slab or block table holds.
-  const int kmax = CAUSAL ? min(min(len, len - L + min(q0 + BQ, L)), limit) : min(len, limit);
+  const int kmax = min(min(len, len - L + min(q0 + BQ, L)), limit);
 
   for (int t0 = 0; t0 < kmax; t0 += KT) {
     if constexpr (Rows::MASKED) {
@@ -162,11 +137,8 @@ __device__ __forceinline__ void tile(
     if constexpr (Rows::MASKED) kread = kpos < kmax && rows.owned(kpos);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool seen = (CAUSAL ? kpos <= qpos[i] : kpos < kmax && qpos[i] >= 0) && kread;
-      float s_i = seen ? sc[i] : TLT_NEG_INF;
-      if constexpr (MASK != MASK_NONE) {
-        if (seen) s_i = fmaxf(s_i + __ldg(mrow[i] + kpos), TLT_NEG_INF);
-      }
+      const bool seen = kpos <= qpos[i] && kread;
+      const float s_i = seen ? sc[i] : TLT_NEG_INF;
       const float m_new = fmaxf(m[i], warp_max(s_i));
       const float alpha = expf(m[i] - m_new);
       const float p = expf(s_i - fmaxf(m_new, TLT_NEG_INF / 2));

@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(flash::WARPS * 32) paged_decode_state(
     int Hkv, int L, int ps, int maxp, int base, int p_loc, float scale) {
   const int h = blockIdx.y, bb = blockIdx.z;
   const OwnedPageRows<D> rows{bt + (size_t)bb * maxp, ps, Hkv, h, base, p_loc};
-  flash::tile<D, NREP, RPW, true, true>(q, kp, vp, out, rows, lens[bb], maxp * ps, blockIdx.x, h,
+  flash::tile<D, NREP, RPW, true>(q, kp, vp, out, rows, lens[bb], maxp * ps, blockIdx.x, h,
                                         bb, Hkv, L, scale, m_out, l_out);
 }
 

@@ -27,7 +27,12 @@ sits at position lens[b] - 1 so only the length bounds the keys, and the
 mask is added to the scores after that clamp. That route's kernel,
 csrc/flash_attention_masked.cu (`flash_attention_masked_cuda`), replaces
 `_decode_kernel_masked` (L <= 16) and `_prefill_kernel_masked` (L > 16);
-`mask=None` is the same route with no mask (no causality).
+`mask=None` is the same route with no mask (no causality). It has two
+designs: at L <= 16 a walk with the keys split over more blocks
+(`decode_chunk` keys each), whose f32 partials a second kernel combines;
+above, the tensor-core tile walking only the key tiles that the live-tile
+map (`mask_tile_map_plain` is its plain twin) marks. The plain twins of
+those two pieces serve the tests: the route never calls them.
 
 `flash_attention` also takes an attention-strategy object as `impl` (one
 with `.flash`, as parallel.SPAttention): the call is then the strategy's,
@@ -54,20 +59,20 @@ SOURCE = "tiny_llm_tpu_torch/csrc/flash_attention.cu"
 SOURCE_MASKED = "tiny_llm_tpu_torch/csrc/flash_attention_masked.cu"
 NEG_INF = -1e30
 
+# The masked route's tiles: 16 query rows by 64 keys in the live-tile map
+# (64 keys a tile of both walks); a decode split holds 4 to 64 tiles.
+MAP_ROWS, MAP_KEYS, MIN_CHUNK, MAX_CHUNK = 16, 64, 256, 4096
+
 LAUNCHES = 0  # kernel launches since the last reset (see kernels.reset_launches)
 STATE_LAUNCHES = 0  # the state twin's
 DECODE_STATE_LAUNCHES = 0  # the shard decode-state kernel's
 MASKED_LAUNCHES = 0  # the explicit-mask kernel's
 
 
-def attention_state_plain(q, k, v, ok, scale: float, bias=None):
-    """Attention of q [B, Hq, L, D] over k/v [B, Hkv, S, D] where ok
-    [B, L, S] marks the visible keys, at the TPU kernels' rounding points:
-    q*scale rounded to bf16, f32 scores and softmax, bf16 probabilities in
-    the PV product, acc / max(l, 1e-30). `bias` (an additive f32 mask
-    [B, 1 or Hq, L, S]) is added after the visibility clamp and the sum
-    floored at NEG_INF. Returns (out in q's dtype, m, l [B, Hq, L] f32); a
-    row that sees no key gives (0, NEG_INF, 0)."""
+def _attention_sums(q, k, v, ok, scale: float, bias=None):
+    """attention_state_plain before its division: (acc, m, l), acc the f32
+    sum of the bf16 probabilities times v [B, Hq, L, D], m and l
+    [B, Hq, L] f32."""
     B, Hq, L, D = q.shape
     Hkv = k.shape[1]
     n_rep = Hq // Hkv
@@ -83,8 +88,19 @@ def attention_state_plain(q, k, v, ok, scale: float, bias=None):
     l = p.sum(-1, keepdim=True)
     pb = p.to(torch.bfloat16).to(torch.float32)
     acc = torch.einsum("bhrls,bhsd->bhrld", pb, v.to(torch.float32))
-    out = acc / torch.clamp(l, min=1e-30)
-    return (out.reshape(B, Hq, L, D).to(q.dtype), m.reshape(B, Hq, L), l.reshape(B, Hq, L))
+    return acc.reshape(B, Hq, L, D), m.reshape(B, Hq, L), l.reshape(B, Hq, L)
+
+
+def attention_state_plain(q, k, v, ok, scale: float, bias=None):
+    """Attention of q [B, Hq, L, D] over k/v [B, Hkv, S, D] where ok
+    [B, L, S] marks the visible keys, at the TPU kernels' rounding points:
+    q*scale rounded to bf16, f32 scores and softmax, bf16 probabilities in
+    the PV product, acc / max(l, 1e-30). `bias` (an additive f32 mask
+    [B, 1 or Hq, L, S]) is added after the visibility clamp and the sum
+    floored at NEG_INF. Returns (out in q's dtype, m, l [B, Hq, L] f32); a
+    row that sees no key gives (0, NEG_INF, 0)."""
+    acc, m, l = _attention_sums(q, k, v, ok, scale, bias)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype), m, l
 
 
 def _causal_mask(lens, L: int, S: int, device):
@@ -137,6 +153,13 @@ def _mask_planes(mask: torch.Tensor, B: int, Hq: int, L: int, S: int, device) ->
     return m4
 
 
+def _visible_keys(lens, B: int, L: int, S: int, device):
+    """[B, L, S]: the keys below lens[b], for every query row."""
+    lens = lens.to(device=device, dtype=torch.int64)
+    ok = torch.arange(S, device=device)[None, :] < lens[:, None]
+    return ok[:, None, :].expand(B, L, S)
+
+
 def flash_attention_masked_plain(q, k, v, lens, mask, scale: float):
     """The explicit-mask kernel's plain version: every query row sees the
     keys below lens[b], plus `mask` (f32 [B, 1 or Hq, L, S], or None for no
@@ -144,9 +167,53 @@ def flash_attention_masked_plain(q, k, v, lens, mask, scale: float):
     key gives 0."""
     B, _, L, _ = q.shape
     S = k.shape[2]
-    lens = lens.to(device=q.device, dtype=torch.int64)
-    ok = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, :]
-    return attention_state_plain(q, k, v, ok.expand(B, L, S), scale, bias=mask)[0]
+    return attention_state_plain(q, k, v, _visible_keys(lens, B, L, S, q.device), scale,
+                                 bias=mask)[0]
+
+
+def flash_attention_masked_split_plain(q, k, v, lens, mask, scale: float, splits: int):
+    """The decode walk's split and combine in plain PyTorch (tests only):
+    the keys cut into `splits` chunks of ceil(S / splits), each chunk's
+    (acc, m, l) at attention_state_plain's rounding points (p rounded
+    against the chunk's max), merged in f32 with the subtrahend floored at
+    NEG_INF / 2 and rounded to q's dtype once, as combine_splits does. A
+    row that sees no key gives 0."""
+    B, _, L, _ = q.shape
+    S = k.shape[2]
+    chunk = -(-S // splits)
+    key = torch.arange(S, device=q.device)
+    ok = _visible_keys(lens, B, L, S, q.device)
+    parts = [_attention_sums(q, k, v, ok & (key >= s0) & (key < s0 + chunk), scale, bias=mask)
+             for s0 in range(0, S, chunk)]
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    w = torch.exp(m - torch.clamp(m.amax(0), min=NEG_INF / 2))
+    out = (w[..., None] * acc).sum(0) / torch.clamp((w * l).sum(0), min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def mask_tile_map_plain(mask: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The live-tile map of the masked prefill walk (csrc/
+    flash_attention_masked.cu mask_tile_map) for an f32 mask [B, P, L, S]
+    (P = 1 or Hq): bool [B, P, ceil(L / 16), ceil(S / 64)], True where the
+    block of 16 query rows and 64 keys holds an entry above NEG_INF below L
+    and below min(lens[b], S). -inf and NEG_INF itself are hidden."""
+    B, P, L, S = mask.shape
+    G, NT = -(-L // MAP_ROWS), -(-S // MAP_KEYS)
+    live = torch.zeros((B, P, G * MAP_ROWS, NT * MAP_KEYS), dtype=torch.bool, device=mask.device)
+    live[..., :L, :S] = (mask > NEG_INF) & _visible_keys(lens, B, L, S, mask.device)[:, None]
+    return live.reshape(B, P, G, MAP_ROWS, NT, MAP_KEYS).any(5).any(3)
+
+
+def decode_chunk(B: int, Hkv: int, S: int, sms: int) -> int:
+    """Keys a split of the masked decode walk (L <= 16): a multiple of 64
+    from MIN_CHUNK to MAX_CHUNK, small enough that the grid (splits, Hkv,
+    B) covers `sms` SMs at least twice where S allows splits of MIN_CHUNK
+    keys (a block's start, its vote and its first tile's latency, costs
+    about as much as three tiles). From the shapes alone, never from lens,
+    which lives on the device (reading it would sync and break a CUDA
+    graph's capture)."""
+    want = -(-2 * sms // (B * Hkv))
+    return min(MAX_CHUNK, max(MIN_CHUNK, S // want // MAP_KEYS * MAP_KEYS))
 
 
 def _lib() -> ctypes.CDLL:
@@ -167,9 +234,12 @@ def _lib() -> ctypes.CDLL:
 def _lib_masked() -> ctypes.CDLL:
     lib = build.load("flash_attention_masked")
     fn = lib.tlt_flash_attention_masked
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.tlt_flash_attention_masked_workspace
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -254,7 +324,9 @@ def flash_decode_state_cuda(q, k, v, lens, scale: float):
 
 def flash_attention_masked_cuda(q, k, v, lens, mask, scale: float):
     """Launch the explicit-mask kernel; `mask` f32 [B, 1 or Hq, L, S] on
-    q's device (any batch and head strides, rows contiguous), or None."""
+    q's device (any batch and head strides, rows contiguous), or None. One
+    call of the C entry, counted once: at L <= 16 the split walk and its
+    combine, above it (with a mask) the live-tile map and the walk."""
     global MASKED_LAUNCHES
     B, Hq, L, D, Hkv, S, n_rep = _check_args("flash_attention_masked_cuda", q, k, v)
     lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
@@ -269,10 +341,16 @@ def flash_attention_masked_cuda(q, k, v, lens, mask, scale: float):
         msb, msh = mask.stride(0), mask.stride(1)
     out = torch.empty_like(q)
     lib = _lib_masked()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chunk = decode_chunk(B, Hkv, S, sms)
+    nbytes = lib.tlt_flash_attention_masked_workspace(B, Hkv, L, S, D, n_rep, mode, chunk)
+    # The decode partials, or the prefill's map and lists.
+    ws = torch.empty(max(1, nbytes), dtype=torch.uint8, device=q.device)
     err = lib.tlt_flash_attention_masked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), B, Hkv, L, S, D, n_rep,
-        mode, msb, msh, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        None if mask is None else mask.data_ptr(), out.data_ptr(), ws.data_ptr(), B, Hkv, L, S,
+        D, n_rep, mode, msb, msh, chunk, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, err, "flash_attention_masked")
     MASKED_LAUNCHES += 1
