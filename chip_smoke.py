@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   build     compile the CUDA kernels from tiny_llm_tpu_torch/csrc (nvcc, in
             parallel, into build/), with the card's name and power limit;
             the split prefill's two kernels and the masked prefill walk must
-            hold HGMMA in their SASS, the masked decode walk HMMA
+            hold HGMMA in their SASS, the masked decode walk HMMA, the two
+            W4A8 tiles IMMA
   kernels   every kernel against its plain PyTorch version on the card at
             the shapes the main paths give it; kernel, plain and library
             times and the least time the card could take (the bound). The
@@ -31,7 +32,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   serving   the serving path: bench.py --mode serving's default campaign
             (16 requests, batch 4, prompts 128-1024, paged pool of 57 pages)
             through batch_generate, warm-up then three campaigns, taken in
-            turns with paged3_serving's two: output tok/s, TTFT, occupancy,
+            turns with paged3_serving's two and a8_serving's two (A B C A B
+            C A): output tok/s, TTFT, occupancy,
             the kernels' launch counts, and a profile of one serving decode
             burst
   split_kernels the split paged prefill's two kernels against their plain
@@ -65,12 +67,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   moe_serving   the serving phase on Qwen3-30B-A3B (two campaigns)
   quant_kernels (run after `kernels`) the quant tiers' four kernels against
             their plain versions: the W4A8 matmul (4B qkv, gate_up, down +
-            res at M = 1, 4, 32; 30B-A3B qkv and o), the any-width matmul
-            (4B W8 g64 qkv, down + res, tied LM head at M = 1, 4, 128; W2
-            g32 and W4 g32 qkv), the grouped W4A8 matmul (30B-A3B gate and
-            down, T = 8, 32, 128, one expert, empty experts) and the grouped
-            any-width matmul (30B-A3B W4 g64, T = 8, 32, 1024); int8 bounds
-            at 1979 TOPS; one decode step each for the kernel line
+            res at M = 1, 2 on the GEMV, 3, 4, 5, 8, 16, 17, 32 on the int8
+            tile; 30B-A3B qkv and o), the any-width matmul (4B W8 g64 qkv,
+            down + res, tied LM head at M = 1, 4, 128; W2 g32 and W4 g32
+            qkv), the
+            grouped W4A8 matmul (30B-A3B gate and down, T = 8, 16, 32, 128,
+            one expert holding 16, 17, 64 or 128 rows, two holding 65 and
+            63, empty experts) and the grouped any-width matmul (30B-A3B W4
+            g64, T = 8, 32, 1024); int8 bounds at 1979 TOPS; beside each
+            W4A8 case the GEMV's time before the int8 tile as PERF.md
+            records it (a prior record, not measured in the run); one
+            decode step each for the kernel line
   a8_model  (run right after `model`, as sg_model) the model phase on
             Qwen3-4B with act_quant="int8" (the same weights): per decode
             step the W4A8 matmul 144, K1 1, K2 36; per prefill K1 145;
@@ -80,14 +87,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             matmul 145 a step, K1 0), runs in turns with W4A16's, and
             4-layer parity
   a8_parity 4 layers, W4A8 kernel path against plain path, and the W4A8
-            drift from W4A16
-  a8_serving    the serving phase's campaign with act_quant="int8", two
-            campaigns, beside `serving`'s
+            drift from W4A16; then a 12-token prompt tail (the W4A8
+            matmul's int8 tile at M = 12) held the same way
+  a8_serving    (right after paged3_serving) the serving phase's campaign
+            with act_quant="int8": its two campaigns were taken in turns
+            with `serving`'s; the medians of both in those turns and both
+            sides' launches per campaign (decode steps of 3 or 4 slots and
+            prompt tails of 3-32 tokens reach the W4A8 matmul's int8 tile)
   a8_moe    (run right after `moe_model`) Qwen3-30B-A3B with
             act_quant="int8" on moe_model's weights: one decode run (the
             grouped W4A8 matmul 144, the W4A8 matmul 96, K1 49 a step; the
             grouped W4A16 matmul 144 a prefill), runs in turns with
-            W4A16's, and 4-layer parity under RouteForcer
+            W4A16's, and 4-layer parity under RouteForcer (its 12-token
+            tail: the grouped W4A8 matmul's int8 tile walk at T = 96)
   sg_moe    Qwen3-30B-A3B at W4 g64 (built once the W4 model is freed: one
             30B model on the card at a time): the grouped any-width
             matmul's decode step, one decode run (the any-width matmul 145,
@@ -188,6 +200,7 @@ TIE_MARGIN = 1e-3  # routing near-tie: k-th minus (k+1)-th router probability
 # (their drift is 5 %). The W4A8 kernels' own checks (`_close` with codes)
 # can: kernel and plain version quantize the same x into the same codes.
 A8_PARITY_TOL, A8_TIE_MARGIN = 0.10, 1e-2
+A8_TAIL = 12  # a8_parity's prompt tail: 12 dense rows, 96 grouped (the int8 tile's routes)
 # The masked kernel and the split prefill's state kernels against their
 # plain versions, per element.
 TOL_ATTENTION = "2 bf16 ulps + min(2^-8 W|v|, 6 * 2^-9 sqrt(W v^2 / l)) (_state_tol)"
@@ -283,7 +296,7 @@ def phase_build():
     regs = {name: build.ptxas_registers(info["ptxas"]) for name, info in log.items()}
     # The split prefill's state kernels and the masked prefill walk run their
     # products as warpgroup MMAs (HGMMA in SASS); the masked decode walk as
-    # mma.sync (HMMA).
+    # mma.sync (HMMA); the W4A8 tiles as int8 mma.sync (IMMA).
     def tensor_ops(src, key, kind):
         return {re.sub(r"^_ZN\d+_\w+_cu_[0-9a-f]{8}\d+", "", fn): info[kind]
                 for fn, info in build.sass_report(build._target(src)).items() if key in fn}
@@ -295,10 +308,13 @@ def phase_build():
     check(len(masked) == 24 and all(masked.values()), f"masked prefill HGMMA: {masked}")
     dec = tensor_ops("flash_attention_masked", "flash_masked_decode", "tensor_core_ops")
     check(len(dec) == 24 and all(dec.values()), f"masked decode HMMA: {dec}")
+    imma = {**tensor_ops("quant_matmul", "a8_tile", "imma"),
+            **tensor_ops("moe_matmul", "a8_tile", "imma")}
+    check(len(imma) == 2 and all(imma.values()), f"W4A8 tiles' IMMA: {imma}")
     smi = nvidia_smi()
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(log),
           "state_kernels_tensor_core_ops": tc, "masked_prefill_hgmma": masked,
-          "masked_decode_tensor_core_ops": dec,
+          "masked_decode_tensor_core_ops": dec, "a8_tile_imma": imma,
           "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi, regs
 
@@ -440,12 +456,15 @@ def _dense_cases(kernel, tpu_kernel, ws, Ms, residuals, gen, cuda_fn, plain_fn, 
             if codes:
                 extra["w4a16_err_over_tol"] = _close(control(x, ws[0], r), want, codes)[1]
                 check(extra["w4a16_err_over_tol"] > 1, f"{what}: W4A16 passes the W4A8 check")
+            if codes and M == Ms[-1]:  # the worst case's device ms by kernel (quantize, tile)
+                extra["device_ms_by_kernel"] = _device_profile(
+                    lambda: cuda_fn(x, ws[0], r), 1)["top_kernels_ms_per_step"]
             kern = graph_ms(lambda: [cuda_fn(x, w, r) for w in ws]) / len(ws)
             plain = event_ms(lambda: plain_fn(x, ws[0], r), reps=2)
             lib = graph_ms(lambda: [torch.addmm(r, x, d.T) if residual else torch.matmul(x, d.T)
                                     for d in dense]) / len(ws)
             bms, by = bound(_qmm_bytes(ws[0], M, residual), 2 * M * N * K, peak)
-            cases.append({"kernel": kernel, "tpu_kernel": tpu_kernel,
+            cases.append({"kernel": kernel, "tpu_kernel": tpu_kernel, "rows": M,
                           "shape": f"{label} N={N} K={K} W{ws[0].bits} g{ws[0].group_size} M={M}"
                                    + (" +res" if residual else ""),
                           "max_err": err, "err_over_tol": ratio, "tol": _tol_rule(codes), **extra,
@@ -726,8 +745,8 @@ def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_
                           peak=BF16_FLOPS, control=None):
     """A grouped kernel against its plain version at the gate and down
     projections of `mlps` for each (label, group sizes) of `specs`, timed
-    over every layer's weights (`control`: as in `_dense_cases`); the
-    library yardstick (torch._grouped_mm on 8 layers' bf16-dequantized
+    over every layer's weights (`control`: as in `_dense_cases`);
+    the library yardstick (torch._grouped_mm on 8 layers' bf16-dequantized
     weights) is checked against the W4A16-exact plain version."""
     from tiny_llm_tpu_torch.kernels import moe_matmul as km
 
@@ -752,6 +771,9 @@ def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_
                 extra["w4a16_err_over_tol"] = _close(control(x, ws[0], sizes_t), want, codes)[1]
                 check(extra["w4a16_err_over_tol"] > 1,
                       f"{kernel} {proj} {what}: W4A16 passes the W4A8 check")
+            if codes and "one expert" in what and T == 128:  # the worst case, as above
+                extra["device_ms_by_kernel"] = _device_profile(
+                    lambda: cuda_fn(x, ws[0], sizes_t), 1)["top_kernels_ms_per_step"]
             kern = graph_ms(lambda: [cuda_fn(x, w, sizes_t) for w in ws]) / len(ws)
             plain = event_ms(lambda: plain_fn(x, ws[0], sizes_t), reps=1)
             lib_fn, lib_out, lib_name = _grouped_library(x, ws[:8], sizes)
@@ -762,7 +784,8 @@ def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_
             lib = graph_ms(lambda: [lib_fn(i) for i in range(8)]) / 8
             del lib_fn, lib_out, exact
             bms, by = bound(_grouped_bytes(ws[0], sizes, T), 2 * T * N * K, peak)
-            cases.append({"kernel": kernel, "tpu_kernel": tpu_kernel,
+            cases.append({"kernel": kernel, "tpu_kernel": tpu_kernel, "proj": proj[2:],
+                          "spec": what,
                           "shape": f"{proj[2:]} N={N} K={K} E={E} W{ws[0].bits} "
                                    f"g{ws[0].group_size} {what}, "
                                    f"{int((sizes > 0).sum())} experts active",
@@ -1188,7 +1211,8 @@ def phase_parity(cfg, phase="parity", forcer=None, act_quant=None, bits=4, group
     PROMPT_LEN-token prefill and 8 decode steps, the kernel path's logits
     against the plain path's. With act_quant "int8", also the W4A8 kernel
     path's drift from the W4A16 kernel path on the same inputs (dense
-    models)."""
+    models), and an A8_TAIL-token prompt tail after the steps (the W4A8
+    kernels' int8 tile routes), held to the same tolerance."""
     from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
 
     cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
@@ -1231,11 +1255,22 @@ def phase_parity(cfg, phase="parity", forcer=None, act_quant=None, bits=4, group
             if a16 is not None:
                 la = a16(tok, PROMPT_LEN + step, ca)
     check(agree == decided, f"top-1 disagrees on {decided - agree} decided positions")
+    tail = {}
+    if act_quant == "int8":
+        # A prompt tail of A8_TAIL tokens: the int8 tile's rows (the dense
+        # matmul at M = A8_TAIL, the grouped at 8 x A8_TAIL), held as above.
+        toks = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(1, A8_TAIL))
+        a = fast(toks, PROMPT_LEN + 8, cf)[0].float()
+        b = plain(toks, PROMPT_LEN + 8, cp)[0].float()
+        tol = tol_share * float(b.abs().max())
+        err = float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()) and err <= tol, f"parity tail: {err} > {tol}")
+        tail = {"tail_tokens": A8_TAIL, "tail_err_over_tol": err / tol}
     forced = forcer.summary(lambda b: True) if forcer is not None else {}
     line = {"phase": phase, "path": "dense", "layers": 4, "positions": PROMPT_LEN + 8,
             "act_quant": fast.act_quant, "bits": bits, "group_size": group_size,
             "worst_err_over_tol": worst, "tol": f"{tol_share:.0%} of max |plain logit|",
-            "top1_decided": decided, "top1_agree": agree, **forced}
+            "top1_decided": decided, "top1_agree": agree, **tail, **forced}
     if drift:
         line["w4a8_vs_w4a16_decode_logits"] = {
             "max_rel_err": max(d for d, _ in drift), "mean_rel_err": sum(d for d, _ in drift)
@@ -1377,11 +1412,12 @@ def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs, turns=None):
     or to max_seq, with tokens in range; the pool is full again after each
     campaign; the campaigns give identical tokens. Returns (each campaign's
     metrics, with its wall time, and the launches over the campaigns).
-    `turns` ({"model": m, "warm": prompts}): a second model, warmed up the
-    same way, runs a campaign between each two of these (A B A B A for
-    three), under the same checks; its rows, the tokens of each campaign and
-    its launches over its campaigns go back into the dict as "rows", "ids"
-    and "launches", and this model's as "a_rows", "a_ids" and "a_launches"."""
+    `turns` (a list of {"model": m, "warm": prompts}): other models, each
+    warmed up the same way, run a campaign each, in list order, between
+    each two of these (A B C A B C A for two and three campaigns), under the
+    same checks; each one's rows, the tokens of each campaign and its
+    launches over its campaigns go back into its dict as "rows", "ids" and
+    "launches", and this model's as "a_rows", "a_ids" and "a_launches"."""
     from tiny_llm_tpu_torch import kernels
     from tiny_llm_tpu_torch.serving import ServingMetrics, batch_generate
 
@@ -1415,27 +1451,28 @@ def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs, turns=None):
     def add(total, counts):
         return {k: total.get(k, 0) + v for k, v in counts.items()}
 
-    for m, w in ([(turns["model"], turns["warm"])] if turns else []) + [(model, warm)]:
+    turns = turns or []
+    for m, w in [(t["model"], t["warm"]) for t in turns] + [(model, warm)]:
         batch_generate(m, _recorder(), w, max_output_tokens=max(8, BURST), **kw)
         check(m.page_pool.free_pages == m.page_pool.num_pages - 1, "the warm-up leaked pages")
     rows, ids, counts = [], [], {}
-    if turns:
-        turns.update(rows=[], ids=[], launches={})
+    for t in turns:
+        t.update(rows=[], ids=[], launches={})
     for r in range(n_runs):
-        if turns and r:
-            row, got, c = campaign(turns["model"])
-            turns["rows"].append(row)
-            turns["ids"].append(got)
-            turns["launches"] = add(turns["launches"], c)
+        for t in turns if r else ():
+            row, got, c = campaign(t["model"])
+            t["rows"].append(row)
+            t["ids"].append(got)
+            t["launches"] = add(t["launches"], c)
         row, got, c = campaign(model)
         rows.append(row)
         ids.append(got)
         counts = add(counts, c)
     check(all(got == ids[0] for got in ids), "the campaigns' tokens differ")
-    if turns:
-        check(all(got == turns["ids"][0] for got in turns["ids"]),
-              "the second model's campaigns' tokens differ")
-        turns.update(a_rows=rows, a_ids=ids, a_launches=counts)
+    for t in turns:
+        check(all(got == t["ids"][0] for got in t["ids"]),
+              "a model in turns gave different tokens in two campaigns")
+        t.update(a_rows=rows, a_ids=ids, a_launches=counts)
     return rows, counts
 
 
@@ -1461,8 +1498,9 @@ def phase_serving(model, cfg, phase, name, mixed=False, n_runs=3, beside=None, t
     --mixed's (mixed prefill+decode bursts of MIXED_CHUNK-token
     sub-chunks). The model's act_quant sets which matmul kernels must run.
     `beside`: another phase's numbers to print beside these. `turns` (a
-    dict with "model" and "warm"): a second model whose campaigns are taken
-    in turns with these (_campaigns)."""
+    list of dicts with "model" and "warm", each model's page pool enabled):
+    other models whose campaigns are taken in turns with these
+    (_campaigns)."""
     torch.cuda.reset_peak_memory_stats()
     model.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
     lens, max_out, kw = _serving_campaign()
@@ -1476,6 +1514,19 @@ def phase_serving(model, cfg, phase, name, mixed=False, n_runs=3, beside=None, t
     finally:
         if mixed:
             del model.mixed_burst
+    return _serving_line(model, cfg, phase, name, rows, counts, mixed_bursts if mixed else None,
+                         beside)
+
+
+def _serving_line(model, cfg, phase, name, rows, counts, mixed_bursts=None, beside=None):
+    """Check and print a serving phase's campaigns (`rows`, `counts`: their
+    metrics and launches; `mixed_bursts`: a mixed campaign's bursts): every
+    kernel of the model's path launched, the dense decode kernel never, the
+    median campaign's numbers and a profile of one serving burst. Returns
+    `counts`."""
+    mixed = mixed_bursts is not None
+    lens, max_out, _ = _serving_campaign()
+    n_runs = len(rows)
     per_step, per_prefill = _path_launches(cfg, model.act_quant)
     # A mixed campaign's sub-chunks (32 tokens) run paged prefill; only its
     # classic chunks (a prefill with no active slot) may reach paged decode.
@@ -1509,6 +1560,33 @@ def phase_serving(model, cfg, phase, name, mixed=False, n_runs=3, beside=None, t
         line["decode_burst_profile"] = _profile_serving_burst(model, lens)
     emit(dict(line, **(beside or {})))
     return counts
+
+
+def phase_a8_serving(a8, cfg, turns):
+    """The serving campaign through Qwen3-4B with act_quant="int8" on the
+    W4A16 model's weights: its two campaigns were taken in turns with
+    `serving`'s three and paged3_serving's two (W4A16, three-launch, W4A8,
+    ...; `turns` holds both sides), each model after its own warm-up. The
+    serving line's checks and numbers, beside the W4A16 campaigns'
+    medians in the same turns and both sides' launches per campaign.
+    Prompt tails of 5-32 tokens reach the W4A8 matmul's int8 tile."""
+    w4a16, w4a8 = turns["a_rows"], turns["rows"]
+
+    def med(rows, key):
+        return float(np.median([r[key] for r in rows]))
+
+    def per_campaign(counts, n):
+        return {k: v / n for k, v in counts.items() if v}
+
+    keys = ("output_tok_s", "ttft_p50_ms", "ttft_p95_ms")
+    return _serving_line(a8, cfg, "a8_serving", "qwen3-4b W4A8", w4a8, turns["launches"],
+                         beside={"order": "W4A16, three-launch, W4A8, ... (serving's campaigns)",
+                                 "in_turns_medians": {
+                                     **{f"w4a16_{k}": med(w4a16, k) for k in keys},
+                                     **{f"w4a8_{k}": med(w4a8, k) for k in keys}},
+                                 "launches_per_campaign": {
+                                     "w4a16": per_campaign(turns["a_launches"], len(w4a16)),
+                                     "w4a8": per_campaign(turns["launches"], len(w4a8))}})
 
 
 def _profile_serving_burst(model, lens, mixed=False):
@@ -2146,17 +2224,46 @@ def _random_qt(gen, N, K, bits, group_size, copies=1):
     return out
 
 
+# Rows 16 and 19 before the int8 tile (the W4A8 GEMVs alone, as PERF.md's
+# kernel table records them on NVIDIA H100 80GB HBM3, 700.00 W), ms: dense
+# by (model, projection, M), grouped by (projection, case). A prior record,
+# printed beside this run's times under its own key and never taken for
+# one of them.
+A8_GEMV_MS = {
+    ("qwen3-4b", "qkv", 1): 0.0081, ("qwen3-4b", "qkv", 4): 0.0204,
+    ("qwen3-4b", "qkv", 32): 0.1190, ("qwen3-4b", "gate_up", 1): 0.0179,
+    ("qwen3-4b", "gate_up", 4): 0.0480, ("qwen3-4b", "gate_up", 32): 0.3432,
+    ("qwen3-4b", "down", 1): 0.0147, ("qwen3-4b", "down", 4): 0.0375,
+    ("qwen3-4b", "down", 32): 0.2465, ("qwen3-30b-a3b", "qkv", 1): 0.0060,
+    ("qwen3-30b-a3b", "qkv", 4): 0.0144, ("qwen3-30b-a3b", "qkv", 32): 0.0785,
+    ("qwen3-30b-a3b", "o", 1): 0.0063, ("qwen3-30b-a3b", "o", 4): 0.0141,
+    ("qwen3-30b-a3b", "o", 32): 0.0635,
+    ("gate", "T=8: one token's top-8"): 0.0092, ("down", "T=8: one token's top-8"): 0.0133,
+    ("gate", "T=32: four tokens' top-8"): 0.0224, ("down", "T=32: four tokens' top-8"): 0.0398,
+    ("gate", "T=128: sixteen tokens' top-8"): 0.0740,
+    ("down", "T=128: sixteen tokens' top-8"): 0.1466,
+    ("gate", "T=128, one expert holds every row"): 0.2047,
+    ("down", "T=128, one expert holds every row"): 0.1757,
+    ("gate", "T=24, experts 0-4 and 121-127 empty"): 0.0172,
+    ("down", "T=24, experts 0-4 and 121-127 empty"): 0.0296,
+}
+
+
 def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
     """The quant tiers' kernels against their plain versions on the card,
     timed by CUDA-graph replay over distinct weights (up to 8 layers'):
-    the W4A8 matmul at the 4B shapes (qkv, gate_up, down + res; M = 1, 4,
-    32) and 30B-A3B's qkv and o; the any-width matmul at 4B W8 g64 (qkv,
-    down + res, the tied LM head; M = 1, 4, 128) and at W2 g32 and W4 g32
-    on the qkv shape; the grouped W4A8 matmul at 30B-A3B's gate and down
-    (T = 8, 32, 128, one expert holding every row, empty experts); the
-    grouped any-width matmul at 30B-A3B W4 g64 (8 layers' experts; T = 8,
-    32, 1024). Then one decode step each of the W4A8 (4B), any-width (4B
-    W8 g64) and grouped W4A8 (30B-A3B) matmuls for the kernel line."""
+    the W4A8 matmul at the 4B shapes (qkv, gate_up, down + res; M = 1 and
+    2 on the GEMV, 3 on the int8 tile and its edges 4, 5, 8, 16, 17, 32)
+    and 30B-A3B's qkv and o;
+    the any-width matmul at 4B W8 g64 (qkv, down + res, the tied LM head;
+    M = 1, 4, 128) and at W2 g32 and W4 g32 on the qkv shape; the grouped
+    W4A8 matmul at 30B-A3B's gate and down (T = 8, 32, 128, one expert
+    holding 16, 17, 64 or 128 rows, two holding 65 and 63, empty experts,
+    and T = 16); the grouped any-width matmul at 30B-A3B W4 g64 (8 layers'
+    experts; T = 8, 32, 1024). Each W4A8 case carries the GEMV's time
+    before the tile as PERF.md records it (A8_GEMV_MS). Then one decode
+    step each of the W4A8 (4B), any-width (4B W8 g64) and grouped W4A8
+    (30B-A3B) matmuls for the kernel line."""
     from tiny_llm_tpu_torch.kernels import moe_matmul as km
     from tiny_llm_tpu_torch.kernels import quant_matmul as qm
     from tiny_llm_tpu_torch.models import synthetic_quantized_params
@@ -2169,10 +2276,11 @@ def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
         for name in names:
             _, _, attr, residual = shapes[name]
             ws = [_layer_weight(mdl.params, L, attr) for L in mdl.params.layers[:8]]
-            cases += [dict(c, model=label) for c in _dense_cases(
-                "quant_matmul_a8", qm.TPU_KERNEL_A8, ws, (1, 4, 32), (residual,), gen,
-                qm.quant_matmul_a8_cuda, qm.quant_matmul_a8_plain, INT8_OPS, name,
-                control=qm.quant_matmul_plain)]
+            cases += [dict(c, model=label, prior_record_gemv_ms=A8_GEMV_MS.get(
+                (label, name, c["rows"]))) for c in _dense_cases(
+                "quant_matmul_a8", qm.TPU_KERNEL_A8, ws, (1, 2, 3, 4, 5, 8, 16, 17, 32),
+                (residual,), gen, qm.quant_matmul_a8_cuda, qm.quant_matmul_a8_plain, INT8_OPS,
+                name, control=qm.quant_matmul_plain)]
     shapes = _k1_shapes(cfg)
     for name in ("qkv", "down", "lm_head"):
         _, _, attr, residual = shapes[name]
@@ -2197,7 +2305,14 @@ def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
              ("T=24, experts 0-4 and 121-127 empty", np.concatenate([
                  np.zeros(5, int), rng.multinomial(24, np.full(E - 12, 1 / (E - 12))),
                  np.zeros(7, int)]))]
-    cases += [dict(c, model="qwen3-30b-a3b") for c in _grouped_kernel_cases(
+    # The int8 tile walk's edges (no random draws: the cases above and below
+    # draw what they drew before), and T = 16 from a generator of its own.
+    one = lambda T, e=17: np.bincount([e] * T, minlength=E)  # noqa: E731
+    specs += [(f"T={T}, one expert holds every row", one(T)) for T in (16, 17, 64)]
+    specs += [("T=128, two experts hold 65 and 63 rows", one(65) + one(63, 18)),
+              ("T=16: two tokens' top-8", _routing(np.random.default_rng(16), 2, E, k))]
+    cases += [dict(c, model="qwen3-30b-a3b", prior_record_gemv_ms=A8_GEMV_MS.get(
+        (c["proj"], c["spec"]))) for c in _grouped_kernel_cases(
         mlps, moe_cfg, gen, specs, "grouped_quant_matmul_a8", km.grouped_quant_matmul_a8_cuda,
         km.grouped_quant_matmul_a8_plain, km.TPU_KERNEL_A8, INT8_OPS,
         control=km.grouped_quant_matmul_plain)]
@@ -3302,7 +3417,8 @@ def phase_paged3_serving(m3, cfg, turns):
     """bench.py --mode serving's default campaign through Qwen3-4B with
     paged_fused_one=False (m3) on the fused model's weights: its two
     campaigns were taken in turns with `serving`'s three (fused,
-    three-launch, fused, three-launch, fused; `turns` holds both sides),
+    three-launch, W4A8, fused, three-launch, W4A8, fused; `turns` holds
+    both sides),
     each model after its own warm-up: output tok/s and TTFT of both routes,
     the three-launch campaigns' launches (the prep kernel and the paged
     decode kernel, never the fused paged step), and, at full depth, one
@@ -3363,7 +3479,8 @@ def phase_paged3_serving(m3, cfg, turns):
     emit({"phase": "paged3_serving", "model": "qwen3-4b", "layers": L,
           "paged_fused_one": False, "requests": SERVING_REQUESTS, "batch": SERVING_BATCH,
           "max_seq": MAX_SEQ, "pool_pages": POOL_PAGES,
-          "order": "fused, three-launch, fused, three-launch, fused (serving's campaigns)",
+          "order": "fused, three-launch, W4A8, fused, three-launch, W4A8, fused "
+                   "(serving's campaigns)",
           **{f"{n}_{k}": med(n, k) for n in got for k in
              ("output_tok_s", "ttft_p50_ms", "ttft_p95_ms")},
           **{f"{n}_output_tok_s_all": [r["output_tok_s"] for r in got[n]] for n in got},
@@ -3467,11 +3584,15 @@ def main() -> int:
     # The three-launch paged decode (paged_fused_one=False) on the same
     # weights: its serving campaigns are taken in turns with `serving`'s.
     phase_paged3_parity(cfg, contract)
+    # W4A8 on the same weights too: its two campaigns follow each three-
+    # launch one (W4A16, three-launch, W4A8, ...).
     m3 = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, paged_fused_one=False)
-    m3.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
-    turns = {"model": m3, "warm": SERVING_WARM}
+    for m in (m3, a8):
+        m.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
+    turns = [{"model": m3, "warm": SERVING_WARM}, {"model": a8, "warm": SERVING_WARM}]
     serving_counts = phase_serving(model, cfg, "serving", "qwen3-4b", turns=turns)
-    paged3_counts = phase_paged3_serving(m3, cfg, turns)
+    paged3_counts = phase_paged3_serving(m3, cfg, turns[0])
+    phase_a8_serving(a8, cfg, turns[1])
     del m3, turns
     torch.cuda.empty_cache()
     # The long-prompt and mixed routes (Qwen3-4B; the kernels at both head shapes).
@@ -3498,11 +3619,8 @@ def main() -> int:
     phase_mixed_parity(cfg)
     # Two campaigns, not three: the script stays well inside its time limit.
     phase_serving(model, cfg, "mixed_serving", "qwen3-4b", mixed=True, n_runs=2)
-    # The rest of W4A8 on Qwen3-4B: parity and serving.
-    serving = next(p for p in PHASES if p.get("phase") == "serving")
+    # The rest of W4A8 on Qwen3-4B: parity.
     phase_parity(cfg, "a8_parity", act_quant="int8")
-    phase_serving(a8, cfg, "a8_serving", "qwen3-4b W4A8", n_runs=2, beside={
-        "w4a16_" + k: serving[k] for k in ("output_tok_s", "ttft_p50_ms", "ttft_p95_ms")})
     del a8, model
     torch.cuda.empty_cache()
     moe_counts = phase_model(moe, moe_cfg, "moe_model", "qwen3-30b-a3b")

@@ -90,29 +90,7 @@ namespace fmma {
 constexpr int WARPS = 8, BN = 64, STAGES = 4;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-// 4 bytes global -> shared (any 4-byte alignment); src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using ::cp_async16, ::cp_async4, ::cp_async_commit, ::cp_async_wait, ::smem_u32;  // common.cuh
 
 // Warpgroup MMAs. D (64 x N, f32) lives in registers, d[4j + e] holding
 // rows g (e < 2) and g + 8 of each warp's 16 (g = lane / 4), columns 8j +

@@ -40,15 +40,29 @@
 // per grouped row sx = max|x| / 127 over the row's K, xq = clip(rint(x /
 // sx), ±127), and out = bf16( sx * sum_g (s_g (xq_g . q_g) + b_g sum xq_g) )
 // with s32 integer dots and the fold in f32 (K1's W4A8 arithmetic, per
-// expert). Design, `moe_a8_gemv`: the GEMV walk above at every T <= 128
-// (a decode step of 16 rows x top-8, or a 16-token prompt tail, spreads
-// its 128 rows over up to 128 experts, a few rows each), on the W4A8 body
-// (qmm_tile.cuh gemv_a8_rows): each block quantizes its expert's rows, 8
-// at a time, into shared memory, then runs __dp4a dots. Bound: the active
-// experts' weight bytes, as above.
+// expert). Bound: the active experts' weight bytes, as above. Two routes,
+// chosen by T on the host (the grid stays fixed by T, N and E; the host
+// never reads group_sizes):
+//  * T <= 32 (up to four tokens' top-8: a decode step's 8), `moe_a8_gemv`:
+//    the GEMV walk above on the W4A8 body (qmm_tile.cuh gemv_a8_rows): each
+//    block quantizes its expert's rows, 8 at a time, into shared memory,
+//    then runs __dp4a dots over 8 columns. With a row or two an expert,
+//    its 96 column blocks an expert keep more bytes in flight than the
+//    tile's 6 (N = 768): at T = 16 and 32 the tile loses on gate as much
+//    as it gains on down (PERF.md), so the GEMV keeps these rows.
+//  * 32 < T <= 128 (prompt tails, many tokens' top-8, skewed routing), the
+//    int8 tensor-core tile (qmm_tile.cuh a8::): `moe_a8_quantize`
+//    quantizes every row once into a workspace the wrapper allocates (its
+//    size from tlt_grouped_quant_matmul_a8_workspace), then
+//    `moe_a8_tile` walks the logical tiles (expert, 32-row block of its
+//    segment) as moe_tiled does, 128 columns a block, reading each weight
+//    once for the block's rows through a cp.async ring into mma.sync s8
+//    (IMMA).
 #include "moe_walk.cuh"
 
 namespace {
+
+constexpr int A8_GEMV_MAX_ROWS = 32;  // grouped rows above take the int8 tile walk
 
 // Grid (N / 8, min(E, T)): block row j serves the j-th expert that has rows.
 __global__ void __launch_bounds__(256) moe_gemv(
@@ -77,6 +91,67 @@ __global__ void __launch_bounds__(256) moe_a8_gemv(
   moe::gemv_expert(x, w, s, b, gs, out, T, N, Kp, E, moe::A8Rows{smem});
 }
 
+// Row blockIdx.x of x into the workspace (qmm_tile.cuh a8::quantize_row).
+__global__ void __launch_bounds__(1024) moe_a8_quantize(const __nv_bfloat16* __restrict__ x,
+                                                       void* ws, int T, int Kp) {
+  __shared__ float red[32];
+  qmm::a8::let_dependents_launch();
+  qmm::a8::quantize_row(x, blockIdx.x, T, Kp, qmm::a8::carve(ws, T, Kp), red);
+}
+
+// Grid (column blocks, Y): moe_walk.cuh a8_tile_walk.
+__global__ void __launch_bounds__(qmm::a8::THREADS, 2) moe_a8_tile(
+    void* ws, const uint32_t* __restrict__ w, const __nv_bfloat16* __restrict__ s,
+    const __nv_bfloat16* __restrict__ b, const int* __restrict__ gs,
+    __nv_bfloat16* __restrict__ out, int T, int N, int Kp, int E) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  moe::a8_tile_walk(ws, w, s, b, gs, out, T, N, Kp, E, smem);
+}
+
+// The grouped W4A8 matmul: the GEMV walk up to A8_GEMV_MAX_ROWS rows, the
+// tile walk above.
+int a8_grouped(const void* x, const void* w, const void* s, const void* b,
+               const void* group_sizes, void* out, int T, int N, int Kp, int E, void* ws,
+               size_t ws_bytes, void* stream) {
+  if (Kp % qmm::GS != 0 || T <= 0 || T > 128 || N <= 0 || E <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const uint32_t*>(w);
+  const auto* sp = static_cast<const __nv_bfloat16*>(s);
+  const auto* bp = static_cast<const __nv_bfloat16*>(b);
+  const auto* gp = static_cast<const int*>(group_sizes);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (T > A8_GEMV_MAX_ROWS) {
+    if (ws == nullptr || ws_bytes < qmm::a8::workspace_bytes(T, Kp))
+      return (int)cudaErrorInvalidValue;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        moe_a8_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, qmm::a8::SMEM_BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    moe_a8_quantize<<<T, qmm::a8::quantize_threads(Kp), 0, st>>>(xp, ws, T, Kp);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    // At most ceil(T / BM) + min(E, T) - 1 logical tiles; block rows enough
+    // to fill the SMs twice over with the column blocks.
+    const int cols = (N + qmm::a8::BN - 1) / qmm::a8::BN;
+    const int tiles = (T + qmm::a8::BM - 1) / qmm::a8::BM + min(E, T) - 1;
+    const int rows = max(1, min(tiles, (2 * qmm::a8::sm_count() + cols - 1) / cols));
+    return (int)qmm::a8::launch_tile(moe_a8_tile, dim3(cols, rows), 1, st, ws, wp, sp, bp, gp,
+                                     op, T, N, Kp, E);
+  }
+  static size_t allowed = 48 * 1024;  // raised once per size, not per launch
+  const size_t smem = qmm::a8_smem_bytes(8, Kp);
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        moe_a8_gemv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed = smem;
+  }
+  moe_a8_gemv<<<dim3((N + 7) / 8, min(E, T)), dim3(256), smem, st>>>(xp, wp, sp, bp, gp, op, T,
+                                                                     N, Kp, E);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int tlt_grouped_quant_matmul(const void* x, const void* w, const void* s,
@@ -101,23 +176,18 @@ extern "C" int tlt_grouped_quant_matmul(const void* x, const void* w, const void
   return (int)cudaGetLastError();
 }
 
+// The tile walk's workspace for T rows of Kp, in bytes: 0 on the GEMV walk
+// (T <= A8_GEMV_MAX_ROWS), where the entry takes none. The wrapper asks
+// here, so the crossover lives in this file alone.
+extern "C" size_t tlt_grouped_quant_matmul_a8_workspace(int T, int Kp) {
+  return T > A8_GEMV_MAX_ROWS ? qmm::a8::workspace_bytes(T, Kp) : 0;
+}
+
+// ws: the workspace of the tile walk (tlt_grouped_quant_matmul_a8_workspace(
+// T, Kp) bytes, 16-byte aligned), or null on the GEMV walk.
 extern "C" int tlt_grouped_quant_matmul_a8(const void* x, const void* w, const void* s,
                                            const void* b, const void* group_sizes, void* out,
-                                           int T, int N, int Kp, int E, void* stream) {
-  if (Kp % qmm::GS != 0 || T <= 0 || T > 128 || N <= 0 || E <= 0)
-    return (int)cudaErrorInvalidValue;
-  static size_t allowed = 48 * 1024;  // raised once per size, not per launch
-  const size_t smem = qmm::a8_smem_bytes(8, Kp);
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        moe_a8_gemv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed = smem;
-  }
-  moe_a8_gemv<<<dim3((N + 7) / 8, min(E, T)), dim3(256), smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(w),
-      static_cast<const __nv_bfloat16*>(s), static_cast<const __nv_bfloat16*>(b),
-      static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(out), T, N, Kp, E);
-  return (int)cudaGetLastError();
+                                           int T, int N, int Kp, int E, void* ws,
+                                           size_t ws_bytes, void* stream) {
+  return a8_grouped(x, w, s, b, group_sizes, out, T, N, Kp, E, ws, ws_bytes, stream);
 }

@@ -144,4 +144,67 @@ __device__ __forceinline__ void tile_expert(
                        blockIdx.x * qmm::BN, meta[2], N, Kp);
 }
 
+// Run by warp 0: find_unit's answer for units of R-row blocks, with every
+// group size loaded before the scan (128 experts a pass), so a lookup
+// waits for one load, not one a 32 experts.
+template <int R>
+__device__ __forceinline__ void find_row_block(const int* __restrict__ gs, int E, int T, int i,
+                                               int* meta) {
+  const int lane = threadIdx.x & 31;
+  int rows = 0, done = 0;
+  for (int c0 = 0; c0 < E; c0 += 128) {
+    int sz[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = c0 + 32 * k + lane;
+      sz[k] = e < E ? __ldg(gs + e) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int incl = warp_incl_scan(sz[k]);
+      const int start = rows + incl - sz[k], end = rows + incl;
+      const int u = (sz[k] + R - 1) / R;
+      const int incl_u = warp_incl_scan(u);
+      const int first = done + incl_u - u;
+      const unsigned hit = __ballot_sync(FULL, u > 0 && i >= first && i < first + u);
+      if (hit) {
+        if (lane == __ffs(hit) - 1) {
+          meta[0] = c0 + 32 * k + lane;
+          meta[1] = start;
+          meta[2] = min(end, T);
+          meta[3] = i - first;
+        }
+        return;
+      }
+      rows += __shfl_sync(FULL, incl, 31);
+      done += __shfl_sync(FULL, incl_u, 31);
+    }
+  }
+  if (lane == 0) meta[0] = -1;
+}
+
+// Block row j of a grid (column blocks, Y) walks the logical tiles j, j +
+// Y, ... (the (expert, BM-row block) pairs in expert order) on the W4A8
+// tile (qmm_tile.cuh a8::) over rows quantized into `ws`, the whole
+// k-range a block. THREADS threads, SMEM_BYTES of dynamic shared memory.
+__device__ __forceinline__ void a8_tile_walk(
+    void* ws, const uint32_t* __restrict__ w, const __nv_bfloat16* __restrict__ s,
+    const __nv_bfloat16* __restrict__ b, const int* __restrict__ gs,
+    __nv_bfloat16* __restrict__ out, int T, int N, int Kp, int E, unsigned char* smem) {
+  namespace a8 = qmm::a8;
+  __shared__ int meta[4];
+  const a8::Quantized q = a8::carve(ws, T, Kp);
+  const int n0 = blockIdx.x * a8::BN, G = Kp / qmm::GS;
+  for (int i = blockIdx.y;; i += gridDim.y) {
+    if (threadIdx.x < 32) find_row_block<a8::BM>(gs, E, T, i, meta);
+    __syncthreads();
+    const int e = meta[0], m0 = meta[1] + meta[3] * a8::BM, end = meta[2];
+    if (e < 0) return;
+    a8::Acc acc = {};
+    a8::tile_mma(q, T, w + (size_t)e * N * (Kp / 8), s + (size_t)e * N * G,
+                 b + (size_t)e * N * G, m0, end, n0, N, Kp, 0, G, smem, acc);
+    a8::tile_store(acc, nullptr, out, m0, end, n0, N, 0, 1, smem);
+  }
+}
+
 }  // namespace moe

@@ -136,11 +136,12 @@ def sass_report(so: Path) -> dict[str, dict]:
     """Each kernel's SASS in a shared library, keyed as `ptxas_registers`
     keys it: `sass`, its text hashed (sha256, 16 hex digits);
     `tensor_core_ops`, its count of tensor-core instructions (HMMA, from
-    mma.sync; HGMMA, from wgmma), which shows from the machine code where a
-    product runs on the tensor cores; `hgmma`, the HGMMA among them. Runs of
-    whitespace count as one space in the hash: cuobjdump pads its columns to
-    the widest instruction in the whole library, so a kernel added to a
-    source would otherwise change the digests of the others."""
+    bf16 mma.sync; HGMMA, from wgmma; IMMA, from int8 mma.sync), which
+    shows from the machine code where a product runs on the tensor cores;
+    `hgmma` and `imma`, the HGMMA and IMMA among them. Runs of whitespace
+    count as one space in the hash: cuobjdump pads its columns to the
+    widest instruction in the whole library, so a kernel added to a source
+    would otherwise change the digests of the others."""
     r = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass", str(so)],
                        capture_output=True, text=True, check=True)
     bodies: dict[str, list[str]] = {}
@@ -152,8 +153,9 @@ def sass_report(so: Path) -> dict[str, dict]:
         elif body is not None:
             body.append(" ".join(ln.split()))
     return {fn: {"sass": hashlib.sha256("\n".join(b).encode()).hexdigest()[:16],
-                 "tensor_core_ops": sum(bool(re.search(r"\bHG?MMA\.", ln)) for ln in b),
-                 "hgmma": sum(bool(re.search(r"\bHGMMA\.", ln)) for ln in b)}
+                 "tensor_core_ops": sum(bool(re.search(r"\b(HG?MMA|IMMA)\.", ln)) for ln in b),
+                 "hgmma": sum(bool(re.search(r"\bHGMMA\.", ln)) for ln in b),
+                 "imma": sum(bool(re.search(r"\bIMMA\.", ln)) for ln in b)}
             for fn, b in bodies.items()}
 
 

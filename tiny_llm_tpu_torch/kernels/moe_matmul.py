@@ -9,8 +9,11 @@ width.
   * The W4A8 kernel replaces `_gqmm_pair_kernel` (wrapper
     `_gqmm_pair_pallas`): act="int8" experts (W4 g128) at T <= 128 grouped
     rows, per-row int8 activations and integer dots; csrc/moe_matmul.cu
-    (`tlt_grouped_quant_matmul_a8`). Above 128 rows the JAX package runs
-    W4A16-exact dots, and so does the port: the W4A16 kernel.
+    (`tlt_grouped_quant_matmul_a8`): a GEMV per expert at few rows, above
+    them a quantize kernel and a walk of int8 tensor-core tiles, which read
+    a workspace this wrapper allocates at the size the entry asks for. Above
+    128 rows the JAX package runs W4A16-exact dots, and so does the port:
+    the W4A16 kernel.
   * The any-width kernel replaces `_gqmm_kernel` (wrapper `_gqmm_pallas`):
     experts other than W4 g128; csrc/moe_matmul_sg.cu
     (`tlt_grouped_quant_matmul_sg`), the W4A16 walk over the generic body.
@@ -38,7 +41,8 @@ import torch
 from ..ops.quantize import QuantizedTensor
 from . import build
 from .dispatch import resolve
-from .quant_matmul import quant_matmul_a8_plain, quant_matmul_plain
+from .quant_matmul import (a8_workspace, a8_workspace_args, quant_matmul_a8_plain,
+                           quant_matmul_plain)
 
 TPU_KERNEL = "tiny_llm_tpu/kernels/moe_matmul.py:120 _gqmm_magic_kernel"
 TPU_KERNEL_A8 = "tiny_llm_tpu/kernels/moe_matmul.py:173 _gqmm_pair_kernel"
@@ -88,7 +92,8 @@ def grouped_quant_matmul_a8_plain(
 def _launch(fn_name, x, qt, group_sizes, extra=()):
     """Check the operands and launch `fn_name`: x [T, K] bf16 CUDA, rows
     sorted by expert; group_sizes int32 [E] on the same device, summing to
-    T. Returns [T, N] bf16."""
+    T; `extra`: (ctypes type, value) pairs after T, N, Kp, E (the W4A8
+    entry: its workspace, a8_workspace). Returns [T, N] bf16."""
     T, K = x.shape
     E, N = qt.num_experts, qt.out_features
     if x.dtype != torch.bfloat16 or not x.is_cuda or qt.packed.device != x.device:
@@ -103,13 +108,18 @@ def _launch(fn_name, x, qt, group_sizes, extra=()):
         if not t.is_contiguous():
             raise ValueError("weight tensors and group_sizes must be contiguous")
     out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
-    lib = build.load("moe_matmul_sg" if fn_name.endswith("_sg") else "moe_matmul")
+    lib_name = "moe_matmul_sg" if fn_name.endswith("_sg") else "moe_matmul"
+    lib = build.load(lib_name)
+    if fn_name.endswith("_a8"):  # ws lives until the launch is queued
+        ws = a8_workspace(lib_name, fn_name, T, qt.k_padded, x.device)
+        extra = a8_workspace_args(ws)
     fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * (4 + len(extra)) + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [t for t, _ in extra] \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.biases.data_ptr(),
-             group_sizes.data_ptr(), out.data_ptr(), T, N, qt.k_padded, E, *extra,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             group_sizes.data_ptr(), out.data_ptr(), T, N, qt.k_padded, E,
+             *(v for _, v in extra), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, fn_name)
     return out
 
@@ -129,7 +139,9 @@ def grouped_quant_matmul_cuda(
 def grouped_quant_matmul_a8_cuda(
     x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
 ) -> torch.Tensor:
-    """Launch the W4A8 kernel (W4 g128 experts, T <= 128 rows)."""
+    """Launch the W4A8 kernel (W4 g128 experts, T <= 128 rows): the GEMV
+    walk at few rows, above them the quantize kernel and the int8 tile walk
+    (the entry chooses by T), one count for the call."""
     global A8_LAUNCHES
     if not qt.is_w4g128:
         raise ValueError("grouped_quant_matmul_a8_cuda is W4 g128 only")
@@ -147,7 +159,8 @@ def grouped_quant_matmul_sg_cuda(
     global SG_LAUNCHES
     if qt.is_w4g128:
         raise ValueError("W4 g128 experts run grouped_quant_matmul_cuda")
-    out = _launch("tlt_grouped_quant_matmul_sg", x, qt, group_sizes, (qt.bits, qt.group_size))
+    out = _launch("tlt_grouped_quant_matmul_sg", x, qt, group_sizes,
+                  ((ctypes.c_int, qt.bits), (ctypes.c_int, qt.group_size)))
     SG_LAUNCHES += 1
     return out
 

@@ -9,8 +9,11 @@ the W4A8 kernel and the any-width kernel.
   * The W4A8 kernel replaces `_pair_kernel` (wrapper `_qmm_pair_pallas`):
     act="int8" weights (W4 g128) at M <= 32 rows, per-row absmax int8
     activations and integer dots; csrc/quant_matmul.cu
-    (`tlt_quant_matmul_a8`). Above 32 rows the JAX package runs
-    W4A16-exact dots on such weights, and so does the port: K1.
+    (`tlt_quant_matmul_a8`): a GEMV at decode rows, above them a quantize
+    kernel and an int8 tensor-core tile, which read a workspace this
+    wrapper allocates at the size the entry asks for. Above 32 rows the
+    JAX package runs W4A16-exact dots on such weights, and so does the
+    port: K1.
   * The any-width kernel replaces `_qmm_kernel` (wrapper `_qmm_pallas`):
     weights other than W4 g128 (bits 2, 4, 8; groups 32, 64, 128) at any
     M; csrc/quant_matmul_sg.cu (`tlt_quant_matmul_sg`), K1's two schedules
@@ -27,6 +30,7 @@ falls back: a width no kernel takes raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -71,10 +75,35 @@ def quant_matmul_a8_plain(
     return out.to(torch.bfloat16)
 
 
+@functools.lru_cache(maxsize=None)
+def _a8_workspace_bytes(lib_name: str, fn_name: str, rows: int, k_padded: int) -> int:
+    """The bytes of workspace the W4A8 entry `fn_name` of `lib_name` takes
+    for `rows` rows of k_padded, as its `<fn_name>_workspace` query gives
+    them: 0 where the entry runs its GEMV, which takes none."""
+    fn = getattr(build.load(lib_name), fn_name + "_workspace")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_size_t
+    return fn(rows, k_padded)
+
+
+def a8_workspace(lib_name: str, fn_name: str, rows: int, k_padded: int, device):
+    """The workspace of a W4A8 entry, allocated at the size the entry asks
+    for (uint8), or None on its GEMV route, which takes none."""
+    nbytes = _a8_workspace_bytes(lib_name, fn_name, rows, k_padded)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+
+
+def a8_workspace_args(ws) -> tuple:
+    """A W4A8 entry's workspace arguments (pointer, bytes) as `extra` pairs."""
+    return ((ctypes.c_void_p, None if ws is None else ws.data_ptr()),
+            (ctypes.c_size_t, 0 if ws is None else ws.numel()))
+
+
 def _launch(fn_name, x, qt, residual, extra=()):
     """Check the operands and launch `fn_name`: x [M, K] bf16 CUDA (zero-
     padded to k_padded here), the weight on the same device, the residual
-    [M, N] or None. Returns [M, N] bf16."""
+    [M, N] or None; `extra`: (ctypes type, value) pairs after M, N, Kp (the
+    W4A8 entry: its workspace, a8_workspace). Returns [M, N] bf16."""
     M, K = x.shape
     N = qt.out_features
     if x.dtype != torch.bfloat16 or not x.is_cuda or qt.packed.device != x.device:
@@ -90,13 +119,18 @@ def _launch(fn_name, x, qt, residual, extra=()):
         if residual.shape != (M, N) or residual.device != x.device:
             raise ValueError(f"residual {tuple(residual.shape)} != ({M}, {N})")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    lib = build.load("quant_matmul_sg" if fn_name.endswith("_sg") else "quant_matmul")
+    lib_name = "quant_matmul_sg" if fn_name.endswith("_sg") else "quant_matmul"
+    lib = build.load(lib_name)
+    if fn_name.endswith("_a8"):  # ws lives until the launch is queued
+        ws = a8_workspace(lib_name, fn_name, M, qt.k_padded, x.device)
+        extra = a8_workspace_args(ws)
     fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * (3 + len(extra)) + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [t for t, _ in extra] \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.biases.data_ptr(),
              residual.data_ptr() if residual is not None else None, out.data_ptr(), M, N,
-             qt.k_padded, *extra, torch.cuda.current_stream(x.device).cuda_stream)
+             qt.k_padded, *(v for _, v in extra), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, fn_name)
     return out
 
@@ -116,8 +150,10 @@ def quant_matmul_cuda(
 def quant_matmul_a8_cuda(
     x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Launch the W4A8 kernel (the activation quantization is fused into
-    it). x [M <= 32, K] bf16 CUDA, W4 g128 weight; returns [M, N] bf16."""
+    """Launch the W4A8 kernel: the GEMV (activation quantization fused) at
+    decode rows, above them the quantize kernel and the int8 tile (the
+    entry chooses by M), one count for the call. x [M <= 32, K] bf16 CUDA,
+    W4 g128 weight; returns [M, N] bf16."""
     global A8_LAUNCHES
     if not qt.is_w4g128:
         raise ValueError("quant_matmul_a8_cuda is W4 g128 only")
@@ -137,7 +173,8 @@ def quant_matmul_sg_cuda(
     global SG_LAUNCHES
     if qt.is_w4g128:
         raise ValueError("W4 g128 weights run K1 (quant_matmul_cuda)")
-    out = _launch("tlt_quant_matmul_sg", x, qt, residual, (qt.bits, qt.group_size))
+    out = _launch("tlt_quant_matmul_sg", x, qt, residual,
+                  ((ctypes.c_int, qt.bits), (ctypes.c_int, qt.group_size)))
     SG_LAUNCHES += 1
     return out
 
