@@ -6,12 +6,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
   build     compile the CUDA kernels from tiny_llm_tpu_torch/csrc (nvcc, in
             parallel, into build/), with the card's name and power limit;
-            the split prefill's two kernels and the masked prefill walk must
-            hold HGMMA in their SASS, the masked decode walk HMMA, the two
-            W4A8 tiles IMMA
+            the split prefill's two kernels, the masked prefill walk and K1's
+            staged tile must hold HGMMA in their SASS, the masked decode
+            walk, row 14's split walk and K1's bf16 tile HMMA, the two W4A8
+            tiles IMMA
   kernels   every kernel against its plain PyTorch version on the card at
             the shapes the main paths give it; kernel, plain and library
-            times and the least time the card could take (the bound). The
+            times and the least time the card could take (the bound). K1
+            at M = 1, 4, 20, 128 on every projection and, on qkv, gate_up
+            and down + res, at its routes' edges M = 2, 3, 32, 33, 36 and
+            1024, and on an N-tail weight (N = 1001): each case held to 1 %
+            of max of the f32 plain version and per element (2 bf16 ulps +
+            1e-3 of max) to the plain version of its route's arithmetic
+            (quant_matmul_staged_plain on the staged tile), beside K1's
+            time on its former GEMV instances and tile (a prior record). The
             paged kernels read a 57-page pool of 128 with shuffled page ids.
             Qwen3-4B's shapes (n_rep 4), then Qwen3-30B-A3B's: the grouped
             expert matmul (gate and down at T = 8, 32, 1024 and edge cases,
@@ -111,7 +119,8 @@ long_serving:
   sp_kernels    the shard decode-state kernel (row 6: a slab of 8192 in
             shards of 1024, B = 1 at 6000 keys and B = 4 at 1000-5000) and
             the paged decode-state walk (row 14: a 400-page pool striped
-            over the shards, B = 4) against their plain versions on every
+            over the shards, B = 4, L = 1 and 16, its split count on the
+            case line) against their plain versions on every
             shard, the empty ones included, and the chunk-state kernel at
             the virtual lengths sharded prefill gives it; each whole SP
             attention against unsharded attention
@@ -162,6 +171,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -311,10 +321,20 @@ def phase_build():
     imma = {**tensor_ops("quant_matmul", "a8_tile", "imma"),
             **tensor_ops("moe_matmul", "a8_tile", "imma")}
     check(len(imma) == 2 and all(imma.values()), f"W4A8 tiles' IMMA: {imma}")
+    # Row 14's split walk and K1's bf16 tile run mma.sync (HMMA), K1's
+    # staged tile warpgroup MMAs (HGMMA).
+    walk = tensor_ops("paged_attention", "paged_state_walk", "tensor_core_ops")
+    check(len(walk) == 8 and all(walk.values()), f"paged decode-state walk HMMA: {walk}")
+    b16 = tensor_ops("quant_matmul", "qmm_b16_tile", "tensor_core_ops")
+    check(len(b16) == 2 and all(b16.values()), f"K1 bf16 tile HMMA: {b16}")
+    staged = tensor_ops("quant_matmul", "qmm_staged_tile", "hgmma")
+    check(len(staged) == 1 and all(staged.values()), f"K1 staged tile HGMMA: {staged}")
     smi = nvidia_smi()
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(log),
           "state_kernels_tensor_core_ops": tc, "masked_prefill_hgmma": masked,
           "masked_decode_tensor_core_ops": dec, "a8_tile_imma": imma,
+          "paged_state_walk_tensor_core_ops": walk, "k1_b16_tile_tensor_core_ops": b16,
+          "k1_staged_tile_hgmma": staged,
           "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi, regs
 
@@ -428,13 +448,16 @@ def _tol_rule(codes):
 
 
 def _dense_cases(kernel, tpu_kernel, ws, Ms, residuals, gen, cuda_fn, plain_fn, peak, label,
-                 control=None):
+                 control=None, route_plain=None):
     """A dense matmul kernel against its plain version on ws[0] at each M
     of `Ms` rows, with and without a residual as `residuals` says, timed
     over every weight of `ws`; library: a bf16 matmul on the dequantized
     weights. With `control` (the W4A16 plain version, for a W4A8 kernel),
     the check is `_close`'s codes check, and `control` on the same x must
-    fail it."""
+    fail it. With `route_plain` (K1: M -> (route, the plain version of that
+    route's arithmetic)), each case is also held to its route's plain
+    version per element (`_close`'s codes check), beside the 1 %-of-max
+    check against `plain_fn`."""
     from tiny_llm_tpu_torch.ops.quantize import dequantize
 
     dev = torch.device("cuda")
@@ -453,6 +476,14 @@ def _dense_cases(kernel, tpu_kernel, ws, Ms, residuals, gen, cuda_fn, plain_fn, 
             what = f"{kernel} {label} M={M} res={residual}"
             check(ratio <= 1, f"{what}: {err} is {ratio} x {_tol_rule(codes)}")
             extra = {}
+            if route_plain is not None:
+                route, own = route_plain(M)
+                own_err, own_ratio = _close(got, own(x, ws[0], r), True)
+                check(own_ratio <= 1, f"{what} ({route}): {own_err} is {own_ratio} x "
+                      f"{_tol_rule(True)} of its route's plain version")
+                extra.update(route=route, route_plain_max_err=own_err,
+                             route_plain_err_over_tol=own_ratio,
+                             route_plain_tol=_tol_rule(True))
             if codes:
                 extra["w4a16_err_over_tol"] = _close(control(x, ws[0], r), want, codes)[1]
                 check(extra["w4a16_err_over_tol"] > 1, f"{what}: W4A16 passes the W4A8 check")
@@ -530,19 +561,53 @@ def _dense_step(params, cfg, gen, cuda_fn, plain_fn, name, source, replaces, lab
             "library": "matmul on bf16-dequantized weights"}
 
 
+# K1's times on its former routes (PERF.md's kernel table: M = 4 and 20 on
+# the 4- and 8-row GEMV instances, M = 128 on the 64 x 64 mma.sync tile;
+# NVIDIA H100 80GB HBM3, 700.00 W), ms by (shape, M, residual). A prior
+# record, printed beside this run's times under its own key.
+K1_PRIOR_MS = {
+    ("qkv", 4, False): 0.0235, ("qkv", 20, False): 0.1029, ("qkv", 128, False): 0.0531,
+    ("gate_up", 4, False): 0.0645, ("gate_up", 20, False): 0.3086,
+    ("gate_up", 128, False): 0.1126, ("down", 4, True): 0.0378, ("down", 20, True): 0.1449,
+    ("down", 128, True): 0.1526, ("lm_head", 4, False): 0.4700,
+    ("lm_head", 20, False): 2.3919, ("lm_head", 128, False): 0.7141,
+}
+
+
+def _k1_route_plain(M):
+    """K1's route at M rows and the plain version of its arithmetic."""
+    from tiny_llm_tpu_torch.kernels import quant_matmul as k1
+
+    route = k1.k1_route(M)
+    return route, k1.quant_matmul_staged_plain if route == "staged" else k1.quant_matmul_plain
+
+
 def _k1_cases(model, cfg, gen):
     """K1 for each projection shape, with and without residual, at M = 1
     (decode) and 128 (prefill), the main path's, and at M = 4 and 20
-    (batched decode: the GEMV's 4- and 8-row instances); then one decode
-    step, 145 launches in model order, for the kernel line."""
+    (batched decode); also at the routes' edges M = 2, 3, 32,
+    33, 36 (mixed serving) and 1024 (long prefill) on qkv, gate_up and down
+    + res, and on an N-tail weight (N = 1001, K = 2560); each case beside
+    its route and K1_PRIOR_MS; then one decode step, 145 launches in model
+    order, for the kernel line."""
     from tiny_llm_tpu_torch.kernels import quant_matmul as k1
 
     params, layers = model.params, model.params.layers
     cases = []
-    for name, (_, _, attr, _) in _k1_shapes(cfg).items():
+    run = functools.partial(_dense_cases, "quant_matmul", k1.TPU_KERNEL, gen=gen,
+                            cuda_fn=k1.quant_matmul_cuda, plain_fn=k1.quant_matmul_plain,
+                            peak=BF16_FLOPS, route_plain=_k1_route_plain)
+    for name, (_, _, attr, residual) in _k1_shapes(cfg).items():
         ws = [_layer_weight(params, L, attr) for L in (layers if attr else layers[:1])]
-        cases += _dense_cases("quant_matmul", k1.TPU_KERNEL, ws, (1, 4, 20, 128), (False, True),
-                              gen, k1.quant_matmul_cuda, k1.quant_matmul_plain, BF16_FLOPS, name)
+        cases += run(ws=ws, Ms=(1, 4, 20, 128), residuals=(False, True), label=name)
+        if name in ("qkv", "gate_up", "down"):
+            cases += run(ws=ws, Ms=(2, 3, 32, 33, 36, 1024), residuals=(residual,), label=name)
+    ws = _random_qt(gen, 1001, 2560, 4, 128, copies=4)
+    cases += run(ws=ws, Ms=(1, 4, 36, 1024), residuals=(True,), label="N-tail")
+    del ws
+    for c in cases:
+        c["prior_record_ms"] = K1_PRIOR_MS.get(
+            (c["shape"].split()[0], c["rows"], c["shape"].endswith("+res")))
     contract = {"quant_matmul": _dense_step(
         params, cfg, gen, k1.quant_matmul_cuda, k1.quant_matmul_plain, "quant_matmul", k1.SOURCE,
         "tiny_llm_tpu/kernels/quant_matmul.py:154", "4B", BF16_FLOPS, head=True)}
@@ -2542,12 +2607,14 @@ def phase_sp_kernels(cfg, contract):
     sp_ms = graph_ms(lambda: sp.paged(q, kp, vp, bt, lens_t, sc))
     row12_ms = graph_ms(lambda: pa.paged_decode_cuda(q, kp, vp, bt, lens_t, sc))
     B = len(ctxs)
+    per = pa.decode_state_split(B, Hkv, width, ps, _sms())
+    splits = f"{-(-width // per)} splits of {per} table entries"
     bms, by = bound(sum(owned_keys) / n * Hkv * D * 2 * 2 + B * Hq * D * 2 * 2 + B * Hq * 4 * 2,
                     sum(owned_keys) / n * 4 * Hq * D)
     case = {"kernel": "paged_decode_state", "tpu_kernel": pa.TPU_KERNEL_DECODE_STATE,
             "shape": f"B={B} L=1 contexts={ctxs} pool={SP_PAGES}x{ps} striped over {n} shards "
-                     f"(P_loc={P_loc}) width={width} Hq={Hq} Hkv={Hkv} D={D}; mean of the {n} "
-                     "shards' launches",
+                     f"(P_loc={P_loc}) width={width} Hq={Hq} Hkv={Hkv} D={D}, {splits}; mean of "
+                     f"the {n} shards' launches",
             "max_err": max(errs["paged_decode_state"]), "tol": tol, "kernel_ms": kern,
             "plain_ms": plain, "library_ms": lib,
             "library": "SDPA over the shard's live keys gathered contiguous (mean of shards)",
@@ -2558,6 +2625,29 @@ def phase_sp_kernels(cfg, contract):
     contract["paged_decode_state"] = _sp_kernel_entry(
         "paged_decode_state", pa.SOURCE, "tiny_llm_tpu/kernels/paged_attention_pallas.py:583",
         case["shape"], 0.0, kern, plain, lib, bms, by)
+    # L = 16 (speculative verification's and a mixed burst's rows; 64 rows
+    # a KV head, four m16 tiles) over the same pool.
+    L16, err16 = 16, 0.0
+    q16 = randn(B, Hq, L16, D)
+    for s, (kl, vl, base) in enumerate(locs):
+        got = pa.paged_decode_state_cuda(q16, kl, vl, bt, lens_t, base, sc)
+        want = pa.paged_decode_state_plain(q16, kl, vl, bt, lens_t, base, sc)
+        torch.cuda.synchronize()
+        err16 = max(err16, _sp_state_check(f"paged_decode_state L={L16} shard {s}", got, want,
+                                           tol)[0])
+    errs["paged_decode_state"].append(err16)
+    kern16 = graph_ms(lambda: [pa.paged_decode_state_cuda(q16, kl, vl, bt, lens_t, base, sc)
+                               for kl, vl, base in locs]) / n
+    plain16 = event_ms(lambda: pa.paged_decode_state_plain(q16, locs[0][0], locs[0][1], bt,
+                                                           lens_t, 0, sc), reps=1)
+    bms16, by16 = bound(sum(owned_keys) / n * Hkv * D * 2 * 2 + B * Hq * L16 * (D * 2 * 2 + 8),
+                        sum(owned_keys) / n * 4 * Hq * L16 * D)
+    cases.append({"kernel": "paged_decode_state", "tpu_kernel": pa.TPU_KERNEL_DECODE_STATE,
+                  "shape": case["shape"].replace("L=1 ", f"L={L16} "),
+                  "max_err": err16, "tol": tol, "kernel_ms": kern16,
+                  "plain_ms": plain16, "library_ms": None, "bound_ms": bms16,
+                  "bound_by": by16})
+    del q16
     for r in reqs:
         r.release()
     del pool, kp, vp, locs

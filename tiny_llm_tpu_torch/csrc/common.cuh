@@ -66,11 +66,9 @@ __device__ __forceinline__ float warp_max(float v) {
 // Where the K (and V: both share one layout) row at position `pos` of one
 // (batch row, KV head) lives, as an element offset from the base pointer.
 // The attention kernels take one of these, so a dense slab and a page pool
-// run the same code. MASKED: some rows below the walk's end may not be read
-// (owned() says which); the tile then skips them (flash_tile.cuh).
+// run the same code.
 template <int D>
 struct SlabRows {  // a dense slab: the head's rows [0, S) from `base`
-  static constexpr bool MASKED = false;
   size_t base;
   __device__ __forceinline__ size_t operator()(int pos) const {
     return base + (size_t)pos * D;
@@ -79,30 +77,10 @@ struct SlabRows {  // a dense slab: the head's rows [0, S) from `base`
 
 template <int D>
 struct PageRows {  // a page pool [P, Hkv, ps, D] through one block-table row
-  static constexpr bool MASKED = false;
   const int* bt;   // the batch row's block table (-1 padded)
   int ps, Hkv, h;
   __device__ __forceinline__ size_t operator()(int pos) const {
     const int page = max(__ldg(bt + pos / ps), 0);  // -1 -> trash page 0
     return (((size_t)page * Hkv + h) * ps + pos % ps) * D;
-  }
-};
-
-// One shard of a sequence-sharded page pool: the shard's pages
-// [p_loc, Hkv, ps, D] hold the GLOBAL pages [base, base + p_loc), read
-// through one block-table row of global ids. A row on another shard's page
-// or under a -1 entry is not the shard's: owned() is false and the tile
-// never reads it.
-template <int D>
-struct OwnedPageRows {
-  static constexpr bool MASKED = true;
-  const int* bt;  // the batch row's block table (global ids, -1 padded)
-  int ps, Hkv, h, base, p_loc;
-  __device__ __forceinline__ int local(int pos) const { return __ldg(bt + pos / ps) - base; }
-  __device__ __forceinline__ bool owned(int pos) const {
-    return (unsigned)local(pos) < (unsigned)p_loc;  // -1 entries and other shards' ids: no
-  }
-  __device__ __forceinline__ size_t operator()(int pos) const {
-    return (((size_t)local(pos) * Hkv + h) * ps + pos % ps) * D;
   }
 };

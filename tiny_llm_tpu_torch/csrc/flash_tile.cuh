@@ -16,19 +16,12 @@
 // read. A row that sees no key emits 0, not NaN (NEG_INF = -1e30 with the
 // NEG_INF/2 floor on the subtrahend).
 //
-// A compile-time option serves the shard decode-state walks (rows 6 and
-// 14); its default is the tile above, unchanged for K3 and the paged
-// kernels:
+// A compile-time option serves the shard decode-state walk (row 6); its
+// default is the tile above, unchanged for K3 and the paged kernels:
 //   STATE = true    the epilogue also writes each row's m (max scaled score,
 //                   natural-log domain) and l (sum of the f32 p) as f32
 //                   [B, Hq, L]. A row that sees no key emits the combine
 //                   identity (o = 0, m = NEG_INF, l = 0).
-//
-// A `Rows` with MASKED (common.cuh OwnedPageRows, row 14's pool shard) may
-// not read some keys below the walk's end: such a key is masked like a
-// future one and never loaded, and a 32-key tile with no readable key is
-// skipped whole (it would leave every row's state exactly as it was). For
-// the other Rows every test of it folds away at compile time.
 //
 // Rounding points follow the TPU kernels (flash_attention_pallas.py
 // _flash_inner): q * scale rounds to bf16, scores and the softmax state are
@@ -40,12 +33,6 @@
 #include "common.cuh"
 
 namespace flash {
-
-template <class Rows>
-__device__ __forceinline__ bool readable(const Rows& rows, int pos) {
-  if constexpr (Rows::MASKED) return rows.owned(pos);
-  else return true;
-}
 
 constexpr int WARPS = 8, KT = 32;
 
@@ -96,15 +83,11 @@ __device__ __forceinline__ void tile(
   const int kmax = min(min(len, len - L + min(q0 + BQ, L)), limit);
 
   for (int t0 = 0; t0 < kmax; t0 += KT) {
-    if constexpr (Rows::MASKED) {
-      // Block-uniform: the barrier's vote is every thread's.
-      if (!__syncthreads_or(tid < KT && t0 + tid < kmax && rows.owned(t0 + tid))) continue;
-    }
     __syncthreads();  // previous tile consumed (and Qs written)
     for (int idx = tid; idx < KT * D / 8; idx += blockDim.x) {
       const int j = idx / (D / 8), c = idx % (D / 8);
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (t0 + j < kmax && readable(rows, t0 + j)) {
+      if (t0 + j < kmax) {
         const size_t o = rows(t0 + j);
         kv4 = __ldg(reinterpret_cast<const uint4*>(k + o) + c);
         vv4 = __ldg(reinterpret_cast<const uint4*>(v + o) + c);
@@ -133,11 +116,9 @@ __device__ __forceinline__ void tile(
       }
     }
     const int kpos = t0 + lane;
-    bool kread = true;
-    if constexpr (Rows::MASKED) kread = kpos < kmax && rows.owned(kpos);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool seen = kpos <= qpos[i] && kread;
+      const bool seen = kpos <= qpos[i];
       const float s_i = seen ? sc[i] : TLT_NEG_INF;
       const float m_new = fmaxf(m[i], warp_max(s_i));
       const float alpha = expf(m[i] - m_new);

@@ -7,16 +7,26 @@
 // with f32 accumulation; the residual is added in f32 before the bf16 round.
 // x is bf16 [M, Kp] (the wrapper zero-pads K to Kp).
 //
-// Bound on the H100: at decode (M <= 32) the bytes of the packed weights
-// (0.5 B per weight plus 4 B per 128-weight group) over 3.35 TB/s; at
-// prefill (M = 128) still the bytes for the narrow projections, the bf16
-// tensor-core rate only for a full-width fold.
+// Bound on the H100: at decode and serving rows the bytes of the packed
+// weights (0.5 B per weight plus 4 B per 128-weight group) over 3.35 TB/s;
+// at prefill (M = 1024) the bf16 tensor-core rate for every projection.
 //
-// Design (the bodies are qmm_tile.cuh's, shared with the grouped expert
-// matmul and the any-width kernels):
-//  * M <= 32, `qmm_gemv`: one warp per output row, instances for 1, 4 and
-//    8 x rows per pass over the weights (the unused rows are masked).
-//  * M > 32, `qmm_tiled`: one 64x64 tensor-core tile per 4-warp block.
+// Design: three routes, chosen by M on the host against two constants set
+// from measurement (kernels/qmm_crossover.py times the routes side by side):
+//  * M < B16_MIN_ROWS (decode, M <= 2), `qmm_gemv<1>`: qmm_tile.cuh's
+//    warp-per-row GEMV (scalar f32 FMAs, one warp per output column), one
+//    pass over the weights per row.
+//  * B16_MIN_ROWS <= M < STAGED_MIN_ROWS (batched decode, serving),
+//    `qmm_b16_tile`: qmm_tc.cuh b16::, a weight-streaming bf16 tensor-core
+//    tile that reads each weight word once for every row (128 columns and
+//    16 or 32 rows a block, a ring of one group a stage, the k-range split
+//    over a cluster where the column blocks leave SMs idle), with the f32
+//    fold acc += d s + xs b of the plain version.
+//  * M >= STAGED_MIN_ROWS (prefill), `qmm_staged_tile`: qmm_tc.cuh
+//    staged::, the TPU's staged schedule on warpgroup MMAs (bf16(q s)
+//    staged in shared memory, x . bf16(q s) in f32, the bias term in f32),
+//    the rounding of the JAX package's staged prefill path.
+// One launch a call on every route; a launch failure is returned.
 //
 // The W4A8 matmul, `tlt_quant_matmul_a8`, replaces _pair_kernel (through
 // _qmm_pair_pallas) at its decode shapes, M <= 32 rows:
@@ -41,7 +51,10 @@
 //    column block's k-range and adds the partial tiles through distributed
 //    shared memory. A launch failure of either kernel is returned.
 #include <algorithm>
+#include <map>
+#include <tuple>
 
+#include "qmm_tc.cuh"
 #include "qmm_tile.cuh"
 
 namespace {
@@ -53,6 +66,14 @@ namespace {
 // M = 4 the tile wins on every shape.
 constexpr int A8_GEMV_MAX_ROWS = 2;
 
+// K1's routes by rows, set from `python -m tiny_llm_tpu_torch.kernels.
+// qmm_crossover --kind k1` (PERF.md): a Qwen3-4B layer's four projections
+// take less time on the GEMV at M = 2 and on the bf16 tile at M = 3; on the
+// bf16 tile at M = 32 and on the staged tile at M = 48.
+constexpr int B16_MIN_ROWS = 3;
+constexpr int STAGED_MIN_ROWS = 33;
+
+// One x row a block row (MT = 1, the only instance): rows blockIdx.y.
 template <int MT>
 __global__ void __launch_bounds__(256) qmm_gemv(
     const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
@@ -62,12 +83,96 @@ __global__ void __launch_bounds__(256) qmm_gemv(
   qmm::gemv_rows<MT>(x, w, s, b, res, out, blockIdx.y * MT, M, N, Kp);
 }
 
-__global__ void __launch_bounds__(128) qmm_tiled(
-    const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
+// The weights' tensor map in boxes of one group by 128 rows (64-byte
+// swizzled for the staged tile), encoded once per weight (the weights
+// never move) and kept.
+cudaError_t weight_map(CUtensorMap* map, const uint32_t* w, int N, int Kp, bool swizzled) {
+  static std::map<std::tuple<const void*, int, int, bool>, CUtensorMap> maps;
+  const auto key = std::make_tuple(static_cast<const void*>(w), N, Kp, swizzled);
+  const auto it = maps.find(key);
+  if (it != maps.end()) {
+    *map = it->second;
+    return cudaSuccess;
+  }
+  const cudaError_t e = qmm::tma::weight_map(
+      map, w, N, Kp, 128, swizzled ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == cudaSuccess) maps.emplace(key, *map);
+  return e;
+}
+
+// Grid (column blocks x ranks, row blocks), clusters of `ranks` blocks
+// along x: the blocks of a cluster share one column block, each a k-range.
+template <int MT>
+__global__ void __launch_bounds__(qmm::b16::THREADS, 2) qmm_b16_tile(
+    const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUtensorMap wmap,
     const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ b,
-    const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out,
-    int M, int N, int Kp) {
-  qmm::tile(x, w, s, b, res, out, blockIdx.y * qmm::BM, blockIdx.x * qmm::BN, M, N, Kp);
+    const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out, int M, int N,
+    int Kp, int ranks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = qmm::b16::aligned(smem_raw);
+  const int rank = blockIdx.x % ranks, n0 = blockIdx.x / ranks * qmm::b16::BN;
+  const int m0 = blockIdx.y * 16 * MT, G = Kp / qmm::GS;
+  float acc[MT][2][4] = {};
+  qmm::b16::tile_mma<MT>(x, &wmap, s, b, m0, M, n0, N, Kp, rank * G / ranks,
+                         (rank + 1) * G / ranks, smem, acc);
+  qmm::b16::tile_store<MT>(acc, res, out, m0, M, n0, N, rank, ranks, smem);
+}
+
+template <int MT>
+cudaError_t b16_route(const __nv_bfloat16* x, const uint32_t* w, const __nv_bfloat16* s,
+                      const __nv_bfloat16* b, const __nv_bfloat16* res, __nv_bfloat16* out,
+                      int M, int N, int Kp, cudaStream_t st) {
+  constexpr int SMEM = qmm::b16::Shape<MT>::SMEM_BYTES;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(qmm_b16_tile<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap wmap;
+  const cudaError_t e = weight_map(&wmap, w, N, Kp, false);
+  if (e != cudaSuccess) return e;
+  const int cols = (N + qmm::b16::BN - 1) / qmm::b16::BN, rows = (M + 16 * MT - 1) / (16 * MT);
+  // Split each column block's k-range over a cluster of up to 8 blocks
+  // (each one group at least) while the grid stays within one block an SM.
+  const int ranks =
+      std::max(1, std::min({8, Kp / qmm::GS, qmm::a8::sm_count() / (cols * rows)}));
+  return qmm::launch_clustered(qmm_b16_tile<MT>, dim3(cols * ranks, rows), qmm::b16::THREADS,
+                               SMEM, ranks, st, x, wmap, s, b, res, out, M, N, Kp, ranks);
+}
+
+// Grid (column blocks x ranks, row blocks), clusters of `ranks` blocks
+// along x, as qmm_b16_tile's.
+__global__ void __launch_bounds__(qmm::staged::THREADS, 1) qmm_staged_tile(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ b,
+    const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out, int M, int N,
+    int Kp, int ranks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int rank = blockIdx.x % ranks, G = Kp / qmm::GS;
+  qmm::staged::tile(&xmap, &wmap, s, b, res, out, blockIdx.y * qmm::staged::BM,
+                    blockIdx.x / ranks * qmm::staged::BN, M, N, Kp, rank * G / ranks,
+                    (rank + 1) * G / ranks, rank, ranks, smem);
+}
+
+cudaError_t staged_route(const __nv_bfloat16* x, const uint32_t* w, const __nv_bfloat16* s,
+                         const __nv_bfloat16* b, const __nv_bfloat16* res, __nv_bfloat16* out,
+                         int M, int N, int Kp, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qmm_staged_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, qmm::staged::SMEM_BYTES);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap xmap, wmap;  // x changes every call: its map is encoded each time
+  cudaError_t e = qmm::tma::encode_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, Kp, M,
+                                      (uint64_t)Kp * 2, 64, qmm::staged::BM,
+                                      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess) e = weight_map(&wmap, w, N, Kp, true);
+  if (e != cudaSuccess) return e;
+  const int cols = (N + qmm::staged::BN - 1) / qmm::staged::BN;
+  const int rows = (M + qmm::staged::BM - 1) / qmm::staged::BM;
+  // As the bf16 tile: split each tile's k-range over a cluster of up to 8
+  // blocks while the grid stays within one block an SM.
+  const int ranks =
+      std::max(1, std::min({8, Kp / qmm::GS, qmm::a8::sm_count() / (cols * rows)}));
+  return qmm::launch_clustered(qmm_staged_tile, dim3(cols * ranks, rows), qmm::staged::THREADS,
+                               qmm::staged::SMEM_BYTES, ranks, st, xmap, wmap, s, b, res, out,
+                               M, N, Kp, ranks);
 }
 
 template <int MT>
@@ -156,21 +261,18 @@ extern "C" int tlt_quant_matmul(const void* x, const void* w, const void* s, con
   const auto* bp = static_cast<const __nv_bfloat16*>(b);
   const auto* rp = static_cast<const __nv_bfloat16*>(res);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (M <= 32) {
-    const int rows_per_block = 8;  // 256 threads, one warp per row
-    const dim3 block(256);
-    if (M == 1) {
-      qmm_gemv<1><<<dim3((N + 7) / rows_per_block, 1), block, 0, st>>>(xp, wp, sp, bp, rp, op, M, N, Kp);
-    } else if (M <= 4) {
-      qmm_gemv<4><<<dim3((N + 7) / rows_per_block, 1), block, 0, st>>>(xp, wp, sp, bp, rp, op, M, N, Kp);
-    } else {
-      qmm_gemv<8><<<dim3((N + 7) / rows_per_block, (M + 7) / 8), block, 0, st>>>(xp, wp, sp, bp, rp, op, M, N, Kp);
-    }
-  } else {
-    qmm_tiled<<<dim3((N + qmm::BN - 1) / qmm::BN, (M + qmm::BM - 1) / qmm::BM), dim3(128), 0,
-                st>>>(xp, wp, sp, bp, rp, op, M, N, Kp);
+  if (M >= STAGED_MIN_ROWS) return (int)staged_route(xp, wp, sp, bp, rp, op, M, N, Kp, st);
+  if (M >= B16_MIN_ROWS) {
+    if (M <= 16) return (int)b16_route<1>(xp, wp, sp, bp, rp, op, M, N, Kp, st);
+    return (int)b16_route<2>(xp, wp, sp, bp, rp, op, M, N, Kp, st);  // 32-row blocks
   }
+  qmm_gemv<1><<<dim3((N + 7) / 8, M), dim3(256), 0, st>>>(xp, wp, sp, bp, rp, op, M, N, Kp);
   return (int)cudaGetLastError();
+}
+
+// K1's route for M rows: 0 the GEMV, 1 the bf16 tile, 2 the staged tile.
+extern "C" int tlt_quant_matmul_route(int M) {
+  return M >= STAGED_MIN_ROWS ? 2 : M >= B16_MIN_ROWS ? 1 : 0;
 }
 
 // The tile route's workspace for M rows of Kp, in bytes: 0 on the GEMV

@@ -164,13 +164,16 @@ def main(argv: list[str]) -> int:
     nvcc = _nvcc()
     report = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for src in sorted(csrc.glob("*.cu")):
-            r = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o",
-                                str(Path(tmp) / f"{src.stem}.so"), str(src)],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
-            report[src.stem] = ptxas_registers(r.stdout + r.stderr)
+        procs = {src: subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o",
+                                        str(Path(tmp) / f"{src.stem}.so"), str(src)],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+                 for src in sorted(csrc.glob("*.cu"))}  # one nvcc per source, in parallel
+        for src, p in procs.items():
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+            report[src.stem] = ptxas_registers(out)
             for fn, info in sass_report(Path(tmp) / f"{src.stem}.so").items():
                 report[src.stem].setdefault(fn, {}).update(info)
     print(json.dumps(report, indent=1))

@@ -17,7 +17,9 @@ Counterpart of tiny_llm_tpu/kernels/paged_attention.py (`gather_pages_dense`,
     paged_attention_pallas.py:640) -> `tlt_paged_decode_state`: decode
     (L <= 16) over the pages ONE shard of a sequence-sharded pool owns,
     emitting (o, m, l) for the sequence-parallel combine
-    (parallel/sp_attention.py).
+    (parallel/sp_attention.py). A split-key walk: each row's block table
+    in splits of `decode_state_split` entries, a partial state per split in
+    a workspace the entry sizes, and a combine kernel.
 The CUDA source's header notes what bounds them on the H100 and what
 their design does about it.
 
@@ -41,7 +43,13 @@ import torch
 
 from . import build
 from .dispatch import resolve
-from .flash_attention import _causal_mask, attention_state_plain, flash_attention_plain
+from .flash_attention import (
+    NEG_INF,
+    _attention_sums,
+    _causal_mask,
+    attention_state_plain,
+    flash_attention_plain,
+)
 
 TPU_KERNEL_DECODE = "tiny_llm_tpu/kernels/paged_attention_pallas.py:297 _paged_decode_gather_kernel"
 TPU_KERNEL_PREFILL = "tiny_llm_tpu/kernels/paged_attention_pallas.py:475 _paged_prefill_kernel"
@@ -50,6 +58,11 @@ TPU_KERNEL_DECODE_STATE = (
     "tiny_llm_tpu/kernels/paged_attention_pallas.py:583 _paged_decode_state_kernel")
 SOURCE = "tiny_llm_tpu_torch/csrc/paged_attention.cu"
 DECODE_MAX_L = 16  # paged_attention_pallas.py:862
+# The decode-state walk's splits: at least STATE_MIN_KEYS keys (a block's
+# start, its list of the shard's pages and its first tile's latency cost
+# about what three tiles do), at most STATE_MAX_ENTRIES table entries (the
+# kernel's list, csrc/paged_attention.cu PDS_MAX_ENTRIES).
+STATE_MIN_KEYS, STATE_MAX_ENTRIES = 256, 256
 
 # Kernel launches since the last reset (see kernels.reset_launches).
 DECODE_LAUNCHES = 0
@@ -109,6 +122,45 @@ def paged_decode_state_plain(q, key_pages_loc, value_pages_loc, block_table, con
     return attention_state_plain(q, k, v, ok, scale)
 
 
+def paged_decode_state_split_plain(q, key_pages_loc, value_pages_loc, block_table, context_lens,
+                                   page_base: int, scale: float, splits: int):
+    """The decode-state walk's split and combine in plain PyTorch (tests
+    only): the table cut into `splits` chunks of ceil(max_pages / splits)
+    entries, each chunk's (acc, m, l) over the shard's keys in it at
+    attention_state_plain's rounding points (p rounded against the chunk's
+    max), merged in f32 with the subtrahend floored at NEG_INF / 2 and o
+    rounded to q's dtype once, as state_combine does. Returns (o, m, l); a
+    row that sees none of the shard's keys gives (0, NEG_INF, 0)."""
+    P_loc, _, ps, _ = key_pages_loc.shape
+    bt = block_table.to(device=q.device, dtype=torch.long)
+    local = bt - page_base
+    owned = ((local >= 0) & (local < P_loc)).repeat_interleave(ps, dim=1)[:, None, :]
+    k, v = gather_pages_dense(key_pages_loc, value_pages_loc, local.clamp(0, P_loc - 1))
+    ok = _causal_mask(context_lens, q.shape[2], k.shape[2], q.device) & owned
+    chunk = -(-bt.shape[1] // splits) * ps
+    key = torch.arange(k.shape[2], device=q.device)
+    parts = [_attention_sums(q, k, v, ok & (key >= k0) & (key < k0 + chunk), scale)
+             for k0 in range(0, k.shape[2], chunk)]
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    mx = m.amax(0)
+    w = torch.exp(m - torch.clamp(mx, min=NEG_INF / 2))
+    l = (w * l).sum(0)
+    out = (w[..., None] * acc).sum(0) / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype), mx, l
+
+
+def decode_state_split(B: int, Hkv: int, max_pages: int, page_size: int, sms: int) -> int:
+    """Block-table entries a split of the decode-state walk holds: enough
+    splits that the grid (splits, Hkv, B) covers `sms` SMs at least twice
+    where the table's width allows splits of STATE_MIN_KEYS keys, at most
+    STATE_MAX_ENTRIES entries. From the shapes alone, never from the lengths
+    or the table, which live on the device (reading them would sync and
+    break a CUDA graph's capture)."""
+    want = -(-2 * sms // (B * Hkv))
+    least = -(-STATE_MIN_KEYS // page_size)
+    return max(1, min(STATE_MAX_ENTRIES, max(max_pages // want, least)))
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     for fn in (lib.tlt_paged_decode, lib.tlt_paged_prefill):
@@ -118,8 +170,12 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.tlt_paged_decode_state
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.tlt_paged_decode_state_workspace
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -203,7 +259,8 @@ def paged_prefix_state_cuda(q, key_pages, value_pages, block_table, prefix_lens,
 
 def paged_decode_state_cuda(q, key_pages_loc, value_pages_loc, block_table, context_lens,
                             page_base: int, scale: float):
-    """The paged decode-state walk over one shard's pages (L <= 16)."""
+    """The paged decode-state walk over one shard's pages (L <= 16): one
+    call of the C entry, the split walk and its combine, counted once."""
     global DECODE_STATE_LAUNCHES
     B, Hq, L, D = q.shape
     P_loc, Hkv, ps = key_pages_loc.shape[:3]
@@ -213,14 +270,20 @@ def paged_decode_state_cuda(q, key_pages_loc, value_pages_loc, block_table, cont
     dev = q.device
     bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
+    maxp = bt.shape[1]
     out = torch.empty_like(q)
     m = torch.empty((B, Hq, L), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
     lib = _lib()
+    per = decode_state_split(B, Hkv, maxp, ps,
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
+    nbytes = lib.tlt_paged_decode_state_workspace(B, Hkv, L, maxp, D, n_rep, per)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)  # the splits' partials
     err = lib.tlt_paged_decode_state(
         q.data_ptr(), key_pages_loc.data_ptr(), value_pages_loc.data_ptr(), bt.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, L, ps, bt.shape[1],
-        int(page_base), P_loc, D, n_rep, float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        lens.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), ws.data_ptr(), nbytes, B,
+        Hkv, L, ps, maxp, int(page_base), P_loc, D, n_rep, per, float(scale),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "tlt_paged_decode_state")
     DECODE_STATE_LAUNCHES += 1

@@ -3,9 +3,11 @@ the W4A8 kernel and the any-width kernel.
 
   * K1 replaces tiny_llm_tpu/kernels/quant_matmul.py::_magic_kernel
     (wrapper `_qmm_magic_pallas`); CUDA in csrc/quant_matmul.cu, whose
-    header notes what bounds it on the H100 and how its two schedules (a
-    warp-per-row GEMV for M <= 32, a tensor-core tiled kernel above) deal
-    with that.
+    header notes what bounds it on the H100 and how its three routes (a
+    warp-per-row GEMV at M <= 2, a weight-streaming bf16 tensor-core tile
+    for decode and serving rows, the TPU's staged schedule on warpgroup
+    MMAs for prefill rows; the gates are constants of the .cu file, which
+    `k1_route` asks) deal with that.
   * The W4A8 kernel replaces `_pair_kernel` (wrapper `_qmm_pair_pallas`):
     act="int8" weights (W4 g128) at M <= 32 rows, per-row absmax int8
     activations and integer dots; csrc/quant_matmul.cu
@@ -24,7 +26,9 @@ launches the chosen kernel for CUDA tensors; for CPU tensors (or when
 impl="torch") it runs the kernel's plain version: `quant_matmul_plain` for
 K1 and the any-width kernel (f32 dequant at the weight's own width),
 `quant_matmul_a8_plain` for the W4A8 kernel. On a CUDA tensor nothing
-falls back: a width no kernel takes raises.
+falls back: a width no kernel takes raises. `quant_matmul_staged_plain` is
+the arithmetic of K1's staged route (bf16(q * s) staged, the TPU's
+rounding); only the tests and chip_smoke.py call it.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import functools
 
 import torch
 
-from ..ops.quantize import QuantizedTensor, dequantize, quantize_activations
+from ..ops.quantize import QuantizedTensor, dequantize, quantize_activations, unpack_codes
 from . import build
 from .dispatch import resolve
 
@@ -44,6 +48,7 @@ TPU_KERNEL_SG = "tiny_llm_tpu/kernels/quant_matmul.py:79 _qmm_kernel"
 SOURCE = "tiny_llm_tpu_torch/csrc/quant_matmul.cu"  # K1 and the W4A8 kernel
 SOURCE_SG = "tiny_llm_tpu_torch/csrc/quant_matmul_sg.cu"
 A8_MAX_ROWS = 32  # the JAX pair dispatch's decode gate (rows <= 32)
+K1_ROUTES = ("gemv", "b16", "staged")  # tlt_quant_matmul_route's codes
 
 # Kernel launches since the last reset (see kernels.reset_launches).
 LAUNCHES = 0  # K1
@@ -60,6 +65,34 @@ def quant_matmul_plain(
     if residual is not None:
         out = out + residual.to(torch.float32)
     return out.to(torch.bfloat16)
+
+
+def quant_matmul_staged_plain(
+    x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
+) -> torch.Tensor:
+    """K1's staged arithmetic (the JAX package's staged prefill schedule,
+    quant_matmul.py:232-257): q * s rounded to bf16, x @ that in f32, then
+    sum_g xs_g * b_g in f32 (xs_g the f32 sum of x over group g), + residual
+    in f32, rounded to bf16 once. W4 g128 weights."""
+    M, G = x.shape[0], qt.k_padded // qt.group_size
+    codes = unpack_codes(qt.packed, qt.bits).to(torch.float32).reshape(-1, G, qt.group_size)
+    staged = (codes * qt.scales.to(torch.float32)[..., None]).to(torch.bfloat16)
+    xf = torch.nn.functional.pad(x.to(torch.float32), (0, qt.k_padded - x.shape[1]))
+    out = torch.matmul(xf, staged.reshape(-1, qt.k_padded).to(torch.float32).T)
+    out = out + torch.matmul(xf.reshape(M, G, qt.group_size).sum(-1),
+                             qt.biases.to(torch.float32).T)
+    if residual is not None:
+        out = out + residual.to(torch.float32)
+    return out.to(torch.bfloat16)
+
+
+def k1_route(rows: int) -> str:
+    """The route K1's C entry takes for `rows` rows ("gemv", "b16" or
+    "staged"), as its gates in csrc/quant_matmul.cu set it (CUDA only: it
+    loads the library)."""
+    fn = build.load("quant_matmul").tlt_quant_matmul_route
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return K1_ROUTES[fn(rows)]
 
 
 def quant_matmul_a8_plain(
