@@ -7,9 +7,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   build     compile the CUDA kernels from tiny_llm_tpu_torch/csrc (nvcc, in
             parallel, into build/), with the card's name and power limit;
             the split prefill's two kernels, the masked prefill walk and K1's
-            staged tile must hold HGMMA in their SASS, the masked decode
-            walk, row 14's split walk and K1's bf16 tile HMMA, the two W4A8
-            tiles IMMA
+            staged tile and the paged prefill must hold HGMMA in their
+            SASS, the masked decode walk, row 14's split walk, the paged
+            decode's split walk and K1's bf16 tile HMMA, the two W4A8 tiles
+            IMMA
   kernels   every kernel against its plain PyTorch version on the card at
             the shapes the main paths give it; kernel, plain and library
             times and the least time the card could take (the bound). K1
@@ -20,7 +21,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             1e-3 of max) to the plain version of its route's arithmetic
             (quant_matmul_staged_plain on the staged tile), beside K1's
             time on its former GEMV instances and tile (a prior record). The
-            paged kernels read a 57-page pool of 128 with shuffled page ids.
+            paged kernels read a 57-page pool of 128 with shuffled page ids:
+            the paged decode and prefill held per element to _state_tol,
+            with lens - 1 (decode) and lens + 1 (prefill) as controls that
+            must miss it, at L = 1, 2, 8, 16 (an idle row among B = 4) and
+            17, 32, 128 (B = 1: the keys split; B = 4: the unsplit tile).
             Qwen3-4B's shapes (n_rep 4), then Qwen3-30B-A3B's: the grouped
             expert matmul (gate and down at T = 8, 32, 1024 and edge cases,
             a whole decode step's 144 calls; and at T = 64, 128, 256, the
@@ -329,12 +334,19 @@ def phase_build():
     check(len(b16) == 2 and all(b16.values()), f"K1 bf16 tile HMMA: {b16}")
     staged = tensor_ops("quant_matmul", "qmm_staged_tile", "hgmma")
     check(len(staged) == 1 and all(staged.values()), f"K1 staged tile HGMMA: {staged}")
+    # The paged decode's split walk runs mma.sync (HMMA), the paged prefill
+    # the wgmma tile (HGMMA), unsplit and key-split (8 instances each).
+    pdec = tensor_ops("paged_attention", "paged_decode_walk", "tensor_core_ops")
+    check(len(pdec) == 8 and all(pdec.values()), f"paged decode walk HMMA: {pdec}")
+    pfill = tensor_ops("paged_attention", "paged_flash_prefill", "hgmma")
+    check(len(pfill) == 16 and all(pfill.values()), f"paged prefill HGMMA: {pfill}")
     smi = nvidia_smi()
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(log),
           "state_kernels_tensor_core_ops": tc, "masked_prefill_hgmma": masked,
           "masked_decode_tensor_core_ops": dec, "a8_tile_imma": imma,
           "paged_state_walk_tensor_core_ops": walk, "k1_b16_tile_tensor_core_ops": b16,
-          "k1_staged_tile_hgmma": staged,
+          "k1_staged_tile_hgmma": staged, "paged_decode_walk_tensor_core_ops": pdec,
+          "paged_prefill_hgmma": pfill,
           "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi, regs
 
@@ -927,6 +939,83 @@ def _tables(perm, ctxs, width):
     return torch.from_numpy(bt).cuda()
 
 
+# The paged decode's and prefill's cases: (label, B, L, contexts, D, the
+# Pallas kernel where it is not the entry's own), each row's queries the
+# last L positions of its context, a context of 0 an idle row (table all
+# -1). Rows 12 and 13 at B = 1 (a later prompt chunk, its K/V already in
+# the pages; row 13's few q tiles split the keys), both sides of the gate
+# (L = 16 / 17), the mixed burst's sub-chunk late in a prompt, row 11's
+# whole pages (which the TPU runs inside its decode bursts), a serving
+# burst's idle slot, row 13 at B = 4, whose q tiles fill the SMs (the
+# unsplit tile), and row 10's head dim (D = 64).
+PAGED_CASES = (
+    ("L=8 ctx=508", 1, 8, (508,), 128, None), ("L=2 ctx=131", 1, 2, (131,), 128, None),
+    ("L=128 ctx=512", 1, 128, (512,), 128, None), ("L=128 ctx=1024", 1, 128, (1024,), 128, None),
+    ("L=16 ctx=700", 1, 16, (700,), 128, None), ("L=17 ctx=700", 1, 17, (700,), 128, None),
+    (f"L={MIXED_CHUNK} ctx=1000", 1, MIXED_CHUNK, (1000,), 128, None),
+    ("whole pages", 4, 1, (256, 512, 768, 1024), 128,
+     "tiny_llm_tpu/kernels/paged_attention_pallas.py:154 _paged_decode_page_kernel (whole pages)"),
+    ("row 1 idle", 4, 1, (300, 0, 650, 900), 128, None),
+    ("B=4 L=128 unsplit", 4, 128, (128, 600, 1000, 333), 128, None),
+    ("D=64", 2, 8, (508, 131), 64,
+     "tiny_llm_tpu/kernels/paged_attention_pallas.py:52 _paged_decode_kernel (D % 128 != 0)"),
+)
+
+
+def paged_times(fn, q, kps, vps, bt, lens, n, sc):
+    """A paged case's device ms a layer, by CUDA-graph replay over the
+    layers' page buffers `kps` / `vps`: the kernel `fn`'s, and SDPA's over
+    the same keys gathered contiguous (the first `n`) under the
+    offset-causal boolean mask (attention part only); and SDPA's output on
+    layer 3 (NaN on an idle row, which sees no key)."""
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+
+    Ly, L = kps.shape[0], q.shape[2]
+    kern = graph_ms(lambda: [fn(q, kps[i], vps[i], bt, lens, sc) for i in range(Ly)]) / Ly
+    gathered = []
+    for i in range(Ly):
+        k_i, v_i = pa.gather_pages_dense(kps[i], vps[i], bt)
+        gathered.append((k_i[:, :, :n].contiguous(), v_i[:, :, :n].contiguous()))
+    qpos = lens[:, None] - L + torch.arange(L, device=q.device)[None, :]  # [B, L]
+    mask = (torch.arange(n, device=q.device)[None, None, :] <= qpos[:, :, None])[:, None]
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, attn_mask=mask,
+                             scale=sc, enable_gqa=True)
+    lib = graph_ms(lambda: [sdpa(q, k, v) for k, v in gathered]) / Ly
+    return kern, lib, sdpa(q, *gathered[3])
+
+
+def _paged_check(what, fn, q, kp, vp, bt, lens, sc):
+    """A paged decode or prefill kernel against paged_attention_plain on the
+    card: every value finite, an idle row (lens 0) exactly 0, o per element
+    within _state_tol; the control, the plain version at lens - 1 (decode)
+    or with each query one position later, lens + 1 (prefill), must miss
+    that tolerance in every batch row whose visible keys it changes.
+    Returns the case's fields and the plain output."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+
+    got = fn(q, kp, vp, bt, lens, sc)
+    want = pa.paged_attention_plain(q, kp, vp, bt, lens, sc)
+    torch.cuda.synchronize()
+    k, v = pa.gather_pages_dense(kp, vp, bt)
+    L, S = q.shape[2], k.shape[2]
+    ok = ka._causal_mask(lens, L, S, q.device)
+    tol = _state_tol(q, k, v, ok, sc, want)
+    del k, v
+    check(bool(torch.isfinite(got).all()), f"{what}: not finite")
+    check(not bool(got[lens == 0].any()), f"{what}: an idle row is not 0")
+    rows = _over_tol(got, want, tol)
+    check(max(rows) <= 1, f"{what}: {max_err(got, want)}, {max(rows)} times its tolerance")
+    decode = L <= pa.DECODE_MAX_L
+    shifted = ((lens - 1) if decode else (lens + 1)) * (lens > 0)
+    changed = (ok != ka._causal_mask(shifted, L, S, q.device)).flatten(1).any(1).tolist()
+    ctl = _state_control(what, (got,), tol,
+                         (pa.paged_attention_plain(q, kp, vp, bt, shifted, sc),), changed)
+    return {"max_err": max_err(got, want), "err_over_tol_per_batch_row": rows,
+            "tol": TOL_ATTENTION, "control": "lens - 1" if decode else "lens + 1 (q one "
+            "position later)", "control_err_over_tol_per_batch_row": ctl}, want
+
+
 def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
     """The three paged kernels against their plain versions over a pool of
     POOL_PAGES pages per layer with shuffled page ids, timed by CUDA-graph
@@ -1001,81 +1090,46 @@ def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
                 "bound_by": by, "library_ms": lib,
             }
 
-    def paged_case(name, q, kps, vps, ctxs, tpu_kernel, what):
-        """One paged decode or prefill case: rows of contexts `ctxs`, each
-        query block the last L positions of its row, K/V in the pages."""
+    pools = {D_h: (kp, vp)}
+    del kp, vp
+    for what, B, L, ctxs, d, tpu_kernel in PAGED_CASES:
+        name = "paged_decode" if L <= pa.DECODE_MAX_L else "paged_prefill"
         fn = pa.paged_decode_cuda if name == "paged_decode" else pa.paged_prefill_cuda
-        B, _, L, d = q.shape
+        tpu_kernel = tpu_kernel or (pa.TPU_KERNEL_DECODE if name == "paged_decode"
+                                    else pa.TPU_KERNEL_PREFILL)
+        if d not in pools:  # one pool at a time: D_h's, then D = 64's (the last cases)
+            pools = {d: tuple(torch.randn((Ly, POOL_PAGES, Hkv, PAGE_SIZE, d), generator=gen,
+                                          device=dev).to(torch.bfloat16) for _ in range(2))}
+        kps, vps = pools[d]
+        q = torch.randn((B, Hq, L, d), generator=gen, device=dev).to(torch.bfloat16)
         sc = d**-0.5
         bt = _tables(perm, ctxs, width)
         lens = torch.tensor(ctxs, dtype=torch.int32, device=dev)
-        got = fn(q, kps[3], vps[3], bt, lens, sc)
-        want = pa.paged_attention_plain(q, kps[3], vps[3], bt, lens, sc)
-        torch.cuda.synchronize()
-        err, tol = max_err(got, want), 2e-2
-        check(err <= tol, f"{name} {what}: {err} > {tol}")
-        errs[name].append(err)
-        kern = graph_ms(lambda: [fn(q, kps[i], vps[i], bt, lens, sc) for i in range(Ly)]) / Ly
+        fields, want = _paged_check(f"{name} {what}", fn, q, kps[3], vps[3], bt, lens, sc)
+        errs[name].append(fields["max_err"])
+        kern, lib, lib_out = paged_times(fn, q, kps, vps, bt, lens, max(ctxs), sc)
         plain = event_ms(lambda: pa.paged_attention_plain(q, kps[3], vps[3], bt, lens, sc))
-        n = max(ctxs)
-        gathered = []
-        for i in range(Ly):
-            k_i, v_i = pa.gather_pages_dense(kps[i], vps[i], bt)
-            gathered.append((k_i[:, :, :n].contiguous(), v_i[:, :, :n].contiguous()))
-        qpos = lens[:, None] - L + torch.arange(L, device=dev)[None, :]  # [B, L]
-        mask = (torch.arange(n, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
-        check(max_err(sdpa(q, *gathered[3], attn_mask=mask, scale=sc, enable_gqa=True),
-                      want) <= tol, f"SDPA yardstick {name} {what} differs")
-        lib = graph_ms(lambda: [sdpa(q, k, v, attn_mask=mask, scale=sc, enable_gqa=True)
-                                for k, v in gathered]) / Ly
-        del gathered
-        pairs = sum(c - L + i + 1 for c in ctxs for i in range(L))
+        # SDPA gives NaN on an idle row (no key visible): its live rows only.
+        live = [b for b, c in enumerate(ctxs) if c > 0]
+        check(max_err(lib_out[live], want[live]) <= 2e-2, f"SDPA yardstick {name} {what} differs")
+        pairs = sum(c - L + i + 1 for c in ctxs if c for i in range(L))
         bms, by = bound(sum(2 * Hkv * c * d * 2 for c in ctxs) + 2 * B * Hq * L * d * 2,
                         4 * Hq * pairs * d)
         case = {"kernel": name, "tpu_kernel": tpu_kernel,
-                "shape": f"B={B} L={L} ctx={ctxs} pool={POOL_PAGES}x{PAGE_SIZE} width={width} "
-                         f"Hq={Hq} Hkv={Hkv} D={d}",
-                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
-                "library_ms": lib, "library": lib_label, "bound_ms": bms, "bound_by": by}
+                "shape": f"B={B} L={L} ctx={list(ctxs)} pool={POOL_PAGES}x{PAGE_SIZE} "
+                         f"width={width} Hq={Hq} Hkv={Hkv} D={d}", **fields,
+                "kernel_ms": kern, "plain_ms": plain, "library_ms": lib, "library": lib_label,
+                "bound_ms": bms, "bound_by": by}
         cases.append(case)
-        return case
-
-    # Paged decode (L <= 16) and paged prefill (L > 16), B = 1: a later
-    # prompt chunk at offset > 0, its K/V already in the pages.
-    for L, ctx in ((8, 508), (2, 131), (128, 512), (128, 1024)):
-        name = "paged_decode" if L <= pa.DECODE_MAX_L else "paged_prefill"
-        q = torch.randn((1, Hq, L, D_h), generator=gen, device=dev).to(torch.bfloat16)
-        case = paged_case(name, q, kp, vp, [ctx],
-                          pa.TPU_KERNEL_DECODE if name == "paged_decode" else pa.TPU_KERNEL_PREFILL,
-                          f"L={L} ctx={ctx}")
-        if (L, ctx) in ((8, 508), (128, 512)) and contract is not None:
+        if what in ("L=8 ctx=508", "L=128 ctx=512") and contract is not None:
             contract[name] = {
                 "name": name, "route": "cuda", "source": pa.SOURCE,
                 "replaces": "tiny_llm_tpu/kernels/paged_attention_pallas.py:"
                 + ("297" if name == "paged_decode" else "475"),
-                "case": case["shape"], "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
-                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
-                "library_ms": case["library_ms"],
+                "case": case["shape"], "ms": kern, "plain_ms": plain, "bound_ms": bms,
+                "bound_by": by, "library_ms": lib,
             }
-    # The whole-page walk's case (_paged_decode_page_kernel, which the TPU
-    # runs inside its decode bursts): one query per row, every context a
-    # whole number of pages.
-    q = torch.randn((4, Hq, 1, D_h), generator=gen, device=dev).to(torch.bfloat16)
-    paged_case("paged_decode", q, kp, vp, [256, 512, 768, 1024],
-               "tiny_llm_tpu/kernels/paged_attention_pallas.py:154 _paged_decode_page_kernel "
-               "(whole pages)", "whole pages")
-    del kp, vp
-
-    # The paged decode kernel at D = 64: the head dim on which the TPU takes
-    # its per-(page, head) walk kernel (_paged_decode_kernel).
-    shape64 = (Ly, POOL_PAGES, Hkv, PAGE_SIZE, 64)
-    kp64 = torch.randn(shape64, generator=gen, device=dev).to(torch.bfloat16)
-    vp64 = torch.randn(shape64, generator=gen, device=dev).to(torch.bfloat16)
-    q = torch.randn((2, Hq, 8, 64), generator=gen, device=dev).to(torch.bfloat16)
-    paged_case("paged_decode", q, kp64, vp64, [508, 131],
-               "tiny_llm_tpu/kernels/paged_attention_pallas.py:52 _paged_decode_kernel "
-               "(D % 128 != 0)", "D=64")
-    del kp64, vp64
+    del pools
     if contract is not None:
         for name in PAGED:
             contract[name]["max_abs_err"] = max(errs[name])
@@ -1185,9 +1239,9 @@ def phase_model(model, cfg, phase, name, runs=3, beside=None):
     return counts
 
 
-def _device_profile(run, steps: int):
+def _device_profile(run, steps: int, top: int = 8):
     """Device time by kernel name over run() (torch.profiler), per step,
-    outside the launch-counted runs."""
+    outside the launch-counted runs: the total and the `top` kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1202,11 +1256,11 @@ def _device_profile(run, steps: int):
         elif e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0:
             host[e.key] = (e.self_cpu_time_total / 1e3 / steps, e.count // steps)
     total = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
     # Host times are the profiler's own (it adds cost to every op it records).
     return {"device_ms_per_step": total or None,
-            "top_kernels_ms_per_step": {k[:60]: [ms, n] for k, (ms, n) in top},
+            "top_kernels_ms_per_step": {k[:60]: [ms, n] for k, (ms, n) in kernels},
             "top_host_ops_ms_per_step_profiled": {k[:60]: [ms, n] for k, (ms, n) in top_host}}
 
 
@@ -2584,23 +2638,24 @@ def phase_sp_kernels(cfg, contract):
         kmax = max(len(p) for p in rows)
         kd = torch.zeros((len(ctxs), Hkv, kmax, D), dtype=torch.bfloat16, device=dev)
         vd = torch.zeros_like(kd)
+        kpos = torch.full((len(ctxs), kmax), SP_MAX_SEQ, dtype=torch.long, device=dev)
         for b, pos in enumerate(rows):
             idx = torch.tensor(pos, dtype=torch.long, device=dev)
             kd[b, :, : len(pos)], vd[b, :, : len(pos)] = kg[b, :, idx], vg[b, :, idx]
+            kpos[b, : len(pos)] = idx
         m = (torch.arange(kmax, device=dev)[None, :]
              < torch.tensor([len(p) for p in rows], device=dev)[:, None])[:, None, None]
         live = want[2][:, 0, 0] > 0
         lib_out = sdpa(q, kd, vd, attn_mask=m, scale=sc, enable_gqa=True)
         check(max_err(lib_out[live], want[0][live]) <= tol, f"SDPA yardstick shard {s} differs")
-        libs.append((kd, vd, m))
+        libs.append((kd, vd, m, kpos))
     del kg, vg
     kern = graph_ms(lambda: [pa.paged_decode_state_cuda(q, kl, vl, bt, lens_t, base, sc)
                              for kl, vl, base in locs]) / n
     plain = event_ms(lambda: pa.paged_decode_state_plain(q, locs[0][0], locs[0][1], bt, lens_t,
                                                          0, sc), reps=2)
     lib = graph_ms(lambda: [sdpa(q, kd, vd, attn_mask=m, scale=sc, enable_gqa=True)
-                            for kd, vd, m in libs]) / n
-    del libs
+                            for kd, vd, m, _ in libs]) / n
     whole = pa.paged_decode_cuda(q, kp, vp, bt, lens_t, sc)
     sp_err = max_err(sp.paged(q, kp, vp, bt, lens_t, sc), whole)
     check(sp_err <= tol, f"SP paged against the paged decode kernel: {sp_err}")
@@ -2627,26 +2682,41 @@ def phase_sp_kernels(cfg, contract):
         case["shape"], 0.0, kern, plain, lib, bms, by)
     # L = 16 (speculative verification's and a mixed burst's rows; 64 rows
     # a KV head, four m16 tiles) over the same pool.
+    # Its SDPA yardstick: each shard's live keys gathered contiguous, each
+    # query row masked by the keys' global positions (rows that see no key
+    # of a shard are NaN in SDPA: the live rows are compared).
     L16, err16 = 16, 0.0
     q16 = randn(B, Hq, L16, D)
+    qpos16 = lens_t[:, None].long() - L16 + torch.arange(L16, device=dev)[None, :]
+    masks16 = [(kpos[:, None, :] <= qpos16[:, :, None])[:, None] for _, _, _, kpos in libs]
     for s, (kl, vl, base) in enumerate(locs):
         got = pa.paged_decode_state_cuda(q16, kl, vl, bt, lens_t, base, sc)
         want = pa.paged_decode_state_plain(q16, kl, vl, bt, lens_t, base, sc)
         torch.cuda.synchronize()
         err16 = max(err16, _sp_state_check(f"paged_decode_state L={L16} shard {s}", got, want,
                                            tol)[0])
+        kd, vd = libs[s][:2]
+        live = want[2] > 0
+        lib_out = sdpa(q16, kd, vd, attn_mask=masks16[s], scale=sc, enable_gqa=True)
+        check(max_err(lib_out[live], want[0][live]) <= tol,
+              f"SDPA yardstick L={L16} shard {s} differs")
     errs["paged_decode_state"].append(err16)
     kern16 = graph_ms(lambda: [pa.paged_decode_state_cuda(q16, kl, vl, bt, lens_t, base, sc)
                                for kl, vl, base in locs]) / n
     plain16 = event_ms(lambda: pa.paged_decode_state_plain(q16, locs[0][0], locs[0][1], bt,
                                                            lens_t, 0, sc), reps=1)
+    lib16 = graph_ms(lambda: [sdpa(q16, kd, vd, attn_mask=m16, scale=sc, enable_gqa=True)
+                              for (kd, vd, _, _), m16 in zip(libs, masks16)]) / n
+    del libs, masks16
     bms16, by16 = bound(sum(owned_keys) / n * Hkv * D * 2 * 2 + B * Hq * L16 * (D * 2 * 2 + 8),
                         sum(owned_keys) / n * 4 * Hq * L16 * D)
     cases.append({"kernel": "paged_decode_state", "tpu_kernel": pa.TPU_KERNEL_DECODE_STATE,
                   "shape": case["shape"].replace("L=1 ", f"L={L16} "),
                   "max_err": err16, "tol": tol, "kernel_ms": kern16,
-                  "plain_ms": plain16, "library_ms": None, "bound_ms": bms16,
-                  "bound_by": by16})
+                  "plain_ms": plain16, "library_ms": lib16,
+                  "library": "SDPA over the shard's live keys gathered contiguous, masked by "
+                             "their global positions (mean of shards)",
+                  "bound_ms": bms16, "bound_by": by16})
     del q16
     for r in reqs:
         r.release()

@@ -11,6 +11,8 @@ element. Then the launcher's refusal of CPU tensors."""
 from __future__ import annotations
 
 import functools
+import re
+from pathlib import Path
 
 import pytest
 
@@ -66,13 +68,16 @@ def _staged_tol(x, qt, want):
 @pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
 @pytest.mark.parametrize("M", [2, 3, 16, 17, 32, 33, 64, 65, 128, 129])
 def test_k1_plain_at_route_edges_matches_pallas_and_xla(M, residual):
-    """The f32 plain version (the port's CPU route) against both JAX routes
-    at the tolerances of tests/test_torch_kernels.py: 2e-2 where the Pallas
+    """The port's CPU route is bit-equal to the plain version of the route
+    the card takes for M rows (the f32 fold below STAGED_MIN_ROWS, the
+    staged arithmetic from there), and within the tolerances of
+    tests/test_torch_kernels.py of both JAX routes: 2e-2 where the Pallas
     kernel folds in f32 (M <= 32), 6e-2 where it stages q * s in bf16."""
     jqt, port = _weight()
     xj, xt, rj, rt = _inputs(M, residual)
     got = qm.quant_matmul(xt, port, residual=rt)
-    np.testing.assert_array_equal(f32(got), f32(qm.quant_matmul_plain(xt, port, rt)))
+    plain = qm.quant_matmul_staged_plain if M >= qm.STAGED_MIN_ROWS else qm.quant_matmul_plain
+    np.testing.assert_array_equal(f32(got), f32(plain(xt, port, rt)))
     atol = 6e-2 if M > 32 else 2e-2
     for impl in ("pallas", "xla"):
         want = quantized_matmul(xj, jqt, residual=rj, impl=impl, interpret=True)
@@ -96,6 +101,14 @@ def test_k1_staged_plain_matches_the_pallas_staged_schedule(M, residual):
     assert bool(((got.float() - want).abs() <= tol).all())
     f32_plain = qm.quant_matmul_plain(xt, port, rt).float()
     assert bool(((f32_plain - want).abs() > tol).any())
+
+
+def test_cpu_route_gate_is_the_cuda_sources():
+    """The CPU route changes its plain version where csrc/quant_matmul.cu
+    moves K1 to the staged tile: the same constant, M > A8_MAX_ROWS."""
+    src = (Path(qm.__file__).resolve().parents[1] / "csrc" / "quant_matmul.cu").read_text()
+    gate = re.search(r"constexpr int STAGED_MIN_ROWS = (\d+);", src)
+    assert gate and int(gate.group(1)) == qm.STAGED_MIN_ROWS == qm.A8_MAX_ROWS + 1
 
 
 @pytest.mark.parametrize("M", [1, 3, 33, 1024])

@@ -30,7 +30,7 @@ from tiny_llm_tpu_torch.models import (  # noqa: E402
 from tiny_llm_tpu_torch.models.bridge import quantized_from_numpy  # noqa: E402
 from tiny_llm_tpu_torch.ops import dequantize  # noqa: E402
 
-from .torch_port import f32, params_to_numpy, qt_to_numpy  # noqa: E402
+from .torch_port import f32, jax_k1_on_pallas, params_to_numpy, qt_to_numpy  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "tiny_llm_tpu_torch"
@@ -184,13 +184,16 @@ def test_real_checkpoint_teacher_forced_when_present():
 
     params, jcfg = load_params(str(REAL), quantized=True)
     pcfg = Qwen3Config(**vars(jcfg))
-    jm = JaxQwen3Model(params, jcfg, max_seq_len=256)
     pm = Qwen3Model(from_jax_numpy(params_to_numpy(params), pcfg, device="cpu"), pcfg,
                     max_seq_len=256, device="cpu")
     with open(REAL / "oracle" / "greedy.json") as f:
         prompt = json.load(f)["prompt_ids"]
-    for want, got in _teacher_forced(jm, pm, prompt, steps=8):
-        np.testing.assert_allclose(got, want, atol=5e-2, rtol=5e-2)
+    # Like with like: the prompt's rows take K1's staged route (bf16(q * s))
+    # on both sides, the JAX model's matmuls the Pallas kernels K1 replaces.
+    with jax_k1_on_pallas():
+        jm = JaxQwen3Model(params, jcfg, max_seq_len=256)
+        for want, got in _teacher_forced(jm, pm, prompt, steps=8):
+            np.testing.assert_allclose(got, want, atol=5e-2, rtol=5e-2)
 
 
 # ---------------------------------------------------------------------------

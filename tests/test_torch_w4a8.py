@@ -31,7 +31,7 @@ from tiny_llm_tpu_torch.kernels.moe_matmul import (  # noqa: E402
 from tiny_llm_tpu_torch.kernels.quant_matmul import (  # noqa: E402
     quant_matmul,
     quant_matmul_a8_plain,
-    quant_matmul_plain,
+    quant_matmul_staged_plain,
 )
 from tiny_llm_tpu_torch.models import (  # noqa: E402
     Qwen3Model,
@@ -40,7 +40,11 @@ from tiny_llm_tpu_torch.models import (  # noqa: E402
     tiny_test_config,
 )
 from tiny_llm_tpu_torch.models.bridge import quantized_from_numpy  # noqa: E402
-from tiny_llm_tpu_torch.ops.quantize import quantize_activations  # noqa: E402
+from tiny_llm_tpu_torch.ops.quantize import (  # noqa: E402
+    dequantize,
+    quantize_activations,
+    unpack_codes,
+)
 from tiny_llm_tpu_torch.serving import batch_generate  # noqa: E402
 
 from .test_torch_moe import (  # noqa: E402,F401  (routing_log is a fixture)
@@ -118,14 +122,20 @@ def test_a8_plain_matches_pallas_and_xla(M, residual):
 
 def test_a8_dispatch_takes_k1_above_32_rows():
     """At 33 rows the JAX package runs W4A16-exact staged dots on pair_t
-    weights, and the port K1: the port's output is K1's plain version, and
+    weights, and the port K1 on its staged tile: the port's output is the
+    staged tile's plain version (the bridge unpacks pair_t codes into the
+    port's one packed layout, which it reads as dequantize does), and
     within K1's staged-schedule tolerance of the Pallas kernel (it rounds
     q * s to bf16, tests/test_torch_kernels.py)."""
     N, K = 256, 512
     jqt, port = _pair_weight(N, K, seed=33)
     xj, xt = bf16_numpy(np.random.default_rng(33).standard_normal((33, K)))
     got = quant_matmul(xt, port)
-    assert torch.equal(got, quant_matmul_plain(xt, port))
+    assert torch.equal(got, quant_matmul_staged_plain(xt, port))
+    codes = unpack_codes(port.packed, port.bits).float().reshape(N, -1, port.group_size)
+    staged = (codes * port.scales.float()[..., None]).reshape(N, -1)
+    want_w = staged + port.biases.float().repeat_interleave(port.group_size, 1)
+    assert torch.equal(want_w, dequantize(port, torch.float32))
     assert not torch.equal(got[:32], quant_matmul(xt[:32], port))  # 32 rows: W4A8
     want = quantized_matmul(xj, jqt, impl="pallas", act="int8", interpret=True)
     assert_allclose(f32(got), f32(want), precision=jnp.bfloat16, rtol=2e-2, atol=6e-2)

@@ -4,9 +4,32 @@ Only tests import both packages; data crosses between them as numpy."""
 
 from __future__ import annotations
 
-import numpy as np
+import contextlib
 
+import numpy as np
+import pytest
+
+import tiny_llm_tpu.kernels as jax_kernels
 from tiny_llm_tpu.ops.quantize import QuantizedTensor as JaxQT
+
+
+@contextlib.contextmanager
+def jax_k1_on_pallas():
+    """Inside the block the JAX package's dense quantized matmuls take their
+    Pallas route in interpret mode: the functions the port's K1 replaces
+    (the decode schedule at <= 32 rows, the staged schedule above, which
+    rounds q * s to bf16 as K1's staged tile does), where the JAX model on
+    the CPU would otherwise take the XLA route. `quantized_linear` looks
+    `quantized_matmul` up at every call, so the JAX models traced inside
+    the block take it; nothing of the JAX package is edited."""
+    orig = jax_kernels.quantized_matmul
+
+    def pallas(*args, **kwargs):
+        return orig(*args, **{**kwargs, "impl": "pallas", "interpret": True})
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_kernels, "quantized_matmul", pallas)
+        yield
 
 
 def qt_to_numpy(qt: JaxQT) -> dict:

@@ -69,10 +69,17 @@
 //     p is then ex2((s - m) log2 e), not an FMA of s log2 e: a row whose
 //     mask is -1e29 everywhere keeps s = m exactly and averages V, where
 //     the FMA's rounding of m log2 e alone would reach 1e21.
-//   * STATE = false (the masked kernel): q arrives by cp.async in a group
-//     of its own, first, and is scaled in place; o alone is written, staged
-//     through shared memory into 16-byte stores (a block's fixed cost
-//     weighs on the masked walk's short, sparse walks).
+//   * STATE = false (the masked kernel, the paged prefill): q arrives by
+//     cp.async in a group of its own, first, and is scaled in place; o
+//     alone is written, staged through shared memory into 16-byte stores
+//     (a block's fixed cost weighs on the masked walk's short, sparse
+//     walks).
+//   * SPLIT (the paged prefill's key split, with STATE = false): `rows`,
+//     `len` and `limit` describe one split of the keys, its positions
+//     counted from the split's first key, and the block writes its f32
+//     partial per row (acc before the division, m, l) into a workspace for
+//     a combine kernel; a block none of whose rows sees a key of the split
+//     exits at once.
 //
 // Rounding points are those of flash_tile.cuh and of the TPU kernels'
 // _flash_inner: q * scale rounds to bf16, scores and the softmax state are
@@ -436,7 +443,16 @@ __host__ __device__ constexpr int mask_rows() {
   return MASK == MASK_NONE ? 0 : MASK == MASK_HEAD ? WARPS * 16 : WARPS * 16 / NREP;
 }
 
-template <int D, int NREP, bool CAUSAL, class Rows, int MASK = MASK_NONE, bool STATE = true>
+// A block's key split (SPLIT): its partials go to ws_o [splits, B, Hq, L,
+// D] and ws_ml [splits, B, Hq, L, 2], f32, at split `split`.
+struct KeySplit {
+  float* ws_o;
+  float* ws_ml;
+  int split, B;
+};
+
+template <int D, int NREP, bool CAUSAL, class Rows, int MASK = MASK_NONE, bool STATE = true,
+          bool SPLIT = false>
 __device__ __forceinline__ void state_tile(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ k,  // base of the rows `rows` addresses
@@ -445,9 +461,10 @@ __device__ __forceinline__ void state_tile(
     float* __restrict__ m_out,        // [B, Hq, L] (STATE)
     float* __restrict__ l_out,
     const Rows rows, int len, int limit, int qt, int h, int bb, int Hkv, int L, float scale,
-    const MaskPlanes mp = MaskPlanes{}) {
+    const MaskPlanes mp = MaskPlanes{}, const KeySplit ks = KeySplit{}) {
   constexpr bool MASKED = MASK != MASK_NONE;
   static_assert(!(MASKED && CAUSAL), "an explicit mask replaces causality");
+  static_assert(!(SPLIT && (STATE || MASKED)), "a key split writes partials, unmasked");
   constexpr int THREADS = WARPS * 32, BM = 16 * WARPS, BQ = BM / NREP;
   constexpr int MR = mask_rows<NREP, MASK>();   // mask rows of a tile
   constexpr int MTILE = MR * BN * 4;            // bytes of one mask tile
@@ -473,6 +490,8 @@ __device__ __forceinline__ void state_tile(
   const int walk = CAUSAL ? min(kend, len - L + min(q0 + BQ, L)) : kend;
   const int ntiles = walk > 0 ? (walk + BN - 1) / BN : 0;
   const int qmin = len - L + q0;  // CAUSAL: the block's first row position
+  if constexpr (SPLIT)
+    if (ntiles == 0) return;  // no row of the block sees a key of the split
 
   // !STATE (the masked entry): q copied raw by cp.async in a group of its
   // own, ahead of everything, and scaled in place once it lands; its
@@ -645,6 +664,29 @@ __device__ __forceinline__ void state_tile(
     issue_pv<D>(acc, pa, stage(nwalk - 1) + TILE);
     wgmma_wait<0>();
     fence_regs(acc);
+  }
+
+  // SPLIT: the split's partial of each row below L, as it stands.
+  if constexpr (SPLIT) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      const int rr = warp * 16 + g + 8 * hh;
+      const int rep = rr / BQ, qi = q0 + rr % BQ;
+      if (qi >= L) continue;
+      const size_t row = (((size_t)ks.split * ks.B + bb) * Hq + h * NREP + rep) * L + qi;
+      float* o = ks.ws_o + row * D + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[4 * j + 2 * hh],
+                                                            acc[4 * j + 2 * hh + 1]);
+      if (tig == 0) {
+        ks.ws_ml[2 * row] = m[hh];
+        ks.ws_ml[2 * row + 1] = l[hh];
+      }
+    }
+    return;
   }
 
   // Epilogue: the quad's row sums, o = acc / max(l, 1e-30), m and l.

@@ -1,35 +1,57 @@
 // Paged attention for Hopper (sm_90a): the paged decode kernel (L <= 16),
-// the paged prefill kernel (L > 16) and the paged prefix-state walk, all
-// reading K/V from one layer's page pool [P, Hkv, ps, D] through a
-// -1-padded block table.
+// the paged prefill kernel (L > 16), the paged prefix-state walk and the
+// paged decode-state walk, all reading K/V from one layer's page pool
+// [P, Hkv, ps, D] through a -1-padded block table.
 //
 // Replaces tiny_llm_tpu/kernels/paged_attention_pallas.py:
-//   tlt_paged_decode       -> _paged_decode_gather_kernel (paged_flash_decode_gather)
+//   tlt_paged_decode       -> _paged_decode_gather_kernel (paged_flash_decode_gather),
+//                             and _paged_decode_kernel (paged_flash_decode) and
+//                             _paged_decode_page_kernel (paged_flash_decode_pages),
+//                             which compute the same function
 //   tlt_paged_prefill      -> _paged_prefill_kernel (paged_flash_prefill)
 //   tlt_paged_prefix_state -> _paged_prefix_state_kernel (paged_prefix_state)
 //   tlt_paged_decode_state -> _paged_decode_state_kernel (paged_decode_state)
-// Both compute what the TPU kernels compute: query i of batch row b sits at
-// position lens[b] - L + i, where the chunk's own K/V are already in the
-// pages, and sees the keys at positions <= its own. -1 table entries read
-// the trash page 0 (idle batch rows: table all -1, their output is
-// discarded); nothing past the table's width is read.
+// The first two compute what the TPU kernels compute: query i of batch row
+// b sits at position lens[b] - L + i, where the chunk's own K/V are already
+// in the pages, and sees the keys at positions <= its own. -1 table entries
+// read the trash page 0 (idle batch rows: table all -1, lens 0, their
+// output 0); nothing past the table's width is read.
 //
-// Bound on the H100: the bytes of the live pages' K and V rows plus q and
-// out, over 3.35 TB/s: ~2 MB and ~0.7 us for 8 KV heads at context 500 at
-// 4B's shapes. At decode sizes the kernels are latency-bound (the walk
-// over pages is serial in each block, and the grid is only B x Hkv).
+// Paged decode (L <= 16), rows 10-12's function. Bound on the H100: the
+// bytes of the live pages' K and V rows plus q and out over 3.35 TB/s,
+// 0.3-3 us at 4B's shapes (B = 1 at context 508, B = 4 at 256-1024). What
+// held a walk of one block per (batch row, KV head) back was latency: 8 to
+// 32 blocks on 132 SMs, each walking its row's context serially. Design:
+// the decode-state walk below (row 14's) over the whole pool, OWNED:
+//   * a split-key walk: each row's keys cut into splits of `kps` keys,
+//     chosen on the host from B, Hkv, the table's width, the page size and
+//     the SM count alone (kernels/paged_attention.py decode_split), so the
+//     grid (splits, Hkv, B) covers the SMs where the width allows; a split
+//     may start and end inside a page. Never from lens or the table, which
+//     live on the device.
+//   * every table entry is the row's own page as it stands (-1 reads the
+//     trash page 0): no list and no ballots; each key row of a 64-key tile
+//     finds its page in the table as it is copied, so a tile straddles
+//     pages of any size. Both products on mma.sync m16n8k16 (bf16, f32
+//     sums), all n_rep x L rows of the KV head in one block.
+//   * each block writes an f32 partial (acc, m, l) per row; decode_combine
+//     merges a row's partials and writes o rounded to bf16 once (no m, l).
 //
-// Design (decode, prefill and the decode-state walk): flash_tile.cuh, the
-// SIMT tile K3 runs, with PageRows addressing:
-// each lane that loads a key row looks its page up in the block table, so
-// a 32-key tile may straddle pages of any size. The walk is bounded by the
-// q tile's causal limit, i.e. by the row's live pages.
-//   decode:  one block per (batch row, KV head) holding all n_rep x L query
-//            rows (8 * RPW rows, RPW the least of 1, 2, 4, 8 that fits), so
-//            each page tile in shared memory serves all of them;
-//   prefill: 64-row q tiles (n_rep heads x 64/n_rep positions); tiles past
-//            a q tile's causal limit are skipped, as the TPU kernel's
-//            `live` predicate skips them.
+// Paged prefill (L > 16), row 13's function. Bound on the H100: operations
+// at long contexts (B = 1, L = 128 over 1024 keys: 2.0 us at the bf16
+// peak), bytes below. Design: the tensor-core tile of flash_mma.cuh (both
+// products as warpgroup MMAs, 128-row q tiles of the KV head's n_rep heads
+// over a four-stage cp.async ring of 64-key K/V tiles), causal over the
+// row's pages through PageRows (each 16-byte chunk of a K/V row finds its
+// page in the block table), each q tile's walk stopping at its last
+// visible key, the q tiles issued longest walk first. A serving chunk
+// gives few q tiles (L = 128 at 4B's heads: 4 x 8 blocks; a mixed
+// sub-chunk of 32: 8), each walking its row's context serially, so where
+// they leave SMs idle the keys are split too (kernels/paged_attention.py
+// prefill_split, from the shapes alone): paged_flash_prefill_split walks
+// one split's key tiles and writes f32 partials, decode_combine merges
+// them and writes o. Unsplit, paged_flash_prefill writes o alone (STATE =
+// false: staged through shared memory into 16-byte stores).
 //
 // The prefix-state walk is the split paged prefill's other half: a chunk's
 // queries attend to the cached prefix, non-causally (every key below
@@ -86,13 +108,14 @@
 #include <climits>
 
 #include "flash_mma.cuh"
-#include "flash_tile.cuh"
 #include "mma_sync.cuh"
 
 namespace {
 
-template <int D, int NREP, int RPW>
-__global__ void __launch_bounds__(flash::WARPS * 32) paged_flash(
+// The causal paged prefill on the tensor-core tile: o alone (no m, l), the
+// q tiles longest walk first (the last tile sees the most keys).
+template <int D, int NREP>
+__global__ void __launch_bounds__(fmma::WARPS * 32, 1) paged_flash_prefill(
     const __nv_bfloat16* __restrict__ q,   // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ kp,  // [P, Hkv, ps, D]
     const __nv_bfloat16* __restrict__ vp,
@@ -102,31 +125,37 @@ __global__ void __launch_bounds__(flash::WARPS * 32) paged_flash(
     int Hkv, int L, int ps, int maxp, float scale) {
   const int h = blockIdx.y, bb = blockIdx.z;
   const PageRows<D> rows{bt + (size_t)bb * maxp, ps, Hkv, h};
-  flash::tile<D, NREP, RPW>(q, kp, vp, out, rows, lens[bb], maxp * ps, blockIdx.x, h, bb, Hkv,
-                            L, scale);
+  fmma::state_tile<D, NREP, true, PageRows<D>, fmma::MASK_NONE, false>(
+      q, kp, vp, out, nullptr, nullptr, rows, lens[bb], maxp * ps, gridDim.x - 1 - blockIdx.x, h,
+      bb, Hkv, L, scale);
 }
 
-template <int D, int NREP, int RPW>
-int launch(const void* q, const void* kp, const void* vp, const void* bt, const void* lens,
-           void* out, int B, int Hkv, int L, int ps, int maxp, float scale, cudaStream_t st) {
-  constexpr int BQ = flash::WARPS * RPW / NREP;
-  paged_flash<D, NREP, RPW><<<dim3((L + BQ - 1) / BQ, Hkv, B), dim3(flash::WARPS * 32), 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(bt),
-      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out), Hkv, L, ps, maxp, scale);
-  return (int)cudaGetLastError();
-}
+// PageRows of one split: key `pos` of the split is key k0 + pos of the row.
+template <int D>
+struct SplitRows {
+  PageRows<D> rows;
+  int k0;
+  __device__ __forceinline__ size_t operator()(int pos) const { return rows(k0 + pos); }
+};
 
+// The same over one split of each row's keys (kps keys): block x takes q
+// tile nq - 1 - x / splits (longest walk first) and split x % splits, its
+// positions counted from the split's first key (the row's length and the
+// table's end shifted with them), and writes its f32 partials for
+// decode_combine.
 template <int D, int NREP>
-int launch_rows(int rpw, const void* q, const void* kp, const void* vp, const void* bt,
-                const void* lens, void* out, int B, int Hkv, int L, int ps, int maxp,
-                float scale, cudaStream_t st) {
-  switch (rpw) {
-    case 1: return launch<D, NREP, 1>(q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, st);
-    case 2: return launch<D, NREP, 2>(q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, st);
-    case 4: return launch<D, NREP, 4>(q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, st);
-    default: return launch<D, NREP, 8>(q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, st);
-  }
+__global__ void __launch_bounds__(fmma::WARPS * 32, 1) paged_flash_prefill_split(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ bt,
+    const int* __restrict__ lens, float* __restrict__ ws_o, float* __restrict__ ws_ml, int Hkv,
+    int L, int ps, int maxp, int kps, int splits, float scale) {
+  const int h = blockIdx.y, bb = blockIdx.z, nq = gridDim.x / splits;
+  const int split = blockIdx.x % splits, k0 = split * kps;
+  const SplitRows<D> rows{{bt + (size_t)bb * maxp, ps, Hkv, h}, k0};
+  fmma::state_tile<D, NREP, true, SplitRows<D>, fmma::MASK_NONE, false, true>(
+      q, kp, vp, nullptr, nullptr, nullptr, rows, lens[bb] - k0, min(kps, maxp * ps - k0),
+      nq - 1 - (int)blockIdx.x / splits, h, bb, Hkv, L, scale, fmma::MaskPlanes{},
+      fmma::KeySplit{ws_o, ws_ml, split, (int)gridDim.z});
 }
 
 template <int D, int NREP>
@@ -182,8 +211,15 @@ __host__ __device__ constexpr int pds_smem_bytes() {
   return 16 * MT * D * 2 + PDS_STAGES * pds_stage_bytes<D>() + PDS_MAX_ENTRIES * 8;
 }
 
-template <int D, int MT>
-__global__ void __launch_bounds__(32 * MT * pds_kw(MT)) paged_state_walk(
+// The split walk's body, for the shard walk (row 14) and, OWNED, for the
+// paged decode over the whole pool (rows 10-12). OWNED: every table entry
+// is the row's own page as it stands (-1 reads the trash page 0), there is
+// no list, and `per` counts the keys of a split, [e0, e1) of the row below
+// its length and the table's width, so a split may start and end inside a
+// page. Otherwise `per` counts table entries and the list holds the
+// shard's pages among them.
+template <int D, int MT, bool OWNED>
+__device__ __forceinline__ void state_walk(
     const __nv_bfloat16* __restrict__ q,   // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ kp,  // the shard's pages [p_loc, Hkv, ps, D]
     const __nv_bfloat16* __restrict__ vp,
@@ -209,8 +245,10 @@ __global__ void __launch_bounds__(32 * MT * pds_kw(MT)) paged_state_walk(
   const int split = blockIdx.x, h = blockIdx.y, bb = blockIdx.z, B = gridDim.z;
   const int Hq = Hkv * n_rep, R = n_rep * L;
   const int kend = lens[bb], e0 = split * per;
-  if ((long long)e0 * ps >= kend) return;  // past the row's keys: the combine reads nothing here
-  const int e1 = min(min(e0 + per, maxp), (kend + ps - 1) / ps);
+  // Past the row's keys: the combine reads nothing here.
+  if ((long long)e0 * (OWNED ? 1 : ps) >= kend) return;
+  const int e1 = OWNED ? min(min(e0 + per, maxp * ps), kend)
+                       : min(min(e0 + per, maxp), (kend + ps - 1) / ps);
 
   // The block's q rows, raw, into shared memory (padding rows zeros): in
   // flight while warp 0 lists the split's pages. Scaled when the fragments
@@ -222,25 +260,27 @@ __global__ void __launch_bounds__(32 * MT * pds_kw(MT)) paged_state_walk(
     fmma::cp_async16(qs + rswz<D>(rr, c), q + o, ok ? 16 : 0);
   }
   fmma::cp_async_commit();
-  if (warp == 0) {
-    int n = 0;
-    for (int c0 = e0; c0 < e1; c0 += 32) {
-      const int e = c0 + lane;
-      const int loc = e < e1 ? __ldg(bt + (size_t)bb * maxp + e) - base : -1;
-      const bool mine = (unsigned)loc < (unsigned)p_loc;  // -1 entries, other shards': no
-      const unsigned bal = __ballot_sync(0xffffffffu, mine);
-      if (mine) {
-        const int at = n + __popc(bal & ((1u << lane) - 1));
-        own_loc[at] = loc;
-        own_ent[at] = e;
+  if constexpr (!OWNED) {
+    if (warp == 0) {
+      int n = 0;
+      for (int c0 = e0; c0 < e1; c0 += 32) {
+        const int e = c0 + lane;
+        const int loc = e < e1 ? __ldg(bt + (size_t)bb * maxp + e) - base : -1;
+        const bool mine = (unsigned)loc < (unsigned)p_loc;  // -1 entries, other shards': no
+        const unsigned bal = __ballot_sync(0xffffffffu, mine);
+        if (mine) {
+          const int at = n + __popc(bal & ((1u << lane) - 1));
+          own_loc[at] = loc;
+          own_ent[at] = e;
+        }
+        n += __popc(bal);
       }
-      n += __popc(bal);
+      if (lane == 0) n_own = n;
     }
-    if (lane == 0) n_own = n;
+    __syncthreads();
   }
-  __syncthreads();
-  const int nk = n_own * ps, nt = (nk + BN - 1) / BN;
-  if (nt == 0) {  // none of the shard's pages: the identity's m and l
+  const int nk = OWNED ? e1 - e0 : n_own * ps, nt = (nk + BN - 1) / BN;
+  if (!OWNED && nt == 0) {  // none of the shard's pages: the identity's m and l
     for (int rr = tid; rr < R; rr += THREADS) {
       const size_t row = (((size_t)split * B + bb) * Hq + h * n_rep + rr / L) * L + rr % L;
       ws_ml[2 * row] = TLT_NEG_INF;
@@ -250,8 +290,9 @@ __global__ void __launch_bounds__(32 * MT * pds_kw(MT)) paged_state_walk(
     return;
   }
 
-  // Tile t of the list's keys into its ring stage: K, V and each key's
-  // global position (INT_MAX at or past the length, or past the list).
+  // Tile t of the list's keys (OWNED: of the split's) into its ring
+  // stage: K, V and each key's global position (INT_MAX at or past the
+  // length, or past the list).
   auto load = [&](int t) {
     const uint32_t st = ring + (t % PDS_STAGES) * STG;
     int* kpos = reinterpret_cast<int*>(smem + (st - qs) + 2 * KVB);
@@ -259,7 +300,14 @@ __global__ void __launch_bounds__(32 * MT * pds_kw(MT)) paged_state_walk(
       const int r = idx / CH, c = idx % CH, kc = t * BN + r;
       int pos = INT_MAX;
       size_t o = 0;
-      if (kc < nk) {
+      if constexpr (OWNED) {
+        if (kc < nk) {
+          const int p = e0 + kc, j = p / ps, off = p - j * ps;
+          const int page = max(__ldg(bt + (size_t)bb * maxp + j), 0);  // -1 -> trash page 0
+          pos = p;
+          o = (((size_t)page * Hkv + h) * ps + off) * D + c * 8;
+        }
+      } else if (kc < nk) {
         const int j = kc / ps, off = kc - j * ps;
         const int p = own_ent[j] * ps + off;
         if (p < kend) {
@@ -423,12 +471,34 @@ __global__ void __launch_bounds__(32 * MT * pds_kw(MT)) paged_state_walk(
   }
 }
 
-// One warp a row of the state: the partials of the splits below the row's
-// length, weighted by exp(m_s - max m) in f32 (a split that saw no key of
-// the row, m_s = NEG_INF, adds nothing and its sums are not read); o = sum
-// / max(l, 1e-30) rounded once, m = max m_s, l = the weighted sum of l_s.
-template <int D>
-__global__ void __launch_bounds__(256) state_combine(
+template <int D, int MT>
+__global__ void __launch_bounds__(32 * MT * pds_kw(MT)) paged_state_walk(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ bt,
+    const int* __restrict__ lens, float* __restrict__ ws_o, float* __restrict__ ws_ml, int Hkv,
+    int n_rep, int L, int ps, int maxp, int base, int p_loc, int per, float scale) {
+  state_walk<D, MT, false>(q, kp, vp, bt, lens, ws_o, ws_ml, Hkv, n_rep, L, ps, maxp, base, p_loc,
+                           per, scale);
+}
+
+// The paged decode's walk: the whole pool, splits of `kps` keys.
+template <int D, int MT>
+__global__ void __launch_bounds__(32 * MT * pds_kw(MT)) paged_decode_walk(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ bt,
+    const int* __restrict__ lens, float* __restrict__ ws_o, float* __restrict__ ws_ml, int Hkv,
+    int n_rep, int L, int ps, int maxp, int kps, float scale) {
+  state_walk<D, MT, true>(q, kp, vp, bt, lens, ws_o, ws_ml, Hkv, n_rep, L, ps, maxp, 0, 0, kps,
+                          scale);
+}
+
+// One warp a row of the state: the partials of the splits that may hold
+// the row's keys, weighted by exp(m_s - max m) in f32 (a split that saw no
+// key of the row, m_s = NEG_INF, adds nothing and its sums are not read);
+// o = sum / max(l, 1e-30) rounded once and, STATE, m = max m_s and l = the
+// weighted sum of l_s.
+template <int D, bool STATE>
+__device__ __forceinline__ void combine_rows(
     const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
     const int* __restrict__ lens, __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
     float* __restrict__ l_out, int B, int Hq, int L, int keys_per_split, int splits) {
@@ -437,7 +507,12 @@ __global__ void __launch_bounds__(256) state_combine(
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= rows) return;
   const int kend = __ldg(lens + row / (Hq * L));
-  const int n = kend > 0 ? min(splits, (kend + keys_per_split - 1) / keys_per_split) : 0;
+  // STATE: the splits below the row's length. Otherwise those that hold a
+  // key at or before the row's position (lens - L + i): a split past it
+  // saw no key of the row, or (the prefill's key split) wrote nothing.
+  const int pos = kend - L + row % L;
+  const int n = STATE ? (kend > 0 ? min(splits, (kend + keys_per_split - 1) / keys_per_split) : 0)
+                      : (pos >= 0 ? min(splits, pos / keys_per_split + 1) : 0);
   float mx = TLT_NEG_INF;
 #pragma unroll 8
   for (int s = 0; s < n; ++s) mx = fmaxf(mx, __ldg(ws_ml + 2 * ((size_t)s * rows + row)));
@@ -457,95 +532,206 @@ __global__ void __launch_bounds__(256) state_combine(
   __nv_bfloat16* o = out + (size_t)row * D + lane * E;
 #pragma unroll
   for (int e = 0; e < E; ++e) o[e] = __float2bfloat16_rn(a[e] * inv);
-  if (lane == 0) {
+  if (STATE && lane == 0) {
     m_out[row] = mx;
     l_out[row] = ls;
   }
 }
 
-// The walk's workspace for these shapes, in bytes: the partials ws_o then
-// ws_ml, each part 256-aligned.
+template <int D>
+__global__ void __launch_bounds__(256) state_combine(
+    const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
+    const int* __restrict__ lens, __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int B, int Hq, int L, int keys_per_split, int splits) {
+  combine_rows<D, true>(ws_o, ws_ml, lens, out, m_out, l_out, B, Hq, L, keys_per_split, splits);
+}
+
+// The paged decode's and the split paged prefill's combine: o alone.
+template <int D>
+__global__ void __launch_bounds__(256) decode_combine(
+    const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
+    const int* __restrict__ lens, __nv_bfloat16* __restrict__ out, int B, int Hq, int L,
+    int keys_per_split, int splits) {
+  combine_rows<D, false>(ws_o, ws_ml, lens, out, nullptr, nullptr, B, Hq, L, keys_per_split,
+                         splits);
+}
+
+// The walk's workspace, in bytes, for `splits` splits of B x Hkv x n_rep x
+// L rows: the partials ws_o then ws_ml, each part 256-aligned.
 struct StateWorkspace {
   size_t o, ml;
 };
-StateWorkspace state_workspace(int B, int Hkv, int L, int maxp, int D, int n_rep, int per) {
+StateWorkspace state_workspace(int splits, int B, int Hkv, int L, int D, int n_rep) {
   auto up = [](size_t x) { return (x + 255) / 256 * 256; };
-  const size_t rows = (size_t)((maxp + per - 1) / per) * B * Hkv * n_rep * L;
+  const size_t rows = (size_t)splits * B * Hkv * n_rep * L;
   return {up(rows * D * 4), up(rows * 2 * 4)};
 }
 
-template <int D, int MT>
-int launch_state_walk(const void* q, const void* kp, const void* vp, const void* bt,
-                      const void* lens, void* out, void* m, void* l, float* ws_o, float* ws_ml,
-                      int B, int Hkv, int n_rep, int L, int ps, int maxp, int base, int p_loc,
-                      int per, float scale, cudaStream_t st) {
+// The splits of the shard walk (`per` table entries each) and of the paged
+// decode (`per` keys each).
+int walk_splits(bool owned, int maxp, int ps, int per) {
+  return owned ? (maxp * ps + per - 1) / per : (maxp + per - 1) / per;
+}
+
+// One walk and its combine. OWNED: the paged decode (paged_decode_walk,
+// decode_combine: o alone); otherwise the shard walk (paged_state_walk,
+// state_combine: o, m and l).
+template <int D, int MT, bool OWNED>
+int launch_walk(const void* q, const void* kp, const void* vp, const void* bt, const void* lens,
+                void* out, void* m, void* l, float* ws_o, float* ws_ml, int B, int Hkv,
+                int n_rep, int L, int ps, int maxp, int base, int p_loc, int per, float scale,
+                cudaStream_t st) {
   constexpr int SMEM = pds_smem_bytes<D, MT>();
   static const int attr = (int)cudaFuncSetAttribute(
-      paged_state_walk<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      OWNED ? (const void*)paged_decode_walk<D, MT> : (const void*)paged_state_walk<D, MT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr) return attr;
-  const int splits = (maxp + per - 1) / per;
-  paged_state_walk<D, MT><<<dim3(splits, Hkv, B), 32 * MT * pds_kw(MT), SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(bt),
-      static_cast<const int*>(lens), ws_o, ws_ml, Hkv, n_rep, L, ps, maxp, base, p_loc, per,
-      scale);
+  const int splits = walk_splits(OWNED, maxp, ps, per);
+  const dim3 grid(splits, Hkv, B);
+  const auto* qq = static_cast<const __nv_bfloat16*>(q);
+  const auto* kk = static_cast<const __nv_bfloat16*>(kp);
+  const auto* vv = static_cast<const __nv_bfloat16*>(vp);
+  const auto* tt = static_cast<const int*>(bt);
+  const auto* ll = static_cast<const int*>(lens);
+  if constexpr (OWNED)
+    paged_decode_walk<D, MT><<<grid, 32 * MT * pds_kw(MT), SMEM, st>>>(
+        qq, kk, vv, tt, ll, ws_o, ws_ml, Hkv, n_rep, L, ps, maxp, per, scale);
+  else
+    paged_state_walk<D, MT><<<grid, 32 * MT * pds_kw(MT), SMEM, st>>>(
+        qq, kk, vv, tt, ll, ws_o, ws_ml, Hkv, n_rep, L, ps, maxp, base, p_loc, per, scale);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  const int rows = B * Hkv * n_rep * L;
-  state_combine<D><<<(rows + 7) / 8, 256, 0, st>>>(
-      ws_o, ws_ml, static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(m), static_cast<float*>(l), B, Hkv * n_rep, L, per * ps, splits);
+  const int rows = B * Hkv * n_rep * L, keys = OWNED ? per : per * ps;
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if constexpr (OWNED)
+    decode_combine<D><<<(rows + 7) / 8, 256, 0, st>>>(ws_o, ws_ml, ll, o, B, Hkv * n_rep, L, keys,
+                                                      splits);
+  else
+    state_combine<D><<<(rows + 7) / 8, 256, 0, st>>>(ws_o, ws_ml, ll, o, static_cast<float*>(m),
+                                                     static_cast<float*>(l), B, Hkv * n_rep, L,
+                                                     keys, splits);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int state_walk_rows(const void* q, const void* kp, const void* vp, const void* bt,
-                    const void* lens, void* out, void* m, void* l, float* ws_o, float* ws_ml,
-                    int B, int Hkv, int n_rep, int L, int ps, int maxp, int base, int p_loc,
-                    int per, float scale, cudaStream_t st) {
-  const int R = n_rep * L;
-#define TLT_PDS(MM)                                                                        \
-  return launch_state_walk<D, MM>(q, kp, vp, bt, lens, out, m, l, ws_o, ws_ml, B, Hkv, n_rep, \
-                                  L, ps, maxp, base, p_loc, per, scale, st)
-  if (R <= 16) TLT_PDS(1);
-  if (R <= 32) TLT_PDS(2);
-  if (R <= 64) TLT_PDS(4);
-  TLT_PDS(8);
-#undef TLT_PDS
+// The paged prefill: unsplit (o straight from the tile), or in `splits`
+// key ranges of kps keys, the f32 partials in the workspace, merged by
+// decode_combine.
+template <int D, int NREP>
+int launch_prefill(const void* q, const void* kp, const void* vp, const void* bt,
+                   const void* lens, void* out, float* ws_o, float* ws_ml, int B, int Hkv, int L,
+                   int ps, int maxp, int kps, int splits, float scale, cudaStream_t st) {
+  constexpr int BQ = fmma::WARPS * 16 / NREP, SMEM = fmma::smem_bytes<D>();
+  const int nq = (L + BQ - 1) / BQ;
+  const auto* qq = static_cast<const __nv_bfloat16*>(q);
+  const auto* kk = static_cast<const __nv_bfloat16*>(kp);
+  const auto* vv = static_cast<const __nv_bfloat16*>(vp);
+  const auto* tt = static_cast<const int*>(bt);
+  const auto* ll = static_cast<const int*>(lens);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (splits == 1) {
+    static const int attr = (int)cudaFuncSetAttribute(
+        paged_flash_prefill<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (attr) return attr;
+    paged_flash_prefill<D, NREP><<<dim3(nq, Hkv, B), dim3(fmma::WARPS * 32), SMEM, st>>>(
+        qq, kk, vv, tt, ll, o, Hkv, L, ps, maxp, scale);
+    return (int)cudaGetLastError();
+  }
+  static const int attr = (int)cudaFuncSetAttribute(
+      paged_flash_prefill_split<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr) return attr;
+  paged_flash_prefill_split<D, NREP><<<dim3(nq * splits, Hkv, B), dim3(fmma::WARPS * 32), SMEM,
+                                       st>>>(qq, kk, vv, tt, ll, ws_o, ws_ml, Hkv, L, ps, maxp,
+                                             kps, splits, scale);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int rows = B * Hkv * NREP * L;
+  decode_combine<D><<<(rows + 7) / 8, 256, 0, st>>>(ws_o, ws_ml, ll, o, B, Hkv * NREP, L, kps,
+                                                    splits);
+  return (int)cudaGetLastError();
 }
 
-int dispatch(int rpw, const void* q, const void* kp, const void* vp, const void* bt,
-             const void* lens, void* out, int B, int Hkv, int L, int ps, int maxp, int D,
-             int n_rep, float scale, void* stream) {
+// The walk's instance for n_rep x L rows (MT m16 tiles) and head dim D.
+template <bool OWNED>
+int walk_rows(const void* q, const void* kp, const void* vp, const void* bt, const void* lens,
+              void* out, void* m, void* l, void* ws, long long ws_bytes, int B, int Hkv, int L,
+              int ps, int maxp, int base, int p_loc, int D, int n_rep, int per, float scale,
+              void* stream) {
+  if (L < 1 || L > 16 || per < 1 || n_rep * L > 128 || maxp < 1 || (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  const StateWorkspace w =
+      state_workspace(walk_splits(OWNED, maxp, ps, per), B, Hkv, L, D, n_rep);
+  if (ws == nullptr || ws_bytes < (long long)(w.o + w.ml)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TLT_PA(DD, RR)                                                                      \
-  if (D == DD && n_rep == RR)                                                               \
-    return launch_rows<DD, RR>(rpw, q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, scale, \
-                               st);
-  TLT_PA(64, 1) TLT_PA(64, 2) TLT_PA(64, 4) TLT_PA(64, 8)
-  TLT_PA(128, 1) TLT_PA(128, 2) TLT_PA(128, 4) TLT_PA(128, 8)
-#undef TLT_PA
+  float* ws_o = static_cast<float*>(ws);
+  float* ws_ml = reinterpret_cast<float*>(static_cast<uint8_t*>(ws) + w.o);
+  const int R = n_rep * L, mt = R <= 16 ? 1 : R <= 32 ? 2 : R <= 64 ? 4 : 8;
+#define TLT_WALK(DD, MM)                                                                      \
+  if (D == DD && mt == MM)                                                                    \
+    return launch_walk<DD, MM, OWNED>(q, kp, vp, bt, lens, out, m, l, ws_o, ws_ml, B, Hkv,   \
+                                      n_rep, L, ps, maxp, base, p_loc, per, scale, st);
+  TLT_WALK(64, 1) TLT_WALK(64, 2) TLT_WALK(64, 4) TLT_WALK(64, 8)
+  TLT_WALK(128, 1) TLT_WALK(128, 2) TLT_WALK(128, 4) TLT_WALK(128, 8)
+#undef TLT_WALK
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// L <= 16: all n_rep * L query rows of a (batch row, KV head) in one block
-// when they fit in 64 rows.
-extern "C" int tlt_paged_decode(const void* q, const void* kp, const void* vp, const void* bt,
-                                const void* lens, void* out, int B, int Hkv, int L, int ps,
-                                int maxp, int D, int n_rep, float scale, void* stream) {
-  if (L < 1 || L > 16) return (int)cudaErrorInvalidValue;
-  const int need = n_rep * L;
-  const int rpw = need <= 8 ? 1 : need <= 16 ? 2 : need <= 32 ? 4 : 8;
-  return dispatch(rpw, q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, D, n_rep, scale, stream);
+// Bytes of workspace tlt_paged_decode takes for these shapes (kps: keys a
+// split, at least 1).
+extern "C" long long tlt_paged_decode_workspace(int B, int Hkv, int L, int maxp, int ps, int D,
+                                                int n_rep, int kps) {
+  const StateWorkspace w = state_workspace(walk_splits(true, maxp, ps, kps), B, Hkv, L, D, n_rep);
+  return (long long)(w.o + w.ml);
 }
 
+// L <= 16 over the whole pool, in splits of `kps` keys. ws: the workspace,
+// at least tlt_paged_decode_workspace(...) bytes, 256-byte aligned.
+extern "C" int tlt_paged_decode(const void* q, const void* kp, const void* vp, const void* bt,
+                                const void* lens, void* out, void* ws, long long ws_bytes, int B,
+                                int Hkv, int L, int ps, int maxp, int D, int n_rep, int kps,
+                                float scale, void* stream) {
+  return walk_rows<true>(q, kp, vp, bt, lens, out, nullptr, nullptr, ws, ws_bytes, B, Hkv, L, ps,
+                         maxp, 0, 0, D, n_rep, kps, scale, stream);
+}
+
+// Bytes of workspace tlt_paged_prefill takes for these shapes (kps: keys a
+// split): 0 where the table's keys fit one split.
+extern "C" long long tlt_paged_prefill_workspace(int B, int Hkv, int L, int maxp, int ps, int D,
+                                                 int n_rep, int kps) {
+  const int splits = walk_splits(true, maxp, ps, kps);
+  if (splits <= 1) return 0;
+  const StateWorkspace w = state_workspace(splits, B, Hkv, L, D, n_rep);
+  return (long long)(w.o + w.ml);
+}
+
+// L >= 1, causal over the row's pages, in splits of `kps` keys (a multiple
+// of 64 where the table holds more than one split). ws: the workspace, at
+// least tlt_paged_prefill_workspace(...) bytes, 256-byte aligned (none for
+// one split).
 extern "C" int tlt_paged_prefill(const void* q, const void* kp, const void* vp, const void* bt,
-                                 const void* lens, void* out, int B, int Hkv, int L, int ps,
-                                 int maxp, int D, int n_rep, float scale, void* stream) {
-  if (L < 1) return (int)cudaErrorInvalidValue;
-  return dispatch(8, q, kp, vp, bt, lens, out, B, Hkv, L, ps, maxp, D, n_rep, scale, stream);
+                                 const void* lens, void* out, void* ws, long long ws_bytes, int B,
+                                 int Hkv, int L, int ps, int maxp, int D, int n_rep, int kps,
+                                 float scale, void* stream) {
+  if (L < 1 || maxp < 1 || kps < 1) return (int)cudaErrorInvalidValue;
+  const int splits = walk_splits(true, maxp, ps, kps);
+  float *ws_o = nullptr, *ws_ml = nullptr;
+  if (splits > 1) {
+    const StateWorkspace w = state_workspace(splits, B, Hkv, L, D, n_rep);
+    if (kps % fmma::BN || ws == nullptr || ws_bytes < (long long)(w.o + w.ml))
+      return (int)cudaErrorInvalidValue;
+    ws_o = static_cast<float*>(ws);
+    ws_ml = reinterpret_cast<float*>(static_cast<uint8_t*>(ws) + w.o);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TLT_PF(DD, RR)                                                                          \
+  if (D == DD && n_rep == RR)                                                                   \
+    return launch_prefill<DD, RR>(q, kp, vp, bt, lens, out, ws_o, ws_ml, B, Hkv, L, ps, maxp, \
+                                  kps, splits, scale, st);
+  TLT_PF(64, 1) TLT_PF(64, 2) TLT_PF(64, 4) TLT_PF(64, 8)
+  TLT_PF(128, 1) TLT_PF(128, 2) TLT_PF(128, 4) TLT_PF(128, 8)
+#undef TLT_PF
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int tlt_paged_prefix_state(const void* q, const void* kp, const void* vp,
@@ -568,7 +754,7 @@ extern "C" int tlt_paged_prefix_state(const void* q, const void* kp, const void*
 // table entries a split, 1 to PDS_MAX_ENTRIES).
 extern "C" long long tlt_paged_decode_state_workspace(int B, int Hkv, int L, int maxp, int D,
                                                       int n_rep, int per) {
-  const StateWorkspace w = state_workspace(B, Hkv, L, maxp, D, n_rep, per);
+  const StateWorkspace w = state_workspace(walk_splits(false, maxp, 0, per), B, Hkv, L, D, n_rep);
   return (long long)(w.o + w.ml);
 }
 
@@ -580,18 +766,7 @@ extern "C" int tlt_paged_decode_state(const void* q, const void* kp, const void*
                                       void* l, void* ws, long long ws_bytes, int B, int Hkv,
                                       int L, int ps, int maxp, int base, int p_loc, int D,
                                       int n_rep, int per, float scale, void* stream) {
-  if (L < 1 || L > 16 || per < 1 || per > PDS_MAX_ENTRIES || n_rep * L > 128 || maxp < 1)
-    return (int)cudaErrorInvalidValue;
-  const StateWorkspace w = state_workspace(B, Hkv, L, maxp, D, n_rep, per);
-  if (ws == nullptr || ws_bytes < (long long)(w.o + w.ml)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ws_o = static_cast<float*>(ws);
-  float* ws_ml = reinterpret_cast<float*>(static_cast<uint8_t*>(ws) + w.o);
-  if (D == 64)
-    return state_walk_rows<64>(q, kp, vp, bt, lens, out, m, l, ws_o, ws_ml, B, Hkv, n_rep, L, ps,
-                               maxp, base, p_loc, per, scale, st);
-  if (D == 128)
-    return state_walk_rows<128>(q, kp, vp, bt, lens, out, m, l, ws_o, ws_ml, B, Hkv, n_rep, L,
-                                ps, maxp, base, p_loc, per, scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (per > PDS_MAX_ENTRIES) return (int)cudaErrorInvalidValue;
+  return walk_rows<false>(q, kp, vp, bt, lens, out, m, l, ws, ws_bytes, B, Hkv, L, ps, maxp, base,
+                          p_loc, D, n_rep, per, scale, stream);
 }

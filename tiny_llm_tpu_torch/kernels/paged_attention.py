@@ -3,12 +3,19 @@ kernel (L <= 16), the paged prefill kernel (L > 16) and the paged
 prefix-state walk of the split paged prefill.
 
 Counterpart of tiny_llm_tpu/kernels/paged_attention.py (`gather_pages_dense`,
-`paged_attention`) and of the two Pallas kernels the TPU dispatches to
+`paged_attention`) and of the Pallas kernels the TPU dispatches to
 (`paged_attention_pallas`, paged_attention_pallas.py:862, 918):
-  * L <= 16: `_paged_decode_gather_kernel` (`paged_flash_decode_gather`)
-    -> `tlt_paged_decode` in csrc/paged_attention.cu;
+  * L <= 16: `_paged_decode_gather_kernel` (`paged_flash_decode_gather`;
+    `_paged_decode_kernel` and `_paged_decode_page_kernel` compute the same
+    function) -> `tlt_paged_decode` in csrc/paged_attention.cu: a split-key
+    walk over each row's keys in splits of `decode_split` keys, a partial
+    state per split in a workspace the entry sizes, and a combine kernel
+    that writes o;
   * L > 16: `_paged_prefill_kernel` (`paged_flash_prefill`)
-    -> `tlt_paged_prefill` in the same file;
+    -> `tlt_paged_prefill` in the same file: the causal tensor-core tile,
+    its grid widened by splitting each row's keys (`prefill_split`) where
+    the q tiles alone leave SMs idle, the splits' partials merged by the
+    decode's combine;
   * `paged_prefix_state`: `_paged_prefix_state_kernel` (same name,
     paged_attention_pallas.py:771) -> `tlt_paged_prefix_state`: a chunk's
     queries over the prefix pages before it, non-causally, emitting the
@@ -63,6 +70,12 @@ DECODE_MAX_L = 16  # paged_attention_pallas.py:862
 # about what three tiles do), at most STATE_MAX_ENTRIES table entries (the
 # kernel's list, csrc/paged_attention.cu PDS_MAX_ENTRIES).
 STATE_MIN_KEYS, STATE_MAX_ENTRIES = 256, 256
+# The paged decode's and prefill's key splits: whole KEY_TILE-key tiles of
+# the walks, at least DECODE_MIN_KEYS / PREFILL_MIN_KEYS keys (a block's
+# start and its first tile's latency cost about what one more tile does).
+# The prefill's q tiles hold PREFILL_ROWS rows (n_rep heads).
+KEY_TILE, DECODE_MIN_KEYS = 64, 128
+PREFILL_ROWS, PREFILL_MIN_KEYS = 128, 128
 
 # Kernel launches since the last reset (see kernels.reset_launches).
 DECODE_LAUNCHES = 0
@@ -122,22 +135,12 @@ def paged_decode_state_plain(q, key_pages_loc, value_pages_loc, block_table, con
     return attention_state_plain(q, k, v, ok, scale)
 
 
-def paged_decode_state_split_plain(q, key_pages_loc, value_pages_loc, block_table, context_lens,
-                                   page_base: int, scale: float, splits: int):
-    """The decode-state walk's split and combine in plain PyTorch (tests
-    only): the table cut into `splits` chunks of ceil(max_pages / splits)
-    entries, each chunk's (acc, m, l) over the shard's keys in it at
+def _split_state(q, k, v, ok, scale: float, chunk: int):
+    """The keys cut into chunks of `chunk`, each chunk's (acc, m, l) at
     attention_state_plain's rounding points (p rounded against the chunk's
     max), merged in f32 with the subtrahend floored at NEG_INF / 2 and o
-    rounded to q's dtype once, as state_combine does. Returns (o, m, l); a
-    row that sees none of the shard's keys gives (0, NEG_INF, 0)."""
-    P_loc, _, ps, _ = key_pages_loc.shape
-    bt = block_table.to(device=q.device, dtype=torch.long)
-    local = bt - page_base
-    owned = ((local >= 0) & (local < P_loc)).repeat_interleave(ps, dim=1)[:, None, :]
-    k, v = gather_pages_dense(key_pages_loc, value_pages_loc, local.clamp(0, P_loc - 1))
-    ok = _causal_mask(context_lens, q.shape[2], k.shape[2], q.device) & owned
-    chunk = -(-bt.shape[1] // splits) * ps
+    rounded to q's dtype once, as the walks' combine kernels do. Returns
+    (o, m, l); a row that sees no key gives (0, NEG_INF, 0)."""
     key = torch.arange(k.shape[2], device=q.device)
     parts = [_attention_sums(q, k, v, ok & (key >= k0) & (key < k0 + chunk), scale)
              for k0 in range(0, k.shape[2], chunk)]
@@ -147,6 +150,34 @@ def paged_decode_state_split_plain(q, key_pages_loc, value_pages_loc, block_tabl
     l = (w * l).sum(0)
     out = (w[..., None] * acc).sum(0) / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype), mx, l
+
+
+def paged_decode_state_split_plain(q, key_pages_loc, value_pages_loc, block_table, context_lens,
+                                   page_base: int, scale: float, splits: int):
+    """The decode-state walk's split and combine in plain PyTorch (tests
+    only): the table cut into `splits` chunks of ceil(max_pages / splits)
+    entries, each over the shard's keys in it (_split_state). Returns
+    (o, m, l); a row that sees none of the shard's keys gives
+    (0, NEG_INF, 0)."""
+    P_loc, _, ps, _ = key_pages_loc.shape
+    bt = block_table.to(device=q.device, dtype=torch.long)
+    local = bt - page_base
+    owned = ((local >= 0) & (local < P_loc)).repeat_interleave(ps, dim=1)[:, None, :]
+    k, v = gather_pages_dense(key_pages_loc, value_pages_loc, local.clamp(0, P_loc - 1))
+    ok = _causal_mask(context_lens, q.shape[2], k.shape[2], q.device) & owned
+    return _split_state(q, k, v, ok, scale, -(-bt.shape[1] // splits) * ps)
+
+
+def paged_attention_split_plain(q, key_pages, value_pages, block_table, context_lens,
+                                scale: float, keys_per_split: int):
+    """The paged decode walk's and the split paged prefill's split and
+    combine in plain PyTorch (tests only): each row's keys cut into splits
+    of `keys_per_split` (a split may start inside a page), merged as
+    decode_combine does (_split_state). Returns o; a row that sees no key
+    gives 0."""
+    k, v = gather_pages_dense(key_pages, value_pages, block_table)
+    ok = _causal_mask(context_lens, q.shape[2], k.shape[2], q.device)
+    return _split_state(q, k, v, ok, scale, keys_per_split)[0]
 
 
 def decode_state_split(B: int, Hkv: int, max_pages: int, page_size: int, sms: int) -> int:
@@ -161,11 +192,43 @@ def decode_state_split(B: int, Hkv: int, max_pages: int, page_size: int, sms: in
     return max(1, min(STATE_MAX_ENTRIES, max(max_pages // want, least)))
 
 
+def decode_split(B: int, Hkv: int, max_pages: int, page_size: int, sms: int) -> int:
+    """Keys a split of the paged decode walk holds: whole KEY_TILE-key
+    tiles, at least DECODE_MIN_KEYS, and enough splits that the grid
+    (splits, Hkv, B) covers `sms` SMs at least twice where the table's
+    width (max_pages * page_size keys) allows. From the shapes alone, never
+    from the lengths or the table, which live on the device (reading them
+    would sync and break a CUDA graph's capture)."""
+    want = -(-2 * sms // (B * Hkv))
+    keys = max_pages * page_size // want // KEY_TILE * KEY_TILE
+    return max(DECODE_MIN_KEYS, keys)
+
+
+def prefill_split(B: int, Hkv: int, L: int, n_rep: int, max_pages: int, page_size: int,
+                  sms: int) -> int:
+    """Keys a split of the paged prefill holds: the table's width (one
+    split: the unsplit kernel, no workspace) where the grid's q tiles,
+    ceil(L / (PREFILL_ROWS / n_rep)) x Hkv x B blocks of one SM each (the
+    tile's shared memory), fill more than half the `sms` SMs; else whole
+    KEY_TILE-key tiles, at least PREFILL_MIN_KEYS, in as many splits as
+    fill the SMs once. From the shapes alone, as decode_split."""
+    keys = max_pages * page_size
+    want = sms // (-(-L // (PREFILL_ROWS // n_rep)) * Hkv * B)
+    if want < 2:
+        return keys
+    kps = -(-keys // want // KEY_TILE) * KEY_TILE
+    return min(keys, max(PREFILL_MIN_KEYS, kps))
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     for fn in (lib.tlt_paged_decode, lib.tlt_paged_prefill):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    for fn in (lib.tlt_paged_decode_workspace, lib.tlt_paged_prefill_workspace):
+        fn.argtypes = [ctypes.c_int] * 8
+        fn.restype = ctypes.c_longlong
     fn = lib.tlt_paged_prefix_state
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -196,40 +259,51 @@ def _check_paged(q, key_pages, value_pages, block_table):
     return n_rep
 
 
-def _paged_cuda(entry: str, q, key_pages, value_pages, block_table, context_lens, scale):
+def _split_launch(entry: str, q, key_pages, value_pages, block_table, context_lens,
+                  scale: float):
+    """The paged decode or prefill entry (`entry`: "decode" or "prefill")
+    in splits of decode_split's or prefill_split's keys, on a workspace of
+    the size the entry asks for."""
     B, Hq, L, D = q.shape
     Hkv, ps = key_pages.shape[1], key_pages.shape[2]
     n_rep = _check_paged(q, key_pages, value_pages, block_table)
     dev = q.device
     bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
+    maxp = bt.shape[1]
     out = torch.empty_like(q)
     lib = _lib()
-    err = getattr(lib, entry)(
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kps = (decode_split(B, Hkv, maxp, ps, sms) if entry == "decode"
+           else prefill_split(B, Hkv, L, n_rep, maxp, ps, sms))
+    nbytes = getattr(lib, f"tlt_paged_{entry}_workspace")(B, Hkv, L, maxp, ps, D, n_rep, kps)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None  # the partials
+    err = getattr(lib, f"tlt_paged_{entry}")(
         q.data_ptr(), key_pages.data_ptr(), value_pages.data_ptr(), bt.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), B, Hkv, L, ps, bt.shape[1], D, n_rep, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream,
+        lens.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), nbytes, B, Hkv,
+        L, ps, maxp, D, n_rep, kps, float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(lib, err, entry)
+    build.check(lib, err, f"tlt_paged_{entry}")
     return out
 
 
 def paged_decode_cuda(q, key_pages, value_pages, block_table, context_lens, scale: float):
-    """The paged decode kernel (L <= 16)."""
+    """The paged decode kernel (L <= 16): one call of the C entry, the
+    split walk and its combine, counted once."""
     global DECODE_LAUNCHES
     if not 1 <= q.shape[2] <= DECODE_MAX_L:
         raise ValueError(f"paged decode takes 1 <= L <= {DECODE_MAX_L}, got L={q.shape[2]}")
-    out = _paged_cuda("tlt_paged_decode", q, key_pages, value_pages, block_table,
-                      context_lens, scale)
+    out = _split_launch("decode", q, key_pages, value_pages, block_table, context_lens, scale)
     DECODE_LAUNCHES += 1
     return out
 
 
 def paged_prefill_cuda(q, key_pages, value_pages, block_table, context_lens, scale: float):
-    """The paged prefill kernel (any L >= 1; the dispatch sends L > 16)."""
+    """The paged prefill kernel (any L >= 1; the dispatch sends L > 16):
+    one call of the C entry, the tile and, when it splits the keys, the
+    combine, counted once."""
     global PREFILL_LAUNCHES
-    out = _paged_cuda("tlt_paged_prefill", q, key_pages, value_pages, block_table,
-                      context_lens, scale)
+    out = _split_launch("prefill", q, key_pages, value_pages, block_table, context_lens, scale)
     PREFILL_LAUNCHES += 1
     return out
 

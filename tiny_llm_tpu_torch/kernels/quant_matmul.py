@@ -23,12 +23,13 @@ the W4A8 kernel and the any-width kernel.
 
 `quant_matmul` dispatches as the JAX package's `quantized_matmul` does and
 launches the chosen kernel for CUDA tensors; for CPU tensors (or when
-impl="torch") it runs the kernel's plain version: `quant_matmul_plain` for
-K1 and the any-width kernel (f32 dequant at the weight's own width),
+impl="torch") it runs the plain version of the route the card takes for
+those rows: for K1 `quant_matmul_plain` (f32 dequant) below
+STAGED_MIN_ROWS rows and `quant_matmul_staged_plain` (bf16(q * s) staged,
+the TPU's rounding, as K1's staged tile computes) from there; for the
+any-width kernel `quant_matmul_plain` at the weight's own width;
 `quant_matmul_a8_plain` for the W4A8 kernel. On a CUDA tensor nothing
-falls back: a width no kernel takes raises. `quant_matmul_staged_plain` is
-the arithmetic of K1's staged route (bf16(q * s) staged, the TPU's
-rounding); only the tests and chip_smoke.py call it.
+falls back: a width no kernel takes raises.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ SOURCE = "tiny_llm_tpu_torch/csrc/quant_matmul.cu"  # K1 and the W4A8 kernel
 SOURCE_SG = "tiny_llm_tpu_torch/csrc/quant_matmul_sg.cu"
 A8_MAX_ROWS = 32  # the JAX pair dispatch's decode gate (rows <= 32)
 K1_ROUTES = ("gemv", "b16", "staged")  # tlt_quant_matmul_route's codes
+STAGED_MIN_ROWS = 33  # csrc/quant_matmul.cu's gate of K1's staged tile
 
 # Kernel launches since the last reset (see kernels.reset_launches).
 LAUNCHES = 0  # K1
@@ -221,7 +223,8 @@ def quant_matmul(
     """y = x @ dequant(qt).T (+ residual). x [..., in_features] -> [..., N] bf16.
 
     act="int8" weights at <= A8_MAX_ROWS rows run W4A8; other widths than
-    W4 g128 the any-width kernel; the rest K1."""
+    W4 g128 the any-width kernel; the rest K1, whose plain version rounds
+    as its route for those rows does (STAGED_MIN_ROWS)."""
     if x.shape[-1] != qt.in_features:
         raise ValueError(f"x K={x.shape[-1]} vs weight K={qt.in_features}")
     lead = x.shape[:-1]
@@ -232,7 +235,9 @@ def quant_matmul(
         fn = quant_matmul_a8_cuda if cuda else quant_matmul_a8_plain
     elif not qt.is_w4g128:
         fn = quant_matmul_sg_cuda if cuda else quant_matmul_plain
+    elif cuda:
+        fn = quant_matmul_cuda
     else:
-        fn = quant_matmul_cuda if cuda else quant_matmul_plain
+        fn = quant_matmul_staged_plain if x2.shape[0] >= STAGED_MIN_ROWS else quant_matmul_plain
     out = fn(x2.to(torch.bfloat16) if cuda else x2, qt, r2)
     return out.reshape(*lead, qt.out_features)
