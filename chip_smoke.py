@@ -6,11 +6,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
   build     compile the CUDA kernels from tiny_llm_tpu_torch/csrc (nvcc, in
             parallel, into build/), with the card's name and power limit;
-            the split prefill's two kernels, the masked prefill walk and K1's
-            staged tile and the paged prefill must hold HGMMA in their
-            SASS, the masked decode walk, row 14's split walk, the paged
-            decode's split walk and K1's bf16 tile HMMA, the two W4A8 tiles
-            IMMA
+            the split prefill's two kernels, the masked prefill walk, K1's
+            and row 17's staged tiles and the paged prefill must hold HGMMA
+            in their SASS, the masked decode walk, row 14's split walk, the
+            paged decode's and row 6's split walks and K1's and row 17's
+            bf16 tiles HMMA, the two W4A8 tiles IMMA
   kernels   every kernel against its plain PyTorch version on the card at
             the shapes the main paths give it; kernel, plain and library
             times and the least time the card could take (the bound). K1
@@ -28,7 +28,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             17, 32, 128 (B = 1: the keys split; B = 4: the unsplit tile).
             Qwen3-4B's shapes (n_rep 4), then Qwen3-30B-A3B's: the grouped
             expert matmul (gate and down at T = 8, 32, 1024 and edge cases,
-            a whole decode step's 144 calls; and at T = 64, 128, 256, the
+            a whole decode step's 72 calls; and at T = 64, 128, 256, the
             regime of the JAX package's expert-gather schedule, which this
             kernel covers) and the attention kernels at Hkv 4, n_rep 8
   model     the dense path: Qwen3-4B W4A16 (random weights from a seed, full
@@ -71,9 +71,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             serialized schedule, and one burst under sync-debug "error"
   mixed_serving the serving phase's campaign with mixed_prefill=True (two
             campaigns)
-  moe_model     the model phase on Qwen3-30B-A3B W4A16 (48 layers, 128
-            experts, top-8; full width and depth): exact launch counts
-            (K1 145, grouped 144, K2 or K3 48 per step), a sync-free burst
+  moe_model     the model phase on Qwen3-30B-A3B W4A16 (full width, 128
+            experts, top-8; 24 of its 48 layers, MOE_LAYERS):
+            exact launch counts (K1 73, grouped 72, K2 or K3 24 per step),
+            a sync-free burst
   moe_parity    parity and paged_parity at the 30B-A3B widths, 4 layers; the
             plain path takes the kernel path's expert choice where the two
             differ at a near-tie (counted, and held under a 1e-3 margin)
@@ -81,9 +82,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   quant_kernels (run after `kernels`) the quant tiers' four kernels against
             their plain versions: the W4A8 matmul (4B qkv, gate_up, down +
             res at M = 1, 2 on the GEMV, 3, 4, 5, 8, 16, 17, 32 on the int8
-            tile; 30B-A3B qkv and o), the any-width matmul (4B W8 g64 qkv,
-            down + res, tied LM head at M = 1, 4, 128; W2 g32 and W4 g32
-            qkv), the
+            tile; 30B-A3B qkv and o), the any-width matmul on its three
+            routes (the GEMV at M <= 3, the bf16 tile and
+            the staged wgmma tile as K1's) at their edges: 4B W8 g64 qkv,
+            down + res and the tied LM head at M = 1, 2, 3, 4, 20, 32, 33,
+            36, 128, 1024, an N-tail (N = 1001), the other seven widths on
+            qkv at M = 1, 3, 4, 33, 128, each held to its route's plain
+            arithmetic as K1 is, the
             grouped W4A8 matmul (30B-A3B gate and down, T = 8, 16, 32, 128,
             one expert holding 16, 17, 64 or 128 rows, two holding 65 and
             63, empty experts) and the grouped any-width matmul (30B-A3B W4
@@ -109,20 +114,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             prompt tails of 3-32 tokens reach the W4A8 matmul's int8 tile)
   a8_moe    (run right after `moe_model`) Qwen3-30B-A3B with
             act_quant="int8" on moe_model's weights: one decode run (the
-            grouped W4A8 matmul 144, the W4A8 matmul 96, K1 49 a step; the
-            grouped W4A16 matmul 144 a prefill), runs in turns with
+            grouped W4A8 matmul 72, the W4A8 matmul 48, K1 25 a step; the
+            grouped W4A16 matmul 72 a prefill), runs in turns with
             W4A16's, and 4-layer parity under RouteForcer (its 12-token
             tail: the grouped W4A8 matmul's int8 tile walk at T = 96)
   sg_moe    Qwen3-30B-A3B at W4 g64 (built once the W4 model is freed: one
             30B model on the card at a time): the grouped any-width
             matmul's decode step, one decode run (the any-width matmul 145,
-            the grouped any-width matmul 144 a step), 4-layer parity
+            the grouped any-width matmul 72 a step), 4-layer parity
 
 Sequence-parallel attention, Qwen3-4B with its KV split over 8
 shards, every shard a view on this card (parallel.SPAttention), run after
 long_serving:
   sp_kernels    the shard decode-state kernel (row 6: a slab of 8192 in
-            shards of 1024, B = 1 at 6000 keys and B = 4 at 1000-5000) and
+            shards of 1024, B = 1 at 6000 keys and B = 4 at 1000-5000, L =
+            1, 8 and 16, at 4B's heads and at n_rep 8; o held per element to
+            _state_tol with the plain version at lens - 1 as a control that
+            must miss it, every empty row exactly the identity) and
             the paged decode-state walk (row 14: a 400-page pool striped
             over the shards, B = 4, L = 1 and 16, its split count on the
             case line) against their plain versions on every
@@ -175,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -228,6 +237,10 @@ SP_SHARDS, SP_MAX_SEQ, SP_PROMPT, SP_CHUNK = 8, 8192, 6000, 2048
 SP_BATCH_PROMPTS = (1000, 2100, 3500, 5000)
 SP_PAGES = 400
 SP = ("flash_decode_state", "paged_decode_state")  # the sequence-parallel path's own kernels
+# Qwen3-30B-A3B runs at full width and 24 of its 48 layers in every MoE
+# phase (at 48 the whole script took 1174 s of its 1200 on a slow host;
+# the 4B model carries the full-depth main path).
+MOE_LAYERS = 24
 
 
 PHASES: list[dict] = []  # every phase line printed, for --out
@@ -309,12 +322,18 @@ def phase_build():
     log = build.build_all()
     secs = time.perf_counter() - t0
     regs = {name: build.ptxas_registers(info["ptxas"]) for name, info in log.items()}
+    # Each library's SASS read once, all in parallel (cuobjdump processes).
+    srcs = ("flash_attention", "paged_attention", "flash_attention_masked", "quant_matmul",
+            "moe_matmul", "quant_matmul_sg")
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        sass = dict(zip(srcs, pool.map(lambda n: build.sass_report(build._target(n)), srcs)))
+
     # The split prefill's state kernels and the masked prefill walk run their
     # products as warpgroup MMAs (HGMMA in SASS); the masked decode walk as
     # mma.sync (HMMA); the W4A8 tiles as int8 mma.sync (IMMA).
     def tensor_ops(src, key, kind):
         return {re.sub(r"^_ZN\d+_\w+_cu_[0-9a-f]{8}\d+", "", fn): info[kind]
-                for fn, info in build.sass_report(build._target(src)).items() if key in fn}
+                for fn, info in sass[src].items() if key in fn}
 
     tc = {**tensor_ops("flash_attention", "prefill_state", "tensor_core_ops"),
           **tensor_ops("paged_attention", "prefix_state", "tensor_core_ops")}
@@ -334,6 +353,14 @@ def phase_build():
     check(len(b16) == 2 and all(b16.values()), f"K1 bf16 tile HMMA: {b16}")
     staged = tensor_ops("quant_matmul", "qmm_staged_tile", "hgmma")
     check(len(staged) == 1 and all(staged.values()), f"K1 staged tile HGMMA: {staged}")
+    # Row 17's tiles at its 8 widths (the bf16 tile at 16 and 32 rows a
+    # block), row 6's split walk over a slab (8 instances).
+    sg_b16 = tensor_ops("quant_matmul_sg", "qmm_sg_b16_tile", "tensor_core_ops")
+    check(len(sg_b16) == 16 and all(sg_b16.values()), f"row 17 bf16 tile HMMA: {sg_b16}")
+    sg_staged = tensor_ops("quant_matmul_sg", "qmm_sg_staged_tile", "hgmma")
+    check(len(sg_staged) == 8 and all(sg_staged.values()), f"row 17 staged tile HGMMA: {sg_staged}")
+    fdec = tensor_ops("flash_attention", "flash_decode_walk", "tensor_core_ops")
+    check(len(fdec) == 8 and all(fdec.values()), f"row 6 split walk HMMA: {fdec}")
     # The paged decode's split walk runs mma.sync (HMMA), the paged prefill
     # the wgmma tile (HGMMA), unsplit and key-split (8 instances each).
     pdec = tensor_ops("paged_attention", "paged_decode_walk", "tensor_core_ops")
@@ -346,7 +373,9 @@ def phase_build():
           "masked_decode_tensor_core_ops": dec, "a8_tile_imma": imma,
           "paged_state_walk_tensor_core_ops": walk, "k1_b16_tile_tensor_core_ops": b16,
           "k1_staged_tile_hgmma": staged, "paged_decode_walk_tensor_core_ops": pdec,
-          "paged_prefill_hgmma": pfill,
+          "paged_prefill_hgmma": pfill, "sg_b16_tile_tensor_core_ops": sg_b16,
+          "sg_staged_tile_hgmma": sg_staged, "flash_decode_walk_tensor_core_ops": fdec,
+          "library_done_s": {n: round(i["seconds"], 1) for n, i in log.items()},
           "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi, regs
 
@@ -780,8 +809,9 @@ def _grouped_bytes(qt, sizes, T):
 
 def _grouped_cases(model, cfg, gen, contract):
     """The grouped expert matmul against its plain version at Qwen3-30B-A3B's
-    expert shapes, timed over the 48 layers' weights, and one decode step's
-    144 calls (each layer its own routing) for the kernel line."""
+    expert shapes, timed over the MOE_LAYERS layers' weights, and one decode
+    step's 3 x MOE_LAYERS calls (each layer its own routing) for the kernel
+    line."""
     from tiny_llm_tpu_torch.kernels import moe_matmul as km
 
     E, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -2368,14 +2398,54 @@ A8_GEMV_MS = {
 }
 
 
+SG_WIDTHS = ((2, 32), (2, 64), (2, 128), (4, 32), (4, 64), (8, 32), (8, 128))  # beside W8 g64
+
+
+def _sg_route_plain(M):
+    """Row 17's route at M rows and the plain version of its arithmetic."""
+    from tiny_llm_tpu_torch.kernels import quant_matmul as qm
+
+    route = qm.sg_route(M)
+    return route, qm.quant_matmul_staged_plain if route == "staged" else qm.quant_matmul_plain
+
+
+def _sg_cases(cfg, sg_model, gen):
+    """Row 17 on each of its routes at their edges: 4B W8 g64 (the sg
+    model's weights) qkv, down + res and the tied LM head at M = 1, 2, 3, 4,
+    20, 32, 33, 36, 128 and 1024, an N-tail weight (N = 1001) at M = 1, 4,
+    36 and 1024; the other widths on the qkv shape at M = 1, 3, 4, 33 and
+    128 (each route at each width). Each held to 1 % of max of the f32 plain
+    version and per element (2 bf16 ulps + 1e-3 of max) to its route's plain
+    arithmetic."""
+    from tiny_llm_tpu_torch.kernels import quant_matmul as qm
+
+    run = functools.partial(_dense_cases, "quant_matmul_sg", qm.TPU_KERNEL_SG, gen=gen,
+                            cuda_fn=qm.quant_matmul_sg_cuda, plain_fn=qm.quant_matmul_plain,
+                            peak=BF16_FLOPS, route_plain=_sg_route_plain)
+    shapes, cases = _k1_shapes(cfg), []
+    for name in ("qkv", "down", "lm_head"):
+        _, _, attr, residual = shapes[name]
+        ws = [_layer_weight(sg_model.params, L, attr)
+              for L in (sg_model.params.layers[:8] if attr else sg_model.params.layers[:1])]
+        cases += run(ws=ws, Ms=(1, 2, 3, 4, 20, 32, 33, 36, 128, 1024), residuals=(residual,),
+                     label=name)
+    ws = _random_qt(gen, 1001, 2560, 8, 64, copies=4)
+    cases += run(ws=ws, Ms=(1, 4, 36, 1024), residuals=(True,), label="N-tail")
+    N, K = shapes["qkv"][:2]
+    for bits, group_size in SG_WIDTHS:
+        ws = _random_qt(gen, N, K, bits, group_size, copies=8)
+        cases += run(ws=ws, Ms=(1, 3, 4, 33, 128), residuals=(False,), label="qkv")
+    del ws
+    return cases
+
+
 def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
     """The quant tiers' kernels against their plain versions on the card,
     timed by CUDA-graph replay over distinct weights (up to 8 layers'):
     the W4A8 matmul at the 4B shapes (qkv, gate_up, down + res; M = 1 and
     2 on the GEMV, 3 on the int8 tile and its edges 4, 5, 8, 16, 17, 32)
     and 30B-A3B's qkv and o;
-    the any-width matmul at 4B W8 g64 (qkv, down + res, the tied LM head;
-    M = 1, 4, 128) and at W2 g32 and W4 g32 on the qkv shape; the grouped
+    the any-width matmul on its three routes (_sg_cases); the grouped
     W4A8 matmul at 30B-A3B's gate and down (T = 8, 32, 128, one expert
     holding 16, 17, 64 or 128 rows, two holding 65 and 63, empty experts,
     and T = 16); the grouped any-width matmul at 30B-A3B W4 g64 (8 layers'
@@ -2400,20 +2470,7 @@ def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
                 "quant_matmul_a8", qm.TPU_KERNEL_A8, ws, (1, 2, 3, 4, 5, 8, 16, 17, 32),
                 (residual,), gen, qm.quant_matmul_a8_cuda, qm.quant_matmul_a8_plain, INT8_OPS,
                 name, control=qm.quant_matmul_plain)]
-    shapes = _k1_shapes(cfg)
-    for name in ("qkv", "down", "lm_head"):
-        _, _, attr, residual = shapes[name]
-        ws = [_layer_weight(sg_model.params, L, attr)
-              for L in (sg_model.params.layers[:8] if attr else sg_model.params.layers[:1])]
-        cases += _dense_cases("quant_matmul_sg", qm.TPU_KERNEL_SG, ws, (1, 4, 128), (residual,),
-                              gen, qm.quant_matmul_sg_cuda, qm.quant_matmul_plain, BF16_FLOPS,
-                              name)
-    N, K = shapes["qkv"][:2]
-    for bits in (2, 4):
-        ws = _random_qt(gen, N, K, bits, 32, copies=8)
-        cases += _dense_cases("quant_matmul_sg", qm.TPU_KERNEL_SG, ws, (1, 128), (False,), gen,
-                              qm.quant_matmul_sg_cuda, qm.quant_matmul_plain, BF16_FLOPS, "qkv")
-        del ws
+    cases += _sg_cases(cfg, sg_model, gen)
     rng = np.random.default_rng(8)
     E, k = moe_cfg.num_experts, moe_cfg.num_experts_per_tok
     mlps = [layer.mlp for layer in moe.params.layers]
@@ -2462,9 +2519,9 @@ def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
 
 def phase_sg_moe(moe_cfg, contract, beside):
     """Qwen3-30B-A3B at W4 g64 (mlx_lm.convert's default group size) from
-    synthetic params, full width and depth: one decode step of the grouped
-    any-width matmul for the kernel line (144 launches, every layer's
-    experts), B = 1 decode with exact launch counts (`beside`: the W4A16
+    synthetic params, full width, MOE_LAYERS layers: one decode step of the
+    grouped any-width matmul for the kernel line (3 x MOE_LAYERS launches,
+    every layer's experts), B = 1 decode with exact launch counts (`beside`: the W4A16
     numbers), and 4-layer parity under RouteForcer. Returns the decode
     run's launches."""
     from tiny_llm_tpu_torch.kernels import moe_matmul as km
@@ -2522,12 +2579,40 @@ def _sp_kernel_entry(name, source, replaces, case, err, kern, plain, lib, bms, b
             "library_ms": lib}
 
 
+def _decode_state_check(what, q, k, v, lens, sc):
+    """Row 6 on one shard against its plain version on the card: (o, m, l)
+    as _sp_state_check holds them, o per element within _state_tol, and the
+    plain version at lens - 1 as the control, which must miss it in every
+    batch row whose visible keys it changes (an empty shard has none).
+    Returns o's max error, its largest ratio to the tolerance, the identity
+    rows and the control's ratios in the rows it changed (None: none)."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+
+    got = ka.flash_decode_state_cuda(q, k, v, lens, sc)
+    want = ka.flash_decode_state_plain(q, k, v, lens, sc)
+    torch.cuda.synchronize()
+    L, S = q.shape[2], k.shape[2]
+    ok = ka._causal_mask(lens, L, S, q.device)
+    tol = _state_tol(q, k, v, ok, sc, want[0])
+    err, rows, empty = _sp_state_check(what, got, want, tol)
+    shifted = (lens - 1).clamp(min=0)
+    changed = (ok != ka._causal_mask(shifted, L, S, q.device)).flatten(1).any(1).tolist()
+    ctl = None
+    if any(changed):
+        ctl = _state_control(what, got, tol, ka.flash_decode_state_plain(q, k, v, shifted, sc),
+                             changed)
+        ctl = [c for c, ch in zip(ctl, changed) if ch]
+    return err, max(rows), empty, ctl
+
+
 def phase_sp_kernels(cfg, contract):
     """The sequence-parallel path's kernels against their plain versions on
     the card at Qwen3-4B's head shapes, on every shard (the empty ones too):
     the shard decode-state kernel (row 6) over one layer's slab of SP_MAX_SEQ
     positions in SP_SHARDS shards of 1024 (B = 1 at SP_PROMPT keys, B = 4 at
-    SP_BATCH_PROMPTS), the paged decode-state walk (row 14) over one
+    SP_BATCH_PROMPTS at L = 1, 8 and 16; at 4B's heads and at n_rep 8; each
+    shard held per element by _decode_state_check),
+    the paged decode-state walk (row 14) over one
     layer's striped pool (B = 4, contexts 6000, 2500, 130, 8000), and the
     chunk-state kernel (row 7) at the virtual lengths sharded prefill gives
     it (below 0, inside, past the shard). Beside each: the whole SP
@@ -2550,59 +2635,71 @@ def phase_sp_kernels(cfg, contract):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     # Row 6: one layer's slab; shard s is the strided view [:, :, s*S_loc:(s+1)*S_loc].
-    k, v = randn(4, Hkv, SP_MAX_SEQ, D), randn(4, Hkv, SP_MAX_SEQ, D)
     starts = torch.arange(0, SP_MAX_SEQ, S_loc, dtype=torch.int32, device=dev)[:, None]
-    for lens in ([SP_PROMPT], list(SP_BATCH_PROMPTS)):
-        B = len(lens)
-        q, kb, vb = randn(B, Hq, 1, D), k[:B], v[:B]
-        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-        shard_lens = (lens_t[None] - starts).clamp(0, S_loc)
-        shards = [(kb[:, :, s * S_loc : (s + 1) * S_loc], vb[:, :, s * S_loc : (s + 1) * S_loc])
-                  for s in range(n)]
-        empty = 0
-        for s, (ks, vs) in enumerate(shards):
-            got = ka.flash_decode_state_cuda(q, ks, vs, shard_lens[s], sc)
-            want = ka.flash_decode_state_plain(q, ks, vs, shard_lens[s], sc)
-            torch.cuda.synchronize()
-            err, _, e = _sp_state_check(f"flash_decode_state B={B} shard {s}", got, want, tol)
-            errs["flash_decode_state"].append(err)
-            empty += e
-        whole = ka.flash_attention_cuda(q, kb, vb, lens_t, sc)
-        sp_err = max_err(sp.flash(q, kb, vb, lens_t, sc), whole)
-        check(sp_err <= tol, f"SP flash B={B} against K3: {sp_err}")
-        # One launch over a full shard (shard 0; row 0 of B = 4 holds 1000 keys there).
-        ks, vs = shards[0]
-        full = shard_lens[0]
-        kern = graph_ms(lambda: ka.flash_decode_state_cuda(q, ks, vs, full, sc))
-        plain = event_ms(lambda: ka.flash_decode_state_plain(q, ks, vs, full, sc), reps=2)
-        keys = [int(x) for x in full.tolist()]
-        kmax = max(keys)
-        mask = (torch.arange(kmax, device=dev)[None, :] < full[:, None])[:, None, None]
+    for heads, (hkv, n_rep) in (("qwen3-4b", (Hkv, Hq // Hkv)), ("n_rep 8", (4, 8))):
+        k, v = randn(4, hkv, SP_MAX_SEQ, D), randn(4, hkv, SP_MAX_SEQ, D)
+        for lens, L in (([SP_PROMPT], 1), (list(SP_BATCH_PROMPTS), 1),
+                        (list(SP_BATCH_PROMPTS), 8), (list(SP_BATCH_PROMPTS), 16)):
+            B = len(lens)
+            q, kb, vb = randn(B, hkv * n_rep, L, D), k[:B], v[:B]
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            shard_lens = (lens_t[None] - starts).clamp(0, S_loc)
+            shards = [(kb[:, :, s * S_loc : (s + 1) * S_loc], vb[:, :, s * S_loc : (s + 1) * S_loc])
+                      for s in range(n)]
+            empty, worst, controls = 0, 0.0, []
+            for s, (ks, vs) in enumerate(shards):
+                err, ratio, e, ctl = _decode_state_check(
+                    f"flash_decode_state {heads} B={B} L={L} shard {s}", q, ks, vs, shard_lens[s],
+                    sc)
+                errs["flash_decode_state"].append(err)
+                worst, empty = max(worst, ratio), empty + e
+                if ctl is not None:
+                    controls.append(min(ctl))
+            # One launch over a full shard (shard 0; row 0 of B = 4 holds 1000 keys there).
+            ks, vs = shards[0]
+            full = shard_lens[0]
+            kern = graph_ms(lambda: ka.flash_decode_state_cuda(q, ks, vs, full, sc))
+            plain = event_ms(lambda: ka.flash_decode_state_plain(q, ks, vs, full, sc), reps=2)
+            keys = [int(x) for x in full.tolist()]
+            kmax = max(keys)
+            qpos = full[:, None] - L + torch.arange(L, device=dev)[None, :]  # [B, L]
+            mask = (torch.arange(kmax, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
 
-        def lib_fn():
-            return sdpa(q, ks[:, :, :kmax], vs[:, :, :kmax], attn_mask=mask, scale=sc,
-                        enable_gqa=True)
+            def lib_fn():
+                return sdpa(q, ks[:, :, :kmax], vs[:, :, :kmax], attn_mask=mask, scale=sc,
+                            enable_gqa=True)
 
-        want = ka.flash_decode_state_plain(q, ks, vs, full, sc)[0]
-        check(max_err(lib_fn(), want) <= tol, f"SDPA yardstick B={B} differs")
-        lib = graph_ms(lib_fn)
-        sp_ms = graph_ms(lambda: sp.flash(q, kb, vb, lens_t, sc))
-        k3_ms = graph_ms(lambda: ka.flash_attention_cuda(q, kb, vb, lens_t, sc))
-        bms, by = bound(sum(2 * Hkv * t * D * 2 for t in keys) + B * Hq * D * 2 * 2
-                        + B * Hq * 4 * 2, sum(4 * Hq * t * D for t in keys))
-        case = {"kernel": "flash_decode_state", "tpu_kernel": ka.TPU_KERNEL_DECODE_STATE,
-                "shape": f"B={B} L=1 shard 0 of {n} (S={SP_MAX_SEQ}, S_loc={S_loc}) keys={keys} "
-                         f"Hq={Hq} Hkv={Hkv} D={D}",
-                "max_err": max(errs["flash_decode_state"]), "tol": tol, "kernel_ms": kern,
-                "plain_ms": plain, "library_ms": lib, "library": "SDPA over the shard's keys",
-                "bound_ms": bms, "bound_by": by, "lens": lens, "empty_shard_rows": empty,
-                "sp_attention_ms": sp_ms, "sp_vs_k3_max_err": sp_err, "k3_unsharded_ms": k3_ms}
-        cases.append(case)
-        if B == 1:
-            contract["flash_decode_state"] = _sp_kernel_entry(
-                "flash_decode_state", ka.SOURCE, "tiny_llm_tpu/kernels/flash_attention_pallas.py:282",
-                case["shape"], 0.0, kern, plain, lib, bms, by)
-    del k, v
+            want = ka.flash_decode_state_plain(q, ks, vs, full, sc)[0]
+            check(max_err(lib_fn(), want) <= tol, f"SDPA yardstick {heads} B={B} L={L} differs")
+            lib = graph_ms(lib_fn)
+            rows = B * hkv * n_rep * L
+            bms, by = bound(sum(2 * hkv * t * D * 2 for t in keys) + rows * (D * 4 + 8),
+                            sum(4 * hkv * n_rep * L * t * D for t in keys))
+            split = pa.decode_split(B, hkv, S_loc, 1, _sms())
+            case = {"kernel": "flash_decode_state", "tpu_kernel": ka.TPU_KERNEL_DECODE_STATE,
+                    "heads": heads,
+                    "shape": f"B={B} L={L} shard 0 of {n} (S={SP_MAX_SEQ}, S_loc={S_loc}) "
+                             f"keys={keys} Hq={hkv * n_rep} Hkv={hkv} D={D}, "
+                             f"{-(-S_loc // split)} splits of {split} keys",
+                    "max_err": max(errs["flash_decode_state"]), "err_over_tol": worst,
+                    "tol": TOL_ATTENTION, "control": "lens - 1",
+                    "control_min_err_over_tol": min(controls), "kernel_ms": kern,
+                    "plain_ms": plain, "library_ms": lib, "library": "SDPA over the shard's keys",
+                    "bound_ms": bms, "bound_by": by, "lens": lens, "empty_shard_rows": empty}
+            if L == 1:  # the whole SP attention (sp.flash takes L = 1 to row 6)
+                whole = ka.flash_attention_cuda(q, kb, vb, lens_t, sc)
+                sp_err = max_err(sp.flash(q, kb, vb, lens_t, sc), whole)
+                check(sp_err <= tol, f"SP flash {heads} B={B} against K3: {sp_err}")
+                case.update(sp_attention_ms=graph_ms(lambda: sp.flash(q, kb, vb, lens_t, sc)),
+                            sp_vs_k3_max_err=sp_err, k3_unsharded_ms=graph_ms(
+                                lambda: ka.flash_attention_cuda(q, kb, vb, lens_t, sc)))
+            cases.append(case)
+            if heads == "qwen3-4b" and B == 1:
+                contract["flash_decode_state"] = _sp_kernel_entry(
+                    "flash_decode_state", ka.SOURCE,
+                    "tiny_llm_tpu/kernels/flash_attention_pallas.py:282", case["shape"], 0.0,
+                    kern, plain, lib, bms, by)
+        del k, v
 
     # Row 14: one layer's pool striped over the shards; requests admitted in turn.
     ps, ctxs = PAGE_SIZE, [6000, 2500, 130, 8000]
@@ -3717,7 +3814,7 @@ def main() -> int:
     a8 = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, act_quant="int8")  # shares the weights
     sg_model = Qwen3Model(synthetic_quantized_params(cfg, seed=0, group_size=64, bits=8), cfg,
                           max_seq_len=MAX_SEQ)
-    moe_cfg = QWEN3_CONFIGS["qwen3-30b-a3b"]
+    moe_cfg = dataclasses.replace(QWEN3_CONFIGS["qwen3-30b-a3b"], num_hidden_layers=MOE_LAYERS)
     moe_params = synthetic_quantized_params(moe_cfg, seed=0)
     moe = Qwen3Model(moe_params, moe_cfg, max_seq_len=MAX_SEQ)
     contract = phase_kernels(model, cfg, moe, moe_cfg)

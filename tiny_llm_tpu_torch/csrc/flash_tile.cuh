@@ -1,7 +1,6 @@
-// Causal flash-attention tile shared by K3 (flash_attention.cu, K/V in a
-// dense slab) and the paged decode and prefill kernels (paged_attention.cu,
-// K/V in a page pool read through a block table). Where a key row lives is
-// the `Rows` functor of common.cuh; everything else is one code path.
+// Causal flash-attention tile of K3 (flash_attention.cu, K/V in a dense
+// slab; row 4's L <= 16 calls take it too). Where a key row lives is the
+// `Rows` functor of common.cuh.
 //
 // One block holds ROWS = 8 * RPW query rows: the KV head's NREP query heads
 // times BQ = ROWS / NREP consecutive positions, so each K/V tile loaded into
@@ -12,16 +11,8 @@
 // banks), the warp updates its rows' online-softmax states with shuffles,
 // and the PV product runs with each lane owning D/32 output dims. Tiles past
 // the q tile's last visible key are never loaded, and nothing at or past
-// `limit` (the slab length, or the block table's width in positions) is
-// read. A row that sees no key emits 0, not NaN (NEG_INF = -1e30 with the
+// `limit` (the slab length) is read. A row that sees no key emits 0, not NaN (NEG_INF = -1e30 with the
 // NEG_INF/2 floor on the subtrahend).
-//
-// A compile-time option serves the shard decode-state walk (row 6); its
-// default is the tile above, unchanged for K3 and the paged kernels:
-//   STATE = true    the epilogue also writes each row's m (max scaled score,
-//                   natural-log domain) and l (sum of the f32 p) as f32
-//                   [B, Hq, L]. A row that sees no key emits the combine
-//                   identity (o = 0, m = NEG_INF, l = 0).
 //
 // Rounding points follow the TPU kernels (flash_attention_pallas.py
 // _flash_inner): q * scale rounds to bf16, scores and the softmax state are
@@ -36,15 +27,14 @@ namespace flash {
 
 constexpr int WARPS = 8, KT = 32;
 
-template <int D, int NREP, int RPW, bool STATE = false, class Rows>
+template <int D, int NREP, int RPW, class Rows>
 __device__ __forceinline__ void tile(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ k,  // base of the rows `rows` addresses
     const __nv_bfloat16* __restrict__ v,
     __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
     const Rows rows, int len, int limit, int qt, int h, int bb, int Hkv, int L,
-    float scale, float* __restrict__ m_out = nullptr,  // [B, Hq, L], STATE only
-    float* __restrict__ l_out = nullptr) {
+    float scale) {
   constexpr int ROWS = WARPS * RPW, BQ = ROWS / NREP, DPL = D / 32;
   constexpr int KW = D / 2 + 1;  // padded K row, words
   static_assert(ROWS % NREP == 0, "a q tile holds whole query heads");
@@ -151,13 +141,6 @@ __device__ __forceinline__ void tile(
     const int rep = rr / BQ, qi = q0 + rr % BQ;
     if (qi >= L) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    if constexpr (STATE) {
-      if (lane == 0) {
-        const size_t row = ((size_t)bb * Hq + h * NREP + rep) * L + qi;
-        m_out[row] = m[i];
-        l_out[row] = l[i];
-      }
-    }
     __nv_bfloat16* o = out + (((size_t)bb * Hq + h * NREP + rep) * L + qi) * D + lane * DPL;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) o[e] = __float2bfloat16_rn(acc[i][e] * inv);

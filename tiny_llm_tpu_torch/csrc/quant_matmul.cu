@@ -50,10 +50,6 @@
 //    fill the SMs (down, qkv, o), a cluster of up to 8 blocks splits a
 //    column block's k-range and adds the partial tiles through distributed
 //    shared memory. A launch failure of either kernel is returned.
-#include <algorithm>
-#include <map>
-#include <tuple>
-
 #include "qmm_tc.cuh"
 #include "qmm_tile.cuh"
 
@@ -83,23 +79,6 @@ __global__ void __launch_bounds__(256) qmm_gemv(
   qmm::gemv_rows<MT>(x, w, s, b, res, out, blockIdx.y * MT, M, N, Kp);
 }
 
-// The weights' tensor map in boxes of one group by 128 rows (64-byte
-// swizzled for the staged tile), encoded once per weight (the weights
-// never move) and kept.
-cudaError_t weight_map(CUtensorMap* map, const uint32_t* w, int N, int Kp, bool swizzled) {
-  static std::map<std::tuple<const void*, int, int, bool>, CUtensorMap> maps;
-  const auto key = std::make_tuple(static_cast<const void*>(w), N, Kp, swizzled);
-  const auto it = maps.find(key);
-  if (it != maps.end()) {
-    *map = it->second;
-    return cudaSuccess;
-  }
-  const cudaError_t e = qmm::tma::weight_map(
-      map, w, N, Kp, 128, swizzled ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (e == cudaSuccess) maps.emplace(key, *map);
-  return e;
-}
-
 // Grid (column blocks x ranks, row blocks), clusters of `ranks` blocks
 // along x: the blocks of a cluster share one column block, each a k-range.
 template <int MT>
@@ -126,14 +105,11 @@ cudaError_t b16_route(const __nv_bfloat16* x, const uint32_t* w, const __nv_bflo
   static const cudaError_t attr =
       cudaFuncSetAttribute(qmm_b16_tile<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return attr;
-  CUtensorMap wmap;
-  const cudaError_t e = weight_map(&wmap, w, N, Kp, false);
+  CUtensorMap wmap;  // the weights in boxes of one group by 128 rows
+  const cudaError_t e = qmm::tma::cached_weight_map(&wmap, w, N, Kp, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != cudaSuccess) return e;
   const int cols = (N + qmm::b16::BN - 1) / qmm::b16::BN, rows = (M + 16 * MT - 1) / (16 * MT);
-  // Split each column block's k-range over a cluster of up to 8 blocks
-  // (each one group at least) while the grid stays within one block an SM.
-  const int ranks =
-      std::max(1, std::min({8, Kp / qmm::GS, qmm::a8::sm_count() / (cols * rows)}));
+  const int ranks = qmm::cluster_ranks(Kp, cols * rows, qmm::a8::sm_count());
   return qmm::launch_clustered(qmm_b16_tile<MT>, dim3(cols * ranks, rows), qmm::b16::THREADS,
                                SMEM, ranks, st, x, wmap, s, b, res, out, M, N, Kp, ranks);
 }
@@ -162,14 +138,12 @@ cudaError_t staged_route(const __nv_bfloat16* x, const uint32_t* w, const __nv_b
   cudaError_t e = qmm::tma::encode_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, Kp, M,
                                       (uint64_t)Kp * 2, 64, qmm::staged::BM,
                                       CU_TENSOR_MAP_SWIZZLE_128B);
-  if (e == cudaSuccess) e = weight_map(&wmap, w, N, Kp, true);
+  if (e == cudaSuccess)  // 64-byte swizzled, as the staged tile reads the words
+    e = qmm::tma::cached_weight_map(&wmap, w, N, Kp, CU_TENSOR_MAP_SWIZZLE_64B);
   if (e != cudaSuccess) return e;
   const int cols = (N + qmm::staged::BN - 1) / qmm::staged::BN;
   const int rows = (M + qmm::staged::BM - 1) / qmm::staged::BM;
-  // As the bf16 tile: split each tile's k-range over a cluster of up to 8
-  // blocks while the grid stays within one block an SM.
-  const int ranks =
-      std::max(1, std::min({8, Kp / qmm::GS, qmm::a8::sm_count() / (cols * rows)}));
+  const int ranks = qmm::cluster_ranks(Kp, cols * rows, qmm::a8::sm_count());
   return qmm::launch_clustered(qmm_staged_tile, dim3(cols * ranks, rows), qmm::staged::THREADS,
                                qmm::staged::SMEM_BYTES, ranks, st, xmap, wmap, s, b, res, out,
                                M, N, Kp, ranks);
@@ -240,10 +214,7 @@ cudaError_t a8_tile_route(const __nv_bfloat16* x, const uint32_t* w, const __nv_
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int cols = (N + qmm::a8::BN - 1) / qmm::a8::BN;
-  // Split each column block's k-range over a cluster of up to 8 blocks
-  // (each one group at least) while the grid stays within one block an SM:
-  // a second block on an SM would stream its bytes after the first's.
-  const int ranks = std::max(1, std::min({8, Kp / qmm::GS, qmm::a8::sm_count() / cols}));
+  const int ranks = qmm::cluster_ranks(Kp, cols, qmm::a8::sm_count());
   return qmm::a8::launch_tile(qmm_a8_tile, dim3(cols * ranks, 1), ranks, st, ws, w, s, b, res,
                               out, M, N, Kp, ranks);
 }

@@ -12,8 +12,12 @@ paged prefill (kernels/split_prefill.py). `flash_decode_state` replaces
 `_decode_state_kernel` (`flash_decode_state_pallas`): decode (L <= 16)
 over one shard of a sequence-sharded slab, returning (o, m, l) for the
 sequence-parallel combine (parallel/sp_attention.py); its k/v may be
-strided views of the slab. The CUDA source's header notes what bounds them
-on the H100 and what their design does about that.
+strided views of the slab. Its CUDA entry is a split-key walk (the paged
+decode's, csrc/split_walk.cuh) in splits of `decode_split` keys, a partial
+state per split in a workspace the entry sizes, and a combine kernel;
+`flash_decode_state_split_plain` is the split and combine in plain
+PyTorch, for the tests. The CUDA source's header notes what bounds them on
+the H100 and what their design does about that.
 
 Conventions are the JAX package's: q [B, Hq, L, D], k/v [B, Hkv, S, D]
 (GQA, n_rep = Hq // Hkv), lens [B] — row b's valid KV length; query i sits
@@ -91,6 +95,23 @@ def _attention_sums(q, k, v, ok, scale: float, bias=None):
     return acc.reshape(B, Hq, L, D), m.reshape(B, Hq, L), l.reshape(B, Hq, L)
 
 
+def _split_state(q, k, v, ok, scale: float, chunk: int):
+    """The keys cut into chunks of `chunk`, each chunk's (acc, m, l) at
+    attention_state_plain's rounding points (p rounded against the chunk's
+    max), merged in f32 with the subtrahend floored at NEG_INF / 2 and o
+    rounded to q's dtype once, as the walks' combine kernels do. Returns
+    (o, m, l); a row that sees no key gives (0, NEG_INF, 0)."""
+    key = torch.arange(k.shape[2], device=q.device)
+    parts = [_attention_sums(q, k, v, ok & (key >= k0) & (key < k0 + chunk), scale)
+             for k0 in range(0, k.shape[2], chunk)]
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    mx = m.amax(0)
+    w = torch.exp(m - torch.clamp(mx, min=NEG_INF / 2))
+    l = (w * l).sum(0)
+    out = (w[..., None] * acc).sum(0) / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype), mx, l
+
+
 def attention_state_plain(q, k, v, ok, scale: float, bias=None):
     """Attention of q [B, Hq, L, D] over k/v [B, Hkv, S, D] where ok
     [B, L, S] marks the visible keys, at the TPU kernels' rounding points:
@@ -127,6 +148,16 @@ def flash_prefill_state_plain(q, k, v, lens, scale: float):
 # The shard decode-state kernel computes the state twin's function (a row
 # that sees no key of the shard gives (0, NEG_INF, 0)): one plain version.
 flash_decode_state_plain = flash_prefill_state_plain
+
+
+def flash_decode_state_split_plain(q, k, v, lens, scale: float, keys_per_split: int):
+    """The shard decode-state walk's split and combine in plain PyTorch
+    (tests only): the shard's keys cut into splits of `keys_per_split`, each
+    split's state at the kernels' rounding points, merged as state_combine
+    does (_split_state). Returns (o, m, l); a row that sees no key of the
+    shard gives (0, NEG_INF, 0)."""
+    ok = _causal_mask(lens, q.shape[2], k.shape[2], q.device)
+    return _split_state(q, k, v, ok, scale, keys_per_split)
 
 
 def normalize_mask(mask: torch.Tensor, B: int, L: int, S: int) -> torch.Tensor:
@@ -225,9 +256,13 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.tlt_flash_decode_state
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.tlt_flash_decode_state_workspace
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -302,6 +337,11 @@ def flash_prefill_state_cuda(q, k, v, lens, scale: float):
 
 
 def flash_decode_state_cuda(q, k, v, lens, scale: float):
+    """The shard decode-state kernel (L <= 16): one call of the C entry,
+    the split walk over the shard's keys in splits of decode_split keys
+    (from the shapes and the SM count alone) and its combine, counted once."""
+    from .paged_attention import decode_split
+
     global DECODE_STATE_LAUNCHES
     B, Hq, L, D, Hkv, S, n_rep = _check_args("flash_decode_state_cuda", q, k, v,
                                              strided_kv=True)
@@ -312,10 +352,14 @@ def flash_decode_state_cuda(q, k, v, lens, scale: float):
     m = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     lib = _lib()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    kps = decode_split(B, Hkv, S, 1, sms)
+    nbytes = lib.tlt_flash_decode_state_workspace(B, Hkv, L, S, D, n_rep, kps)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device)  # the splits' partials
     err = lib.tlt_flash_decode_state(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, Hkv, L, S, k.stride(0), k.stride(1), D, n_rep, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        l.data_ptr(), ws.data_ptr(), nbytes, B, Hkv, L, S, k.stride(0), k.stride(1), D, n_rep,
+        kps, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, err, "flash_decode_state")
     DECODE_STATE_LAUNCHES += 1

@@ -51,9 +51,8 @@ import torch
 from . import build
 from .dispatch import resolve
 from .flash_attention import (
-    NEG_INF,
-    _attention_sums,
     _causal_mask,
+    _split_state,
     attention_state_plain,
     flash_attention_plain,
 )
@@ -135,23 +134,6 @@ def paged_decode_state_plain(q, key_pages_loc, value_pages_loc, block_table, con
     return attention_state_plain(q, k, v, ok, scale)
 
 
-def _split_state(q, k, v, ok, scale: float, chunk: int):
-    """The keys cut into chunks of `chunk`, each chunk's (acc, m, l) at
-    attention_state_plain's rounding points (p rounded against the chunk's
-    max), merged in f32 with the subtrahend floored at NEG_INF / 2 and o
-    rounded to q's dtype once, as the walks' combine kernels do. Returns
-    (o, m, l); a row that sees no key gives (0, NEG_INF, 0)."""
-    key = torch.arange(k.shape[2], device=q.device)
-    parts = [_attention_sums(q, k, v, ok & (key >= k0) & (key < k0 + chunk), scale)
-             for k0 in range(0, k.shape[2], chunk)]
-    acc, m, l = (torch.stack(t) for t in zip(*parts))
-    mx = m.amax(0)
-    w = torch.exp(m - torch.clamp(mx, min=NEG_INF / 2))
-    l = (w * l).sum(0)
-    out = (w[..., None] * acc).sum(0) / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(q.dtype), mx, l
-
-
 def paged_decode_state_split_plain(q, key_pages_loc, value_pages_loc, block_table, context_lens,
                                    page_base: int, scale: float, splits: int):
     """The decode-state walk's split and combine in plain PyTorch (tests
@@ -196,7 +178,8 @@ def decode_split(B: int, Hkv: int, max_pages: int, page_size: int, sms: int) -> 
     """Keys a split of the paged decode walk holds: whole KEY_TILE-key
     tiles, at least DECODE_MIN_KEYS, and enough splits that the grid
     (splits, Hkv, B) covers `sms` SMs at least twice where the table's
-    width (max_pages * page_size keys) allows. From the shapes alone, never
+    width (max_pages * page_size keys) allows. The shard decode-state walk
+    over a slab of S keys asks with (S, 1). From the shapes alone, never
     from the lengths or the table, which live on the device (reading them
     would sync and break a CUDA graph's capture)."""
     want = -(-2 * sms // (B * Hkv))

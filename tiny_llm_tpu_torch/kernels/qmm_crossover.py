@@ -1,7 +1,7 @@
 """Where the quantized matmuls' routes cross, on the card: each route of an
 entry timed beside the others at the same rows.
 
-    python -m tiny_llm_tpu_torch.kernels.qmm_crossover [--kind k1|a8|all] [--out FILE]
+    python -m tiny_llm_tpu_torch.kernels.qmm_crossover [--kind k1|sg|a8|all] [--out FILE]
 
 Run from the root of a checkout: it times and checks with `chip_smoke.py`'s
 helpers (graph_ms, _close, _random_qt). Each entry picks its route by rows
@@ -17,6 +17,9 @@ every row:
     res and the router. The GEMV and bf16 tile held to quant_matmul_plain,
     the staged tile to quant_matmul_staged_plain (2 bf16 ulps + 1e-3 of
     max).
+  * sg (csrc/quant_matmul_sg.cu B16_MIN_ROWS / STAGED_MIN_ROWS): the
+    any-width matmul's three routes as k1's, on Qwen3-4B's qkv, gate_up,
+    down + res and o + res at W8 g64 and W4 g32, at the same rows.
   * a8 (A8_GEMV_MAX_ROWS of csrc/quant_matmul.cu and csrc/moe_matmul.cu):
     the W4A8 GEMV against the int8 tile at M = 1-5 (dense: 4B qkv, gate_up,
     down + res, o + res, 30B-A3B qkv, o + res) and at 1-5 tokens' top-8
@@ -52,6 +55,10 @@ BIG = 1 << 20
 K1_COPIES = {"gemv": {"quant_matmul": {"B16_MIN_ROWS": BIG, "STAGED_MIN_ROWS": BIG}},
              "b16": {"quant_matmul": {"B16_MIN_ROWS": 0, "STAGED_MIN_ROWS": BIG}},
              "staged": {"quant_matmul": {"B16_MIN_ROWS": 0, "STAGED_MIN_ROWS": 0}}}
+SG_COPIES = {"sg_gemv": {"quant_matmul_sg": {"B16_MIN_ROWS": BIG, "STAGED_MIN_ROWS": BIG}},
+             "sg_b16": {"quant_matmul_sg": {"B16_MIN_ROWS": 0, "STAGED_MIN_ROWS": BIG}},
+             "sg_staged": {"quant_matmul_sg": {"B16_MIN_ROWS": 0, "STAGED_MIN_ROWS": 0}}}
+SG_WIDTHS = ((8, 64), (4, 32))
 A8_COPIES = {"a8_gemv": {n: {"A8_GEMV_MAX_ROWS": 128} for n in ("quant_matmul", "moe_matmul")},
              "a8_tile": {n: {"A8_GEMV_MAX_ROWS": 0} for n in ("quant_matmul", "moe_matmul")}}
 K1_DENSE = (("qwen3-4b qkv", 6144, 2560, False), ("qwen3-4b gate_up", 19456, 2560, False),
@@ -119,9 +126,9 @@ def dense(lib, x, qt, res, fn_name="tlt_quant_matmul"):
     out = torch.empty((x.shape[0], qt.out_features), dtype=torch.bfloat16, device="cuda")
     head = (x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.biases.data_ptr(),
             None if res is None else res.data_ptr())
-    a8 = fn_name.endswith("_a8")
-    return _call(lib, fn_name, head, (x.shape[0], qt.out_features, qt.k_padded), out,
-                 x.shape[0] if a8 else None, qt.k_padded)
+    a8, sg = fn_name.endswith("_a8"), fn_name.endswith("_sg")
+    ints = (x.shape[0], qt.out_features, qt.k_padded) + ((qt.bits, qt.group_size) if sg else ())
+    return _call(lib, fn_name, head, ints, out, x.shape[0] if a8 else None, qt.k_padded)
 
 
 def grouped(lib, x, qt, sizes):
@@ -134,7 +141,7 @@ def grouped(lib, x, qt, sizes):
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", choices=("k1", "a8", "all"), default="all")
+    ap.add_argument("--kind", choices=("k1", "sg", "a8", "all"), default="all")
     ap.add_argument("--out", help="also write every line to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -147,8 +154,9 @@ def main(argv: list[str]) -> int:
     lines = [{"gpu": smi.strip(), "timing": "CUDA-graph replay, ms a call"}]
     print(json.dumps(lines[0]), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    routes = {**(K1_COPIES if args.kind != "a8" else {}),
-              **(A8_COPIES if args.kind != "k1" else {})}
+    routes = {**(K1_COPIES if args.kind in ("k1", "all") else {}),
+              **(SG_COPIES if args.kind in ("sg", "all") else {}),
+              **(A8_COPIES if args.kind in ("a8", "all") else {})}
     tmp = tempfile.TemporaryDirectory()
     libs = _build_routes(Path(tmp.name), routes)
 
@@ -165,23 +173,36 @@ def main(argv: list[str]) -> int:
         print(json.dumps(row), flush=True)
         lines.append(row)
 
+    def dense_cases(kind, routes, lib_name, fn_name, bits, group_size, shapes):
+        """One dense entry's routes ({"gemv": copy, "b16": copy, "staged":
+        copy}) on `shapes` at K1_ROWS, each held to its route's plain
+        version."""
+        for label, N, K, residual in shapes:
+            ws = _random_qt(gen, N, K, bits, group_size, copies=8)
+            for pair, Ms in K1_ROWS.items():
+                for M in Ms:
+                    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                    r = torch.randn((M, N), generator=gen, device="cuda").to(
+                        torch.bfloat16) if residual else None
+                    f32_plain = quant_matmul_plain(x, ws[0], r)
+                    wants = {routes["gemv"]: f32_plain, routes["b16"]: f32_plain,
+                             routes["staged"]: quant_matmul_staged_plain(x, ws[0], r)}
+                    case({"kind": kind, "shape": label + (" +res" if residual else ""),
+                          "M": M}, tuple(routes[r_] for r_ in pair),
+                         lambda lib, w: dense(lib[lib_name], x, w, r, fn_name), wants, ws)
+            del ws
+
     with tmp:
-        if args.kind != "a8":
-            for label, N, K, residual in K1_DENSE:
-                ws = _random_qt(gen, N, K, 4, 128, copies=8)
-                for pair, Ms in K1_ROWS.items():
-                    for M in Ms:
-                        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-                        r = torch.randn((M, N), generator=gen, device="cuda").to(
-                            torch.bfloat16) if residual else None
-                        wants = {"gemv": quant_matmul_plain(x, ws[0], r),
-                                 "staged": quant_matmul_staged_plain(x, ws[0], r)}
-                        wants["b16"] = wants["gemv"]
-                        case({"kind": "k1", "shape": label + (" +res" if residual else ""),
-                              "M": M}, pair,
-                             lambda lib, w: dense(lib["quant_matmul"], x, w, r), wants, ws)
-                del ws
-        if args.kind != "k1":
+        if args.kind in ("k1", "all"):
+            dense_cases("k1", {"gemv": "gemv", "b16": "b16", "staged": "staged"}, "quant_matmul",
+                        "tlt_quant_matmul", 4, 128, K1_DENSE)
+        if args.kind in ("sg", "all"):
+            for bits, group_size in SG_WIDTHS:
+                dense_cases(f"sg W{bits} g{group_size}",
+                            {"gemv": "sg_gemv", "b16": "sg_b16", "staged": "sg_staged"},
+                            "quant_matmul_sg", "tlt_quant_matmul_sg", bits, group_size,
+                            K1_DENSE[:4])
+        if args.kind in ("a8", "all"):
             pair = ("a8_gemv", "a8_tile")
             for label, N, K, residual in A8_DENSE:
                 ws = _random_qt(gen, N, K, 4, 128, copies=8)

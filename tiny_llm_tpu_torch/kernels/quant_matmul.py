@@ -18,16 +18,17 @@ the W4A8 kernel and the any-width kernel.
     port: K1.
   * The any-width kernel replaces `_qmm_kernel` (wrapper `_qmm_pallas`):
     weights other than W4 g128 (bits 2, 4, 8; groups 32, 64, 128) at any
-    M; csrc/quant_matmul_sg.cu (`tlt_quant_matmul_sg`), K1's two schedules
-    made generic over the width.
+    M; csrc/quant_matmul_sg.cu (`tlt_quant_matmul_sg`), K1's three routes
+    with their bodies made generic over the width, gated by constants of
+    that source, which `sg_route` asks.
 
 `quant_matmul` dispatches as the JAX package's `quantized_matmul` does and
 launches the chosen kernel for CUDA tensors; for CPU tensors (or when
 impl="torch") it runs the plain version of the route the card takes for
-those rows: for K1 `quant_matmul_plain` (f32 dequant) below
-STAGED_MIN_ROWS rows and `quant_matmul_staged_plain` (bf16(q * s) staged,
-the TPU's rounding, as K1's staged tile computes) from there; for the
-any-width kernel `quant_matmul_plain` at the weight's own width;
+those rows: for K1 and the any-width kernel `quant_matmul_plain` (f32
+dequant) below their staged tiles' gates (STAGED_MIN_ROWS,
+SG_STAGED_MIN_ROWS) and `quant_matmul_staged_plain` (bf16(q * s) staged,
+the TPU's rounding, as the staged tiles compute) from there;
 `quant_matmul_a8_plain` for the W4A8 kernel. On a CUDA tensor nothing
 falls back: a width no kernel takes raises.
 """
@@ -49,8 +50,9 @@ TPU_KERNEL_SG = "tiny_llm_tpu/kernels/quant_matmul.py:79 _qmm_kernel"
 SOURCE = "tiny_llm_tpu_torch/csrc/quant_matmul.cu"  # K1 and the W4A8 kernel
 SOURCE_SG = "tiny_llm_tpu_torch/csrc/quant_matmul_sg.cu"
 A8_MAX_ROWS = 32  # the JAX pair dispatch's decode gate (rows <= 32)
-K1_ROUTES = ("gemv", "b16", "staged")  # tlt_quant_matmul_route's codes
+K1_ROUTES = ("gemv", "b16", "staged")  # tlt_quant_matmul_route's (and _sg_route's) codes
 STAGED_MIN_ROWS = 33  # csrc/quant_matmul.cu's gate of K1's staged tile
+SG_STAGED_MIN_ROWS = 33  # csrc/quant_matmul_sg.cu's gate of the any-width staged tile
 
 # Kernel launches since the last reset (see kernels.reset_launches).
 LAUNCHES = 0  # K1
@@ -72,10 +74,10 @@ def quant_matmul_plain(
 def quant_matmul_staged_plain(
     x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """K1's staged arithmetic (the JAX package's staged prefill schedule,
-    quant_matmul.py:232-257): q * s rounded to bf16, x @ that in f32, then
-    sum_g xs_g * b_g in f32 (xs_g the f32 sum of x over group g), + residual
-    in f32, rounded to bf16 once. W4 g128 weights."""
+    """The staged tiles' arithmetic (the JAX package's staged prefill
+    schedule, quant_matmul.py:232-257): q * s rounded to bf16, x @ that in
+    f32, then sum_g xs_g * b_g in f32 (xs_g the f32 sum of x over group g),
+    + residual in f32, rounded to bf16 once. Any width."""
     M, G = x.shape[0], qt.k_padded // qt.group_size
     codes = unpack_codes(qt.packed, qt.bits).to(torch.float32).reshape(-1, G, qt.group_size)
     staged = (codes * qt.scales.to(torch.float32)[..., None]).to(torch.bfloat16)
@@ -93,6 +95,14 @@ def k1_route(rows: int) -> str:
     "staged"), as its gates in csrc/quant_matmul.cu set it (CUDA only: it
     loads the library)."""
     fn = build.load("quant_matmul").tlt_quant_matmul_route
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return K1_ROUTES[fn(rows)]
+
+
+def sg_route(rows: int) -> str:
+    """The route the any-width kernel's C entry takes for `rows` rows, as
+    its gates in csrc/quant_matmul_sg.cu set it (CUDA only)."""
+    fn = build.load("quant_matmul_sg").tlt_quant_matmul_sg_route
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return K1_ROUTES[fn(rows)]
 
@@ -223,8 +233,9 @@ def quant_matmul(
     """y = x @ dequant(qt).T (+ residual). x [..., in_features] -> [..., N] bf16.
 
     act="int8" weights at <= A8_MAX_ROWS rows run W4A8; other widths than
-    W4 g128 the any-width kernel; the rest K1, whose plain version rounds
-    as its route for those rows does (STAGED_MIN_ROWS)."""
+    W4 g128 the any-width kernel; the rest K1. The plain versions round as
+    the card's route for those rows does (STAGED_MIN_ROWS,
+    SG_STAGED_MIN_ROWS)."""
     if x.shape[-1] != qt.in_features:
         raise ValueError(f"x K={x.shape[-1]} vs weight K={qt.in_features}")
     lead = x.shape[:-1]
@@ -233,11 +244,10 @@ def quant_matmul(
     cuda = resolve(impl, x) == "cuda"
     if qt.act == "int8" and x2.shape[0] <= A8_MAX_ROWS:
         fn = quant_matmul_a8_cuda if cuda else quant_matmul_a8_plain
-    elif not qt.is_w4g128:
-        fn = quant_matmul_sg_cuda if cuda else quant_matmul_plain
     elif cuda:
-        fn = quant_matmul_cuda
+        fn = quant_matmul_cuda if qt.is_w4g128 else quant_matmul_sg_cuda
     else:
-        fn = quant_matmul_staged_plain if x2.shape[0] >= STAGED_MIN_ROWS else quant_matmul_plain
+        gate = STAGED_MIN_ROWS if qt.is_w4g128 else SG_STAGED_MIN_ROWS
+        fn = quant_matmul_staged_plain if x2.shape[0] >= gate else quant_matmul_plain
     out = fn(x2.to(torch.bfloat16) if cuda else x2, qt, r2)
     return out.reshape(*lead, qt.out_features)
