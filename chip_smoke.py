@@ -9,8 +9,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             the split prefill's two kernels, the masked prefill walk, K1's
             and row 17's staged tiles and the paged prefill must hold HGMMA
             in their SASS, the masked decode walk, row 14's split walk, the
-            paged decode's and row 6's split walks and K1's and row 17's
-            bf16 tiles HMMA, the two W4A8 tiles IMMA
+            paged decode's, row 6's and row 9's split walks, K1's and row
+            17's bf16 tiles and row 18's bf16 tile walk HMMA, the two W4A8
+            tiles IMMA
   kernels   every kernel against its plain PyTorch version on the card at
             the shapes the main paths give it; kernel, plain and library
             times and the least time the card could take (the bound). K1
@@ -22,12 +23,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             (quant_matmul_staged_plain on the staged tile), beside K1's
             time on its former GEMV instances and tile (a prior record). The
             paged kernels read a 57-page pool of 128 with shuffled page ids:
+            the fused paged step (row 9) at B = 1 and 4, offsets 0 (the v
+            row, exactly), 1, on a split's and a page's boundary +-1 and an
+            idle row, one launch a call, held per element to _state_tol
+            with offsets - 1 and + 1 as controls that must miss it;
             the paged decode and prefill held per element to _state_tol,
             with lens - 1 (decode) and lens + 1 (prefill) as controls that
             must miss it, at L = 1, 2, 8, 16 (an idle row among B = 4) and
             17, 32, 128 (B = 1: the keys split; B = 4: the unsplit tile).
             Qwen3-4B's shapes (n_rep 4), then Qwen3-30B-A3B's: the grouped
-            expert matmul (gate and down at T = 8, 32, 1024 and edge cases,
+            expert matmul (gate and down at T = 8, 32, 1024 and edge cases:
+            one expert holding 15, 16, 17, 32, 33 or 128 rows, T = 8 and 9
+            on both sides of its gate, T = 16, empty experts at both ends;
             a whole decode step's 72 calls; and at T = 64, 128, 256, the
             regime of the JAX package's expert-gather schedule, which this
             kernel covers) and the attention kernels at Hkv 4, n_rep 8
@@ -324,7 +331,7 @@ def phase_build():
     regs = {name: build.ptxas_registers(info["ptxas"]) for name, info in log.items()}
     # Each library's SASS read once, all in parallel (cuobjdump processes).
     srcs = ("flash_attention", "paged_attention", "flash_attention_masked", "quant_matmul",
-            "moe_matmul", "quant_matmul_sg")
+            "moe_matmul", "quant_matmul_sg", "fused_decode_attention")
     with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
         sass = dict(zip(srcs, pool.map(lambda n: build.sass_report(build._target(n)), srcs)))
 
@@ -367,6 +374,12 @@ def phase_build():
     check(len(pdec) == 8 and all(pdec.values()), f"paged decode walk HMMA: {pdec}")
     pfill = tensor_ops("paged_attention", "paged_flash_prefill", "hgmma")
     check(len(pfill) == 16 and all(pfill.values()), f"paged prefill HGMMA: {pfill}")
+    # Row 9's split walk (8 instances) and row 18's bf16 tile walk (16-row
+    # tiles) run mma.sync (HMMA).
+    fused = tensor_ops("fused_decode_attention", "fused_paged_walk", "tensor_core_ops")
+    check(len(fused) == 8 and all(fused.values()), f"row 9 split walk HMMA: {fused}")
+    gb16 = tensor_ops("moe_matmul", "moe_b16_tile", "tensor_core_ops")
+    check(len(gb16) == 1 and all(gb16.values()), f"row 18 bf16 tile walk HMMA: {gb16}")
     smi = nvidia_smi()
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(log),
           "state_kernels_tensor_core_ops": tc, "masked_prefill_hgmma": masked,
@@ -375,6 +388,7 @@ def phase_build():
           "k1_staged_tile_hgmma": staged, "paged_decode_walk_tensor_core_ops": pdec,
           "paged_prefill_hgmma": pfill, "sg_b16_tile_tensor_core_ops": sg_b16,
           "sg_staged_tile_hgmma": sg_staged, "flash_decode_walk_tensor_core_ops": fdec,
+          "fused_paged_walk_tensor_core_ops": fused, "grouped_b16_tile_tensor_core_ops": gb16,
           "library_done_s": {n: round(i["seconds"], 1) for n, i in log.items()},
           "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi, regs
@@ -827,6 +841,13 @@ def _grouped_cases(model, cfg, gen, contract):
              ("T=128, one expert holds every row", one(128)),
              ("T=24, experts 0-4 and 121-127 empty", ends(24)),
              ("T=200, experts 0-4 and 121-127 empty", ends(200))]
+    # The bf16 tile walk's edges (16-row tiles of one expert) and the first
+    # rows above its gate (B16_MIN_T = 9: T = 8 takes the GEMV walk).
+    nine = _routing(rng, 1, E, k)
+    nine[int(np.flatnonzero(nine == 0)[0])] += 1
+    specs += [(f"T={T}, one expert holds every row", one(T)) for T in (15, 16, 17, 33)]
+    specs += [("T=9: one token's top-8 and a row of a ninth expert", nine),
+              ("T=16: two tokens' top-8", _routing(rng, 2, E, k))]
     cases = _grouped_kernel_cases(mlps, cfg, gen, specs, "grouped_quant_matmul",
                                   km.grouped_quant_matmul_cuda, km.grouped_quant_matmul_plain,
                                   km.TPU_KERNEL)
@@ -891,6 +912,8 @@ def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_
             lib = graph_ms(lambda: [lib_fn(i) for i in range(8)]) / 8
             del lib_fn, lib_out, exact
             bms, by = bound(_grouped_bytes(ws[0], sizes, T), 2 * T * N * K, peak)
+            if kernel == "grouped_quant_matmul":
+                extra["route"] = km.w4a16_route(T)
             cases.append({"kernel": kernel, "tpu_kernel": tpu_kernel, "proj": proj[2:],
                           "spec": what,
                           "shape": f"{proj[2:]} N={N} K={K} E={E} W{ws[0].bits} "
@@ -1046,33 +1069,65 @@ def _paged_check(what, fn, q, kp, vp, bt, lens, sc):
             "position later)", "control_err_over_tol_per_batch_row": ctl}, want
 
 
-def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
-    """The three paged kernels against their plain versions over a pool of
-    POOL_PAGES pages per layer with shuffled page ids, timed by CUDA-graph
-    replay over the model's layers' page buffers. `contract` (None: not
-    recorded) takes the main cases' numbers."""
+# Row 9's cases: (label, offsets, the idle row or None). Each row's table
+# holds its offset + 1 positions (the current token's slot too), an idle
+# row none (all -1, offset 0: its output is discarded and not compared). At
+# the pool's width (8 pages of 128) decode_split gives splits of 128 keys,
+# so 127 / 128 / 129 and 255 / 256 / 257 sit on a split's and a page's
+# boundary; 1023 fills the table; an offset of 0 gives the v row exactly.
+FUSED_PAGED_CASES = (
+    ("B=4 offsets 130/400/777/1000", (130, 400, 777, 1000), None),
+    ("row 1 idle", (300, 0, 650, 900), 1),
+    ("B=1 offset 508", (508,), None),
+    ("B=1 offset 0: the v row", (0,), None),
+    ("split and page edges 127/128/129/1023", (127, 128, 129, 1023), None),
+    ("offsets 1/255/256/257", (1, 255, 256, 257), None),
+)
+
+
+def _fused_tol(qkv, kp, vp, bt, off, cr, sr, qw, kw, scale, eps, want):
+    """_state_tol for row 9: the plain step's attention is attention_state_plain
+    of its normed and roped q over the cached keys [0, off) and the current
+    token's own k and v row at position off. Returns it shaped as the
+    kernel's out [B, Hkv, n_rep, D]."""
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+
+    B, Hkv, n_rep, D = want.shape
+    q, k_row, v_row = kf.fused_qkv_prep_plain(qkv, off, cr, sr, qw, kw, eps=eps)
+    k, v = (t.clone() for t in pa.gather_pages_dense(kp, vp, bt))
+    rows = torch.arange(B, device=qkv.device)
+    k[rows, :, off.long()] = k_row[:, :, 0]
+    v[rows, :, off.long()] = v_row[:, :, 0]
+    ok = (torch.arange(k.shape[2], device=qkv.device)[None, :] <= off[:, None].long())[:, None]
+    tol = _state_tol(q.reshape(B, Hkv * n_rep, 1, D), k, v, ok, scale,
+                     want.reshape(B, Hkv * n_rep, 1, D))
+    return tol.reshape(B, Hkv, n_rep, D)
+
+
+def _fused_paged_cases(cfg, rope, gen, qw, kw, kp, vp, perm, errs, contract):
+    """Row 9, the fused paged decode step, against its plain version at
+    FUSED_PAGED_CASES over the layers' pools `kp` / `vp` [Ly, P, Hkv, ps, D]:
+    exactly one launch a call; out per element within _state_tol on every
+    live row, with the plain version at offsets - 1 and + 1 as controls
+    that must miss it in every row they change; a row at offset 0 exactly
+    its v row; k_row within 2^-7 of max, v_row bit-equal. Timed by CUDA-graph
+    replay over the layers beside SDPA and the bound. `contract` (None: not
+    recorded) takes the first case."""
     from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
     from tiny_llm_tpu_torch.kernels import paged_attention as pa
 
     dev = torch.device("cuda")
     Hkv, D_h = cfg.num_key_value_heads, cfg.head_dim
     n_rep = cfg.num_attention_heads // Hkv
-    Hq, Ly = Hkv * n_rep, cfg.num_hidden_layers
+    Hq, Ly = Hkv * n_rep, kp.shape[0]
     eps, scale = cfg.rms_norm_eps, D_h**-0.5
-    cos_t, sin_t = model._rope_tables
+    cos_t, sin_t = rope
     width = MAX_SEQ // PAGE_SIZE  # the model's block-table width at max_seq 1024
-    shape = (Ly, POOL_PAGES, Hkv, PAGE_SIZE, D_h)
-    kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    perm = (torch.randperm(POOL_PAGES - 1, generator=torch.Generator().manual_seed(2)) + 1).numpy()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases, errs = [], {name: [] for name in PAGED}
-    lib_label = "SDPA over the same keys gathered contiguous, offset-causal boolean mask " \
-                "(attention part only)"
-
-    # Fused paged decode, B = 4, and B = 4 with an idle row (row 1: table
-    # all -1, offset 0), whose output is discarded and not compared.
-    for offs, idle in (([130, 400, 777, 1000], None), ([300, 0, 650, 900], 1)):
+    name = "fused_paged_decode_attention"
+    cases = []
+    for what, offs, idle in FUSED_PAGED_CASES:
         B = len(offs)
         live = [b for b in range(B) if b != idle]
         bt = _tables(perm, [0 if b == idle else o + 1 for b, o in enumerate(offs)], width)
@@ -1080,18 +1135,39 @@ def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
         off = torch.tensor(offs, dtype=torch.int32, device=dev)
         cr, sr = cos_t[off.long()], sin_t[off.long()]
 
-        def args(i):
-            return (qkv, kp[i], vp[i], bt, off, cr, sr, qw, kw)
+        def args(i, o=off):
+            return (qkv, kp[i], vp[i], bt, o, cr, sr, qw, kw)
 
-        got = kf.fused_paged_decode_attention_cuda(*args(3), scale=scale, eps=eps)
+        got = []
+        counts = _kernel_path(
+            lambda: got.append(kf.fused_paged_decode_attention_cuda(*args(3), scale=scale,
+                                                                    eps=eps)), name)
+        check(counts[name] == 1, f"{name} {what}: {counts[name]} launches for one call")
+        got = got[0]
         want = kf.fused_paged_decode_attention_plain(*args(3), scale=scale, eps=eps)
         torch.cuda.synchronize()
-        err, tol = max_err(got[0][live], want[0][live]), 2e-2
-        check(err <= tol, f"fused_paged_decode_attention offs={offs}: {err} > {tol}")
+        tol = _fused_tol(qkv, kp[3], vp[3], bt, off, cr, sr, qw, kw, scale, eps, want[0])
+        check(bool(torch.isfinite(got[0]).all()), f"{name} {what}: not finite")
+        err = max_err(got[0][live], want[0][live])
+        rows = _over_tol(got[0][live], want[0][live], tol[live])
+        check(max(rows) <= 1, f"{name} {what}: {err}, {max(rows)} times its tolerance")
+        ctl = {}
+        for delta in (-1, 1):
+            shifted = (off + delta).clamp(min=0)
+            changed = [bool(shifted[b] != off[b]) for b in live]
+            control = kf.fused_paged_decode_attention_plain(*args(3, shifted), scale=scale,
+                                                            eps=eps)
+            ctl[f"offsets {delta:+d}"] = _state_control(
+                f"{name} {what} offsets {delta:+d}", (got[0][live],), tol[live],
+                (control[0][live],), changed) if any(changed) else []
+        v_rows = qkv[:, :, n_rep + 1 :].expand(B, Hkv, n_rep, D_h)
+        for b in range(B):
+            if offs[b] == 0:
+                check(torch.equal(got[0][b], v_rows[b]), f"{name} {what}: row {b} is not its v row")
         kerr = max_err(got[1][live], want[1][live])
         check(kerr <= 2**-7 * float(want[1].float().abs().max()), f"paged k_row {kerr}")
         check(torch.equal(got[2][live], want[2][live]), "paged v_row not bit-equal")
-        errs["fused_paged_decode_attention"].append(err)
+        errs[name].append(err)
         kern = graph_ms(lambda: [kf.fused_paged_decode_attention_cuda(
             *args(i), scale=scale, eps=eps) for i in range(Ly)]) / Ly
         plain = event_ms(lambda: kf.fused_paged_decode_attention_plain(
@@ -1106,19 +1182,48 @@ def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
         bms, by = bound(sum(2 * Hkv * o * D_h * 2 for o in ctx)
                         + len(ctx) * Hkv * (n_rep + 2) * D_h * 2 * 2,
                         sum(4 * Hq * (o + 1) * D_h for o in ctx))
-        case = {"kernel": "fused_paged_decode_attention", "tpu_kernel": kf.TPU_KERNEL_PAGED,
-                "shape": f"B={B} offsets={offs}" + (f" row {idle} idle" if idle is not None else "")
-                + f" pool={POOL_PAGES}x{PAGE_SIZE} width={width} Hkv={Hkv} n_rep={n_rep} D={D_h}",
-                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
-                "library_ms": lib, "library": lib_label, "bound_ms": bms, "bound_by": by}
+        kps = pa.decode_split(B, Hkv, width, PAGE_SIZE, _sms())
+        case = {"kernel": name, "tpu_kernel": kf.TPU_KERNEL_PAGED,
+                "shape": f"{what}: B={B} offsets={list(offs)}"
+                + (f" row {idle} idle" if idle is not None else "")
+                + f" pool={kp.shape[1]}x{PAGE_SIZE} width={width} Hkv={Hkv} n_rep={n_rep} "
+                  f"D={D_h}, {-(-width * PAGE_SIZE // kps)} splits of {kps} keys",
+                "launches_per_call": counts[name], "max_err": err,
+                "err_over_tol_per_batch_row": rows, "tol": TOL_ATTENTION,
+                "control_err_over_tol_per_batch_row": ctl, "kernel_ms": kern,
+                "plain_ms": plain, "library_ms": lib,
+                "library": "SDPA over the same keys gathered contiguous, offset-causal boolean "
+                           "mask (attention part only)", "bound_ms": bms, "bound_by": by}
         cases.append(case)
-        if idle is None and contract is not None:
-            contract["fused_paged_decode_attention"] = {
-                "name": "fused_paged_decode_attention", "route": "cuda", "source": kf.SOURCE,
+        if what == FUSED_PAGED_CASES[0][0] and contract is not None:
+            contract[name] = {
+                "name": name, "route": "cuda", "source": kf.SOURCE,
                 "replaces": "tiny_llm_tpu/kernels/fused_decode_attention.py:275",
                 "case": case["shape"], "ms": kern, "plain_ms": plain, "bound_ms": bms,
                 "bound_by": by, "library_ms": lib,
             }
+    return cases
+
+
+def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
+    """The three paged kernels against their plain versions over a pool of
+    POOL_PAGES pages per layer with shuffled page ids, timed by CUDA-graph
+    replay over the model's layers' page buffers. `contract` (None: not
+    recorded) takes the main cases' numbers."""
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    Hkv, D_h = cfg.num_key_value_heads, cfg.head_dim
+    Hq, Ly = cfg.num_attention_heads, cfg.num_hidden_layers
+    width = MAX_SEQ // PAGE_SIZE  # the model's block-table width at max_seq 1024
+    shape = (Ly, POOL_PAGES, Hkv, PAGE_SIZE, D_h)
+    kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    perm = (torch.randperm(POOL_PAGES - 1, generator=torch.Generator().manual_seed(2)) + 1).numpy()
+    errs = {name: [] for name in PAGED}
+    lib_label = "SDPA over the same keys gathered contiguous, offset-causal boolean mask " \
+                "(attention part only)"
+    cases = _fused_paged_cases(cfg, model._rope_tables, gen, qw, kw, kp, vp, perm, errs, contract)
 
     pools = {D_h: (kp, vp)}
     del kp, vp

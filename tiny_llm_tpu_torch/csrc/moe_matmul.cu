@@ -19,21 +19,27 @@
 // 8 experts) ~6.7 MB and ~2 us per gate or up call. The bf16 tensor-core
 // rate binds only when many rows share an expert (T >= ~300 per expert).
 //
-// Design, two schedules chosen by T (the host knows T; the TPU switches
-// its block height on T too):
-//  * T <= 64, `moe_gemv`: grid (N / 8, min(E, T)), block row j on the j-th
-//    expert that has rows, K1's warp-per-output-row body (qmm_tile.cuh
-//    gemv_rows, through moe_walk.cuh gemv_expert) over that expert's
-//    weights and rows, up to 8 rows per pass over the weights. (A grid over all E experts, the empty ones exiting
-//    at once, leaves 120 of 128 block rows idle at T = 8.)
-//  * T > 64, `moe_tiled`: a walk over logical tiles (expert, 64-row block
-//    of the expert's segment), each a 64x64 tensor-core tile (qmm_tile.cuh
-//    tile) from the expert's first row, so a tile never holds two experts'
-//    rows. The TPU walks global m-tiles instead, and an m-tile shared by
-//    two experts carries its accumulator between two sequential grid
-//    steps; here no carry and no atomics are needed, and there are at most
-//    as many tiles as the TPU's tiles_m + E - 1 (sum ceil(c_e / 64) <=
-//    ceil(T / 64) + E - 1). Invalid logical tiles exit.
+// Design, two routes chosen by T on the host against B16_MIN_T (set from
+// `python -m tiny_llm_tpu_torch.kernels.qmm_crossover --kind moe`); the
+// grid stays fixed by T, N and E:
+//  * T < B16_MIN_T (a decode step: one token's top-8), `moe_gemv`: grid
+//    (N / 8, min(E, T)), block row j on the j-th expert that has rows, K1's
+//    warp-per-output-row body (qmm_tile.cuh gemv_rows, through moe_walk.cuh
+//    gemv_expert) over that expert's weights and rows, up to 8 rows per
+//    pass over the weights, so at these rows it reads every weight once.
+//  * Above, `moe_b16_tile`: K1's bf16 tensor-core tile (qmm_tc.cuh b16::,
+//    HMMA, the weights by TMA, the f32 fold of the plain version) over the
+//    logical tiles (expert, 16-row block of the expert's segment) in
+//    expert order (moe_walk.cuh b16_tile_walk), 128 columns a block, so a
+//    tile never holds two experts' rows and reads each weight once for its
+//    rows. One tensor map covers the stacked weights as E N rows. Where the
+//    column blocks of the fewest tiles T could make (every row on one
+//    expert) leave SMs idle, the launch takes clusters, and where the
+//    tiles there are (counted on the device) fit the SMs split over a
+//    cluster, its blocks split each tile's k-range, as K1's do; otherwise
+//    each block takes tiles of its own, over the whole k-range. (The GEMV
+//    reads an expert's weights once per 8 of its rows, and one expert's
+//    rows keep one of its block rows busy.)
 //
 // The W4A8 walk, `tlt_grouped_quant_matmul_a8`, replaces _gqmm_pair_kernel
 // (through _gqmm_pair_pallas) at its int8 shapes, T <= 128 grouped rows:
@@ -55,7 +61,7 @@
 //    quantizes every row once into a workspace the wrapper allocates (its
 //    size from tlt_grouped_quant_matmul_a8_workspace), then
 //    `moe_a8_tile` walks the logical tiles (expert, 32-row block of its
-//    segment) as moe_tiled does, 128 columns a block, reading each weight
+//    segment) as moe_b16_tile does, 128 columns a block, reading each weight
 //    once for the block's rows through a cp.async ring into mma.sync s8
 //    (IMMA).
 #include "moe_walk.cuh"
@@ -63,6 +69,23 @@
 namespace {
 
 constexpr int A8_GEMV_MAX_ROWS = 32;  // grouped rows above take the int8 tile walk
+
+// W4A16 grouped rows at and above take the bf16 tile walk. Measured with
+// both routes forced (qmm_crossover --kind moe, PERF.md): a MoE layer's
+// gate, up and down under random top-8 routing take 1.33x as long on the
+// tile walk at T = 8 (a decode step's 8 distinct experts), 1.21x at 9,
+// 1.02x at 12 and less from 16; with one expert holding every row the GEMV
+// walk takes 1.6-1.8x the tile walk's time from T = 8. A token always
+// routes to 8 distinct experts, so T = 8 keeps the GEMV; above, the tile
+// walk's worst loss (1.21x) is smaller than the GEMV's (1.8x).
+constexpr int B16_MIN_T = 9;
+// The tile walk's grid: the k-split schedule where the tiles' split blocks
+// number at most SPLIT_BLOCKS_PER_SM a SM (more, and a 768-column gate at
+// T = 8 over 8 experts took 2.5x as long); at most GRID_BLOCKS_PER_SM
+// blocks a SM in all, the rest walking more tiles each (a sweep of 2, 4,
+// 8 and 4, 8, unbounded on this card, PERF.md).
+constexpr int SPLIT_BLOCKS_PER_SM = 2;
+constexpr int GRID_BLOCKS_PER_SM = 4;
 
 // Grid (N / 8, min(E, T)): block row j serves the j-th expert that has rows.
 __global__ void __launch_bounds__(256) moe_gemv(
@@ -72,13 +95,40 @@ __global__ void __launch_bounds__(256) moe_gemv(
   moe::gemv_expert(x, w, s, b, gs, out, T, N, Kp, E);
 }
 
-// Grid (N / 64, tiles_m + E - 1): block row i is logical tile i, the
-// (expert, 64-row block) pairs in expert order.
-__global__ void __launch_bounds__(128) moe_tiled(
-    const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
+// Grid (column blocks x ranks, Y), clusters of `ranks` blocks along x:
+// moe_walk.cuh b16_tile_walk.
+__global__ void __launch_bounds__(qmm::b16::THREADS, 2) moe_b16_tile(
+    const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUtensorMap wmap,
     const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ b,
-    const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int T, int N, int Kp, int E) {
-  moe::tile_expert(x, w, s, b, gs, out, T, N, Kp, E);
+    const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int T, int N, int Kp, int E,
+    int ranks, int cap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  moe::b16_tile_walk(x, &wmap, s, b, gs, out, T, N, Kp, E, ranks, cap, smem_raw);
+}
+
+// The tile walk.
+cudaError_t b16_walk(const __nv_bfloat16* x, const uint32_t* w, const __nv_bfloat16* s,
+                     const __nv_bfloat16* b, const int* gs, __nv_bfloat16* out, int T, int N,
+                     int Kp, int E, cudaStream_t st) {
+  constexpr int SMEM = qmm::b16::Shape<1>::SMEM_BYTES, BM = qmm::b16::Shape<1>::BM;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(moe_b16_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap wmap;  // the experts' weights as E N rows, in boxes of one group by 128 rows
+  const cudaError_t e =
+      qmm::tma::cached_weight_map(&wmap, w, E * N, Kp, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != cudaSuccess) return e;
+  // Clusters sized for the fewest tiles T can make (one expert holding every
+  // row), block rows enough that each block walks one tile when there are
+  // the most (a row an expert); the walk picks its schedule on the device.
+  const int cols = (N + qmm::b16::BN - 1) / qmm::b16::BN, sms = qmm::a8::sm_count();
+  const int least = (T + BM - 1) / BM, most = least + min(E, T) - 1;  // logical tiles
+  const int ranks = qmm::cluster_ranks(Kp, cols * least, sms);
+  const int rows = max(1, min((most + ranks - 1) / ranks,
+                              GRID_BLOCKS_PER_SM * sms / (cols * ranks)));
+  return qmm::launch_clustered(moe_b16_tile, dim3(cols * ranks, rows), qmm::b16::THREADS,
+                               SMEM, ranks, st, x, wmap, s, b, gs, out, T, N, Kp, E, ranks,
+                               SPLIT_BLOCKS_PER_SM * sms);
 }
 
 // Grid (N / 8, min(E, T)), as moe_gemv, on the W4A8 body; dynamic shared
@@ -165,16 +215,14 @@ extern "C" int tlt_grouped_quant_matmul(const void* x, const void* w, const void
   const auto* bp = static_cast<const __nv_bfloat16*>(b);
   const auto* gp = static_cast<const int*>(group_sizes);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (T <= moe::GEMV_MAX_T) {
-    moe_gemv<<<dim3((N + 7) / 8, min(E, T)), dim3(256), 0, st>>>(xp, wp, sp, bp, gp, op, T, N,
-                                                                 Kp, E);
-  } else {
-    const int tiles_m = (T + qmm::BM - 1) / qmm::BM;
-    moe_tiled<<<dim3((N + qmm::BN - 1) / qmm::BN, tiles_m + E - 1), dim3(128), 0, st>>>(
-        xp, wp, sp, bp, gp, op, T, N, Kp, E);
-  }
+  if (T >= B16_MIN_T) return (int)b16_walk(xp, wp, sp, bp, gp, op, T, N, Kp, E, st);
+  moe_gemv<<<dim3((N + 7) / 8, min(E, T)), dim3(256), 0, st>>>(xp, wp, sp, bp, gp, op, T, N, Kp,
+                                                               E);
   return (int)cudaGetLastError();
 }
+
+// The W4A16 entry's route for T rows: 0 the GEMV walk, 1 the bf16 tile walk.
+extern "C" int tlt_grouped_quant_matmul_route(int T) { return T >= B16_MIN_T ? 1 : 0; }
 
 // The tile walk's workspace for T rows of Kp, in bytes: 0 on the GEMV walk
 // (T <= A8_GEMV_MAX_ROWS), where the entry takes none. The wrapper asks

@@ -7,6 +7,7 @@
 // its walk's metadata inside the jit, _group_metadata).
 #pragma once
 
+#include "qmm_tc.cuh"
 #include "qmm_tile.cuh"
 
 namespace moe {
@@ -204,6 +205,67 @@ __device__ __forceinline__ void a8_tile_walk(
     a8::tile_mma(q, T, w + (size_t)e * N * (Kp / 8), s + (size_t)e * N * G,
                  b + (size_t)e * N * G, m0, end, n0, N, Kp, 0, G, smem, acc);
     a8::tile_store(acc, nullptr, out, m0, end, n0, N, 0, 1, smem);
+  }
+}
+
+// Run by warp 0: the logical tiles of R-row blocks over all E experts.
+template <int R>
+__device__ __forceinline__ int count_row_blocks(const int* __restrict__ gs, int E) {
+  int n = 0;
+  for (int e = threadIdx.x & 31; e < E; e += 32) n += (__ldg(gs + e) + R - 1) / R;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(FULL, n, o);
+  return n;
+}
+
+// A grid (column blocks x ranks, Y), clusters of `ranks` blocks along x,
+// walks the logical tiles (the (expert, 16-row block) pairs in expert
+// order) on K1's bf16 tile (qmm_tc.cuh b16::, the f32 fold of the plain
+// version; 16 rows a tile: 32-row tiles, with two fewer ring stages, took
+// 10-25 % longer at T = 24 to 1024 under random routing, PERF.md): tile
+// (e, i) takes the expert's rows [m0, m0 + 16) below its segment's end
+// against its weights, rows e N + n0.. of `wmap` (the stacked weights as
+// E N rows in boxes of BN rows). Every block counts the tiles
+// (the group sizes live on the device) and so picks the same schedule:
+//  * where every tile's blocks, split over the cluster, fit the `cap`
+//    blocks the SMs hold at once (few tiles: skewed routing), block row j
+//    walks tiles j, j + Y, ..., the cluster's blocks each a k-range, their
+//    partial tiles added as K1's are;
+//  * otherwise each block walks tiles alone over the whole k-range, block
+//    (rank, j) taking tiles j ranks + rank, + Y ranks, ....
+// b16::THREADS threads, Shape<1>::SMEM_BYTES of dynamic shared memory.
+__device__ __forceinline__ void b16_tile_walk(
+    const __nv_bfloat16* __restrict__ x, const CUtensorMap* wmap,
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ b,
+    const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int T, int N, int Kp, int E,
+    int ranks, int cap, unsigned char* smem_raw) {
+  namespace b16 = qmm::b16;
+  using S = b16::Shape<1>;
+  __shared__ int meta[4], ntiles;
+  unsigned char* smem = b16::aligned(smem_raw);
+  if (threadIdx.x < 32) {
+    const int n = count_row_blocks<S::BM>(gs, E);
+    if (threadIdx.x == 0) ntiles = n;
+  }
+  __syncthreads();
+  const bool split_k = ranks > 1 && (long long)ntiles * gridDim.x <= cap;
+  const int nrank = split_k ? ranks : 1, rank = split_k ? blockIdx.x % ranks : 0;
+  const int first = split_k ? blockIdx.y : blockIdx.y * ranks + blockIdx.x % ranks;
+  const int stride = split_k ? gridDim.y : gridDim.y * ranks;
+  const int n0 = blockIdx.x / ranks * b16::BN, G = Kp / qmm::GS;
+  for (int i = first; i < ntiles; i += stride) {  // the whole cluster leaves together when split
+    if (threadIdx.x < 32) find_row_block<S::BM>(gs, E, T, i, meta);
+    __syncthreads();
+    const int e = meta[0], m0 = meta[1] + meta[3] * S::BM, end = meta[2];
+    float acc[1][2][4] = {};
+    b16::tile_mma<1>(x, wmap, s + (size_t)e * N * G, b + (size_t)e * N * G, m0, end, n0, N, Kp,
+                     rank * G / nrank, (rank + 1) * G / nrank, smem, acc, e * N);
+    b16::tile_store<1>(acc, nullptr, out, m0, end, n0, N, rank, nrank, smem);
+    // The next tile: its mbarriers initialized afresh, and its TMA writes
+    // into the ring after this tile's partial tile there (generic writes).
+    fmma::fence_proxy_async();
+    if (threadIdx.x == 0)
+      for (int k = 0; k < S::STAGES; ++k) qmm::tma::inval(smem_u32(smem + S::BARS) + 8 * k);
   }
 }
 

@@ -88,6 +88,11 @@ namespace tma {
 __device__ __forceinline__ void init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
+// Invalidate a quiescent mbarrier, so that its memory may be initialized
+// again (a walk of several tiles a block).
+__device__ __forceinline__ void inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
 // The mbarriers' inits, visible to the async proxy (TMA) and the block.
 __device__ __forceinline__ void fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -338,9 +343,9 @@ struct Shape {
       (Wd::W_BYTES + BM * Wd::XLD + Wd::STAGE_ALIGN - 1) / Wd::STAGE_ALIGN * Wd::STAGE_ALIGN;
   static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
   // The ring, the staged scales and biases, the x sums, a weight mbarrier
-  // a stage; + slack to align the ring.
-  static constexpr int SMEM_BYTES =
-      RING_BYTES + SB_GROUPS * BN * 4 + STAGES * Wd::NGS * BM * 4 + STAGES * 8 + Wd::ALIGN;
+  // a stage (at BARS); + slack to align the ring.
+  static constexpr int BARS = RING_BYTES + SB_GROUPS * BN * 4 + STAGES * Wd::NGS * BM * 4;
+  static constexpr int SMEM_BYTES = BARS + STAGES * 8 + Wd::ALIGN;
   static_assert(STAGE_BYTES % ALIGN == 0, "every stage's weights TMA-aligned");
   static_assert(RING_BYTES >= BM * PLD * 4, "the partial tile reuses the ring");
   static_assert(2 * (SMEM_BYTES + 1024) <= 233472, "two blocks an SM");
@@ -363,15 +368,17 @@ __device__ __forceinline__ unsigned char* aligned_to(unsigned char* smem) {
 // N), stages [g0, g1) of the k-range (128 codes each: K1's groups): the
 // block's f32 sums in acc [MT][2][4] (m16 tile, n8 tile of the warp's 16
 // columns, fragment element). wmap: tma::weight_map of the weights in boxes
-// of BN rows (other widths than K1's: in tma::row_swizzle(BITS)). smem:
-// aligned_to<Width::ALIGN>(). Every thread calls it (it syncs).
+// of BN rows (other widths than K1's: in tma::row_swizzle(BITS)); column n0
+// is its row w_row0 + n0 (the grouped walk: a stack of experts' weights).
+// smem: aligned_to<Width::ALIGN>(). Every thread calls it (it syncs).
 template <int MT, int BITS = 4, int GSZ = GROUP>
 __device__ __forceinline__ void tile_mma(const __nv_bfloat16* __restrict__ x,
                                          const CUtensorMap* wmap,
                                          const __nv_bfloat16* __restrict__ s,
                                          const __nv_bfloat16* __restrict__ b, int m0, int M,
                                          int n0, int N, int Kp, int g0, int g1,
-                                         unsigned char* smem, float (&acc)[MT][2][4]) {
+                                         unsigned char* smem, float (&acc)[MT][2][4],
+                                         int w_row0 = 0) {
   using S = Shape<MT, BITS, GSZ>;
   using Wd = Width<BITS, GSZ>;
   constexpr int BM = S::BM, STAGES = S::STAGES, NGS = Wd::NGS;
@@ -394,7 +401,7 @@ __device__ __forceinline__ void tile_mma(const __nv_bfloat16* __restrict__ x,
     if (tid == 0) {
       const uint32_t bar = bars + 8 * (i % STAGES);
       tma::expect_tx(bar, Wd::W_BYTES);
-      tma::load_2d(st, wmap, bar, (g0 + i) * (4 * BITS), n0);
+      tma::load_2d(st, wmap, bar, (g0 + i) * (4 * BITS), w_row0 + n0);
     }
     for (int c = tid; c < BM * 16; c += THREADS) {
       const int r = c >> 4, u = c & 15;

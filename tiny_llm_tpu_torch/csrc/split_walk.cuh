@@ -1,7 +1,9 @@
 // The split-key decode walk shared by the paged kernels (paged_attention.cu:
 // rows 10-12's paged decode over the whole pool, row 14's walk over one
-// shard's pages) and the shard decode state over a dense slab
-// (flash_attention.cu, row 6), and its combine.
+// shard's pages), the shard decode state over a dense slab
+// (flash_attention.cu, row 6) and the fused paged decode step
+// (fused_decode_attention.cu, row 9: its q rows from its own prologue), and
+// its combine.
 //
 // The walk (row 5's decode walk over the keys a Keys functor addresses,
 // below): a block per (split, KV head, batch row) holds all n_rep x L rows
@@ -85,10 +87,21 @@ struct SlabKeys {
   }
 };
 
+// Where the walk's q rows come from: by cp.async from q (QGlobal), or, with
+// SMEM, written by the functor itself (raw bf16 in rswz<D> rows at the
+// start of the dynamic shared memory, padding rows zeros; q is not read):
+// row 9's fused step computes them (its prologue), called by every thread
+// once the split's first key tiles are in flight.
+struct QGlobal {
+  static constexpr bool SMEM = false;
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // The split walk's body: block (split, h, bb) writes the f32 partial (the
 // sum of p v, m and l) of each of the KV head's n_rep x L rows over its
-// split's keys, which state_combine or decode_combine merge.
-template <int D, int MT, class Keys>
+// split's keys, which state_combine or decode_combine merge. A split past
+// the row's keys returns at once, before calling qfill.
+template <int D, int MT, class Keys, class QFill = QGlobal>
 __device__ __forceinline__ void state_walk(
     const __nv_bfloat16* __restrict__ q,   // [B, Hq, L, D]
     const __nv_bfloat16* __restrict__ kp,  // the keys' base: the pool, the shard's pages or the slab
@@ -97,7 +110,7 @@ __device__ __forceinline__ void state_walk(
     const int* __restrict__ lens,  // [B] context lengths (SlabKeys: the shard's keys)
     float* __restrict__ ws_o,      // [splits, B, Hq, L, D] f32: each split's sum of p v
     float* __restrict__ ws_ml,     // [splits, B, Hq, L, 2] f32: its m and l
-    int Hkv, int n_rep, int L, int per, float scale) {
+    int Hkv, int n_rep, int L, int per, float scale, const QFill& qfill = QFill{}) {
   using fmma::BN;
   using fmma::LOG2E;
   constexpr int KW = pds_kw(MT), NW = MT * KW, THREADS = 32 * NW;
@@ -128,11 +141,13 @@ __device__ __forceinline__ void state_walk(
   // The block's q rows, raw, into shared memory (padding rows zeros): in
   // flight while warp 0 lists the split's pages. Scaled when the fragments
   // are built.
-  for (int idx = tid; idx < RP * CH; idx += THREADS) {
-    const int rr = idx / CH, c = idx % CH;
-    const bool ok = rr < R;
-    const size_t o = ok ? (((size_t)bb * Hq + h * n_rep + rr / L) * L + rr % L) * D + c * 8 : 0;
-    fmma::cp_async16(qs + rswz<D>(rr, c), q + o, ok ? 16 : 0);
+  if constexpr (!QFill::SMEM) {
+    for (int idx = tid; idx < RP * CH; idx += THREADS) {
+      const int rr = idx / CH, c = idx % CH;
+      const bool ok = rr < R;
+      const size_t o = ok ? (((size_t)bb * Hq + h * n_rep + rr / L) * L + rr % L) * D + c * 8 : 0;
+      fmma::cp_async16(qs + rswz<D>(rr, c), q + o, ok ? 16 : 0);
+    }
   }
   fmma::cp_async_commit();
   if constexpr (Keys::LIST) {
@@ -205,6 +220,7 @@ __device__ __forceinline__ void state_walk(
     if (i < nt) load(i);
     fmma::cp_async_commit();
   }
+  if constexpr (QFill::SMEM) qfill();
 
   fmma::cp_async_wait<PDS_STAGES - 1>();
   __syncthreads();  // q landed

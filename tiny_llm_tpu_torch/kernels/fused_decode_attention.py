@@ -4,11 +4,14 @@
 Replaces tiny_llm_tpu/kernels/fused_decode_attention.py::_fused_step_kernel
 (wrapper `fused_decode_attention`) and ::_fused_paged_step_kernel (wrapper
 `fused_paged_decode_attention`). Both CUDA kernels are in
-csrc/fused_decode_attention.cu, one template over where a key row lives;
-its header notes what bounds them on the H100 and what the design does
-about that. The same source holds the prep kernel, which replaces
-::_qkv_prep_kernel (wrapper `fused_qkv_prep`): the qkv split, QK-norm and
-RoPE alone, for the three-launch paged decode (models/qwen3.py,
+csrc/fused_decode_attention.cu, whose header notes what bounds them on the
+H100 and what each design does about that: K2 walks each (row, KV head)'s
+slab in one block; the paged step runs the split-key tensor-core walk of
+csrc/split_walk.cuh over the pool in splits of `decode_split` keys and
+merges the splits in the same launch (one launch a call, as K2). The same
+source holds the prep kernel, which replaces ::_qkv_prep_kernel (wrapper
+`fused_qkv_prep`): the qkv split, QK-norm and RoPE alone, for the
+three-launch paged decode (models/qwen3.py,
 `paged_fused_one=False`: prep, the page write, then paged attention).
 
 Layouts are the JAX package's: the fused qkv row [B, Hkv, n_rep + 2, D]
@@ -28,7 +31,7 @@ import torch
 
 from . import build
 from .dispatch import resolve
-from .paged_attention import gather_pages_dense
+from .paged_attention import decode_split, gather_pages_dense
 
 TPU_KERNEL = "tiny_llm_tpu/kernels/fused_decode_attention.py:79 _fused_step_kernel"
 TPU_KERNEL_PAGED = "tiny_llm_tpu/kernels/fused_decode_attention.py:275 _fused_paged_step_kernel"
@@ -112,11 +115,27 @@ def _lib() -> ctypes.CDLL:
     ]
     fn.restype = ctypes.c_int
     fn = lib.tlt_fused_paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p
-    ]
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong, ctypes.c_void_p]
+                   + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.tlt_fused_paged_decode_workspace
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
     return lib
+
+
+# The paged step's arrival counters, one int32 per (batch row, KV head), by
+# device: zero when made, and each launch leaves them zero. A larger batch
+# takes a larger buffer; the earlier ones stay alive, since a CUDA graph
+# captured before may still launch on them.
+_ARRIVALS: dict[torch.device, list[torch.Tensor]] = {}
+
+
+def _arrivals(device: torch.device, n: int) -> torch.Tensor:
+    bufs = _ARRIVALS.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 256), dtype=torch.int32, device=device))
+    return bufs[-1]
 
 
 def _check_rows(qkv_rows, q_norm_w, k_norm_w, cos_row, sin_row, offsets):
@@ -271,15 +290,21 @@ def fused_paged_decode_attention_cuda(
             raise ValueError("the pages must be contiguous bf16 CUDA tensors")
     offsets, cos_row, sin_row, qw, kw = _check_rows(
         qkv_rows, q_norm_w, k_norm_w, cos_row, sin_row, offsets)
-    bt = block_table.to(device=qkv_rows.device, dtype=torch.int32).contiguous()
+    dev = qkv_rows.device
+    bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
+    maxp = bt.shape[1]
     attn, k_row, v_row = _outputs(qkv_rows)
     lib = _lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kps = decode_split(B, Hkv, maxp, ps, sms)
+    nbytes = lib.tlt_fused_paged_decode_workspace(B, Hkv, maxp, ps, D, rows - 2, kps)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)  # the splits' partials
     err = lib.tlt_fused_paged_decode_attention(
         qkv_rows.data_ptr(), key_pages.data_ptr(), value_pages.data_ptr(), bt.data_ptr(),
         offsets.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(), qw.data_ptr(),
-        kw.data_ptr(), attn.data_ptr(), k_row.data_ptr(), v_row.data_ptr(),
-        B, Hkv, ps, bt.shape[1], D, rows - 2, float(scale), float(eps),
-        torch.cuda.current_stream(qkv_rows.device).cuda_stream,
+        kw.data_ptr(), attn.data_ptr(), k_row.data_ptr(), v_row.data_ptr(), ws.data_ptr(),
+        nbytes, _arrivals(dev, B * Hkv).data_ptr(), B, Hkv, ps, maxp, D, rows - 2, kps,
+        float(scale), float(eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "fused_paged_decode_attention")
     PAGED_LAUNCHES += 1

@@ -4,8 +4,10 @@ width.
   * The W4A16 kernel replaces tiny_llm_tpu/kernels/moe_matmul.py::
     _gqmm_magic_kernel (wrapper `_gqmm_magic_pallas`); CUDA in
     csrc/moe_matmul.cu, whose header notes what bounds it on the H100 and
-    how its two schedules (K1's GEMV per expert for T <= 64 rows, a walk
-    over tensor-core tiles of 64 rows of one expert above) deal with that.
+    how its two routes deal with that: K1's GEMV per expert below
+    B16_MIN_T rows (a decode step), above them a walk of K1's bf16
+    tensor-core tile over (expert, row-block) tiles. Both compute the plain
+    version's f32 fold, so one plain version serves both.
   * The W4A8 kernel replaces `_gqmm_pair_kernel` (wrapper
     `_gqmm_pair_pallas`): act="int8" experts (W4 g128) at T <= 128 grouped
     rows, per-row int8 activations and integer dots; csrc/moe_matmul.cu
@@ -20,9 +22,9 @@ width.
   * `_gqmm_gather_kernel` (wrapper `_gqmm_gather_pallas`), the JAX
     package's expert-gather schedule of the W4A16 function for T <= 256
     rows (TLT_MOE_DECODE=gather), is covered by the W4A16 kernel: the same
-    function, and the W4A16 kernel already runs a GEMV per expert at
-    T <= 64 and its tile walk above. The port reads no TLT_MOE_DECODE: on
-    the card it would pick the same kernel.
+    function, which the W4A16 kernel's tile walk runs at those rows. The
+    port reads no TLT_MOE_DECODE: on the card it would pick the same
+    kernel.
 
 `grouped_quant_matmul` dispatches as the JAX package's
 `grouped_quantized_matmul` does and launches the chosen kernel for CUDA
@@ -87,6 +89,15 @@ def grouped_quant_matmul_a8_plain(
     """Per non-empty expert segment, the W4A8 plain version (per-row int8
     activations, so segment by segment is the same as all rows at once)."""
     return _per_expert(quant_matmul_a8_plain, x, qt, group_sizes)
+
+
+def w4a16_route(rows: int) -> str:
+    """The route the W4A16 kernel's C entry takes for `rows` grouped rows
+    ("gemv" or "b16"), as B16_MIN_T in csrc/moe_matmul.cu sets it (CUDA
+    only: it loads the library)."""
+    fn = build.load("moe_matmul").tlt_grouped_quant_matmul_route
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return ("gemv", "b16")[fn(rows)]
 
 
 def _launch(fn_name, x, qt, group_sizes, extra=()):

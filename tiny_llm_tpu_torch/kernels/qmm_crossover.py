@@ -1,7 +1,7 @@
 """Where the quantized matmuls' routes cross, on the card: each route of an
 entry timed beside the others at the same rows.
 
-    python -m tiny_llm_tpu_torch.kernels.qmm_crossover [--kind k1|sg|a8|all] [--out FILE]
+    python -m tiny_llm_tpu_torch.kernels.qmm_crossover [--kind k1|sg|a8|moe|all] [--out FILE]
 
 Run from the root of a checkout: it times and checks with `chip_smoke.py`'s
 helpers (graph_ms, _close, _random_qt). Each entry picks its route by rows
@@ -25,6 +25,11 @@ every row:
     down + res, o + res, 30B-A3B qkv, o + res) and at 1-5 tokens' top-8
     (grouped: 30B-A3B gate and down over 128 experts), held to the W4A8
     plain versions.
+  * moe (B16_MIN_T of csrc/moe_matmul.cu): the grouped W4A16 matmul's GEMV
+    walk against its bf16 tile walk at T = 8, 9, 12, 16, 24, 32 and 64 rows,
+    30B-A3B gate and down over 128 experts, under random top-8 routing
+    (T = 9, 12: one token's top-8 and a row each of more experts) and with one
+    expert holding every row, held to grouped_quant_matmul_plain.
 
 Each copy's entry is called as the wrappers call it (the W4A8 entries with
 the workspace their `_workspace` query asks for) and timed by CUDA-graph
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from . import build
-from .moe_matmul import grouped_quant_matmul_a8_plain
+from .moe_matmul import grouped_quant_matmul_a8_plain, grouped_quant_matmul_plain
 from .quant_matmul import quant_matmul_a8_plain, quant_matmul_plain, quant_matmul_staged_plain
 
 # route -> {source: {constant: value}}: the copy in which that route takes every row.
@@ -67,6 +72,9 @@ K1_DENSE = (("qwen3-4b qkv", 6144, 2560, False), ("qwen3-4b gate_up", 19456, 256
             ("qwen3-30b-a3b router", 128, 2048, False))
 K1_ROWS = {("gemv", "b16"): (1, 2, 3, 4, 5),
            ("b16", "staged"): (16, 32, 48, 64, 65, 80, 96, 128, 160)}
+MOE_COPIES = {"moe_gemv": {"moe_matmul": {"B16_MIN_T": BIG}},
+              "moe_b16": {"moe_matmul": {"B16_MIN_T": 0}}}
+MOE_ROWS = (8, 9, 12, 16, 24, 32, 64)
 A8_DENSE = K1_DENSE[:6]
 GROUPED = (("qwen3-30b-a3b gate", 768, 2048), ("qwen3-30b-a3b down", 2048, 768))
 E, TOP_K = 128, 8
@@ -131,23 +139,32 @@ def dense(lib, x, qt, res, fn_name="tlt_quant_matmul"):
     return _call(lib, fn_name, head, ints, out, x.shape[0] if a8 else None, qt.k_padded)
 
 
-def grouped(lib, x, qt, sizes):
+def grouped(lib, x, qt, sizes, fn_name="tlt_grouped_quant_matmul_a8"):
     out = torch.empty((x.shape[0], qt.out_features), dtype=torch.bfloat16, device="cuda")
     head = (x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.biases.data_ptr(),
             sizes.data_ptr())
-    return _call(lib, "tlt_grouped_quant_matmul_a8", head,
-                 (x.shape[0], qt.out_features, qt.k_padded, E), out, x.shape[0], qt.k_padded)
+    a8 = fn_name.endswith("_a8")
+    return _call(lib, fn_name, head, (x.shape[0], qt.out_features, qt.k_padded, E), out,
+                 x.shape[0] if a8 else None, qt.k_padded)
+
+
+def _stacked(random_qt, gen, N, K, copies):
+    """`copies` random stacked expert weights [E, N, K], W4 g128, drawn
+    by `random_qt` (chip_smoke._random_qt)."""
+    flat = random_qt(gen, E * N, K, 4, 128, copies=copies)
+    return [type(q)(q.packed.view(E, N, -1), q.scales.view(E, N, -1), q.biases.view(E, N, -1),
+                    N, K, q.k_padded, 128, 4) for q in flat]
 
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", choices=("k1", "sg", "a8", "all"), default="all")
+    ap.add_argument("--kind", choices=("k1", "sg", "a8", "moe", "all"), default="all")
     ap.add_argument("--out", help="also write every line to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("qmm_crossover needs the card")
     sys.path.insert(0, str(Path.cwd()))
-    from chip_smoke import _close, _random_qt, graph_ms
+    from chip_smoke import _close, _random_qt, _routing, graph_ms
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -156,7 +173,8 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator(device="cuda").manual_seed(7)
     routes = {**(K1_COPIES if args.kind in ("k1", "all") else {}),
               **(SG_COPIES if args.kind in ("sg", "all") else {}),
-              **(A8_COPIES if args.kind in ("a8", "all") else {})}
+              **(A8_COPIES if args.kind in ("a8", "all") else {}),
+              **(MOE_COPIES if args.kind in ("moe", "all") else {})}
     tmp = tempfile.TemporaryDirectory()
     libs = _build_routes(Path(tmp.name), routes)
 
@@ -218,9 +236,7 @@ def main(argv: list[str]) -> int:
                 del ws
             rng = np.random.default_rng(3)
             for label, N, K in GROUPED:
-                flat = _random_qt(gen, E * N, K, 4, 128, copies=4)
-                ws = [type(q)(q.packed.view(E, N, -1), q.scales.view(E, N, -1),
-                              q.biases.view(E, N, -1), N, K, q.k_padded, 128, 4) for q in flat]
+                ws = _stacked(_random_qt, gen, N, K, 4)
                 for tokens in range(1, 6):
                     ids = np.stack([rng.choice(E, TOP_K, replace=False) for _ in range(tokens)])
                     sizes = torch.as_tensor(np.bincount(ids.ravel(), minlength=E),
@@ -231,7 +247,26 @@ def main(argv: list[str]) -> int:
                     case({"kind": "a8 grouped", "shape": label, "T": T}, pair,
                          lambda lib, w: grouped(lib["moe_matmul"], x, w, sizes),
                          dict.fromkeys(pair, want), ws)
-                del ws, flat
+                del ws
+        if args.kind in ("moe", "all"):
+            pair, rng = ("moe_gemv", "moe_b16"), np.random.default_rng(18)
+            for label, N, K in GROUPED:
+                ws = _stacked(_random_qt, gen, N, K, 4)
+                for T in MOE_ROWS:
+                    routed = _routing(rng, T // TOP_K, E, TOP_K)
+                    for extra in range(T % TOP_K):  # rows of experts the tokens left empty
+                        routed[int(np.flatnonzero(routed == 0)[extra])] += 1
+                    for routing, sz in (("random top-8", routed),
+                                        ("one expert", np.bincount([17] * T, minlength=E))):
+                        sizes = torch.as_tensor(sz, dtype=torch.int32, device="cuda")
+                        x = torch.randn((T, K), generator=gen, device="cuda").to(torch.bfloat16)
+                        want = grouped_quant_matmul_plain(x, ws[0], sizes)
+                        case({"kind": "moe", "shape": label, "routing": routing, "T": T,
+                              "experts": int((sz > 0).sum())}, pair,
+                             lambda lib, w: grouped(lib["moe_matmul"], x, w, sizes,
+                                                    "tlt_grouped_quant_matmul"),
+                             dict.fromkeys(pair, want), ws)
+                del ws
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(lines, indent=1))
