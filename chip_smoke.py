@@ -9,9 +9,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             the split prefill's two kernels, the masked prefill walk, K1's
             and row 17's staged tiles and the paged prefill must hold HGMMA
             in their SASS, the masked decode walk, row 14's split walk, the
-            paged decode's, row 6's and row 9's split walks, K1's and row
-            17's bf16 tiles and row 18's bf16 tile walk HMMA, the two W4A8
-            tiles IMMA
+            paged decode's, row 6's (K3's at L <= 16 too) and row 9's and
+            K2's split walks, K1's and row 17's bf16 tiles and row 18's bf16
+            tile walk HMMA, K3's tile HGMMA, the two W4A8 tiles IMMA
   kernels   every kernel against its plain PyTorch version on the card at
             the shapes the main paths give it; kernel, plain and library
             times and the least time the card could take (the bound). K1
@@ -31,6 +31,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             with lens - 1 (decode) and lens + 1 (prefill) as controls that
             must miss it, at L = 1, 2, 8, 16 (an idle row among B = 4) and
             17, 32, 128 (B = 1: the keys split; B = 4: the unsplit tile).
+            K2 and K3 over a slab of 1024 (K3 also L = S = 1024, B = 4,
+            L = S = 128 and L = 128 over 8192): K2 at B = 1 and 4, offsets
+            0 (the v row, exactly), 127, 128, 129, 192, 255, 1023, one
+            launch a call, K3 at L = 8 and 16 (the split walk), 17, 128
+            and 1024 (the unsplit tile) and L = 128 over a slab of 8192 at
+            lens 128 and 8192 (the split tile and its combine), each case's
+            route asserted, each held per element to _state_tol with
+            offsets (K2) or lens (K3) - 1 and + 1 as controls that must
+            miss it; K2's library at B = 4 with each row's own length
+            (SDPA with a per-row mask).
             Qwen3-4B's shapes (n_rep 4), then Qwen3-30B-A3B's: the grouped
             expert matmul (gate and down at T = 8, 32, 1024 and edge cases:
             one expert holding 15, 16, 17, 32, 33 or 128 rows, T = 8 and 9
@@ -41,7 +51,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   model     the dense path: Qwen3-4B W4A16 (random weights from a seed, full
             width and depth), max_seq 1024, B = 1: a 128-token prefill and
             128 greedy decode steps in 16-step bursts, three times; the
-            kernels' launch counts over those runs; one burst under
+            kernels' launch counts over those runs; the device time by
+            kernel of a burst's step and of a prefill; one burst under
             torch.cuda.set_sync_debug_mode("error")
   parity    the 4B widths at 4 layers: teacher-forced logits of the kernels
             against the plain versions, on the card
@@ -380,6 +391,13 @@ def phase_build():
     check(len(fused) == 8 and all(fused.values()), f"row 9 split walk HMMA: {fused}")
     gb16 = tensor_ops("moe_matmul", "moe_b16_tile", "tensor_core_ops")
     check(len(gb16) == 1 and all(gb16.values()), f"row 18 bf16 tile walk HMMA: {gb16}")
+    # K3 above L = 16 runs the wgmma tile (HGMMA), unsplit and key-split (8
+    # instances each); at L <= 16 row 6's split walk (checked above). K2
+    # runs row 9's split walk over the slab (8 instances, HMMA).
+    k3tile = tensor_ops("flash_attention", "flash_causal", "hgmma")
+    check(len(k3tile) == 16 and all(k3tile.values()), f"K3 tile HGMMA: {k3tile}")
+    k2walk = tensor_ops("fused_decode_attention", "fused_dense_walk", "tensor_core_ops")
+    check(len(k2walk) == 8 and all(k2walk.values()), f"K2 split walk HMMA: {k2walk}")
     smi = nvidia_smi()
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(log),
           "state_kernels_tensor_core_ops": tc, "masked_prefill_hgmma": masked,
@@ -389,6 +407,8 @@ def phase_build():
           "paged_prefill_hgmma": pfill, "sg_b16_tile_tensor_core_ops": sg_b16,
           "sg_staged_tile_hgmma": sg_staged, "flash_decode_walk_tensor_core_ops": fdec,
           "fused_paged_walk_tensor_core_ops": fused, "grouped_b16_tile_tensor_core_ops": gb16,
+          "k3_tile_hgmma": k3tile,
+          "k2_walk_tensor_core_ops": k2walk,
           "library_done_s": {n: round(i["seconds"], 1) for n, i in log.items()},
           "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi, regs
@@ -669,118 +689,225 @@ def _k1_cases(model, cfg, gen):
     return _annotate_launches(cases, cfg), contract
 
 
+# K2's cases: offsets over a slab of MAX_SEQ positions. B = 1 at 192 is
+# the contract's case; offset 0 is the v row exactly; 127 / 128 / 129 sit
+# on a split's boundary, 1023 fills the slab.
+K2_CASES = ([128], [255], [128, 170, 213, 255], [192], [0], [127, 128, 129, 1023])
+# K3's cases: (B, L, lens, S, the route flash_split must choose). L = 128
+# over the slab of MAX_SEQ (the dense prompt chunk, at the slab's start and
+# its end: the unsplit tile, as every slab under K3_SPLIT_MIN_S keys), L =
+# 8 and 16 (row 4's regime, the split walk) and 17 (the tile) at the route
+# gate, L = S = lens = 1024 (long_prefill's first chunk), B = 4, L = S =
+# 128 (serving's first chunk, its own k/v), and L = 128 over a slab of 8192
+# at lens 128 and 8192 (a dense model at a long max_seq: the split tile).
+K3_WALK, K3_TILE, K3_SPLIT = "split walk + combine", "tile", "split tile + combine"
+K3_CASES = ((1, 128, (128,), MAX_SEQ, K3_TILE), (1, 8, (8,), MAX_SEQ, K3_WALK),
+            (1, 8, (200,), MAX_SEQ, K3_WALK), (1, 16, (16,), MAX_SEQ, K3_WALK),
+            (1, 17, (700,), MAX_SEQ, K3_TILE), (1, 128, (1024,), MAX_SEQ, K3_TILE),
+            (1, 1024, (1024,), 1024, K3_TILE), (4, 128, (128, 128, 128, 128), 128, K3_TILE),
+            (1, 128, (128,), 8192, K3_SPLIT), (1, 128, (8192,), 8192, K3_SPLIT))
+
+
+def _step_tol(qkv, k, v, off, cr, sr, qw, kw, scale, eps, want):
+    """_state_tol for the fused decode step (K2 over a slab, row 9 over the
+    gathered pages, k / v [B, Hkv, S, D]): the plain step's attention is
+    attention_state_plain of its normed and roped q over the cached keys
+    [0, off) and the current token's own k and v row at position off.
+    Returns it shaped as the kernel's out [B, Hkv, n_rep, D]."""
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+
+    B, Hkv, n_rep, D = want.shape
+    q, k_row, v_row = kf.fused_qkv_prep_plain(qkv, off, cr, sr, qw, kw, eps=eps)
+    k, v = k.clone(), v.clone()
+    rows = torch.arange(B, device=qkv.device)
+    k[rows, :, off.long()] = k_row[:, :, 0]
+    v[rows, :, off.long()] = v_row[:, :, 0]
+    ok = (torch.arange(k.shape[2], device=qkv.device)[None, :] <= off[:, None].long())[:, None]
+    tol = _state_tol(q.reshape(B, Hkv * n_rep, 1, D), k, v, ok, scale,
+                     want.reshape(B, Hkv * n_rep, 1, D))
+    return tol.reshape(B, Hkv, n_rep, D)
+
+
 def _attention_cases(model, cfg, gen, qw, kw, contract):
-    """K2 and K3 against their plain versions at the model's head shape;
-    `contract` (None: not recorded) takes the main cases' numbers."""
+    """K2 and K3 against their plain versions at the model's head shape,
+    each held per element to _state_tol with controls one key off that must
+    miss it in every batch row they change (K2: offsets - 1 and + 1; K3:
+    lens - 1 and + 1), one count a call; `contract` (None: not recorded)
+    takes the main cases' numbers."""
     from tiny_llm_tpu_torch.kernels import flash_attention as k3
     from tiny_llm_tpu_torch.kernels import fused_decode_attention as k2
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
 
     dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
-    # K2 at B = 1 and 4, offsets 128..255, on a 1024-slot slab of all layers.
     Hkv, D_h = cfg.num_key_value_heads, cfg.head_dim
     n_rep = cfg.num_attention_heads // Hkv
-    Ly = cfg.num_hidden_layers
+    Hq, Ly = Hkv * n_rep, cfg.num_hidden_layers
     eps, scale = cfg.rms_norm_eps, D_h**-0.5
     cos_t, sin_t = model._rope_tables
+    sms = _sms()
+    name = "fused_decode_attention"
     k2_errs = []
-    for offs in ([128], [255], [128, 170, 213, 255], [192]):
+    for offs in K2_CASES:
         B = len(offs)
         keys = torch.randn((Ly, B, Hkv, MAX_SEQ, D_h), generator=gen, device=dev).to(torch.bfloat16)
         values = torch.randn_like(keys, dtype=torch.float32).to(torch.bfloat16)
         qkv = torch.randn((B, Hkv, n_rep + 2, D_h), generator=gen, device=dev).to(torch.bfloat16)
         off = torch.tensor(offs, dtype=torch.int32, device=dev)
         cr, sr = cos_t[off.long()], sin_t[off.long()]
-        args = (qkv, keys, values, off, cr, sr, qw, kw)
-        got = k2.fused_decode_attention_cuda(*args, layer_idx=3, scale=scale, eps=eps)
-        want = k2.fused_decode_attention_plain(*args, layer_idx=3, scale=scale, eps=eps)
+
+        def args(o=off):
+            return (qkv, keys, values, o, cr, sr, qw, kw)
+
+        got = []
+        counts = _kernel_path(lambda: got.append(k2.fused_decode_attention_cuda(
+            *args(), layer_idx=3, scale=scale, eps=eps)), name)
+        check(counts[name] == 1, f"{name} offs={offs}: {counts[name]} launches for one call")
+        got = got[0]
+        want = k2.fused_decode_attention_plain(*args(), layer_idx=3, scale=scale, eps=eps)
         torch.cuda.synchronize()
-        err = max_err(got[0], want[0])
-        tol = 2e-2
-        check(err <= tol, f"fused_decode_attention offs={offs}: {err} > {tol}")
+        check(bool(torch.isfinite(got[0]).all()), f"{name} offs={offs}: not finite")
+        tol = _step_tol(qkv, keys[3], values[3], off, cr, sr, qw, kw, scale, eps, want[0])
+        err, rows = max_err(got[0], want[0]), _over_tol(got[0], want[0], tol)
+        check(max(rows) <= 1, f"{name} offs={offs}: {err}, {max(rows)} times its tolerance")
+        ctl = {}
+        for delta in (-1, 1):
+            shifted = (off + delta).clamp(min=0)
+            changed = [bool(shifted[b] != off[b]) for b in range(B)]
+            control = k2.fused_decode_attention_plain(*args(shifted), layer_idx=3, scale=scale,
+                                                      eps=eps)
+            ctl[f"offsets {delta:+d}"] = _state_control(
+                f"{name} offs={offs} offsets {delta:+d}", (got[0],), tol, (control[0],),
+                changed) if any(changed) else []
+        v_rows = qkv[:, :, n_rep + 1 :].expand(B, Hkv, n_rep, D_h)
+        for b in range(B):
+            if offs[b] == 0:
+                check(torch.equal(got[0][b], v_rows[b]), f"{name} offs={offs}: row {b} is not "
+                                                         "its v row")
         kerr = max_err(got[1], want[1])
         check(kerr <= 2**-7 * float(want[1].float().abs().max()), f"k_row {kerr}")
         check(torch.equal(got[2], want[2]), "v_row not bit-equal")
         k2_errs.append(err)
         kern = graph_ms(lambda: [k2.fused_decode_attention_cuda(
-            *args, layer_idx=i, scale=scale, eps=eps) for i in range(Ly)]) / Ly
+            *args(), layer_idx=i, scale=scale, eps=eps) for i in range(Ly)]) / Ly
         plain = event_ms(lambda: k2.fused_decode_attention_plain(
-            *args, layer_idx=3, scale=scale, eps=eps))
-        # Library yardstick: SDPA over the same rows and the current token
-        # (already normed/roped), which is the attention part of K2's work.
-        q = got[0].new_empty((B, Hkv * n_rep, 1, D_h)).normal_(generator=gen)
+            *args(), layer_idx=3, scale=scale, eps=eps))
+        # Library yardstick: SDPA over the slab's keys with each row's own
+        # length (keys at or below its offset: the attention part of K2's
+        # work, the current token's key taken from the slab). At B = 1 the
+        # keys below offset + 1, no mask; at B = 4 a per-row boolean mask,
+        # beside SDPA over max(offsets) + 1 keys with no per-row length (it
+        # does not compute K2's function where the offsets differ).
+        q = got[0].new_empty((B, Hq, 1, D_h)).normal_(generator=gen)
         n_ctx = max(offs) + 1
-        lib = graph_ms(lambda: [torch.nn.functional.scaled_dot_product_attention(
-            q, keys[i][:, :, :n_ctx], values[i][:, :, :n_ctx], enable_gqa=True)
-            for i in range(Ly)]) / Ly
+        unmasked = graph_ms(lambda: [sdpa(q, keys[i][:, :, :n_ctx], values[i][:, :, :n_ctx],
+                                          scale=scale, enable_gqa=True) for i in range(Ly)]) / Ly
+        lib, lib_what = unmasked, "SDPA over the keys below offset + 1"
+        if B > 1:
+            mask = (torch.arange(MAX_SEQ, device=dev)[None, :] <= off[:, None])[:, None, None]
+            lib = graph_ms(lambda: [sdpa(q, keys[i], values[i], attn_mask=mask, scale=scale,
+                                         enable_gqa=True) for i in range(Ly)]) / Ly
+            lib_what = "SDPA over the slab, a per-row boolean mask (keys <= offset)"
         kv_bytes = sum(2 * Hkv * o * D_h * 2 for o in offs)
         io_bytes = B * Hkv * (n_rep + 2) * D_h * 2 * 2
         bms, by = bound(kv_bytes + io_bytes, sum(4 * Hkv * n_rep * (o + 1) * D_h for o in offs))
-        case = {"kernel": "fused_decode_attention", "tpu_kernel": k2.TPU_KERNEL,
-                "shape": f"B={B} offsets={offs} S={MAX_SEQ} Hkv={Hkv} n_rep={n_rep} D={D_h}",
-                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
-                "library_ms": lib, "bound_ms": bms, "bound_by": by}
+        kps = pa.decode_split(B, Hkv, MAX_SEQ, 1, sms)
+        case = {"kernel": name, "tpu_kernel": k2.TPU_KERNEL,
+                "shape": f"B={B} offsets={offs} S={MAX_SEQ} Hkv={Hkv} n_rep={n_rep} D={D_h}, "
+                         f"{-(-MAX_SEQ // kps)} splits of {kps} keys",
+                "launches_per_call": counts[name], "max_err": err,
+                "err_over_tol_per_batch_row": rows, "tol": TOL_ATTENTION,
+                "control_err_over_tol_per_batch_row": ctl, "kernel_ms": kern,
+                "plain_ms": plain, "library_ms": lib, "library": lib_what,
+                "library_no_row_lengths_ms": unmasked if B > 1 else None,
+                "bound_ms": bms, "bound_by": by}
         cases.append(case)
         if offs == [192] and contract is not None:
-            contract["fused_decode_attention"] = {
-                "name": "fused_decode_attention", "route": "cuda", "source": k2.SOURCE,
+            contract[name] = {
+                "name": name, "route": "cuda", "source": k2.SOURCE,
                 "replaces": "tiny_llm_tpu/kernels/fused_decode_attention.py:79",
-                "case": case["shape"], "max_abs_err": max(k2_errs), "ms": kern,
+                "case": case["shape"], "max_abs_err": None, "ms": kern,
                 "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
             }
         del keys, values
+    if contract is not None:
+        contract[name]["max_abs_err"] = max(k2_errs)
 
-    # K3 at L = 128 (the prompt chunk) and L = 8 (a short prompt; the TPU's
-    # L <= 16 kernel), over a 1024-slot slab layer.
+    # K3 at K3_CASES over Ly layers' slabs.
+    name = "flash_attention"
     k3_errs = []
-    for L, lens_v in ((128, 128), (8, 8), (8, 200)):
-        Hq = Hkv * n_rep
-        q = torch.randn((1, Hq, L, D_h), generator=gen, device=dev).to(torch.bfloat16)
-        ks = torch.randn((Ly, 1, Hkv, MAX_SEQ, D_h), generator=gen, device=dev).to(torch.bfloat16)
+    for B, L, lens_l, S, want_route in K3_CASES:
+        q = torch.randn((B, Hq, L, D_h), generator=gen, device=dev).to(torch.bfloat16)
+        ks = torch.randn((Ly, B, Hkv, S, D_h), generator=gen, device=dev).to(torch.bfloat16)
         vs = torch.randn_like(ks, dtype=torch.float32).to(torch.bfloat16)
-        lens = torch.tensor([lens_v], dtype=torch.int32, device=dev)
-        got = k3.flash_attention_cuda(q, ks[0], vs[0], lens, scale)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        got = []
+        counts = _kernel_path(lambda: got.append(k3.flash_attention_cuda(q, ks[0], vs[0], lens,
+                                                                         scale)), name)
+        check(counts[name] == 1, f"{name} L={L}: {counts[name]} launches for one call")
+        got = got[0]
         want = k3.flash_attention_plain(q, ks[0], vs[0], lens, scale)
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        tol = 2e-2
-        check(err <= tol, f"flash_attention L={L} lens={lens_v}: {err} > {tol}")
+        what = f"{name} B={B} L={L} lens={list(lens_l)} S={S}"
+        check(bool(torch.isfinite(got).all()), f"{what}: not finite")
+        ok = k3._causal_mask(lens, L, S, dev)
+        tol = _state_tol(q, ks[0], vs[0], ok, scale, want)
+        err, rows = max_err(got, want), _over_tol(got, want, tol)
+        check(max(rows) <= 1, f"{what}: {err}, {max(rows)} times its tolerance")
+        ctl = {}
+        for delta in (-1, 1):
+            shifted = lens + delta
+            control = k3.flash_attention_plain(q, ks[0], vs[0], shifted, scale)
+            ctl[f"lens {delta:+d}"] = _state_control(f"{what} lens {delta:+d}", (got,), tol,
+                                                      (control,), [True] * B)
         k3_errs.append(err)
         kern = graph_ms(lambda: [k3.flash_attention_cuda(q, ks[i], vs[i], lens, scale)
                                  for i in range(Ly)]) / Ly
         plain = event_ms(lambda: k3.flash_attention_plain(q, ks[0], vs[0], lens, scale))
-        # Library yardstick: SDPA over the first lens keys, query i attending
-        # to keys j <= lens - L + i: plain causal when lens == L, else a
-        # boolean mask built outside the timing. It computes K3's function.
-        mask = None if lens_v == L else (torch.arange(lens_v, device=dev)[None, :]
-                                         <= torch.arange(lens_v - L, lens_v, device=dev)[:, None])
+        # Library yardstick: SDPA over the keys below max(lens), query i of
+        # row b attending to keys j <= lens[b] - L + i: plain causal where
+        # every lens is L, else a boolean mask built outside the timing. It
+        # computes K3's function.
+        n_keys = max(lens_l)
+        mask = None
+        if any(n != L for n in lens_l):
+            pos = lens[:, None].long() - L + torch.arange(L, device=dev)[None, :]
+            mask = (torch.arange(n_keys, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
 
-        def sdpa(i):
-            return torch.nn.functional.scaled_dot_product_attention(
-                q, ks[i][:, :, :lens_v], vs[i][:, :, :lens_v], attn_mask=mask,
-                is_causal=mask is None, scale=scale, enable_gqa=True)
+        def lib_call(i):
+            return sdpa(q, ks[i][:, :, :n_keys], vs[i][:, :, :n_keys], attn_mask=mask,
+                        is_causal=mask is None, scale=scale, enable_gqa=True)
 
-        check(max_err(sdpa(0), want) <= tol, f"SDPA yardstick L={L} lens={lens_v} differs")
-        lib = graph_ms(lambda: [sdpa(i) for i in range(Ly)]) / Ly
-        pairs = sum(lens_v - L + i + 1 for i in range(L))
-        bms, by = bound(2 * Hq * L * D_h * 2 + 2 * Hkv * lens_v * D_h * 2,
+        check(max_err(lib_call(0), want) <= 2e-2, f"SDPA yardstick {what} differs")
+        lib = graph_ms(lambda: [lib_call(i) for i in range(Ly)]) / Ly
+        pairs = sum(max(0, min(n - L + i + 1, n)) for n in lens_l for i in range(L))
+        bms, by = bound(2 * B * Hq * L * D_h * 2 + 2 * Hkv * sum(lens_l) * D_h * 2,
                         4 * Hq * pairs * D_h)
-        case = {"kernel": "flash_attention",
-                "tpu_kernel": k3.TPU_KERNEL if L > 16 else k3.TPU_KERNEL_SHORT,
-                "shape": f"B=1 L={L} lens={lens_v} S={MAX_SEQ} Hq={Hq} Hkv={Hkv} D={D_h}",
-                "max_err": err, "tol": tol, "kernel_ms": kern, "plain_ms": plain,
-                "library_ms": lib, "bound_ms": bms, "bound_by": by}
+        kps = k3.flash_split(B, Hkv, L, n_rep, S, sms)
+        route = K3_WALK if L <= k3.DECODE_MAX_L else K3_TILE if kps >= S else K3_SPLIT
+        check(route == want_route, f"{what}: flash_split chose the {route}, not the {want_route}")
+        case = {"kernel": name,
+                "tpu_kernel": k3.TPU_KERNEL if L > k3.DECODE_MAX_L else k3.TPU_KERNEL_SHORT,
+                "shape": f"B={B} L={L} lens={list(lens_l)} S={S} Hq={Hq} Hkv={Hkv} D={D_h}, "
+                         f"{route}, {-(-S // kps)} splits of {kps} keys",
+                "launches_per_call": counts[name], "max_err": err,
+                "err_over_tol_per_batch_row": rows, "tol": TOL_ATTENTION,
+                "control_err_over_tol_per_batch_row": ctl, "kernel_ms": kern,
+                "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by}
+        if L * n_keys >= 1024 * 128:
+            case["tflops"] = 4 * Hq * pairs * D_h / kern / 1e9
         cases.append(case)
-        if L == 128 and contract is not None:
-            contract["flash_attention"] = {
-                "name": "flash_attention", "route": "cuda", "source": k3.SOURCE,
+        if (B, L, lens_l, S) == (1, 128, (128,), MAX_SEQ) and contract is not None:
+            contract[name] = {
+                "name": name, "route": "cuda", "source": k3.SOURCE,
                 "replaces": "tiny_llm_tpu/kernels/flash_attention_pallas.py:450",
                 "case": case["shape"], "max_abs_err": None, "ms": kern, "plain_ms": plain,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib,
             }
         del ks, vs
     if contract is not None:
-        contract["flash_attention"]["max_abs_err"] = max(k3_errs)
+        contract[name]["max_abs_err"] = max(k3_errs)
     torch.cuda.empty_cache()
     return _annotate_launches(cases, cfg)
 
@@ -1086,23 +1213,11 @@ FUSED_PAGED_CASES = (
 
 
 def _fused_tol(qkv, kp, vp, bt, off, cr, sr, qw, kw, scale, eps, want):
-    """_state_tol for row 9: the plain step's attention is attention_state_plain
-    of its normed and roped q over the cached keys [0, off) and the current
-    token's own k and v row at position off. Returns it shaped as the
-    kernel's out [B, Hkv, n_rep, D]."""
-    from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+    """_step_tol for row 9, over the pages gathered contiguous."""
     from tiny_llm_tpu_torch.kernels import paged_attention as pa
 
-    B, Hkv, n_rep, D = want.shape
-    q, k_row, v_row = kf.fused_qkv_prep_plain(qkv, off, cr, sr, qw, kw, eps=eps)
-    k, v = (t.clone() for t in pa.gather_pages_dense(kp, vp, bt))
-    rows = torch.arange(B, device=qkv.device)
-    k[rows, :, off.long()] = k_row[:, :, 0]
-    v[rows, :, off.long()] = v_row[:, :, 0]
-    ok = (torch.arange(k.shape[2], device=qkv.device)[None, :] <= off[:, None].long())[:, None]
-    tol = _state_tol(q.reshape(B, Hkv * n_rep, 1, D), k, v, ok, scale,
-                     want.reshape(B, Hkv * n_rep, 1, D))
-    return tol.reshape(B, Hkv, n_rep, D)
+    k, v = pa.gather_pages_dense(kp, vp, bt)
+    return _step_tol(qkv, k, v, off, cr, sr, qw, kw, scale, eps, want)
 
 
 def _fused_paged_cases(cfg, rope, gen, qw, kw, kp, vp, perm, errs, contract):
@@ -1361,6 +1476,7 @@ def phase_model(model, cfg, phase, name, runs=3, beside=None):
     busy = _profile_burst(model, prompt)
     dev_ms = busy["device_ms_per_step"]  # None when the profiler saw no device time
     busy["busy_share_unprofiled"] = None if dev_ms is None else dev_ms * dec[len(dec) // 2] / 1e3
+    prefill_prof = _profile_prefill(model, prompt)
     sync_free = _sync_free_burst(model, prompt)
     emit({"phase": phase, "model": name, "layers": L, "batch": 1, "act_quant": model.act_quant,
           "prompt_len": PROMPT_LEN, "decode_steps": DECODE_STEPS, "burst": BURST, "runs": runs,
@@ -1370,6 +1486,7 @@ def phase_model(model, cfg, phase, name, runs=3, beside=None):
           "launches_per_prefill": per_prefill,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "first_tokens": toks[0][:8, 0].tolist(), "decode_profile": busy,
+          "prefill_profile": prefill_prof,
           "sync_free_burst": sync_free, **(beside or {})})
     return counts
 
@@ -1404,6 +1521,14 @@ def _profile_burst(model, prompt):
     cache = model.create_kv_cache()
     tok = model(prompt, 0, cache, logits_to_keep=1)[:, -1].float().argmax(-1).cpu().numpy()
     out = _device_profile(lambda: model.decode_burst_dense(cache, tok, BURST), BURST)
+    cache.release()
+    return out
+
+
+def _profile_prefill(model, prompt):
+    """Device time of one PROMPT_LEN-token dense prefill by kernel name."""
+    cache = model.create_kv_cache()
+    out = _device_profile(lambda: model(prompt, 0, cache, logits_to_keep=1), 1, top=10)
     cache.release()
     return out
 

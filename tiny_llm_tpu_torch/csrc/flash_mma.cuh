@@ -7,9 +7,9 @@
 //
 // What bounds the work on the H100: operations. At 4B's prefix walk (L =
 // 1024 over a 7168-token prefix) 120 GFLOP meet 46 MB of q/k/v/o, 0.12 ms
-// at the 989 TFLOP/s bf16 peak against 14 us of bytes. The SIMT tile
-// (flash_tile.cuh) ran these products on the FP32 pipes at 2 % of that
-// peak; the TPU kernels run them as MXU dots. Here both products run on
+// at the 989 TFLOP/s bf16 peak against 14 us of bytes. A SIMT tile ran
+// these products on the FP32 pipes at 2 % of that peak; the TPU kernels
+// run them as MXU dots. Here both products run on
 // the tensor cores as warpgroup MMAs (wgmma.mma_async, HGMMA in SASS), the
 // only route to the card's full bf16 rate:
 //
@@ -81,8 +81,8 @@
 //     a combine kernel; a block none of whose rows sees a key of the split
 //     exits at once.
 //
-// Rounding points are those of flash_tile.cuh and of the TPU kernels'
-// _flash_inner: q * scale rounds to bf16, scores and the softmax state are
+// Rounding points are those of the TPU kernels' _flash_inner (and of
+// split_walk.cuh): q * scale rounds to bf16, scores and the softmax state are
 // f32, p rounds to bf16 for the PV product, o = acc / max(l, 1e-30) rounds
 // to bf16, NEG_INF / 2 floors the subtrahend. The epilogue writes o and
 // each row's m (max scaled score) and l (sum of the f32 p) as f32

@@ -21,276 +21,51 @@
 // the qkv row, over 3.35 TB/s — a few microseconds at 4B's shapes, so the
 // launch and the serial prologue dominate.
 //
-// K2's design (the dense slab): one block per (b, kv head), 8 warps. Warp w
-// takes key tiles of 32 positions (w, w + 8, ...): each lane looks up where
-// its key row lives (SlabRows of common.cuh), scores that key against all
-// n_rep query rows held in shared memory, the warp updates its (m, l, acc)
-// with shuffles, and the PV product runs with each lane owning D/32 output
-// dims, the row offsets broadcast by shuffle. The 8 warp states merge in
-// shared memory, then the current token folds in. Known weakness: at B = 1
-// the grid is Hkv = 8 blocks on 132 SMs.
-//
-// The paged twin (row 9) was that walk over PageRows until its serial walk
-// per (b, kv head) lost 3-6x to SDPA: 32 blocks at 4B's heads and B = 4, 16
-// at n_rep 8, on 132 SMs, each scoring a key against every q row on SIMT
-// lanes and taking the PV product a key at a time. It now runs the
+// Both run one body, fused_walk below. A walk of one block per (b, kv
+// head), scoring each key against every q row on SIMT lanes and taking the
+// PV product a key at a time, lost 2-6x to SDPA: 8 to 32 blocks on 132 SMs
+// at 4B's heads, each walking its row's context serially. Instead, the
 // split-key walk of split_walk.cuh (rows 6 and 10-14's) in one launch:
 //   * grid (splits, Hkv, B), splits of `kps` keys from the shapes alone
-//     (kernels/paged_attention.py decode_split), never from the offsets or
-//     the table, which live on the device;
-//   * every block redoes K2's prologue for its (b, h) (norm and RoPE of
-//     n_rep + 1 rows) while its first key tiles are in flight, and writes
+//     (kernels/paged_attention.py decode_split, with the slab's S or the
+//     table's width), never from the offsets or the table, which live on
+//     the device;
+//   * every block redoes the step's prologue for its (b, h) (norm and RoPE
+//     of n_rep + 1 rows) while its first key tiles are in flight, and writes
 //     its q rows into the walk's q tile (the walk's QFill); split 0 writes
 //     k_out and v_out;
-//   * state_walk over the split's keys below off through PoolKeys (-1
-//     entries read the trash page 0; nothing at or past off is read): both
-//     products on mma.sync m16n8k16, an f32 partial (acc, m, l) per row;
+//   * state_walk over the split's keys below off, through SlabKeys (one
+//     layer's [B, Hkv, S, D] slab: fused_dense_walk) or PoolKeys (-1 entries
+//     read the trash page 0: fused_paged_walk); nothing at or past off is
+//     read; both products on mma.sync m16n8k16, an f32 partial (acc, m, l)
+//     per row;
 //   * each block then arrives at a counter per (b, h) (__threadfence, then
 //     atomicAdd; a split with no key arrives too); the last to arrive merges
 //     the partials (combine_rows' arithmetic, read through L2), folds the
-//     current token in as K2 does and writes out, and resets the counter to
-//     0 for the next launch. At off = 0 every split is empty and out is the
-//     v row exactly.
-// The q rows are K2's (bf16(q * scale) in the walk's fragments); p rounds
-// to bf16 against its warp's running max, where K2 rounds it against its
-// warp's too.
+//     current token in and writes out, and resets the counter to 0 for the
+//     next launch. At off = 0 every split is empty and out is the v row
+//     exactly.
+// The q rows are bf16(q * scale) in the walk's fragments; p rounds to bf16
+// against its warp's running max.
 //
 // tlt_fused_qkv_prep replaces
 // tiny_llm_tpu/kernels/fused_decode_attention.py::_qkv_prep_kernel (through
-// fused_qkv_prep): K2's prologue alone, for the three-launch paged decode
+// fused_qkv_prep): the step's prologue alone, for the three-launch paged decode
 // (prep, the page write, then the paged decode kernel reads the pages with
 // the current token already in them). It returns q normed and roped but
-// NOT scaled (K2 keeps q pre-scaled; the attention kernel scales it), the
-// normed and roped k row and the raw v row, at K2's rounding points. A
-// kernel of its own rather than an option of fused_step, so K2's machine
-// code stays as it was. Bound on the H100: it moves
+// NOT scaled (the fused step keeps q pre-scaled; the attention kernel scales
+// it), the normed and roped k row and the raw v row, at the step's rounding
+// points. Bound on the H100: it moves
 // B * Hkv * (2 * n_rep + 4) * D * 2 bytes (36 KB at Qwen3-4B's heads and B
 // = 4), 0.01 us at 3.35 TB/s; the launch bounds it. One block per (b, kv
 // head), a warp per row.
 #include "split_walk.cuh"
 
-namespace {
-
-constexpr int WARPS = 8;
-
-template <int D, int NREP, class Rows>
-__device__ __forceinline__ void fused_step(
-    const __nv_bfloat16* __restrict__ qkv,  // [B, Hkv, NREP + 2, D]
-    const __nv_bfloat16* __restrict__ keys,  // base of the rows `rows` addresses
-    const __nv_bfloat16* __restrict__ values,
-    const Rows rows, int off, int limit,
-    const float* __restrict__ cos_row, const float* __restrict__ sin_row,  // [B, D/2]
-    const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,  // [D]
-    __nv_bfloat16* __restrict__ out,    // [B, Hkv, NREP, D]
-    __nv_bfloat16* __restrict__ k_out,  // [B, Hkv, D]
-    __nv_bfloat16* __restrict__ v_out,  // [B, Hkv, D]
-    int h, int bb, int Hkv, float scale, float eps) {
-  constexpr int HALF = D / 2, DPL = D / 32;
-  __shared__ float xrow[NREP + 1][D];  // normed rows before RoPE
-  __shared__ float qs[NREP][D];        // pre-scaled q (bf16 values)
-  __shared__ float kcur[D], vcur[D];
-  __shared__ float scur[NREP];
-  __shared__ float wm_s[WARPS][NREP], wl_s[WARPS][NREP];
-  __shared__ float wacc[WARPS][NREP][D];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const __nv_bfloat16* row = qkv + (size_t)(bb * Hkv + h) * (NREP + 2) * D;
-  const float* cs = cos_row + (size_t)bb * HALF;
-  const float* sn = sin_row + (size_t)bb * HALF;
-
-  // QK-RMSNorm: warp r normalizes row r (q rows 0..NREP-1, k row NREP).
-  for (int r = warp; r <= NREP; r += WARPS) {
-    const __nv_bfloat16* wt = r < NREP ? qw : kw;
-    float v[DPL];
-    float ss = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      v[e] = bf2f(row[r * D + lane + 32 * e]);
-      ss += v[e] * v[e];
-    }
-    const float inv = rsqrtf(warp_sum(ss) / D + eps);
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const float normed = round_bf16(__fmul_rn(v[e], inv));
-      xrow[r][lane + 32 * e] = round_bf16(__fmul_rn(normed, bf2f(wt[lane + 32 * e])));
-    }
-  }
-  if (tid < D) vcur[tid] = bf2f(row[(NREP + 1) * D + tid]);
-  __syncthreads();
-  // RoPE (f32 rotate, bf16 round), q pre-scale.
-  for (int idx = tid; idx < (NREP + 1) * HALF; idx += blockDim.x) {
-    const int r = idx / HALF, i = idx % HALF;
-    const float x1 = xrow[r][i], x2 = xrow[r][i + HALF];
-    const float c = cs[i], sv = sn[i];
-    const float re = round_bf16(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, sv)));
-    const float im = round_bf16(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, sv)));
-    if (r < NREP) {
-      qs[r][i] = round_bf16(re * scale);
-      qs[r][i + HALF] = round_bf16(im * scale);
-    } else {
-      kcur[i] = re;
-      kcur[i + HALF] = im;
-      const size_t o = (size_t)(bb * Hkv + h) * D;
-      k_out[o + i] = __float2bfloat16_rn(re);
-      k_out[o + i + HALF] = __float2bfloat16_rn(im);
-    }
-  }
-  if (tid < D) v_out[(size_t)(bb * Hkv + h) * D + tid] = row[(NREP + 1) * D + tid];
-  __syncthreads();
-  // Score of the current token, one warp per q row.
-  for (int r = warp; r < NREP; r += WARPS) {
-    float p = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) p += qs[r][lane + 32 * e] * kcur[lane + 32 * e];
-    p = warp_sum(p);
-    if (lane == 0) scur[r] = p;
-  }
-
-  // Online softmax over the cached positions [0, n).
-  const int n = min(off, limit);
-  float m[NREP], l[NREP], acc[NREP][DPL];
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    m[r] = TLT_NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
-  }
-  for (int t0 = warp * 32; t0 < n; t0 += WARPS * 32) {
-    const int pos = t0 + lane;
-    const unsigned long long my_row = pos < n ? rows(pos) : 0;
-    float sc[NREP];
-#pragma unroll
-    for (int r = 0; r < NREP; ++r) sc[r] = 0.f;
-    if (pos < n) {
-      const uint4* kr = reinterpret_cast<const uint4*>(keys + my_row);
-#pragma unroll 4
-      for (int c = 0; c < D / 8; ++c) {
-        const uint4 kv = __ldg(kr + c);
-        const uint32_t kw4[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float k0 = lo_bf16(kw4[e]), k1 = hi_bf16(kw4[e]);
-          const int d0 = c * 8 + 2 * e;
-#pragma unroll
-          for (int r = 0; r < NREP; ++r) sc[r] += qs[r][d0] * k0 + qs[r][d0 + 1] * k1;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < NREP; ++r) sc[r] = TLT_NEG_INF;
-    }
-    float p[NREP];
-#pragma unroll
-    for (int r = 0; r < NREP; ++r) {
-      const float m_new = fmaxf(m[r], warp_max(sc[r]));
-      const float alpha = expf(m[r] - m_new);
-      p[r] = expf(sc[r] - fmaxf(m_new, TLT_NEG_INF / 2));
-      l[r] = l[r] * alpha + warp_sum(p[r]);
-      m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
-      p[r] = round_bf16(p[r]);
-    }
-    const int nvalid = min(32, n - t0);
-    for (int j = 0; j < nvalid; ++j) {
-      const unsigned long long rj = __shfl_sync(0xffffffffu, my_row, j);
-      const __nv_bfloat16* vr = values + rj + lane * DPL;
-      float vv[DPL];
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) vv[e] = bf2f(vr[e]);
-#pragma unroll
-      for (int r = 0; r < NREP; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, p[r], j);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[r][e] += pj * vv[e];
-      }
-    }
-  }
-  // Merge the warps' states.
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    if (lane == 0) {
-      wm_s[warp][r] = m[r];
-      wl_s[warp][r] = l[r];
-    }
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) wacc[warp][r][lane * DPL + e] = acc[r][e];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < NREP * D; idx += blockDim.x) {
-    const int r = idx / D, d = idx % D;
-    float mg = TLT_NEG_INF;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mg = fmaxf(mg, wm_s[w][r]);
-    float lg = 0.f, ag = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = expf(wm_s[w][r] - mg);
-      lg += wl_s[w][r] * f;
-      ag += wacc[w][r][d] * f;
-    }
-    // Fold the current token (always visible to its own query).
-    const float s_cur = scur[r];
-    const float m_new = fmaxf(mg, s_cur);
-    const float alpha = expf(mg - m_new);
-    const float pc = expf(s_cur - m_new);
-    const float lt = lg * alpha + pc;
-    const float at = ag * alpha + round_bf16(pc) * vcur[d];
-    out[((size_t)(bb * Hkv + h) * NREP + r) * D + d] = __float2bfloat16_rn(at / lt);
-  }
-}
-
-template <int D, int NREP>
-__global__ void __launch_bounds__(WARPS * 32) fused_decode_step(
-    const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ keys,
-    const __nv_bfloat16* __restrict__ values,  // [layers, B, Hkv, S, D]
-    const int* __restrict__ offsets, const float* __restrict__ cs, const float* __restrict__ sn,
-    const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,
-    __nv_bfloat16* __restrict__ out, __nv_bfloat16* __restrict__ k_out,
-    __nv_bfloat16* __restrict__ v_out, int layer, int B, int Hkv, int S, float scale,
-    float eps) {
-  const int h = blockIdx.x, bb = blockIdx.y;
-  const SlabRows<D> rows{((size_t)(layer * B + bb) * Hkv + h) * (size_t)S * D};
-  fused_step<D, NREP>(qkv, keys, values, rows, offsets[bb], S, cs, sn, qw, kw, out, k_out,
-                      v_out, h, bb, Hkv, scale, eps);
-}
-
 #define TLT_BF(p) static_cast<const __nv_bfloat16*>(p)
 #define TLT_BFW(p) static_cast<__nv_bfloat16*>(p)
 #define TLT_F(p) static_cast<const float*>(p)
 
-template <int D, int NREP>
-int launch(const void* qkv, const void* keys, const void* values, const void* offsets,
-           const void* cs, const void* sn, const void* qw, const void* kw, void* out,
-           void* k_out, void* v_out, int layer, int B, int Hkv, int S, float scale,
-           float eps, cudaStream_t st) {
-  fused_decode_step<D, NREP><<<dim3(Hkv, B), dim3(WARPS * 32), 0, st>>>(
-      TLT_BF(qkv), TLT_BF(keys), TLT_BF(values), static_cast<const int*>(offsets), TLT_F(cs),
-      TLT_F(sn), TLT_BF(qw), TLT_BF(kw), TLT_BFW(out), TLT_BFW(k_out), TLT_BFW(v_out), layer,
-      B, Hkv, S, scale, eps);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int tlt_fused_decode_attention(const void* qkv, const void* keys, const void* values,
-                                          const void* offsets, const void* cs, const void* sn,
-                                          const void* qw, const void* kw, void* out, void* k_out,
-                                          void* v_out, int layer, int B, int Hkv, int S, int D,
-                                          int n_rep, float scale, float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TLT_K2(DD, RR)                                                                     \
-  if (D == DD && n_rep == RR)                                                              \
-    return launch<DD, RR>(qkv, keys, values, offsets, cs, sn, qw, kw, out, k_out, v_out, \
-                          layer, B, Hkv, S, scale, eps, st);
-  TLT_K2(64, 1) TLT_K2(64, 2) TLT_K2(64, 4) TLT_K2(64, 8)
-  TLT_K2(128, 1) TLT_K2(128, 2) TLT_K2(128, 4) TLT_K2(128, 8)
-#undef TLT_K2
-  return (int)cudaErrorInvalidValue;
-}
-
-// Row 9: the fused paged decode step as a split-key tensor-core walk.
+// K2 and row 9: the fused decode step as a split-key tensor-core walk.
 namespace {
 
 // The walk's block for n_rep <= 8 rows, one m16 tile: 4 warps.
@@ -305,11 +80,11 @@ constexpr int paged_walk_smem() {
 
 int paged_walk_splits(int maxp, int ps, int kps) { return (maxp * ps + kps - 1) / kps; }
 
-// K2's prologue for one (b, h), the walk's QFill (split_walk.cuh): QK-RMSNorm
+// The step's prologue for one (b, h), the walk's QFill (split_walk.cuh): QK-RMSNorm
 // (warp r on rows r, r + NW, ...: q rows 0..NREP-1, k row NREP), rounded to
 // bf16 before and after the weight; RoPE (f32 rotate, bf16 round). The q
-// rows go raw into the walk's q tile (the walk takes bf16(q * scale), K2's
-// pre-scaled q), the k and v rows into kcur and vcur (f32, after the walk's
+// rows go raw into the walk's q tile (the walk takes bf16(q * scale), the
+// TPU kernel's pre-scaled q), the k and v rows into kcur and vcur (f32, after the walk's
 // shared memory) and, where given, k_out and v_out. Every thread calls it.
 template <int D, int NREP>
 struct StepPrologue {
@@ -392,12 +167,15 @@ struct StepPrologue {
   }
 };
 
-template <int D, int NREP>
-__global__ void __launch_bounds__(PW_THREADS) fused_paged_walk(
+// The step's body, block (split, h, bb): the split's walk over the keys
+// `keys` addresses from kp / vp, its arrival, and the merge where it is the
+// last block of its (bb, h).
+template <int D, int NREP, class Keys>
+__device__ __forceinline__ void fused_walk(
     const __nv_bfloat16* __restrict__ qkv,  // [B, Hkv, NREP + 2, D]
-    const __nv_bfloat16* __restrict__ kp,   // [P, Hkv, ps, D]
+    const __nv_bfloat16* __restrict__ kp,   // the keys' base: the pool or the layer's slab
     const __nv_bfloat16* __restrict__ vp,
-    const int* __restrict__ bt,       // [B, maxp], -1 padded
+    const Keys keys,
     const int* __restrict__ offsets,  // [B]
     const float* __restrict__ cos_row, const float* __restrict__ sin_row,  // [B, D/2]
     const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,  // [D]
@@ -406,7 +184,7 @@ __global__ void __launch_bounds__(PW_THREADS) fused_paged_walk(
     __nv_bfloat16* __restrict__ v_out,  // [B, Hkv, D]
     float* __restrict__ ws_o, float* __restrict__ ws_ml,  // the splits' partials
     unsigned* __restrict__ arrivals,  // [B, Hkv]: zero on entry, left zero
-    int Hkv, int ps, int maxp, int kps, float scale, float eps) {
+    int Hkv, int kps, float scale, float eps) {
   constexpr int DPL = D / 32, NW = PW_THREADS / 32;
   using Prologue = StepPrologue<D, NREP>;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -427,9 +205,8 @@ __global__ void __launch_bounds__(PW_THREADS) fused_paged_walk(
   // The split's keys below off, the prologue run once its first key tiles
   // are in flight; an empty split runs it here only if it is split 0 (its
   // k_out and v_out) or, below, the last to arrive.
-  state_walk<D, 1, PoolKeys<D>, Prologue>(nullptr, kp, vp, PoolKeys<D>{bt, maxp, ps, Hkv},
-                                          offsets, ws_o, ws_ml, Hkv, NREP, 1, kps, scale,
-                                          prologue);
+  state_walk<D, 1, Keys, Prologue>(nullptr, kp, vp, keys, offsets, ws_o, ws_ml, Hkv, NREP, 1,
+                                   kps, scale, prologue);
   if (empty && split == 0) prologue();
 
   // Arrive: the split's partials are written, or it had no key. The last
@@ -445,7 +222,7 @@ __global__ void __launch_bounds__(PW_THREADS) fused_paged_walk(
 
   // combine_rows' arithmetic over the splits below off (each saw a key),
   // the partials read through L2 (the other blocks wrote them), then the
-  // current token last, as fused_step: s_cur = bf16(q * scale) . k in f32,
+  // current token last: s_cur = bf16(q * scale) . k in f32,
   // its probability rounded to bf16 for the PV sum, the denominator f32.
   // The splits' m and l, then their weights, in the ring (free now).
   const int n = off > 0 ? min((int)gridDim.x, (off + kps - 1) / kps) : 0;
@@ -505,6 +282,46 @@ __global__ void __launch_bounds__(PW_THREADS) fused_paged_walk(
   }
 }
 
+// Row 9: the pool through the block table (PoolKeys).
+template <int D, int NREP>
+__global__ void __launch_bounds__(PW_THREADS) fused_paged_walk(
+    const __nv_bfloat16* __restrict__ qkv,  // [B, Hkv, NREP + 2, D]
+    const __nv_bfloat16* __restrict__ kp,   // [P, Hkv, ps, D]
+    const __nv_bfloat16* __restrict__ vp,
+    const int* __restrict__ bt,       // [B, maxp], -1 padded
+    const int* __restrict__ offsets,  // [B]
+    const float* __restrict__ cos_row, const float* __restrict__ sin_row,  // [B, D/2]
+    const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,  // [D]
+    __nv_bfloat16* __restrict__ out,    // [B, Hkv, NREP, D]
+    __nv_bfloat16* __restrict__ k_out,  // [B, Hkv, D]
+    __nv_bfloat16* __restrict__ v_out,  // [B, Hkv, D]
+    float* __restrict__ ws_o, float* __restrict__ ws_ml,  // the splits' partials
+    unsigned* __restrict__ arrivals,  // [B, Hkv]: zero on entry, left zero
+    int Hkv, int ps, int maxp, int kps, float scale, float eps) {
+  fused_walk<D, NREP>(qkv, kp, vp, PoolKeys<D>{bt, maxp, ps, Hkv}, offsets, cos_row, sin_row, qw,
+                      kw, out, k_out, v_out, ws_o, ws_ml, arrivals, Hkv, kps, scale, eps);
+}
+
+// K2: one layer's dense slab (SlabKeys).
+template <int D, int NREP>
+__global__ void __launch_bounds__(PW_THREADS) fused_dense_walk(
+    const __nv_bfloat16* __restrict__ qkv,  // [B, Hkv, NREP + 2, D]
+    const __nv_bfloat16* __restrict__ keys,  // the layer's [B, Hkv, S, D]
+    const __nv_bfloat16* __restrict__ values,
+    const int* __restrict__ offsets,  // [B]
+    const float* __restrict__ cos_row, const float* __restrict__ sin_row,  // [B, D/2]
+    const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,  // [D]
+    __nv_bfloat16* __restrict__ out,    // [B, Hkv, NREP, D]
+    __nv_bfloat16* __restrict__ k_out,  // [B, Hkv, D]
+    __nv_bfloat16* __restrict__ v_out,  // [B, Hkv, D]
+    float* __restrict__ ws_o, float* __restrict__ ws_ml,  // the splits' partials
+    unsigned* __restrict__ arrivals,  // [B, Hkv]: zero on entry, left zero
+    int Hkv, int S, int kps, float scale, float eps) {
+  fused_walk<D, NREP>(qkv, keys, values, SlabKeys<D>{(long long)Hkv * S * D, (long long)S * D, S},
+                      offsets, cos_row, sin_row, qw, kw, out, k_out, v_out, ws_o, ws_ml, arrivals,
+                      Hkv, kps, scale, eps);
+}
+
 template <int D, int NREP>
 int launch_paged_walk(const void* qkv, const void* kp, const void* vp, const void* bt,
                       const void* offsets, const void* cs, const void* sn, const void* qw,
@@ -522,6 +339,29 @@ int launch_paged_walk(const void* qkv, const void* kp, const void* vp, const voi
       TLT_BFW(out), TLT_BFW(k_out), TLT_BFW(v_out), ws_o, ws_ml, arrivals, Hkv, ps, maxp, kps,
       scale, eps);
   return (int)cudaGetLastError();
+}
+
+template <int D, int NREP>
+int launch_dense_walk(const void* qkv, const __nv_bfloat16* keys, const __nv_bfloat16* values,
+                      const void* offsets, const void* cs, const void* sn, const void* qw,
+                      const void* kw, void* out, void* k_out, void* v_out, float* ws_o,
+                      float* ws_ml, unsigned* arrivals, int B, int Hkv, int S, int kps,
+                      float scale, float eps, cudaStream_t st) {
+  constexpr int SMEM = paged_walk_smem<D, NREP>();
+  static const int attr = (int)cudaFuncSetAttribute(
+      fused_dense_walk<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr) return attr;
+  fused_dense_walk<D, NREP><<<dim3((S + kps - 1) / kps, Hkv, B), PW_THREADS, SMEM, st>>>(
+      TLT_BF(qkv), keys, values, static_cast<const int*>(offsets), TLT_F(cs), TLT_F(sn),
+      TLT_BF(qw), TLT_BF(kw), TLT_BFW(out), TLT_BFW(k_out), TLT_BFW(v_out), ws_o, ws_ml,
+      arrivals, Hkv, S, kps, scale, eps);
+  return (int)cudaGetLastError();
+}
+
+// The merge keeps 3 floats a (row, split) in the walk's ring.
+bool merge_fits(int splits, int n_rep, int D) {
+  return (long long)splits * n_rep * 12 <=
+         PDS_STAGES * (D == 64 ? pds_stage_bytes<64>() : pds_stage_bytes<128>());
 }
 
 }  // namespace
@@ -545,10 +385,7 @@ extern "C" int tlt_fused_paged_decode_attention(
     int D, int n_rep, int kps, float scale, float eps, void* stream) {
   if (kps < 1 || maxp < 1 || ps < 1 || arrivals == nullptr) return (int)cudaErrorInvalidValue;
   const int splits = paged_walk_splits(maxp, ps, kps);
-  // The merge keeps 3 floats a (row, split) in the walk's ring.
-  if ((long long)splits * n_rep * 12 > PDS_STAGES * (D == 64 ? pds_stage_bytes<64>()
-                                                                : pds_stage_bytes<128>()))
-    return (int)cudaErrorInvalidValue;
+  if (!merge_fits(splits, n_rep, D)) return (int)cudaErrorInvalidValue;
   const StateWorkspace w = state_workspace(splits, B, Hkv, 1, D, n_rep);
   if (ws == nullptr || ws_bytes < (long long)(w.o + w.ml)) return (int)cudaErrorInvalidValue;
   float* ws_o = static_cast<float*>(ws);
@@ -566,9 +403,49 @@ extern "C" int tlt_fused_paged_decode_attention(
   return (int)cudaErrorInvalidValue;
 }
 
-// The prep kernel (tlt_fused_qkv_prep), after K2 so that K2's machine code
-// is what it was.
+// Bytes of workspace tlt_fused_decode_attention takes for these shapes
+// (kps: keys a split, at least 1): the splits' f32 partials.
+extern "C" long long tlt_fused_decode_workspace(int B, int Hkv, int S, int D, int n_rep, int kps) {
+  if (kps < 1) return 0;
+  const StateWorkspace w = state_workspace((S + kps - 1) / kps, B, Hkv, 1, D, n_rep);
+  return (long long)(w.o + w.ml);
+}
+
+// K2: layer `layer` of the slab [layers, B, Hkv, S, D], one launch a call,
+// in splits of `kps` keys. ws and arrivals as the paged entry's.
+extern "C" int tlt_fused_decode_attention(const void* qkv, const void* keys, const void* values,
+                                          const void* offsets, const void* cs, const void* sn,
+                                          const void* qw, const void* kw, void* out, void* k_out,
+                                          void* v_out, void* ws, long long ws_bytes,
+                                          void* arrivals, int layer, int B, int Hkv, int S, int D,
+                                          int n_rep, int kps, float scale, float eps,
+                                          void* stream) {
+  if (kps < 1 || S < 1 || layer < 0 || arrivals == nullptr) return (int)cudaErrorInvalidValue;
+  const int splits = (S + kps - 1) / kps;
+  if (!merge_fits(splits, n_rep, D)) return (int)cudaErrorInvalidValue;
+  const StateWorkspace w = state_workspace(splits, B, Hkv, 1, D, n_rep);
+  if (ws == nullptr || ws_bytes < (long long)(w.o + w.ml)) return (int)cudaErrorInvalidValue;
+  float* ws_o = static_cast<float*>(ws);
+  float* ws_ml = reinterpret_cast<float*>(static_cast<uint8_t*>(ws) + w.o);
+  unsigned* arr = static_cast<unsigned*>(arrivals);
+  const size_t at = (size_t)layer * B * Hkv * S * D;  // the layer's slab
+  const __nv_bfloat16* kk = static_cast<const __nv_bfloat16*>(keys) + at;
+  const __nv_bfloat16* vv = static_cast<const __nv_bfloat16*>(values) + at;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TLT_K2(DD, RR)                                                                         \
+  if (D == DD && n_rep == RR)                                                                  \
+    return launch_dense_walk<DD, RR>(qkv, kk, vv, offsets, cs, sn, qw, kw, out, k_out, v_out, \
+                                     ws_o, ws_ml, arr, B, Hkv, S, kps, scale, eps, st);
+  TLT_K2(64, 1) TLT_K2(64, 2) TLT_K2(64, 4) TLT_K2(64, 8)
+  TLT_K2(128, 1) TLT_K2(128, 2) TLT_K2(128, 4) TLT_K2(128, 8)
+#undef TLT_K2
+  return (int)cudaErrorInvalidValue;
+}
+
+// The prep kernel (tlt_fused_qkv_prep).
 namespace {
+
+constexpr int WARPS = 8;  // a warp per row
 
 template <int D, int NREP>
 __global__ void __launch_bounds__(WARPS * 32) qkv_prep(

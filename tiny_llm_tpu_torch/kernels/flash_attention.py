@@ -4,7 +4,13 @@ state-emitting twin.
 K3 replaces tiny_llm_tpu/kernels/flash_attention_pallas.py::_prefill_kernel
 (wrapper `_flash_prefill`, through `flash_attention_pallas` for L > 16)
 and covers its L <= 16 sibling `_decode_kernel` (`_flash_decode`): the
-CUDA kernel, csrc/flash_attention.cu, takes any L >= 1. The state twin,
+CUDA entry, csrc/flash_attention.cu, takes any L >= 1, on two routes. At
+L <= 16 it runs the shard decode-state kernel's split-key walk over the
+slab and an o-only combine; above, the causal tensor-core tile, its keys
+split too where its q tiles leave SMs idle, the splits merged by the same
+combine. `flash_split` picks the keys a split holds from the shapes alone;
+`flash_attention_split_plain` is the split and combine in plain PyTorch,
+for the tests. The state twin,
 `flash_prefill_state`, replaces `_prefill_state_kernel`
 (`flash_prefill_state_pallas`): the same attention, returning the output
 locally normalised with each row's softmax state (m, l), for the split
@@ -62,6 +68,10 @@ DECODE_MAX_L = 16
 SOURCE = "tiny_llm_tpu_torch/csrc/flash_attention.cu"
 SOURCE_MASKED = "tiny_llm_tpu_torch/csrc/flash_attention_masked.cu"
 NEG_INF = -1e30
+
+# K3's tile splits its keys only over a slab of at least K3_SPLIT_MIN_S
+# keys (flash_split).
+K3_SPLIT_MIN_S = 2048
 
 # The masked route's tiles: 16 query rows by 64 keys in the live-tile map
 # (64 keys a tile of both walks); a decode split holds 4 to 64 tiles.
@@ -160,6 +170,36 @@ def flash_decode_state_split_plain(q, k, v, lens, scale: float, keys_per_split: 
     return _split_state(q, k, v, ok, scale, keys_per_split)
 
 
+def flash_attention_split_plain(q, k, v, lens, scale: float, keys_per_split: int):
+    """K3's split and combine in plain PyTorch (tests only): the slab's keys
+    cut into splits of `keys_per_split`, each split's (acc, m, l) at the
+    kernels' rounding points, merged as flash_combine does (_split_state).
+    Returns o; a row that sees no key gives 0."""
+    ok = _causal_mask(lens, q.shape[2], k.shape[2], q.device)
+    return _split_state(q, k, v, ok, scale, keys_per_split)[0]
+
+
+def flash_split(B: int, Hkv: int, L: int, n_rep: int, S: int, sms: int) -> int:
+    """Keys a split of K3 holds over a slab of S keys, from the shapes and
+    the SM count alone, never from lens, which lives on the device (reading
+    it would sync and break a CUDA graph's capture). At L <= 16 the shard
+    decode-state walk's (decode_split with S for the table's width); above,
+    the paged prefill's (prefill_split over S keys: one split where the q
+    tiles fill more than half the SMs), but one split over a slab of fewer
+    than K3_SPLIT_MIN_S keys. A split costs a combine launch even where
+    every row sees only its chunk's own keys (a prompt's first chunk),
+    which the shapes cannot tell from a chunk at the slab's end; over 1024
+    keys the two lose alike, over 2048 or more the split loses less
+    (kernels/row_timing.py --rows K3split)."""
+    from .paged_attention import decode_split, prefill_split
+
+    if L <= DECODE_MAX_L:
+        return decode_split(B, Hkv, S, 1, sms)
+    if S < K3_SPLIT_MIN_S:
+        return S
+    return prefill_split(B, Hkv, L, n_rep, S, 1, sms)
+
+
 def normalize_mask(mask: torch.Tensor, B: int, L: int, S: int) -> torch.Tensor:
     """An explicit additive mask as [B, 1 or H, L, S] (a view; the port's
     copy of the JAX package's normalize_mask). Accepted: [L, S] (shared by
@@ -250,8 +290,12 @@ def decode_chunk(B: int, Hkv: int, S: int, sms: int) -> int:
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.tlt_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.tlt_flash_attention_workspace
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
     fn = lib.tlt_flash_prefill_state
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -304,14 +348,22 @@ def _check_args(what, q, k, v, strided_kv: bool = False):
 
 
 def flash_attention_cuda(q, k, v, lens, scale: float):
+    """K3: one call of the C entry in splits of flash_split keys (at L <= 16
+    the walk and its combine; above, the tile and, where it splits the
+    keys, the combine), counted once."""
     global LAUNCHES
     B, Hq, L, D, Hkv, S, n_rep = _check_args("flash_attention_cuda", q, k, v)
     lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = _lib()
+    kps = flash_split(B, Hkv, L, n_rep, S,
+                      torch.cuda.get_device_properties(q.device).multi_processor_count)
+    nbytes = lib.tlt_flash_attention_workspace(B, Hkv, L, S, D, n_rep, kps)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     err = lib.tlt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, Hkv, L, S, D, n_rep, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        None if ws is None else ws.data_ptr(), nbytes, B, Hkv, L, S, D, n_rep, kps,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, err, "flash_attention")
     LAUNCHES += 1

@@ -5,11 +5,11 @@ Replaces tiny_llm_tpu/kernels/fused_decode_attention.py::_fused_step_kernel
 (wrapper `fused_decode_attention`) and ::_fused_paged_step_kernel (wrapper
 `fused_paged_decode_attention`). Both CUDA kernels are in
 csrc/fused_decode_attention.cu, whose header notes what bounds them on the
-H100 and what each design does about that: K2 walks each (row, KV head)'s
-slab in one block; the paged step runs the split-key tensor-core walk of
-csrc/split_walk.cuh over the pool in splits of `decode_split` keys and
-merges the splits in the same launch (one launch a call, as K2). The same
-source holds the prep kernel, which replaces ::_qkv_prep_kernel (wrapper
+H100 and what their design does about that: both run the split-key
+tensor-core walk of csrc/split_walk.cuh in splits of `decode_split` keys,
+K2 over one layer's slab (S for the table's width), the paged step over
+the pool, and merge the splits in the same launch (one launch a call). The
+same source holds the prep kernel, which replaces ::_qkv_prep_kernel (wrapper
 `fused_qkv_prep`): the qkv split, QK-norm and RoPE alone, for the
 three-launch paged decode (models/qwen3.py,
 `paged_fused_one=False`: prep, the page write, then paged attention).
@@ -110,10 +110,12 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.tlt_fused_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p
-    ]
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p]
+                   + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.tlt_fused_decode_workspace
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
     fn = lib.tlt_fused_paged_decode_attention
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong, ctypes.c_void_p]
                    + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
@@ -124,10 +126,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# The paged step's arrival counters, one int32 per (batch row, KV head), by
-# device: zero when made, and each launch leaves them zero. A larger batch
-# takes a larger buffer; the earlier ones stay alive, since a CUDA graph
-# captured before may still launch on them.
+# The fused steps' arrival counters (K2's and the paged step's), one int32
+# per (batch row, KV head), by device: zero when made, and each launch
+# leaves them zero. A larger batch takes a larger buffer; the earlier ones
+# stay alive, since a CUDA graph captured before may still launch on them.
 _ARRIVALS: dict[torch.device, list[torch.Tensor]] = {}
 
 
@@ -205,6 +207,8 @@ def fused_decode_attention_cuda(
     qkv_rows, keys, values, offsets, cos_row, sin_row, q_norm_w, k_norm_w,
     *, layer_idx: int, scale: float, eps: float,
 ):
+    """K2: one launch a call (the splits' walk and their merge) in splits of
+    decode_split keys over the slab's S, counted once."""
     global LAUNCHES
     B, Hkv, rows, D = qkv_rows.shape
     Lyr, Bk, Hk, S, Dk = keys.shape
@@ -218,13 +222,17 @@ def fused_decode_attention_cuda(
     offsets, cos_row, sin_row, qw, kw = _check_rows(
         qkv_rows, q_norm_w, k_norm_w, cos_row, sin_row, offsets)
     attn, k_row, v_row = _outputs(qkv_rows)
+    dev = qkv_rows.device
     lib = _lib()
+    kps = decode_split(B, Hkv, S, 1, torch.cuda.get_device_properties(dev).multi_processor_count)
+    nbytes = lib.tlt_fused_decode_workspace(B, Hkv, S, D, rows - 2, kps)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)  # the splits' partials
     err = lib.tlt_fused_decode_attention(
         qkv_rows.data_ptr(), keys.data_ptr(), values.data_ptr(), offsets.data_ptr(),
         cos_row.data_ptr(), sin_row.data_ptr(), qw.data_ptr(), kw.data_ptr(),
-        attn.data_ptr(), k_row.data_ptr(), v_row.data_ptr(),
-        layer_idx, B, Hkv, S, D, rows - 2, float(scale), float(eps),
-        torch.cuda.current_stream(qkv_rows.device).cuda_stream,
+        attn.data_ptr(), k_row.data_ptr(), v_row.data_ptr(), ws.data_ptr(), nbytes,
+        _arrivals(dev, B * Hkv).data_ptr(), layer_idx, B, Hkv, S, D, rows - 2, kps,
+        float(scale), float(eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "fused_decode_attention")
     LAUNCHES += 1

@@ -3,10 +3,12 @@ PyTorch call computing the same function, for whichever tree's
 `tiny_llm_tpu_torch` Python imports: the any-width matmul (Pallas row 17,
 csrc/quant_matmul_sg.cu), the shard decode-state kernel (row 6,
 csrc/flash_attention.cu), the fused paged decode step (row 9,
-csrc/fused_decode_attention.cu) and the grouped W4A16 expert matmul (row
-18, csrc/moe_matmul.cu).
+csrc/fused_decode_attention.cu), the grouped W4A16 expert matmul (row
+18, csrc/moe_matmul.cu), K3 with row 4 (csrc/flash_attention.cu) and K2
+(csrc/fused_decode_attention.cu); and the split sweeps of K3, K2 and row
+9 (rows K3split, K2split, 9split: this tree only).
 
-    PYTHONPATH=. python3 tiny_llm_tpu_torch/kernels/row_timing.py [--label NAME] [--rows 17,6,9,18]
+    PYTHONPATH=. python3 tiny_llm_tpu_torch/kernels/row_timing.py [--label NAME] [--rows 17,6,9,18,K3,K2]
 
 Run it as a file, as kernels/paged_timing.py: with PYTHONPATH at a parent's
 checkout (`git archive`) it times the parent's kernels through the same
@@ -28,7 +30,17 @@ one layer (SPAttention.flash: the shards and the combine) at B = 1 over
 SP_PROMPT keys and B = 4 over SP_BATCH_PROMPTS, beside K3 unsharded. Row 9:
 `FUSED_PAGED_CASES` at Qwen3-4B's heads and at n_rep 8 (Qwen3-30B-A3B's)
 over 8 layers' pools of POOL_PAGES pages, shuffled; library: SDPA over the
-same keys gathered contiguous. Row 18: Qwen3-30B-A3B's gate and down over
+same keys gathered contiguous. K3: `K3_CASES` at Qwen3-4B's heads and at
+n_rep 8 (Qwen3-30B-A3B's), each over 8 layers' slabs; library: SDPA over
+the keys below lens, causal where lens = L, else with the offset-causal
+boolean mask. K2: `K2_CASES` at both heads over the 8 layers of a slab of
+MAX_SEQ positions; library: SDPA over the slab with a per-row boolean mask
+(keys at or below each row's offset: K2's function, the current token's
+key taken from the slab). The sweeps time the same cases through each
+wrapper with its module's split chooser patched (`_split_at`) to each size
+of `SWEEP_KPS` (K3 at L <= 16 and K2, row 9 at `FUSED_PAGED_CASES`) or
+`SWEEP_TILE_KPS` (K3 above L = 16), beside the size the tree's own chooser
+picks. Row 18: Qwen3-30B-A3B's gate and down over
 128 experts at T = 8, 9, 32 and 1024 under random top-8 routing, one expert
 holding 15, 16, 17, 32, 33 or 128 rows, and row 21's T = 64, 128 and 256;
 replayed over 8 random weights; library: torch._grouped_mm on the active
@@ -39,6 +51,7 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 from pathlib import Path
@@ -227,13 +240,253 @@ def _row18(cs, label: str) -> None:
         torch.cuda.empty_cache()
 
 
-ROWS = {"17": _row17, "6": _row6, "9": _row9, "18": _row18}
+# K3's cases: (what, B, L, lens, S); row 4's are those at L <= 16.
+K3_CASES = (
+    ("dense first chunk", 1, 128, (128,), 1024),
+    ("dense chunk at the slab's end", 1, 128, (1024,), 1024),
+    ("serving first chunk", 4, 128, (128, 128, 128, 128), 128),
+    ("long_prefill first chunk of 1024", 1, 1024, (1024,), 1024),
+    ("long_prefill first chunk of 2048", 1, 2048, (2048,), 2048),
+    ("row 4: short prompt", 1, 8, (8,), 1024),
+    ("row 4: L=8 at lens 200", 1, 8, (200,), 1024),
+    ("row 4: L=16 at lens 700", 1, 16, (700,), 1024),
+    ("row 4: B=4 L=1 at lens 130/400/777/1000", 4, 1, (130, 400, 777, 1000), 1024),
+)
+# K2's cases: (what, offsets) over a slab of MAX_SEQ positions.
+K2_CASES = (
+    ("B=1 offset 128", (128,)), ("B=1 offset 192", (192,)), ("B=1 offset 255", (255,)),
+    ("B=1 offset 512", (512,)), ("B=1 offset 1023", (1023,)),
+    ("B=4 offsets 128-255", (128, 170, 213, 255)), ("B=4 offsets 512-1023", (512, 700, 900, 1023)),
+)
+# The tile's sweep adds a prompt chunk's two regimes over longer slabs:
+# every row's keys its chunk's own (lens = L), or the slab's end (lens = S).
+K3_SWEEP_CASES = K3_CASES + tuple(
+    (f"L=128 over a slab of {S} at lens {n}", 1, 128, (n,), S)
+    for S in (2048, 4096, 8192) for n in (128, S))
+SWEEP_KPS = (128, 256, 512, 1024)
+SWEEP_TILE_KPS = (128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+@contextlib.contextmanager
+def _split_at(module, chooser: str, kps: int):
+    """The module's split chooser (`flash_split`, or the `decode_split`
+    that fused_decode_attention imports) answering `kps` for every shape
+    inside the block: the wrappers, counted and otherwise unchanged, then
+    launch their kernels in splits of `kps` keys."""
+    old = getattr(module, chooser)
+    setattr(module, chooser, lambda *shape: kps)
+    try:
+        yield
+    finally:
+        setattr(module, chooser, old)
+
+
+def _heads():
+    from tiny_llm_tpu_torch.models import QWEN3_CONFIGS
+
+    return {"qwen3-4b": QWEN3_CONFIGS["qwen3-4b"], "n_rep 8": QWEN3_CONFIGS["qwen3-30b-a3b"]}
+
+
+def _k3_inputs(cfg, gen, B, L, S, Ly=8):
+    dev = torch.device("cuda")
+    Hkv, D = cfg.num_key_value_heads, cfg.head_dim
+    Hq = cfg.num_attention_heads
+    q = torch.randn((B, Hq, L, D), generator=gen, device=dev).to(torch.bfloat16)
+    ks = torch.randn((Ly, B, Hkv, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    vs = torch.randn((Ly, B, Hkv, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    return q, ks, vs
+
+
+def _k3_sdpa(q, ks, vs, lens_l, L, sc):
+    """SDPA computing K3's function over each layer's slab: causal where
+    every row's lens is L (the keys below L), else an offset-causal boolean
+    mask over the keys below max(lens)."""
+    dev = q.device
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if all(n == L for n in lens_l):
+        return lambda i: sdpa(q, ks[i][:, :, :L], vs[i][:, :, :L], is_causal=True, scale=sc,
+                              enable_gqa=True)
+    n = max(lens_l)
+    lens = torch.tensor(lens_l, device=dev)
+    pos = lens[:, None] - L + torch.arange(L, device=dev)[None, :]  # [B, L]
+    mask = (torch.arange(n, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
+    return lambda i: sdpa(q, ks[i][:, :, :n], vs[i][:, :, :n], attn_mask=mask, scale=sc,
+                          enable_gqa=True)
+
+
+def _rowK3(cs, label: str) -> None:
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for heads, cfg in _heads().items():
+        sc = cfg.head_dim**-0.5
+        for what, B, L, lens_l, S in K3_CASES:
+            q, ks, vs = _k3_inputs(cfg, gen, B, L, S)
+            lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+            err = cs.max_err(ka.flash_attention_cuda(q, ks[0], vs[0], lens, sc),
+                             ka.flash_attention_plain(q, ks[0], vs[0], lens, sc))
+            kern = cs.graph_ms(lambda: [ka.flash_attention_cuda(q, ks[i], vs[i], lens, sc)
+                                        for i in range(len(ks))]) / len(ks)
+            lib_fn = _k3_sdpa(q, ks, vs, lens_l, L, sc)
+            lib = cs.graph_ms(lambda: [lib_fn(i) for i in range(len(ks))]) / len(ks)
+            print(json.dumps({"label": label, "row": "K3", "heads": heads, "case": what, "B": B,
+                              "L": L, "lens": list(lens_l), "S": S, "kernel_ms": kern,
+                              "sdpa_ms": lib, "max_err_vs_plain": err}), flush=True)
+            del q, ks, vs
+        torch.cuda.empty_cache()
+
+
+def _rowK3split(cs, label: str) -> None:
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for heads, cfg in _heads().items():
+        sc, Hkv = cfg.head_dim**-0.5, cfg.num_key_value_heads
+        n_rep = cfg.num_attention_heads // Hkv
+        for what, B, L, lens_l, S in K3_SWEEP_CASES:
+            q, ks, vs = _k3_inputs(cfg, gen, B, L, S)
+            lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+            want = ka.flash_attention_plain(q, ks[0], vs[0], lens, sc)
+            sizes = SWEEP_KPS if L <= ka.DECODE_MAX_L else SWEEP_TILE_KPS
+            times = {}
+            chosen = ka.flash_split(B, Hkv, L, n_rep, S, sms)
+            for kps in sorted({min(k, S) for k in sizes}):
+                with _split_at(ka, "flash_split", kps):
+                    err = cs.max_err(ka.flash_attention_cuda(q, ks[0], vs[0], lens, sc), want)
+                    times[kps] = [cs.graph_ms(lambda: [ka.flash_attention_cuda(
+                        q, ks[i], vs[i], lens, sc) for i in range(len(ks))]) / len(ks), err]
+            print(json.dumps({"label": label, "row": "K3split", "heads": heads, "case": what,
+                              "B": B, "L": L, "lens": list(lens_l), "S": S,
+                              "chosen_kps": chosen, "ms_and_err_by_kps": times}), flush=True)
+            del q, ks, vs
+        torch.cuda.empty_cache()
+
+
+def _k2_inputs(cs, cfg, gen, offs, Ly=8):
+    dev = torch.device("cuda")
+    Hkv, D = cfg.num_key_value_heads, cfg.head_dim
+    n_rep, B = cfg.num_attention_heads // Hkv, len(offs)
+    from tiny_llm_tpu_torch.ops.rope import rope_tables
+
+    cos_t, sin_t = rope_tables(D, cs.MAX_SEQ, cfg.rope_theta, device=dev)
+    keys = torch.randn((Ly, B, Hkv, cs.MAX_SEQ, D), generator=gen, device=dev).to(torch.bfloat16)
+    values = torch.randn_like(keys, dtype=torch.float32).to(torch.bfloat16)
+    qkv = torch.randn((B, Hkv, n_rep + 2, D), generator=gen, device=dev).to(torch.bfloat16)
+    qw = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+    kw = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    return (qkv, keys, values, off, cos_t[off.long()], sin_t[off.long()], qw, kw)
+
+
+def _rowK2(cs, label: str) -> None:
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for heads, cfg in _heads().items():
+        sc, eps, D = cfg.head_dim**-0.5, cfg.rms_norm_eps, cfg.head_dim
+        for what, offs in K2_CASES:
+            args = _k2_inputs(cs, cfg, gen, offs)
+            keys, values, off, Ly, B = args[1], args[2], args[3], args[1].shape[0], len(offs)
+            err = cs.max_err(
+                kf.fused_decode_attention_cuda(*args, layer_idx=3, scale=sc, eps=eps)[0],
+                kf.fused_decode_attention_plain(*args, layer_idx=3, scale=sc, eps=eps)[0])
+            kern = cs.graph_ms(lambda: [kf.fused_decode_attention_cuda(
+                *args, layer_idx=i, scale=sc, eps=eps) for i in range(Ly)]) / Ly
+            q = torch.randn((B, cfg.num_attention_heads, 1, D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            mask = (torch.arange(cs.MAX_SEQ, device="cuda")[None, :]
+                    <= off[:, None])[:, None, None]
+            lib = cs.graph_ms(lambda: [sdpa(q, keys[i], values[i], attn_mask=mask, scale=sc,
+                                            enable_gqa=True) for i in range(Ly)]) / Ly
+            n_ctx = max(offs) + 1
+            unmasked = cs.graph_ms(lambda: [sdpa(q, keys[i][:, :, :n_ctx],
+                                                 values[i][:, :, :n_ctx], scale=sc,
+                                                 enable_gqa=True) for i in range(Ly)]) / Ly
+            print(json.dumps({"label": label, "row": "K2", "heads": heads, "case": what,
+                              "offsets": list(offs), "kernel_ms": kern, "sdpa_ms": lib,
+                              "sdpa_no_row_lengths_ms": unmasked, "max_err_vs_plain": err}),
+                  flush=True)
+            del args, keys, values
+        torch.cuda.empty_cache()
+
+
+def _rowK2split(cs, label: str) -> None:
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for heads, cfg in _heads().items():
+        sc, eps, Hkv = cfg.head_dim**-0.5, cfg.rms_norm_eps, cfg.num_key_value_heads
+        for what, offs in K2_CASES:
+            args = _k2_inputs(cs, cfg, gen, offs)
+            Ly = args[1].shape[0]
+            want = kf.fused_decode_attention_plain(*args, layer_idx=3, scale=sc, eps=eps)[0]
+            times = {}
+            for kps in SWEEP_KPS:
+                with _split_at(kf, "decode_split", kps):
+                    err = cs.max_err(kf.fused_decode_attention_cuda(
+                        *args, layer_idx=3, scale=sc, eps=eps)[0], want)
+                    times[kps] = [cs.graph_ms(lambda: [kf.fused_decode_attention_cuda(
+                        *args, layer_idx=i, scale=sc, eps=eps) for i in range(Ly)]) / Ly, err]
+            print(json.dumps({"label": label, "row": "K2split", "heads": heads, "case": what,
+                              "offsets": list(offs),
+                              "chosen_kps": pa.decode_split(len(offs), Hkv, cs.MAX_SEQ, 1, sms),
+                              "ms_and_err_by_kps": times}), flush=True)
+            del args
+        torch.cuda.empty_cache()
+
+
+def _row9split(cs, label: str) -> None:
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+    from tiny_llm_tpu_torch.ops.rope import rope_tables
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    width, Ly = cs.MAX_SEQ // cs.PAGE_SIZE, 8
+    perm = (torch.randperm(cs.POOL_PAGES - 1, generator=torch.Generator().manual_seed(2))
+            + 1).numpy()
+    for heads, cfg in _heads().items():
+        Hkv, D = cfg.num_key_value_heads, cfg.head_dim
+        n_rep, sc, eps = cfg.num_attention_heads // Hkv, D**-0.5, cfg.rms_norm_eps
+        cos_t, sin_t = rope_tables(D, cs.MAX_SEQ, cfg.rope_theta, device=dev)
+        shape = (Ly, cs.POOL_PAGES, Hkv, cs.PAGE_SIZE, D)
+        kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        qw = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+        kw = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+        for what, offs, idle in cs.FUSED_PAGED_CASES:
+            B = len(offs)
+            bt = cs._tables(perm, [0 if b == idle else o + 1 for b, o in enumerate(offs)], width)
+            qkv = torch.randn((B, Hkv, n_rep + 2, D), generator=gen, device=dev).to(torch.bfloat16)
+            off = torch.tensor(offs, dtype=torch.int32, device=dev)
+            cr, sr = cos_t[off.long()], sin_t[off.long()]
+            args = lambda i: (qkv, kp[i], vp[i], bt, off, cr, sr, qw, kw)  # noqa: E731
+            times = {}
+            for kps in SWEEP_KPS:
+                with _split_at(kf, "decode_split", kps):
+                    times[kps] = cs.graph_ms(lambda: [kf.fused_paged_decode_attention_cuda(
+                        *args(i), scale=sc, eps=eps) for i in range(Ly)]) / Ly
+            print(json.dumps({"label": label, "row": "9split", "heads": heads, "case": what,
+                              "offsets": list(offs),
+                              "chosen_kps": pa.decode_split(B, Hkv, width, cs.PAGE_SIZE, sms),
+                              "ms_by_kps": times}), flush=True)
+        del kp, vp
+        torch.cuda.empty_cache()
+
+
+ROWS = {"17": _row17, "6": _row6, "9": _row9, "18": _row18, "K3": _rowK3, "K2": _rowK2,
+        "K3split": _rowK3split, "K2split": _rowK2split, "9split": _row9split}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--rows", default=",".join(ROWS), help="comma-separated rows to time")
+    ap.add_argument("--rows", default="17,6,9,18,K3,K2", help="comma-separated rows to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("row_timing needs a CUDA device")
