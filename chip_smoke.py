@@ -10,8 +10,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             and row 17's staged tiles and the paged prefill must hold HGMMA
             in their SASS, the masked decode walk, row 14's split walk, the
             paged decode's, row 6's (K3's at L <= 16 too) and row 9's and
-            K2's split walks, K1's and row 17's bf16 tiles and row 18's bf16
-            tile walk HMMA, K3's tile HGMMA, the two W4A8 tiles IMMA
+            K2's split walks, K1's and row 17's bf16 tiles and rows 18's and
+            20's bf16 tile walks HMMA, K3's tile HGMMA, the two W4A8 tiles
+            IMMA
   kernels   every kernel against its plain PyTorch version on the card at
             the shapes the main paths give it; kernel, plain and library
             times and the least time the card could take (the bound). K1
@@ -45,7 +46,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             expert matmul (gate and down at T = 8, 32, 1024 and edge cases:
             one expert holding 15, 16, 17, 32, 33 or 128 rows, T = 8 and 9
             on both sides of its gate, T = 16, empty experts at both ends;
-            a whole decode step's 72 calls; and at T = 64, 128, 256, the
+            a whole decode step's 3 x MOE_LAYERS calls; and at T = 64, 128, 256, the
             regime of the JAX package's expert-gather schedule, which this
             kernel covers) and the attention kernels at Hkv 4, n_rep 8
   model     the dense path: Qwen3-4B W4A16 (random weights from a seed, full
@@ -90,8 +91,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   mixed_serving the serving phase's campaign with mixed_prefill=True (two
             campaigns)
   moe_model     the model phase on Qwen3-30B-A3B W4A16 (full width, 128
-            experts, top-8; 24 of its 48 layers, MOE_LAYERS):
-            exact launch counts (K1 73, grouped 72, K2 or K3 24 per step),
+            experts, top-8; 16 of its 48 layers, MOE_LAYERS):
+            exact launch counts (K1 49, grouped 48, K2 or K3 16 per step),
             a sync-free burst
   moe_parity    parity and paged_parity at the 30B-A3B widths, 4 layers; the
             plain path takes the kernel path's expert choice where the two
@@ -110,7 +111,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             grouped W4A8 matmul (30B-A3B gate and down, T = 8, 16, 32, 128,
             one expert holding 16, 17, 64 or 128 rows, two holding 65 and
             63, empty experts) and the grouped any-width matmul (30B-A3B W4
-            g64, T = 8, 32, 1024); int8 bounds at 1979 TOPS; beside each
+            g64 and W8 g64 at its routes' edges: T = 8, SG_B16_MIN_T - 1 and
+            SG_B16_MIN_T, one expert holding 15, 16, 17, 32 or 33 rows,
+            empty experts at both ends, T = 32 and 1024, and from the gate
+            an expert holding 15, 16, 17 or 33 rows among the others' and
+            one holding all; each case's route asserted, each held per
+            element, 2 bf16 ulps + 1e-3 of max); int8 bounds at 1979 TOPS;
+            beside each
             W4A8 case the GEMV's time before the int8 tile as PERF.md
             records it (a prior record, not measured in the run); one
             decode step each for the kernel line
@@ -132,14 +139,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             prompt tails of 3-32 tokens reach the W4A8 matmul's int8 tile)
   a8_moe    (run right after `moe_model`) Qwen3-30B-A3B with
             act_quant="int8" on moe_model's weights: one decode run (the
-            grouped W4A8 matmul 72, the W4A8 matmul 48, K1 25 a step; the
-            grouped W4A16 matmul 72 a prefill), runs in turns with
+            grouped W4A8 matmul 3, the W4A8 matmul 2 and K1 1 a layer and
+            step, K1 also the LM head; the grouped W4A16 matmul 3 a layer a
+            prefill), runs in turns with
             W4A16's, and 4-layer parity under RouteForcer (its 12-token
             tail: the grouped W4A8 matmul's int8 tile walk at T = 96)
   sg_moe    Qwen3-30B-A3B at W4 g64 (built once the W4 model is freed: one
             30B model on the card at a time): the grouped any-width
-            matmul's decode step, one decode run (the any-width matmul 145,
-            the grouped any-width matmul 72 a step), 4-layer parity
+            matmul's decode step, one decode run (the any-width matmul 3
+            a layer and the LM head, the grouped any-width matmul 3 a layer
+            a step), 4-layer parity
 
 Sequence-parallel attention, Qwen3-4B with its KV split over 8
 shards, every shard a view on this card (parallel.SPAttention), run after
@@ -184,10 +193,14 @@ The last Pallas rows:
   axpby     the tutorial kernel at 8192 x 8192, bf16 and f32, bit-equal to
             its plain version; then axpby() as a user calls it
   paged3_parity (run before serving) Qwen3Model(paged_fused_one=False), 4
-            layers: the three-launch route (the prep kernel, the page write,
-            the paged decode kernel) against its plain route and against
-            the fused route, teacher-forced; exact launches a step; a
-            sync-free burst; the prep kernel against its plain version
+            layers: the three-launch route (the prep kernel, which writes
+            the page rows, then the paged decode kernel) against its plain
+            route and against the fused route, teacher-forced; exact
+            launches a step; a profiled step (the device's kernels a step);
+            a sync-free burst; the prep kernel against its plain version,
+            returning its rows and writing them into the pages (a page's
+            boundary +-1, an idle row: written slots against plain, every
+            other slot untouched, one launch a call)
   paged3_serving  (run after serving) the serving campaign through that
             route at full depth, after its own warm-up: two campaigns, taken
             in turns with `serving`'s three (A B A B A); exact launches of a
@@ -255,10 +268,10 @@ SP_SHARDS, SP_MAX_SEQ, SP_PROMPT, SP_CHUNK = 8, 8192, 6000, 2048
 SP_BATCH_PROMPTS = (1000, 2100, 3500, 5000)
 SP_PAGES = 400
 SP = ("flash_decode_state", "paged_decode_state")  # the sequence-parallel path's own kernels
-# Qwen3-30B-A3B runs at full width and 24 of its 48 layers in every MoE
-# phase (at 48 the whole script took 1174 s of its 1200 on a slow host;
-# the 4B model carries the full-depth main path).
-MOE_LAYERS = 24
+# Qwen3-30B-A3B runs at full width and 16 of its 48 layers in every MoE
+# phase (on slow hosts the whole script took 1174 s of its 1200 at 48,
+# 1098 s at 24; the 4B model carries the full-depth main path).
+MOE_LAYERS = 16
 
 
 PHASES: list[dict] = []  # every phase line printed, for --out
@@ -342,7 +355,7 @@ def phase_build():
     regs = {name: build.ptxas_registers(info["ptxas"]) for name, info in log.items()}
     # Each library's SASS read once, all in parallel (cuobjdump processes).
     srcs = ("flash_attention", "paged_attention", "flash_attention_masked", "quant_matmul",
-            "moe_matmul", "quant_matmul_sg", "fused_decode_attention")
+            "moe_matmul", "quant_matmul_sg", "fused_decode_attention", "moe_matmul_sg")
     with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
         sass = dict(zip(srcs, pool.map(lambda n: build.sass_report(build._target(n)), srcs)))
 
@@ -391,6 +404,9 @@ def phase_build():
     check(len(fused) == 8 and all(fused.values()), f"row 9 split walk HMMA: {fused}")
     gb16 = tensor_ops("moe_matmul", "moe_b16_tile", "tensor_core_ops")
     check(len(gb16) == 1 and all(gb16.values()), f"row 18 bf16 tile walk HMMA: {gb16}")
+    # Row 20's tile walk at its 8 widths (row 18's walk on row 17's bodies).
+    sgb16 = tensor_ops("moe_matmul_sg", "moe_sg_b16_tile", "tensor_core_ops")
+    check(len(sgb16) == 8 and all(sgb16.values()), f"row 20 bf16 tile walk HMMA: {sgb16}")
     # K3 above L = 16 runs the wgmma tile (HGMMA), unsplit and key-split (8
     # instances each); at L <= 16 row 6's split walk (checked above). K2
     # runs row 9's split walk over the slab (8 instances, HMMA).
@@ -407,6 +423,7 @@ def phase_build():
           "paged_prefill_hgmma": pfill, "sg_b16_tile_tensor_core_ops": sg_b16,
           "sg_staged_tile_hgmma": sg_staged, "flash_decode_walk_tensor_core_ops": fdec,
           "fused_paged_walk_tensor_core_ops": fused, "grouped_b16_tile_tensor_core_ops": gb16,
+          "grouped_sg_b16_tile_tensor_core_ops": sgb16,
           "k3_tile_hgmma": k3tile,
           "k2_walk_tensor_core_ops": k2walk,
           "library_done_s": {n: round(i["seconds"], 1) for n, i in log.items()},
@@ -997,19 +1014,23 @@ def _grouped_cases(model, cfg, gen, contract):
 
 
 def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_kernel,
-                          peak=BF16_FLOPS, control=None):
+                          peak=BF16_FLOPS, control=None, per_element=False):
     """A grouped kernel against its plain version at the gate and down
-    projections of `mlps` for each (label, group sizes) of `specs`, timed
-    over every layer's weights (`control`: as in `_dense_cases`);
-    the library yardstick (torch._grouped_mm on 8 layers' bf16-dequantized
-    weights) is checked against the W4A16-exact plain version."""
+    projections of `mlps` for each (label, group sizes[, route]) of
+    `specs`, timed over every layer's weights (`control`: as in
+    `_dense_cases`; `per_element`: held to 2 bf16 ulps + 1e-3 of max per
+    element, `_close` with codes, without a control); where a spec names
+    the route the kernel's entry must take, asserted; the library yardstick
+    (torch._grouped_mm on 8 layers' bf16-dequantized weights) is checked
+    against the W4A16-exact plain version."""
     from tiny_llm_tpu_torch.kernels import moe_matmul as km
 
     dev = torch.device("cuda")
     E = cfg.num_experts
-    codes = control is not None
+    codes = control is not None or per_element
+    route_of = {"grouped_quant_matmul": km.w4a16_route, "grouped_quant_matmul_sg": km.sg_route}
     cases = []
-    for what, sizes in specs:
+    for what, sizes, *route in specs:
         T = int(sizes.sum())
         sizes_t = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
         for proj in ("w_gate", "w_down"):
@@ -1022,11 +1043,11 @@ def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_
             err, ratio = _close(got, want, codes)
             check(ratio <= 1, f"{kernel} {proj} {what}: {err} is {ratio} x {_tol_rule(codes)}")
             extra = {}
-            if codes:
+            if control is not None:
                 extra["w4a16_err_over_tol"] = _close(control(x, ws[0], sizes_t), want, codes)[1]
                 check(extra["w4a16_err_over_tol"] > 1,
                       f"{kernel} {proj} {what}: W4A16 passes the W4A8 check")
-            if codes and "one expert" in what and T == 128:  # the worst case, as above
+            if control is not None and "one expert" in what and T == 128:  # the worst case
                 extra["device_ms_by_kernel"] = _device_profile(
                     lambda: cuda_fn(x, ws[0], sizes_t), 1)["top_kernels_ms_per_step"]
             kern = graph_ms(lambda: [cuda_fn(x, w, sizes_t) for w in ws]) / len(ws)
@@ -1039,8 +1060,10 @@ def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_
             lib = graph_ms(lambda: [lib_fn(i) for i in range(8)]) / 8
             del lib_fn, lib_out, exact
             bms, by = bound(_grouped_bytes(ws[0], sizes, T), 2 * T * N * K, peak)
-            if kernel == "grouped_quant_matmul":
-                extra["route"] = km.w4a16_route(T)
+            if kernel in route_of:
+                extra["route"] = route_of[kernel](T)
+                check(not route or extra["route"] == route[0],
+                      f"{kernel} {what}: the {extra['route']} route, not {route}")
             cases.append({"kernel": kernel, "tpu_kernel": tpu_kernel, "proj": proj[2:],
                           "spec": what,
                           "shape": f"{proj[2:]} N={N} K={K} E={E} W{ws[0].bits} "
@@ -1512,6 +1535,7 @@ def _device_profile(run, steps: int, top: int = 8):
     top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
     # Host times are the profiler's own (it adds cost to every op it records).
     return {"device_ms_per_step": total or None,
+            "device_ops_per_step": sum(n for _, n in by_name.values()),
             "top_kernels_ms_per_step": {k[:60]: [ms, n] for k, (ms, n) in kernels},
             "top_host_ops_ms_per_step_profiled": {k[:60]: [ms, n] for k, (ms, n) in top_host}}
 
@@ -2669,6 +2693,78 @@ def _sg_cases(cfg, sg_model, gen):
     return cases
 
 
+def _sg_gate() -> int:
+    """SG_B16_MIN_T as csrc/moe_matmul_sg.cu writes it (the route each of
+    row 20's cases names comes from the source, the one taken from the
+    library)."""
+    src = Path(__file__).resolve().parent / "tiny_llm_tpu_torch" / "csrc" / "moe_matmul_sg.cu"
+    return int(re.search(r"^constexpr int SG_B16_MIN_T = (\d+);$", src.read_text(),
+                         flags=re.M).group(1))
+
+
+def _sg_grouped_cases(moe_cfg, gen, rng):
+    """Row 20 at Qwen3-30B-A3B's gate and down, W4 g64 and W8 g64 (8 random
+    weight sets of 128 experts each, drawn as `_random_qt`), at its routes'
+    edges: T = 8 (one token's top-8: eight experts of a row), SG_B16_MIN_T
+    - 1 and SG_B16_MIN_T (tokens' top-8 and a row each of more experts),
+    one expert holding every row of 15, 16, 17, 32 or 33 (the GEMV's 4-row
+    passes), experts 0-4 and 121-127 empty (T = 24), T = 32 and 1024 (4
+    and 128 tokens' top-8); on the tile from the gate, SG_B16_MIN_T / 8
+    tokens' top-8 with expert 17 holding 15, 16, 17 or 33 rows (the tile's
+    16-row edges) and one expert holding all SG_B16_MIN_T rows (the fewest
+    tiles there). Each case names the route the entry must take (by the
+    gate in the source) and is held per element to the plain version."""
+    from types import SimpleNamespace
+
+    from tiny_llm_tpu_torch.kernels import moe_matmul as km
+
+    E, k, gate = moe_cfg.num_experts, moe_cfg.num_experts_per_tok, _sg_gate()
+    one = lambda T: np.bincount([17] * T, minlength=E)  # noqa: E731
+
+    def spread(T):  # T // k tokens' top-8, then a row each of experts they left empty
+        sz = _routing(rng, T // k, E, k)
+        for extra in range(T % k):
+            sz[int(np.flatnonzero(sz == 0)[0])] += 1
+        return sz
+
+    def hot(rows):  # the gate's tokens' top-8, expert 17 holding `rows` of them
+        sz = _routing(rng, gate // k, E, k)
+        sz[17] = rows
+        return sz
+
+    specs = [("T=8: one token's top-8", _routing(rng, 1, E, k)),
+             (f"T={gate - 1}: below the gate", spread(gate - 1)),
+             (f"T={gate}: at the gate", spread(gate))]
+    specs += [(f"T={T}, one expert holds every row", one(T)) for T in (15, 16, 17, 33)]
+    specs += [("T=32, one expert holds every row", one(32)),
+              ("T=24, experts 0-4 and 121-127 empty", np.concatenate([
+                  np.zeros(5, int), rng.multinomial(24, np.full(E - 12, 1 / (E - 12))),
+                  np.zeros(7, int)])),
+              ("T=32: four tokens' top-8", _routing(rng, 4, E, k)),
+              ("T=1024: 128 tokens' top-8", _routing(rng, 128, E, k))]
+    specs += [(f"T={int(sz.sum())}: {gate // k} tokens' top-8, expert 17 holding {rows} rows",
+               sz) for rows, sz in ((r, hot(r)) for r in (15, 16, 17, 33))]
+    specs += [(f"T={gate}, one expert holds every row: the fewest tiles at the gate", one(gate))]
+    specs = [(w, sz, "b16" if sz.sum() >= gate else "gemv") for w, sz in specs]
+    shapes = {"w_gate": (moe_cfg.moe_intermediate_size, moe_cfg.hidden_size),
+              "w_down": (moe_cfg.hidden_size, moe_cfg.moe_intermediate_size)}
+    cases = []
+    for bits, gs in ((4, 64), (8, 64)):
+        drawn = {p: [type(q)(q.packed.view(E, N, -1), q.scales.view(E, N, -1),
+                             q.biases.view(E, N, -1), N, K, q.k_padded, gs, bits)
+                     for q in _random_qt(gen, E * N, K, bits, gs, copies=8)]
+                 for p, (N, K) in shapes.items()}
+        mlps = [SimpleNamespace(**{p: drawn[p][i] for p in shapes}) for i in range(8)]
+        del drawn
+        cases += [dict(c, model="qwen3-30b-a3b") for c in _grouped_kernel_cases(
+            mlps, moe_cfg, gen, specs, "grouped_quant_matmul_sg",
+            km.grouped_quant_matmul_sg_cuda, km.grouped_quant_matmul_plain, km.TPU_KERNEL_SG,
+            per_element=True)]
+        del mlps
+        torch.cuda.empty_cache()
+    return cases
+
+
 def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
     """The quant tiers' kernels against their plain versions on the card,
     timed by CUDA-graph replay over distinct weights (up to 8 layers'):
@@ -2685,7 +2781,6 @@ def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
     (30B-A3B) matmuls for the kernel line."""
     from tiny_llm_tpu_torch.kernels import moe_matmul as km
     from tiny_llm_tpu_torch.kernels import quant_matmul as qm
-    from tiny_llm_tpu_torch.models import synthetic_quantized_params
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
@@ -2722,16 +2817,7 @@ def phase_quant_kernels(model, cfg, sg_model, moe, moe_cfg, contract):
         mlps, moe_cfg, gen, specs, "grouped_quant_matmul_a8", km.grouped_quant_matmul_a8_cuda,
         km.grouped_quant_matmul_a8_plain, km.TPU_KERNEL_A8, INT8_OPS,
         control=km.grouped_quant_matmul_plain)]
-    cut = dataclasses.replace(moe_cfg, num_hidden_layers=8)
-    sg_mlps = [layer.mlp for layer in synthetic_quantized_params(cut, seed=7, group_size=64).layers]
-    specs = [("T=8: one token's top-8", _routing(rng, 1, E, k)),
-             ("T=32: four tokens' top-8", _routing(rng, 4, E, k)),
-             ("T=1024: 128 tokens' top-8", _routing(rng, 128, E, k))]
-    cases += [dict(c, model="qwen3-30b-a3b") for c in _grouped_kernel_cases(
-        sg_mlps, moe_cfg, gen, specs, "grouped_quant_matmul_sg", km.grouped_quant_matmul_sg_cuda,
-        km.grouped_quant_matmul_plain, km.TPU_KERNEL_SG)]
-    del sg_mlps
-    torch.cuda.empty_cache()
+    cases += _sg_grouped_cases(moe_cfg, gen, rng)
     contract["quant_matmul_a8"] = _dense_step(
         model.params, cfg, gen, qm.quant_matmul_a8_cuda, qm.quant_matmul_a8_plain,
         "quant_matmul_a8", qm.SOURCE, "tiny_llm_tpu/kernels/quant_matmul.py:278", "4B W4A8",
@@ -3762,54 +3848,111 @@ def _mask_edge_cases(shapes, qkv, run_case):
 
 
 def _prep_cases(contract, Ly):
-    """The prep kernel (row 8) against its plain version at B = 1 and 4 at
-    Qwen3-4B's heads (Hkv 8, n_rep 4) and at n_rep 8 (Hkv 4): q and the k row
-    within 2^-7 of max |plain| (one bf16 ulp: rsqrt's last bit may move a
-    rounding), the v row bit-equal; timed over Ly calls."""
+    """The prep kernel (row 8) against its plain version at Qwen3-4B's heads
+    (Hkv 8, n_rep 4) and at n_rep 8 (Hkv 4), D = 128: the returning route at
+    B = 1 and 4 (q and the k row within 2^-7 of max |plain|, one bf16 ulp:
+    rsqrt's last bit may move a rounding; the v row bit-equal), then the
+    writing route the three-launch step takes (pages given) over a 16-page
+    pool of PAGE_SIZE slots: B = 1 at offset PAGE_SIZE - 1, B = 4 at offsets
+    PAGE_SIZE - 1, PAGE_SIZE, PAGE_SIZE + 1 (a page's boundary +-1) beside an
+    idle row (its table row -1: the trash page 0): q within 2^-7 of max, the
+    written k slots within 2^-7 of max of the plain version's, the written v
+    slots bit-equal, every other slot of both pools untouched, one launch a
+    call; each timed over Ly layers' pools. The kernel line takes the
+    writing route at B = 4, Qwen3-4B's heads."""
+    from tiny_llm_tpu_torch import kernels
     from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+    from tiny_llm_tpu_torch.models.qwen3 import _page_targets
     from tiny_llm_tpu_torch.ops.rope import rope_tables
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
-    D, eps = 128, 1e-6
+    D, eps, pages = 128, 1e-6, 16
     cos_t, sin_t = rope_tables(D, MAX_SEQ, base=1e6, device=dev)
     qw = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
     kw = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
     cases, worst = [], 0.0
+    tol = "2^-7 max|plain| (q, k row); v row bit-equal"
+    write_tol = tol + "; every other slot untouched; one launch a call"
     for Hkv, n_rep in ((8, 4), (4, 8)):
-        for offs in ([700], [100, 700, 37, 999]):
-            B = len(offs)
+        pools = torch.randn((Ly, 2, pages, Hkv, PAGE_SIZE, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        for offs, idle in (([700], None), ([100, 700, 37, 999], None), ([PAGE_SIZE - 1], None),
+                           ([PAGE_SIZE - 1, PAGE_SIZE, 5, PAGE_SIZE + 1], 2)):
+            B, write = len(offs), idle is not None or offs == [PAGE_SIZE - 1]
             qkv = (3 * torch.randn((B, Hkv, n_rep + 2, D), generator=gen, device=dev)).to(
                 torch.bfloat16)
             off = torch.tensor(offs, dtype=torch.int32, device=dev)
             args = (qkv, off, cos_t[off.long()], sin_t[off.long()], qw, kw)
-            got = kf.fused_qkv_prep_cuda(*args, eps=eps)
-            want = kf.fused_qkv_prep_plain(*args, eps=eps)
-            torch.cuda.synchronize()
-            for part, g, w in (("q", got[0], want[0]), ("k row", got[1], want[1])):
-                err = max_err(g, w)
-                check(err <= 2**-7 * float(w.float().abs().max()), f"prep {part} B={B}: {err}")
+            if not write:
+                got = kf.fused_qkv_prep_cuda(*args, eps=eps)
+                want = kf.fused_qkv_prep_plain(*args, eps=eps)
+                torch.cuda.synchronize()
+                err = 0.0
+                for part, g, w in (("q", got[0], want[0]), ("k row", got[1], want[1])):
+                    e = max_err(g, w)
+                    check(e <= 2**-7 * float(w.float().abs().max()), f"prep {part} B={B}: {e}")
+                    err = max(err, e)
                 worst = max(worst, err)
-            check(torch.equal(got[2], want[2]), "prep v row not bit-equal")
-            kern = graph_ms(lambda: [kf.fused_qkv_prep_cuda(*args, eps=eps)
-                                     for _ in range(Ly)]) / Ly
-            plain = event_ms(lambda: kf.fused_qkv_prep_plain(*args, eps=eps))
+                check(torch.equal(got[2], want[2]), "prep v row not bit-equal")
+                kern = graph_ms(lambda: [kf.fused_qkv_prep_cuda(*args, eps=eps)
+                                         for _ in range(Ly)]) / Ly
+                plain = event_ms(lambda: kf.fused_qkv_prep_plain(*args, eps=eps))
+            else:
+                table = torch.arange(1, 1 + 2 * B, device=dev, dtype=torch.int32).view(B, 2)
+                if idle is not None:
+                    table[idle] = -1
+                page, slot = _page_targets(table, off.long()[:, None], PAGE_SIZE)
+                before = pools[0].clone()
+                want_pool = pools[0].clone()
+                want = kf.fused_qkv_prep_plain(*args, eps=eps, pages=(
+                    want_pool[0], want_pool[1], page, slot))
+                kernels.reset_launches()
+                got = kf.fused_qkv_prep_cuda(*args, eps=eps, pages=(
+                    pools[0, 0], pools[0, 1], page, slot))
+                torch.cuda.synchronize()
+                check(kernels.launches()["fused_qkv_prep"] == 1, "prep: one launch a call")
+                err = max_err(got, want)
+                check(err <= 2**-7 * float(want.float().abs().max()), f"prep q B={B}: {err}")
+                hit = torch.zeros((pages, PAGE_SIZE), dtype=torch.bool, device=dev)
+                hit[page[:, 0], slot[:, 0]] = True
+                for what, name in ((0, "k"), (1, "v")):
+                    got_p, want_p = pools[0, what].transpose(1, 2), want_pool[what].transpose(1, 2)
+                    check(torch.equal(got_p[~hit], before[what].transpose(1, 2)[~hit]),
+                          f"prep wrote {name} outside its slots, B={B}")
+                    if name == "v":
+                        check(torch.equal(got_p[hit], want_p[hit]), "prep v slots not bit-equal")
+                    else:
+                        k_err = max_err(got_p[hit], want_p[hit])
+                        check(k_err <= 2**-7 * float(want_p[hit].float().abs().max()),
+                              f"prep k slots B={B}: {k_err}")
+                        err = max(err, k_err)
+                worst = max(worst, err)
+                kern = graph_ms(lambda: [kf.fused_qkv_prep_cuda(*args, eps=eps, pages=(
+                    pools[i, 0], pools[i, 1], page, slot)) for i in range(Ly)]) / Ly
+                plain = event_ms(lambda: kf.fused_qkv_prep_plain(*args, eps=eps, pages=(
+                    want_pool[0], want_pool[1], page, slot)))
             rows = B * Hkv * (n_rep + 2) * D
-            # Read the rows, the RoPE rows and the weights; write q, k, v.
+            # Read the rows, the RoPE rows and the weights; write q, k, v
+            # (the pages' slots or the k / v rows).
             bms, by = bound(2 * rows * 2 + B * D * 4 + 2 * D * 2, 12 * rows, FP32_FLOPS)
-            case = {"kernel": "fused_qkv_prep", "tpu_kernel": kf.TPU_KERNEL_PREP,
-                    "shape": f"B={B} offsets={offs} Hkv={Hkv} n_rep={n_rep} D={D}",
-                    "max_err": worst, "tol": "2^-7 max|plain| (q, k row); v row bit-equal",
-                    "kernel_ms": kern, "plain_ms": plain, "library_ms": None,
-                    "bound_ms": bms, "bound_by": by}
+            shape = f"B={B} offsets={offs} Hkv={Hkv} n_rep={n_rep} D={D}"
+            if write:
+                shape += (f", writing the pages (page size {PAGE_SIZE}"
+                          + (f", row {idle} idle: the trash page)" if idle is not None else ")"))
+            case = {"kernel": "fused_qkv_prep", "tpu_kernel": kf.TPU_KERNEL_PREP, "shape": shape,
+                    "max_err": err, "tol": write_tol if write else tol, "kernel_ms": kern,
+                    "plain_ms": plain, "library_ms": None, "bound_ms": bms, "bound_by": by}
             cases.append(case)
-            if (Hkv, B) == (8, 4):
+            if (Hkv, B, write) == (8, 4, True):
                 contract["fused_qkv_prep"] = {
                     "name": "fused_qkv_prep", "route": "cuda", "source": kf.SOURCE,
                     "replaces": "tiny_llm_tpu/kernels/fused_decode_attention.py:183",
                     "case": case["shape"], "ms": kern, "plain_ms": plain, "bound_ms": bms,
                     "bound_by": by, "library_ms": None}
+        del pools
     contract["fused_qkv_prep"]["max_abs_err"] = worst
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -3869,6 +4012,10 @@ def phase_paged3_parity(cfg, contract):
     check({k: steps[k] for k in want} == want, f"three-launch step launches {steps}")
     for tally, what in ((vs_plain, "plain"), (vs_fused, "fused")):
         check(tally["agree"] == tally["decided"], f"three-launch against {what}: top-1 differs")
+    # One more step, profiled: the device's kernels a step (the prep writes
+    # the pages: no scatter kernels beside it).
+    toks = [[t] for t in last] + [[0]]
+    profile = _device_profile(lambda: fast(toks, None, batches[0], logits_to_keep=1), 1, top=12)
     # One paged burst with no host sync inside.
     batch, dev = batches[0], fast.device
     for slot in batch.slots:
@@ -3896,6 +4043,7 @@ def phase_paged3_parity(cfg, contract):
           "vs_fused_worst_err_over_tol": vs_fused["worst"], "tol": "5% of max |reference logit|",
           "top1_decided_vs_plain": vs_plain["decided"], "top1_decided_vs_fused":
           vs_fused["decided"], "launches_per_decode_step": {k: steps[k] for k in want},
+          "decode_step_profile": profile,
           "sync_free_burst": {"steps": BURST, "mode": "error", "host_syncs_in_burst": 0},
           "prep_cases": prep})
 

@@ -50,15 +50,20 @@
 //
 // tlt_fused_qkv_prep replaces
 // tiny_llm_tpu/kernels/fused_decode_attention.py::_qkv_prep_kernel (through
-// fused_qkv_prep): the step's prologue alone, for the three-launch paged decode
-// (prep, the page write, then the paged decode kernel reads the pages with
-// the current token already in them). It returns q normed and roped but
-// NOT scaled (the fused step keeps q pre-scaled; the attention kernel scales
-// it), the normed and roped k row and the raw v row, at the step's rounding
-// points. Bound on the H100: it moves
-// B * Hkv * (2 * n_rep + 4) * D * 2 bytes (36 KB at Qwen3-4B's heads and B
-// = 4), 0.01 us at 3.35 TB/s; the launch bounds it. One block per (b, kv
-// head), a warp per row.
+// fused_qkv_prep): the step's prologue alone, for the three-launch paged
+// decode (prep, then the paged decode kernel reads the pages with the
+// current token already in them). It returns q normed and roped but NOT
+// scaled (the fused step keeps q pre-scaled; the attention kernel scales
+// it) at the step's rounding points, and writes the normed and roped k row
+// and the raw v row into the layer's page pools at each row's (page, slot)
+// (given on the device: no host sync), or, without pools, returns them.
+// Bound on the H100: it moves B * Hkv * (2 * n_rep + 4) * D * 2 bytes (36
+// KB at Qwen3-4B's heads and B = 4), 0.01 us at 3.35 TB/s; the launch
+// bounds it, so writing the pages here, not in scatter launches of their
+// own, is where time is saved. Grid (row blocks, Hkv, B), D / 8 lanes a
+// row: 16-byte loads and stores, the sum of squares by shuffles within the
+// row's lanes, RoPE's pairs (i, i + D / 2) by one shuffle across them, all
+// in registers.
 #include "split_walk.cuh"
 
 #define TLT_BF(p) static_cast<const __nv_bfloat16*>(p)
@@ -445,78 +450,132 @@ extern "C" int tlt_fused_decode_attention(const void* qkv, const void* keys, con
 // The prep kernel (tlt_fused_qkv_prep).
 namespace {
 
-constexpr int WARPS = 8;  // a warp per row
+// Rows of the fused qkv row a block takes (all n_rep + 2 of a (b, kv head)
+// when it has fewer). Set by `qmm_crossover --kind prep` (PERF.md): 2, 4
+// and every row of a (b, kv head) a block all took 2.16-2.32 us at B = 1
+// and 4, both models' heads (the launch's floor); 4 was the least or
+// within 2 % of it.
+constexpr int PREP_ROWS = 4;
 
-template <int D, int NREP>
-__global__ void __launch_bounds__(WARPS * 32) qkv_prep(
+// Grid (row blocks, Hkv, B): D / 8 consecutive lanes a row, 16 bytes a
+// lane. WRITE: the k row (normed, roped) and the raw v row go to
+// pages[page[b], h, slot[b], :] of the layer's pools (ps slots a page);
+// else to k_out and v_out [B, Hkv, D].
+template <int D, int NREP, bool WRITE>
+__global__ void __launch_bounds__(512) qkv_prep(
     const __nv_bfloat16* __restrict__ qkv,  // [B, Hkv, NREP + 2, D]
     const float* __restrict__ cos_row, const float* __restrict__ sin_row,  // [B, D/2]
     const __nv_bfloat16* __restrict__ qw, const __nv_bfloat16* __restrict__ kw,  // [D]
     __nv_bfloat16* __restrict__ q_out,  // [B, Hkv, NREP, D]
-    __nv_bfloat16* __restrict__ k_out,  // [B, Hkv, D]
-    __nv_bfloat16* __restrict__ v_out,  // [B, Hkv, D]
-    int Hkv, float eps) {
-  constexpr int HALF = D / 2, DPL = D / 32;
-  __shared__ float xrow[NREP + 1][D];  // normed rows before RoPE
-  const int h = blockIdx.x, bb = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    __nv_bfloat16* __restrict__ k_out,  // [B, Hkv, D], or the layer's key pages [P, Hkv, ps, D]
+    __nv_bfloat16* __restrict__ v_out,  // the same for v
+    const long long* __restrict__ page, const long long* __restrict__ slot,  // [B] (WRITE)
+    int Hkv, int ps, float eps) {
+  constexpr int LPR = D / 8, HALF = D / 2, ROWS = NREP + 2;
+  constexpr int RPB = ROWS < PREP_ROWS ? ROWS : PREP_ROWS;
+  const int h = blockIdx.y, bb = blockIdx.z, l = threadIdx.x % LPR;
+  const int r0 = blockIdx.x * RPB + threadIdx.x / LPR;
+  const bool live = threadIdx.x / LPR < RPB && r0 < ROWS;
+  const int r = live ? r0 : ROWS - 1;  // a lane past the rows computes row ROWS - 1, unstored
   const size_t head = (size_t)bb * Hkv + h;
-  const __nv_bfloat16* row = qkv + head * (NREP + 2) * D;
-  const float* cs = cos_row + (size_t)bb * HALF;
-  const float* sn = sin_row + (size_t)bb * HALF;
-
-  // QK-RMSNorm: warp r normalizes row r (q rows 0..NREP-1, k row NREP).
-  for (int r = warp; r <= NREP; r += WARPS) {
-    const __nv_bfloat16* wt = r < NREP ? qw : kw;
-    float x[DPL];
-    float ss = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      x[e] = bf2f(row[r * D + lane + 32 * e]);
-      ss += x[e] * x[e];
-    }
-    const float inv = rsqrtf(warp_sum(ss) / D + eps);
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const float normed = round_bf16(__fmul_rn(x[e], inv));
-      xrow[r][lane + 32 * e] = round_bf16(__fmul_rn(normed, bf2f(wt[lane + 32 * e])));
-    }
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(qkv + (head * ROWS + r) * D) + l);
+  __nv_bfloat16* dst;
+  if (r < NREP) {
+    dst = q_out + (head * NREP + r) * D;
+  } else {
+    __nv_bfloat16* base = r == NREP ? k_out : v_out;
+    dst = WRITE ? base + (((size_t)page[bb] * Hkv + h) * ps + slot[bb]) * D : base + head * D;
   }
-  if (tid < D) v_out[head * D + tid] = row[(NREP + 1) * D + tid];
-  __syncthreads();
-  // RoPE: f32 rotate, bf16 round; q left unscaled.
-  for (int idx = tid; idx < (NREP + 1) * HALF; idx += blockDim.x) {
-    const int r = idx / HALF, i = idx % HALF;
-    const float x1 = xrow[r][i], x2 = xrow[r][i + HALF];
-    const float c = cs[i], sv = sn[i];
-    const __nv_bfloat16 re = __float2bfloat16_rn(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, sv)));
-    const __nv_bfloat16 im = __float2bfloat16_rn(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, sv)));
-    __nv_bfloat16* o = r < NREP ? q_out + (head * NREP + r) * D : k_out + head * D;
-    o[i] = re;
-    o[i + HALF] = im;
+  if (r == NREP + 1) {  // v: the raw row (its row group's lanes all take this branch)
+    if (live) reinterpret_cast<uint4*>(dst)[l] = raw;
+    return;
   }
+  // QK-RMSNorm: the row's sum of squares over its LPR lanes.
+  const uint32_t xw[4] = {raw.x, raw.y, raw.z, raw.w};
+  float x[8], ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = lo_bf16(xw[i]);
+    x[2 * i + 1] = hi_bf16(xw[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ss += x[i] * x[i];
+  const unsigned group = ((1u << LPR) - 1) << (threadIdx.x & 31 & ~(LPR - 1));  // the row's lanes
+#pragma unroll
+  for (int o = 1; o < LPR; o <<= 1) ss += __shfl_xor_sync(group, ss, o);
+  const float inv = rsqrtf(ss / D + eps);
+  const uint4 wv = __ldg(reinterpret_cast<const uint4*>(r < NREP ? qw : kw) + l);
+  const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
+  uint32_t y[4];  // the normed row as bf16 pairs
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a = round_bf16(__fmul_rn(round_bf16(__fmul_rn(x[2 * i], inv)), lo_bf16(ww[i])));
+    const float c =
+        round_bf16(__fmul_rn(round_bf16(__fmul_rn(x[2 * i + 1], inv)), hi_bf16(ww[i])));
+    y[i] = fmma::pack_bf16(a, c);
+  }
+  // RoPE: element i pairs with i + HALF, LPR / 2 lanes on; f32 rotate, bf16
+  // round; q left unscaled.
+  uint32_t pw[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pw[i] = __shfl_xor_sync(group, y[i], LPR / 2);
+  const bool first = l < LPR / 2;  // elements below HALF
+  const int at = 2 * (l % (LPR / 2));  // the lane's 8 RoPE columns, as float4s
+  const float4* cs4 = reinterpret_cast<const float4*>(cos_row + (size_t)bb * HALF) + at;
+  const float4* sn4 = reinterpret_cast<const float4*>(sin_row + (size_t)bb * HALF) + at;
+  const float4 c0 = __ldg(cs4), c1 = __ldg(cs4 + 1), s0 = __ldg(sn4), s1 = __ldg(sn4 + 1);
+  const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float res[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float own = k ? hi_bf16(y[i]) : lo_bf16(y[i]);
+      const float other = k ? hi_bf16(pw[i]) : lo_bf16(pw[i]);
+      const float c = cv[2 * i + k], s = sv[2 * i + k];
+      // x1 the element below HALF, x2 its partner: x1 c - x2 s below, x2 c + x1 s above.
+      res[k] = first ? __fsub_rn(__fmul_rn(own, c), __fmul_rn(other, s))
+                     : __fadd_rn(__fmul_rn(own, c), __fmul_rn(other, s));
+    }
+    o[i] = fmma::pack_bf16(res[0], res[1]);
+  }
+  if (live) reinterpret_cast<uint4*>(dst)[l] = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-template <int D, int NREP>
+template <int D, int NREP, bool WRITE>
 int launch_prep(const void* qkv, const void* cs, const void* sn, const void* qw, const void* kw,
-                void* q_out, void* k_out, void* v_out, int B, int Hkv, float eps,
-                cudaStream_t st) {
-  qkv_prep<D, NREP><<<dim3(Hkv, B), dim3(WARPS * 32), 0, st>>>(
+                void* q_out, void* k_out, void* v_out, const void* page, const void* slot, int B,
+                int Hkv, int ps, float eps, cudaStream_t st) {
+  constexpr int ROWS = NREP + 2, RPB = ROWS < PREP_ROWS ? ROWS : PREP_ROWS;
+  constexpr int THREADS = (RPB * (D / 8) + 31) / 32 * 32;
+  static_assert(THREADS <= 512, "a block's rows fit its launch bounds");
+  qkv_prep<D, NREP, WRITE><<<dim3((ROWS + RPB - 1) / RPB, Hkv, B), dim3(THREADS), 0, st>>>(
       TLT_BF(qkv), TLT_F(cs), TLT_F(sn), TLT_BF(qw), TLT_BF(kw), TLT_BFW(q_out), TLT_BFW(k_out),
-      TLT_BFW(v_out), Hkv, eps);
+      TLT_BFW(v_out), static_cast<const long long*>(page), static_cast<const long long*>(slot),
+      Hkv, ps, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// page, slot: int64 [B] on the device, the row's page and slot in the
+// layer's pools k_out / v_out [P, Hkv, ps, D] (the k and v rows written
+// there); null: k_out and v_out are [B, Hkv, D].
 extern "C" int tlt_fused_qkv_prep(const void* qkv, const void* cs, const void* sn,
                                   const void* qw, const void* kw, void* q_out, void* k_out,
-                                  void* v_out, int B, int Hkv, int D, int n_rep, float eps,
-                                  void* stream) {
+                                  void* v_out, const void* page, const void* slot, int B, int Hkv,
+                                  int D, int n_rep, int ps, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TLT_QP(DD, RR)  \
-  if (D == DD && n_rep == RR) \
-    return launch_prep<DD, RR>(qkv, cs, sn, qw, kw, q_out, k_out, v_out, B, Hkv, eps, st);
+  const bool write = page != nullptr;
+  if (write != (slot != nullptr) || (write && ps < 1)) return (int)cudaErrorInvalidValue;
+#define TLT_QP(DD, RR)                                                                       \
+  if (D == DD && n_rep == RR)                                                                \
+    return write ? launch_prep<DD, RR, true>(qkv, cs, sn, qw, kw, q_out, k_out, v_out, page, \
+                                             slot, B, Hkv, ps, eps, st)                      \
+                 : launch_prep<DD, RR, false>(qkv, cs, sn, qw, kw, q_out, k_out, v_out,      \
+                                              page, slot, B, Hkv, ps, eps, st);
   TLT_QP(64, 1) TLT_QP(64, 2) TLT_QP(64, 4) TLT_QP(64, 8)
   TLT_QP(128, 1) TLT_QP(128, 2) TLT_QP(128, 4) TLT_QP(128, 8)
 #undef TLT_QP

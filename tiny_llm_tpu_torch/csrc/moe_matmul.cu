@@ -37,7 +37,8 @@
 //    expert) leave SMs idle, the launch takes clusters, and where the
 //    tiles there are (counted on the device) fit the SMs split over a
 //    cluster, its blocks split each tile's k-range, as K1's do; otherwise
-//    each block takes tiles of its own, over the whole k-range. (The GEMV
+//    each block takes tiles of its own, over the whole k-range (the grid:
+//    moe_walk.cuh b16_walk_grid). (The GEMV
 //    reads an expert's weights once per 8 of its rows, and one expert's
 //    rows keep one of its block rows busy.)
 //
@@ -79,13 +80,6 @@ constexpr int A8_GEMV_MAX_ROWS = 32;  // grouped rows above take the int8 tile w
 // routes to 8 distinct experts, so T = 8 keeps the GEMV; above, the tile
 // walk's worst loss (1.21x) is smaller than the GEMV's (1.8x).
 constexpr int B16_MIN_T = 9;
-// The tile walk's grid: the k-split schedule where the tiles' split blocks
-// number at most SPLIT_BLOCKS_PER_SM a SM (more, and a 768-column gate at
-// T = 8 over 8 experts took 2.5x as long); at most GRID_BLOCKS_PER_SM
-// blocks a SM in all, the rest walking more tiles each (a sweep of 2, 4,
-// 8 and 4, 8, unbounded on this card, PERF.md).
-constexpr int SPLIT_BLOCKS_PER_SM = 2;
-constexpr int GRID_BLOCKS_PER_SM = 4;
 
 // Grid (N / 8, min(E, T)): block row j serves the j-th expert that has rows.
 __global__ void __launch_bounds__(256) moe_gemv(
@@ -110,7 +104,7 @@ __global__ void __launch_bounds__(qmm::b16::THREADS, 2) moe_b16_tile(
 cudaError_t b16_walk(const __nv_bfloat16* x, const uint32_t* w, const __nv_bfloat16* s,
                      const __nv_bfloat16* b, const int* gs, __nv_bfloat16* out, int T, int N,
                      int Kp, int E, cudaStream_t st) {
-  constexpr int SMEM = qmm::b16::Shape<1>::SMEM_BYTES, BM = qmm::b16::Shape<1>::BM;
+  constexpr int SMEM = qmm::b16::Shape<1>::SMEM_BYTES;
   static const cudaError_t attr =
       cudaFuncSetAttribute(moe_b16_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return attr;
@@ -118,17 +112,9 @@ cudaError_t b16_walk(const __nv_bfloat16* x, const uint32_t* w, const __nv_bfloa
   const cudaError_t e =
       qmm::tma::cached_weight_map(&wmap, w, E * N, Kp, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != cudaSuccess) return e;
-  // Clusters sized for the fewest tiles T can make (one expert holding every
-  // row), block rows enough that each block walks one tile when there are
-  // the most (a row an expert); the walk picks its schedule on the device.
-  const int cols = (N + qmm::b16::BN - 1) / qmm::b16::BN, sms = qmm::a8::sm_count();
-  const int least = (T + BM - 1) / BM, most = least + min(E, T) - 1;  // logical tiles
-  const int ranks = qmm::cluster_ranks(Kp, cols * least, sms);
-  const int rows = max(1, min((most + ranks - 1) / ranks,
-                              GRID_BLOCKS_PER_SM * sms / (cols * ranks)));
-  return qmm::launch_clustered(moe_b16_tile, dim3(cols * ranks, rows), qmm::b16::THREADS,
-                               SMEM, ranks, st, x, wmap, s, b, gs, out, T, N, Kp, E, ranks,
-                               SPLIT_BLOCKS_PER_SM * sms);
+  const moe::WalkGrid g = moe::b16_walk_grid(T, N, Kp, E);
+  return qmm::launch_clustered(moe_b16_tile, g.grid, qmm::b16::THREADS, SMEM, g.ranks, st, x,
+                               wmap, s, b, gs, out, T, N, Kp, E, g.ranks, g.cap);
 }
 
 // Grid (N / 8, min(E, T)), as moe_gemv, on the W4A8 body; dynamic shared

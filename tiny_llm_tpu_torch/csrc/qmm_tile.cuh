@@ -1,6 +1,6 @@
 // The dequant-fused matmul bodies shared by K1 and the any-width kernel
-// (quant_matmul.cu, quant_matmul_sg.cu) and by the grouped expert matmuls
-// (moe_matmul.cu, moe_matmul_sg.cu). Each runs over one weight matrix (w,
+// (quant_matmul.cu, quant_matmul_sg.cu) and by the grouped W4A16 and W4A8
+// expert matmuls (moe_matmul.cu). Each runs over one weight matrix (w,
 // s, b point at its first row) and over a range of x rows, so the dense
 // kernels pass [0, M) and the grouped ones an expert's segment of the
 // sorted rows.
@@ -23,13 +23,6 @@
 //    d = sum x*q and xs = sum x over its codes of one group and folds
 //    acc += d*s + xs*b — the TPU decode schedule's scale/bias fold, done
 //    in f32. Up to MT x rows share one pass over the weights.
-//  * tile: a 64x64 output tile per 4-warp block, KU = 128 k (128 / GSZ
-//    groups) per shared-memory stage. Codes go to shared memory as exact
-//    bf16 integers (up to 255), the products q.x run on tensor cores
-//    (mma.sync m16n8k16, f32 accumulate) and the per-group fold d*s + xs*b
-//    happens in registers, so no bf16 rounding of q*s occurs (the TPU
-//    kernels round q*s, then + b, to bf16). No async copies or double
-//    buffering yet.
 //  * gemv_a8_rows (W4 g128 only): the W4A8 GEMV. The block quantizes its
 //    MT x rows to int8 in shared memory first (per-row absmax, the JAX
 //    package's arithmetic), then gemv_rows's schedule with integer dots:
@@ -145,189 +138,6 @@ __device__ __forceinline__ void gemv_rows(
       out[(size_t)(m0 + mi) * N + n] = __float2bfloat16_rn(y);
     }
   }
-}
-
-constexpr int BM = 64, BN = 64, PAD = 8, LDS = KU + PAD;  // smem row: 136 bf16
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The 64x64 output tile at rows m0.., columns n0..; rows at or past m_end
-// are not read (they load as 0) and not written. 128 threads.
-template <int BITS = 4, int GSZ = GS>
-__device__ __forceinline__ void tile(
-    const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
-    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ b,
-    const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out,
-    int m0, int n0, int m_end, int N, int Kp) {
-  constexpr int VPW = 32 / BITS;      // codes per word
-  constexpr int CHUNK = 4 * VPW;      // codes per 16-byte chunk
-  constexpr int CPR = KU / CHUNK;     // 16-byte chunks per weight row and stage
-  constexpr int NGS = KU / GSZ;       // groups per stage
-  constexpr int KPG = GSZ / 16;       // mma k-steps per group
-  constexpr uint32_t MASK = (1u << BITS) - 1;
-  __shared__ __align__(16) __nv_bfloat16 Xs[BM * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Ws[BN * LDS];
-  __shared__ float xs_s[NGS][BM], sc_s[NGS][BN], bi_s[NGS][BN];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 2x2 warps, 32x32 each
-  const int gid = lane >> 2, tig = lane & 3;
-  const int G = Kp / GSZ;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-  for (int g = 0; g < Kp / KU; ++g) {  // stage g: k in [g * KU, (g + 1) * KU)
-    // x tile: 64 rows x 128 bf16 = 1024 16-byte chunks, 8 per thread.
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * 128;
-      const int r = idx >> 4, cc = idx & 15;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < m_end)
-        v = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * Kp + g * KU) + cc);
-      *reinterpret_cast<uint4*>(&Xs[r * LDS + cc * 8]) = v;
-    }
-    // w tile: 64 rows x CPR 16-byte chunks (256 at W4: 2 per thread); each
-    // expands to CHUNK bf16 codes.
-#pragma unroll
-    for (int i = 0; i < BN * CPR / 128; ++i) {
-      const int idx = tid + i * 128;
-      const int r = idx >> ilog2(CPR), cc = idx & (CPR - 1);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (n0 + r < N)
-        v = __ldg(reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * (Kp / VPW) +
-                                                 g * (KU / VPW)) + cc);
-      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-      uint32_t packed2[2 * VPW];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < VPW / 2; ++e) {
-          // bf16 of a small integer q is 0x4300 | q for 128 + q; exact
-          // conversion through float is simpler and just as exact.
-          const uint32_t q0 = (words[t] >> (2 * BITS * e)) & MASK;
-          const uint32_t q1 = (words[t] >> (2 * BITS * e + BITS)) & MASK;
-          const uint32_t h0 = __bfloat16_as_ushort(__float2bfloat16_rn((float)q0));
-          const uint32_t h1 = __bfloat16_as_ushort(__float2bfloat16_rn((float)q1));
-          packed2[t * (VPW / 2) + e] = h0 | (h1 << 16);
-        }
-      uint4* dst = reinterpret_cast<uint4*>(&Ws[r * LDS + cc * CHUNK]);
-#pragma unroll
-      for (int t = 0; t < VPW / 2; ++t)
-        dst[t] = make_uint4(packed2[4 * t], packed2[4 * t + 1], packed2[4 * t + 2],
-                            packed2[4 * t + 3]);
-    }
-    if (tid < BN) {
-      const bool ok = n0 + tid < N;
-#pragma unroll
-      for (int gi = 0; gi < NGS; ++gi) {
-        sc_s[gi][tid] = ok ? bf2f(s[(size_t)(n0 + tid) * G + g * NGS + gi]) : 0.f;
-        bi_s[gi][tid] = ok ? bf2f(b[(size_t)(n0 + tid) * G + g * NGS + gi]) : 0.f;
-      }
-    }
-    __syncthreads();
-    {
-      // Group sums of x: two threads per row, 64 values each (one group
-      // at g64, two at g32, half of one at g128).
-      constexpr int PER = GSZ < 64 ? GSZ : 64;  // values per partial sum
-      const int r = tid >> 1, half = tid & 1;
-      const uint4* src = reinterpret_cast<const uint4*>(&Xs[r * LDS + half * 64]);
-      float sum[64 / PER];
-#pragma unroll
-      for (int j = 0; j < 64 / PER; ++j) sum[j] = 0.f;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const uint4 v = src[t];
-        const uint32_t xw[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sum[t * 8 / PER] += lo_bf16(xw[e]) + hi_bf16(xw[e]);
-      }
-      if constexpr (GSZ == KU) {
-        sum[0] += __shfl_xor_sync(0xffffffffu, sum[0], 1);
-        if (half == 0) xs_s[0][r] = sum[0];
-      } else {
-#pragma unroll
-        for (int j = 0; j < 64 / PER; ++j) xs_s[half * (64 / PER) + j][r] = sum[j];
-      }
-    }
-    if constexpr (NGS > 1) __syncthreads();  // xs_s written before the folds read it
-
-    const uint32_t* Xw = reinterpret_cast<const uint32_t*>(Xs);
-    const uint32_t* Ww = reinterpret_cast<const uint32_t*>(Ws);
-    constexpr int LDW = LDS / 2;  // words per smem row
-#pragma unroll
-    for (int gi = 0; gi < NGS; ++gi) {
-      float d[2][4][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) d[i][j][c] = 0.f;
-#pragma unroll
-      for (int kk = gi * KPG; kk < (gi + 1) * KPG; ++kk) {
-        const int kw = kk * 8 + tig;  // word column of k = kk*16 + 2*tig
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = wm * 32 + i * 16 + gid;
-          a[i][0] = Xw[r * LDW + kw];
-          a[i][1] = Xw[(r + 8) * LDW + kw];
-          a[i][2] = Xw[r * LDW + kw + 4];
-          a[i][3] = Xw[(r + 8) * LDW + kw + 4];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int nr = wn * 32 + j * 8 + gid;
-          const uint32_t b0 = Ww[nr * LDW + kw];
-          const uint32_t b1 = Ww[nr * LDW + kw + 4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma_bf16_16816(d[i][j], a[i], b0, b1);
-        }
-      }
-      if constexpr (NGS == 1) __syncthreads();  // xs_s written before the fold reads it
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int r = wm * 32 + i * 16 + gid + (c >= 2 ? 8 : 0);
-            const int col = wn * 32 + j * 8 + tig * 2 + (c & 1);
-            acc[i][j][c] += d[i][j][c] * sc_s[gi][col] + xs_s[gi][r] * bi_s[gi][col];
-          }
-    }
-    __syncthreads();  // before the next stage overwrites the tiles
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int m = m0 + wm * 32 + i * 16 + gid + (c >= 2 ? 8 : 0);
-        const int n = n0 + wn * 32 + j * 8 + tig * 2 + (c & 1);
-        if (m < m_end && n < N) {
-          float y = acc[i][j][c];
-          if (res != nullptr) y += bf2f(res[(size_t)m * N + n]);
-          out[(size_t)m * N + n] = __float2bfloat16_rn(y);
-        }
-      }
 }
 
 // ---------------------------------------------------------------------------

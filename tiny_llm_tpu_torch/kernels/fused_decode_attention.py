@@ -11,8 +11,9 @@ K2 over one layer's slab (S for the table's width), the paged step over
 the pool, and merge the splits in the same launch (one launch a call). The
 same source holds the prep kernel, which replaces ::_qkv_prep_kernel (wrapper
 `fused_qkv_prep`): the qkv split, QK-norm and RoPE alone, for the
-three-launch paged decode (models/qwen3.py,
-`paged_fused_one=False`: prep, the page write, then paged attention).
+three-launch paged decode (models/qwen3.py, `paged_fused_one=False`: the
+prep, which writes the k/v rows into the pages itself, then paged
+attention).
 
 Layouts are the JAX package's: the fused qkv row [B, Hkv, n_rep + 2, D]
 (per KV head: its n_rep q rows, then k, then v), the slab
@@ -92,22 +93,31 @@ def fused_decode_attention_plain(
     return attn, k_cur.to(torch.bfloat16), v_cur.clone()
 
 
-def fused_qkv_prep_plain(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, *, eps):
+def fused_qkv_prep_plain(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, *, eps,
+                         pages=None):
     """Plain PyTorch version of the prep: K2's qkv split, QK-RMSNorm and
-    RoPE at the same rounding points, q left unscaled."""
+    RoPE at the same rounding points, q left unscaled; with `pages`, the
+    k/v rows scattered into them as models/qwen3.py's _write_pages does."""
     n_rep = qkv_rows.shape[2] - 2
     x = qkv_rows.to(torch.float32)
     cos = cos_row.to(torch.float32)[:, None, None, :]
     sin = sin_row.to(torch.float32)[:, None, None, :]
-    q = _rms_rope_heads(x[:, :, :n_rep], q_norm_w, cos, sin, eps)
-    k = _rms_rope_heads(x[:, :, n_rep : n_rep + 1], k_norm_w, cos, sin, eps)
-    return q.to(torch.bfloat16), k.to(torch.bfloat16), qkv_rows[:, :, n_rep + 1 :].clone()
+    q = _rms_rope_heads(x[:, :, :n_rep], q_norm_w, cos, sin, eps).to(torch.bfloat16)
+    k = _rms_rope_heads(x[:, :, n_rep : n_rep + 1], k_norm_w, cos, sin, eps).to(torch.bfloat16)
+    v = qkv_rows[:, :, n_rep + 1 :].clone()
+    if pages is None:
+        return q, k, v
+    key_pages, value_pages, page_idx, slot = pages
+    page_idx, slot = page_idx.reshape(-1, 1), slot.reshape(-1, 1)
+    key_pages[page_idx, :, slot, :] = k.transpose(1, 2)
+    value_pages[page_idx, :, slot, :] = v.transpose(1, 2)
+    return q
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("fused_decode_attention")
     fn = lib.tlt_fused_qkv_prep
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.tlt_fused_decode_attention
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p]
@@ -167,21 +177,44 @@ def _outputs(qkv_rows):
     )
 
 
-def fused_qkv_prep_cuda(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, *, eps):
+def _page_rows(pages, B, Hkv, D):
+    """The layer's pools and each row's (page, slot) as the prep kernel takes
+    them: contiguous bf16 [P, Hkv, ps, D], int64 [B] on the rows' device."""
+    key_pages, value_pages, page_idx, slot = pages
+    for pool in (key_pages, value_pages):
+        if pool.dtype != torch.bfloat16 or not pool.is_contiguous() or pool.ndim != 4 \
+                or pool.shape[1] != Hkv or pool.shape[3] != D:
+            raise ValueError(f"pages must be contiguous bf16 [P, {Hkv}, ps, {D}]")
+    idx = [t.reshape(-1).to(device=key_pages.device, dtype=torch.int64).contiguous()
+           for t in (page_idx, slot)]
+    if any(t.numel() != B for t in idx):
+        raise ValueError(f"page_idx and slot must hold one entry per row ({B})")
+    return key_pages, value_pages, idx[0], idx[1]
+
+
+def fused_qkv_prep_cuda(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, *, eps,
+                        pages=None):
     global PREP_LAUNCHES
     B, Hkv, rows, D = qkv_rows.shape
     _, cos_row, sin_row, qw, kw = _check_rows(
         qkv_rows, q_norm_w, k_norm_w, cos_row, sin_row, offsets)
     q, k_row, v_row = _outputs(qkv_rows)
+    page = slot = None
+    ps = 0
+    if pages is not None:
+        k_row, v_row, page, slot = _page_rows(pages, B, Hkv, D)
+        ps = k_row.shape[2]
     lib = _lib()
     err = lib.tlt_fused_qkv_prep(
         qkv_rows.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(), qw.data_ptr(),
-        kw.data_ptr(), q.data_ptr(), k_row.data_ptr(), v_row.data_ptr(), B, Hkv, D, rows - 2,
-        float(eps), torch.cuda.current_stream(qkv_rows.device).cuda_stream,
+        kw.data_ptr(), q.data_ptr(), k_row.data_ptr(), v_row.data_ptr(),
+        None if page is None else page.data_ptr(), None if slot is None else slot.data_ptr(),
+        B, Hkv, D, rows - 2, ps, float(eps),
+        torch.cuda.current_stream(qkv_rows.device).cuda_stream,
     )
     build.check(lib, err, "fused_qkv_prep")
     PREP_LAUNCHES += 1
-    return q, k_row, v_row
+    return q if pages is not None else (q, k_row, v_row)
 
 
 def fused_qkv_prep(
@@ -194,13 +227,18 @@ def fused_qkv_prep(
     *,
     eps: float,
     impl: str | None = None,
+    pages: tuple | None = None,
 ):
     """The qkv split, QK-RMSNorm and RoPE of one layer's decode rows.
 
     Returns (q [B, Hkv, n_rep, D] normed and roped, unscaled; k_row
-    [B, Hkv, 1, D] normed and roped; v_row [B, Hkv, 1, D] raw)."""
+    [B, Hkv, 1, D] normed and roped; v_row [B, Hkv, 1, D] raw). With
+    `pages` = (key_pages, value_pages, page_idx, slot), one layer's pools
+    [P, Hkv, ps, D] and each row's page and slot ([B, 1] or [B], on the
+    pools' device), the k and v rows go into pages[page_idx[b], :, slot[b]]
+    instead (in place; the same launch on the card) and q alone returns."""
     fn = fused_qkv_prep_cuda if resolve(impl, qkv_rows) == "cuda" else fused_qkv_prep_plain
-    return fn(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, eps=eps)
+    return fn(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, eps=eps, pages=pages)
 
 
 def fused_decode_attention_cuda(

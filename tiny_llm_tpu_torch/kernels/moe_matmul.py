@@ -18,7 +18,10 @@ width.
     the W4A16 kernel.
   * The any-width kernel replaces `_gqmm_kernel` (wrapper `_gqmm_pallas`):
     experts other than W4 g128; csrc/moe_matmul_sg.cu
-    (`tlt_grouped_quant_matmul_sg`), the W4A16 walk over the generic body.
+    (`tlt_grouped_quant_matmul_sg`): below SG_B16_MIN_T rows a GEMV walk of
+    its own over (expert, column block) units, above them the W4A16
+    kernel's bf16 tile walk at the experts' width. Both compute the plain
+    version's f32 fold.
   * `_gqmm_gather_kernel` (wrapper `_gqmm_gather_pallas`), the JAX
     package's expert-gather schedule of the W4A16 function for T <= 256
     rows (TLT_MOE_DECODE=gather), is covered by the W4A16 kernel: the same
@@ -96,6 +99,15 @@ def w4a16_route(rows: int) -> str:
     ("gemv" or "b16"), as B16_MIN_T in csrc/moe_matmul.cu sets it (CUDA
     only: it loads the library)."""
     fn = build.load("moe_matmul").tlt_grouped_quant_matmul_route
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return ("gemv", "b16")[fn(rows)]
+
+
+def sg_route(rows: int) -> str:
+    """The route the any-width kernel's C entry takes for `rows` grouped
+    rows ("gemv" or "b16"), as SG_B16_MIN_T in csrc/moe_matmul_sg.cu sets
+    it (CUDA only: it loads the library)."""
+    fn = build.load("moe_matmul_sg").tlt_grouped_quant_matmul_sg_route
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return ("gemv", "b16")[fn(rows)]
 

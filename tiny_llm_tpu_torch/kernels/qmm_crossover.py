@@ -1,7 +1,8 @@
 """Where the quantized matmuls' routes cross, on the card: each route of an
 entry timed beside the others at the same rows.
 
-    python -m tiny_llm_tpu_torch.kernels.qmm_crossover [--kind k1|sg|a8|moe|all] [--out FILE]
+    python -m tiny_llm_tpu_torch.kernels.qmm_crossover \
+        [--kind k1|sg|a8|moe|moe_sg|moe_sg_gemv|prep|all] [--out FILE]
 
 Run from the root of a checkout: it times and checks with `chip_smoke.py`'s
 helpers (graph_ms, _close, _random_qt). Each entry picks its route by rows
@@ -30,11 +31,32 @@ every row:
     30B-A3B gate and down over 128 experts, under random top-8 routing
     (T = 9, 12: one token's top-8 and a row each of more experts) and with one
     expert holding every row, held to grouped_quant_matmul_plain.
+  * moe_sg (SG_B16_MIN_T of csrc/moe_matmul_sg.cu): the grouped any-width
+    matmul's GEMV walk against its bf16 tile walk at T = 8 to 1024 rows
+    (MOE_SG_ROWS: tokens' top-8), 30B-A3B gate and down over 128 experts,
+    W4 g64 and W8 g64, under the two routings a top-8 router bounds: random
+    top-8, and one expert in every token's top-8 (T / 8 rows on it, the
+    most a top-8 router gives an expert, the rest random). Held to
+    grouped_quant_matmul_plain. A last line names the gate, of these rows,
+    whose worst loss against the faster route is least.
+  * moe_sg_gemv (GEMV_THREADS and GEMV_CHUNKS of csrc/moe_matmul_sg.cu):
+    the any-width GEMV walk's block and k-split, each pair a copy, at
+    30B-A3B gate and down over 128 experts, W4 g64 and W8 g64, T = 1, 2, 4,
+    8 (a token's top-8), 12, 16, 32 and 64 (2, 4 and 8 tokens' top-8) and
+    one expert holding 8 or 16 rows; then, as a side timing, the walk at W4
+    g128 (the copy with SIDE_W4G128 = 1, which instantiates it there)
+    beside the grouped W4A16 matmul's GEMV walk (row 18's moe_gemv, through
+    its wrapper) at T = 1-8.
+  * prep (PREP_ROWS of csrc/fused_decode_attention.cu): the prep kernel's
+    writing route with 2, 4 or all rows of a (b, kv head) a block, at B = 1
+    and 4, Qwen3-4B's heads and n_rep 8, held to fused_qkv_prep_plain with
+    its pages.
 
 Each copy's entry is called as the wrappers call it (the W4A8 entries with
 the workspace their `_workspace` query asks for) and timed by CUDA-graph
-replay over 8 random weights. One JSON line a case: each route's ms side
-by side."""
+replay over random weights (8 sets; 4 for the grouped a8 and moe kinds,
+whose active experts' bytes then stay in the L2; the prep: 8 layers'
+pools). One JSON line a case: each route's ms side by side."""
 
 from __future__ import annotations
 
@@ -75,6 +97,23 @@ K1_ROWS = {("gemv", "b16"): (1, 2, 3, 4, 5),
 MOE_COPIES = {"moe_gemv": {"moe_matmul": {"B16_MIN_T": BIG}},
               "moe_b16": {"moe_matmul": {"B16_MIN_T": 0}}}
 MOE_ROWS = (8, 9, 12, 16, 24, 32, 64)
+MOE_SG_COPIES = {"sg_moe_gemv": {"moe_matmul_sg": {"SG_B16_MIN_T": BIG}},
+                 "sg_moe_b16": {"moe_matmul_sg": {"SG_B16_MIN_T": 0}}}
+MOE_SG_WIDTHS = ((4, 64), (8, 64))
+MOE_SG_ROWS = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 512, 1024)
+HOT = 17  # the expert in every token's top-8
+# Weight sets the moe_sg kinds replay over: 8 hold more than the 50 MB L2
+# at a decode step's T = 8 (8 experts, 7 MB a set), as a step's layers do;
+# the 4 of the other grouped kinds let those bytes stay in the L2.
+SG_SETS = 8
+# The GEMV walk's shape, each pair a copy (SG_B16_MIN_T past every row
+# here), and the copy that instantiates the walk at W4 g128 too.
+GEMV_SWEEP = {f"sg_gemv_t{th}_c{ch}": {"moe_matmul_sg": {
+    "SG_B16_MIN_T": BIG, "GEMV_THREADS": th, "GEMV_CHUNKS": ch}}
+    for th in (128, 256, 512) for ch in (2, 4, 8)}
+GEMV_W4G128 = {"sg_gemv_w4g128": {"moe_matmul_sg": {"SG_B16_MIN_T": BIG, "SIDE_W4G128": 1}}}
+GEMV_ROWS = (1, 2, 4, 8, 12, 16, 32, 64)
+PREP_COPIES = {f"prep_rows{r}": {"fused_decode_attention": {"PREP_ROWS": r}} for r in (2, 4, 16)}
 A8_DENSE = K1_DENSE[:6]
 GROUPED = (("qwen3-30b-a3b gate", 768, 2048), ("qwen3-30b-a3b down", 2048, 768))
 E, TOP_K = 128, 8
@@ -143,22 +182,78 @@ def grouped(lib, x, qt, sizes, fn_name="tlt_grouped_quant_matmul_a8"):
     out = torch.empty((x.shape[0], qt.out_features), dtype=torch.bfloat16, device="cuda")
     head = (x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.biases.data_ptr(),
             sizes.data_ptr())
-    a8 = fn_name.endswith("_a8")
-    return _call(lib, fn_name, head, (x.shape[0], qt.out_features, qt.k_padded, E), out,
-                 x.shape[0] if a8 else None, qt.k_padded)
+    a8, sg = fn_name.endswith("_a8"), fn_name.endswith("_sg")
+    ints = (x.shape[0], qt.out_features, qt.k_padded, E) + ((qt.bits, qt.group_size) if sg
+                                                             else ())
+    return _call(lib, fn_name, head, ints, out, x.shape[0] if a8 else None, qt.k_padded)
 
 
-def _stacked(random_qt, gen, N, K, copies):
-    """`copies` random stacked expert weights [E, N, K], W4 g128, drawn
+def _stacked(random_qt, gen, N, K, copies, bits=4, group_size=128):
+    """`copies` random stacked expert weights [E, N, K] at the width, drawn
     by `random_qt` (chip_smoke._random_qt)."""
-    flat = random_qt(gen, E * N, K, 4, 128, copies=copies)
+    flat = random_qt(gen, E * N, K, bits, group_size, copies=copies)
     return [type(q)(q.packed.view(E, N, -1), q.scales.view(E, N, -1), q.biases.view(E, N, -1),
-                    N, K, q.k_padded, 128, 4) for q in flat]
+                    N, K, q.k_padded, group_size, bits) for q in flat]
+
+
+def _moe_sizes(rng, routed_tokens, T, one=None):
+    """Group sizes [E]: `routed_tokens` tokens' random top-8, then a row each
+    of experts they left empty up to T rows; or, with `one`, every row on
+    expert `one`."""
+    from chip_smoke import _routing
+
+    if one is not None:
+        return np.bincount([one] * T, minlength=E)
+    sz = _routing(rng, routed_tokens, E, TOP_K)
+    for extra in range(T - routed_tokens * TOP_K):
+        sz[int(np.flatnonzero(sz == 0)[0])] += 1
+    return sz
+
+
+def _hot_sizes(rng, T, hot=HOT):
+    """Group sizes [E] of T / 8 tokens' top-8, expert `hot` in every token's
+    and the other seven drawn at random: T / 8 rows on `hot`."""
+    others = np.delete(np.arange(E), hot)
+    sz = np.bincount([hot] * (T // TOP_K), minlength=E)
+    for _ in range(T // TOP_K):
+        sz[rng.choice(others, TOP_K - 1, replace=False)] += 1
+    return sz
+
+
+def gate_line(rows, pair):
+    """Of the row counts measured, the gate (the first row count on pair[1])
+    whose worst loss, time taken over the faster route's across every row
+    and case, is least: {"gate", "worst_loss", "loss_by_gate"}."""
+    loss = {}
+    for gate in sorted({r["T"] for r in rows}) + [BIG]:
+        loss[gate] = max(r[pair[r["T"] >= gate]] / min(r[pair[0]], r[pair[1]]) for r in rows)
+    best = min(loss, key=loss.get)
+    return {"gate": best, "worst_loss": loss[best], "loss_by_gate": loss}
+
+
+def _prep(lib, args, pages):
+    """The prep entry of `lib` with the pools of `pages` = (key_pages,
+    value_pages, page [B], slot [B]): q [B, Hkv, n_rep, D] returned."""
+    qkv, cos_row, sin_row, qw, kw, eps = args
+    B, Hkv, r, D = qkv.shape
+    q = torch.empty((B, Hkv, r - 2, D), dtype=torch.bfloat16, device="cuda")
+    kp, vp, page, slot = pages
+    fn = lib.tlt_fused_qkv_prep
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                 ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(qkv.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(), qw.data_ptr(),
+             kw.data_ptr(), q.data_ptr(), kp.data_ptr(), vp.data_ptr(), page.data_ptr(),
+             slot.data_ptr(), B, Hkv, D, r - 2, kp.shape[2], eps,
+             torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "tlt_fused_qkv_prep")
+    return q
 
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", choices=("k1", "sg", "a8", "moe", "all"), default="all")
+    ap.add_argument("--kind", choices=("k1", "sg", "a8", "moe", "moe_sg", "moe_sg_gemv", "prep",
+                                       "all"), default="all")
     ap.add_argument("--out", help="also write every line to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -174,20 +269,27 @@ def main(argv: list[str]) -> int:
     routes = {**(K1_COPIES if args.kind in ("k1", "all") else {}),
               **(SG_COPIES if args.kind in ("sg", "all") else {}),
               **(A8_COPIES if args.kind in ("a8", "all") else {}),
-              **(MOE_COPIES if args.kind in ("moe", "all") else {})}
+              **(MOE_COPIES if args.kind in ("moe", "all") else {}),
+              **(MOE_SG_COPIES if args.kind in ("moe_sg", "all") else {}),
+              **({**GEMV_SWEEP, **GEMV_W4G128} if args.kind in ("moe_sg_gemv", "all") else {}),
+              **(PREP_COPIES if args.kind in ("prep", "all") else {})}
     tmp = tempfile.TemporaryDirectory()
     libs = _build_routes(Path(tmp.name), routes)
 
-    def case(row, pair, call, wants, weights):
-        """Each route of `pair`: held to its plain version, then timed."""
+    def case(row, pair, call, wants, weights, codes=True):
+        """Each route of `pair` (two routes, or a sweep's copies): held to its
+        plain version (`_close`), then timed."""
         for route in pair:
             got = call(libs[route], weights[0])
             torch.cuda.synchronize()
-            ratio = _close(got, wants[route], True)[1]
+            ratio = _close(got, wants[route], codes)[1]
             if not ratio <= 1:
                 raise AssertionError(f"{row} on the {route} copy: {ratio} x the tolerance")
             row[route] = graph_ms(lambda: [call(libs[route], w) for w in weights]) / len(weights)
-        row[f"{pair[1]}_over_{pair[0]}"] = row[pair[1]] / row[pair[0]]
+        if len(pair) == 2:
+            row[f"{pair[1]}_over_{pair[0]}"] = row[pair[1]] / row[pair[0]]
+        else:
+            row["fastest"] = min(pair, key=row.get)
         print(json.dumps(row), flush=True)
         lines.append(row)
 
@@ -267,6 +369,113 @@ def main(argv: list[str]) -> int:
                                                     "tlt_grouped_quant_matmul"),
                              dict.fromkeys(pair, want), ws)
                 del ws
+        if args.kind in ("moe_sg", "all"):
+            pair, rng, first = ("sg_moe_gemv", "sg_moe_b16"), np.random.default_rng(20), len(lines)
+            for bits, group_size in MOE_SG_WIDTHS:
+                for label, N, K in GROUPED:
+                    ws = _stacked(_random_qt, gen, N, K, SG_SETS, bits, group_size)
+                    for T in MOE_SG_ROWS:
+                        for routing, sz in (("random top-8", _routing(rng, T // TOP_K, E, TOP_K)),
+                                            (f"expert {HOT} in every top-8", _hot_sizes(rng, T))):
+                            sizes = torch.as_tensor(sz, dtype=torch.int32, device="cuda")
+                            x = torch.randn((T, K), generator=gen, device="cuda").to(
+                                torch.bfloat16)
+                            want = grouped_quant_matmul_plain(x, ws[0], sizes)
+                            case({"kind": f"moe_sg W{bits} g{group_size}", "shape": label,
+                                  "routing": routing, "T": T,
+                                  "experts": int((sz > 0).sum())}, pair,
+                                 lambda lib, w: grouped(lib["moe_matmul_sg"], x, w, sizes,
+                                                        "tlt_grouped_quant_matmul_sg"),
+                                 dict.fromkeys(pair, want), ws, codes=False)
+                    del ws
+            row = {"kind": "moe_sg gate", **gate_line(lines[first:], pair)}
+            print(json.dumps(row), flush=True)
+            lines.append(row)
+        if args.kind in ("moe_sg_gemv", "all"):
+            from .moe_matmul import grouped_quant_matmul_cuda
+
+            sweep, rng = tuple(GEMV_SWEEP), np.random.default_rng(21)
+            for bits, group_size in MOE_SG_WIDTHS:
+                for label, N, K in GROUPED:
+                    ws = _stacked(_random_qt, gen, N, K, SG_SETS, bits, group_size)
+                    specs = [(f"{T} rows, random top-8", _moe_sizes(rng, T // TOP_K, T))
+                             for T in GEMV_ROWS]
+                    specs += [(f"one expert holds {T} rows", _moe_sizes(rng, 0, T, one=17))
+                              for T in (8, 16)]
+                    for what, sz in specs:
+                        T = int(sz.sum())
+                        sizes = torch.as_tensor(sz, dtype=torch.int32, device="cuda")
+                        x = torch.randn((T, K), generator=gen, device="cuda").to(torch.bfloat16)
+                        want = grouped_quant_matmul_plain(x, ws[0], sizes)
+                        case({"kind": f"moe_sg_gemv W{bits} g{group_size}", "shape": label,
+                              "case": what, "T": T, "experts": int((sz > 0).sum())}, sweep,
+                             lambda lib, w: grouped(lib["moe_matmul_sg"], x, w, sizes,
+                                                    "tlt_grouped_quant_matmul_sg"),
+                             dict.fromkeys(sweep, want), ws, codes=False)
+                    del ws
+            # The side timing: the walk at W4 g128 beside row 18's GEMV walk.
+            for label, N, K in GROUPED:
+                ws = _stacked(_random_qt, gen, N, K, SG_SETS)
+                for T in range(1, TOP_K + 1):
+                    sz = _moe_sizes(rng, 0, T)
+                    sizes = torch.as_tensor(sz, dtype=torch.int32, device="cuda")
+                    x = torch.randn((T, K), generator=gen, device="cuda").to(torch.bfloat16)
+                    want = grouped_quant_matmul_plain(x, ws[0], sizes)
+                    walk = libs["sg_gemv_w4g128"]["moe_matmul_sg"]
+                    got = grouped(walk, x, ws[0], sizes, "tlt_grouped_quant_matmul_sg")
+                    row = {"kind": "moe_sg_gemv at W4 g128, beside row 18's moe_gemv",
+                           "shape": label, "T": T, "experts": T,
+                           "walk_err_over_tol": _close(got, want)[1],
+                           "row18_err_over_tol": _close(grouped_quant_matmul_cuda(
+                               x, ws[0], sizes), want)[1]}
+                    if not max(row["walk_err_over_tol"], row["row18_err_over_tol"]) <= 1:
+                        raise AssertionError(f"{row}: over the tolerance")
+                    row["sg_gemv_walk"] = graph_ms(lambda: [grouped(
+                        walk, x, w, sizes, "tlt_grouped_quant_matmul_sg") for w in ws]) / len(ws)
+                    row["row18_moe_gemv"] = graph_ms(lambda: [grouped_quant_matmul_cuda(
+                        x, w, sizes) for w in ws]) / len(ws)
+                    row["walk_over_row18"] = row["sg_gemv_walk"] / row["row18_moe_gemv"]
+                    print(json.dumps(row), flush=True)
+                    lines.append(row)
+                del ws
+        if args.kind in ("prep", "all"):
+            from .fused_decode_attention import fused_qkv_prep_plain
+
+            copies, D, ps, pages, Ly = tuple(PREP_COPIES), 128, 128, 16, 8
+            cos_t = torch.rand((1024, D // 2), generator=gen, device="cuda")
+            sin_t = torch.rand((1024, D // 2), generator=gen, device="cuda")
+            for Hkv, n_rep in ((8, 4), (4, 8)):
+                pools = [torch.randn((2, pages, Hkv, ps, D), generator=gen, device="cuda").to(
+                    torch.bfloat16) for _ in range(Ly)]
+                for offs in ([700], [100, 700, 37, 999]):
+                    B = len(offs)
+                    qkv = (3 * torch.randn((B, Hkv, n_rep + 2, D), generator=gen,
+                                           device="cuda")).to(torch.bfloat16)
+                    qw, kw = (1 + 0.1 * torch.randn((2, D), generator=gen, device="cuda")).to(
+                        torch.bfloat16)
+                    off = torch.tensor(offs, device="cuda")
+                    args_ = (qkv, cos_t[off], sin_t[off], qw, kw, 1e-6)
+                    page = torch.arange(1, B + 1, device="cuda", dtype=torch.int64)
+                    slot = off.to(torch.int64) % ps
+                    want_pool = pools[0].clone()
+                    want = fused_qkv_prep_plain(qkv, off, cos_t[off], sin_t[off], qw, kw,
+                                                eps=1e-6, pages=(want_pool[0], want_pool[1],
+                                                                 page, slot))
+
+                    def run(lib, pool):
+                        return _prep(lib["fused_decode_attention"], args_,
+                                     (pool[0], pool[1], page, slot))
+
+                    case({"kind": "prep, writing the pages", "heads": f"Hkv {Hkv} n_rep {n_rep}",
+                          "B": B, "offsets": offs}, copies, run, dict.fromkeys(copies, want),
+                         pools, codes=False)
+                    got_pool = pools[0]  # written by every copy: the same rows
+                    for what in (0, 1):
+                        ratio = _close(got_pool[what][page, :, slot],
+                                       want_pool[what][page, :, slot])[1]
+                        if not ratio <= 1:
+                            raise AssertionError(f"prep pool {what}: {ratio} x the tolerance")
+                del pools
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(lines, indent=1))

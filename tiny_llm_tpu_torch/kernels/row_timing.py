@@ -5,7 +5,9 @@ csrc/quant_matmul_sg.cu), the shard decode-state kernel (row 6,
 csrc/flash_attention.cu), the fused paged decode step (row 9,
 csrc/fused_decode_attention.cu), the grouped W4A16 expert matmul (row
 18, csrc/moe_matmul.cu), K3 with row 4 (csrc/flash_attention.cu) and K2
-(csrc/fused_decode_attention.cu); and the split sweeps of K3, K2 and row
+(csrc/fused_decode_attention.cu), the grouped any-width expert matmul
+(row 20, csrc/moe_matmul_sg.cu) and the prep kernel (row 8,
+csrc/fused_decode_attention.cu); and the split sweeps of K3, K2 and row
 9 (rows K3split, K2split, 9split: this tree only).
 
     PYTHONPATH=. python3 tiny_llm_tpu_torch/kernels/row_timing.py [--label NAME] [--rows 17,6,9,18,K3,K2]
@@ -14,7 +16,8 @@ Run it as a file, as kernels/paged_timing.py: with PYTHONPATH at a parent's
 checkout (`git archive`) it times the parent's kernels through the same
 wrappers (`quant_matmul_sg_cuda`, `flash_decode_state_cuda`,
 `SPAttention.flash`, `fused_paged_decode_attention_cuda`,
-`grouped_quant_matmul_cuda`), with this tree's cases and timers
+`grouped_quant_matmul_cuda`, `grouped_quant_matmul_sg_cuda`,
+`fused_qkv_prep_cuda`), with this tree's cases and timers
 (`chip_smoke.py` beside this file's package). Compare two trees only in one
 call, in turns: parent, tree, tree, parent.
 
@@ -44,8 +47,18 @@ picks. Row 18: Qwen3-30B-A3B's gate and down over
 128 experts at T = 8, 9, 32 and 1024 under random top-8 routing, one expert
 holding 15, 16, 17, 32, 33 or 128 rows, and row 21's T = 64, 128 and 256;
 replayed over 8 random weights; library: torch._grouped_mm on the active
-experts' bf16-dequantized weights. Prints one JSON line per case, then the
-card's name and power limit.
+experts' bf16-dequantized weights. Row 20: the same projections at W4 g64
+and W8 g64, T = 8, 16, 32, 192 and 1024 under random top-8 routing and one
+expert holding 8, 15, 16, 17, 33 or 128 rows, beside torch._grouped_mm as row 18;
+then one decode step (MOE_LAYERS x gate, up, down at T = 8, each layer its
+own top-8). Row 8: the prep kernel at B = 1 and 4, Qwen3-4B's heads and
+n_rep 8, over 8 layers' pools of POOL_PAGES pages: with the page write
+(the tree's one launch with pages, or, through a parent's wrapper, which
+takes none, the prep then models.qwen3._write_pages twice) and the prep
+alone. Row 8step: one full-depth Qwen3-4B decode step on the three-launch
+route over 4 slots, profiled: its device ms and device ops (the parent's
+route launches two scatters a layer beside its prep). Prints one JSON line
+per case, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -192,6 +205,154 @@ def _row9(cs, label: str) -> None:
                               "max_err_vs_plain": err}), flush=True)
         del kp, vp
         torch.cuda.empty_cache()
+
+
+def _stacked(cs, gen, E, N, K, bits, group_size, copies=8):
+    flat = cs._random_qt(gen, E * N, K, bits, group_size, copies=copies)
+    return [type(q)(q.packed.view(E, N, -1), q.scales.view(E, N, -1), q.biases.view(E, N, -1),
+                    N, K, q.k_padded, group_size, bits) for q in flat]
+
+
+def _row20(cs, label: str) -> None:
+    import numpy as np
+
+    from tiny_llm_tpu_torch.kernels import moe_matmul as km
+    from tiny_llm_tpu_torch.models import QWEN3_CONFIGS
+
+    cfg = QWEN3_CONFIGS["qwen3-30b-a3b"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    rng = np.random.default_rng(20)
+    one = lambda T: np.bincount([17] * T, minlength=E)  # noqa: E731
+    specs = [("T=8: one token's top-8", cs._routing(rng, 1, E, k)),
+             ("T=32: four tokens' top-8", cs._routing(rng, 4, E, k)),
+             ("T=1024: 128 tokens' top-8", cs._routing(rng, 128, E, k))]
+    specs += [(f"T={T}, one expert holds every row", one(T)) for T in (8, 15, 16, 17, 33, 128)]
+    specs += [("T=16: two tokens' top-8", cs._routing(rng, 2, E, k)),
+              ("T=192: 24 tokens' top-8", cs._routing(rng, 24, E, k))]
+    shapes = {"gate": (cfg.moe_intermediate_size, cfg.hidden_size),
+              "down": (cfg.hidden_size, cfg.moe_intermediate_size)}
+    for bits, gs in ((4, 64), (8, 64)):
+        ws = {proj: _stacked(cs, gen, E, N, K, bits, gs) for proj, (N, K) in shapes.items()}
+        for proj, (N, K) in shapes.items():
+            for what, sizes in specs:
+                T = int(sizes.sum())
+                sizes_t = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+                x = torch.randn((T, K), generator=gen, device=dev).to(torch.bfloat16)
+                w = ws[proj]
+                err = cs.max_err(km.grouped_quant_matmul_sg_cuda(x, w[0], sizes_t),
+                                 km.grouped_quant_matmul_plain(x, w[0], sizes_t))
+                kern = cs.graph_ms(lambda: [km.grouped_quant_matmul_sg_cuda(x, q, sizes_t)
+                                            for q in w]) / len(w)
+                lib_fn, _, _ = cs._grouped_library(x, w, sizes)
+                lib = cs.graph_ms(lambda: [lib_fn(i) for i in range(len(w))]) / len(w)
+                del lib_fn
+                print(json.dumps({"label": label, "row": 20, "width": f"W{bits} g{gs}",
+                                  "proj": proj, "N": N, "K": K, "case": what, "T": T,
+                                  "experts": int((sizes > 0).sum()), "kernel_ms": kern,
+                                  "grouped_mm_ms": lib, "max_err_vs_plain": err}), flush=True)
+                torch.cuda.empty_cache()
+        # One decode step at MOE_LAYERS layers: gate, up and down at T = 8,
+        # each layer its own top-8, the 8 weight copies in turn.
+        steps = [torch.as_tensor(cs._routing(rng, 1, E, k), dtype=torch.int32, device=dev)
+                 for _ in range(cs.MOE_LAYERS)]
+        xs = {K: torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
+              for _, K in shapes.values()}
+        calls = [(xs[shapes[p][1]], ws[p][(i + j) % 8], steps[i])
+                 for i in range(cs.MOE_LAYERS) for j, p in enumerate(("gate", "gate", "down"))]
+        step = cs.graph_ms(lambda: [km.grouped_quant_matmul_sg_cuda(*c) for c in calls],
+                           replays=3)
+        print(json.dumps({"label": label, "row": 20, "width": f"W{bits} g{gs}",
+                          "case": f"one decode step: {len(calls)} calls at T=8 "
+                                  f"({cs.MOE_LAYERS} x gate, up, down)", "kernel_ms": step}),
+              flush=True)
+        del ws, calls
+        torch.cuda.empty_cache()
+
+
+def _row8(cs, label: str) -> None:
+    """The prep kernel with the page write (this tree: one launch, pages
+    given) or, where the wrapper takes no pages (a parent), the prep kernel
+    then the two page writes (models.qwen3._write_pages); and the prep alone
+    (no pages) on either; over 8 layers' pools."""
+    import inspect
+
+    from tiny_llm_tpu_torch.kernels import fused_decode_attention as kf
+    from tiny_llm_tpu_torch.models import qwen3 as mq
+    from tiny_llm_tpu_torch.ops.rope import rope_tables
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    writes = "pages" in inspect.signature(kf.fused_qkv_prep_cuda).parameters
+    D, eps, Ly = 128, 1e-6, 8
+    cos_t, sin_t = rope_tables(D, cs.MAX_SEQ, base=1e6, device=dev)
+    for Hkv, n_rep in ((8, 4), (4, 8)):
+        shape = (Ly, cs.POOL_PAGES, Hkv, cs.PAGE_SIZE, D)
+        kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        qw, kw = (1 + 0.1 * torch.randn((2, D), generator=gen, device=dev)).to(torch.bfloat16)
+        for offs in ([700], [100, 700, 37, 999]):
+            B = len(offs)
+            qkv = (3 * torch.randn((B, Hkv, n_rep + 2, D), generator=gen, device=dev)).to(
+                torch.bfloat16)
+            off = torch.tensor(offs, dtype=torch.int32, device=dev)
+            args = (qkv, off, cos_t[off.long()], sin_t[off.long()], qw, kw)
+            page = torch.arange(1, B + 1, device=dev)[:, None]
+            slot = off.long()[:, None] % cs.PAGE_SIZE
+
+            def step(i):
+                if writes:
+                    return kf.fused_qkv_prep_cuda(*args, eps=eps,
+                                                  pages=(kp[i], vp[i], page, slot))
+                q, k_row, v_row = kf.fused_qkv_prep_cuda(*args, eps=eps)
+                mq._write_pages(kp, i, page, slot, k_row)
+                mq._write_pages(vp, i, page, slot, v_row)
+                return q
+
+            with_write = cs.graph_ms(lambda: [step(i) for i in range(Ly)]) / Ly
+            alone = cs.graph_ms(lambda: [kf.fused_qkv_prep_cuda(*args, eps=eps)
+                                         for _ in range(Ly)]) / Ly
+            print(json.dumps({"label": label, "row": 8, "heads": f"Hkv {Hkv} n_rep {n_rep}",
+                              "B": B, "offsets": offs,
+                              "route": "one launch" if writes else "prep, then 2 index_put_",
+                              "with_page_write_ms": with_write, "prep_alone_ms": alone}),
+                  flush=True)
+        del kp, vp
+        torch.cuda.empty_cache()
+
+
+def _row8step(cs, label: str) -> None:
+    """One Qwen3-4B decode step at full depth on the three-launch route
+    (paged_fused_one=False) over SERVING_BATCH installed requests of the
+    serving campaign's first lengths, profiled (chip_smoke._device_profile,
+    after three warm steps, twice): device ms and device ops a step."""
+    from tiny_llm_tpu_torch.models import QWEN3_CONFIGS, Qwen3Model, synthetic_quantized_params
+
+    cfg = QWEN3_CONFIGS["qwen3-4b"]
+    m = Qwen3Model(synthetic_quantized_params(cfg, seed=0), cfg, max_seq_len=cs.MAX_SEQ,
+                   paged_fused_one=False).enable_paged_attention(num_pages=cs.POOL_PAGES,
+                                                                 page_size=cs.PAGE_SIZE)
+    lens, _, _ = cs._serving_campaign()
+    batch = m.create_batching_kv_cache(cs.SERVING_BATCH)
+    for slot, n in enumerate(lens[:cs.SERVING_BATCH]):
+        c = m.create_kv_cache()
+        m([[ord("x")] * int(n)], 0, c, logits_to_keep=1)
+        batch.add_request(c, slot)
+    toks = [[ord("x")]] * cs.SERVING_BATCH
+    for _ in range(3):
+        m(toks, None, batch, logits_to_keep=1)
+    for rep in range(2):
+        prof = cs._device_profile(lambda: m(toks, None, batch, logits_to_keep=1), 1, top=6)
+        print(json.dumps({"label": label, "row": "8step", "rep": rep,
+                          "case": "4B three-launch decode step, full depth, "
+                                  f"{cs.SERVING_BATCH} slots at {list(map(int, lens[:4]))}",
+                          "device_ms": prof["device_ms_per_step"],
+                          "device_ops": prof["device_ops_per_step"],
+                          "top": prof["top_kernels_ms_per_step"]}), flush=True)
+    batch.release()
+    del m
+    torch.cuda.empty_cache()
 
 
 def _row18(cs, label: str) -> None:
@@ -480,7 +641,8 @@ def _row9split(cs, label: str) -> None:
 
 
 ROWS = {"17": _row17, "6": _row6, "9": _row9, "18": _row18, "K3": _rowK3, "K2": _rowK2,
-        "K3split": _rowK3split, "K2split": _rowK2split, "9split": _row9split}
+        "K3split": _rowK3split, "K2split": _rowK2split, "9split": _row9split, "20": _row20,
+        "8": _row8, "8step": _row8step}
 
 
 def main() -> int:

@@ -16,9 +16,10 @@ run on the card and on the CPU; only the bodies of the kernels differ
     with the qkv projection fused and interleaved per KV head — over the
     dense slab, or its paged twin over the page pool; with
     `paged_fused_one=False` (TLT_PAGED_FUSED_ONE=0, read once at
-    construction, as in the JAX package) a paged decode step takes three
-    launches per layer instead: the prep kernel (qkv split, QK-norm, RoPE),
-    the page write, then the paged decode kernel over the pages;
+    construction, as in the JAX package) a paged decode step takes the
+    JAX package's three-launch route instead, here two launches per layer:
+    the prep kernel (qkv split, QK-norm, RoPE, and the page write), then
+    the paged decode kernel over the pages;
   * a prompt chunk goes through K3 (kernels/flash_attention) over the slab,
     or, over the page pool: K3 on the chunk's own K/V when the chunk is the
     whole context (offset 0); the split paged prefill (kernels/split_prefill:
@@ -28,7 +29,7 @@ run on the card and on the CPU; only the bodies of the kernels differ
   * a mixed burst step (forward_mixed_burst_paged) runs B decode rows and a
     c-token prefill sub-chunk through the same projections, the decode rows
     through the fused paged step (with `paged_fused_one=False`: the same
-    three launches as a decode step, whose values are the JAX package's
+    route as a decode step, whose values are the JAX package's
     unfused mixed rows) and the sub-chunk through paged attention over its
     own pages;
   * with an attention strategy (`attn_impl`, e.g. parallel.SPAttention) the
@@ -441,24 +442,24 @@ def _paged_decode_rows(cfg, attn_p: AttentionParams, layer: int, qkv_rows, key_p
     """One layer's attention for B decode rows (the fused qkv rows
     [B, Hkv, n_rep + 2, D] at `offsets`) over the page pool, their k/v rows
     written into it at (page_idx, slot); returns [B, Hq * D]. `fused_one`:
-    the fused paged step, the write after it; else three launches, the prep
-    kernel, the write, then paged attention over the pages (the pool's
-    scatter-then-read order)."""
+    the fused paged step, the write after it; else the prep kernel, which
+    writes the k/v rows into the pages itself, then paged attention over
+    the pages (the pool's scatter-then-read order)."""
     B, D = qkv_rows.shape[0], cfg.head_dim
     scale, eps = D**-0.5, cfg.rms_norm_eps
-    if fused_one:
-        attn, k_row, v_row = fused_paged_decode_attention(
-            qkv_rows, key_pages[layer], value_pages[layer], block_table, offsets, cos_row,
-            sin_row, attn_p.q_norm, attn_p.k_norm, scale=scale, eps=eps, impl=impl,
-        )
-    else:
-        q, k_row, v_row = fused_qkv_prep(qkv_rows, offsets, cos_row, sin_row, attn_p.q_norm,
-                                         attn_p.k_norm, eps=eps, impl=impl)
-    _write_pages(key_pages, layer, page_idx, slot, k_row)
-    _write_pages(value_pages, layer, page_idx, slot, v_row)
     if not fused_one:
+        q = fused_qkv_prep(qkv_rows, offsets, cos_row, sin_row, attn_p.q_norm, attn_p.k_norm,
+                           eps=eps, impl=impl,
+                           pages=(key_pages[layer], value_pages[layer], page_idx, slot))
         attn = paged_attention(q.reshape(B, -1, 1, D), key_pages[layer], value_pages[layer],
                                block_table, offsets + 1, scale=scale, impl=impl)
+        return attn.reshape(B, -1)
+    attn, k_row, v_row = fused_paged_decode_attention(
+        qkv_rows, key_pages[layer], value_pages[layer], block_table, offsets, cos_row,
+        sin_row, attn_p.q_norm, attn_p.k_norm, scale=scale, eps=eps, impl=impl,
+    )
+    _write_pages(key_pages, layer, page_idx, slot, k_row)
+    _write_pages(value_pages, layer, page_idx, slot, v_row)
     return attn.reshape(B, -1)
 
 
@@ -484,9 +485,9 @@ def forward_step_paged(
     returns logits [B, L_keep, V].
 
     A decode step (L == 1) runs the fused paged kernel and writes the k/v
-    rows after it; with `fused_one` False, the prep kernel, the k/v write,
-    then paged attention over the pages (the pool's scatter-then-read
-    order). A chunk writes its k/v first, then attends:
+    rows after it; with `fused_one` False, the prep kernel, which writes
+    the k/v rows, then paged attention over the pages (the pool's
+    scatter-then-read order). A chunk writes its k/v first, then attends:
     `local_attention` (every offset 0, so the chunk is the whole context)
     runs K3 on the chunk's own k/v; `split_attention` runs the split paged
     prefill (the chunk's own k/v causally, the prefix pages before it
@@ -629,8 +630,8 @@ def forward_mixed_burst_paged(
     QK-norm and RoPE at its own positions, its k/v written into its pages,
     then paged attention over its own table row (kernels/paged_attention);
     the decode rows through the fused paged step, their k/v rows written
-    after it (`fused_one` False: the prep kernel, the k/v rows written, then
-    paged attention; _paged_decode_rows); the LM head over the decode rows
+    after it (`fused_one` False: the prep kernel writing them, then paged
+    attention; _paged_decode_rows); the LM head over the decode rows
     and the sub-chunk's last real row only (M = B + 1); the argmax (or the
     samplers) on the device.
 
@@ -715,8 +716,9 @@ class Qwen3Model:
     The port reads no environment default for it.
     `paged_fused_one` (None: TLT_PAGED_FUSED_ONE, "1" unless set, read here
     once, as the JAX package reads it at construction): False takes paged
-    decode steps through three launches per layer (the prep kernel, the
-    page write, paged attention) instead of the fused paged step."""
+    decode steps through the JAX package's three-launch route (here the
+    prep kernel, which writes the page rows, then paged attention) instead
+    of the fused paged step."""
 
     def __init__(
         self,
