@@ -57,7 +57,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             torch.cuda.set_sync_debug_mode("error")
   parity    the 4B widths at 4 layers: teacher-forced logits of the kernels
             against the plain versions, on the card
+  checkpoint (right after build) a Qwen3-4B MLX 4-bit export of the
+            synthetic params written in two safetensors shards (uint32
+            codes, bf16 scales and biases, config.json, tied head), loaded
+            with load_params(device="cuda") and held bit-equal to them; the
+            loaded params serve every later 4B phase. A Qwen3-0.6B HF BF16
+            export (normal x 0.02 from a seed, norms 1) loaded quantized at
+            load (W4A16 g128; the card's quantize bit-equal to the CPU's on
+            layer 0's seven projections and the embedding) and dense bf16
+            (4-layer logits within 5 % of its impl="torch" path); each
+            load's seconds and GB/s (a warm read: the files were just
+            written). The files live in a temporary directory under build/,
+            removed at the end
   generate  three ByteTokenizer prompts through simple_generate_with_kv_cache
+  speculative (after generate) the loaded 4B as target, the 0.6B W4A16 as
+            draft: speculative_generate (K = 4, 64 tokens, three prompts)
+            equal to greedy, again with the target as its own draft (a
+            second model on the same params: near-ties alone reject);
+            speculative_decode_device (K = 4, 4 rounds a dispatch), with the
+            0.6B draft and with the target as its own draft, each equal to
+            greedy_continuation, with exact launches over each run; the
+            self-draft's acceptance at least SPEC_SELF_ACCEPT in both loops;
+            forced_alpha = 0.6 emits its budget; K1's route at M = 5 (the
+            bf16 tile) and K3's at L = 5 (the split walk); exact launches
+            of one verify forward (145 K1, 36 K3) and one draft step (113
+            K1, 28 K2); acceptance, speculative against greedy tok/s in
+            turns (A B B A), and the break-even guard's verdict on measured
+            steps
   paged_parity  the same over the page pool: three requests with interleaved
             pages, chunks of 128 (offset 0), 128 and 8 (offset > 0), then 8
             batched decode steps beside an idle slot
@@ -205,6 +231,20 @@ The last Pallas rows:
             route at full depth, after its own warm-up: two campaigns, taken
             in turns with `serving`'s three (A B A B A); exact launches of a
             full-depth step (36 prep, 36 paged decode); a sync-free burst
+
+  dense_moe (before cli) Qwen3-30B-A3B at 4 layers with dense bf16
+            weights (random_params(quantized=False)): dense_linear (cuBLAS
+            asked for f32 output) and the dense grouped product
+            (torch._grouped_mm over device-side group offsets; the decode
+            rows leave 120 of 128 experts empty) against an f64 product
+            rounded once and the per-expert plain version, each within one
+            bf16 ulp plus the f32 sum's error bound; a sync-free burst; and
+            the parity rule against impl="torch" under RouteForcer
+  cli       (last) python -m tiny_llm_tpu_torch.main --model qwen3-0.6b
+            --draft-model qwen3-0.6b --max-tokens 16 and python -m
+            tiny_llm_tpu_torch.batch_main --model qwen3-0.6b
+            --max-output-tokens 16 as subprocesses (synthetic weights, the
+            byte tokenizer): exit 0 and their printed output
 
 Then the nvidia-smi line, one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Needs a CUDA device; imports nothing of JAX.
@@ -1609,17 +1649,23 @@ class RouteForcer:
         return {"routing_forced": len(margins), "max_forced_margin": max(margins, default=None)}
 
 
-def phase_parity(cfg, phase="parity", forcer=None, act_quant=None, bits=4, group_size=128):
+def phase_parity(cfg, phase="parity", forcer=None, act_quant=None, bits=4, group_size=128,
+                 params=None):
     """4 layers at full width, teacher-forced (the plain path's tokens): a
     PROMPT_LEN-token prefill and 8 decode steps, the kernel path's logits
     against the plain path's. With act_quant "int8", also the W4A8 kernel
     path's drift from the W4A16 kernel path on the same inputs (dense
     models), and an A8_TAIL-token prompt tail after the steps (the W4A8
-    kernels' int8 tile routes), held to the same tolerance."""
+    kernels' int8 tile routes), held to the same tolerance. `params`: the
+    first 4 layers of these (bits and group_size then None: dense weights),
+    in place of synthetic ones at `bits` and `group_size`."""
     from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
 
     cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
-    params = synthetic_quantized_params(cfg4, seed=1, group_size=group_size, bits=bits)
+    if params is None:
+        params = synthetic_quantized_params(cfg4, seed=1, group_size=group_size, bits=bits)
+    else:
+        params = dataclasses.replace(params, layers=params.layers[:4])
     fast = Qwen3Model(params, cfg4, max_seq_len=256, act_quant=act_quant)
     plain = Qwen3Model(params, cfg4, max_seq_len=256, impl="torch", act_quant=act_quant)
     # The W4A16 kernel path beside W4A8 (dense only: under a RouteForcer
@@ -4171,6 +4217,509 @@ def phase_axpby(contract):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Checkpoint loading, speculative decoding and the CLIs.
+# ---------------------------------------------------------------------------
+
+SPEC_PROMPTS = ("hello", "The quick brown fox jumps over the lazy dog.",
+                "def fibonacci(n):\n    return n if n < 2 else")
+SPEC_TOKENS, SPEC_K, SPEC_ROUNDS, SPEC_TURN_TOKENS = 64, 4, 4, 32
+# Speculative and greedy streams part only at near-ties of the target's
+# bf16 logits: the verify forward (K1's bf16 tile at M = K + 1, K3's walk)
+# and a decode step (K1's GEMV, K2) round the same logits in other orders,
+# about one ulp apart (random weights give flat logits: top-2 gaps of 0-1
+# ulp every few dozen tokens). A divergent token must lie within this many
+# ulps of the step's largest logit.
+SPEC_TIE_ULPS = 4
+# The target as its own draft proposes its own greedy tokens: only those
+# near-ties reject, so it must accept at least this share.
+SPEC_SELF_ACCEPT = 0.5
+
+
+def _hf_config(cfg, **extra) -> dict:
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    d["mlp_only_layers"] = list(d["mlp_only_layers"])
+    return {"model_type": "qwen3", **d, **extra}
+
+
+def _write_checkpoint(out: Path, cfg, tensors_of_layer, head: dict, tail: dict,
+                      shards: int = 2, **config_extra) -> int:
+    """A HF-layout checkpoint: config.json and `shards` safetensors files
+    (the layers split evenly, the embedding in the first, the final norm in
+    the last). Returns the bytes written."""
+    from tiny_llm_tpu_torch.models.safetensors_io import save_file
+
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "config.json").write_text(json.dumps(_hf_config(cfg, **config_extra)))
+    L, total = cfg.num_hidden_layers, 0
+    for s in range(shards):
+        part = dict(head) if s == 0 else {}
+        for i in range(s * L // shards, (s + 1) * L // shards):
+            part.update(tensors_of_layer(i))
+        if s == shards - 1:
+            part.update(tail)
+        total += save_file(part, str(out / f"model-{s + 1:05d}-of-{shards:05d}.safetensors"))
+    return total
+
+
+def _mlx_triplet(name: str, qt) -> dict:
+    """An MLX export's triplet of a port weight: the port's packing is MLX's
+    (consecutive little-endian codes), so the words are stored as they are."""
+    check(qt.k_padded == qt.in_features, f"{name}: K {qt.in_features} needs padding")
+    return {f"{name}.weight": qt.packed.cpu().view(torch.uint32),
+            f"{name}.scales": qt.scales.cpu(), f"{name}.biases": qt.biases.cpu()}
+
+
+def _same_params(a, b) -> bool:
+    """Every tensor of two unfused param sets bit-equal (QuantizedTensor
+    fields and shapes too)."""
+    from tiny_llm_tpu_torch.ops.quantize import QuantizedTensor
+
+    def same(x, y):
+        if isinstance(x, QuantizedTensor):
+            return isinstance(y, QuantizedTensor) and all(
+                torch.equal(getattr(x, k), getattr(y, k)) for k in ("packed", "scales", "biases")
+            ) and (x.out_features, x.in_features, x.bits, x.group_size) == (
+                y.out_features, y.in_features, y.bits, y.group_size)
+        if x is None or y is None:
+            return x is y
+        return x.dtype == y.dtype and torch.equal(x, y)
+
+    ok = same(a.embedding, b.embedding) and same(a.final_norm, b.final_norm)
+    ok = ok and same(a.lm_head, b.lm_head) and len(a.layers) == len(b.layers)
+    for la, lb in zip(a.layers, b.layers):
+        ok = ok and same(la.input_layernorm, lb.input_layernorm) and same(
+            la.post_attention_layernorm, lb.post_attention_layernorm)
+        for k in ("wq", "wk", "wv", "wo", "q_norm", "k_norm"):
+            ok = ok and same(getattr(la.attn, k), getattr(lb.attn, k))
+        for k in ("w_gate", "w_up", "w_down"):
+            ok = ok and same(getattr(la.mlp, k), getattr(lb.mlp, k))
+    return ok
+
+
+def _timed_load(path: Path, nbytes: int, **kw):
+    from tiny_llm_tpu_torch.models import load_params
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, cfg = load_params(str(path), device="cuda", **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return params, cfg, {"seconds": secs, "gb": nbytes / 1e9, "gb_per_s": nbytes / 1e9 / secs}
+
+
+def phase_checkpoint(params, cfg):
+    """The 4B MLX export of `params` loaded back bit-equal, then the 0.6B HF
+    BF16 export loaded quantized and dense. Returns (the loaded 4B params,
+    the 0.6B W4A16 params, the 0.6B config)."""
+    import shutil
+    import tempfile
+
+    from tiny_llm_tpu_torch.kernels.build import BUILD_DIR
+    from tiny_llm_tpu_torch.models import QWEN3_CONFIGS
+    from tiny_llm_tpu_torch.models.safetensors_io import load_file
+    from tiny_llm_tpu_torch.ops.quantize import quantize
+
+    t_phase = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=BUILD_DIR))
+    try:
+        # (i) Qwen3-4B, MLX 4-bit: the synthetic params as an export.
+        def mlx_layer(i):
+            lay, p = params.layers[i], f"model.layers.{i}"
+            out = {}
+            for k, n in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
+                out.update(_mlx_triplet(f"{p}.self_attn.{n}", getattr(lay.attn, k)))
+            for k, n in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
+                out.update(_mlx_triplet(f"{p}.mlp.{n}", getattr(lay.mlp, k)))
+            out.update({f"{p}.self_attn.q_norm.weight": lay.attn.q_norm.cpu(),
+                        f"{p}.self_attn.k_norm.weight": lay.attn.k_norm.cpu(),
+                        f"{p}.input_layernorm.weight": lay.input_layernorm.cpu(),
+                        f"{p}.post_attention_layernorm.weight": lay.post_attention_layernorm.cpu()})
+            return out
+
+        t0 = time.perf_counter()
+        n4 = _write_checkpoint(tmp / "qwen3-4b-mlx", cfg, mlx_layer,
+                               _mlx_triplet("model.embed_tokens", params.embedding),
+                               {"model.norm.weight": params.final_norm.cpu()},
+                               quantization={"group_size": 128, "bits": 4})
+        write4 = time.perf_counter() - t0
+        loaded, lcfg, load4 = _timed_load(tmp / "qwen3-4b-mlx", n4)
+        check(lcfg == cfg, f"4B config {lcfg} != {cfg}")
+        check(_same_params(loaded, params), "the loaded 4B params differ from the synthetic ones")
+        shutil.rmtree(tmp / "qwen3-4b-mlx")
+
+        # (ii) Qwen3-0.6B, HF BF16: normal x 0.02 from a seed, norms 1.
+        dcfg = QWEN3_CONFIGS["qwen3-0.6b"]
+        dev = params.embedding.device  # the card
+        gen = torch.Generator(device=dev).manual_seed(6)
+        D, Dh, I = dcfg.hidden_size, dcfg.head_dim, dcfg.intermediate_size
+        Hq, Hkv = dcfg.num_attention_heads, dcfg.num_key_value_heads
+
+        def w(*shape):
+            return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+                torch.bfloat16).cpu()
+
+        def ones(n):
+            return torch.ones((n,), dtype=torch.bfloat16)
+
+        def hf_layer(i):
+            p = f"model.layers.{i}"
+            return {f"{p}.self_attn.q_proj.weight": w(Hq * Dh, D),
+                    f"{p}.self_attn.k_proj.weight": w(Hkv * Dh, D),
+                    f"{p}.self_attn.v_proj.weight": w(Hkv * Dh, D),
+                    f"{p}.self_attn.o_proj.weight": w(D, Hq * Dh),
+                    f"{p}.mlp.gate_proj.weight": w(I, D), f"{p}.mlp.up_proj.weight": w(I, D),
+                    f"{p}.mlp.down_proj.weight": w(D, I),
+                    f"{p}.self_attn.q_norm.weight": ones(Dh),
+                    f"{p}.self_attn.k_norm.weight": ones(Dh),
+                    f"{p}.input_layernorm.weight": ones(D),
+                    f"{p}.post_attention_layernorm.weight": ones(D)}
+
+        hf = tmp / "qwen3-0.6b-hf"
+        n06 = _write_checkpoint(hf, dcfg, hf_layer,
+                                {"model.embed_tokens.weight": w(dcfg.vocab_size, D)},
+                                {"model.norm.weight": ones(D)}, torch_dtype="bfloat16")
+        qparams, qcfg, load_q = _timed_load(hf, n06)  # W4A16 g128, quantized on the card
+        check(qcfg == dcfg, "0.6B config")
+        # The card's quantize against the CPU's on the same tensors.
+        raw = {}
+        for f in sorted(hf.glob("*.safetensors")):
+            raw.update(load_file(str(f)))
+        l0, same = qparams.layers[0], []
+        pairs = [("model.embed_tokens", qparams.embedding)] + [
+            (f"model.layers.0.self_attn.{n}", getattr(l0.attn, k))
+            for k, n in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj"))
+        ] + [(f"model.layers.0.mlp.{n}", getattr(l0.mlp, k))
+             for k, n in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj"))]
+        for name, card in pairs:
+            cpu = quantize(raw[f"{name}.weight"].to(torch.float32))
+            same.append(all(torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
+                            for k in ("packed", "scales", "biases")))
+        del raw
+        check(all(same), f"card quantize != CPU quantize: {[n for (n, _), s in zip(pairs, same) if not s]}")
+        dparams, _, load_d = _timed_load(hf, n06, quantized=False)  # dense bf16
+        check(dparams.embedding.dtype == torch.bfloat16, "dense load dtype")
+        # The dense model's kernels (K3, K2; its projections are dense_linear
+        # on both paths) against impl="torch": the parity phase's rule.
+        phase_parity(dcfg, "checkpoint_dense_parity", bits=None, group_size=None,
+                     params=dparams)
+        del dparams
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "checkpoint", "seconds": time.perf_counter() - t_phase,
+          "qwen3_4b_mlx4bit": {"bytes": n4, "shards": 2, "write_s": write4, "load": load4,
+                               "bit_equal_to_synthetic": True},
+          "qwen3_06b_hf_bf16": {"bytes": n06, "shards": 2, "load_w4a16": load_q,
+                                "load_dense_bf16": load_d,
+                                "card_quantize_bit_equal_to_cpu": [n for n, _ in pairs],
+                                "dense_parity": "the checkpoint_dense_parity line"},
+          "read": "warm (the files were just written; the page cache holds them)"})
+    return loaded, qparams, dcfg
+
+
+def phase_speculative(model, params, cfg, draft_params, dcfg):
+    """Speculative decoding on the card: the loaded 4B (`model`, dense; its
+    unfused `params`) as target, the 0.6B W4A16 as draft. Returns the
+    launches of the device rounds' run."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.generate import (
+        simple_generate_with_kv_cache,
+        speculative_generate,
+        speculative_max_speedup,
+    )
+    from tiny_llm_tpu_torch.kernels import flash_attention as k3
+    from tiny_llm_tpu_torch.kernels.quant_matmul import k1_route
+    from tiny_llm_tpu_torch.models import Qwen3Model
+    from tiny_llm_tpu_torch.speculative import (
+        SpecModel,
+        greedy_continuation,
+        speculative_decode_device,
+    )
+    from tiny_llm_tpu_torch.tokenizer import ByteTokenizer
+
+    class IdTokenizer(ByteTokenizer):
+        """Decodes to the ids themselves: equal texts are equal tokens (random
+        weights pick ids past the byte range, which ByteTokenizer drops)."""
+
+        def decode(self, ids):
+            return " ".join(str(int(i)) for i in ids)
+
+    t_phase = time.perf_counter()
+    tok = IdTokenizer()
+    draft = Qwen3Model(draft_params, dcfg, max_seq_len=MAX_SEQ)
+    K, L = SPEC_K, cfg.num_hidden_layers
+    check(k1_route(K + 1) == "b16", f"K1 at M = {K + 1}: {k1_route(K + 1)}, not the bf16 tile")
+    check(K + 1 <= k3.DECODE_MAX_L, "K3 at L = K + 1 is not the split walk")
+    def against_greedy(what, prompt_ids, got, want):
+        """`got` against the target's greedy stream `want`: equal, or, from
+        their first divergence on, teacher-forced through the target's own
+        decode steps, every token the step's argmax or within SPEC_TIE_ULPS
+        bf16 ulps of its largest logit (a near-tie, which the M = K + 1
+        verify routes and the M = 1 step routes may round either way)."""
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        check(len(got) == len(want), f"{what}: {len(got)} tokens, greedy {len(want)}")
+        rec = {"equal": first is None, "first_divergence": first}
+        if first is None:
+            return rec
+        cache = model.create_kv_cache()
+        logits = model([prompt_ids + got[:first]], 0, cache, logits_to_keep=1)
+        ties, gaps = 0, []
+        for i in range(first, len(got)):
+            row = logits[0, -1].float()
+            mx = float(row.max())
+            ulp = 2.0 ** (int(np.floor(np.log2(abs(mx)))) - 7)
+            gap = mx - float(row[got[i]])
+            check(gap <= SPEC_TIE_ULPS * ulp,
+                  f"{what}: token {i} ({got[i]}) is {gap} below the step's max {mx}")
+            if gap > 0 or int(row.argmax()) != got[i]:
+                ties += 1
+                gaps.append(gap / ulp)
+            logits = model([[got[i]]], len(prompt_ids) + i, cache, logits_to_keep=1)
+        cache.release()
+        rec.update(near_ties=ties, tie_gaps_in_ulps=gaps)
+        return rec
+
+    runs = []
+    self_draft = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ)  # the target as its own draft
+    for prompt in SPEC_PROMPTS:
+        ids = tok.encode(prompt)
+        want = [int(t) for t in simple_generate_with_kv_cache(
+            model, tok, prompt, max_tokens=SPEC_TOKENS).split()]
+        rec = {"prompt": prompt, "greedy_tokens": len(want)}
+        for name, d in (("draft_0.6b", draft), ("self_draft", self_draft)):
+            st = {}
+            got = [int(t) for t in speculative_generate(
+                d, model, tok, tok, prompt, proposal_length=K, max_tokens=SPEC_TOKENS,
+                auto_disable=False, stats=st).split()]
+            rec[name] = against_greedy(f"{name} on {prompt!r}", ids, got, want)
+            rec[name]["acceptance"] = st["accepted"] / st["proposed"]
+            rec[name]["rounds"] = st["rounds"]
+        check(rec["self_draft"]["acceptance"] >= SPEC_SELF_ACCEPT,
+              f"the target as its own draft accepted {rec['self_draft']['acceptance']}")
+        runs.append(rec)
+    del self_draft
+    # The rounds over slabs, with exact launches over the run.
+    target = SpecModel(model.params, cfg, model._rope_tables)
+    dspec = SpecModel(draft.params, dcfg, draft._rope_tables)
+    ids = tok.encode(SPEC_PROMPTS[1])
+    want = greedy_continuation(target, ids, SPEC_TOKENS, max_seq=256)
+
+    def device_rounds(name, d):
+        """speculative_decode_device with draft d: its stream against
+        greedy_continuation, its exact launches and its acceptance."""
+        stats, DL = {}, d.cfg.num_hidden_layers
+        kernels.reset_launches()
+        got = speculative_decode_device(d, target, ids, max_tokens=SPEC_TOKENS,
+                                        proposal_length=K, rounds_per_dispatch=SPEC_ROUNDS,
+                                        max_seq=256, stats=stats)
+        counts = kernels.launches()
+        rec = against_greedy(f"speculative_decode_device ({name})", ids, got, want)
+        rounds, steps = stats["dispatches"] * SPEC_ROUNDS, stats["catch_ups"]
+        steps += rounds * K  # draft decode steps: K a round, one more after a full accept
+        expected = dict.fromkeys(counts, 0)
+        expected.update(quant_matmul=(4 * L + 1) + (4 * DL + 1) + steps * (4 * DL + 1)
+                        + rounds * (4 * L + 1),
+                        flash_attention=L + DL + rounds * L, fused_decode_attention=steps * DL)
+        check(counts == expected, f"device rounds' ({name}) launches {counts} != {expected}")
+        # Each round emits its accepted proposals and one token more.
+        rec.update(dispatches=stats["dispatches"], emitted=stats["emitted"],
+                   catch_ups=stats["catch_ups"],
+                   acceptance=(stats["emitted"] - 1 - rounds) / (rounds * K),
+                   launches={k: v for k, v in counts.items() if v})
+        return rec, counts
+
+    device_runs = {}
+    device_runs["draft_0.6b"], counts = device_rounds("draft_0.6b", dspec)
+    # The target as its own draft: the accepting branch (runs of K + 1
+    # tokens, the slab advanced by K + 1, the draft slab after a full accept).
+    device_runs["self_draft"], _ = device_rounds("self_draft", target)
+    check(device_runs["self_draft"]["acceptance"] >= SPEC_SELF_ACCEPT,
+          f"device rounds, the target as its own draft: acceptance "
+          f"{device_runs['self_draft']['acceptance']}")
+    forced = {}
+    got = speculative_decode_device(dspec, target, ids, max_tokens=SPEC_TOKENS,
+                                    proposal_length=K, rounds_per_dispatch=SPEC_ROUNDS,
+                                    max_seq=256, forced_alpha=0.6, stats=forced)
+    check(len(got) == SPEC_TOKENS and all(0 <= t < cfg.vocab_size for t in got),
+          "forced_alpha = 0.6 did not emit its budget")
+    # One verify forward and one draft step, counted exactly, and timed.
+    tk, tv = target.empty_slabs(256)
+    dk, dv = dspec.empty_slabs(256)
+    verif = torch.tensor([ids[:K + 1]], device=model.device)
+    kernels.reset_launches()
+    target.step(verif, 0, tk, tv, K + 1)
+    per_verify = {k: v for k, v in kernels.launches().items() if v}
+    check(per_verify == {"quant_matmul": 4 * L + 1, "flash_attention": L},
+          f"a verify forward launched {per_verify}")
+    one, DL = verif[:, :1], dcfg.num_hidden_layers
+    kernels.reset_launches()
+    dspec.step(one, 0, dk, dv, 1)
+    per_draft = {k: v for k, v in kernels.launches().items() if v}
+    check(per_draft == {"quant_matmul": 4 * DL + 1, "fused_decode_attention": DL},
+          f"a draft step launched {per_draft}")
+    verify_ms = event_ms(lambda: target.step(verif, 8, tk, tv, K + 1), reps=5)
+    draft_ms = event_ms(lambda: dspec.step(one, 8, dk, dv, 1), reps=5)
+    target_ms = event_ms(lambda: target.step(one, 8, tk, tv, 1), reps=5)
+    bound = speculative_max_speedup(target_ms, draft_ms, verify_ms, K)
+    # Speculative (0.6B draft) against greedy decode, in turns (A B B A).
+    prompt = SPEC_PROMPTS[1]
+    tps = {"speculative": [], "greedy": []}
+    for name in ("speculative", "greedy", "greedy", "speculative"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "greedy":
+            simple_generate_with_kv_cache(model, tok, prompt, max_tokens=SPEC_TURN_TOKENS)
+        else:
+            speculative_generate(draft, model, tok, tok, prompt, proposal_length=K,
+                                 max_tokens=SPEC_TURN_TOKENS, auto_disable=False)
+        tps[name].append(SPEC_TURN_TOKENS / (time.perf_counter() - t0))
+    del draft
+    torch.cuda.empty_cache()
+    emit({"phase": "speculative", "seconds": time.perf_counter() - t_phase,
+          "target": "qwen3-4b W4A16 (loaded)", "draft": "qwen3-0.6b W4A16 (quantized at load)",
+          "proposal_length": K, "tokens": SPEC_TOKENS, "host_loop_vs_greedy": runs,
+          "tie_rule": f"a divergent token within {SPEC_TIE_ULPS} bf16 ulps of the step's max",
+          "device_rounds": {"rounds_per_dispatch": SPEC_ROUNDS, **device_runs},
+          "self_draft_min_acceptance": SPEC_SELF_ACCEPT,
+          "forced_alpha_0.6": forced,
+          "routes": {"k1_at_m5": k1_route(K + 1), "k3_at_l5": "split walk + combine"},
+          "launches_per_verify": per_verify, "launches_per_draft_step": per_draft,
+          "verify_forward_ms": verify_ms, "draft_step_ms": draft_ms, "target_step_ms": target_ms,
+          "guard": {"max_speedup": bound, "verdict": "speculate" if bound >= 1 else "refuse",
+                    "timing": "event_ms: device-clock ms of an eager call, host gaps in"},
+          "tok_s_in_turns": {n: float(np.median(v)) for n, v in tps.items()},
+          "tok_s_all": tps, "turn_tokens": SPEC_TURN_TOKENS, "order": "ABBA"})
+    return counts
+
+
+def _within_f32_sum(got, want, abs_sum, k: int) -> dict:
+    """Check |got - want| <= 1 bf16 ulp of the larger + k * 2^-24 * abs_sum
+    elementwise: both f32-accumulated (or exact) and rounded once to bf16
+    (`abs_sum` is sum |x| |w| per element; k the length of the sums)."""
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    diff = (got - want).abs()
+    lim = ulp + k * 2.0 ** -24 * abs_sum.float()
+    check(bool(torch.isfinite(got).all()) and bool((diff <= lim).all()),
+          f"worst {float((diff - lim).max())} past one ulp + the f32 sum bound")
+    return {"max_err_over_limit": float((diff / lim).max()),
+            "elements_not_equal": int((diff > 0).sum()), "elements": diff.numel()}
+
+
+def phase_dense_moe(moe_cfg):
+    """Dense bf16 weights on the card at the Qwen3-30B-A3B widths, 4 layers:
+    the two products that are library calls (the JAX package computes them
+    outside any Pallas kernel) held elementwise, a sync-free decode burst
+    through the dense MoE layers, and the parity rule."""
+    from tiny_llm_tpu_torch.models import Qwen3Model, random_params
+    from tiny_llm_tpu_torch.ops.basics import dense_linear
+    from tiny_llm_tpu_torch.ops.moe import grouped_matmul, sort_by_expert
+
+    t_phase = time.perf_counter()
+    cfg4 = dataclasses.replace(moe_cfg, num_hidden_layers=4)
+    params = random_params(cfg4, seed=3, quantized=False, device="cuda")
+    lay = params.layers[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lin, old_flag = {}, {}
+    for name, w in (("q_proj", lay.attn.wq), ("o_proj", lay.attn.wo), ("router", lay.mlp.w_router),
+                    ("lm_head", params.embedding if params.lm_head is None else params.lm_head)):
+        for M in (1, 5, 64):
+            x = torch.randn(M, w.shape[1], generator=gen, device="cuda").to(torch.bfloat16)
+            exact = (x.double() @ w.double().t()).to(torch.bfloat16)
+            abs_sum = x.double().abs() @ w.double().abs().t()
+            lin[f"{name}_m{M}"] = _within_f32_sum(dense_linear(x, w), exact, abs_sum, w.shape[1])
+            # PyTorch's default bf16 product (bf16 output), for the record.
+            old_flag[f"{name}_m{M}"] = int((torch.matmul(x, w.t()) != exact).sum())
+    # The grouped product: random top-8 routing of T tokens.
+    E, k = cfg4.num_experts, cfg4.num_experts_per_tok
+    grouped, ms = {}, {}
+    for T in (1, 64):
+        ids = torch.rand(T, E, generator=gen, device="cuda").argsort(-1)[:, :k]
+        order, sizes = sort_by_expert(ids, E)
+        xs = torch.randn(T * k, cfg4.hidden_size, generator=gen, device="cuda").to(torch.bfloat16)
+        for wname in ("w_gate", "w_down"):
+            w = getattr(lay.mlp, wname)
+            x = xs if wname == "w_gate" else xs[:, : w.shape[2]].contiguous()
+            got = grouped_matmul(x, w, sizes)
+            want = grouped_matmul(x, w, sizes, impl="torch")
+            abs_sum = grouped_matmul(x.float().abs(), w.float().abs(), sizes, impl="torch")
+            grouped[f"{wname}_t{T}"] = _within_f32_sum(got, want, abs_sum, 2 * w.shape[2])
+            grouped[f"{wname}_t{T}"]["empty_groups"] = int((sizes == 0).sum())
+            if wname == "w_gate":
+                ms[f"t{T}"] = {"grouped_mm": event_ms(lambda: grouped_matmul(x, w, sizes)),
+                               "per_expert": event_ms(
+                                   lambda: grouped_matmul(x, w, sizes, impl="torch"))}
+    prompt = np.random.default_rng(3).integers(0, cfg4.vocab_size, size=(1, PROMPT_LEN))
+    burst = _sync_free_burst(Qwen3Model(params, cfg4, max_seq_len=MAX_SEQ), prompt)
+    with RouteForcer() as forcer:
+        phase_parity(cfg4, "dense_moe_parity", forcer, bits=None, group_size=None, params=params)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "dense_moe", "seconds": time.perf_counter() - t_phase,
+          "model": "qwen3-30b-a3b dense bf16", "layers": 4,
+          "dense_linear_vs_f64_rounded_once": lin,
+          "torch_matmul_bf16_out_elements_not_equal": old_flag,
+          "grouped_mm_vs_per_expert": grouped, "grouped_ms": ms, "sync_free_burst": burst,
+          "parity": "the dense_moe_parity line",
+          "rule": "|got - want| <= 1 bf16 ulp + K * 2^-24 * sum |x| |w|"})
+
+
+def phase_cli():
+    """The two CLIs as subprocesses, side by side on the card (synthetic
+    0.6B weights, the byte tokenizer): each must exit 0; main must print the
+    target's greedy text (its break-even guard refuses a draft as slow as the
+    target), which this process computes on the same weights, and batch_main
+    a line per request and its summary."""
+    import os
+
+    from tiny_llm_tpu_torch import main as cli_main
+    from tiny_llm_tpu_torch.generate import simple_generate_with_kv_cache
+    from tiny_llm_tpu_torch.models import QWEN3_CONFIGS, Qwen3Model, synthetic_quantized_params
+    from tiny_llm_tpu_torch.tokenizer import ByteTokenizer
+
+    root = Path(__file__).resolve().parent
+    runs = {"main": ["-m", "tiny_llm_tpu_torch.main", "--model", "qwen3-0.6b", "--draft-model",
+                     "qwen3-0.6b", "--max-tokens", "16"],
+            "batch_main": ["-m", "tiny_llm_tpu_torch.batch_main", "--model", "qwen3-0.6b",
+                           "--max-output-tokens", "16"]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, *argv], cwd=root, text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    env=dict(os.environ))
+             for name, argv in runs.items()}
+    out = {}
+    try:
+        cfg = QWEN3_CONFIGS["qwen3-0.6b"]
+        ref = Qwen3Model(synthetic_quantized_params(cfg, seed=0), cfg,
+                         max_seq_len=cli_main.parser().get_default("max_seq_len"))
+        want = simple_generate_with_kv_cache(ref, ByteTokenizer(),
+                                             cli_main.parser().get_default("prompt"),
+                                             max_tokens=16)
+        del ref
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=300)
+            check(p.returncode == 0, f"{name} exited {p.returncode}: {stderr[-2000:]}")
+            lines = stdout.rstrip("\n").split("\n")  # the texts may hold other line breaks
+            if name == "main":
+                check(stdout.endswith("\n" + want + "\n"),
+                      f"main printed {stdout[-300:]!r}, not the greedy text {want!r}")
+            else:
+                check(sum(ln.startswith(f"[{i}]") for i in range(6) for ln in lines) == 6
+                      and "-- 6 requests" in lines[-1], f"batch_main printed {stdout[-500:]!r}")
+            out[name] = {"seconds": time.perf_counter() - t0, "exit": p.returncode,
+                         "last_line": lines[-1][-120:] if lines else "",
+                         "guard_refused": "speculative decoding disabled" in stderr}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    emit({"phase": "cli", "side_by_side": True, **out})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase line, the kernel line, the card "
@@ -4187,7 +4736,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi, ptxas = phase_build()
     cfg = QWEN3_CONFIGS["qwen3-4b"]
-    params = synthetic_quantized_params(cfg, seed=0)
+    # The synthetic 4B params go through an MLX export and load_params; the
+    # loaded params (bit-equal) serve every later 4B phase.
+    params, draft_params, draft_cfg = phase_checkpoint(synthetic_quantized_params(cfg, seed=0),
+                                                       cfg)
+    torch.cuda.empty_cache()
     model = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ)
     a8 = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, act_quant="int8")  # shares the weights
     sg_model = Qwen3Model(synthetic_quantized_params(cfg, seed=0, group_size=64, bits=8), cfg,
@@ -4215,12 +4768,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity(cfg)
     phase_generate(model)
+    phase_speculative(model, params, cfg, draft_params, draft_cfg)
+    del draft_params
+    torch.cuda.empty_cache()
     phase_paged_parity(cfg)
     # The three-launch paged decode (paged_fused_one=False) on the same
     # weights: its serving campaigns are taken in turns with `serving`'s.
     phase_paged3_parity(cfg, contract)
-    # W4A8 on the same weights too: its two campaigns follow each three-
-    # launch one (W4A16, three-launch, W4A8, ...).
+    # W4A8 on the same weights too: its campaign follows the three-launch
+    # one (W4A16, three-launch, W4A8, W4A16).
     m3 = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, paged_fused_one=False)
     for m in (m3, a8):
         m.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
@@ -4276,6 +4832,8 @@ def main() -> int:
     del moe, moe_params
     torch.cuda.empty_cache()
     sg_moe_counts = phase_sg_moe(moe_cfg, contract, moe_w4a16)
+    phase_dense_moe(moe_cfg)
+    phase_cli()
     # Launches on each kernel's own path: the dense 4B run for K1-K3, the
     # 4B serving campaigns for the paged kernels, the dense 30B-A3B run for
     # the grouped expert matmul, the 4B long-prompt prefills for the split's,

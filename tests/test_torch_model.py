@@ -30,7 +30,14 @@ from tiny_llm_tpu_torch.models import (  # noqa: E402
 from tiny_llm_tpu_torch.models.bridge import quantized_from_numpy  # noqa: E402
 from tiny_llm_tpu_torch.ops import dequantize  # noqa: E402
 
-from .torch_port import f32, jax_k1_on_pallas, params_to_numpy, qt_to_numpy  # noqa: E402
+from .torch_port import (  # noqa: E402
+    f32,
+    jax_k1_on_pallas,
+    one_torch_thread,
+    params_to_numpy,
+    qt_to_numpy,
+    real_checkpoint,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "tiny_llm_tpu_torch"
@@ -169,24 +176,33 @@ def test_no_cache_call_matches_cached_prefill():
     torch.testing.assert_close(pm(prompt), pm(prompt, 0, c), rtol=0, atol=0)
 
 
-REAL = REPO / ".artifacts" / "qwen3-tiny-real"
-
-
-def test_real_checkpoint_teacher_forced_when_present():
-    """Runs when the locally built checkpoint exists (tests/test_real_checkpoint.py
-    builds it); the checkpoint files are not in the repository."""
-    if not (REAL / ".builder-sha256").exists():
-        pytest.skip(f"{REAL} not built on this host")
+def _real_checkpoint_teacher_forced(port_loads: bool):
+    """The tiny real checkpoint (tests/torch_port.py real_checkpoint: the JAX
+    suite's build when complete, else the port tests' own copy; not in the
+    repository), loaded by the JAX package, and by the JAX package or the
+    port for the port's model; teacher-forced logits of both models."""
+    pytest.importorskip("transformers")
     pytest.importorskip("safetensors")
+    real = Path(real_checkpoint("qwen3-tiny-real"))
+    with one_torch_thread():
+        _teacher_forced_on(real, port_loads)
+
+
+def _teacher_forced_on(real: Path, port_loads: bool):
     import json
 
     from tiny_llm_tpu.models.loader import load_params
+    from tiny_llm_tpu_torch.models import load_params as port_load_params
 
-    params, jcfg = load_params(str(REAL), quantized=True)
+    params, jcfg = load_params(str(real), quantized=True)
     pcfg = Qwen3Config(**vars(jcfg))
-    pm = Qwen3Model(from_jax_numpy(params_to_numpy(params), pcfg, device="cpu"), pcfg,
-                    max_seq_len=256, device="cpu")
-    with open(REAL / "oracle" / "greedy.json") as f:
+    if port_loads:
+        pparams, lcfg = port_load_params(str(real), device="cpu")
+        assert lcfg == pcfg
+    else:
+        pparams = from_jax_numpy(params_to_numpy(params), pcfg, device="cpu")
+    pm = Qwen3Model(pparams, pcfg, max_seq_len=256, device="cpu")
+    with open(real / "oracle" / "greedy.json") as f:
         prompt = json.load(f)["prompt_ids"]
     # Like with like: the prompt's rows take K1's staged route (bf16(q * s))
     # on both sides, the JAX model's matmuls the Pallas kernels K1 replaces.
@@ -194,6 +210,14 @@ def test_real_checkpoint_teacher_forced_when_present():
         jm = JaxQwen3Model(params, jcfg, max_seq_len=256)
         for want, got in _teacher_forced(jm, pm, prompt, steps=8):
             np.testing.assert_allclose(got, want, atol=5e-2, rtol=5e-2)
+
+
+def test_real_checkpoint_teacher_forced_when_present():
+    _real_checkpoint_teacher_forced(port_loads=False)
+
+
+def test_real_checkpoint_teacher_forced_port_loaded():
+    _real_checkpoint_teacher_forced(port_loads=True)
 
 
 # ---------------------------------------------------------------------------

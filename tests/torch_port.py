@@ -5,6 +5,12 @@ Only tests import both packages; data crosses between them as numpy."""
 from __future__ import annotations
 
 import contextlib
+import fcntl
+import hashlib
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -128,3 +134,109 @@ def assert_logit_calls(calls, skip=frozenset(), atol: float = LOGIT_ATOL):
         top2 = np.sort(want, axis=-1)[:, -2:]
         decided = (top2[:, 1] - top2[:, 0]) > 2 * atol
         np.testing.assert_array_equal(got.argmax(-1)[decided], want.argmax(-1)[decided])
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch at one intra-op thread inside the block, restored after: the
+    port tests' tensors are small, and under the suite's parallel workers
+    torch's per-op thread pool spends more time waiting than computing."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def torch_one_thread():
+    """one_torch_thread around a whole module's tests."""
+    with one_torch_thread():
+        yield
+
+
+REPO = Path(__file__).resolve().parents[1]
+ARTIFACTS = REPO / ".artifacts"
+BUILD_SCRIPT = REPO / "scripts" / "make_real_checkpoint.py"
+
+
+def _complete(d: Path, digest: str) -> bool:
+    """A checkpoint whose build ran to its end: the build script writes its
+    oracle, then the script's hash is stamped."""
+    stamp = d / ".builder-sha256"
+    return (stamp.exists() and stamp.read_text().strip() == digest
+            and (d / "oracle" / "greedy.json").exists())
+
+
+def real_checkpoint(variant: str, extra: tuple[str, ...] = ()) -> str:
+    """The HF checkpoint `variant` of scripts/make_real_checkpoint.py:
+    `.artifacts/<variant>` when its stamp matches the build script (the JAX
+    suite's, complete), else a private copy `.artifacts/torch-<variant>`,
+    built once under a file lock (xdist workers may ask at the same time)."""
+    digest = hashlib.sha256(BUILD_SCRIPT.read_bytes()).hexdigest()
+    shared = ARTIFACTS / variant
+    if _complete(shared, digest):
+        return str(shared)
+    own = ARTIFACTS / f"torch-{variant}"
+    ARTIFACTS.mkdir(exist_ok=True)
+    with open(ARTIFACTS / f".torch-{variant}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _complete(own, digest):
+            env = dict(os.environ, HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
+            subprocess.run([sys.executable, str(BUILD_SCRIPT), "--out", str(own), *extra],
+                           check=True, env=env, timeout=600, capture_output=True)
+            (own / ".builder-sha256").write_text(digest)
+    return str(own)
+
+
+def _dequant_f32(w) -> np.ndarray:
+    """A weight of either package, dequantized (or dense) as float32 numpy."""
+    import torch
+
+    from tiny_llm_tpu.ops.quantize import dequantize as jax_dequantize
+    from tiny_llm_tpu_torch.ops.quantize import QuantizedTensor as PortQT
+    from tiny_llm_tpu_torch.ops.quantize import dequantize as port_dequantize
+
+    if isinstance(w, JaxQT):
+        import jax.numpy as jnp
+
+        return np.asarray(jax_dequantize(w, jnp.float32), np.float32)[..., : w.in_features]
+    if isinstance(w, PortQT):
+        return port_dequantize(w, torch.float32).numpy()
+    return f32(w)
+
+
+def assert_loaded_equal(jp, pp) -> None:
+    """Every weight of the JAX package's params `jp` and the port's `pp`
+    (both unfused, as the loaders return them) bit-equal once dequantized to
+    f32, each weight quantized on both sides or dense on both; a tied head
+    is the port's None (the JAX package keeps a copy of the embedding)."""
+    from tiny_llm_tpu_torch.ops.quantize import QuantizedTensor as PortQT
+
+    def same(a, b, what):
+        assert isinstance(a, JaxQT) == isinstance(b, PortQT), what
+        if not isinstance(a, JaxQT):
+            assert np.dtype(str(np.asarray(a).dtype)).itemsize == b.element_size(), what
+        x, y = _dequant_f32(a), _dequant_f32(b)
+        assert x.shape == y.shape, (what, x.shape, y.shape)
+        np.testing.assert_array_equal(y, x, err_msg=what)
+
+    same(jp.embedding, pp.embedding, "embedding")
+    same(jp.final_norm, pp.final_norm, "final_norm")
+    if pp.lm_head is not None:
+        same(jp.lm_head, pp.lm_head, "lm_head")
+    elif jp.lm_head is not None:
+        same(jp.lm_head, pp.embedding, "tied lm_head")
+    assert len(jp.layers) == len(pp.layers)
+    for i, (a, b) in enumerate(zip(jp.layers, pp.layers)):
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            same(getattr(a, name), getattr(b, name), f"layer {i} {name}")
+        for name in ("wq", "wk", "wv", "wo", "q_norm", "k_norm"):
+            same(getattr(a.attn, name), getattr(b.attn, name), f"layer {i} attn.{name}")
+        names = ("w_router", "w_gate", "w_up", "w_down") if hasattr(a.mlp, "w_router") else (
+            "w_gate", "w_up", "w_down")
+        for name in names:
+            same(getattr(a.mlp, name), getattr(b.mlp, name), f"layer {i} mlp.{name}")

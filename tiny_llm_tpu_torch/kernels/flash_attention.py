@@ -83,14 +83,21 @@ DECODE_STATE_LAUNCHES = 0  # the shard decode-state kernel's
 MASKED_LAUNCHES = 0  # the explicit-mask kernel's
 
 
+def kernel_round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x (f32) rounded through bf16 where the kernels round, for bf16
+    inputs; f32 inputs (an f32 model on the CPU, the JAX package's oracle
+    mode) stay f32, as the JAX XLA route computes them."""
+    return x.to(torch.bfloat16).to(torch.float32) if dtype == torch.bfloat16 else x
+
+
 def _attention_sums(q, k, v, ok, scale: float, bias=None):
     """attention_state_plain before its division: (acc, m, l), acc the f32
-    sum of the bf16 probabilities times v [B, Hq, L, D], m and l
-    [B, Hq, L] f32."""
+    sum of the bf16 probabilities times v [B, Hq, L, D] (f32 probabilities
+    for f32 inputs), m and l [B, Hq, L] f32."""
     B, Hq, L, D = q.shape
     Hkv = k.shape[1]
     n_rep = Hq // Hkv
-    qs = (q.to(torch.float32) * scale).to(torch.bfloat16).to(torch.float32)
+    qs = kernel_round(q.to(torch.float32) * scale, q.dtype)
     qs = qs.reshape(B, Hkv, n_rep, L, D)
     s = torch.einsum("bhrld,bhsd->bhrls", qs, k.to(torch.float32))
     s = torch.where(ok[:, None, None], s, NEG_INF)
@@ -100,7 +107,7 @@ def _attention_sums(q, k, v, ok, scale: float, bias=None):
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2))
     l = p.sum(-1, keepdim=True)
-    pb = p.to(torch.bfloat16).to(torch.float32)
+    pb = kernel_round(p, q.dtype)
     acc = torch.einsum("bhrls,bhsd->bhrld", pb, v.to(torch.float32))
     return acc.reshape(B, Hq, L, D), m.reshape(B, Hq, L), l.reshape(B, Hq, L)
 
@@ -126,7 +133,7 @@ def attention_state_plain(q, k, v, ok, scale: float, bias=None):
     """Attention of q [B, Hq, L, D] over k/v [B, Hkv, S, D] where ok
     [B, L, S] marks the visible keys, at the TPU kernels' rounding points:
     q*scale rounded to bf16, f32 scores and softmax, bf16 probabilities in
-    the PV product, acc / max(l, 1e-30). `bias` (an additive f32 mask
+    the PV product, acc / max(l, 1e-30) (f32 inputs round nowhere). `bias` (an additive f32 mask
     [B, 1 or Hq, L, S]) is added after the visibility clamp and the sum
     floored at NEG_INF. Returns (out in q's dtype, m, l [B, Hq, L] f32); a
     row that sees no key gives (0, NEG_INF, 0)."""

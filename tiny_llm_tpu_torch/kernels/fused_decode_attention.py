@@ -32,6 +32,7 @@ import torch
 
 from . import build
 from .dispatch import resolve
+from .flash_attention import kernel_round
 from .paged_attention import decode_split, gather_pages_dense
 
 TPU_KERNEL = "tiny_llm_tpu/kernels/fused_decode_attention.py:79 _fused_step_kernel"
@@ -46,19 +47,16 @@ PAGED_LAUNCHES = 0  # page pool
 PREP_LAUNCHES = 0  # the prep kernel
 
 
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
-
-
-def _rms_rope_heads(x, w, cos, sin, eps):
+def _rms_rope_heads(x, w, cos, sin, eps, dtype):
     """RMSNorm + RoPE over [..., D] f32 rows at the TPU kernel's rounding
-    points; returns bf16 values held in f32."""
+    points for bf16 inputs (bf16 values held in f32); in f32 throughout for
+    f32 inputs (`dtype`), as the JAX XLA route's rms_norm and apply_rope."""
     half = x.shape[-1] // 2
     ms = (x * x).mean(dim=-1, keepdim=True)
-    normed = _bf16(x * torch.rsqrt(ms + eps))
-    y = _bf16(normed * _bf16(w.to(torch.float32)))
+    normed = kernel_round(x * torch.rsqrt(ms + eps), dtype)
+    y = kernel_round(normed * kernel_round(w.to(torch.float32), dtype), dtype)
     x1, x2 = y[..., :half], y[..., half:]
-    return _bf16(torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1))
+    return kernel_round(torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1), dtype)
 
 
 def fused_decode_attention_plain(
@@ -66,16 +64,18 @@ def fused_decode_attention_plain(
     *, layer_idx: int, scale: float, eps: float,
 ):
     """Plain PyTorch version: one softmax over [0, off) plus the current
-    token, f32 statistics, bf16 probabilities in the PV product."""
+    token, f32 statistics, bf16 probabilities in the PV product (f32 inputs
+    round nowhere and return f32)."""
     B, Hkv, rows, D = qkv_rows.shape
     n_rep = rows - 2
     S = keys.shape[3]
+    dt = qkv_rows.dtype
     x = qkv_rows.to(torch.float32)
     cos = cos_row.to(torch.float32)[:, None, None, :]
     sin = sin_row.to(torch.float32)[:, None, None, :]
-    q = _rms_rope_heads(x[:, :, :n_rep], q_norm_w, cos, sin, eps)
-    q = _bf16(q * scale)  # [B, Hkv, n_rep, D]
-    k_cur = _rms_rope_heads(x[:, :, n_rep : n_rep + 1], k_norm_w, cos, sin, eps)
+    q = _rms_rope_heads(x[:, :, :n_rep], q_norm_w, cos, sin, eps, dt)
+    q = kernel_round(q * scale, dt)  # [B, Hkv, n_rep, D]
+    k_cur = _rms_rope_heads(x[:, :, n_rep : n_rep + 1], k_norm_w, cos, sin, eps, dt)
     v_cur = qkv_rows[:, :, n_rep + 1 : n_rep + 2]
     kf = keys[layer_idx].to(torch.float32)  # [B, Hkv, S, D]
     vf = values[layer_idx].to(torch.float32)
@@ -88,9 +88,10 @@ def fused_decode_attention_plain(
     p = torch.exp(s - m)
     p_cur = torch.exp(s_cur - m)
     l = p.sum(-1, keepdim=True) + p_cur
-    acc = torch.einsum("bhrs,bhsd->bhrd", _bf16(p), vf) + _bf16(p_cur) * v_cur.to(torch.float32)
-    attn = (acc / l).to(torch.bfloat16)
-    return attn, k_cur.to(torch.bfloat16), v_cur.clone()
+    acc = (torch.einsum("bhrs,bhsd->bhrd", kernel_round(p, dt), vf)
+           + kernel_round(p_cur, dt) * v_cur.to(torch.float32))
+    attn = (acc / l).to(dt)
+    return attn, k_cur.to(dt), v_cur.clone()
 
 
 def fused_qkv_prep_plain(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w, *, eps,
@@ -99,11 +100,12 @@ def fused_qkv_prep_plain(qkv_rows, offsets, cos_row, sin_row, q_norm_w, k_norm_w
     RoPE at the same rounding points, q left unscaled; with `pages`, the
     k/v rows scattered into them as models/qwen3.py's _write_pages does."""
     n_rep = qkv_rows.shape[2] - 2
+    dt = qkv_rows.dtype
     x = qkv_rows.to(torch.float32)
     cos = cos_row.to(torch.float32)[:, None, None, :]
     sin = sin_row.to(torch.float32)[:, None, None, :]
-    q = _rms_rope_heads(x[:, :, :n_rep], q_norm_w, cos, sin, eps).to(torch.bfloat16)
-    k = _rms_rope_heads(x[:, :, n_rep : n_rep + 1], k_norm_w, cos, sin, eps).to(torch.bfloat16)
+    q = _rms_rope_heads(x[:, :, :n_rep], q_norm_w, cos, sin, eps, dt).to(dt)
+    k = _rms_rope_heads(x[:, :, n_rep : n_rep + 1], k_norm_w, cos, sin, eps, dt).to(dt)
     v = qkv_rows[:, :, n_rep + 1 :].clone()
     if pages is None:
         return q, k, v

@@ -38,10 +38,20 @@ run on the card and on the CPU; only the bodies of the kernels differ
     attention), the split prefill and mixed bursts are off, and the
     matmuls keep `impl`.
 
+A weight is a QuantizedTensor or a dense [N, K] tensor (bf16, or f32 for
+the JAX package's oracle mode; models/loader.py load_params(quantized=
+False)): a dense projection is torch.matmul, accumulated in f32 and rounded
+to the activations' dtype, the residual added after that rounding, as
+dot_general(preferred_element_type=f32) is in the JAX package (a product
+it computes outside any Pallas kernel); a dense embedding is a row gather,
+a dense MoE router and stacked experts follow ops/moe.py's dense branches.
+A dense model's activations, KV slab and pages take the embedding's dtype.
+The kernels take bf16 only, so an f32 model runs on the CPU (the plain
+versions follow the JAX XLA route for f32 inputs) and raises on the card.
+
 The KV slab and the pages are updated in place. A decode burst, mixed or
 not, is a Python loop of steps whose greedy argmax stays on the device; the
-host syncs once per burst. Not ported yet: dense (unquantized) weights and
-expert parallelism.
+host syncs once per burst. Not ported yet: expert parallelism.
 """
 
 from __future__ import annotations
@@ -65,7 +75,7 @@ from ..kernels.dispatch import check_device
 from ..kernels.split_prefill import split_paged_prefill
 from ..kv.cache import BatchingKVCache, DenseKVCache, bucket_for
 from ..kv.paged import PagedBatchingKVCache, PagedKVCache, PagePool
-from ..ops.basics import swiglu
+from ..ops.basics import dense_linear, swiglu
 from ..ops.embedding import quantized_embedding_gather
 from ..ops.moe import moe_forward
 from ..ops.norm import rms_norm
@@ -102,39 +112,65 @@ class Qwen3Config:
             and (layer_idx + 1) % max(self.decoder_sparse_step, 1) == 0
         )
 
+    @staticmethod
+    def from_hf_dict(d: dict) -> "Qwen3Config":
+        """A HF config.json's dict, with the JAX package's defaults."""
+        return Qwen3Config(
+            num_hidden_layers=d["num_hidden_layers"],
+            hidden_size=d["hidden_size"],
+            num_attention_heads=d["num_attention_heads"],
+            num_key_value_heads=d["num_key_value_heads"],
+            head_dim=d.get("head_dim", d["hidden_size"] // d["num_attention_heads"]),
+            intermediate_size=d["intermediate_size"],
+            vocab_size=d["vocab_size"],
+            rms_norm_eps=d.get("rms_norm_eps", 1e-6),
+            rope_theta=d.get("rope_theta", 1_000_000.0),
+            max_position_embeddings=d.get("max_position_embeddings", 32768),
+            tie_word_embeddings=d.get("tie_word_embeddings", True),
+            num_experts=d.get("num_experts", 0),
+            num_experts_per_tok=d.get("num_experts_per_tok", 0),
+            moe_intermediate_size=d.get("moe_intermediate_size", 0),
+            decoder_sparse_step=d.get("decoder_sparse_step", 1),
+            mlp_only_layers=tuple(d.get("mlp_only_layers", ())),
+            norm_topk_prob=d.get("norm_topk_prob", False),
+        )
+
 
 # ---------------------------------------------------------------------------
-# Params: plain dataclasses of tensors and QuantizedTensors.
+# Params: plain dataclasses of tensors and QuantizedTensors. A weight (Weight)
+# is a QuantizedTensor or a dense tensor [N, K] ([E, N, K] for experts).
 # ---------------------------------------------------------------------------
+
+Weight = QuantizedTensor | torch.Tensor
 
 
 @dataclasses.dataclass
 class AttentionParams:
-    wq: QuantizedTensor | None
-    wk: QuantizedTensor | None
-    wv: QuantizedTensor | None
-    wo: QuantizedTensor
+    wq: Weight | None
+    wk: Weight | None
+    wv: Weight | None
+    wo: Weight
     q_norm: torch.Tensor
     k_norm: torch.Tensor
     # Fused [q; k; v] projection (fuse_projections), rows ordered per KV
     # head as [q_{h*n_rep} .. q_{(h+1)*n_rep-1}, k_h, v_h].
-    wqkv: QuantizedTensor | None = None
+    wqkv: Weight | None = None
 
 
 @dataclasses.dataclass
 class MLPParams:
-    w_gate: QuantizedTensor | None
-    w_up: QuantizedTensor | None
-    w_down: QuantizedTensor
-    w_gate_up: QuantizedTensor | None = None  # fused [gate; up]
+    w_gate: Weight | None
+    w_up: Weight | None
+    w_down: Weight
+    w_gate_up: Weight | None = None  # fused [gate; up]
 
 
 @dataclasses.dataclass
 class MoEParams:
-    w_router: QuantizedTensor  # [E, D]
-    w_gate: QuantizedTensor  # stacked [E, I, D]
-    w_up: QuantizedTensor  # stacked [E, I, D]
-    w_down: QuantizedTensor  # stacked [E, D, I]
+    w_router: Weight  # [E, D]
+    w_gate: Weight  # stacked [E, I, D]
+    w_up: Weight  # stacked [E, I, D]
+    w_down: Weight  # stacked [E, D, I]
 
 
 @dataclasses.dataclass
@@ -147,18 +183,22 @@ class BlockParams:
 
 @dataclasses.dataclass
 class Qwen3Params:
-    embedding: QuantizedTensor
+    embedding: Weight
     layers: list[BlockParams]
     final_norm: torch.Tensor
-    lm_head: QuantizedTensor | None = None  # None: tied to the embedding
+    lm_head: Weight | None = None  # None: tied to the embedding
 
 
-def _linear(x, w: QuantizedTensor, residual=None, impl=None):
-    """x @ w.T (+ residual, added in f32 inside K1)."""
-    return quant_matmul(x, w, residual=residual, impl=impl)
+def _linear(x, w: Weight, residual=None, impl=None):
+    """x @ w.T (+ residual: added in f32 inside K1 for a quantized weight,
+    after the product's rounding for a dense one, as in the JAX package)."""
+    if isinstance(w, QuantizedTensor):
+        return quant_matmul(x, w, residual=residual, impl=impl)
+    out = dense_linear(x, w)
+    return out if residual is None else out + residual
 
 
-def _norm_linear(x, w: QuantizedTensor, norm_w, eps: float, impl=None):
+def _norm_linear(x, w: Weight, norm_w, eps: float, impl=None):
     """rms_norm(x) @ w.T. The JAX package keeps its fused-norm prologue off
     (FUSE_NORM_ENABLED = False), so the norm is a separate op there too."""
     if norm_w is not None:
@@ -167,7 +207,10 @@ def _norm_linear(x, w: QuantizedTensor, norm_w, eps: float, impl=None):
 
 
 def _embed(params: Qwen3Params, tokens: torch.Tensor) -> torch.Tensor:
-    return quantized_embedding_gather(params.embedding, tokens)
+    if isinstance(params.embedding, QuantizedTensor):
+        return quantized_embedding_gather(params.embedding, tokens)
+    # A dense embedding keeps its dtype, so the whole forward runs in it.
+    return params.embedding[tokens]
 
 
 def _lm_head(params: Qwen3Params, h: torch.Tensor, impl=None) -> torch.Tensor:
@@ -213,12 +256,16 @@ def _mlp(cfg, p: MLPParams | MoEParams, x, norm_w=None, residual=None, impl=None
                    impl=impl)
 
 
+def _out_features(w: Weight) -> int:
+    return w.out_features if isinstance(w, QuantizedTensor) else w.shape[-2]
+
+
 def _qkv_interleave_perm(attn: AttentionParams) -> list[int]:
     """Row order interleaving the fused [q; k; v] per KV head (see
     AttentionParams.wqkv). Head counts come from the weights, D from the
     QK-norm weight."""
     d = attn.q_norm.shape[-1]
-    dq, dk, dv = (w.out_features for w in (attn.wq, attn.wk, attn.wv))
+    dq, dk, dv = (_out_features(w) for w in (attn.wq, attn.wk, attn.wv))
     if dk != dv or dq % d or dk % d or dq % dk:
         raise ValueError(f"q/k/v rows {dq}/{dk}/{dv} are not a GQA layout of head dim {d}")
     hkv = dk // d
@@ -231,22 +278,36 @@ def _qkv_interleave_perm(attn: AttentionParams) -> list[int]:
     return idx
 
 
+def _concat_rows(ws: list[Weight]) -> Weight:
+    if all(isinstance(w, QuantizedTensor) for w in ws):
+        return concat_out_features(ws)
+    if any(isinstance(w, QuantizedTensor) for w in ws):
+        raise ValueError("cannot fuse quantized and dense projections")
+    return torch.cat(ws, dim=0)
+
+
+def _permute_rows(w: Weight, perm: list[int]) -> Weight:
+    if isinstance(w, QuantizedTensor):
+        return permute_out_features(w, perm)
+    return w.index_select(0, torch.as_tensor(perm, dtype=torch.long, device=w.device))
+
+
 def fuse_projections(params: Qwen3Params) -> Qwen3Params:
     """Fuse each layer's [q; k; v] (interleaved per KV head) and a dense
     MLP's [gate; up] into one weight each — an exact relayout (groups run
-    along K). MoE experts stay unfused, as in the JAX package. The model's
-    routes run on fused params only."""
+    along K), quantized or dense. MoE experts stay unfused, as in the JAX
+    package. The model's routes run on fused params only; a layer already
+    fused is kept as it is."""
     layers = []
     for layer in params.layers:
         attn, mlp = layer.attn, layer.mlp
-        wqkv = permute_out_features(
-            concat_out_features([attn.wq, attn.wk, attn.wv]), _qkv_interleave_perm(attn)
-        )
-        attn = dataclasses.replace(attn, wq=None, wk=None, wv=None, wqkv=wqkv)
-        if isinstance(mlp, MLPParams):
+        if attn.wqkv is None:
+            wqkv = _permute_rows(_concat_rows([attn.wq, attn.wk, attn.wv]),
+                                 _qkv_interleave_perm(attn))
+            attn = dataclasses.replace(attn, wq=None, wk=None, wv=None, wqkv=wqkv)
+        if isinstance(mlp, MLPParams) and mlp.w_gate_up is None:
             mlp = dataclasses.replace(
-                mlp, w_gate=None, w_up=None,
-                w_gate_up=concat_out_features([mlp.w_gate, mlp.w_up]),
+                mlp, w_gate=None, w_up=None, w_gate_up=_concat_rows([mlp.w_gate, mlp.w_up]),
             )
         layers.append(dataclasses.replace(layer, attn=attn, mlp=mlp))
     return dataclasses.replace(params, layers=layers)
@@ -264,9 +325,9 @@ def convert_projection_layouts(params: Qwen3Params, layout: str = "pair_t") -> Q
     if layout != "pair_t":
         raise ValueError(f"layout {layout!r}: the port converts to 'pair_t' only")
 
-    def mark(w: QuantizedTensor | None, stacked: bool = False):
-        if w is None:
-            return None
+    def mark(w: Weight | None, stacked: bool = False):
+        if not isinstance(w, QuantizedTensor):
+            return w  # None, or a dense weight (the JAX package leaves those too)
         if not w.is_w4g128:
             if stacked:
                 return w  # the JAX package leaves such experts on their own kernel too
@@ -751,7 +812,15 @@ class Qwen3Model:
         self.num_hidden_layers = cfg.num_hidden_layers
         self.vocab_size = cfg.vocab_size
         self.max_seq_len = max_seq_len or cfg.max_position_embeddings
-        self.dtype = torch.bfloat16
+        # The activations' (and KV's) dtype: bf16 for quantized or bf16
+        # weights, f32 in the JAX package's oracle mode (an f32 dense load).
+        emb = params.embedding
+        self.dtype = torch.bfloat16 if isinstance(emb, QuantizedTensor) else emb.dtype
+        if self.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"dense weights of {self.dtype}: expected bf16 or f32")
+        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
+            raise ValueError(f"a {self.dtype} model runs on the CPU only: the CUDA kernels "
+                             "take bf16 (load the weights in bf16, or pass device='cpu')")
         self._rope_tables = rope_tables(
             cfg.head_dim, self.max_seq_len, base=cfg.rope_theta, device=self.device
         )

@@ -1,9 +1,19 @@
-"""Published Qwen3 shapes — copy of tiny_llm_tpu/models/registry.py's table,
-the dense members and Qwen3-30B-A3B (MoE)."""
+"""Model registry — counterpart of tiny_llm_tpu/models/registry.py: the
+shortcut names, the published Qwen3 shapes (the dense members and
+Qwen3-30B-A3B, MoE) and `dispatch_model`."""
 
 from __future__ import annotations
 
-from .qwen3 import Qwen3Config
+from .qwen3 import Qwen3Config, Qwen3Model
+
+MODEL_SHORTCUTS = {
+    "qwen3-0.6b": "Qwen/Qwen3-0.6B",
+    "qwen3-1.7b": "Qwen/Qwen3-1.7B",
+    "qwen3-4b": "Qwen/Qwen3-4B",
+    "qwen3-8b": "Qwen/Qwen3-8B",
+    "qwen3-14b": "Qwen/Qwen3-14B",
+    "qwen3-30b-a3b": "Qwen/Qwen3-30B-A3B",
+}
 
 QWEN3_CONFIGS: dict[str, Qwen3Config] = {
     "qwen3-0.6b": Qwen3Config(
@@ -39,3 +49,15 @@ QWEN3_CONFIGS: dict[str, Qwen3Config] = {
         decoder_sparse_step=1, norm_topk_prob=True,
     ),
 }
+
+
+def dispatch_model(model_name: str, params, cfg: Qwen3Config | None = None,
+                   **kwargs) -> Qwen3Model:
+    """A Qwen3Model from params and the named (or an explicit) config;
+    `kwargs` go to Qwen3Model (device defaults to the card there)."""
+    if cfg is None:
+        key = model_name.lower()
+        if key not in QWEN3_CONFIGS:
+            raise ValueError(f"unknown model {model_name!r}; pass cfg explicitly")
+        cfg = QWEN3_CONFIGS[key]
+    return Qwen3Model(params, cfg, **kwargs)

@@ -13,6 +13,7 @@ from .quantize import (
     concat_out_features,
     dequantize,
     from_codes,
+    from_mlx_packing,
     permute_out_features,
 )
 from .rope import apply_rope, rope_tables
@@ -25,6 +26,7 @@ __all__ = [
     "concat_out_features",
     "dequantize",
     "from_codes",
+    "from_mlx_packing",
     "linear",
     "make_sampler",
     "permute_out_features",

@@ -1,6 +1,14 @@
 """Mixture-of-Experts: top-k routing and the grouped expert matmul —
 counterpart of tiny_llm_tpu/ops/moe.py.
 
+Dense weights (a dense router [E, D], stacked experts [E, N, K]) follow
+the JAX package's dense branches: the same routing, each projection an f32-
+accumulated product rounded to the activations' dtype. On the card the
+dense grouped product is one torch._grouped_mm over the group offsets,
+which stay on the device (JAX's dense branch is ragged_dot, outside any
+Pallas kernel); its plain version (the CPU, impl="torch") slices the rows
+per expert, which reads the group sizes on the host.
+
 The router is a W4A16 projection (K1); its bf16 logits go through an f32
 softmax and a top-k that takes the lowest expert id among equal
 probabilities, as jax.lax.top_k does. The k copies of each token are
@@ -15,9 +23,10 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.dispatch import resolve
 from ..kernels.moe_matmul import grouped_quant_matmul
 from ..kernels.quant_matmul import quant_matmul
-from .basics import softmax, swiglu
+from .basics import dense_linear, softmax, swiglu
 from .quantize import QuantizedTensor
 
 
@@ -40,14 +49,19 @@ def select_topk(
 
 def route_topk(
     x: torch.Tensor,
-    w_router: QuantizedTensor,
+    w_router: QuantizedTensor | torch.Tensor,
     top_k: int,
     norm_topk_prob: bool = False,
     impl: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Softmax router + top-k selection: (probs [..., E], ids [..., k],
-    scores [..., k]). The logits are K1's bf16 output."""
-    return select_topk(quant_matmul(x, w_router, impl=impl), top_k, norm_topk_prob)
+    scores [..., k]). The logits are K1's bf16 output, or a dense router's
+    product in x's dtype."""
+    if isinstance(w_router, QuantizedTensor):
+        logits = quant_matmul(x, w_router, impl=impl)
+    else:
+        logits = dense_linear(x, w_router)
+    return select_topk(logits, top_k, norm_topk_prob)
 
 
 def sort_by_expert(
@@ -65,12 +79,19 @@ def sort_by_expert(
 
 def grouped_matmul(
     grouped_x: torch.Tensor,  # [T, K], rows sorted by expert id
-    w_stacked: QuantizedTensor,  # [E, N, K]
+    w_stacked: QuantizedTensor | torch.Tensor,  # [E, N, K]
     group_sizes: torch.Tensor,  # [E] int32, sums to T
     impl: str | None = None,
 ) -> torch.Tensor:
-    """Per-group matmul: rows of group e hit expert e's weight. -> [T, N] bf16."""
-    return grouped_quant_matmul(grouped_x, w_stacked, group_sizes, impl=impl)
+    """Per-group matmul: rows of group e hit expert e's weight. -> [T, N]
+    (bf16; a dense weight's in x's dtype)."""
+    if isinstance(w_stacked, QuantizedTensor):
+        return grouped_quant_matmul(grouped_x, w_stacked, group_sizes, impl=impl)
+    if resolve(impl, grouped_x) == "cuda":
+        offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+        return torch._grouped_mm(grouped_x, w_stacked.transpose(-2, -1), offs=offs)
+    parts = grouped_x.split([int(n) for n in group_sizes.tolist()])
+    return torch.cat([dense_linear(xe, w_stacked[e]) for e, xe in enumerate(parts)])
 
 
 def _unsort(sorted_rows: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -86,7 +107,8 @@ def grouped_expert_linear(
 ) -> torch.Tensor:
     """Sort rows by expert id, run the grouped matmul, restore row order."""
     *lead, K = x.shape
-    order, sizes = sort_by_expert(expert_ids, w_experts.num_experts)
+    order, sizes = sort_by_expert(expert_ids, w_experts.shape[0] if torch.is_tensor(w_experts)
+                                  else w_experts.num_experts)
     out = grouped_matmul(x.reshape(-1, K).index_select(0, order), w_experts, sizes, impl=impl)
     return _unsort(out, order).reshape(*lead, -1)
 
@@ -112,7 +134,8 @@ def moe_forward(
     B, L, D = x.shape
     k = num_experts_per_tok
     _, ids, scores = route_topk(x, w_router, k, norm_topk_prob, impl=impl)
-    order, sizes = sort_by_expert(ids, w_gate.num_experts)
+    order, sizes = sort_by_expert(ids, w_gate.shape[0] if torch.is_tensor(w_gate)
+                                  else w_gate.num_experts)
     xs = x.reshape(-1, D).index_select(0, order // k)  # each sorted row's token
     gate = grouped_matmul(xs, w_gate, sizes, impl=impl)
     up = grouped_matmul(xs, w_up, sizes, impl=impl)

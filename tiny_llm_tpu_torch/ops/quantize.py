@@ -232,6 +232,99 @@ def from_codes(
     )
 
 
+def unpack_mlx(packed: torch.Tensor, bits: int = BITS) -> torch.Tensor:
+    """MLX words [..., W] (int32, or uint32 viewed as int32) -> int32 codes
+    [..., W * 32 / bits]: MLX packs consecutive codes little-endian in a
+    word, which is the port's own packing (tiny_llm_tpu/ops/quantize.py
+    unpack_mlx)."""
+    if packed.dtype == torch.uint32:
+        packed = packed.view(torch.int32)
+    return unpack_codes(packed, bits)
+
+
+def _affine_codes(w: torch.Tensor, group_size: int, bits: int):
+    """Affine group quantization of w [..., K] as the JAX package's
+    `quantize`: per group scale = (max - min) / (2^bits - 1) in f32 (1 where
+    that is 0), bias = min, q = round((w - min) / scale) with the f32 scale,
+    half to even. Returns (codes int32 [..., K], scale f32, min f32 [..., G])."""
+    *lead, K = w.shape
+    if K % group_size:
+        raise ValueError(f"K={K} is not a multiple of group_size={group_size}")
+    levels = (1 << bits) - 1
+    wg = w.to(torch.float32).reshape(*lead, K // group_size, group_size)
+    gmax, gmin = wg.amax(dim=-1), wg.amin(dim=-1)
+    # A tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # multiply by its reciprocal, which moves a scale by an ulp and flips
+    # codes against the JAX package's IEEE division.
+    scale = (gmax - gmin) / torch.full_like(gmax, float(levels))
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round((wg - gmin[..., None]) / scale[..., None]), 0, levels)
+    return q.reshape(*lead, K).to(torch.int32), scale, gmin
+
+
+def quantize(w: torch.Tensor, group_size: int = GROUP_SIZE, bits: int = BITS) -> QuantizedTensor:
+    """Quantize a dense weight [N, K] in the port's layout (codes, bf16
+    scales and biases bit-equal to tiny_llm_tpu/ops/quantize.py quantize),
+    on w's device."""
+    if w.ndim != 2:
+        raise ValueError(f"quantize takes a [N, K] weight, not shape {tuple(w.shape)}")
+    check_width(bits, group_size)
+    q, scale, gmin = _affine_codes(w, group_size, bits)
+    return from_codes(q, scale.to(torch.bfloat16), gmin.to(torch.bfloat16), w.shape[-1],
+                      group_size, bits)
+
+
+def quantize_stacked(w: torch.Tensor, group_size: int = GROUP_SIZE,
+                     bits: int = BITS) -> QuantizedTensor:
+    """Quantize stacked expert weights [E, N, K]: groups lie within a row,
+    so every expert quantizes as `quantize` would alone."""
+    if w.ndim != 3:
+        raise ValueError(f"quantize_stacked takes [E, N, K], not shape {tuple(w.shape)}")
+    check_width(bits, group_size)
+    q, scale, gmin = _affine_codes(w, group_size, bits)
+    return from_codes(q, scale.to(torch.bfloat16), gmin.to(torch.bfloat16), w.shape[-1],
+                      group_size, bits)
+
+
+def from_mlx_packing(
+    mlx_weight: torch.Tensor,  # [(E,) N, K * bits / 32] int32 (or uint32) words
+    scales: torch.Tensor,  # [(E,) N, K / group_size]
+    biases: torch.Tensor,
+    group_size: int = GROUP_SIZE,
+    bits: int = BITS,
+) -> QuantizedTensor:
+    """An MLX export's weight/scales/biases triplet in the port's layout,
+    on the words' device; scales and biases round to bf16 as the JAX
+    package's ingest does. MLX's packing is the port's, so where K needs no
+    padding the words are kept as they are; otherwise the codes are
+    unpacked and repacked with the padding."""
+    check_width(bits, group_size)
+    words = mlx_weight.view(torch.int32) if mlx_weight.dtype == torch.uint32 else mlx_weight
+    K = words.shape[-1] * (32 // bits)
+    s, b = scales.to(torch.bfloat16), biases.to(torch.bfloat16)
+    if K != padded_k(K) or words.dtype != torch.int32:
+        return from_codes(unpack_mlx(words.to(torch.int32), bits), s, b, K, group_size, bits)
+    return QuantizedTensor(
+        packed=words.contiguous(), scales=s.contiguous(), biases=b.contiguous(),
+        out_features=words.shape[-2], in_features=K, k_padded=K, group_size=group_size,
+        bits=bits,
+    )
+
+
+def from_mlx_packing_stacked(
+    mlx_weight: torch.Tensor,  # [E, N, K * bits / 32] (MLX switch_mlp export)
+    scales: torch.Tensor,  # [E, N, K / group_size]
+    biases: torch.Tensor,
+    group_size: int = GROUP_SIZE,
+    bits: int = BITS,
+) -> QuantizedTensor:
+    """A stacked expert triplet: `from_mlx_packing` with the leading expert
+    dim kept (groups lie within a row)."""
+    if mlx_weight.ndim != 3:
+        raise ValueError(f"stacked MLX weight of rank {mlx_weight.ndim}, expected 3")
+    return from_mlx_packing(mlx_weight, scales, biases, group_size, bits)
+
+
 def dequantize(qt: QuantizedTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Dense weight [(E,) N, in_features]: w = q * scale + bias in f32, then cast."""
     G = qt.k_padded // qt.group_size

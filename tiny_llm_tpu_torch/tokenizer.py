@@ -1,6 +1,7 @@
 """Tokenizers — copies of ByteTokenizer and StreamingDetokenizer from
 tiny_llm_tpu/tokenizer.py (pure Python; importing that package would pull
-in JAX). The HF tokenizer adapter is not ported yet."""
+in JAX), and `load_tokenizer`, the HF tokenizer adapter, which imports
+`transformers` when called and raises where it is absent."""
 
 from __future__ import annotations
 
@@ -67,3 +68,35 @@ class StreamingDetokenizer:
             self.last_segment = ""
             return ""
         return self._flush()
+
+
+def load_tokenizer(model_dir: str):
+    """The HF tokenizer of a checkpoint directory (transformers'
+    AutoTokenizer) behind the port's contract: encode (no special tokens),
+    decode, eos_token_id, get_vocab, apply_chat_template."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise RuntimeError(
+            f"loading the tokenizer of {model_dir} needs the `transformers` package, which "
+            "this environment lacks; run without a checkpoint path (synthetic weights and "
+            "the byte tokenizer) or install it"
+        ) from e
+    tok = AutoTokenizer.from_pretrained(model_dir)
+
+    class _Wrapped:
+        eos_token_id = tok.eos_token_id
+
+        def encode(self, text: str) -> list[int]:
+            return tok.encode(text, add_special_tokens=False)
+
+        def decode(self, ids) -> str:
+            return tok.decode(list(ids))
+
+        def get_vocab(self):
+            return tok.get_vocab()
+
+        def apply_chat_template(self, messages, **kw):
+            return tok.apply_chat_template(messages, **kw)
+
+    return _Wrapped()
