@@ -71,7 +71,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             removed at the end
   generate  three ByteTokenizer prompts through simple_generate_with_kv_cache
   speculative (after generate) the loaded 4B as target, the 0.6B W4A16 as
-            draft: speculative_generate (K = 4, 64 tokens, three prompts)
+            draft: speculative_generate (K = 4, 32 tokens, three prompts)
             equal to greedy, again with the target as its own draft (a
             second model on the same params: near-ties alone reject);
             speculative_decode_device (K = 4, 4 rounds a dispatch), with the
@@ -89,9 +89,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             batched decode steps beside an idle slot
   serving   the serving path: bench.py --mode serving's default campaign
             (16 requests, batch 4, prompts 128-1024, paged pool of 57 pages)
-            through batch_generate, warm-up then three campaigns, taken in
-            turns with paged3_serving's two and a8_serving's two (A B C A B
-            C A): output tok/s, TTFT, occupancy,
+            through batch_generate, warm-up then SERVING_RUNS (2)
+            campaigns, taken in turns with paged3_serving's two and
+            a8_serving's two (B C A B C A): output tok/s, TTFT, occupancy,
             the kernels' launch counts, and a profile of one serving decode
             burst
   split_kernels the split paged prefill's two kernels against their plain
@@ -117,8 +117,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   mixed_serving the serving phase's campaign with mixed_prefill=True (two
             campaigns)
   moe_model     the model phase on Qwen3-30B-A3B W4A16 (full width, 128
-            experts, top-8; 16 of its 48 layers, MOE_LAYERS):
-            exact launch counts (K1 49, grouped 48, K2 or K3 16 per step),
+            experts, top-8; 8 of its 48 layers, MOE_LAYERS):
+            exact launch counts (K1 25, grouped 24, K2 or K3 8 per step),
             a sync-free burst
   moe_parity    parity and paged_parity at the 30B-A3B widths, 4 layers; the
             plain path takes the kernel path's expert choice where the two
@@ -228,9 +228,43 @@ The last Pallas rows:
             boundary +-1, an idle row: written slots against plain, every
             other slot untouched, one launch a call)
   paged3_serving  (run after serving) the serving campaign through that
-            route at full depth, after its own warm-up: two campaigns, taken
-            in turns with `serving`'s three (A B A B A); exact launches of a
+            route at full depth, after its own warm-up: two campaigns,
+            taken in turns with `serving`'s two (B C A B C A), their tokens
+            equal; exact launches of a
             full-depth step (36 prep, 36 paged decode); a sync-free burst
+
+Tensor, data and expert parallelism (every shard on this card, the
+mesh repeating cuda:0):
+  tp_model  (after speculative) Qwen3-4B at tp = 4: the dense model's
+            fused weights split (qkv, gate/up on out-features; o, down on
+            in-features, partial products summed in f32), run with
+            attention on the gathered heads (K2 at decode) and with
+            TPAttention (K3 per head shard): prefill and a decode step
+            teacher-forced against the unsharded model (5 % of the largest
+            logit, top-1 where decided), exact launches (K1 16 a layer + the
+            head); the same over a page pool with TPAttention.paged (the
+            paged decode kernel per head shard); 32 greedy steps of all
+            three in turns (decode tok/s), a sync-free burst on each; K3
+            and the paged decode and prefill kernels on a head shard of a
+            slab and of a pool, read in place, bit-equal to a contiguous
+            copy's and within tolerance of plain; then 4B's down at tp = 8 (1216 columns
+            a shard, a quant group cut) against unsharded K1 at M = 1, 4,
+            128, within the per-shard rounding bound
+  dp_serving (after a8_serving) DPServing at dp = 2 with DPPagedAttention
+            over a striped pool, the weights replicated per replica
+            (shard_params): the serving campaign's first 8 requests,
+            one campaign: every request returns, in a slot of its own
+            replica, each stripe free again, tokens equal the `serving`
+            campaign's up to a first divergence that must be a near-tie of
+            the unsharded model's teacher-forced logits; exact launches of
+            a decode step (K1 per replica at M = 2, the paged decode kernel
+            once per replica a layer), a sync-free burst; output tok/s
+  ep_moe    (before moe_serving) Qwen3-30B-A3B at ep = 4 and ep = 2 x tp =
+            2, dropless: prefill and 8 steps teacher-forced against the
+            unsharded model (its routing leading; flips only at near-ties),
+            exact launches (row 18 three a MoE layer per shard), a sync-free
+            burst, 32 greedy steps of all three in turns; EPMoE at ep = 4
+            with capacity 1.0 against the plain version of the same drops
 
   dense_moe (before cli) Qwen3-30B-A3B at 4 layers with dense bf16
             weights (random_params(quantized=False)): dense_linear (cuBLAS
@@ -308,10 +342,15 @@ SP_SHARDS, SP_MAX_SEQ, SP_PROMPT, SP_CHUNK = 8, 8192, 6000, 2048
 SP_BATCH_PROMPTS = (1000, 2100, 3500, 5000)
 SP_PAGES = 400
 SP = ("flash_decode_state", "paged_decode_state")  # the sequence-parallel path's own kernels
-# Qwen3-30B-A3B runs at full width and 16 of its 48 layers in every MoE
-# phase (on slow hosts the whole script took 1174 s of its 1200 at 48,
-# 1098 s at 24; the 4B model carries the full-depth main path).
-MOE_LAYERS = 16
+# Qwen3-30B-A3B runs at full width and 8 of its 48 layers in every MoE
+# phase, to keep the script inside its time limit (on slow hosts it took
+# 1174 s of its 1200 at 48 layers, 1098 s at 24; the 4B model carries the
+# full-depth main path).
+MOE_LAYERS = 8
+# `serving`'s campaigns, each after one of the three-launch and the W4A8
+# models' (B C A B C A): two of each hold each model's tokens across two
+# campaigns and keep the script inside its time limit.
+SERVING_RUNS = 2
 
 
 PHASES: list[dict] = []  # every phase line printed, for --out
@@ -1450,8 +1489,8 @@ def phase_paged_kernels(model, cfg, gen, qw, kw, contract):
     return cases
 
 
-def _decode_run(model, prompt):
-    """Prefill + DECODE_STEPS greedy steps in BURST-step bursts."""
+def _decode_run(model, prompt, steps=DECODE_STEPS):
+    """Prefill + `steps` greedy steps in BURST-step bursts."""
     cache = model.create_kv_cache(batch_size=prompt.shape[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1463,7 +1502,7 @@ def _decode_run(model, prompt):
     toks = [tok]
     t0 = time.perf_counter()
     done = 0
-    while done < DECODE_STEPS:
+    while done < steps:
         out = model.decode_burst_dense(cache, tok, BURST)
         toks.extend(out)
         tok = out[-1]
@@ -1473,7 +1512,7 @@ def _decode_run(model, prompt):
     return prefill_s, decode_s, np.stack(toks)
 
 
-def _alternating(models: dict, prompt) -> dict:
+def _alternating(models: dict, prompt, steps=DECODE_STEPS) -> dict:
     """Decode and prefill tok/s of the same B = 1 run on each model, taken
     in turns (A B B A), medians per model: a difference between models of
     one call that the host's drift over the call does not bias."""
@@ -1481,8 +1520,8 @@ def _alternating(models: dict, prompt) -> dict:
     order = names + names[::-1]
     got = {n: [] for n in names}
     for n in order:
-        pre_s, dec_s, _ = _decode_run(models[n], prompt)
-        got[n].append((PROMPT_LEN / pre_s, DECODE_STEPS / dec_s))
+        pre_s, dec_s, _ = _decode_run(models[n], prompt, steps)
+        got[n].append((PROMPT_LEN / pre_s, steps / dec_s))
     return {n: {"prefill_tok_s": float(np.median([p for p, _ in v])),
                 "decode_tok_s": float(np.median([d for _, d in v])), "order": "ABBA"}
             for n, v in got.items()}
@@ -1500,7 +1539,8 @@ def _sync_free_burst(model, prompt) -> dict:
     torch.cuda.set_sync_debug_mode("error")
     try:
         toks = forward_decode_burst_dense(model.params, model.cfg, model._rope_tables, tok,
-                                          cache.offset, cache.keys, cache.values, steps=BURST)
+                                          cache.offset, cache.keys, cache.values, steps=BURST,
+                                          attn_impl=model.attn_impl)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     out = toks.cpu()
@@ -1607,8 +1647,9 @@ class RouteForcer:
     router logit that flips one expert is not a kernel fault, and a flip
     at a wide margin would be."""
 
-    def __init__(self, margin: float = TIE_MARGIN):
+    def __init__(self, margin: float = TIE_MARGIN, lead=lambda impl: impl is None):
         self.margin = margin
+        self.lead = lead  # lead(impl): whether a route_topk call leads (queues its ids)
         self.queue: collections.deque = collections.deque()
         self.forced: list[tuple[int, float]] = []  # (batch row, margin)
 
@@ -1624,7 +1665,7 @@ class RouteForcer:
 
     def route(self, x, w_router, top_k, norm_topk_prob=False, impl=None):
         probs, ids, scores = self._orig(x, w_router, top_k, norm_topk_prob, impl=impl)
-        if impl is None:
+        if self.lead(impl):
             self.queue.append(ids)
             return probs, ids, scores
         fast = self.queue.popleft()
@@ -1862,11 +1903,14 @@ def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs, turns=None):
     campaign; the campaigns give identical tokens. Returns (each campaign's
     metrics, with its wall time, and the launches over the campaigns).
     `turns` (a list of {"model": m, "warm": prompts}): other models, each
-    warmed up the same way, run a campaign each, in list order, between
-    each two of these (A B C A B C A for two and three campaigns), under the
-    same checks; each one's rows, the tokens of each campaign and its
-    launches over its campaigns go back into its dict as "rows", "ids" and
-    "launches", and this model's as "a_rows", "a_ids" and "a_launches"."""
+    warmed up the same way, run a campaign each, in list order, before
+    each of these (B C A B C A for two other models and two campaigns), so
+    that each runs n_runs campaigns too, under the same checks (with turns
+    n_runs must be at least 2: each model's campaigns' tokens are held to
+    each other); each
+    one's rows, the tokens of each campaign and its launches over its
+    campaigns go back into its dict as "rows", "ids" and "launches", and
+    this model's as "a_rows", "a_ids" and "a_launches"."""
     from tiny_llm_tpu_torch import kernels
     from tiny_llm_tpu_torch.serving import ServingMetrics, batch_generate
 
@@ -1901,14 +1945,16 @@ def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs, turns=None):
         return {k: total.get(k, 0) + v for k, v in counts.items()}
 
     turns = turns or []
+    check(not turns or n_runs >= 2, f"{n_runs} campaign: a model in turns must run two, its "
+          "tokens held to each other's")
     for m, w in [(t["model"], t["warm"]) for t in turns] + [(model, warm)]:
         batch_generate(m, _recorder(), w, max_output_tokens=max(8, BURST), **kw)
         check(m.page_pool.free_pages == m.page_pool.num_pages - 1, "the warm-up leaked pages")
     rows, ids, counts = [], [], {}
     for t in turns:
         t.update(rows=[], ids=[], launches={})
-    for r in range(n_runs):
-        for t in turns if r else ():
+    for _ in range(n_runs):
+        for t in turns:
             row, got, c = campaign(t["model"])
             t["rows"].append(row)
             t["ids"].append(got)
@@ -1919,6 +1965,7 @@ def _campaigns(model, cfg, lens, max_out, kw, warm, n_runs, turns=None):
         counts = add(counts, c)
     check(all(got == ids[0] for got in ids), "the campaigns' tokens differ")
     for t in turns:
+        check(len(t["ids"]) == n_runs, f"a model in turns ran {len(t['ids'])} campaigns")
         check(all(got == t["ids"][0] for got in t["ids"]),
               "a model in turns gave different tokens in two campaigns")
         t.update(a_rows=rows, a_ids=ids, a_launches=counts)
@@ -2013,9 +2060,9 @@ def _serving_line(model, cfg, phase, name, rows, counts, mixed_bursts=None, besi
 
 def phase_a8_serving(a8, cfg, turns):
     """The serving campaign through Qwen3-4B with act_quant="int8" on the
-    W4A16 model's weights: its two campaigns were taken in turns with
-    `serving`'s three and paged3_serving's two (W4A16, three-launch, W4A8,
-    ...; `turns` holds both sides), each model after its own warm-up. The
+    W4A16 model's weights: its campaign was taken in turns with
+    `serving`'s two and paged3_serving's two (three-launch, W4A8, W4A16,
+    twice; `turns` holds both sides), each model after its own warm-up. The
     serving line's checks and numbers, beside the W4A16 campaigns'
     medians in the same turns and both sides' launches per campaign.
     Prompt tails of 5-32 tokens reach the W4A8 matmul's int8 tile."""
@@ -2029,7 +2076,8 @@ def phase_a8_serving(a8, cfg, turns):
 
     keys = ("output_tok_s", "ttft_p50_ms", "ttft_p95_ms")
     return _serving_line(a8, cfg, "a8_serving", "qwen3-4b W4A8", w4a8, turns["launches"],
-                         beside={"order": "W4A16, three-launch, W4A8, ... (serving's campaigns)",
+                         beside={"order": "three-launch, W4A8, W4A16, twice (serving's "
+                                          "campaigns)",
                                  "in_turns_medians": {
                                      **{f"w4a16_{k}": med(w4a16, k) for k in keys},
                                      **{f"w4a8_{k}": med(w4a8, k) for k in keys}},
@@ -4097,9 +4145,8 @@ def phase_paged3_parity(cfg, contract):
 def phase_paged3_serving(m3, cfg, turns):
     """bench.py --mode serving's default campaign through Qwen3-4B with
     paged_fused_one=False (m3) on the fused model's weights: its two
-    campaigns were taken in turns with `serving`'s three (fused,
-    three-launch, W4A8, fused, three-launch, W4A8, fused; `turns` holds
-    both sides),
+    campaigns were taken in turns with `serving`'s two (three-launch, W4A8,
+    fused, twice; `turns` holds both sides),
     each model after its own warm-up: output tok/s and TTFT of both routes,
     the three-launch campaigns' launches (the prep kernel and the paged
     decode kernel, never the fused paged step), and, at full depth, one
@@ -4160,7 +4207,7 @@ def phase_paged3_serving(m3, cfg, turns):
     emit({"phase": "paged3_serving", "model": "qwen3-4b", "layers": L,
           "paged_fused_one": False, "requests": SERVING_REQUESTS, "batch": SERVING_BATCH,
           "max_seq": MAX_SEQ, "pool_pages": POOL_PAGES,
-          "order": "fused, three-launch, W4A8, fused, three-launch, W4A8, fused "
+          "order": "three-launch, W4A8, fused, three-launch, W4A8, fused "
                    "(serving's campaigns)",
           **{f"{n}_{k}": med(n, k) for n in got for k in
              ("output_tok_s", "ttft_p50_ms", "ttft_p95_ms")},
@@ -4223,7 +4270,8 @@ def phase_axpby(contract):
 
 SPEC_PROMPTS = ("hello", "The quick brown fox jumps over the lazy dog.",
                 "def fibonacci(n):\n    return n if n < 2 else")
-SPEC_TOKENS, SPEC_K, SPEC_ROUNDS, SPEC_TURN_TOKENS = 64, 4, 4, 32
+# 32 tokens a stream keep the script inside its time limit.
+SPEC_TOKENS, SPEC_K, SPEC_ROUNDS, SPEC_TURN_TOKENS = 32, 4, 4, 32
 # Speculative and greedy streams part only at near-ties of the target's
 # bf16 logits: the verify forward (K1's bf16 tile at M = K + 1, K3's walk)
 # and a decode step (K1's GEMV, K2) round the same logits in other orders,
@@ -4720,6 +4768,489 @@ def phase_cli():
     emit({"phase": "cli", "side_by_side": True, **out})
 
 
+# Tensor, data and expert parallelism: the JAX tests' meshes, every
+# shard on this card (the mesh repeats cuda:0, as the JAX tests repeat 8
+# virtual CPU devices). TP: Qwen3-4B at tp = 4, and the in-feature split at
+# tp = 8, whose down shards (9728 / 8 = 1216 columns) cut a quant group;
+# DP: the serving campaign's first DP_REQUESTS requests at dp = 2; EP:
+# Qwen3-30B-A3B at ep = 4 and at ep = 2 x tp = 2.
+TP_SHARDS, TP_CUT_SHARDS, TP_STEPS = 4, 8, 32
+DP_REPLICAS, DP_REQUESTS = 2, 8
+EP_MESHES = {"ep4": dict(ep=4, tp=1), "ep2_tp2": dict(ep=2, tp=2)}
+
+
+def _mesh(**axes):
+    from tiny_llm_tpu_torch.parallel import make_mesh
+
+    n = int(np.prod(list(axes.values())))
+    return make_mesh(devices=[torch.device("cuda", 0)] * n, **axes)
+
+
+def _logit_check(got, want, what):
+    """`got` within 5 % of want's largest logit, top-1 equal where want's
+    top two differ by more than that. Returns (err / tol, decided rows)."""
+    a, b = got.float().reshape(-1, got.shape[-1]), want.float().reshape(-1, want.shape[-1])
+    tol = 5e-2 * float(b.abs().max())
+    err = float((a - b).abs().max())
+    check(bool(torch.isfinite(a).all()) and err <= tol, f"{what}: {err} > {tol}")
+    top2 = b.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > tol
+    check(bool((a.argmax(-1) == b.argmax(-1))[sure].all()), f"{what}: top-1 differs where decided")
+    return err / tol, int(sure.sum())
+
+
+def _step_launches(model, prompt, tok):
+    """(the launches of a PROMPT_LEN prefill, of one decode step, the
+    prefill's last logits, the step's logits), the step fed `tok`."""
+    from tiny_llm_tpu_torch import kernels
+
+    cache = model.create_kv_cache()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    lp = model(prompt, 0, cache, logits_to_keep=1)
+    torch.cuda.synchronize()
+    pre = kernels.launches()
+    kernels.reset_launches()
+    ld = model([[tok]], PROMPT_LEN, cache, logits_to_keep=1)
+    torch.cuda.synchronize()
+    step = kernels.launches()
+    cache.release()
+    return pre, step, lp, ld
+
+
+def _expect(counts, want, what):
+    """Launch counts equal `want` on its kernels and 0 on every other."""
+    full = {k: want.get(k, 0) for k in counts}
+    check(counts == full, f"{what}: launches {counts} != {full}")
+
+
+def _head_shard_cases(cfg, tp):
+    """K3 (L = 1: its walk; L = PROMPT_LEN: its tile) on one head shard of
+    a dense slab [2, Hkv, MAX_SEQ, D], and the paged decode and prefill
+    kernels on one head shard of a page pool [POOL_PAGES, Hkv, PAGE_SIZE,
+    D], each shard a view read in place (the last of tp shards: heads
+    [Hkv - Hkv / tp, Hkv)), at Qwen3-4B's heads: bit-equal to the same
+    kernel on a contiguous copy of the shard, and within _state_tol of the
+    plain version on the view (the paged cases through _paged_check, with
+    its control). Returns one summary a case."""
+    from tiny_llm_tpu_torch.kernels import flash_attention as ka
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(1818)
+    D, hkv = cfg.head_dim, cfg.num_key_value_heads
+    kh = slice(hkv - hkv // tp, hkv)
+    hq = cfg.num_attention_heads // tp
+    sc = D**-0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    out = []
+    k, v = randn(2, hkv, MAX_SEQ, D), randn(2, hkv, MAX_SEQ, D)
+    lens = torch.tensor([300, MAX_SEQ], dtype=torch.int32, device="cuda")
+    for Lq in (1, PROMPT_LEN):
+        q = randn(2, hq, Lq, D)
+        ks, vs = k[:, kh], v[:, kh]
+        got = ka.flash_attention_cuda(q, ks, vs, lens, sc)
+        same = torch.equal(got, ka.flash_attention_cuda(q, ks.contiguous(), vs.contiguous(),
+                                                        lens, sc))
+        want = ka.flash_attention_plain(q, ks, vs, lens, sc)
+        tol = _state_tol(q, ks, vs, ka._causal_mask(lens, Lq, MAX_SEQ, q.device), sc, want)
+        rows = _over_tol(got, want, tol)
+        check(same and max(rows) <= 1, f"K3 on a slab's head shard, L = {Lq}: equal to the "
+              f"contiguous copy {same}, {max(rows)} of its tolerance")
+        out.append({"kernel": "flash_attention", "L": Lq, "view": "slab[:, heads]",
+                    "equal_to_contiguous": same, "err_over_tol_per_batch_row": rows})
+    del k, v
+    kp, vp = randn(POOL_PAGES, hkv, PAGE_SIZE, D), randn(POOL_PAGES, hkv, PAGE_SIZE, D)
+    perm = torch.randperm(POOL_PAGES - 1, generator=torch.Generator().manual_seed(18)) + 1
+    width = MAX_SEQ // PAGE_SIZE
+    bt = perm[: 2 * width].reshape(2, width).to(device="cuda", dtype=torch.int32)
+    bt[0, 3:] = -1  # row 0's 300 keys fill 3 pages
+    for Lq, fn in ((1, pa.paged_decode_cuda), (PROMPT_LEN, pa.paged_prefill_cuda)):
+        q = randn(2, hq, Lq, D)
+        ks, vs = kp[:, kh], vp[:, kh]
+        case, _ = _paged_check(f"{fn.__name__} on a pool's head shard", fn, q, ks, vs, bt, lens,
+                               sc)
+        same = torch.equal(fn(q, ks, vs, bt, lens, sc),
+                           fn(q, ks.contiguous(), vs.contiguous(), bt, lens, sc))
+        check(same, f"{fn.__name__} on a pool's head shard differs from the contiguous copy")
+        out.append({"kernel": fn.__name__, "L": Lq, "view": "pool[:, heads]",
+                    "equal_to_contiguous": same,
+                    "err_over_tol_per_batch_row": case["err_over_tol_per_batch_row"],
+                    "control_err_over_tol_per_batch_row":
+                        case["control_err_over_tol_per_batch_row"]})
+    return out
+
+
+def phase_tp_model(model, cfg):
+    """Tensor parallelism on Qwen3-4B W4A16 at full width and depth: the
+    dense model's fused weights split over tp = TP_SHARDS (shard_params:
+    qkv and gate/up on out-features, whole KV heads a shard; o and down on
+    in-features, partial products summed in f32), run once with attention
+    on the gathered heads (attn_impl None: K2 at decode) and once with
+    TPAttention (K3, row 4's walk at L = 1, per head shard). A PROMPT_LEN
+    prefill and a decode step teacher-forced on the unsharded model's
+    token: logits within 5 % of the unsharded model's largest, top-1 equal
+    where decided; exact launches (K1 at the shard shapes: 16 a layer + the
+    head). The same over a page pool with TPAttention.paged (K3 per head
+    shard on the first chunk, the paged decode kernel per head shard at the
+    step, each shard's pages a view of the pool). TP_STEPS greedy steps in
+    BURST-step bursts on the three dense-slab models, in turns (A B C C B
+    A), decode tok/s recorded with no limit; a sync-free burst on each
+    sharded model. K3 and the paged decode and prefill kernels on one head
+    shard of a slab and of a pool, read in place (_head_shard_cases). Then
+    Qwen3-4B's down at tp = TP_CUT_SHARDS (1216 columns a shard, 9.5
+    groups: the cut groups' columns zeroed) against unsharded K1 at M = 1,
+    4 and 128 (its three routes), within the per-shard rounding bound."""
+    from tiny_llm_tpu_torch.kernels.quant_matmul import quant_matmul_cuda
+    from tiny_llm_tpu_torch.models import Qwen3Model
+    from tiny_llm_tpu_torch.ops.sharded import shard_weight, sharded_linear
+    from tiny_llm_tpu_torch.parallel import ShardingConfig, TPAttention, shard_params
+
+    scfg = ShardingConfig(_mesh(dp=1, tp=TP_SHARDS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = shard_params(model.params, scfg)  # fused already: the parts copied once
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    models = {"unsharded": model, "tp": Qwen3Model(params, cfg, max_seq_len=MAX_SEQ),
+              "tp_attention": Qwen3Model(params, cfg, max_seq_len=MAX_SEQ,
+                                         attn_impl=TPAttention(scfg))}
+    paged = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, attn_impl=TPAttention(scfg))
+    paged.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, PROMPT_LEN))
+    L, n = cfg.num_hidden_layers, TP_SHARDS
+    with torch.no_grad():
+        model(prompt, 0, model.create_kv_cache(), logits_to_keep=1)  # warm-up
+        _, _, lp0, _ = _step_launches(model, prompt, 0)
+        tok = int(lp0[0, -1].float().argmax())
+        ref = _step_launches(model, prompt, tok)
+        parity, launches = {}, {}
+        for name in ("tp", "tp_attention"):
+            m = models[name]
+            _step_launches(m, prompt, tok)  # warm-up
+            pre, step, lp, ld = _step_launches(m, prompt, tok)
+            heads = name == "tp_attention"
+            _expect(pre, {"quant_matmul": 16 * L + 1, "flash_attention": n * L if heads else L},
+                    f"{name} prefill")
+            _expect(step, {"quant_matmul": 16 * L + 1, "flash_attention": n * L if heads else 0,
+                           "fused_decode_attention": 0 if heads else L}, f"{name} decode step")
+            e1, d1 = _logit_check(lp, ref[2], f"{name} prefill logits")
+            e2, d2 = _logit_check(ld, ref[3], f"{name} decode-step logits")
+            parity[name] = {"prefill_err_over_tol": e1, "step_err_over_tol": e2,
+                            "top1_decided": d1 + d2}
+            launches[name] = {"prefill": {k: v for k, v in pre.items() if v},
+                              "decode_step": {k: v for k, v in step.items() if v}}
+        _step_launches(paged, prompt, tok)  # warm-up
+        pre, step, lp, ld = _step_launches(paged, prompt, tok)
+        _expect(pre, {"quant_matmul": 16 * L + 1, "flash_attention": n * L},
+                "tp_attention_paged prefill")
+        _expect(step, {"quant_matmul": 16 * L + 1, "paged_decode": n * L},
+                "tp_attention_paged decode step")
+        e1, d1 = _logit_check(lp, ref[2], "tp_attention_paged prefill logits")
+        e2, d2 = _logit_check(ld, ref[3], "tp_attention_paged decode-step logits")
+        parity["tp_attention_paged"] = {"prefill_err_over_tol": e1, "step_err_over_tol": e2,
+                                        "top1_decided": d1 + d2}
+        launches["tp_attention_paged"] = {"prefill": {k: v for k, v in pre.items() if v},
+                                          "decode_step": {k: v for k, v in step.items() if v}}
+        check(paged.page_pool.live_pages == 0, "tp_attention_paged leaked pages")
+        del paged
+        head_shards = _head_shard_cases(cfg, n)
+        runs = {k: _decode_run(m, prompt, TP_STEPS)[2][:, 0] for k, m in models.items()}
+        agree = {k: int((t == runs["unsharded"]).sum()) for k, t in runs.items() if k != "unsharded"}
+        in_turns = _alternating(models, prompt, TP_STEPS)
+        sync_free = {k: _sync_free_burst(models[k], prompt) for k in ("tp", "tp_attention")}
+        # The in-feature split across quant groups (tp = TP_CUT_SHARDS).
+        w = model.params.layers[0].mlp.w_down
+        sw = shard_weight(w, "in", "tp", _mesh(dp=1, tp=TP_CUT_SHARDS).devices)
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        cut = []
+        for M in (1, 4, 128):
+            x = torch.randn((M, w.in_features), generator=gen, device="cuda").to(torch.bfloat16)
+            r = torch.randn((M, w.out_features), generator=gen, device="cuda").to(torch.bfloat16)
+            got, want = sharded_linear(x, sw, residual=r), quant_matmul_cuda(x, w, r)
+            parts = []
+            for lo, hi in sw.bounds:
+                xs = torch.zeros_like(x)
+                xs[:, lo:hi] = x[:, lo:hi]
+                parts.append(quant_matmul_cuda(xs, w))
+
+            def ulp(v):
+                _, e = torch.frexp(v.float())
+                return torch.ldexp(torch.ones_like(v.float()), e - 8)
+
+            bound_ = sum(ulp(p) for p in parts) + 2 * ulp(want) + 2.0**-20 * want.float().abs()
+            over = float(((got.float() - want.float()).abs() / bound_).max())
+            check(over <= 1.0, f"tp = {TP_CUT_SHARDS} down at M = {M}: {over} of the bound")
+            cut.append({"M": M, "max_err_over_bound": over,
+                        "max_abs_err": max_err(got, want)})
+    k_loc = sorted({p.in_features for p in sw.parts})
+    emit({"phase": "tp_model", "model": "qwen3-4b", "layers": L, "tp": n,
+          "mesh": "[cuda:0] * 4", "shard_params_s": shard_s, "prompt_len": PROMPT_LEN,
+          "decode_steps": TP_STEPS, "burst": BURST, "parity": parity,
+          "tol": "5% of max |unsharded logit|", "launches": launches,
+          "greedy_tokens_equal_unsharded": agree, "greedy_tokens": TP_STEPS + 1,
+          "in_turns": in_turns, "sync_free_burst": sync_free, "head_shard_views": head_shards,
+          "cut_groups": {"tp": TP_CUT_SHARDS, "shape": "down 2560x9728 +res",
+                         "k_loc": 9728 // TP_CUT_SHARDS, "k_part": k_loc, "cases": cut,
+                         "bound": "sum of the parts' bf16 ulps + 2 ulps + 2^-20 |want|"}})
+    del models, params, sw
+    torch.cuda.empty_cache()
+
+
+def phase_dp_serving(model, cfg, serving_ids):
+    """Data parallelism: Qwen3-4B paged serving through DPServing at dp =
+    DP_REPLICAS (the mesh [cuda:0] * 2) with DPPagedAttention, the pool
+    striped per replica (pinned pages, a trash page each): bench.py's
+    serving campaign's first DP_REQUESTS requests, one campaign after a
+    warm-up. Checks: every request returns; no request sits in a slot of
+    another replica; each stripe's pages are all free again at the end;
+    exact launches of one decode step over 4 slots (K1 4 a layer per
+    replica, on the replica's copy of the weights (shard_params) at M =
+    4 / DP_REPLICAS, the tied head once over every row; the paged decode
+    kernel once per replica a layer, over its stripe) and one sync-free
+    burst; every token equals the unsharded
+    serving campaign's (`serving_ids`, the `serving` phase's) up to each
+    request's first divergence, which must be a near-tie of the unsharded
+    model's own teacher-forced logits (within SPEC_TIE_ULPS bf16 ulps of
+    the step's largest). Output tok/s recorded with no limit."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.models import Qwen3Model
+    from tiny_llm_tpu_torch.models import qwen3
+    from tiny_llm_tpu_torch.parallel import (DPPagedAttention, DPPagedBatchingKVCache,
+                                             DPServing, ShardingConfig, shard_params)
+    from tiny_llm_tpu_torch.serving import ServingMetrics, batch_generate
+
+    scfg = ShardingConfig(_mesh(dp=DP_REPLICAS, tp=1))
+    pages = -(-POOL_PAGES // DP_REPLICAS) * DP_REPLICAS
+    params = shard_params(model.params, scfg)  # one copy a replica (here the same tensors)
+    wqkv = params.layers[0].attn.wqkv
+    check(wqkv.dim == "batch" and len(wqkv.parts) == DP_REPLICAS, "the weights are not replicas")
+    m = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, attn_impl=DPPagedAttention(scfg))
+    m.enable_paged_attention(num_pages=pages, page_size=PAGE_SIZE)
+    dp = DPServing(m, scfg)
+    pool = m.page_pool
+    lens, max_out, kw = _serving_campaign()
+    lens = lens[:DP_REQUESTS]
+    placed = []
+
+    class Recording(DPPagedBatchingKVCache):
+        def add_request(self, prefilled, slot):
+            placed.append((prefilled.shard, self.slot_shard(slot)))
+            super().add_request(prefilled, slot)
+
+    dp.create_batching_kv_cache = lambda max_active_requests, max_seq_len=None: Recording(
+        pool, max_active_requests, DP_REPLICAS)
+    p_loc = pages // DP_REPLICAS
+    with torch.no_grad():
+        batch_generate(dp, _recorder(), SERVING_WARM, max_output_tokens=max(8, BURST), **kw)
+        placed.clear()
+        tok = _recorder()
+        met = ServingMetrics(pool_capacity_pages=pool.num_pages, page_size=pool.page_size)
+        met._bytes_per_slot = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads \
+            * cfg.head_dim * 2
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = batch_generate(dp, tok, ["x" * int(n) for n in lens], max_output_tokens=max_out,
+                             metrics=met, **kw)
+        met.wall_s = time.perf_counter() - t0
+        counts = kernels.launches()
+        check(sorted(i for i, _ in res) == list(range(DP_REQUESTS)), "a request did not return")
+        check(len(placed) == DP_REQUESTS and all(a == b for a, b in placed),
+              f"a request sat in another replica's slot: {placed}")
+        check([len(f) for f in pool._free_by_shard] == [p_loc - 1] * DP_REPLICAS,
+              "a stripe's pages are not all free")
+        check(counts["fused_paged_decode_attention"] == 0 and counts["paged_decode"] > 0,
+              f"the DP campaign launched {counts}")
+        ids = {i: got for (i, _), got in zip(res, tok.decoded)}
+        # Tokens against the unsharded campaign's, to each first divergence.
+        equal, diverged, gaps = 0, 0, []
+        for i, got in ids.items():
+            want = serving_ids[i]
+            first = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+            check(len(got) == len(want), f"request {i}: {len(got)} tokens, unsharded {len(want)}")
+            if first is None:
+                equal += len(got)
+                continue
+            equal += first
+            diverged += 1
+            ids_in = list(tok.encode("x" * int(lens[i]))) + got[:first]
+            cache = model.create_kv_cache()
+            row = model([ids_in], 0, cache, logits_to_keep=1)[0, -1].float()
+            cache.release()
+            mx = float(row.max())
+            ulp = 2.0 ** (int(np.floor(np.log2(abs(mx)))) - 7)
+            gap = mx - float(row[got[first]])
+            check(gap <= SPEC_TIE_ULPS * ulp,
+                  f"request {i}: token {first} is {gap} below the unsharded step's max {mx}")
+            gaps.append(gap / ulp)
+        # One decode step over 4 installed requests, exact launches, and a
+        # sync-free burst.
+        batch = dp.create_batching_kv_cache(SERVING_BATCH)
+        for slot in range(SERVING_BATCH):
+            c = m.create_kv_cache()
+            c.shard = batch.slot_shard(slot)
+            m([[ord("x")] * int(lens[slot])], 0, c, logits_to_keep=1)
+            batch.add_request(c, slot)
+        toks = [[ord("x")]] * SERVING_BATCH
+        rows_m = []  # K1's M in the step
+        k1 = qwen3.quant_matmul
+
+        def counted(x, w, **kw):
+            rows_m.append(x.numel() // x.shape[-1])
+            return k1(x, w, **kw)
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        qwen3.quant_matmul = counted
+        try:
+            m(toks, None, batch, logits_to_keep=1)
+        finally:
+            qwen3.quant_matmul = k1
+        torch.cuda.synchronize()
+        L = cfg.num_hidden_layers
+        _expect(kernels.launches(), {"quant_matmul": DP_REPLICAS * 4 * L + 1,
+                                     "paged_decode": DP_REPLICAS * L}, "dp decode step")
+        per = SERVING_BATCH // DP_REPLICAS
+        check(sorted(rows_m) == [per] * (DP_REPLICAS * 4 * L) + [SERVING_BATCH],
+              f"K1 ran at M = {sorted(set(rows_m))}, not {per} a replica")
+        for c in batch.slots:
+            c.ensure_capacity(c.offset + BURST)
+        dev = m.device
+        args = dict(tokens0=torch.full((SERVING_BATCH,), ord("x"), device=dev),
+                    offsets0=torch.as_tensor(batch.offsets, device=dev),
+                    key_pages=pool.key_pages, value_pages=pool.value_pages,
+                    block_table=torch.as_tensor(batch.block_table(m._paged_width), device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = qwen3.forward_decode_burst_paged(m.params, cfg, m._rope_tables, steps=BURST,
+                                                   attn_impl=m.attn_impl, **args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(tuple(out.cpu().shape) == (BURST, SERVING_BATCH), "sync-free burst shape")
+        batch.release()
+        check(pool.live_pages == 0, "pages leaked")
+    emit({"phase": "dp_serving", "model": "qwen3-4b", "layers": L, "dp": DP_REPLICAS,
+          "mesh": "[cuda:0] * 2", "requests": DP_REQUESTS, "batch": SERVING_BATCH,
+          "pool_pages": pages, "stripe_pages": p_loc, **met.as_dict(), "wall_s": met.wall_s,
+          "launches": {k: v for k, v in counts.items() if v},
+          "k1_m_per_replica": per, "tokens_equal_unsharded": equal,
+          "tokens": sum(len(t) for t in ids.values()),
+          "requests_diverged_at_near_tie": diverged, "tie_gaps_in_ulps": gaps,
+          "slots_on_own_replica": len(placed),
+          "sync_free_burst": {"steps": BURST, "mode": "error", "host_syncs_in_burst": 0}})
+    del dp, m, params
+    torch.cuda.empty_cache()
+
+
+def phase_ep_moe(moe, moe_cfg):
+    """Expert parallelism on Qwen3-30B-A3B at MOE_LAYERS, full width: the
+    dense model's weights split at ep = 4 (experts over ep; tp = 1) and at
+    ep = 2 x tp = 2 (experts over ep, each expert's features and the
+    attention over tp), dropless: each shard's segment of the sorted token
+    copies through the grouped kernel (row 18) on its local experts, the
+    segments' start, length and the merge on the device. A PROMPT_LEN
+    prefill and 8 decode steps teacher-forced on the unsharded model, its
+    routing leading: logits within 5 % of the unsharded model's largest,
+    top-1 equal where decided, expert choices equal except at near-ties
+    (margin < TIE_MARGIN, the sharded model then takes the unsharded
+    choice); exact launches of a prefill and a decode step (row 18: 3 a
+    MoE layer per shard); one sync-free burst on each; TP_STEPS greedy
+    steps on all three in turns (decode tok/s, no limit). Then EPMoE on
+    layer 0's experts at ep = 4 with capacity_factor 1.0 (C = T / 4 rows a
+    shard) on a 128-token batch: the kernels against the plain versions of
+    the same drops (routing forced at near-ties), within 1 % of max, and
+    some rows dropped."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.models import Qwen3Model
+    from tiny_llm_tpu_torch.parallel import EPMoE, ShardingConfig, shard_params
+
+    L = moe_cfg.num_hidden_layers
+    prompt = np.random.default_rng(0).integers(0, moe_cfg.vocab_size, size=(1, PROMPT_LEN))
+    lines, models = {}, {"unsharded": moe}
+    with torch.no_grad():
+        for name, axes in EP_MESHES.items():
+            scfg = ShardingConfig(_mesh(dp=1, **axes), ep_axis="ep")
+            m = Qwen3Model(shard_params(moe.params, scfg), moe_cfg, max_seq_len=MAX_SEQ)
+            models[name] = m
+            n_ep, n_tp = axes["ep"], axes["tp"]
+            state = {"lead": True}
+            with RouteForcer(lead=lambda impl: state["lead"]) as forcer:
+                cu, cs = moe.create_kv_cache(), m.create_kv_cache()
+                worst, decided = 0.0, 0
+                toks, off = prompt, 0
+                for step in range(9):
+                    state["lead"] = True
+                    lu = moe(toks, off, cu, logits_to_keep=1)
+                    state["lead"] = False
+                    ls = m(toks, off, cs, logits_to_keep=1)
+                    e, d = _logit_check(ls, lu, f"{name} step {step}")
+                    worst, decided = max(worst, e), decided + d
+                    off += toks.shape[1] if step == 0 else 1
+                    toks = np.asarray([[int(lu[0, -1].float().argmax())]])
+                forced = forcer.summary(lambda b: True)
+                cu.release()
+                cs.release()
+            _step_launches(m, prompt, 0)  # warm-up
+            pre, step_c, _, _ = _step_launches(m, prompt, 0)
+            per_layer_k1 = 2 * n_tp + 1  # qkv and o per tp shard, the router
+            grouped = 3 * n_ep * n_tp  # gate, up, down per (ep, tp) shard
+            _expect(pre, {"quant_matmul": per_layer_k1 * L + 1, "flash_attention": L,
+                          "grouped_quant_matmul": grouped * L}, f"{name} prefill")
+            _expect(step_c, {"quant_matmul": per_layer_k1 * L + 1, "fused_decode_attention": L,
+                             "grouped_quant_matmul": grouped * L}, f"{name} decode step")
+            lines[name] = {"mesh": axes, "worst_err_over_tol": worst, "top1_decided": decided,
+                           **forced, "grouped_quant_matmul_per_layer": grouped,
+                           "launches_decode_step": {k: v for k, v in step_c.items() if v},
+                           "sync_free_burst": _sync_free_burst(m, prompt)}
+        in_turns = _alternating(models, prompt, TP_STEPS)
+        del models
+        # Capacity 1.0 at ep = 4 on layer 0's experts: kernels against the
+        # plain versions of the same drops.
+        mlp = moe.params.layers[0].mlp
+        scfg = ShardingConfig(_mesh(dp=1, ep=4, tp=1), ep_axis="ep")
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        x = (torch.randn((1, PROMPT_LEN, moe_cfg.hidden_size), generator=gen, device="cuda")
+             * 0.5).to(torch.bfloat16)
+        cap_line, outs = {}, {}
+        for cap in (1.0, None):
+            with RouteForcer() as forcer:
+                layer_k = EPMoE(scfg, mlp.w_router, mlp.w_gate, mlp.w_up, mlp.w_down,
+                                moe_cfg.num_experts_per_tok, moe_cfg.norm_topk_prob,
+                                capacity_factor=cap, axis="ep")
+                layer_p = EPMoE(scfg, mlp.w_router, mlp.w_gate, mlp.w_up, mlp.w_down,
+                                moe_cfg.num_experts_per_tok, moe_cfg.norm_topk_prob,
+                                capacity_factor=cap, axis="ep", impl="torch")
+                kernels.reset_launches()
+                a = layer_k(x)
+                torch.cuda.synchronize()
+                n18 = kernels.launches()["grouped_quant_matmul"]
+                b = layer_p(x)
+                forced = forcer.summary(lambda r: True)
+            tol = 1e-2 * float(b.float().abs().max())
+            err = max_err(a, b)
+            check(bool(torch.isfinite(a.float()).all()) and err <= tol,
+                  f"EPMoE capacity {cap}: {err} > {tol}")
+            check(n18 == 3 * 4, f"EPMoE launched {n18} grouped matmuls, not 12")
+            cap_line[str(cap)] = {"max_abs_err": err, "tol": tol, **forced}
+            outs[cap] = a
+        dropped = max_err(outs[1.0], outs[None])
+        check(dropped > 0, "capacity 1.0 dropped no row")
+    emit({"phase": "ep_moe", "model": "qwen3-30b-a3b", "layers": L, "prompt_len": PROMPT_LEN,
+          "decode_steps": 8, "tol": "5% of max |unsharded logit|", "meshes": lines,
+          "in_turns": in_turns, "capacity": {"ep": 4, "tokens": PROMPT_LEN,
+                                             "rows": PROMPT_LEN * moe_cfg.num_experts_per_tok,
+                                             "capacity_rows": PROMPT_LEN
+                                             * moe_cfg.num_experts_per_tok // 4,
+                                             "cases": cap_line,
+                                             "max_change_from_dropless": dropped,
+                                             "tol": "1% of max |plain|"}})
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase line, the kernel line, the card "
@@ -4771,19 +5302,25 @@ def main() -> int:
     phase_speculative(model, params, cfg, draft_params, draft_cfg)
     del draft_params
     torch.cuda.empty_cache()
+    # Tensor parallelism on the dense model's weights (before serving
+    # attaches a page pool to it).
+    phase_tp_model(model, cfg)
     phase_paged_parity(cfg)
     # The three-launch paged decode (paged_fused_one=False) on the same
     # weights: its serving campaigns are taken in turns with `serving`'s.
     phase_paged3_parity(cfg, contract)
-    # W4A8 on the same weights too: its campaign follows the three-launch
-    # one (W4A16, three-launch, W4A8, W4A16).
+    # W4A8 on the same weights too: its campaigns follow the three-launch
+    # ones (three-launch, W4A8, W4A16, twice).
     m3 = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, paged_fused_one=False)
     for m in (m3, a8):
         m.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
     turns = [{"model": m3, "warm": SERVING_WARM}, {"model": a8, "warm": SERVING_WARM}]
-    serving_counts = phase_serving(model, cfg, "serving", "qwen3-4b", turns=turns)
+    serving_counts = phase_serving(model, cfg, "serving", "qwen3-4b", n_runs=SERVING_RUNS,
+                                   turns=turns)
     paged3_counts = phase_paged3_serving(m3, cfg, turns[0])
     phase_a8_serving(a8, cfg, turns[1])
+    # Data parallelism, held to the serving campaign's tokens.
+    phase_dp_serving(model, cfg, turns[0]["a_ids"][0])
     del m3, turns
     torch.cuda.empty_cache()
     # The long-prompt and mixed routes (Qwen3-4B; the kernels at both head shapes).
@@ -4827,6 +5364,9 @@ def main() -> int:
     with RouteForcer() as forcer:
         phase_parity(moe_cfg, "moe_parity", forcer)
         phase_paged_parity(moe_cfg, "moe_parity", forcer)
+    # Expert parallelism on the same weights (while the model still runs
+    # dense: moe_serving attaches a page pool).
+    phase_ep_moe(moe, moe_cfg)
     phase_serving(moe, moe_cfg, "moe_serving", "qwen3-30b-a3b", n_runs=2)
     # W4 g64 on Qwen3-30B-A3B: one 30B model resident at a time.
     del moe, moe_params

@@ -39,7 +39,7 @@ from tiny_llm_tpu_torch.models.bridge import quantized_from_numpy  # noqa: E402
 from tiny_llm_tpu_torch.ops.quantize import dequantize, from_codes, unpack_codes  # noqa: E402
 from tiny_llm_tpu_torch.serving import batch_generate  # noqa: E402
 
-from .torch_port import bf16_numpy, f32, jax_k1_on_pallas, qt_to_numpy  # noqa: E402
+from .torch_port import bf16_numpy, f32, qt_to_numpy  # noqa: E402
 from .utils import FakeTokenizer, assert_allclose  # noqa: E402
 
 # Logit tolerance (bf16 ladder, absolute), as tests/test_torch_model.py.
@@ -330,11 +330,10 @@ def test_moe_model_teacher_forced_logits_match_jax(name, paged, routing_log):
     paged) and 8 decode steps, both fed the JAX model's greedy tokens: 72
     positions, so the 2 % bound admits one near-tie flip. Logits within
     LOGIT_ATOL and top-1 equal where decided, except at the near-tie
-    routing flips (_excluded). The JAX model's dense matmuls take the
-    Pallas kernels K1 replaces (jax_k1_on_pallas): the 64-row chunk runs
-    K1's staged rounding on both sides."""
-    with jax_k1_on_pallas():
-        _moe_teacher_forced(name, paged, routing_log)
+    routing flips (_excluded). The JAX model takes its XLA route: the
+    64-row chunk runs K1's staged tile, whose dequantized weights
+    bf16(q * s + b) are that route's."""
+    _moe_teacher_forced(name, paged, routing_log)
 
 
 def _moe_teacher_forced(name, paged, routing_log):

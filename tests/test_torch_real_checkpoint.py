@@ -28,7 +28,7 @@ from tiny_llm_tpu_torch.tokenizer import load_tokenizer  # noqa: E402
 
 from .test_real_checkpoint import _dequantized_params  # noqa: E402
 from .torch_port import torch_one_thread  # noqa: E402,F401
-from .torch_port import assert_loaded_equal, f32, jax_k1_on_pallas, real_checkpoint  # noqa: E402
+from .torch_port import assert_loaded_equal, f32, real_checkpoint  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
@@ -169,18 +169,12 @@ def _chunked_logits(model, ids: list[int], chunk: int = STAGED_MIN_ROWS - 1) -> 
     return np.concatenate(rows)
 
 
-def _jax_quantized_logits(d: str, ids: list[int], dequantized: bool) -> np.ndarray:
-    """The JAX package's prompt logits on its own W4A16 load of `d`: the JAX
-    suite's dequantized oracle (every weight dequantized to bf16, the XLA
-    route), or the quantized model with K1's Pallas kernels in interpret
-    mode (the staged schedule from 33 rows, which K1's staged tile ports)."""
+def _jax_quantized_logits(d: str, ids: list[int]) -> np.ndarray:
+    """The JAX suite's dequantized oracle on the JAX package's own W4A16 load
+    of `d`: every weight dequantized to bf16, the XLA route."""
     pq, cfg = jax_load_params(d, quantized=True)
-    if dequantized:
-        return np.asarray(JaxQwen3Model(_dequantized_params(pq), cfg, max_seq_len=256)
-                          .forward_full(jnp.asarray([ids]))[0], np.float32)
-    with jax_k1_on_pallas():
-        return np.asarray(JaxQwen3Model(pq, cfg, max_seq_len=256)
-                          .forward_full(jnp.asarray([ids]))[0], np.float32)
+    return np.asarray(JaxQwen3Model(_dequantized_params(pq), cfg, max_seq_len=256)
+                      .forward_full(jnp.asarray([ids]))[0], np.float32)
 
 
 def test_quantized_forward_matches_dequantized_oracle(ckpt_dir):
@@ -189,26 +183,23 @@ def test_quantized_forward_matches_dequantized_oracle(ckpt_dir):
     o = _oracle(ckpt_dir)
     pq, cfg = load_params(ckpt_dir, quantized=True, device="cpu")
     got = _chunked_logits(Qwen3Model(pq, cfg, max_seq_len=256, device="cpu"), o["prompt_ids"])
-    want = _jax_quantized_logits(ckpt_dir, o["prompt_ids"], dequantized=True)
+    want = _jax_quantized_logits(ckpt_dir, o["prompt_ids"])
     np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2)
 
 
 @pytest.mark.parametrize("variant", ["real", "fullvocab"])
 def test_quantized_whole_prompt_matches_jax_staged_schedule(variant, request):
-    """The whole prompt in one prefill (K1's staged tile, which rounds
-    q * s to bf16 and adds the biases through group sums) against the JAX
-    package's quantized model on the Pallas staged schedule it ports,
-    under the JAX suite's tolerance. Against the dequantized oracle this
-    route misses that tolerance, as the Pallas staged schedule itself does
-    (145 of 108544 logits here, the Pallas schedule 144; 1163 of 8052608
-    on the full vocabulary, the Pallas schedule 1257): an open fault of
-    the staged schedule (ROADMAP.md Queue C)."""
+    """The whole prompt in one prefill (K1's staged tile, which stages the
+    dequantized weight bf16(q * s + b)) against the JAX suite's dequantized
+    oracle, under its tolerance. The Pallas staged schedule, which rounds
+    q * s to bf16 and adds the biases through group sums, misses it (144 of
+    108544 logits here, 1257 of 8052608 on the full vocabulary)."""
     d = request.getfixturevalue({"real": "ckpt_dir", "fullvocab": "full_vocab_ckpt_dir"}[variant])
     o = _oracle(d)
     pq, cfg = load_params(d, quantized=True, device="cpu")
     assert len(o["prompt_ids"]) >= STAGED_MIN_ROWS
     got = f32(Qwen3Model(pq, cfg, max_seq_len=256, device="cpu")([o["prompt_ids"]])[0])
-    want = _jax_quantized_logits(d, o["prompt_ids"], dequantized=False)
+    want = _jax_quantized_logits(d, o["prompt_ids"])
     np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2)
 
 
@@ -293,5 +284,5 @@ def test_full_vocab_quantized_embedding_and_head(full_vocab_ckpt_dir):
     pq, cfg = load_params(full_vocab_ckpt_dir, quantized=True, device="cpu")
     assert cfg.vocab_size == 151_936
     got = _chunked_logits(Qwen3Model(pq, cfg, max_seq_len=256, device="cpu"), o["prompt_ids"])
-    want = _jax_quantized_logits(full_vocab_ckpt_dir, o["prompt_ids"], dequantized=True)
+    want = _jax_quantized_logits(full_vocab_ckpt_dir, o["prompt_ids"])
     np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2)

@@ -15,27 +15,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import tiny_llm_tpu.kernels as jax_kernels
 from tiny_llm_tpu.ops.quantize import QuantizedTensor as JaxQT
-
-
-@contextlib.contextmanager
-def jax_k1_on_pallas():
-    """Inside the block the JAX package's dense quantized matmuls take their
-    Pallas route in interpret mode: the functions the port's K1 replaces
-    (the decode schedule at <= 32 rows, the staged schedule above, which
-    rounds q * s to bf16 as K1's staged tile does), where the JAX model on
-    the CPU would otherwise take the XLA route. `quantized_linear` looks
-    `quantized_matmul` up at every call, so the JAX models traced inside
-    the block take it; nothing of the JAX package is edited."""
-    orig = jax_kernels.quantized_matmul
-
-    def pallas(*args, **kwargs):
-        return orig(*args, **{**kwargs, "impl": "pallas", "interpret": True})
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_kernels, "quantized_matmul", pallas)
-        yield
 
 
 def qt_to_numpy(qt: JaxQT) -> dict:
@@ -240,3 +220,37 @@ def assert_loaded_equal(jp, pp) -> None:
             "w_gate", "w_up", "w_down")
         for name in names:
             same(getattr(a.mlp, name), getattr(b.mlp, name), f"layer {i} mlp.{name}")
+
+
+def port_params(params, cfg, device: str = "cpu"):
+    """The JAX package's unfused Qwen3Params, quantized or dense, dense or
+    MoE layers, as the port's (dense arrays keep their dtype; a tied head
+    is the embedding)."""
+    import torch
+
+    from tiny_llm_tpu_torch.models.bridge import quantized_from_numpy
+    from tiny_llm_tpu_torch.models.qwen3 import (AttentionParams, BlockParams, MLPParams,
+                                                 MoEParams, Qwen3Params)
+
+    def w(x):
+        if isinstance(x, JaxQT):
+            return quantized_from_numpy(qt_to_numpy(x)).to(device)
+        t = torch.from_numpy(np.asarray(x, np.float32))
+        return t.to(device=device, dtype=torch.bfloat16 if str(x.dtype) == "bfloat16"
+                    else torch.float32)
+
+    layers = []
+    for layer in params.layers:
+        a, m = layer.attn, layer.mlp
+        mlp = (MoEParams(w_router=w(m.w_router), w_gate=w(m.w_gate), w_up=w(m.w_up),
+                         w_down=w(m.w_down)) if hasattr(m, "w_router") else
+               MLPParams(w_gate=w(m.w_gate), w_up=w(m.w_up), w_down=w(m.w_down)))
+        layers.append(BlockParams(
+            input_layernorm=w(layer.input_layernorm),
+            post_attention_layernorm=w(layer.post_attention_layernorm),
+            attn=AttentionParams(wq=w(a.wq), wk=w(a.wk), wv=w(a.wv), wo=w(a.wo),
+                                 q_norm=w(a.q_norm), k_norm=w(a.k_norm)),
+            mlp=mlp))
+    lm_head = None if cfg.tie_word_embeddings else w(params.lm_head)
+    return Qwen3Params(embedding=w(params.embedding), layers=layers,
+                       final_norm=w(params.final_norm), lm_head=lm_head)

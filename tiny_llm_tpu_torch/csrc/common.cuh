@@ -76,11 +76,11 @@ struct SlabRows {  // a dense slab: the head's rows [0, S) from `base`
 };
 
 template <int D>
-struct PageRows {  // a page pool [P, Hkv, ps, D] through one block-table row
+struct PageRows {  // a page pool [P, hp, ps, D] through one block-table row
   const int* bt;   // the batch row's block table (-1 padded)
-  int ps, Hkv, h;
+  int ps, hp, h;   // hp: the KV heads a page holds (a head shard reads in place)
   __device__ __forceinline__ size_t operator()(int pos) const {
     const int page = max(__ldg(bt + pos / ps), 0);  // -1 -> trash page 0
-    return (((size_t)page * Hkv + h) * ps + pos % ps) * D;
+    return (((size_t)page * hp + h) * ps + pos % ps) * D;
   }
 };

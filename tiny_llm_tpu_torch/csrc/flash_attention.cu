@@ -18,7 +18,7 @@
 // heads) each walking its row's keys serially. Design, two routes by L,
 // both on the tensor cores:
 //   * L <= 16: row 6's split-key walk over the slab (split_walk.cuh,
-//     SlabKeys: batch stride Hkv * S * D, head stride S * D), the same
+//     SlabKeys: the slab's batch and head strides), the same
 //     flash_decode_walk instances, in splits of `kps` keys
 //     (kernels/flash_attention.py flash_split), both products on mma.sync
 //     (HMMA); the walk masks each key past the row's position, which covers
@@ -30,6 +30,9 @@
 //     q tiles leave SMs idle the keys are split too (flash_causal_split:
 //     the tile's SPLIT option over one key range, f32 partials) and
 //     flash_combine merges them.
+// K and V may be a strided view of a slab (a head shard of it under tensor
+// parallelism): key p of (b, h) at b * sb + h * sh + p * D, so a shard is
+// read in place.
 // The split size comes from the shapes and the SM count alone, never from
 // lens, which lives on the device: reading it would sync and break a CUDA
 // graph's capture. Rounding points are the TPU kernels' (_flash_inner): q *
@@ -153,13 +156,13 @@ int launch_decode_state(const void* q, const void* k, const void* v, const void*
 template <int D, int NREP>
 __global__ void __launch_bounds__(fmma::WARPS * 32, 1) flash_causal_tile(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, L, D]
-    const __nv_bfloat16* __restrict__ k,  // [B, Hkv, S, D]
+    const __nv_bfloat16* __restrict__ k,  // [B, Hkv, S, D] at strides (sb, sh, D, 1)
     const __nv_bfloat16* __restrict__ v,
     const int* __restrict__ lens,  // [B]
     __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
-    int Hkv, int L, int S, float scale) {
+    int Hkv, int L, int S, long long sb, long long sh, float scale) {
   const int h = blockIdx.y, bb = blockIdx.z;
-  const SlabRows<D> rows{((size_t)bb * Hkv + h) * (size_t)S * D};
+  const SlabRows<D> rows{(size_t)bb * sb + (size_t)h * sh};
   fmma::state_tile<D, NREP, true, SlabRows<D>, fmma::MASK_NONE, false>(
       q, k, v, out, nullptr, nullptr, rows, lens[bb], S, gridDim.x - 1 - blockIdx.x, h, bb, Hkv,
       L, scale);
@@ -174,11 +177,11 @@ template <int D, int NREP>
 __global__ void __launch_bounds__(fmma::WARPS * 32, 1) flash_causal_split(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lens,
-    float* __restrict__ ws_o, float* __restrict__ ws_ml, int Hkv, int L, int S, int kps,
-    int splits, float scale) {
+    float* __restrict__ ws_o, float* __restrict__ ws_ml, int Hkv, int L, int S, long long sb,
+    long long sh, int kps, int splits, float scale) {
   const int h = blockIdx.y, bb = blockIdx.z, nq = gridDim.x / splits;
   const int split = blockIdx.x % splits, k0 = split * kps;
-  const SlabRows<D> rows{(((size_t)bb * Hkv + h) * (size_t)S + k0) * D};
+  const SlabRows<D> rows{(size_t)bb * sb + (size_t)h * sh + (size_t)k0 * D};
   fmma::state_tile<D, NREP, true, SlabRows<D>, fmma::MASK_NONE, false, true>(
       q, k, v, nullptr, nullptr, nullptr, rows, lens[bb] - k0, min(kps, S - k0),
       nq - 1 - (int)blockIdx.x / splits, h, bb, Hkv, L, scale, fmma::MaskPlanes{},
@@ -202,8 +205,8 @@ int k3_splits(int S, int kps) { return (S + kps - 1) / kps; }
 // o-only combine.
 template <int D, int MT>
 int launch_k3_walk(const void* q, const void* k, const void* v, const void* lens, void* out,
-                   float* ws_o, float* ws_ml, int B, int Hkv, int n_rep, int L, int S, int kps,
-                   float scale, cudaStream_t st) {
+                   float* ws_o, float* ws_ml, int B, int Hkv, int n_rep, int L, int S,
+                   long long sb, long long sh, int kps, float scale, cudaStream_t st) {
   constexpr int SMEM = pds_smem_bytes<D, MT>();
   static const int attr = (int)cudaFuncSetAttribute(
       flash_decode_walk<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -212,8 +215,8 @@ int launch_k3_walk(const void* q, const void* k, const void* v, const void* lens
   const auto* ll = static_cast<const int*>(lens);
   flash_decode_walk<D, MT><<<dim3(splits, Hkv, B), 32 * MT * pds_kw(MT), SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), ll, ws_o, ws_ml, Hkv, n_rep, L, S,
-      (long long)Hkv * S * D, (long long)S * D, kps, scale);
+      static_cast<const __nv_bfloat16*>(v), ll, ws_o, ws_ml, Hkv, n_rep, L, S, sb, sh, kps,
+      scale);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   const int rows = B * Hkv * n_rep * L;
@@ -226,8 +229,8 @@ int launch_k3_walk(const void* q, const void* k, const void* v, const void* lens
 // `splits` key ranges of kps keys merged by flash_combine.
 template <int D, int NREP>
 int launch_k3_tile(const void* q, const void* k, const void* v, const void* lens, void* out,
-                   float* ws_o, float* ws_ml, int B, int Hkv, int L, int S, int kps,
-                   float scale, cudaStream_t st) {
+                   float* ws_o, float* ws_ml, int B, int Hkv, int L, int S, long long sb,
+                   long long sh, int kps, float scale, cudaStream_t st) {
   constexpr int BQ = fmma::WARPS * 16 / NREP, SMEM = fmma::smem_bytes<D>();
   const int nq = (L + BQ - 1) / BQ, splits = k3_splits(S, kps);
   const auto* qq = static_cast<const __nv_bfloat16*>(q);
@@ -240,14 +243,14 @@ int launch_k3_tile(const void* q, const void* k, const void* v, const void* lens
         flash_causal_tile<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (attr) return attr;
     flash_causal_tile<D, NREP><<<dim3(nq, Hkv, B), dim3(fmma::WARPS * 32), SMEM, st>>>(
-        qq, kk, vv, ll, o, Hkv, L, S, scale);
+        qq, kk, vv, ll, o, Hkv, L, S, sb, sh, scale);
     return (int)cudaGetLastError();
   }
   static const int attr = (int)cudaFuncSetAttribute(
       flash_causal_split<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr) return attr;
   flash_causal_split<D, NREP><<<dim3(nq * splits, Hkv, B), dim3(fmma::WARPS * 32), SMEM, st>>>(
-      qq, kk, vv, ll, ws_o, ws_ml, Hkv, L, S, kps, splits, scale);
+      qq, kk, vv, ll, ws_o, ws_ml, Hkv, L, S, sb, sh, kps, splits, scale);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   const int rows = B * Hkv * NREP * L;
@@ -277,11 +280,14 @@ extern "C" long long tlt_flash_attention_workspace(int B, int Hkv, int L, int S,
 // Any L >= 1 over the slab's S keys in splits of `kps` keys (above L = 16,
 // a multiple of 64 where the slab holds more than one split). ws: the
 // workspace, at least tlt_flash_attention_workspace(...) bytes, 256-byte
-// aligned (none for one split above L = 16).
+// aligned (none for one split above L = 16). sb, sh: K's and V's batch and
+// head strides in elements (Hkv * S * D and S * D for a whole slab; a
+// multiple of 8, so that every row starts 16-byte aligned).
 extern "C" int tlt_flash_attention(const void* q, const void* k, const void* v, const void* lens,
                                    void* out, void* ws, long long ws_bytes, int B, int Hkv, int L,
-                                   int S, int D, int n_rep, int kps, float scale, void* stream) {
-  if (L < 1 || S < 1 || kps < 1) return (int)cudaErrorInvalidValue;
+                                   int S, long long sb, long long sh, int D, int n_rep, int kps,
+                                   float scale, void* stream) {
+  if (L < 1 || S < 1 || kps < 1 || sb % 8 || sh % 8) return (int)cudaErrorInvalidValue;
   const long long need = k3_workspace(B, Hkv, L, S, D, n_rep, kps);
   if (need > 0 && (ws == nullptr || ws_bytes < need)) return (int)cudaErrorInvalidValue;
   if (L > 16 && k3_splits(S, kps) > 1 && kps % fmma::BN) return (int)cudaErrorInvalidValue;
@@ -295,8 +301,8 @@ extern "C" int tlt_flash_attention(const void* q, const void* k, const void* v, 
     const int R = n_rep * L, mt = R <= 16 ? 1 : R <= 32 ? 2 : R <= 64 ? 4 : 8;
 #define TLT_K3W(DD, MM)                                                                         \
   if (D == DD && mt == MM)                                                                      \
-    return launch_k3_walk<DD, MM>(q, k, v, lens, out, ws_o, ws_ml, B, Hkv, n_rep, L, S, kps, \
-                                  scale, st);
+    return launch_k3_walk<DD, MM>(q, k, v, lens, out, ws_o, ws_ml, B, Hkv, n_rep, L, S, sb,  \
+                                  sh, kps, scale, st);
     TLT_K3W(64, 1) TLT_K3W(64, 2) TLT_K3W(64, 4) TLT_K3W(64, 8)
     TLT_K3W(128, 1) TLT_K3W(128, 2) TLT_K3W(128, 4) TLT_K3W(128, 8)
 #undef TLT_K3W
@@ -304,8 +310,8 @@ extern "C" int tlt_flash_attention(const void* q, const void* k, const void* v, 
   }
 #define TLT_K3(DD, RR)                                                                     \
   if (D == DD && n_rep == RR)                                                              \
-    return launch_k3_tile<DD, RR>(q, k, v, lens, out, ws_o, ws_ml, B, Hkv, L, S, kps, scale, \
-                                  st);
+    return launch_k3_tile<DD, RR>(q, k, v, lens, out, ws_o, ws_ml, B, Hkv, L, S, sb, sh, kps, \
+                                  scale, st);
   TLT_K3(64, 1) TLT_K3(64, 2) TLT_K3(64, 4) TLT_K3(64, 8)
   TLT_K3(128, 1) TLT_K3(128, 2) TLT_K3(128, 4) TLT_K3(128, 8)
 #undef TLT_K3

@@ -122,9 +122,9 @@ __global__ void __launch_bounds__(fmma::WARPS * 32, 1) paged_flash_prefill(
     const int* __restrict__ bt,    // [B, maxp], -1 padded
     const int* __restrict__ lens,  // [B]
     __nv_bfloat16* __restrict__ out,  // [B, Hq, L, D]
-    int Hkv, int L, int ps, int maxp, float scale) {
+    int Hkv, int L, int ps, int maxp, int hp, float scale) {
   const int h = blockIdx.y, bb = blockIdx.z;
-  const PageRows<D> rows{bt + (size_t)bb * maxp, ps, Hkv, h};
+  const PageRows<D> rows{bt + (size_t)bb * maxp, ps, hp, h};
   fmma::state_tile<D, NREP, true, PageRows<D>, fmma::MASK_NONE, false>(
       q, kp, vp, out, nullptr, nullptr, rows, lens[bb], maxp * ps, gridDim.x - 1 - blockIdx.x, h,
       bb, Hkv, L, scale);
@@ -148,10 +148,10 @@ __global__ void __launch_bounds__(fmma::WARPS * 32, 1) paged_flash_prefill_split
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vp, const int* __restrict__ bt,
     const int* __restrict__ lens, float* __restrict__ ws_o, float* __restrict__ ws_ml, int Hkv,
-    int L, int ps, int maxp, int kps, int splits, float scale) {
+    int L, int ps, int maxp, int hp, int kps, int splits, float scale) {
   const int h = blockIdx.y, bb = blockIdx.z, nq = gridDim.x / splits;
   const int split = blockIdx.x % splits, k0 = split * kps;
-  const SplitRows<D> rows{{bt + (size_t)bb * maxp, ps, Hkv, h}, k0};
+  const SplitRows<D> rows{{bt + (size_t)bb * maxp, ps, hp, h}, k0};
   fmma::state_tile<D, NREP, true, SplitRows<D>, fmma::MASK_NONE, false, true>(
       q, kp, vp, nullptr, nullptr, nullptr, rows, lens[bb] - k0, min(kps, maxp * ps - k0),
       nq - 1 - (int)blockIdx.x / splits, h, bb, Hkv, L, scale, fmma::MaskPlanes{},
@@ -211,8 +211,8 @@ __global__ void __launch_bounds__(32 * MT * pds_kw(MT)) paged_decode_walk(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vp, const int* __restrict__ bt,
     const int* __restrict__ lens, float* __restrict__ ws_o, float* __restrict__ ws_ml, int Hkv,
-    int n_rep, int L, int ps, int maxp, int kps, float scale) {
-  state_walk<D, MT>(q, kp, vp, PoolKeys<D>{bt, maxp, ps, Hkv}, lens, ws_o, ws_ml, Hkv, n_rep, L,
+    int n_rep, int L, int ps, int maxp, int hp, int kps, float scale) {
+  state_walk<D, MT>(q, kp, vp, PoolKeys<D>{bt, maxp, ps, hp}, lens, ws_o, ws_ml, Hkv, n_rep, L,
                     kps, scale);
 }
 
@@ -238,8 +238,8 @@ int walk_splits(bool owned, int maxp, int ps, int per) {
 template <int D, int MT, bool OWNED>
 int launch_walk(const void* q, const void* kp, const void* vp, const void* bt, const void* lens,
                 void* out, void* m, void* l, float* ws_o, float* ws_ml, int B, int Hkv,
-                int n_rep, int L, int ps, int maxp, int base, int p_loc, int per, float scale,
-                cudaStream_t st) {
+                int n_rep, int L, int ps, int maxp, int hp, int base, int p_loc, int per,
+                float scale, cudaStream_t st) {
   constexpr int SMEM = pds_smem_bytes<D, MT>();
   static const int attr = (int)cudaFuncSetAttribute(
       OWNED ? (const void*)paged_decode_walk<D, MT> : (const void*)paged_state_walk<D, MT>,
@@ -254,7 +254,7 @@ int launch_walk(const void* q, const void* kp, const void* vp, const void* bt, c
   const auto* ll = static_cast<const int*>(lens);
   if constexpr (OWNED)
     paged_decode_walk<D, MT><<<grid, 32 * MT * pds_kw(MT), SMEM, st>>>(
-        qq, kk, vv, tt, ll, ws_o, ws_ml, Hkv, n_rep, L, ps, maxp, per, scale);
+        qq, kk, vv, tt, ll, ws_o, ws_ml, Hkv, n_rep, L, ps, maxp, hp, per, scale);
   else
     paged_state_walk<D, MT><<<grid, 32 * MT * pds_kw(MT), SMEM, st>>>(
         qq, kk, vv, tt, ll, ws_o, ws_ml, Hkv, n_rep, L, ps, maxp, base, p_loc, per, scale);
@@ -278,7 +278,7 @@ int launch_walk(const void* q, const void* kp, const void* vp, const void* bt, c
 template <int D, int NREP>
 int launch_prefill(const void* q, const void* kp, const void* vp, const void* bt,
                    const void* lens, void* out, float* ws_o, float* ws_ml, int B, int Hkv, int L,
-                   int ps, int maxp, int kps, int splits, float scale, cudaStream_t st) {
+                   int ps, int maxp, int hp, int kps, int splits, float scale, cudaStream_t st) {
   constexpr int BQ = fmma::WARPS * 16 / NREP, SMEM = fmma::smem_bytes<D>();
   const int nq = (L + BQ - 1) / BQ;
   const auto* qq = static_cast<const __nv_bfloat16*>(q);
@@ -292,7 +292,7 @@ int launch_prefill(const void* q, const void* kp, const void* vp, const void* bt
         paged_flash_prefill<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (attr) return attr;
     paged_flash_prefill<D, NREP><<<dim3(nq, Hkv, B), dim3(fmma::WARPS * 32), SMEM, st>>>(
-        qq, kk, vv, tt, ll, o, Hkv, L, ps, maxp, scale);
+        qq, kk, vv, tt, ll, o, Hkv, L, ps, maxp, hp, scale);
     return (int)cudaGetLastError();
   }
   static const int attr = (int)cudaFuncSetAttribute(
@@ -300,7 +300,7 @@ int launch_prefill(const void* q, const void* kp, const void* vp, const void* bt
   if (attr) return attr;
   paged_flash_prefill_split<D, NREP><<<dim3(nq * splits, Hkv, B), dim3(fmma::WARPS * 32), SMEM,
                                        st>>>(qq, kk, vv, tt, ll, ws_o, ws_ml, Hkv, L, ps, maxp,
-                                             kps, splits, scale);
+                                             hp, kps, splits, scale);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   const int rows = B * Hkv * NREP * L;
@@ -313,9 +313,10 @@ int launch_prefill(const void* q, const void* kp, const void* vp, const void* bt
 template <bool OWNED>
 int walk_rows(const void* q, const void* kp, const void* vp, const void* bt, const void* lens,
               void* out, void* m, void* l, void* ws, long long ws_bytes, int B, int Hkv, int L,
-              int ps, int maxp, int base, int p_loc, int D, int n_rep, int per, float scale,
-              void* stream) {
-  if (L < 1 || L > 16 || per < 1 || n_rep * L > 128 || maxp < 1 || (D != 64 && D != 128))
+              int ps, int maxp, int hp, int base, int p_loc, int D, int n_rep, int per,
+              float scale, void* stream) {
+  if (L < 1 || L > 16 || per < 1 || n_rep * L > 128 || maxp < 1 || hp < Hkv ||
+      (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   const StateWorkspace w =
       state_workspace(walk_splits(OWNED, maxp, ps, per), B, Hkv, L, D, n_rep);
@@ -327,7 +328,7 @@ int walk_rows(const void* q, const void* kp, const void* vp, const void* bt, con
 #define TLT_WALK(DD, MM)                                                                      \
   if (D == DD && mt == MM)                                                                    \
     return launch_walk<DD, MM, OWNED>(q, kp, vp, bt, lens, out, m, l, ws_o, ws_ml, B, Hkv,   \
-                                      n_rep, L, ps, maxp, base, p_loc, per, scale, st);
+                                      n_rep, L, ps, maxp, hp, base, p_loc, per, scale, st);
   TLT_WALK(64, 1) TLT_WALK(64, 2) TLT_WALK(64, 4) TLT_WALK(64, 8)
   TLT_WALK(128, 1) TLT_WALK(128, 2) TLT_WALK(128, 4) TLT_WALK(128, 8)
 #undef TLT_WALK
@@ -345,13 +346,16 @@ extern "C" long long tlt_paged_decode_workspace(int B, int Hkv, int L, int maxp,
 }
 
 // L <= 16 over the whole pool, in splits of `kps` keys. ws: the workspace,
-// at least tlt_paged_decode_workspace(...) bytes, 256-byte aligned.
+// at least tlt_paged_decode_workspace(...) bytes, 256-byte aligned. hp:
+// the KV heads a page holds (>= Hkv): kp and vp may be a head shard of a
+// pool [P, hp, ps, D], its first head at kp, a page every hp * ps * D
+// elements, so a shard is read in place.
 extern "C" int tlt_paged_decode(const void* q, const void* kp, const void* vp, const void* bt,
                                 const void* lens, void* out, void* ws, long long ws_bytes, int B,
                                 int Hkv, int L, int ps, int maxp, int D, int n_rep, int kps,
-                                float scale, void* stream) {
+                                int hp, float scale, void* stream) {
   return walk_rows<true>(q, kp, vp, bt, lens, out, nullptr, nullptr, ws, ws_bytes, B, Hkv, L, ps,
-                         maxp, 0, 0, D, n_rep, kps, scale, stream);
+                         maxp, hp, 0, 0, D, n_rep, kps, scale, stream);
 }
 
 // Bytes of workspace tlt_paged_prefill takes for these shapes (kps: keys a
@@ -367,12 +371,12 @@ extern "C" long long tlt_paged_prefill_workspace(int B, int Hkv, int L, int maxp
 // L >= 1, causal over the row's pages, in splits of `kps` keys (a multiple
 // of 64 where the table holds more than one split). ws: the workspace, at
 // least tlt_paged_prefill_workspace(...) bytes, 256-byte aligned (none for
-// one split).
+// one split). hp: as tlt_paged_decode's.
 extern "C" int tlt_paged_prefill(const void* q, const void* kp, const void* vp, const void* bt,
                                  const void* lens, void* out, void* ws, long long ws_bytes, int B,
                                  int Hkv, int L, int ps, int maxp, int D, int n_rep, int kps,
-                                 float scale, void* stream) {
-  if (L < 1 || maxp < 1 || kps < 1) return (int)cudaErrorInvalidValue;
+                                 int hp, float scale, void* stream) {
+  if (L < 1 || maxp < 1 || kps < 1 || hp < Hkv) return (int)cudaErrorInvalidValue;
   const int splits = walk_splits(true, maxp, ps, kps);
   float *ws_o = nullptr, *ws_ml = nullptr;
   if (splits > 1) {
@@ -386,7 +390,7 @@ extern "C" int tlt_paged_prefill(const void* q, const void* kp, const void* vp, 
 #define TLT_PF(DD, RR)                                                                          \
   if (D == DD && n_rep == RR)                                                                   \
     return launch_prefill<DD, RR>(q, kp, vp, bt, lens, out, ws_o, ws_ml, B, Hkv, L, ps, maxp, \
-                                  kps, splits, scale, st);
+                                  hp, kps, splits, scale, st);
   TLT_PF(64, 1) TLT_PF(64, 2) TLT_PF(64, 4) TLT_PF(64, 8)
   TLT_PF(128, 1) TLT_PF(128, 2) TLT_PF(128, 4) TLT_PF(128, 8)
 #undef TLT_PF
@@ -426,6 +430,6 @@ extern "C" int tlt_paged_decode_state(const void* q, const void* kp, const void*
                                       int L, int ps, int maxp, int base, int p_loc, int D,
                                       int n_rep, int per, float scale, void* stream) {
   if (per > PDS_MAX_ENTRIES) return (int)cudaErrorInvalidValue;
-  return walk_rows<false>(q, kp, vp, bt, lens, out, m, l, ws, ws_bytes, B, Hkv, L, ps, maxp, base,
-                          p_loc, D, n_rep, per, scale, stream);
+  return walk_rows<false>(q, kp, vp, bt, lens, out, m, l, ws, ws_bytes, B, Hkv, L, ps, maxp, Hkv,
+                          base, p_loc, D, n_rep, per, scale, stream);
 }

@@ -23,22 +23,19 @@
 //    one's k-range and the partial tiles are added through distributed
 //    shared memory. The same arithmetic as the plain version up to f32
 //    summation order.
-//  * staged:: (prefill rows), the TPU's staged schedule (quant_matmul.py
-//    :232-257): a block of two warpgroups holds a 128 x 128 output tile;
-//    each group's weight words and x rows arrive through a TMA ring,
-//    every thread converts its share of the words into bf16(q s) in a
-//    shared B tile (an FMA of the magic pair: (128 + q) s - 128 s, rounded
-//    once, so exactly the TPU's rounding of q * s), and warpgroup MMAs
-//    (wgmma, both operands in shared memory, HGMMA) accumulate x .
-//    bf16(q s) in f32 over the whole K. The conversion of group g + 1
-//    runs while group g's MMAs do. Each warp sums its 16 x rows per group
-//    from its ldmatrix fragments into shared memory; the epilogue adds the
-//    bias term sum_g xs_g b_g in f32 (every 64 groups, once the MMAs are
-//    drained: an f32 accumulator of its own beside them made ptxas
-//    serialize the MMAs), then the residual, and rounds once. Where the
-//    output tiles do not fill the SMs (down and o: 20 column blocks a
-//    128-row tile), a cluster splits each tile's k-range as the bf16 tile's
-//    does.
+//  * staged:: (prefill rows), the staged schedule of the TPU kernel
+//    (quant_matmul.py:232-257) on the dequantized weight: a block of two
+//    warpgroups holds a 128 x 128 output tile; each group's weight words
+//    and x rows arrive through a TMA ring, every thread converts its share
+//    of the words into bf16(q s + b) in a shared B tile (the magic pair
+//    128 + q to f32, minus 128, one f32 FMA with the scale and the bias,
+//    rounded to bf16 once: the dequantized weight of ops/quantize.py
+//    exactly), and warpgroup MMAs (wgmma, both operands in shared memory,
+//    HGMMA) accumulate x . bf16(q s + b) in f32 over the whole K. The
+//    conversion of group g + 1 runs while group g's MMAs do. The epilogue
+//    adds the residual in f32 and rounds once. Where the output tiles do
+//    not fill the SMs (down and o: 20 column blocks a 128-row tile), a
+//    cluster splits each tile's k-range as the bf16 tile's does.
 //
 // Bound on the H100: the weight bytes (0.53 B a weight) at decode rows;
 // at M = 1024 the bf16 tensor-core rate (2 M N K operations).
@@ -61,9 +58,9 @@
 //    nibbles: (128 + lo) and (2048 + 16 hi) = 0x4500 | hi, both exact, on
 //    the same x: d' = x . (2176 + q), c = 2176 (128 at W2 and W4).
 //  * staged:: at the other widths: each thread converts 64 codes of its
-//    column a stage with its group's scale (W2 as W4, mask 0x00030003; W8
-//    in f32, (2^23 + q) s - 2^23 s in one FMA, which is q s exactly, then
-//    one rounding to bf16), and the x sums and bias terms count groups.
+//    column a stage with its group's scale and bias (W2 as W4, mask
+//    0x00030003; W8 in f32, (2^23 + q) s - 2^23 s in one FMA, which is q s
+//    exactly, then + b), each rounded to bf16 once.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (types only: the encoder is fetched at run time)
@@ -687,16 +684,13 @@ __device__ __forceinline__ void tile_store(const float (&acc)[MT][2][4],
 namespace staged {
 
 constexpr int BM = 128, BN = 128, THREADS = 256, GROUP = 128, STAGES = 3;
-constexpr int XS_GROUPS = 64;  // groups of x sums kept before their bias term is added
 constexpr int X_BYTES = BM * GROUP * 2;  // a stage's x rows: two 128-byte-swizzled 64-k blocks
 constexpr int W_BYTES = BN * 64;         // a stage's weight words: BN rows of 64 bytes (w_chunk)
 constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
-constexpr int B_BYTES = BN * GROUP * 2;  // the converted bf16(q s) tile
-// The ring, two B tiles, the x sums of XS_GROUPS groups, a mbarrier a
-// stage; + slack to align the tiles to 1024 bytes.
-constexpr int SMEM_BYTES =
-    STAGES * STAGE_BYTES + 2 * B_BYTES + XS_GROUPS * BM * 4 + STAGES * 8 + 1024;
-static_assert(XS_GROUPS * BN * 4 <= B_BYTES, "a chunk's biases fit in a B tile");
+constexpr int B_BYTES = BN * GROUP * 2;  // the converted bf16(q s + b) tile
+// The ring, two B tiles, a mbarrier a stage; + slack to align the tiles to
+// 1024 bytes.
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * B_BYTES + STAGES * 8 + 1024;
 static_assert(STAGES * STAGE_BYTES >= BM * PLD * 4, "the partial tile reuses the ring");
 static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
 
@@ -735,16 +729,12 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
 __device__ __forceinline__ int w_chunk(int r, int c) { return r * 64 + ((c ^ ((r >> 1) & 3)) << 4); }
 
 // A stage at a width (K1's, W4 g128: the constants above): weight rows of
-// 16 BITS bytes in the swizzle of that span (swz_row), NGS groups a stage,
-// the x sums of XS_GROUPS groups (W8: 32, room for its larger ring).
+// 16 BITS bytes in the swizzle of that span (swz_row), NGS groups a stage.
 template <int BITS, int GSZ>
 struct Width {
   static constexpr int W_BYTES = BN * 16 * BITS, STAGE_BYTES = X_BYTES + W_BYTES;
   static constexpr int NGS = GROUP / GSZ;
-  static constexpr int XS_GROUPS = BITS == 8 ? 32 : staged::XS_GROUPS;
-  static constexpr int XS_STAGES = XS_GROUPS / NGS;
-  static constexpr int SMEM_BYTES =
-      STAGES * STAGE_BYTES + 2 * B_BYTES + XS_GROUPS * BM * 4 + STAGES * 8 + 1024;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * B_BYTES + STAGES * 8 + 1024;
   static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
   static_assert(STAGE_BYTES % 1024 == 0, "every stage's tiles at the swizzle's period");
 };
@@ -768,15 +758,14 @@ __device__ __forceinline__ void tile(const CUtensorMap* xmap, const CUtensorMap*
   using fmma::swz;
   using Wd = Width<BITS, GSZ>;
   constexpr bool K1 = BITS == 4 && GSZ == GROUP;
-  constexpr int NGS = Wd::NGS, XS_STAGES = Wd::XS_STAGES;
+  constexpr int NGS = Wd::NGS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
   const int g = lane >> 2, tig = lane & 3;
   const int G = Kp / GSZ, ng = g1 - g0;
   const uint32_t sraw = smem_u32(smem_raw), sbase = (sraw + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (sbase - sraw);
   const uint32_t bbase = sbase + STAGES * Wd::STAGE_BYTES;  // two B tiles
-  float* xs_s = reinterpret_cast<float*>(smem + STAGES * Wd::STAGE_BYTES + 2 * B_BYTES);  // [XS_GROUPS][BM]
-  const uint32_t bars = smem_u32(xs_s + Wd::XS_GROUPS * BM);  // [STAGES] mbarriers: the slot landed
+  const uint32_t bars = bbase + 2 * B_BYTES;  // [STAGES] mbarriers: the slot landed
   if (tid == 0) {
     for (int k = 0; k < STAGES; ++k) tma::init(bars + 8 * k, 1);
     tma::fence_init();
@@ -797,30 +786,30 @@ __device__ __forceinline__ void tile(const CUtensorMap* xmap, const CUtensorMap*
   const bool col_ok = n0 + cn < N;
   const size_t sb_row = (size_t)(n0 + cn) * G;
   constexpr int NGT = GSZ < 64 ? 64 / GSZ : 1;  // groups of a thread's 64 codes
-  uint32_t s_next = 0;       // K1: the next group's scale, raw bf16
-  uint32_t s_grp[NGT] = {};  // other widths: the next stage's scales of this thread's groups
+  // The next stage's scales and biases of this thread's groups, raw bf16
+  // (K1: one group).
+  uint32_t s_grp[NGT] = {}, b_grp[NGT] = {};
   auto fetch_sb = [&](int i) {
-    if constexpr (K1) {
-      s_next = col_ok && i < ng ? __bfloat16_as_ushort(s[sb_row + g0 + i]) : 0;
-    } else {
 #pragma unroll
-      for (int e = 0; e < NGT; ++e)
-        s_grp[e] = col_ok && i < ng
-                       ? __bfloat16_as_ushort(s[sb_row + (size_t)(g0 + i) * NGS + half * 64 / GSZ + e])
-                       : 0;
+    for (int e = 0; e < NGT; ++e) {
+      const size_t at = sb_row + (size_t)(g0 + i) * NGS + (K1 ? 0 : half * 64 / GSZ + e);
+      s_grp[e] = col_ok && i < ng ? __bfloat16_as_ushort(s[at]) : 0;
+      b_grp[e] = col_ok && i < ng ? __bfloat16_as_ushort(b[at]) : 0;
     }
   };
-  auto convert = [&](int i) {  // stage i: bf16(q s) into B tile i % 2
+  // The bf16 pair (128 + q0, 128 + q1) (the magic) to the pair of
+  // bf16(q s + b): q exactly in f32, then one FMA, rounded once.
+  auto dequant_pair = [](uint32_t pr, float sf, float bf) {
+    const float q0 = __uint_as_float(pr << 16) - 128.f, q1 = __uint_as_float(pr & 0xFFFF0000u) - 128.f;
+    return fmma::pack_bf16(__fmaf_rn(q0, sf, bf), __fmaf_rn(q1, sf, bf));
+  };
+  auto convert = [&](int i) {  // stage i: bf16(q s + b) into B tile i % 2
     if constexpr (K1) {
       const unsigned char* wr = smem + (i % STAGES) * STAGE_BYTES + X_BYTES;
       const uint4 v0 = *reinterpret_cast<const uint4*>(wr + w_chunk(cn, 2 * half));
       const uint4 v1 = *reinterpret_cast<const uint4*>(wr + w_chunk(cn, 2 * half + 1));
       const uint32_t words[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-      const uint32_t s16 = s_next;
-      const __nv_bfloat162 s2 = __halves2bfloat162(__ushort_as_bfloat16((unsigned short)s16),
-                                                   __ushort_as_bfloat16((unsigned short)s16));
-      const __nv_bfloat16 c1 = __float2bfloat16_rn(-128.f * __bfloat162float(s2.x));  // exact
-      const __nv_bfloat162 c2 = __halves2bfloat162(c1, c1);
+      const float sf = __uint_as_float(s_grp[0] << 16), bf = __uint_as_float(b_grp[0] << 16);
       const uint32_t bt = bbase + (i & 1) * B_BYTES;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -833,8 +822,7 @@ __device__ __forceinline__ void tile(const CUtensorMap* xmap, const CUtensorMap*
           const uint32_t pr =
               (__byte_perm(wd, t, e | (e << 4) | ((4 + e) << 8) | ((4 + e) << 12)) & 0x000F000Fu) |
               0x43004300u;
-          const __nv_bfloat162 v = __hfma2(*reinterpret_cast<const __nv_bfloat162*>(&pr), s2, c2);
-          o[e] = *reinterpret_cast<const uint32_t*>(&v);
+          o[e] = dequant_pair(pr, sf, bf);
         }
         asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(bt + swz<BN>(cn, half * 8 + k)),
                      "r"(o[0]), "r"(o[1]), "r"(o[2]), "r"(o[3])
@@ -858,13 +846,14 @@ __device__ __forceinline__ void tile(const CUtensorMap* xmap, const CUtensorMap*
       const uint32_t bt = bbase + (i & 1) * B_BYTES;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const uint32_t s16 = s_grp[k * 8 / (GSZ < 64 ? GSZ : 64)];
+        const int gk = k * 8 / (GSZ < 64 ? GSZ : 64);
+        const float sf = __uint_as_float(s_grp[gk] << 16), bf = __uint_as_float(b_grp[gk] << 16);
         uint32_t o[4];
         if constexpr (BITS == 8) {
           // Words 2k and 2k + 1, four codes each: q s = (2^23 + q) s - 2^23 s
-          // in one f32 FMA (exact: q s has 16 significant bits), rounded to
-          // bf16 once.
-          const float sf = __uint_as_float(s16 << 16), c8 = -8388608.f * sf;
+          // in one f32 FMA (exact: q s has 16 significant bits), then + b,
+          // rounded to bf16 once.
+          const float c8 = -8388608.f * sf;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const uint32_t wd = words[2 * k + (e >> 1)];
@@ -872,13 +861,9 @@ __device__ __forceinline__ void tile(const CUtensorMap* xmap, const CUtensorMap*
             const float f0 = __fmaf_rn(__uint_as_float(__byte_perm(wd, 0x4B000000u, b0 | 0x7440)), sf, c8);
             const float f1 =
                 __fmaf_rn(__uint_as_float(__byte_perm(wd, 0x4B000000u, (b0 + 1) | 0x7440)), sf, c8);
-            o[e] = fmma::pack_bf16(f0, f1);
+            o[e] = fmma::pack_bf16(f0 + bf, f1 + bf);
           }
         } else {
-          const __nv_bfloat162 s2 = __halves2bfloat162(__ushort_as_bfloat16((unsigned short)s16),
-                                                       __ushort_as_bfloat16((unsigned short)s16));
-          const __nv_bfloat16 c1 = __float2bfloat16_rn(-128.f * __bfloat162float(s2.x));  // exact
-          const __nv_bfloat162 c2 = __halves2bfloat162(c1, c1);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             uint32_t pr;
@@ -892,8 +877,7 @@ __device__ __forceinline__ void tile(const CUtensorMap* xmap, const CUtensorMap*
               pr = (__byte_perm(wd, wd >> 2, by | (by << 4) | ((4 + by) << 8) | ((4 + by) << 12)) &
                     0x00030003u) | 0x43004300u;
             }
-            const __nv_bfloat162 v = __hfma2(*reinterpret_cast<const __nv_bfloat162*>(&pr), s2, c2);
-            o[e] = *reinterpret_cast<const uint32_t*>(&v);
+            o[e] = dequant_pair(pr, sf, bf);
           }
         }
         asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(bt + swz<BN>(cn, half * 8 + k)),
@@ -906,74 +890,6 @@ __device__ __forceinline__ void tile(const CUtensorMap* xmap, const CUtensorMap*
   float acc[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0.f;
-  // xs of this warp's 16 rows for stage i (each of its groups): f32 sums of
-  // the mma.sync A fragments (rows g and g + 8), summed over the quad, into
-  // xs_s. CUDA cores only, beside the warpgroup MMAs in flight (a warpgroup
-  // MMA against ones would put the sums in accumulator registers, and
-  // reading those between the MMAs makes ptxas serialize them).
-  auto row_sums = [&](int i) {
-    const uint32_t xt = sbase + (i % STAGES) * Wd::STAGE_BYTES;
-    if constexpr (NGS == 1) {
-      float xs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int ks = 0; ks < GROUP / 16; ++ks) {
-        uint32_t a[4];
-        ldsm_x4(a, xt + swz<BM>(warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1), 2 * ks + (lane >> 4)));
-        xs[0] += (lo_bf16(a[0]) + hi_bf16(a[0])) + (lo_bf16(a[2]) + hi_bf16(a[2]));
-        xs[1] += (lo_bf16(a[1]) + hi_bf16(a[1])) + (lo_bf16(a[3]) + hi_bf16(a[3]));
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        xs[h] += __shfl_xor_sync(0xffffffffu, xs[h], 1);
-        xs[h] += __shfl_xor_sync(0xffffffffu, xs[h], 2);
-        if (tig == 0) xs_s[(i % Wd::XS_GROUPS) * BM + warp * 16 + g + 8 * h] = xs[h];
-      }
-    } else {
-      float xs[NGS][2];
-#pragma unroll
-      for (int gi = 0; gi < NGS; ++gi) xs[gi][0] = xs[gi][1] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < GROUP / 16; ++ks) {
-        uint32_t a[4];
-        ldsm_x4(a, xt + swz<BM>(warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1), 2 * ks + (lane >> 4)));
-        const int gi = ks * 16 / GSZ;
-        xs[gi][0] += (lo_bf16(a[0]) + hi_bf16(a[0])) + (lo_bf16(a[2]) + hi_bf16(a[2]));
-        xs[gi][1] += (lo_bf16(a[1]) + hi_bf16(a[1])) + (lo_bf16(a[3]) + hi_bf16(a[3]));
-      }
-#pragma unroll
-      for (int gi = 0; gi < NGS; ++gi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          xs[gi][h] += __shfl_xor_sync(0xffffffffu, xs[gi][h], 1);
-          xs[gi][h] += __shfl_xor_sync(0xffffffffu, xs[gi][h], 2);
-          if (tig == 0)
-            xs_s[((i * NGS + gi) % Wd::XS_GROUPS) * BM + warp * 16 + g + 8 * h] = xs[gi][h];
-        }
-    }
-  };
-  // acc += sum over groups [c0, c0 + cnt) of xs_g b_g, in f32: the biases
-  // staged as f32 in `stage` (a B tile no MMA reads), rows g, g + 8,
-  // columns 8 j + 2 tig + e. No MMA may be in flight: it adds into acc.
-  auto add_bias = [&](int c0, int cnt, unsigned char* stage) {
-    float* bs = reinterpret_cast<float*>(stage);  // [cnt][BN]
-    __syncthreads();  // the tile's last readers and the x sums are done
-    for (int k = half; k < cnt; k += 2)
-      bs[k * BN + cn] = col_ok ? bf2f(b[sb_row + g0 * NGS + c0 + k]) : 0.f;
-    __syncthreads();
-    for (int k = 0; k < cnt; ++k) {
-      const float x0 = xs_s[k * BM + warp * 16 + g], x1 = xs_s[k * BM + warp * 16 + g + 8];
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const float2 bb = *reinterpret_cast<const float2*>(bs + k * BN + 8 * j + 2 * tig);
-        acc[4 * j + 0] += x0 * bb.x;
-        acc[4 * j + 1] += x0 * bb.y;
-        acc[4 * j + 2] += x1 * bb.x;
-        acc[4 * j + 3] += x1 * bb.y;
-      }
-    }
-    __syncthreads();  // before the B tile is converted into again
-  };
-
   // Prologue: the first stages in flight, stage 0 converted.
   if (tid == 0)
     for (int i = 0; i < STAGES - 1 && i < ng; ++i) load(i);
@@ -995,7 +911,6 @@ __device__ __forceinline__ void tile(const CUtensorMap* xmap, const CUtensorMap*
       wgmma_ss_n128(acc, fmma::sw128_desc(xa + (kk >> 2) * BM * 128 + (kk & 3) * 32, 0, 1024),
                     fmma::sw128_desc(ba + (kk >> 2) * BN * 128 + (kk & 3) * 32, 0, 1024));
     fmma::wgmma_commit();
-    row_sums(i);
     if (i + 1 < ng) {
       fmma::wgmma_wait<1>();  // this warpgroup's MMAs of stage i - 1 are done
       __syncthreads();  // both warpgroups are done with stage i - 1: its slot is free
@@ -1008,20 +923,12 @@ __device__ __forceinline__ void tile(const CUtensorMap* xmap, const CUtensorMap*
       fetch_sb(i + 2);
       fmma::fence_proxy_async();
       __syncthreads();  // B tile (i + 1) % 2 written
-      if ((i + 1) % XS_STAGES == 0) {  // the x sums are full: their bias term, MMAs drained
-        fmma::wgmma_wait<0>();
-        fmma::fence_regs(acc);
-        add_bias((i + 1 - XS_STAGES) * NGS, Wd::XS_GROUPS,
-                 smem + STAGES * Wd::STAGE_BYTES + (i & 1) * B_BYTES);
-      }
     }
   }
   fmma::wgmma_wait<0>();
   fmma::fence_regs(acc);
-  const int done = (ng - 1) / XS_STAGES * XS_STAGES;  // stages whose bias term is in acc
-  add_bias(done * NGS, (ng - done) * NGS, smem + STAGES * Wd::STAGE_BYTES);
 
-  // Epilogue: acc (with the bias term) (+ res), rounded once; across a
+  // Epilogue: acc (+ res), rounded once; across a
   // cluster's k-ranges through shared memory (the ring is free).
   if (nrank > 1) {
     float* part = reinterpret_cast<float*>(smem);

@@ -23,9 +23,9 @@
 //    over a cluster where the column blocks leave SMs idle), with the f32
 //    fold acc += d s + xs b of the plain version.
 //  * M >= STAGED_MIN_ROWS (prefill), `qmm_staged_tile`: qmm_tc.cuh
-//    staged::, the TPU's staged schedule on warpgroup MMAs (bf16(q s)
-//    staged in shared memory, x . bf16(q s) in f32, the bias term in f32),
-//    the rounding of the JAX package's staged prefill path.
+//    staged::, the TPU's staged schedule on warpgroup MMAs over the
+//    dequantized weight (bf16(q s + b) staged in shared memory, x .
+//    bf16(q s + b) in f32), the rounding of the JAX package's XLA route.
 // One launch a call on every route; a launch failure is returned.
 //
 // The W4A8 matmul, `tlt_quant_matmul_a8`, replaces _pair_kernel (through

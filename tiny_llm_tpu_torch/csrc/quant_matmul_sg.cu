@@ -23,10 +23,10 @@
 //    for the block's 16 or 32 rows, bf16 mma.sync (HMMA) on exact integer
 //    codes, the fold acc += d' s + xs (b - c s) in f32, the k-range split
 //    over a cluster where the column blocks leave SMs idle.
-//  * M >= STAGED_MIN_ROWS (prefill), `qmm_sg_staged_tile`: bf16(q s)
-//    staged in shared memory while warpgroup MMAs (HGMMA) run on the stage
-//    before, the bias term in f32, k-split clusters where the output tiles
-//    do not fill the SMs.
+//  * M >= STAGED_MIN_ROWS (prefill), `qmm_sg_staged_tile`: the
+//    dequantized weight bf16(q s + b) staged in shared memory while
+//    warpgroup MMAs (HGMMA) run on the stage before, k-split clusters
+//    where the output tiles do not fill the SMs.
 // One launch a call on every route; a launch failure is returned.
 #include "qmm_tc.cuh"
 #include "qmm_tile.cuh"

@@ -52,7 +52,8 @@ __host__ __device__ constexpr int pds_smem_bytes() {
 // where it is `per` table entries of which the block lists the shard's own.
 //  * PoolKeys (rows 10-12, the paged decode over the whole pool): every
 //    table entry is the row's own page as it stands (-1 reads the trash
-//    page 0), so a split may start and end inside a page.
+//    page 0), so a split may start and end inside a page. A page holds hp
+//    KV heads (the pool's; a head shard's first head at the base pointer).
 //  * ShardPages (row 14, LIST): the entries in [base, base + p_loc), the
 //    shard's pages of a page-striped pool.
 //  * SlabKeys (row 6): one shard of a dense slab, a strided view: key p of
@@ -61,12 +62,12 @@ template <int D>
 struct PoolKeys {
   static constexpr bool LIST = false;
   const int* bt;  // [B, maxp] global ids, -1 padded
-  int maxp, ps, Hkv;
+  int maxp, ps, hp;  // hp: the KV heads a page holds
   __device__ __forceinline__ int limit() const { return maxp * ps; }
   __device__ __forceinline__ size_t operator()(int p, int bb, int h) const {
     const int j = p / ps, off = p - j * ps;
     const int page = max(__ldg(bt + (size_t)bb * maxp + j), 0);  // -1 -> trash page 0
-    return (((size_t)page * Hkv + h) * ps + off) * D;
+    return (((size_t)page * hp + h) * ps + off) * D;
   }
 };
 

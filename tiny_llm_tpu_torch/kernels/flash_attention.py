@@ -297,7 +297,8 @@ def decode_chunk(B: int, Hkv: int, S: int, sms: int) -> int:
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.tlt_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.tlt_flash_attention_workspace
@@ -349,6 +350,8 @@ def _check_args(what, q, k, v, strided_kv: bool = False):
         if k.stride() != v.stride() or k.stride()[2:] != (D, 1):
             raise ValueError(f"k/v strides {k.stride()} / {v.stride()}: the rows must be "
                              "contiguous and k and v alike")
+        if any(x % 8 for x in k.stride()[:2]) or k.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError("k/v rows must start 16-byte aligned")
     elif not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError("k/v must be contiguous")
     return B, Hq, L, D, Hkv, S, n_rep
@@ -357,9 +360,10 @@ def _check_args(what, q, k, v, strided_kv: bool = False):
 def flash_attention_cuda(q, k, v, lens, scale: float):
     """K3: one call of the C entry in splits of flash_split keys (at L <= 16
     the walk and its combine; above, the tile and, where it splits the
-    keys, the combine), counted once."""
+    keys, the combine), counted once. k and v may be strided views of a
+    slab (a head shard of it), read in place."""
     global LAUNCHES
-    B, Hq, L, D, Hkv, S, n_rep = _check_args("flash_attention_cuda", q, k, v)
+    B, Hq, L, D, Hkv, S, n_rep = _check_args("flash_attention_cuda", q, k, v, strided_kv=True)
     lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = _lib()
@@ -369,8 +373,8 @@ def flash_attention_cuda(q, k, v, lens, scale: float):
     ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     err = lib.tlt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), nbytes, B, Hkv, L, S, D, n_rep, kps,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        None if ws is None else ws.data_ptr(), nbytes, B, Hkv, L, S, k.stride(0), k.stride(1),
+        D, n_rep, kps, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, err, "flash_attention")
     LAUNCHES += 1

@@ -64,11 +64,14 @@ A8_LAUNCHES = 0
 SG_LAUNCHES = 0
 
 
-def _per_expert(plain, x, qt, group_sizes):
+def _per_expert(plain, x, qt, group_sizes, partial=False):
+    """`partial`: the groups may cover fewer rows than x has; the rows past
+    them belong to no expert and give 0 here (the kernels leave them
+    unspecified; ops/moe.py's expert shards zero them)."""
     ends = torch.cumsum(group_sizes, 0).tolist()
-    if ends[-1] != x.shape[0]:
+    if ends[-1] > x.shape[0] or (not partial and ends[-1] != x.shape[0]):
         raise ValueError(f"group sizes sum to {ends[-1]}, x has {x.shape[0]} rows")
-    out = torch.empty((x.shape[0], qt.out_features), dtype=torch.bfloat16, device=x.device)
+    out = torch.zeros((x.shape[0], qt.out_features), dtype=torch.bfloat16, device=x.device)
     start = 0
     for e, end in enumerate(ends):
         if end > start:
@@ -78,20 +81,20 @@ def _per_expert(plain, x, qt, group_sizes):
 
 
 def grouped_quant_matmul_plain(
-    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
+    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor, partial: bool = False
 ) -> torch.Tensor:
     """Per non-empty expert segment, K1's plain version (f32 dequant matmul
     at the weight's own width, bf16 out) on that expert's weight: the
     W4A16 and any-width kernels' plain version."""
-    return _per_expert(quant_matmul_plain, x, qt, group_sizes)
+    return _per_expert(quant_matmul_plain, x, qt, group_sizes, partial)
 
 
 def grouped_quant_matmul_a8_plain(
-    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
+    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor, partial: bool = False
 ) -> torch.Tensor:
     """Per non-empty expert segment, the W4A8 plain version (per-row int8
     activations, so segment by segment is the same as all rows at once)."""
-    return _per_expert(quant_matmul_a8_plain, x, qt, group_sizes)
+    return _per_expert(quant_matmul_a8_plain, x, qt, group_sizes, partial)
 
 
 def w4a16_route(rows: int) -> str:
@@ -115,7 +118,7 @@ def sg_route(rows: int) -> str:
 def _launch(fn_name, x, qt, group_sizes, extra=()):
     """Check the operands and launch `fn_name`: x [T, K] bf16 CUDA, rows
     sorted by expert; group_sizes int32 [E] on the same device, summing to
-    T; `extra`: (ctypes type, value) pairs after T, N, Kp, E (the W4A8
+    T, or to at most T (the rows past them are left unwritten); `extra`: (ctypes type, value) pairs after T, N, Kp, E (the W4A8
     entry: its workspace, a8_workspace). Returns [T, N] bf16."""
     T, K = x.shape
     E, N = qt.num_experts, qt.out_features
@@ -193,9 +196,13 @@ def grouped_quant_matmul(
     qt: QuantizedTensor,
     group_sizes: torch.Tensor,
     impl: str | None = None,
+    partial: bool = False,
 ) -> torch.Tensor:
     """out[t] = x[t] @ dequant(qt[e(t)]).T for rows x [T, in_features] sorted
     by expert, expert e owning group_sizes[e] consecutive rows. -> [T, N] bf16.
+    `partial`: the groups may cover fewer than T rows (an expert shard's
+    fixed-size segment); the rows past them give 0 on the CPU and are
+    unspecified on the card (the kernels never read the sizes on the host).
 
     act="int8" experts at T <= A8_MAX_ROWS run W4A8; other widths than
     W4 g128 the any-width kernel; the rest the W4A16 kernel."""
@@ -210,4 +217,6 @@ def grouped_quant_matmul(
         fn = grouped_quant_matmul_sg_cuda if cuda else grouped_quant_matmul_plain
     else:
         fn = grouped_quant_matmul_cuda if cuda else grouped_quant_matmul_plain
-    return fn(x.to(torch.bfloat16) if cuda else x, qt, group_sizes)
+    if cuda:
+        return fn(x.to(torch.bfloat16), qt, group_sizes)
+    return fn(x, qt, group_sizes, partial)

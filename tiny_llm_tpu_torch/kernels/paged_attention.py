@@ -35,7 +35,9 @@ block_table int32 [B, max_pages] (-1 padded; -1 reads the trash page 0),
 context_lens int32 [B] counting every valid token INCLUDING the current
 queries — the chunk's K/V are already written to the pages. Query i of row
 b sits at position context_lens[b] - L + i and sees keys at positions <=
-its own.
+its own. The paged decode and prefill kernels also read a head shard of
+a pool in place: pages pool[:, h0:h1], whose pages stay a pool's page
+apart (parallel/tp_kernels.py TPAttention).
 
 `paged_attention` also takes an attention-strategy object as `impl` (one
 with `.paged`, as parallel.SPAttention): the call is then the strategy's,
@@ -206,7 +208,7 @@ def prefill_split(B: int, Hkv: int, L: int, n_rep: int, max_pages: int, page_siz
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     for fn in (lib.tlt_paged_decode, lib.tlt_paged_prefill):
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     for fn in (lib.tlt_paged_decode_workspace, lib.tlt_paged_prefill_workspace):
@@ -225,8 +227,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_paged(q, key_pages, value_pages, block_table):
-    """n_rep after the checks every paged kernel needs."""
+def _check_paged(q, key_pages, value_pages, block_table, head_shard: bool = False):
+    """n_rep after the checks every paged kernel needs. `head_shard`: the
+    pages may be a head shard of a pool, pool[:, h0:h1] (a page every
+    hp * ps * D elements; see _heads_a_page)."""
     B, Hq, L, D = q.shape
     P, Hkv, ps, Dk = key_pages.shape
     if Dk != D or value_pages.shape != key_pages.shape or Hq % Hkv:
@@ -237,9 +241,30 @@ def _check_paged(q, key_pages, value_pages, block_table):
     if block_table.ndim != 2 or block_table.shape[0] != B:
         raise ValueError(f"block_table {tuple(block_table.shape)} does not match B={B}")
     for t in (q, key_pages, value_pages):
-        if t.dtype != torch.bfloat16 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError("q and the pages must be contiguous bf16 CUDA tensors")
+        if t.dtype != torch.bfloat16 or not t.is_cuda:
+            raise ValueError("q and the pages must be bf16 CUDA tensors")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if head_shard:
+        _heads_a_page(key_pages)
+        if value_pages.stride() != key_pages.stride():
+            raise ValueError("the key and value pages must be laid out alike")
+    elif not (key_pages.is_contiguous() and value_pages.is_contiguous()):
+        raise ValueError("the pages must be contiguous")
     return n_rep
+
+
+def _heads_a_page(pages: torch.Tensor) -> int:
+    """hp, the KV heads a page of the pool holds, for pages [P, Hkv, ps, D]
+    that are the pool itself or its heads [h0, h1) (a view whose pages
+    stay hp * ps * D elements apart)."""
+    _, Hkv, ps, D = pages.shape
+    sp, sh, ss, sd = pages.stride()
+    if (sh, ss, sd) != (ps * D, D, 1) or sp % (ps * D) or sp // (ps * D) < Hkv \
+            or pages.data_ptr() % 16:
+        raise ValueError(f"pages {tuple(pages.shape)} at strides {pages.stride()}: not a pool's "
+                         "head shard")
+    return sp // (ps * D)
 
 
 def _split_launch(entry: str, q, key_pages, value_pages, block_table, context_lens,
@@ -249,7 +274,7 @@ def _split_launch(entry: str, q, key_pages, value_pages, block_table, context_le
     the size the entry asks for."""
     B, Hq, L, D = q.shape
     Hkv, ps = key_pages.shape[1], key_pages.shape[2]
-    n_rep = _check_paged(q, key_pages, value_pages, block_table)
+    n_rep = _check_paged(q, key_pages, value_pages, block_table, head_shard=True)
     dev = q.device
     bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
@@ -264,7 +289,8 @@ def _split_launch(entry: str, q, key_pages, value_pages, block_table, context_le
     err = getattr(lib, f"tlt_paged_{entry}")(
         q.data_ptr(), key_pages.data_ptr(), value_pages.data_ptr(), bt.data_ptr(),
         lens.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), nbytes, B, Hkv,
-        L, ps, maxp, D, n_rep, kps, float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        L, ps, maxp, D, n_rep, kps, _heads_a_page(key_pages), float(scale),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, f"tlt_paged_{entry}")
     return out

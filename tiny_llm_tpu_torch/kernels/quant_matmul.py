@@ -27,8 +27,8 @@ launches the chosen kernel for CUDA tensors; for CPU tensors (or when
 impl="torch") it runs the plain version of the route the card takes for
 those rows: for K1 and the any-width kernel `quant_matmul_plain` (f32
 dequant) below their staged tiles' gates (STAGED_MIN_ROWS,
-SG_STAGED_MIN_ROWS) and `quant_matmul_staged_plain` (bf16(q * s) staged,
-the TPU's rounding, as the staged tiles compute) from there;
+SG_STAGED_MIN_ROWS) and `quant_matmul_staged_plain` (the dequantized
+weight bf16(q * s + b), as the staged tiles stage it) from there;
 `quant_matmul_a8_plain` for the W4A8 kernel. On a CUDA tensor nothing
 falls back: a width no kernel takes raises.
 """
@@ -40,7 +40,7 @@ import functools
 
 import torch
 
-from ..ops.quantize import QuantizedTensor, dequantize, quantize_activations, unpack_codes
+from ..ops.quantize import QuantizedTensor, dequantize, quantize_activations
 from . import build
 from .dispatch import resolve
 
@@ -74,17 +74,12 @@ def quant_matmul_plain(
 def quant_matmul_staged_plain(
     x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """The staged tiles' arithmetic (the JAX package's staged prefill
-    schedule, quant_matmul.py:232-257): q * s rounded to bf16, x @ that in
-    f32, then sum_g xs_g * b_g in f32 (xs_g the f32 sum of x over group g),
-    + residual in f32, rounded to bf16 once. Any width."""
-    M, G = x.shape[0], qt.k_padded // qt.group_size
-    codes = unpack_codes(qt.packed, qt.bits).to(torch.float32).reshape(-1, G, qt.group_size)
-    staged = (codes * qt.scales.to(torch.float32)[..., None]).to(torch.bfloat16)
-    xf = torch.nn.functional.pad(x.to(torch.float32), (0, qt.k_padded - x.shape[1]))
-    out = torch.matmul(xf, staged.reshape(-1, qt.k_padded).to(torch.float32).T)
-    out = out + torch.matmul(xf.reshape(M, G, qt.group_size).sum(-1),
-                             qt.biases.to(torch.float32).T)
+    """The staged tiles' arithmetic: the dequantized weight bf16(q * s + b)
+    (ops/quantize.py dequantize), x @ that in f32, + residual in f32,
+    rounded to bf16 once — the JAX package's XLA route (dequantize, then an
+    f32-accumulated dot). Any width."""
+    w = dequantize(qt, torch.bfloat16).to(torch.float32)
+    out = torch.matmul(x.to(torch.float32), w.T)
     if residual is not None:
         out = out + residual.to(torch.float32)
     return out.to(torch.bfloat16)

@@ -57,8 +57,12 @@ n_rep 8, over 8 layers' pools of POOL_PAGES pages: with the page write
 takes none, the prep then models.qwen3._write_pages twice) and the prep
 alone. Row 8step: one full-depth Qwen3-4B decode step on the three-launch
 route over 4 slots, profiled: its device ms and device ops (the parent's
-route launches two scatters a layer beside its prep). Prints one JSON line
-per case, then the card's name and power limit.
+route launches two scatters a layer beside its prep). Row K1staged: the
+staged tiles at M = 1024: K1 on Qwen3-4B's qkv, gate_up and down + res,
+and row 17 at W8 g64 on qkv and down + res, replayed over 4 random weights,
+each beside a bf16 matmul on the dequantized weights and its error against
+the tree's own `quant_matmul_staged_plain`. Prints one JSON line per case,
+then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -640,9 +644,40 @@ def _row9split(cs, label: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _rowK1staged(cs, label: str) -> None:
+    from tiny_llm_tpu_torch.kernels import quant_matmul as qm
+    from tiny_llm_tpu_torch.models import QWEN3_CONFIGS
+    from tiny_llm_tpu_torch.ops.quantize import dequantize
+
+    cfg = QWEN3_CONFIGS["qwen3-4b"]
+    shapes = cs._k1_shapes(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    M = 1024
+    for bits, gs, names in ((4, 128, ("qkv", "gate_up", "down")), (8, 64, ("qkv", "down"))):
+        fn = qm.quant_matmul_cuda if bits == 4 else qm.quant_matmul_sg_cuda
+        for name in names:
+            N, K, _, residual = shapes[name]
+            ws = cs._random_qt(gen, N, K, bits, gs, copies=4)
+            dense = [dequantize(w) for w in ws]
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            r = torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16) \
+                if residual else None
+            err = cs.max_err(fn(x, ws[0], r), qm.quant_matmul_staged_plain(x, ws[0], r))
+            kern = cs.graph_ms(lambda: [fn(x, w, r) for w in ws]) / len(ws)
+            lib = cs.graph_ms(lambda: [torch.addmm(r, x, d.T) if residual
+                                       else torch.matmul(x, d.T) for d in dense]) / len(ws)
+            print(json.dumps({"label": label, "row": "K1" if bits == 4 else 17,
+                              "width": f"W{bits} g{gs}", "shape": name + (" +res" if residual
+                                                                          else ""),
+                              "N": N, "K": K, "M": M, "kernel_ms": kern, "library_ms": lib,
+                              "max_err_vs_staged_plain": err}), flush=True)
+            del ws, dense
+            torch.cuda.empty_cache()
+
+
 ROWS = {"17": _row17, "6": _row6, "9": _row9, "18": _row18, "K3": _rowK3, "K2": _rowK2,
         "K3split": _rowK3split, "K2split": _rowK2split, "9split": _row9split, "20": _row20,
-        "8": _row8, "8step": _row8step}
+        "8": _row8, "8step": _row8step, "K1staged": _rowK1staged}
 
 
 def main() -> int:

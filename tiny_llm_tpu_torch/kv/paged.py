@@ -22,6 +22,13 @@ per-request handles and the slot-multiplexed batch cache.
   list per shard's page range, and each allocation takes from the shard
   with the most free pages (the lowest on a tie), so every request's
   context spreads evenly over the shards.
+* `dp_shards` (a pool whose page axis data parallelism splits into one
+  stripe per replica, parallel/dp.py): the opposite of SP striping.
+  Allocation is pinned: every page of a request comes from one stripe
+  (PagedKVCache.shard, by default the stripe with the most free pages), so
+  a replica never reads another's page. Page s * P_loc is replica s's own
+  trash page and is never allocated; a full stripe raises PoolExhausted
+  even while another has room.
 """
 
 from __future__ import annotations
@@ -49,11 +56,17 @@ class PagePool:
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
         stripe_shards: int | None = None,
+        dp_shards: int | None = None,
     ):
         if num_pages < 2:
             raise ValueError("a pool needs the trash page and at least one more")
-        if stripe_shards and num_pages % stripe_shards:
-            raise ValueError(f"num_pages {num_pages} must divide over {stripe_shards} shards")
+        if stripe_shards and dp_shards:
+            raise ValueError("dp_shards and stripe_shards are exclusive")
+        for n in (stripe_shards, dp_shards):
+            if n and num_pages % n:
+                raise ValueError(f"num_pages {num_pages} must divide over {n} shards")
+        if dp_shards and num_pages // dp_shards < 2:
+            raise ValueError("each dp stripe needs its trash page and at least one more")
         self.device = check_device(device)
         self.num_layers = num_layers
         self.num_pages = num_pages
@@ -65,17 +78,20 @@ class PagePool:
         self.key_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.value_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.stripe_shards = stripe_shards
+        self.dp_shards = dp_shards
         self.reset()
         self._reused = 0
         self._ever_allocated: set[int] = set()
 
     def reset(self) -> None:
-        """Every page but the trash page free again (the ledger stays)."""
-        n, P = self.stripe_shards or 1, self.num_pages
+        """Every page but the trash pages free again (the ledger stays)."""
+        n, P = self.stripe_shards or self.dp_shards or 1, self.num_pages
         p_loc = P // n
+        trash = {s * p_loc for s in range(n)} if self.dp_shards else {0}
         # One list per shard, each popping its lowest page first.
         self._free_by_shard = [
-            [p for p in range((s + 1) * p_loc - 1, s * p_loc - 1, -1) if p != 0] for s in range(n)
+            [p for p in range((s + 1) * p_loc - 1, s * p_loc - 1, -1) if p not in trash]
+            for s in range(n)
         ]
 
     @property
@@ -84,7 +100,8 @@ class PagePool:
 
     @property
     def reserved_pages(self) -> int:
-        return 1  # the trash page
+        """Trash pages: one per dp replica, else one."""
+        return self.dp_shards or 1
 
     @property
     def live_pages(self) -> int:
@@ -94,8 +111,26 @@ class PagePool:
     def reused_page_allocations(self) -> int:
         return self._reused
 
-    def allocate_page(self) -> int:
-        free = max(self._free_by_shard, key=len)  # the first of the fullest shards
+    def least_loaded_shard(self) -> int:
+        """The dp replica whose stripe has the most free pages (the first on
+        a tie): new requests pin their pages there."""
+        if not self.dp_shards:
+            raise ValueError("not a dp-striped pool")
+        return max(range(self.dp_shards), key=lambda s: len(self._free_by_shard[s]))
+
+    def allocate_page(self, shard: int | None = None) -> int:
+        """A free page: of stripe `shard` in a dp-striped pool (required
+        there), else of the fullest shard."""
+        if self.dp_shards:
+            if shard is None:
+                raise ValueError("a dp-striped pool allocates in a pinned shard")
+            free = self._free_by_shard[shard]
+            if not free:
+                raise PoolExhausted(
+                    f"dp stripe {shard} exhausted ({self.num_pages // self.dp_shards} pages); "
+                    "size the pool for max_seq_len * max_active_requests")
+        else:
+            free = max(self._free_by_shard, key=len)  # the first of the fullest shards
         if not free:
             raise PoolExhausted(
                 f"page pool exhausted ({self.num_pages} pages); size the pool for "
@@ -112,10 +147,15 @@ class PagePool:
 
 
 class PagedKVCache:
-    """Per-request logical view: page ids + token offset."""
+    """Per-request logical view: page ids + token offset. In a dp-striped
+    pool every page comes from stripe `shard` (default: the pool's least
+    loaded)."""
 
-    def __init__(self, pool: PagePool):
+    def __init__(self, pool: PagePool, shard: int | None = None):
         self.pool = pool
+        if pool.dp_shards and shard is None:
+            shard = pool.least_loaded_shard()
+        self.shard = shard
         self.page_ids: list[int] = []
         self._offset = 0
         self._released = False
@@ -133,7 +173,7 @@ class PagedKVCache:
         ps = self.pool.page_size
         needed = (new_offset + ps - 1) // ps
         while len(self.page_ids) < needed:
-            self.page_ids.append(self.pool.allocate_page())
+            self.page_ids.append(self.pool.allocate_page(self.shard))
 
     def advance(self, n: int) -> None:
         """Record n appended tokens (pages must already be ensured)."""

@@ -51,7 +51,11 @@ versions follow the JAX XLA route for f32 inputs) and raises on the card.
 
 The KV slab and the pages are updated in place. A decode burst, mixed or
 not, is a Python loop of steps whose greedy argmax stays on the device; the
-host syncs once per burst. Not ported yet: expert parallelism.
+host syncs once per burst. Weights split over a mesh (parallel/sharding.py
+shard_params, ops/sharded.py) run part by part in the same routes; a MoE
+layer's experts split over a mesh axis run each shard on its segment of
+the sorted rows (ops/moe.py); weights replicated over a data-parallel axis
+run each replica's block of the batch rows on that replica's copy.
 """
 
 from __future__ import annotations
@@ -82,6 +86,7 @@ from ..ops.norm import rms_norm
 from ..ops.quantize import QuantizedTensor, concat_out_features, permute_out_features
 from ..ops.rope import apply_rope, rope_tables
 from ..ops.sampler import make_sampler
+from ..ops.sharded import ShardedWeight, out_features_of, replica_rows, sharded_linear, zip_parts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,10 +143,11 @@ class Qwen3Config:
 
 # ---------------------------------------------------------------------------
 # Params: plain dataclasses of tensors and QuantizedTensors. A weight (Weight)
-# is a QuantizedTensor or a dense tensor [N, K] ([E, N, K] for experts).
+# is a QuantizedTensor or a dense tensor [N, K] ([E, N, K] for experts), or
+# a ShardedWeight of either (parallel/sharding.py shard_params).
 # ---------------------------------------------------------------------------
 
-Weight = QuantizedTensor | torch.Tensor
+Weight = QuantizedTensor | torch.Tensor | ShardedWeight
 
 
 @dataclasses.dataclass
@@ -191,7 +197,14 @@ class Qwen3Params:
 
 def _linear(x, w: Weight, residual=None, impl=None):
     """x @ w.T (+ residual: added in f32 inside K1 for a quantized weight,
-    after the product's rounding for a dense one, as in the JAX package)."""
+    after the product's rounding for a dense one, as in the JAX package; a
+    sharded weight runs part by part, ops/sharded.py; a weight replicated
+    over a data-parallel axis runs each replica's block of rows on its
+    copy)."""
+    if isinstance(w, ShardedWeight):
+        if w.dim == "batch":
+            return replica_rows(x, w, lambda xs, s, r: _linear(xs, w.parts[s], r, impl), residual)
+        return sharded_linear(x, w, residual=residual, impl=impl)
     if isinstance(w, QuantizedTensor):
         return quant_matmul(x, w, residual=residual, impl=impl)
     out = dense_linear(x, w)
@@ -256,16 +269,15 @@ def _mlp(cfg, p: MLPParams | MoEParams, x, norm_w=None, residual=None, impl=None
                    impl=impl)
 
 
-def _out_features(w: Weight) -> int:
-    return w.out_features if isinstance(w, QuantizedTensor) else w.shape[-2]
-
-
 def _qkv_interleave_perm(attn: AttentionParams) -> list[int]:
     """Row order interleaving the fused [q; k; v] per KV head (see
     AttentionParams.wqkv). Head counts come from the weights, D from the
     QK-norm weight."""
-    d = attn.q_norm.shape[-1]
-    dq, dk, dv = (_out_features(w) for w in (attn.wq, attn.wk, attn.wv))
+    return _interleave_perm(attn.wq, attn.wk, attn.wv, attn.q_norm.shape[-1])
+
+
+def _interleave_perm(wq: Weight, wk: Weight, wv: Weight, d: int) -> list[int]:
+    dq, dk, dv = (out_features_of(w) for w in (wq, wk, wv))
     if dk != dv or dq % d or dk % d or dq % dk:
         raise ValueError(f"q/k/v rows {dq}/{dk}/{dv} are not a GQA layout of head dim {d}")
     hkv = dk // d
@@ -292,23 +304,36 @@ def _permute_rows(w: Weight, perm: list[int]) -> Weight:
     return w.index_select(0, torch.as_tensor(perm, dtype=torch.long, device=w.device))
 
 
+def _fuse_qkv(wq: Weight, wk: Weight, wv: Weight, d: int) -> Weight:
+    return _permute_rows(_concat_rows([wq, wk, wv]), _interleave_perm(wq, wk, wv, d))
+
+
 def fuse_projections(params: Qwen3Params) -> Qwen3Params:
     """Fuse each layer's [q; k; v] (interleaved per KV head) and a dense
     MLP's [gate; up] into one weight each — an exact relayout (groups run
-    along K), quantized or dense. MoE experts stay unfused, as in the JAX
-    package. The model's routes run on fused params only; a layer already
-    fused is kept as it is."""
+    along K), quantized or dense. Weights split over a mesh axis
+    (ShardedWeight) fuse part by part: a part holds whole KV heads, so its
+    fused rows are the unsharded fused weight's rows of those heads, and a
+    fused gate/up's part s is [gate_s; up_s]. MoE experts stay unfused, as
+    in the JAX package. The model's routes run on fused params only; a
+    layer already fused is kept as it is."""
     layers = []
     for layer in params.layers:
         attn, mlp = layer.attn, layer.mlp
         if attn.wqkv is None:
-            wqkv = _permute_rows(_concat_rows([attn.wq, attn.wk, attn.wv]),
-                                 _qkv_interleave_perm(attn))
+            d = attn.q_norm.shape[-1]
+            if isinstance(attn.wq, ShardedWeight):
+                wqkv = zip_parts(lambda q, k, v: _fuse_qkv(q, k, v, d), attn.wq, attn.wk, attn.wv)
+            else:
+                wqkv = _fuse_qkv(attn.wq, attn.wk, attn.wv, d)
             attn = dataclasses.replace(attn, wq=None, wk=None, wv=None, wqkv=wqkv)
         if isinstance(mlp, MLPParams) and mlp.w_gate_up is None:
-            mlp = dataclasses.replace(
-                mlp, w_gate=None, w_up=None, w_gate_up=_concat_rows([mlp.w_gate, mlp.w_up]),
-            )
+            if isinstance(mlp.w_gate, ShardedWeight):
+                gate_up = zip_parts(lambda g, u: _concat_rows([g, u]), mlp.w_gate, mlp.w_up,
+                                    halves=True)
+            else:
+                gate_up = _concat_rows([mlp.w_gate, mlp.w_up])
+            mlp = dataclasses.replace(mlp, w_gate=None, w_up=None, w_gate_up=gate_up)
         layers.append(dataclasses.replace(layer, attn=attn, mlp=mlp))
     return dataclasses.replace(params, layers=layers)
 
@@ -326,6 +351,8 @@ def convert_projection_layouts(params: Qwen3Params, layout: str = "pair_t") -> Q
         raise ValueError(f"layout {layout!r}: the port converts to 'pair_t' only")
 
     def mark(w: Weight | None, stacked: bool = False):
+        if isinstance(w, ShardedWeight):
+            return w.map_parts(lambda p: mark(p, stacked))
         if not isinstance(w, QuantizedTensor):
             return w  # None, or a dense weight (the JAX package leaves those too)
         if not w.is_w4g128:

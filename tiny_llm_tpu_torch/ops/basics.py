@@ -25,16 +25,21 @@ def linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None) -
     return out.to(x.dtype)
 
 
-def dense_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dense_linear(x: torch.Tensor, w: torch.Tensor,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """x @ w.T for a dense model weight w [N, K] of x's dtype, accumulated
-    in f32 and rounded to x's dtype once (the JAX package's dot_general
-    with preferred_element_type=f32, then astype). On the card a bf16 or
+    in f32 and rounded to `out_dtype` (default x's dtype) once (the JAX
+    package's dot_general with preferred_element_type=f32, then astype);
+    out_dtype f32 returns the f32 product unrounded. On the card a bf16 or
     f16 product asks cuBLAS for f32 output: with x's dtype as output,
     PyTorch lets cuBLAS reduce split-K partials in that dtype."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
     if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
         out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[0]).to(x.dtype)
-    return torch.matmul(x, w.t()).to(x.dtype)
+        return out.reshape(*x.shape[:-1], w.shape[0]).to(out_dtype)
+    if out_dtype == torch.float32:
+        return torch.matmul(x.to(torch.float32), w.to(torch.float32).t())
+    return torch.matmul(x, w.t()).to(out_dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -2,11 +2,12 @@
 
 A mesh names its axes ("dp", optionally "ep", then "tp"), their sizes and
 the devices laid out on them in row-major order. The port's strategies run
-the shards of one axis in one process; a device list that repeats one
-device (`[torch.device("cuda", 0)] * 8`) puts every shard on it, as the JAX
-package's tests put their shards on 8 virtual CPU devices. Placing shards
-on several cards needs torch.distributed ranks, which the port does not
-have yet.
+the shards of one axis in one process, one after another, each on its mesh
+device; a device list that repeats one device (`[torch.device("cuda", 0)]
+* 8`) puts every shard on it, as the JAX package's tests put their shards
+on 8 virtual CPU devices. A list of distinct cards places each shard on its
+own card, with the collectives as copies through the process
+(torch.distributed ranks are not ported yet).
 """
 
 from __future__ import annotations
@@ -26,6 +27,18 @@ class Mesh:
     def shape(self) -> dict[str, int]:
         """Axis name -> size, as jax.sharding.Mesh.shape."""
         return dict(zip(self.axis_names, self.sizes))
+
+    def devices_along(self, axis: str, **at: int) -> list[torch.device]:
+        """The devices along `axis`, every other axis at its index in `at`
+        (default 0): the devices of one shard group, as a shard_map over
+        `axis` sees them from mesh position `at`."""
+        out = []
+        for i in range(self.shape[axis]):
+            idx = 0
+            for name, size in zip(self.axis_names, self.sizes):
+                idx = idx * size + (i if name == axis else at.get(name, 0))
+            out.append(self.devices[idx])
+        return out
 
 
 def make_mesh(dp: int = 1, tp: int | None = None, ep: int = 1, devices=None) -> Mesh:

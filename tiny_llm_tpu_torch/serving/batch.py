@@ -216,15 +216,21 @@ def batch_generate(
         )
 
     def try_install(req: Request) -> bool:
-        """Install a prefilled request in the first free slot, if any."""
+        """Install a prefilled request in a free slot, if any: the first, or
+        the one a placement-constrained cache chooses (DP replica pinning,
+        parallel/dp.py; None stalls admission until one of its slots frees)."""
         free = [i for i in range(batch_size) if decode_requests[i] is None]
-        if not free:
+        if hasattr(kv_cache, "choose_slot"):
+            slot = kv_cache.choose_slot(req.kv_cache, free)
+        else:
+            slot = free[0] if free else None
+        if slot is None:
             return False
-        kv_cache.add_request(req.kv_cache, free[0])
+        kv_cache.add_request(req.kv_cache, slot)
         if not paged:
             # The dense slot holds a copy; the request's own slab goes.
             req.kv_cache.release()
-        decode_requests[free[0]] = req
+        decode_requests[slot] = req
         return True
 
     def mixed_handles_prefill() -> bool:
@@ -293,7 +299,7 @@ def batch_generate(
                     pending = None
                     continue
                 if not try_install(pending):
-                    break  # prefilled but no free slot: stop prefilling
+                    break  # prefilled but no compatible slot: stop prefilling
                 pending = None
 
         if any(r is not None for r in decode_requests):
