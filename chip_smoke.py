@@ -71,7 +71,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             removed at the end
   generate  three ByteTokenizer prompts through simple_generate_with_kv_cache
   speculative (after generate) the loaded 4B as target, the 0.6B W4A16 as
-            draft: speculative_generate (K = 4, 32 tokens, three prompts)
+            draft: speculative_generate (K = 4, 16 tokens, three prompts)
             equal to greedy, again with the target as its own draft (a
             second model on the same params: near-ties alone reject);
             speculative_decode_device (K = 4, 4 rounds a dispatch), with the
@@ -117,8 +117,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   mixed_serving the serving phase's campaign with mixed_prefill=True (two
             campaigns)
   moe_model     the model phase on Qwen3-30B-A3B W4A16 (full width, 128
-            experts, top-8; 8 of its 48 layers, MOE_LAYERS):
-            exact launch counts (K1 25, grouped 24, K2 or K3 8 per step),
+            experts, top-8; 4 of its 48 layers, MOE_LAYERS):
+            exact launch counts (K1 13, grouped 12, K2 or K3 4 per step),
             a sync-free burst
   moe_parity    parity and paged_parity at the 30B-A3B widths, 4 layers; the
             plain path takes the kernel path's expert choice where the two
@@ -266,6 +266,29 @@ mesh repeating cuda:0):
             burst, 32 greedy steps of all three in turns; EPMoE at ep = 4
             with capacity 1.0 against the plain version of the same drops
 
+Pipeline parallelism and the runtime (every stage on this card, the
+devices [cuda:0] * S):
+  pp_model  (after tp_model) Qwen3-4B at full width and depth:
+            PipelinedQwen3 at S = 2 and 4 on a PROMPT_LEN prompt, and on
+            Qwen3-30B-A3B at S = 2, logits bit-equal to the unsharded
+            forward_full, exact launches; MicrobatchedPipeline at (S, M) =
+            (4, 4) and (2, 4) over 8 prompts, logits within 5 % of
+            forward_full's largest, top-1 where decided, exact launches,
+            K1 at M = Bm * PROMPT_LEN on its staged tile; DecodePipeline at
+            (S, Bm) = (4, 1) and (2, 2) on 4 prompts, prefill and two
+            16-step bursts, tokens equal the unsharded B = 4 greedy tokens
+            up to each row's first divergence, a near-tie of the unsharded
+            model's teacher-forced logits; exact launches of a burst (K1
+            145 and K2 36 a microbatch step, K1 at M = Bm), a sync-free
+            burst; decode tok/s against the unsharded B = 4 decode in turns
+  overlap   (after pp_model) allgather_matmul and matmul_reducescatter at
+            tp = 4 on Qwen3-4B's qkv and o shapes, bf16, and the chain,
+            each within one bf16 rounding plus the f32 sum's bound of an
+            f64 product, ms beside one torch.matmul; then initialize() a
+            no-op without a launcher, a one-rank NCCL group through its
+            explicit arguments (runtime_topology, barrier, an all_reduce),
+            destroyed; a second rank cannot run on one GPU
+
   dense_moe (before cli) Qwen3-30B-A3B at 4 layers with dense bf16
             weights (random_params(quantized=False)): dense_linear (cuBLAS
             asked for f32 output) and the dense grouped product
@@ -342,11 +365,11 @@ SP_SHARDS, SP_MAX_SEQ, SP_PROMPT, SP_CHUNK = 8, 8192, 6000, 2048
 SP_BATCH_PROMPTS = (1000, 2100, 3500, 5000)
 SP_PAGES = 400
 SP = ("flash_decode_state", "paged_decode_state")  # the sequence-parallel path's own kernels
-# Qwen3-30B-A3B runs at full width and 8 of its 48 layers in every MoE
+# Qwen3-30B-A3B runs at full width and 4 of its 48 layers in every MoE
 # phase, to keep the script inside its time limit (on slow hosts it took
-# 1174 s of its 1200 at 48 layers, 1098 s at 24; the 4B model carries the
-# full-depth main path).
-MOE_LAYERS = 8
+# 1174 s of its 1200 at 48 layers, 1098 s at 24; 8 layers until the
+# pipeline phases came; the 4B model carries the full-depth main path).
+MOE_LAYERS = 4
 # `serving`'s campaigns, each after one of the three-launch and the W4A8
 # models' (B C A B C A): two of each hold each model's tokens across two
 # campaigns and keep the script inside its time limit.
@@ -1100,7 +1123,7 @@ def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_
     `_dense_cases`; `per_element`: held to 2 bf16 ulps + 1e-3 of max per
     element, `_close` with codes, without a control); where a spec names
     the route the kernel's entry must take, asserted; the library yardstick
-    (torch._grouped_mm on 8 layers' bf16-dequantized weights) is checked
+    (torch._grouped_mm on up to 8 layers' bf16-dequantized weights) is checked
     against the W4A16-exact plain version."""
     from tiny_llm_tpu_torch.kernels import moe_matmul as km
 
@@ -1136,7 +1159,8 @@ def _grouped_kernel_cases(mlps, cfg, gen, specs, kernel, cuda_fn, plain_fn, tpu_
                 else km.grouped_quant_matmul_plain(x, ws[0], sizes_t)
             check(max_err(lib_out, exact) <= 1e-2 * float(exact.float().abs().max()),
                   f"library yardstick {proj} {what} differs")
-            lib = graph_ms(lambda: [lib_fn(i) for i in range(8)]) / 8
+            n_lib = min(8, len(ws))
+            lib = graph_ms(lambda: [lib_fn(i) for i in range(n_lib)]) / n_lib
             del lib_fn, lib_out, exact
             bms, by = bound(_grouped_bytes(ws[0], sizes, T), 2 * T * N * K, peak)
             if kernel in route_of:
@@ -4270,8 +4294,9 @@ def phase_axpby(contract):
 
 SPEC_PROMPTS = ("hello", "The quick brown fox jumps over the lazy dog.",
                 "def fibonacci(n):\n    return n if n < 2 else")
-# 32 tokens a stream keep the script inside its time limit.
-SPEC_TOKENS, SPEC_K, SPEC_ROUNDS, SPEC_TURN_TOKENS = 32, 4, 4, 32
+# 16 tokens a stream keep the script inside its time limit (32 until the
+# pipeline phases came, 64 before).
+SPEC_TOKENS, SPEC_K, SPEC_ROUNDS, SPEC_TURN_TOKENS = 16, 4, 4, 32
 # Speculative and greedy streams part only at near-ties of the target's
 # bf16 logits: the verify forward (K1's bf16 tile at M = K + 1, K3's walk)
 # and a decode step (K1's GEMV, K2) round the same logits in other orders,
@@ -5251,6 +5276,335 @@ def phase_ep_moe(moe, moe_cfg):
     torch.cuda.empty_cache()
 
 
+# Pipeline parallelism (every stage on this card, the devices [cuda:0] * S).
+PP_STAGES = (2, 4)
+PP_MICRO = ((4, 4), (2, 4))  # MicrobatchedPipeline's (S, M) over PP_PROMPTS prompts
+PP_PROMPTS = 8
+PP_DECODE = ((4, 1), (2, 2))  # DecodePipeline's (S, Bm): B = S * Bm = 4 prompts
+PP_BATCH = 4
+# The overlapped TP matmuls: Qwen3-4B's qkv and o projections at B = 4 over
+# tp = 4, and the chain q -> o.
+OVERLAP_TP, OVERLAP_B = 4, 4
+LAUNCHER_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                "LOCAL_WORLD_SIZE")
+
+
+class _K1Rows:
+    """Inside `with`: the rows of every K1 launch (its x's leading dims)."""
+
+    def __enter__(self):
+        from tiny_llm_tpu_torch.kernels import quant_matmul as k1
+
+        self._k1, self._orig = k1, k1.quant_matmul_cuda
+        self.rows = collections.Counter()
+
+        def counted(x, *args, **kw):
+            self.rows[x.shape[0]] += 1
+            return self._orig(x, *args, **kw)
+
+        k1.quant_matmul_cuda = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._k1.quant_matmul_cuda = self._orig
+
+
+def _counted(run):
+    """(run()'s result, the launches it made of every kernel, K1's rows)."""
+    from tiny_llm_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with _K1Rows() as rec:
+        out = run()
+        torch.cuda.synchronize()
+    return out, kernels.launches(), dict(rec.rows)
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _first_tie(model, prompt, got, want):
+    """Each row of greedy streams `got` and `want` ([steps + 1, B]) equal, or
+    at the row's first divergence `got`'s token a near-tie of the
+    unsharded model's teacher-forced logits on `got`'s stream (within
+    SPEC_TIE_ULPS bf16 ulps of the step's largest). Returns (equal tokens,
+    gaps in ulps of the rows that diverged)."""
+    equal, gaps = 0, []
+    for b in range(got.shape[1]):
+        diff = np.nonzero(got[:, b] != want[:, b])[0]
+        equal += int(diff[0]) if diff.size else got.shape[0]
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        ids = [int(t) for t in prompt[b]] + [int(t) for t in got[:j, b]]
+        cache = model.create_kv_cache()
+        row = model([ids], 0, cache, logits_to_keep=1)[0, -1].float()
+        cache.release()
+        mx = float(row.max())
+        ulp = 2.0 ** (int(np.floor(np.log2(abs(mx)))) - 7)
+        gap = mx - float(row[int(got[j, b])])
+        check(gap <= SPEC_TIE_ULPS * ulp,
+              f"pipeline row {b}: token {j} is {gap} below the unsharded step's max {mx}")
+        gaps.append(gap / ulp)
+    return equal, gaps
+
+
+def _pp_decode_run(pipe, prompts, steps):
+    """Prefill and `steps` greedy steps in BURST-step bursts on a
+    DecodePipeline (or, `pipe` a Qwen3Model, its dense B-row cache):
+    (decode seconds, tokens [steps + 1, B])."""
+    if hasattr(pipe, "prefill"):
+        tok = pipe.prefill(prompts)
+        toks = [tok.cpu().numpy()]
+
+        def burst(t):
+            return pipe.decode(t, BURST)
+    else:
+        cache = pipe.create_kv_cache(batch_size=prompts.shape[0])
+        tok = pipe(prompts, 0, cache, logits_to_keep=1)[:, -1].float().argmax(-1)
+        toks = [tok.cpu().numpy()]
+
+        def burst(t):
+            return pipe.decode_burst_dense(cache, t, BURST)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps // BURST):
+        out = burst(tok)
+        toks.extend(out)
+        tok = out[-1]
+    dec_s = time.perf_counter() - t0
+    if not hasattr(pipe, "prefill"):
+        cache.release()
+    return dec_s, np.stack(toks).astype(np.int64)
+
+
+def phase_pp_model(model, cfg, moe, moe_cfg):
+    """Pipeline parallelism on Qwen3-4B W4A16 at full width and depth (every
+    stage on this card: devices [cuda:0] * S, so `.to` moves nothing).
+    PipelinedQwen3 at S = 2 and 4 on a PROMPT_LEN prompt, and on
+    Qwen3-30B-A3B at MOE_LAYERS at S = 2: logits bit-equal to the unsharded
+    forward_full (the same calls), exact launches. MicrobatchedPipeline at
+    (S, M) = PP_MICRO over PP_PROMPTS prompts of PROMPT_LEN: logits within 5 %
+    of the unsharded forward_full's largest, top-1 equal where decided;
+    exact launches, K1's rows Bm * PROMPT_LEN on its staged tile (the head
+    once over every row). DecodePipeline at (S, Bm) = PP_DECODE (B = 4
+    distinct prompts): prefill, then two BURST-step bursts, the second
+    continuing the first; tokens equal the unsharded B = 4 dense-slab
+    greedy tokens up to each row's first divergence, which must be a
+    near-tie of the unsharded model's teacher-forced logits (K1 runs its
+    GEMV at M = Bm where the unsharded step runs the bf16 tile at M = 4);
+    exact launches of a burst (each microbatch step: K1 4 a layer over
+    every stage's layers and the head once on the last stage, K2 once a
+    layer), K1's rows Bm; one burst under set_sync_debug_mode("error");
+    decode tok/s of each against the unsharded B = 4 decode, in turns (A B
+    B A), recorded with no limit."""
+    from tiny_llm_tpu_torch.kernels.quant_matmul import k1_route
+    from tiny_llm_tpu_torch.parallel import (DecodePipeline, MicrobatchedPipeline,
+                                             PipelinedQwen3)
+
+    dev = model.device  # cuda:0
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    rng = np.random.default_rng(19)
+    line = {"phase": "pp_model", "model": "qwen3-4b", "layers": L, "prompt_len": PROMPT_LEN,
+            "mesh": "[cuda:0] * S", "tol": "5% of max |unsharded logit|"}
+    with torch.no_grad():
+        # PipelinedQwen3: the unsharded prefill's calls, stage by stage.
+        prompt = rng.integers(0, V, size=(1, PROMPT_LEN))
+        base = model.forward_full(prompt)
+        line["pipelined"] = {}
+        for S in PP_STAGES:
+            pipe = PipelinedQwen3(model.params, cfg, devices=[dev] * S, num_stages=S)
+            pipe(prompt)  # warm-up
+            got, counts, rows = _counted(lambda: pipe(prompt))
+            check(torch.equal(got, base), f"PipelinedQwen3 S = {S}: logits differ from "
+                  f"forward_full by {max_err(got, base)}")
+            _expect(counts, {"quant_matmul": 4 * L + 1, "flash_attention": L},
+                    f"PipelinedQwen3 S = {S}")
+            line["pipelined"][f"S{S}"] = {"bit_equal_forward_full": True,
+                                          "launches": _nonzero(counts), "k1_rows": rows}
+        moe_base = moe.forward_full(prompt)
+        pipe = PipelinedQwen3(moe.params, moe_cfg, devices=[dev] * 2, num_stages=2)
+        got, counts, _ = _counted(lambda: pipe(prompt))
+        check(torch.equal(got, moe_base), "PipelinedQwen3 S = 2 on Qwen3-30B-A3B: logits "
+              f"differ from forward_full by {max_err(got, moe_base)}")
+        Lm = moe_cfg.num_hidden_layers
+        _expect(counts, {"quant_matmul": 3 * Lm + 1, "flash_attention": Lm,
+                         "grouped_quant_matmul": 3 * Lm}, "PipelinedQwen3 S = 2, Qwen3-30B-A3B")
+        line["pipelined"]["qwen3-30b-a3b_S2"] = {"layers": moe_cfg.num_hidden_layers,
+                                                 "bit_equal_forward_full": True,
+                                                 "launches": _nonzero(counts)}
+        del pipe, base, moe_base
+        # MicrobatchedPipeline: the GPipe schedule.
+        prompts = rng.integers(0, V, size=(PP_PROMPTS, PROMPT_LEN))
+        base = model.forward_full(prompts)
+        line["microbatched"] = {}
+        for S, M in PP_MICRO:
+            pipe = MicrobatchedPipeline(model.params, cfg, num_stages=S, num_microbatches=M,
+                                        devices=[dev] * S)
+            pipe(prompts)  # warm-up
+            t0 = time.perf_counter()
+            got, counts, rows = _counted(lambda: pipe(prompts))
+            wall = time.perf_counter() - t0
+            e, d = _logit_check(got, base, f"MicrobatchedPipeline {(S, M)}")
+            Bm = PP_PROMPTS // M
+            _expect(counts, {"quant_matmul": M * 4 * L + 1, "flash_attention": M * L},
+                    f"MicrobatchedPipeline {(S, M)}")
+            check(rows == {Bm * PROMPT_LEN: M * 4 * L, PP_PROMPTS * PROMPT_LEN: 1}
+                  and k1_route(Bm * PROMPT_LEN) == "staged",
+                  f"MicrobatchedPipeline {(S, M)}: K1 rows {rows}")
+            line["microbatched"][f"S{S}_M{M}"] = {
+                "err_over_tol": e, "top1_decided": d, "launches": _nonzero(counts),
+                "k1_rows": rows,
+                "k1_route": k1_route(Bm * PROMPT_LEN), "prefill_tok_s":
+                    PP_PROMPTS * PROMPT_LEN / wall}
+            del pipe, got
+        del base
+        torch.cuda.empty_cache()
+        # DecodePipeline: tokens round-robin, per-stage KV.
+        prompts = rng.integers(0, V, size=(PP_BATCH, PROMPT_LEN))
+        steps = 2 * BURST
+        _, want = _pp_decode_run(model, prompts, steps)
+        line["decode"], runs = {}, {"unsharded_b4": model}
+        for S, Bm in PP_DECODE:
+            pipe = DecodePipeline(model.params, cfg, num_stages=S, max_seq_len=MAX_SEQ,
+                                  devices=[dev] * S)
+            _, got = _pp_decode_run(pipe, prompts, steps)
+            equal, gaps = _first_tie(model, prompts, got, want)
+            tok = pipe.prefill(prompts)
+            _, counts, rows = _counted(lambda: pipe.decode(tok, BURST))
+            _expect(counts, {"quant_matmul": BURST * S * (4 * L + 1),
+                             "fused_decode_attention": BURST * S * L}, f"DecodePipeline {(S, Bm)}")
+            check(rows == {Bm: BURST * S * (4 * L + 1)}, f"DecodePipeline {(S, Bm)}: K1 rows {rows}")
+            tok = torch.as_tensor(pipe.decode(tok, BURST)[-1], device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = pipe.decode_device(tok, BURST)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(tuple(out.cpu().shape) == (BURST, PP_BATCH), "sync-free burst shape")
+            line["decode"][f"S{S}_Bm{Bm}"] = {
+                "tokens_equal_unsharded": equal, "tokens": got.size,
+                "rows_diverged_at_near_tie": len(gaps), "tie_gaps_in_ulps": gaps,
+                "launches_per_burst": _nonzero(counts), "k1_rows": rows,
+                "launches_per_microbatch_step": {"quant_matmul": 4 * L + 1,
+                                                 "fused_decode_attention": L},
+                "sync_free_burst": {"steps": BURST, "mode": "error", "host_syncs_in_burst": 0}}
+            runs[f"pp_S{S}_Bm{Bm}"] = pipe
+        names = list(runs)
+        tps = {n: [] for n in names}
+        for n in names + names[::-1]:
+            dec_s, _ = _pp_decode_run(runs[n], prompts, steps)
+            tps[n].append(PP_BATCH * steps / dec_s)
+        line["in_turns"] = {"decode_tok_s": {n: float(np.median(v)) for n, v in tps.items()},
+                            "decode_tok_s_all": tps, "batch": PP_BATCH, "steps": steps,
+                            "order": "ABCCBA"}
+        del runs
+    emit(line)
+    torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_overlap():
+    """The overlapped TP matmuls (parallel/overlap.py) on the mesh [cuda:0] *
+    OVERLAP_TP: allgather_matmul (qkv_style) and matmul_reducescatter
+    (oproj_style) at Qwen3-4B's qkv (x [4, 2560], w [2560, 6144]) and o
+    (x [4, 4096], w [4096, 2560]) shapes, bf16, and the chain
+    oproj_style(qkv_style(x, w_q), w_o); each held per element to an f64
+    product within one bf16 rounding plus the f32 sum's bound
+    (_within_f32_sum), each one's ms beside one torch.matmul of the whole
+    product. Then the runtime on the card: initialize() returns False with
+    the launcher's environment cleared; a one-rank NCCL group through its
+    explicit arguments (tcp://localhost), runtime_topology reads one
+    process and one node, barrier returns, an all_reduce through the group
+    is the identity; destroy_process_group. A second rank cannot run on one
+    GPU (NCCL refuses two ranks on one card)."""
+    import os
+
+    import torch.distributed as dist
+
+    from tiny_llm_tpu_torch.parallel import (barrier, initialize, overlapped_tp_matmuls,
+                                             runtime_topology)
+
+    n, B = OVERLAP_TP, OVERLAP_B
+    qkv_style, oproj_style = overlapped_tp_matmuls(_mesh(dp=1, tp=n))
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    def held(got, x, w, what):
+        exact = x.double() @ w.double()
+        return _within_f32_sum(got, exact, x.double().abs() @ w.double().abs(), x.shape[1]) | {
+            "what": what}
+
+    cases = []
+    with torch.no_grad():
+        for shape, (K, N) in (("qkv", (2560, 6144)), ("o", (4096, 2560))):
+            x, w = randn(B, K), randn(K, N, scale=0.02)
+            xs = list(x.chunk(n, 1))
+            for style, fn, ws in (("allgather_matmul", qkv_style, list(w.chunk(n, 1))),
+                                  ("matmul_reducescatter", oproj_style, list(w.chunk(n, 0)))):
+                got = torch.cat(fn(xs, ws), dim=1)
+                rec = held(got, x, w, f"{style} {shape}")
+                rec.update(shape=shape, x=[B, K], w=[K, N], style=style,
+                           ms=event_ms(lambda: fn(xs, ws), reps=20),
+                           matmul_ms=event_ms(lambda: torch.matmul(x, w), reps=20))
+                cases.append(rec)
+        x, wq, wo = randn(B, 2560), randn(2560, 4096, scale=0.02), randn(4096, 2560, scale=0.02)
+        xs, wqs, wos = list(x.chunk(n, 1)), list(wq.chunk(n, 1)), list(wo.chunk(n, 0))
+        y1 = qkv_style(xs, wqs)
+        chain = torch.cat(oproj_style(y1, wos), dim=1)
+        first = held(torch.cat(y1, dim=1), x, wq, "chain: q")
+        rec = held(chain, torch.cat(y1, dim=1), wo, "chain: o on q's output parts")
+        rec.update(q=first, ms=event_ms(lambda: oproj_style(qkv_style(xs, wqs), wos), reps=20),
+                   matmul_ms=event_ms(lambda: torch.matmul(torch.matmul(x, wq), wo), reps=20))
+        cases.append(rec)
+    # The runtime on the card.
+    saved = {k: os.environ.pop(k) for k in LAUNCHER_ENV if k in os.environ}
+    try:
+        check(initialize() is False, "initialize joined a group with no launcher")
+        port = _free_port()
+        t0 = time.perf_counter()
+        check(initialize(f"tcp://localhost:{port}", num_processes=1, process_id=0) is True,
+              "initialize with an address joined nothing")
+        try:
+            init_s = time.perf_counter() - t0
+            backend = dist.get_backend()
+            check(backend == "nccl", f"backend {backend}, not nccl")
+            topo = runtime_topology()
+            check((topo.num_processes, topo.process_index, topo.num_slices) == (1, 0, 1),
+                  f"topology {topo}")
+            barrier("chip_smoke")
+            t = torch.arange(8, dtype=torch.float32, device="cuda")
+            dist.all_reduce(t)
+            check(torch.equal(t, torch.arange(8, dtype=torch.float32, device="cuda")),
+                  "a one-rank all_reduce changed its input")
+            check(initialize() is True, "initialize is not idempotent")
+        finally:
+            dist.destroy_process_group()
+        check(not dist.is_initialized(), "the group outlived destroy_process_group")
+    finally:
+        os.environ.update(saved)
+    emit({"phase": "overlap", "tp": n, "mesh": "[cuda:0] * 4", "dtype": "bf16",
+          "tol": "1 bf16 ulp + K * 2^-24 * sum |x||w| of the f64 product", "cases": cases,
+          "runtime": {"initialize_without_launcher": False, "backend": backend,
+                      "init_method": "tcp://localhost", "init_s": init_s,
+                      "topology": dataclasses.asdict(topo), "barrier": "returned",
+                      "all_reduce_one_rank": "identity",
+                      "second_rank": "not run: NCCL refuses two ranks on one GPU, and the "
+                                     "machine has one"}})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase line, the kernel line, the card "
@@ -5305,6 +5659,10 @@ def main() -> int:
     # Tensor parallelism on the dense model's weights (before serving
     # attaches a page pool to it).
     phase_tp_model(model, cfg)
+    # Pipeline parallelism on the same weights (and Qwen3-30B-A3B's), then
+    # the overlapped TP matmuls and the runtime on the card.
+    phase_pp_model(model, cfg, moe, moe_cfg)
+    phase_overlap()
     phase_paged_parity(cfg)
     # The three-launch paged decode (paged_fused_one=False) on the same
     # weights: its serving campaigns are taken in turns with `serving`'s.

@@ -7,6 +7,7 @@ from __future__ import annotations
 import contextlib
 import fcntl
 import hashlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -145,21 +146,35 @@ BUILD_SCRIPT = REPO / "scripts" / "make_real_checkpoint.py"
 
 def _complete(d: Path, digest: str) -> bool:
     """A checkpoint whose build ran to its end: the build script writes its
-    oracle, then the script's hash is stamped."""
+    oracle, then the digest of its inputs is stamped."""
     stamp = d / ".builder-sha256"
     return (stamp.exists() and stamp.read_text().strip() == digest
             and (d / "oracle" / "greedy.json").exists())
 
 
+def _build_digest() -> str:
+    """sha256 over what a build reads: the build script and the text its
+    tokenizer trains on (the script's own corpus list: the repo's markdown
+    and sources). An edit to any of them changes the tokenizer, hence the
+    prompt ids and the oracle, so a copy built before the edit is stale."""
+    spec = importlib.util.spec_from_file_location("_make_real_checkpoint", BUILD_SCRIPT)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    h = hashlib.sha256(BUILD_SCRIPT.read_bytes())
+    for f in script._corpus_files(str(REPO)):
+        h.update(os.path.relpath(f, REPO).encode() + b"\0")
+        h.update(Path(f).read_bytes())
+    return h.hexdigest()
+
+
 def real_checkpoint(variant: str, extra: tuple[str, ...] = ()) -> str:
-    """The HF checkpoint `variant` of scripts/make_real_checkpoint.py:
-    `.artifacts/<variant>` when its stamp matches the build script (the JAX
-    suite's, complete), else a private copy `.artifacts/torch-<variant>`,
-    built once under a file lock (xdist workers may ask at the same time)."""
-    digest = hashlib.sha256(BUILD_SCRIPT.read_bytes()).hexdigest()
-    shared = ARTIFACTS / variant
-    if _complete(shared, digest):
-        return str(shared)
+    """The HF checkpoint `variant` of scripts/make_real_checkpoint.py, as a
+    private copy `.artifacts/torch-<variant>` stamped with _build_digest and
+    built anew when the stamp differs, once under a file lock (xdist workers
+    may ask at the same time). The JAX suite's `.artifacts/<variant>` is not
+    used: its stamp covers the script alone, so it may hold the tokenizer of
+    an older tree."""
+    digest = _build_digest()
     own = ARTIFACTS / f"torch-{variant}"
     ARTIFACTS.mkdir(exist_ok=True)
     with open(ARTIFACTS / f".torch-{variant}.lock", "w") as lock:

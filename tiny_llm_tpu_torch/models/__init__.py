@@ -17,6 +17,8 @@ from .qwen3 import (
     Qwen3Model,
     Qwen3Params,
     forward_decode_burst_dense,
+    forward_full,
+    forward_layers,
     forward_step,
     fuse_projections,
 )
@@ -34,6 +36,8 @@ __all__ = [
     "Qwen3Params",
     "dispatch_model",
     "forward_decode_burst_dense",
+    "forward_full",
+    "forward_layers",
     "forward_step",
     "from_jax_numpy",
     "fuse_projections",

@@ -219,6 +219,13 @@ def _norm_linear(x, w: Weight, norm_w, eps: float, impl=None):
     return _linear(x, w, impl=impl)
 
 
+def act_dtype(params: Qwen3Params) -> torch.dtype:
+    """The activations' (and KV's) dtype: bf16 for quantized weights, else
+    the dense embedding's (bf16, or f32 in the JAX package's oracle mode)."""
+    emb = params.embedding
+    return torch.bfloat16 if isinstance(emb, QuantizedTensor) else emb.dtype
+
+
 def _embed(params: Qwen3Params, tokens: torch.Tensor) -> torch.Tensor:
     if isinstance(params.embedding, QuantizedTensor):
         return quantized_embedding_gather(params.embedding, tokens)
@@ -414,14 +421,38 @@ def forward_step(
     k/v into the slab at `offsets` and returns logits [B, L_keep, V].
     `attn_impl`: an attention strategy (with .flash), or None for `impl`'s
     kernels."""
-    B, L = tokens.shape
-    dev = tokens.device
+    h = forward_layers(params.layers, cfg, rope_tabs, _embed(params, tokens), offsets, keys,
+                       values, impl=impl, attn_impl=attn_impl)
+    if logits_to_keep is not None:
+        h = h[:, -logits_to_keep:, :]
+    h = rms_norm(h, params.final_norm, cfg.rms_norm_eps)
+    return _lm_head(params, h, impl)
+
+
+def forward_layers(
+    layers,  # a range of the model's fused BlockParams
+    cfg: Qwen3Config,
+    rope_tabs: tuple[torch.Tensor, torch.Tensor],
+    h: torch.Tensor,  # [B, L, D] the residual stream entering the range
+    offsets: list[int],  # per row: context length before this chunk
+    keys: torch.Tensor,  # [len(layers), B, Hkv, S, D] — written in place
+    values: torch.Tensor,
+    *,
+    impl: str | None = None,
+    attn_impl=None,
+) -> torch.Tensor:
+    """Run `layers` on the residual `h`: each layer writes its k/v into the
+    slab at `offsets` (slab layer i is layers[i]) and attends, K2 at L == 1,
+    K3 above (or the strategy `attn_impl`). Returns the residual after the
+    range. forward_step runs every layer through it; a pipeline stage runs
+    its own range."""
+    B, L, _ = h.shape
+    dev = h.device
     scale = cfg.head_dim**-0.5
     eps = cfg.rms_norm_eps
     hkv = cfg.num_key_value_heads
     n_rep = cfg.num_attention_heads // hkv
     offs = _offsets_tensor(offsets, dev)
-    h = _embed(params, tokens)
     decode = L == 1 and attn_impl is None  # the fused decode route: K2 per layer
     if decode:
         # The RoPE rows are gathered once per step and shared by all layers.
@@ -430,7 +461,7 @@ def forward_step(
     else:
         positions = offs[:, None].to(torch.long) + torch.arange(L, device=dev)[None, :]
         lens = offs + L
-    for i, layer in enumerate(params.layers):
+    for i, layer in enumerate(layers):
         if decode:
             qkv = _norm_linear(h, layer.attn.wqkv, layer.input_layernorm, eps, impl)
             attn_rows, k_row, v_row = fused_decode_attention(
@@ -452,10 +483,24 @@ def forward_step(
         h = _linear(attn, layer.attn.wo, residual=h, impl=impl)
         h = _mlp(cfg, layer.mlp, h, norm_w=layer.post_attention_layernorm,
                  residual=h, impl=impl)
-    if logits_to_keep is not None:
-        h = h[:, -logits_to_keep:, :]
-    h = rms_norm(h, params.final_norm, eps)
-    return _lm_head(params, h, impl)
+    return h
+
+
+def forward_full(params: Qwen3Params, cfg: Qwen3Config, tokens: torch.Tensor,
+                 impl: str | None = None) -> torch.Tensor:
+    """No-cache full-prefix forward: tokens [B, L] (on the params' device)
+    -> logits [B, L, V], the whole prefix as one chunk into a scratch slab
+    of its length (Qwen3Model's no-cache call)."""
+    params = fuse_projections(params)
+    B, L = tokens.shape
+    dev = tokens.device
+    dtype = act_dtype(params)
+    shape = (cfg.num_hidden_layers, B, cfg.num_key_value_heads, L, cfg.head_dim)
+    keys = torch.empty(shape, dtype=dtype, device=dev)
+    values = torch.empty(shape, dtype=dtype, device=dev)
+    rope = rope_tables(cfg.head_dim, L, base=cfg.rope_theta, device=dev)
+    return forward_step(params, cfg, rope, tokens, [0] * B, keys, values, logits_to_keep=None,
+                        impl=impl)
 
 
 def forward_decode_burst_dense(
@@ -793,8 +838,8 @@ class Qwen3Model:
     API of the JAX package's Qwen3Model for the dense and paged paths:
     __call__(inputs, offset, cache, logits_to_keep), create_kv_cache(),
     create_batching_kv_cache(), decode_burst_dense(), enable_paged_attention(),
-    decode_burst(), supports_mixed, mixed_burst(). `impl` plays the role of
-    JAX's string `attn_impl`: None runs the kernels on the card and their
+    decode_burst(), supports_mixed, mixed_burst(), forward_full(). `impl`
+    plays the role of JAX's string `attn_impl`: None runs the kernels on the card and their
     plain versions on the CPU, "torch" runs the plain versions on either
     device. `attn_impl` takes JAX's strategy objects: None, or one with
     `.flash` and `.paged` (parallel.SPAttention), which then runs every
@@ -839,10 +884,7 @@ class Qwen3Model:
         self.num_hidden_layers = cfg.num_hidden_layers
         self.vocab_size = cfg.vocab_size
         self.max_seq_len = max_seq_len or cfg.max_position_embeddings
-        # The activations' (and KV's) dtype: bf16 for quantized or bf16
-        # weights, f32 in the JAX package's oracle mode (an f32 dense load).
-        emb = params.embedding
-        self.dtype = torch.bfloat16 if isinstance(emb, QuantizedTensor) else emb.dtype
+        self.dtype = act_dtype(params)
         if self.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"dense weights of {self.dtype}: expected bf16 or f32")
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
@@ -1031,6 +1073,11 @@ class Qwen3Model:
         )
         cache.advance(L)
         return logits
+
+    def forward_full(self, tokens) -> torch.Tensor:
+        """No-cache full-prefix forward: tokens [B, L] -> logits [B, L, V]
+        (the call without a cache)."""
+        return self(tokens)
 
     @staticmethod
     def _slot_offsets(cache, B: int, offset) -> np.ndarray:

@@ -6,8 +6,9 @@ the shards of one axis in one process, one after another, each on its mesh
 device; a device list that repeats one device (`[torch.device("cuda", 0)]
 * 8`) puts every shard on it, as the JAX package's tests put their shards
 on 8 virtual CPU devices. A list of distinct cards places each shard on its
-own card, with the collectives as copies through the process
-(torch.distributed ranks are not ported yet).
+own card, with the collectives as copies through the process. Across
+processes, torch.distributed ranks (distributed.py) carry the pipeline and
+the overlapped TP matmuls through the ring hop of ring.py.
 """
 
 from __future__ import annotations
