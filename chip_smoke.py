@@ -115,7 +115,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             path against the plain path (teacher-forced) and against the
             serialized schedule, and one burst under sync-debug "error"
   mixed_serving the serving phase's campaign with mixed_prefill=True (two
-            campaigns)
+            campaigns), at MIXED_LAYERS of Qwen3-4B's 36 layers on the same
+            weights
   moe_model     the model phase on Qwen3-30B-A3B W4A16 (full width, 128
             experts, top-8; 4 of its 48 layers, MOE_LAYERS):
             exact launch counts (K1 13, grouped 12, K2 or K3 4 per step),
@@ -298,10 +299,39 @@ devices [cuda:0] * S):
             bf16 ulp plus the f32 sum's error bound; a sync-free burst; and
             the parity rule against impl="torch" under RouteForcer
   cli       (last) python -m tiny_llm_tpu_torch.main --model qwen3-0.6b
-            --draft-model qwen3-0.6b --max-tokens 16 and python -m
+            --draft-model qwen3-0.6b --max-tokens 16, python -m
             tiny_llm_tpu_torch.batch_main --model qwen3-0.6b
-            --max-output-tokens 16 as subprocesses (synthetic weights, the
-            byte tokenizer): exit 0 and their printed output
+            --max-output-tokens 16, python -m tiny_llm_tpu_torch.agent_main
+            "<task>" --model qwen3-0.6b --no-session --yes --max-steps 1
+            --max-tokens 16 --root <tmp>, python -m
+            tiny_llm_tpu_torch.evaluate_agent grade evals/localized-constant
+            and ... run evals/localized-constant --model qwen3-0.6b
+            --max-steps 1 as subprocesses side by side (synthetic weights,
+            the byte tokenizer): exit 0 and their printed output
+
+The coding agent (tiny_llm_tpu_torch.agent):
+  agent     (after speculative) Qwen3-4B at full width and depth on the
+            dense model's weights, max_seq 4096 (agent_main's): a scripted
+            conversation (the system prompt of a read-only ToolPolicy, a
+            task) of four turns on GenerationSession, at most 32 tokens
+            each: cold; the reply and a tool observation appended (prefix
+            reuse); the observation's last byte changed (a rewind, a 16-token
+            suffix: K3's L <= 16 route, row 4's); the same messages (the
+            last token replayed through K2). Each turn's GenerationStats
+            held exactly to the session's rule, its K1, K2 and K3 launches
+            exactly, its prefill ms and decode tok/s; each warm turn's tokens
+            against a cold session's on the same messages, equal up to a
+            first divergence from which every token, teacher-forced, lies
+            within SPEC_TIE_ULPS bf16 ulps of the step's max; the same turns
+            on the plain route (impl="torch", on the card, no launch) and on
+            a paged session (K3 for the first chunk, row 13 for later
+            chunks, row 12 for the 16-token suffix, row 9 for the replay and
+            every decode step), each against the dense kernel route's tokens
+            under the same rule, the pages after each turn and each rewind
+            (a rewind frees whole pages), none live after reset(); then one
+            run_agent call of two steps in a temporary workspace, its
+            session log replayed from disk, its journal with no pending
+            mutation
 
 Then the nvidia-smi line, one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Needs a CUDA device; imports nothing of JAX.
@@ -374,6 +404,10 @@ MOE_LAYERS = 4
 # models' (B C A B C A): two of each hold each model's tokens across two
 # campaigns and keep the script inside its time limit.
 SERVING_RUNS = 2
+# mixed_serving runs Qwen3-4B at full width and 12 of its 36 layers (the
+# dense model's first 12): both campaigns and every check kept, and the
+# script kept inside its time limit once the agent phases came.
+MIXED_LAYERS = 12
 
 
 PHASES: list[dict] = []  # every phase line printed, for --out
@@ -4309,6 +4343,37 @@ SPEC_TIE_ULPS = 4
 SPEC_SELF_ACCEPT = 0.5
 
 
+
+def _against_stream(model, what, prompt_ids, got, want):
+    """Greedy stream `got` against `want` (both after `prompt_ids`): equal,
+    or, from their first divergence on, teacher-forced through `model`'s
+    own decode steps, every token the step's argmax or within SPEC_TIE_ULPS
+    bf16 ulps of its largest logit (a near-tie, which two routes of other
+    chunk shapes, and so of other rounding orders, may resolve either
+    way). Returns the record of the comparison."""
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    check(len(got) == len(want), f"{what}: {len(got)} tokens, the other stream {len(want)}")
+    rec = {"equal": first is None, "first_divergence": first}
+    if first is None:
+        return rec
+    cache = model.create_kv_cache()
+    logits = model([prompt_ids + got[:first]], 0, cache, logits_to_keep=1)
+    ties, gaps = 0, []
+    for i in range(first, len(got)):
+        row = logits[0, -1].float()
+        mx = float(row.max())
+        ulp = 2.0 ** (int(np.floor(np.log2(abs(mx)))) - 7)
+        gap = mx - float(row[got[i]])
+        check(gap <= SPEC_TIE_ULPS * ulp,
+              f"{what}: token {i} ({got[i]}) is {gap} below the step's max {mx}")
+        if gap > 0 or int(row.argmax()) != got[i]:
+            ties += 1
+            gaps.append(gap / ulp)
+        logits = model([[got[i]]], len(prompt_ids) + i, cache, logits_to_keep=1)
+    cache.release()
+    rec.update(near_ties=ties, tie_gaps_in_ulps=gaps)
+    return rec
+
 def _hf_config(cfg, **extra) -> dict:
     d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     d["mlp_only_layers"] = list(d["mlp_only_layers"])
@@ -4525,35 +4590,6 @@ def phase_speculative(model, params, cfg, draft_params, dcfg):
     K, L = SPEC_K, cfg.num_hidden_layers
     check(k1_route(K + 1) == "b16", f"K1 at M = {K + 1}: {k1_route(K + 1)}, not the bf16 tile")
     check(K + 1 <= k3.DECODE_MAX_L, "K3 at L = K + 1 is not the split walk")
-    def against_greedy(what, prompt_ids, got, want):
-        """`got` against the target's greedy stream `want`: equal, or, from
-        their first divergence on, teacher-forced through the target's own
-        decode steps, every token the step's argmax or within SPEC_TIE_ULPS
-        bf16 ulps of its largest logit (a near-tie, which the M = K + 1
-        verify routes and the M = 1 step routes may round either way)."""
-        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
-        check(len(got) == len(want), f"{what}: {len(got)} tokens, greedy {len(want)}")
-        rec = {"equal": first is None, "first_divergence": first}
-        if first is None:
-            return rec
-        cache = model.create_kv_cache()
-        logits = model([prompt_ids + got[:first]], 0, cache, logits_to_keep=1)
-        ties, gaps = 0, []
-        for i in range(first, len(got)):
-            row = logits[0, -1].float()
-            mx = float(row.max())
-            ulp = 2.0 ** (int(np.floor(np.log2(abs(mx)))) - 7)
-            gap = mx - float(row[got[i]])
-            check(gap <= SPEC_TIE_ULPS * ulp,
-                  f"{what}: token {i} ({got[i]}) is {gap} below the step's max {mx}")
-            if gap > 0 or int(row.argmax()) != got[i]:
-                ties += 1
-                gaps.append(gap / ulp)
-            logits = model([[got[i]]], len(prompt_ids) + i, cache, logits_to_keep=1)
-        cache.release()
-        rec.update(near_ties=ties, tie_gaps_in_ulps=gaps)
-        return rec
-
     runs = []
     self_draft = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ)  # the target as its own draft
     for prompt in SPEC_PROMPTS:
@@ -4566,7 +4602,7 @@ def phase_speculative(model, params, cfg, draft_params, dcfg):
             got = [int(t) for t in speculative_generate(
                 d, model, tok, tok, prompt, proposal_length=K, max_tokens=SPEC_TOKENS,
                 auto_disable=False, stats=st).split()]
-            rec[name] = against_greedy(f"{name} on {prompt!r}", ids, got, want)
+            rec[name] = _against_stream(model, f"{name} on {prompt!r}", ids, got, want)
             rec[name]["acceptance"] = st["accepted"] / st["proposed"]
             rec[name]["rounds"] = st["rounds"]
         check(rec["self_draft"]["acceptance"] >= SPEC_SELF_ACCEPT,
@@ -4588,7 +4624,7 @@ def phase_speculative(model, params, cfg, draft_params, dcfg):
                                         proposal_length=K, rounds_per_dispatch=SPEC_ROUNDS,
                                         max_seq=256, stats=stats)
         counts = kernels.launches()
-        rec = against_greedy(f"speculative_decode_device ({name})", ids, got, want)
+        rec = _against_stream(model, f"speculative_decode_device ({name})", ids, got, want)
         rounds, steps = stats["dispatches"] * SPEC_ROUNDS, stats["catch_ups"]
         steps += rounds * K  # draft decode steps: K a round, one more after a full accept
         expected = dict.fromkeys(counts, 0)
@@ -4740,24 +4776,303 @@ def phase_dense_moe(moe_cfg):
           "rule": "|got - want| <= 1 bf16 ulp + K * 2^-24 * sum |x| |w|"})
 
 
+
+# The coding agent (tiny_llm_tpu_torch.agent, agent_main): Qwen3-4B at
+# agent_main's context of 4096, a scripted conversation of four turns of at
+# most AGENT_TOKENS tokens each, on the dense kernel route, the plain route
+# and the paged route.
+AGENT_TOKENS = 32
+AGENT_TASK = "In settings.py, change RETRY_LIMIT to 5 without touching anything else."
+AGENT_SETTINGS = "# Service configuration.\nRETRY_LIMIT = 3\nTIMEOUT_S = 20\n"
+# Turn 3's prompt ends this many tokens into a page (the observation is
+# padded to it), so the replay's rewind (turn 3's tokens and one more)
+# frees a whole page.
+AGENT_PAGE_END = 120
+
+
+class _TimedCalls:
+    """A model whose calls are timed (synchronized after each): the list of
+    (tokens in the call, seconds)."""
+
+    def __init__(self, model):
+        self._model = model
+        self.calls: list[tuple[int, float]] = []
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def __call__(self, inputs, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self._model(inputs, *args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append((int(inputs.shape[-1]), time.perf_counter() - t0))
+        return out
+
+
+def _agent_conversation(system: str, reply: str) -> list[list[dict]]:
+    """The four turns' messages: the task (cold); the task, `reply` and a
+    tool observation (prefix reuse); the observation's last character
+    changed (a rewind into it); the same messages again (the replay)."""
+    from tiny_llm_tpu_torch.agent.generation import render_messages
+
+    def turn(obs):
+        return [{"role": "system", "content": system}, {"role": "user", "content": AGENT_TASK},
+                {"role": "assistant", "content": reply}, {"role": "user", "content": obs}]
+
+    obs = "tool_result: " + json.dumps({"content": AGENT_SETTINGS}) + " "
+    n = len(render_messages(turn(obs + "1")).encode())  # ByteTokenizer: a token a byte
+    obs += "." * ((AGENT_PAGE_END - n) % PAGE_SIZE)
+    first = [{"role": "system", "content": system}, {"role": "user", "content": AGENT_TASK}]
+    return [first, turn(obs + "0"), turn(obs + "1"), turn(obs + "1")]
+
+
+def _expected_turn(ledger: list[int], prompt: list[int], out: list[int]) -> dict:
+    """GenerationStats (latency apart) of a turn whose session held `ledger`
+    and generated `out` for `prompt`, as the session's rule gives them."""
+    common = 0
+    for a, b in zip(ledger, prompt):
+        if a != b:
+            break
+        common += 1
+    if common == len(prompt):
+        common -= 1  # the replay of the last prompt token
+    return {"input_tokens": len(prompt), "reused_tokens": common,
+            "rewound_tokens": len(ledger) - common, "prefilled_tokens": len(prompt) - common,
+            "output_tokens": len(out), "cold_start": not ledger}
+
+
+def _agent_launches(L: int, chunks: list[tuple[int, int]], steps: int, paged: bool) -> dict:
+    """A turn's launches: K1 for every projection of every call (4 a layer
+    and the head); a prefill chunk's attention (dense: K3, which at L <= 16
+    is row 4's route; paged: K3 for the first chunk at offset 0, then row 12
+    at L <= 16 and row 13 above; a chunk of one token, the replay: the decode
+    kernel); a decode step's fused attention (K2, or row 9 paged)."""
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.kernels.paged_attention import DECODE_MAX_L
+
+    step = "fused_paged_decode_attention" if paged else "fused_decode_attention"
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want["quant_matmul"] = (4 * L + 1) * (len(chunks) + steps)
+    want[step] += L * steps
+    for off, n in chunks:
+        if n == 1:
+            key = step
+        elif paged and off > 0:
+            key = "paged_decode" if n <= DECODE_MAX_L else "paged_prefill"
+        else:
+            key = "flash_attention"
+        want[key] += L
+    return want
+
+
+def phase_agent(model, cfg):
+    """The agent's generation on the card (Qwen3-4B on `model`'s fused
+    weights, max_seq 4096, the byte tokenizer): the scripted four turns
+    (_agent_conversation) on GenerationSession over the dense kernel
+    route, each turn's stats held exactly to the session's rule, its K1,
+    K2 and K3 launches exactly (_agent_launches), its prefill ms and decode
+    tok/s, each warm turn's tokens against a cold session's on the same
+    messages (_against_stream: warm and cold prefill other chunk shapes, so
+    K1 and K3 take other routes); the same turns on the plain route
+    (impl="torch", on the card: no launch) and on the paged route (rows 9,
+    12 and 13 and K3), both against the dense kernel route's tokens under
+    the same rule; the paged cache's pages after each turn and each rewind,
+    every page back after reset(); then one run_agent call of two steps in
+    a temporary workspace, its session log replayed from disk and its
+    journal left with no pending mutation. Returns the launches of the
+    dense and paged sessions' turns."""
+    import math
+    import tempfile
+
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.agent import (AgentLimits, GenerationSession, MutationJournal,
+                                          SessionStore, ToolPolicy, Workspace,
+                                          build_system_prompt, run_agent)
+    from tiny_llm_tpu_torch.agent_main import MAX_SEQ_LEN
+    from tiny_llm_tpu_torch.models import Qwen3Model
+    from tiny_llm_tpu_torch.tokenizer import ByteTokenizer
+
+    class IdsTokenizer(ByteTokenizer):
+        """Records the ids of the last decode: a turn's output tokens."""
+
+        last: list[int] = []
+
+        def decode(self, ids):
+            self.last = [int(i) for i in ids]
+            return super().decode(ids)
+
+    t_phase = time.perf_counter()
+    L = cfg.num_hidden_layers
+    tok = IdsTokenizer()
+    total = collections.Counter()  # the launches of the dense and paged sessions' turns
+    with tempfile.TemporaryDirectory() as root:
+        system = build_system_prompt(ToolPolicy(root=root))
+    dense = Qwen3Model(model.params, cfg, max_seq_len=MAX_SEQ_LEN)
+    chunk = GenerationSession(dense, tok).prefill_chunk
+
+    def run_turns(m, convo, paged=False, counted=True):
+        """The turns on one session over m: each turn's record and ids."""
+        timed = _TimedCalls(m)
+        sess = GenerationSession(timed, tok, max_tokens=AGENT_TOKENS)
+        ledger, rows, rewinds = [], [], []
+        for t, messages in enumerate(convo):
+            timed.calls.clear()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            _, st = sess(messages)
+            counts = kernels.launches()
+            out, prompt = tok.last, sess.encode_messages(messages)
+            got = dataclasses.asdict(st)
+            latency = got.pop("latency_s")
+            check(got == _expected_turn(ledger, prompt, out),
+                  f"turn {t + 1}: stats {got} != {_expected_turn(ledger, prompt, out)}")
+            common = st.reused_tokens
+            chunks = [(common + i, min(chunk, st.prefilled_tokens - i))
+                      for i in range(0, st.prefilled_tokens, chunk)]
+            want = _agent_launches(L, chunks, len(out), paged) if counted else \
+                dict.fromkeys(counts, 0)
+            check(counts == want, f"turn {t + 1}: launches {_nonzero(counts)} != "
+                  f"{_nonzero(want)}")
+            total.update(counts)
+            check(len(timed.calls) == len(chunks) + len(out),
+                  f"turn {t + 1}: {len(timed.calls)} model calls")
+            pre = sum(s for _, s in timed.calls[:len(chunks)])
+            dec = sum(s for _, s in timed.calls[len(chunks):])
+            rec = {"turn": t + 1, "stats": got, "latency_s": latency,
+                   "chunks": [n for _, n in chunks], "prefill_ms": pre * 1e3,
+                   "decode_tok_s": len(out) / dec if dec else None,
+                   "launches": _nonzero(counts)}
+            if paged:
+                cache, ps = sess._cache, m.page_pool.page_size
+                check(cache.num_pages == math.ceil(cache.offset / ps)
+                      == m.page_pool.live_pages,
+                      f"turn {t + 1}: {cache.num_pages} pages, {m.page_pool.live_pages} live "
+                      f"at offset {cache.offset}")
+                rec["pages"] = cache.num_pages
+                if t == 0:
+                    rewind = cache.rewind
+
+                    def recorded(n, cache=cache, rewind=rewind, ps=ps):
+                        before, off = cache.num_pages, cache.offset
+                        rewind(n)
+                        check(cache.num_pages == math.ceil((off - n) / ps),
+                              f"a rewind of {n} from {off} left {cache.num_pages} pages")
+                        rewinds.append({"from": off, "tokens": n,
+                                        "pages_freed": before - cache.num_pages})
+
+                    cache.rewind = recorded
+            rows.append((rec, prompt, out))
+            ledger = prompt + out
+        if paged:
+            sess.reset()
+            check(m.page_pool.live_pages == 0, f"{m.page_pool.live_pages} pages live after reset")
+            check(sum(r["pages_freed"] for r in rewinds) >= 1, f"no rewind freed a page: {rewinds}")
+        return rows, rewinds
+
+    # Turn 1 alone sets the reply the later turns carry.
+    first, _ = run_turns(dense, _agent_conversation(system, "")[:1])
+    reply = ByteTokenizer().decode(first[0][2])
+    convo = _agent_conversation(system, reply)
+    warm, _ = run_turns(dense, convo)
+    check(warm[0][2] == first[0][2], "turn 1 is not deterministic")
+    # Each warm turn against a cold session on the same messages.
+    cold = {}
+    for t in (1, 2, 3):
+        rec, prompt, out = warm[t]
+        key = json.dumps(convo[t])
+        if key not in cold:
+            sess = GenerationSession(dense, tok, max_tokens=AGENT_TOKENS)
+            sess(convo[t])
+            cold[key] = tok.last
+            sess.reset()
+        rec["against_cold"] = _against_stream(dense, f"agent turn {t + 1} warm vs cold", prompt,
+                                              out, cold[key])
+    # The plain route on the card, and the paged route, against the dense
+    # kernel route's tokens.
+    plain = Qwen3Model(model.params, cfg, max_seq_len=MAX_SEQ_LEN, impl="torch")
+    plain_rows, _ = run_turns(plain, convo, counted=False)
+    del plain
+    paged = Qwen3Model(model.params, cfg, max_seq_len=MAX_SEQ_LEN)
+    paged.enable_paged_attention(num_pages=MAX_SEQ_LEN // PAGE_SIZE + 1, page_size=PAGE_SIZE)
+    paged_rows, rewinds = run_turns(paged, convo, paged=True)
+    del paged
+    for name, rows in (("plain", plain_rows), ("paged", paged_rows)):
+        for (rec, prompt, out), (_, _, want) in zip(rows, warm):
+            rec["against_dense_kernels"] = _against_stream(
+                dense, f"agent {name} turn {rec['turn']}", prompt, out, want)
+    # One agent run of two steps on the card.
+    with tempfile.TemporaryDirectory() as root:
+        Path(root, "settings.py").write_text(AGENT_SETTINGS)
+        store = SessionStore(root)
+        session = store.create()
+        policy = ToolPolicy(root=root)
+        journal = MutationJournal(session, policy.root)
+        workspace = Workspace(policy, session_log=session, journal=journal,
+                              confirm=lambda action: True)
+        gen = GenerationSession(dense, ByteTokenizer(), max_tokens=AGENT_TOKENS)
+        t0 = time.perf_counter()
+        run = run_agent(AGENT_TASK, gen, workspace, limits=AgentLimits(max_steps=2),
+                        session=session)
+        run_s = time.perf_counter() - t0
+        gen.reset()
+        replayed = store.load(store.session_id(session))
+        check([(e.type, e.data) for e in replayed.events]
+              == [(e.type, e.data) for e in session.events], "the session log does not replay")
+        check(MutationJournal(replayed, policy.root).recover_pending() == [],
+              "the journal holds a pending mutation")
+        check(Path(root, "settings.py").read_text() == AGENT_SETTINGS,
+              "a read-only run changed the workspace")
+        agent_run = {"status": run.status, "steps": run.steps, "seconds": run_s,
+                     "events": collections.Counter(e.type for e in session.events)}
+    check(run.steps <= 2 and run.status in ("final", "step_limit", "invalid_limit", "loop"),
+          f"run_agent ended {run.status} after {run.steps} steps")
+    del dense
+    torch.cuda.empty_cache()
+    emit({"phase": "agent", "model": "qwen3-4b W4A16", "max_seq_len": MAX_SEQ_LEN,
+          "system_prompt_bytes": len(system.encode()), "prefill_chunk": chunk,
+          "max_tokens": AGENT_TOKENS,
+          "tie_rule": f"a divergent token within {SPEC_TIE_ULPS} bf16 ulps of the step's max",
+          "dense": [r for r, _, _ in warm], "plain_on_card": [r for r, _, _ in plain_rows],
+          "paged": [r for r, _, _ in paged_rows], "paged_rewinds": rewinds,
+          "run_agent": agent_run, "launches": _nonzero(total),
+          "seconds": time.perf_counter() - t_phase})
+    return _nonzero(total)
+
+
 def phase_cli():
-    """The two CLIs as subprocesses, side by side on the card (synthetic
-    0.6B weights, the byte tokenizer): each must exit 0; main must print the
+    """The CLIs as subprocesses, side by side on the card (synthetic 0.6B
+    weights, the byte tokenizer): each must exit 0; main must print the
     target's greedy text (its break-even guard refuses a draft as slow as the
     target), which this process computes on the same weights, and batch_main
-    a line per request and its summary."""
+    a line per request and its summary; agent_main one step of a task in a
+    temporary workspace and its status line; evaluate_agent grade the
+    pristine workspace's result (this process grades the same package) and
+    evaluate_agent run a one-step report on the package."""
     import os
+    import tempfile
 
     from tiny_llm_tpu_torch import main as cli_main
+    from tiny_llm_tpu_torch.agent import StaticHeldOutGrader, TaskPackage
+    from tiny_llm_tpu_torch.agent.evaluation import StagedTask
     from tiny_llm_tpu_torch.generate import simple_generate_with_kv_cache
     from tiny_llm_tpu_torch.models import QWEN3_CONFIGS, Qwen3Model, synthetic_quantized_params
     from tiny_llm_tpu_torch.tokenizer import ByteTokenizer
 
     root = Path(__file__).resolve().parent
+    package = str(root / "evals" / "localized-constant")
+    pristine = Path(package, "workspace", "settings.py").read_text()
+    workspace = tempfile.TemporaryDirectory()
+    Path(workspace.name, "settings.py").write_text(AGENT_SETTINGS)
     runs = {"main": ["-m", "tiny_llm_tpu_torch.main", "--model", "qwen3-0.6b", "--draft-model",
                      "qwen3-0.6b", "--max-tokens", "16"],
             "batch_main": ["-m", "tiny_llm_tpu_torch.batch_main", "--model", "qwen3-0.6b",
-                           "--max-output-tokens", "16"]}
+                           "--max-output-tokens", "16"],
+            "agent_main": ["-m", "tiny_llm_tpu_torch.agent_main", AGENT_TASK, "--model",
+                           "qwen3-0.6b", "--no-session", "--yes", "--max-steps", "1",
+                           "--max-tokens", "16", "--root", workspace.name],
+            "evaluate_agent_grade": ["-m", "tiny_llm_tpu_torch.evaluate_agent", "grade", package],
+            "evaluate_agent_run": ["-m", "tiny_llm_tpu_torch.evaluate_agent", "run", package,
+                                   "--model", "qwen3-0.6b", "--max-steps", "1"]}
     t0 = time.perf_counter()
     procs = {name: subprocess.Popen([sys.executable, *argv], cwd=root, text=True,
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -4772,6 +5087,10 @@ def phase_cli():
                                              cli_main.parser().get_default("prompt"),
                                              max_tokens=16)
         del ref
+        staged = StagedTask.stage(TaskPackage.load(package), workspace.name + "/graded")
+        graded = StaticHeldOutGrader(staged.package, staged.original).grade(staged.freeze())
+        grade_line = (f"{sum(r.passed for r in graded)}/{len(graded)} checks pass on the "
+                      "pristine workspace")
         for name, p in procs.items():
             stdout, stderr = p.communicate(timeout=300)
             check(p.returncode == 0, f"{name} exited {p.returncode}: {stderr[-2000:]}")
@@ -4779,9 +5098,21 @@ def phase_cli():
             if name == "main":
                 check(stdout.endswith("\n" + want + "\n"),
                       f"main printed {stdout[-300:]!r}, not the greedy text {want!r}")
-            else:
+            elif name == "batch_main":
                 check(sum(ln.startswith(f"[{i}]") for i in range(6) for ln in lines) == 6
                       and "-- 6 requests" in lines[-1], f"batch_main printed {stdout[-500:]!r}")
+            elif name == "agent_main":
+                check(bool(re.fullmatch(r"\[(final|step_limit|invalid_limit|loop) after 1 "
+                                        r"steps\]", lines[0])),
+                      f"agent_main printed {stdout[-500:]!r}")
+            elif name == "evaluate_agent_grade":
+                check(lines[-1] == grade_line, f"evaluate_agent grade printed {lines[-1]!r}, "
+                      f"not {grade_line!r}")
+            else:
+                report = json.loads(stdout)
+                check(report["task_id"] == "localized-constant"
+                      and report["metrics"]["steps"] == 1 and not report["passed"],
+                      f"evaluate_agent run reported {stdout[-500:]!r}")
             out[name] = {"seconds": time.perf_counter() - t0, "exit": p.returncode,
                          "last_line": lines[-1][-120:] if lines else "",
                          "guard_refused": "speculative decoding disabled" in stderr}
@@ -4790,6 +5121,9 @@ def phase_cli():
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        workspace.cleanup()
+    check(Path(package, "workspace", "settings.py").read_text() == pristine,
+          "an agent run changed the package")
     emit({"phase": "cli", "side_by_side": True, **out})
 
 
@@ -5655,6 +5989,8 @@ def main() -> int:
     phase_generate(model)
     phase_speculative(model, params, cfg, draft_params, draft_cfg)
     del draft_params
+    # The agent's generation sessions on the dense model's weights.
+    agent_counts = phase_agent(model, cfg)
     torch.cuda.empty_cache()
     # Tensor parallelism on the dense model's weights (before serving
     # attaches a page pool to it).
@@ -5703,8 +6039,14 @@ def main() -> int:
     del sp
     torch.cuda.empty_cache()
     phase_mixed_parity(cfg)
-    # Two campaigns, not three: the script stays well inside its time limit.
-    phase_serving(model, cfg, "mixed_serving", "qwen3-4b", mixed=True, n_runs=2)
+    # Two campaigns, not three, at MIXED_LAYERS of the 36 layers: the script
+    # stays well inside its time limit.
+    mixed_cfg = dataclasses.replace(cfg, num_hidden_layers=MIXED_LAYERS)
+    mixed = Qwen3Model(dataclasses.replace(model.params, layers=model.params.layers[:MIXED_LAYERS]),
+                       mixed_cfg, max_seq_len=MAX_SEQ)
+    phase_serving(mixed, mixed_cfg, "mixed_serving", f"qwen3-4b, {MIXED_LAYERS} layers",
+                  mixed=True, n_runs=2)
+    del mixed
     # The rest of W4A8 on Qwen3-4B: parity.
     phase_parity(cfg, "a8_parity", act_quant="int8")
     del a8, model
@@ -5748,6 +6090,8 @@ def main() -> int:
            **{n: long_counts for n in SPLIT}}
     for name, entry in contract.items():
         entry["launches"] = own.get(name, counts)[name]
+        if name in agent_counts:
+            entry["agent_launches"] = agent_counts[name]
     kern_line = {"kernels": [contract[n] for n in
                              ("quant_matmul", "fused_decode_attention", "flash_attention",
                               *PAGED, "grouped_quant_matmul", *SPLIT, "quant_matmul_a8",

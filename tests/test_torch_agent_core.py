@@ -1,0 +1,6 @@
+"""tests/test_agent_core.py's cases against the port's agent
+(tests/torch_agent_port.py); the copy imports nothing of JAX."""
+
+from .torch_agent_port import load_cases
+
+load_cases(globals(), "test_agent_core")

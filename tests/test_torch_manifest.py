@@ -1,10 +1,12 @@
-"""The port's share of the JAX package's public API, read from
-docs/api-manifest.json as JSON (no JAX import): every parallel name of the
-manifest resolves on tiny_llm_tpu_torch.parallel, and the models names the
-port added last (forward_full) on tiny_llm_tpu_torch.models."""
+"""The port against the JAX package's public API, read from
+docs/api-manifest.json as JSON (no JAX import): every name
+`tiny_llm_tpu.X.rest` of the manifest resolves as `tiny_llm_tpu_torch.X.rest`,
+a class where the manifest lists a class and a callable elsewhere."""
 
 from __future__ import annotations
 
+import importlib
+import inspect
 import json
 from pathlib import Path
 
@@ -12,56 +14,49 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import tiny_llm_tpu_torch.models as port_models  # noqa: E402
-import tiny_llm_tpu_torch.parallel as port_parallel  # noqa: E402
-
 MANIFEST = Path(__file__).resolve().parents[1] / "docs" / "api-manifest.json"
-PREFIX = "tiny_llm_tpu.parallel."
+NAMES = json.loads(MANIFEST.read_text())
 
-# Ported: the mesh and SP (6 names), then TP, DP and EP (15 names), then
-# pipeline.py, overlap.py and distributed.py (14 names).
-PORTED = [
-    "make_mesh", "ShardingConfig", "SPAttention", "SPAttention.flash", "SPAttention.paged",
-    "combine_softmax_states",
-    "param_shardings", "shard_params", "shard_kv_cache", "TPAttention", "TPAttention.flash",
-    "TPAttention.paged", "paged_pool_spec", "DPPagedAttention", "DPPagedAttention.flash",
-    "DPPagedAttention.paged", "DPPagedAttention.paged_update", "DPServing",
-    "DPServing.create_batching_kv_cache", "DPServing.slot_replica", "EPMoE",
-    "DecodePipeline", "DecodePipeline.decode", "DecodePipeline.prefill",
-    "MicrobatchedPipeline", "PipelinedQwen3", "split_stages",
-    "allgather_matmul", "matmul_reducescatter", "overlapped_tp_matmuls",
-    "barrier", "host_local_requests", "initialize", "make_multihost_mesh", "runtime_topology",
-]
-MODELS_PREFIX = "tiny_llm_tpu.models."
-# The models names the port added with the pipelines (the rest: ROADMAP.md).
-MODELS = ["forward_full", "Qwen3Model.forward_full"]
+# Manifest functions whose name the port gives to the module that holds
+# them (tests and tools import these modules, as `kernels.quant_matmul`):
+# the module's attribute of the same name is the function.
+MODULE_NAMED = {"tiny_llm_tpu.ops.quantize", "tiny_llm_tpu.kernels.axpby",
+                "tiny_llm_tpu.kernels.flash_attention", "tiny_llm_tpu.kernels.paged_attention"}
 
 
-def _resolve(name: str, module=port_parallel):
-    obj = module
-    for part in name.split("."):
+def _resolve(name: str):
+    """The port's object for the manifest's `name`."""
+    _, package, *rest = name.split(".")
+    obj = importlib.import_module(f"tiny_llm_tpu_torch.{package}")
+    for part in rest:
         obj = getattr(obj, part)
+    if inspect.ismodule(obj) and name in MODULE_NAMED:
+        obj = getattr(obj, rest[-1])
     return obj
 
 
-def _manifest_parallel() -> list[str]:
-    names = json.loads(MANIFEST.read_text())
-    return sorted(n[len(PREFIX):] for n in names if n.startswith(PREFIX))
+def _missing() -> list[str]:
+    out = []
+    for name in NAMES:
+        try:
+            _resolve(name)
+        except AttributeError:
+            out.append(name)
+    return out
 
 
 def test_manifest_parallel_names_are_split_into_ported_and_missing():
-    """Every parallel name of the manifest is ported: 35 of 35."""
-    assert sorted(PORTED) == _manifest_parallel()
-    assert len(PORTED) == 35
+    """Every name of the manifest is ported: 242 of 242 (the 35 parallel
+    names among them), none missing."""
+    assert len(NAMES) == 242
+    assert sum(n.startswith("tiny_llm_tpu.parallel.") for n in NAMES) == 35
+    assert _missing() == []
 
 
-@pytest.mark.parametrize("name", PORTED)
-def test_ported_parallel_name_resolves(name):
-    assert callable(_resolve(name))
-
-
-@pytest.mark.parametrize("name", MODELS)
-def test_ported_models_name_resolves(name):
-    names = json.loads(MANIFEST.read_text())
-    assert MODELS_PREFIX + name in names
-    assert callable(_resolve(name, port_models))
+@pytest.mark.parametrize("name", sorted(NAMES))
+def test_manifest_name_resolves(name):
+    obj = _resolve(name)
+    if NAMES[name].startswith("class("):
+        assert inspect.isclass(obj), (name, obj)
+    else:
+        assert callable(obj) and not inspect.isclass(obj), (name, obj)

@@ -9,6 +9,7 @@ import fcntl
 import hashlib
 import importlib.util
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -152,36 +153,72 @@ def _complete(d: Path, digest: str) -> bool:
             and (d / "oracle" / "greedy.json").exists())
 
 
-def _build_digest() -> str:
-    """sha256 over what a build reads: the build script and the text its
-    tokenizer trains on (the script's own corpus list: the repo's markdown
-    and sources). An edit to any of them changes the tokenizer, hence the
-    prompt ids and the oracle, so a copy built before the edit is stale."""
+# The root markdown files of the port's checkpoints' tokenizer corpus: of
+# the root *.md files the build script's rule takes in, those no change
+# edits. The documents each change edits (README.md, ROADMAP.md, CHANGES.md,
+# PERF.md) and the task files written for each change stay out, so that
+# their text never moves a prompt id.
+FROZEN_ROOT_MD = ("ADVICE.md", "BASELINE.md", "PAPER.md", "PAPERS.md", "PERFORMANCE.md",
+                  "SNIPPETS.md", "SURVEY.md", "VERDICT.md")
+
+
+def _script():
     spec = importlib.util.spec_from_file_location("_make_real_checkpoint", BUILD_SCRIPT)
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
-    h = hashlib.sha256(BUILD_SCRIPT.read_bytes())
-    for f in script._corpus_files(str(REPO)):
-        h.update(os.path.relpath(f, REPO).encode() + b"\0")
+    return script
+
+
+def frozen_corpus(repo: Path = REPO) -> list[str]:
+    """The tokenizer corpus of the port's checkpoints, as paths relative to
+    `repo`: the build script's own rule (root *.md, docs/*.md, the JAX
+    package's sources, scripts/*.py), its root files limited to
+    FROZEN_ROOT_MD."""
+    rels = (os.path.relpath(f, repo) for f in _script()._corpus_files(str(repo)))
+    return sorted(r for r in rels if "/" in r or r in FROZEN_ROOT_MD)
+
+
+def stage_build_root(dest: Path, repo: Path = REPO) -> Path:
+    """A build root at `dest` holding a copy of the build script under
+    scripts/ (so that the script takes `dest` as its repo root) and copies
+    of frozen_corpus(repo), nothing else; an earlier `dest` is replaced."""
+    if dest.exists():
+        shutil.rmtree(dest)
+    for rel in frozen_corpus(repo) + [os.path.relpath(BUILD_SCRIPT, REPO)]:
+        (dest / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(repo / rel, dest / rel)
+    return dest
+
+
+def _build_digest(root: Path) -> str:
+    """sha256 over what a build from the staged `root` reads: its build
+    script and the corpus the script finds there."""
+    script = root / os.path.relpath(BUILD_SCRIPT, REPO)
+    h = hashlib.sha256(script.read_bytes())
+    for f in _script()._corpus_files(str(root)):
+        h.update(os.path.relpath(f, root).encode() + b"\0")
         h.update(Path(f).read_bytes())
     return h.hexdigest()
 
 
 def real_checkpoint(variant: str, extra: tuple[str, ...] = ()) -> str:
     """The HF checkpoint `variant` of scripts/make_real_checkpoint.py, as a
-    private copy `.artifacts/torch-<variant>` stamped with _build_digest and
-    built anew when the stamp differs, once under a file lock (xdist workers
-    may ask at the same time). The JAX suite's `.artifacts/<variant>` is not
-    used: its stamp covers the script alone, so it may hold the tokenizer of
-    an older tree."""
-    digest = _build_digest()
+    private copy `.artifacts/torch-<variant>` built from a staged root
+    (stage_build_root: the script and the frozen corpus), stamped with that
+    root's _build_digest and built anew when the stamp differs, once under
+    a file lock (xdist workers may ask at the same time). The JAX suite's
+    `.artifacts/<variant>` is not used: its stamp covers the script alone,
+    and its tokenizer trains on every root *.md file of its tree."""
     own = ARTIFACTS / f"torch-{variant}"
     ARTIFACTS.mkdir(exist_ok=True)
     with open(ARTIFACTS / f".torch-{variant}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
+        root = stage_build_root(ARTIFACTS / f"torch-{variant}.root")
+        digest = _build_digest(root)
         if not _complete(own, digest):
             env = dict(os.environ, HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
-            subprocess.run([sys.executable, str(BUILD_SCRIPT), "--out", str(own), *extra],
+            script = root / os.path.relpath(BUILD_SCRIPT, REPO)
+            subprocess.run([sys.executable, str(script), "--out", str(own), *extra],
                            check=True, env=env, timeout=600, capture_output=True)
             (own / ".builder-sha256").write_text(digest)
     return str(own)

@@ -2,7 +2,12 @@
 PyTorch version and a launch counter (counterparts of tiny_llm_tpu/kernels).
 
 Importing this package builds nothing; a kernel is compiled at its first
-launch (kernels/build.py)."""
+launch (kernels/build.py). The package also exports the JAX package's
+entry points under their names and argument order (`quantized_matmul`,
+`grouped_quantized_matmul`, `flash_decode_attention`, `combine_state_pair`,
+`split_paged_prefill`, `default_impl`, `set_default_impl`); `axpby`,
+`flash_attention` and `paged_attention` name the modules that hold those
+entries."""
 
 from . import (
     axpby,
@@ -12,6 +17,11 @@ from . import (
     paged_attention,
     quant_matmul,
 )
+from .dispatch import default_impl, set_default_impl
+from .flash_attention import flash_decode_attention
+from .moe_matmul import grouped_quantized_matmul
+from .quant_matmul import quantized_matmul
+from .split_prefill import combine_state_pair, split_paged_prefill
 
 # Each kernel's name -> (its module, the name of its launch counter there).
 # A module holds its wrapper(s), plain version(s), CUDA launcher(s) and
@@ -51,4 +61,15 @@ def launches() -> dict[str, int]:
     return {name: getattr(mod, counter) for name, (mod, counter) in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "launches", "reset_launches"]
+__all__ = [
+    "KERNELS",
+    "combine_state_pair",
+    "default_impl",
+    "flash_decode_attention",
+    "grouped_quantized_matmul",
+    "launches",
+    "quantized_matmul",
+    "reset_launches",
+    "set_default_impl",
+    "split_paged_prefill",
+]

@@ -5,7 +5,9 @@ Counterpart of tiny_llm_tpu/kernels/dispatch.py. There the backend picks
 hand-written kernel, a CPU tensor runs the kernel's plain PyTorch version.
 An explicit "torch" asks for the plain version on either device (the
 oracle the kernels are held against); an explicit "cuda" on a CPU tensor
-is a contradiction and raises. There is no environment override.
+is a contradiction and raises. There is no environment override;
+`set_default_impl` sets a process-wide one, which an explicit `impl` still
+overrides.
 """
 
 from __future__ import annotations
@@ -14,9 +16,32 @@ import torch
 
 IMPLS = ("cuda", "torch")
 
+_OVERRIDE: str | None = None
+
+
+def default_impl() -> str:
+    """What a call with impl=None runs on the card's tensors: "cuda" on a
+    host with a card, "torch" without one, unless set_default_impl set
+    another answer. (A CPU tensor always runs the plain version.)"""
+    if _OVERRIDE is not None:
+        return _OVERRIDE
+    return "cuda" if torch.cuda.is_available() else "torch"
+
+
+def set_default_impl(impl: str | None) -> None:
+    """Force an implementation for every call with impl=None ("torch": the
+    plain versions on either device; "cuda": the kernels, a CPU tensor
+    then raises); None restores the choice by tensor."""
+    global _OVERRIDE
+    if impl is not None and impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected None or one of {IMPLS}")
+    _OVERRIDE = impl
+
 
 def resolve(impl: str | None, tensor: torch.Tensor) -> str:
     """Return "cuda" or "torch" for `tensor` under the requested `impl`."""
+    if impl is None:
+        impl = _OVERRIDE
     if impl is None:
         return "cuda" if tensor.is_cuda else "torch"
     if impl not in IMPLS:

@@ -499,6 +499,25 @@ def flash_attention(
     return fn(q, k, v, lens, m4, scale)
 
 
+
+def flash_decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lens: torch.Tensor,
+    scale: float | None = None,
+    impl=None,
+) -> torch.Tensor:
+    """Decode attention (the JAX package's entry): a few queries (typically
+    1-8) per row against a padded KV buffer, causal over `lens`. It is
+    flash_attention with its causal mask: K3 on the card (at L <= 16 its
+    split walk, the route that covers the JAX package's decode kernel). A
+    strategy object as `impl` runs its `.flash`."""
+    if impl is not None and not isinstance(impl, str):
+        return impl.flash(q, k, v, lens, scale=scale)
+    return flash_attention(q, k, v, lens, scale=scale, impl=impl)
+
+
 def flash_prefill_state(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -220,3 +220,17 @@ def grouped_quant_matmul(
     if cuda:
         return fn(x.to(torch.bfloat16), qt, group_sizes)
     return fn(x, qt, group_sizes, partial)
+
+
+def grouped_quantized_matmul(
+    grouped_x: torch.Tensor,
+    qt: QuantizedTensor,
+    group_sizes: torch.Tensor,
+    interpret: bool = False,
+) -> torch.Tensor:
+    """The JAX package's entry under its name and argument order:
+    grouped_quant_matmul in grouped_x's dtype. `interpret`: the Pallas
+    interpret mode has no CUDA counterpart; True asks for the plain
+    versions (impl="torch")."""
+    out = grouped_quant_matmul(grouped_x, qt, group_sizes, impl="torch" if interpret else None)
+    return out.to(grouped_x.dtype)

@@ -36,6 +36,7 @@ falls back: a width no kernel takes raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -246,3 +247,40 @@ def quant_matmul(
         fn = quant_matmul_staged_plain if x2.shape[0] >= gate else quant_matmul_plain
     out = fn(x2.to(torch.bfloat16) if cuda else x2, qt, r2)
     return out.reshape(*lead, qt.out_features)
+
+
+def quantized_matmul(
+    x: torch.Tensor,
+    qt: QuantizedTensor,
+    bias: torch.Tensor | None = None,
+    impl: str | None = None,
+    norm_weight: torch.Tensor | None = None,
+    eps: float = 1e-6,
+    residual: torch.Tensor | None = None,
+    act: str | None = None,
+    interpret: bool = False,
+) -> torch.Tensor:
+    """The JAX package's entry under its name and argument order:
+    y = x @ dequant(qt).T (+ bias) (+ residual) in x's dtype, through
+    quant_matmul (K1 on the card for W4 g128).
+
+    `norm_weight` RMS-normalizes x first (ops.norm.rms_norm, unfused);
+    `residual` folds into the kernel's epilogue unless there is a bias,
+    which adds to the kernel's bf16 output in f32 first, as on the JAX
+    package's Pallas route. `act` ("bf16" or "int8") overrides the
+    weight's activation tier. `interpret`: the Pallas interpret mode has no
+    CUDA counterpart; True asks for the plain versions (impl="torch")."""
+    from ..ops.norm import rms_norm
+
+    if interpret:
+        impl = "torch"
+    if act is not None and act != qt.act:
+        qt = dataclasses.replace(qt, act=act)
+    if norm_weight is not None:
+        x = rms_norm(x, norm_weight, eps)
+    out = quant_matmul(x, qt, residual if bias is None else None, impl=impl)
+    if bias is not None:
+        out = (out.to(torch.float32) + bias.to(torch.float32)).to(out.dtype)
+        if residual is not None:
+            out = out + residual.to(out.dtype)
+    return out.to(x.dtype)

@@ -51,11 +51,16 @@ def split_paged_prefill(
     prefix_lens: torch.Tensor,  # [B] int32 — row offsets (0 rows are fine)
     scale: float | None = None,
     impl: str | None = None,
+    interpret: bool = False,
 ) -> torch.Tensor:
     """Chunk attention over (prefix pages ⊕ chunk), combined exactly. The
     chunk's k/v may already be written into the pages (forward_step_paged
     writes them first): the prefix pass reads only positions below
-    prefix_lens, so offsets need not be page-aligned."""
+    prefix_lens, so offsets need not be page-aligned. `interpret` (the JAX
+    package's argument): the Pallas interpret mode has no CUDA counterpart;
+    True asks for the plain versions (impl="torch")."""
+    if interpret:
+        impl = "torch"
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     B, _, L, _ = q.shape
     lens_full = torch.full((B,), L, dtype=torch.int32, device=q.device)

@@ -7,9 +7,17 @@ k/v row into the slab IN PLACE (JAX's functional update needs donated
 buffers for the same effect); no step reallocates or copies the slab.
 Rewind is an O(1) offset decrement: stale rows past the offset are never
 read (the kernels clamp at each row's length) and get overwritten.
+
+`KVCache` is the JAX package's cache contract (offset, rewind, release,
+materialize). The port writes in place, so `update_tensors` only installs
+the tensors and offsets it is given (the JAX package's way of handing back
+a jitted step's donated buffers), and `materialize` waits for the work
+queued on the cache's device.
 """
 
 from __future__ import annotations
+
+from abc import ABC, abstractmethod
 
 import numpy as np
 import torch
@@ -27,7 +35,33 @@ def bucket_for(n: int, minimum: int = 128, maximum: int | None = None) -> int:
     return b
 
 
-class DenseKVCache:
+def wait_for(device: torch.device) -> None:
+    """Block until the work queued on `device` has finished (its current
+    stream); nothing to wait for on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+class KVCache(ABC):
+    """Per-request cache handle: the JAX package's contract (reference
+    TinyKvCache parity)."""
+
+    @property
+    @abstractmethod
+    def offset(self) -> int: ...
+
+    @abstractmethod
+    def rewind(self, n: int) -> None:
+        """Drop the newest n logical tokens (speculative decoding, prefix reuse)."""
+
+    def release(self) -> None:
+        """Release resources owned by this cache."""
+
+    def materialize(self) -> None:
+        """Block until pending device work on the cache has finished."""
+
+
+class DenseKVCache(KVCache):
     """Preallocated dense cache for one request or one fixed batch."""
 
     def __init__(
@@ -67,12 +101,21 @@ class DenseKVCache:
             raise ValueError(f"rewind {n} past offset {self._offset}")
         self._offset -= n
 
+    def update_tensors(self, keys: torch.Tensor, values: torch.Tensor, new_offset: int) -> None:
+        """Install `keys` / `values` as the slab and `new_offset` as the offset."""
+        self.keys = keys
+        self.values = values
+        self._offset = int(new_offset)
+
     def release(self) -> None:
         self.keys = None
         self.values = None
 
+    def materialize(self) -> None:
+        wait_for(self.device)
 
-class BatchingKVCache:
+
+class BatchingKVCache(KVCache):
     """Slot-multiplexed dense cache for continuous batching: one slab
     [layers, max_active, Hkv, max_seq, D] allocated once. Adding a request
     copies its prefilled rows into the slot; removing it zeroes the slot's
@@ -116,6 +159,30 @@ class BatchingKVCache:
         self.offsets[slot] = 0
         self.active[slot] = False
 
+    @property
+    def offset(self) -> int:
+        """The longest active slot's offset (0 with none active)."""
+        return int(self.offsets.max()) if self.active.any() else 0
+
+    def update_tensors(self, keys: torch.Tensor, values: torch.Tensor, new_offsets) -> None:
+        """Install `keys` / `values` as the slab and `new_offsets` as the
+        slots' offsets."""
+        self.keys = keys
+        self.values = values
+        self.offsets = np.asarray(new_offsets, dtype=np.int32)
+
+    def rewind(self, n: int) -> None:
+        """Drop the newest n positions of every active slot. Idle slots keep
+        offset 0: the JAX package subtracts n from them too, leaving them
+        negative until a request is installed (which sets the offset), so
+        the two agree on every slot a step reads."""
+        if n > int(self.offsets[self.active].min(initial=n)):
+            raise ValueError(f"rewind {n} past an active slot's offset {self.offsets}")
+        self.offsets = np.where(self.active, self.offsets - n, self.offsets).astype(np.int32)
+
     def release(self) -> None:
         self.keys = None
         self.values = None
+
+    def materialize(self) -> None:
+        wait_for(self.device)

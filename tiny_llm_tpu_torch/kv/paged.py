@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..kernels.dispatch import check_device
+from .cache import KVCache, wait_for
 
 
 class PoolExhausted(RuntimeError):
@@ -98,6 +99,17 @@ class PagePool:
     def free_pages(self) -> int:
         return sum(len(f) for f in self._free_by_shard)
 
+    def update_tensors(self, key_pages, value_pages) -> None:
+        """Install the pools: each a [layers, P, Hkv, ps, D] tensor, or a
+        sequence of per-layer [P, Hkv, ps, D] tensors (the JAX package's
+        tuple), stacked."""
+        self.key_pages = key_pages if torch.is_tensor(key_pages) else torch.stack(tuple(key_pages))
+        self.value_pages = (value_pages if torch.is_tensor(value_pages)
+                            else torch.stack(tuple(value_pages)))
+
+    def materialize(self) -> None:
+        wait_for(self.device)
+
     @property
     def reserved_pages(self) -> int:
         """Trash pages: one per dp replica, else one."""
@@ -146,7 +158,7 @@ class PagePool:
         self._free_by_shard[page // (self.num_pages // len(self._free_by_shard))].append(page)
 
 
-class PagedKVCache:
+class PagedKVCache(KVCache):
     """Per-request logical view: page ids + token offset. In a dp-striped
     pool every page comes from stripe `shard` (default: the pool's least
     loaded)."""
@@ -199,6 +211,9 @@ class PagedKVCache:
         self.page_ids = []
         self._released = True
 
+    def materialize(self) -> None:
+        self.pool.materialize()
+
     def block_table_row(self, width: int) -> list[int]:
         """The first `width` page ids, -1 padded. A request can hold more
         pages than the width only in decode-burst steps past the model's
@@ -207,7 +222,7 @@ class PagedKVCache:
         return (self.page_ids + [-1] * width)[:width]
 
 
-class PagedBatchingKVCache:
+class PagedBatchingKVCache(KVCache):
     """Slot-multiplexed paged cache for continuous batching. Installing and
     removing a request is O(1) metadata: its pages already live in the pool."""
 
@@ -217,6 +232,11 @@ class PagedBatchingKVCache:
         self.pool = pool
         self.max_active_requests = max_active_requests
         self.slots: list[PagedKVCache | None] = [None] * max_active_requests
+
+    @property
+    def offset(self) -> int:
+        """The longest active request's offset (0 with none active)."""
+        return max((c.offset for c in self.slots if c is not None), default=0)
 
     @property
     def offsets(self) -> np.ndarray:
@@ -239,11 +259,21 @@ class PagedBatchingKVCache:
         self.slots[slot].release()
         self.slots[slot] = None
 
+    def rewind(self, n: int) -> None:
+        """Drop the newest n tokens of every active request (freeing whole
+        trailing pages)."""
+        for c in self.slots:
+            if c is not None:
+                c.rewind(n)
+
     def release(self) -> None:
         for i, c in enumerate(self.slots):
             if c is not None:
                 c.release()
                 self.slots[i] = None
+
+    def materialize(self) -> None:
+        self.pool.materialize()
 
     def block_table(self, width: int | None = None) -> np.ndarray:
         w = width or max((c.num_pages for c in self.slots if c is not None), default=1)

@@ -6,8 +6,8 @@ from .attention import (
     scaled_dot_product_attention_simple,
 )
 from .basics import linear, silu, softmax, swiglu
-from .embedding import quantized_embedding_gather
-from .norm import rms_norm
+from .embedding import Embedding, QuantizedEmbedding, quantized_embedding_gather
+from .norm import RMSNorm, rms_norm
 from .quantize import (
     QuantizedTensor,
     concat_out_features,
@@ -15,12 +15,17 @@ from .quantize import (
     from_codes,
     from_mlx_packing,
     permute_out_features,
+    quantized_linear,
 )
-from .rope import apply_rope, rope_tables
+from .rope import RoPE, apply_rope, rope_tables
 from .sampler import make_sampler
 
 __all__ = [
+    "Embedding",
+    "QuantizedEmbedding",
     "QuantizedTensor",
+    "RMSNorm",
+    "RoPE",
     "apply_rope",
     "causal_mask",
     "concat_out_features",
@@ -30,6 +35,7 @@ __all__ = [
     "linear",
     "make_sampler",
     "permute_out_features",
+    "quantized_linear",
     "quantized_embedding_gather",
     "rms_norm",
     "rope_tables",

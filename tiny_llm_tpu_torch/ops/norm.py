@@ -14,3 +14,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     ms = (x32 * x32).mean(dim=-1, keepdim=True)
     normed = (x32 * torch.rsqrt(ms + eps)).to(x.dtype)
     return normed * weight.to(x.dtype)
+
+
+class RMSNorm:
+    """Thin weight-holding wrapper (the JAX package's op object)."""
+
+    def __init__(self, dim: int, weight: torch.Tensor, eps: float = 1e-5):
+        if tuple(weight.shape) != (dim,):
+            raise ValueError(f"weight shape {tuple(weight.shape)} != ({dim},)")
+        self.dim = dim
+        self.weight = weight
+        self.eps = eps
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps)

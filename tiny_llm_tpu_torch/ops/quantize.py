@@ -387,3 +387,21 @@ def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     sx = torch.where(sx == 0, torch.ones_like(sx), sx)
     xq = torch.clamp(torch.round(xf / sx), -127.0, 127.0)
     return xq.to(torch.int8), sx
+
+
+def quantized_linear(
+    x: torch.Tensor,
+    qt: QuantizedTensor,
+    bias: torch.Tensor | None = None,
+    impl: str | None = None,
+    norm_weight: torch.Tensor | None = None,
+    eps: float = 1e-6,
+    residual: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """y = x @ dequant(qt).T (+ bias) (+ residual), in x's dtype: the
+    kernels' quantized_matmul (K1 on the card for W4 g128); `norm_weight`
+    RMS-normalizes x first."""
+    from ..kernels.quant_matmul import quantized_matmul
+
+    return quantized_matmul(x, qt, bias=bias, impl=impl, norm_weight=norm_weight, eps=eps,
+                            residual=residual)
