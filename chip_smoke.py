@@ -333,6 +333,25 @@ The coding agent (tiny_llm_tpu_torch.agent):
             session log replayed from disk, its journal with no pending
             mutation
 
+The last API differences, the run-time widths, the native page index and
+the strategies over ranks:
+  api       (after agent) paged_attention(mask=None) on row 15's kernel
+            against its plain route (B = 1, 4; L = 1, 16, 128; both heads;
+            the causal route the control at L > 1), an array mask on the
+            kernel route raising; a 4-layer decode with fused_attn=False
+            against the fused and plain routes, exact launches a step;
+            TLT_ACT_QUANT=int8 and TLT_PAIR_ACT=bf16 against their explicit
+            arguments' launches (phase_api)
+  ranks     (after overlap) SP, TP, DP and EP as one-rank NCCL groups, bit-
+            equal to their in-process forms at 4 layers (phase_ranks)
+  native_index (after serving, whose bookkeeping PoolRecorder records)
+            the sequence replayed on the native and Python pools in turns:
+            host us a step, every read equal; the agent's paged decode
+            tok/s beside dense; paged3_serving runs on a Python pool
+  sg_widths (after sg_moe) rows 17 and 20's run-time-width walks against
+            their plain versions, and W4 g256 models at 4 layers with exact
+            launches and parity (phase_sg_widths)
+
 Then the nvidia-smi line, one {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Needs a CUDA device; imports nothing of JAX.
 """
@@ -589,16 +608,17 @@ def _qmm_bytes(qt, M, residual):
         + M * N * 2 * (2 if residual else 1)
 
 
-def _path_launches(cfg, act="bf16", sg=False):
+def _path_launches(cfg, act="bf16", sg=False, rt=False):
     """Each kernel's launches on the dense path at B = 1: per decode step,
     per PROMPT_LEN-token prefill. The projections (qkv and o in every layer,
     gate_up and down in a dense layer), the router in a MoE layer and the
     LM head run K1 at W4A16; at W4A8 (act "int8") the projections run the
     W4A8 kernel at a decode step (1 row) and K1 at the prefill (128 rows),
     the router and head K1; weights of another width (sg) run the
-    any-width kernel everywhere. The experts (gate, up, down in a MoE
-    layer) likewise run the grouped W4A16, W4A8 (T = 8 at a step; 1024 at
-    the prefill: W4A16) or any-width kernel."""
+    any-width kernel everywhere, those of a group size outside its
+    templated instances (rt) its run-time-width walk. The experts (gate,
+    up, down in a MoE layer) likewise run the grouped W4A16, W4A8 (T = 8
+    at a step; 1024 at the prefill: W4A16), any-width kernel or walk."""
     from tiny_llm_tpu_torch import kernels
 
     L = cfg.num_hidden_layers
@@ -606,7 +626,10 @@ def _path_launches(cfg, act="bf16", sg=False):
     proj, head = 2 * L + 2 * (L - moe), moe + 1
     per_step, per_prefill = dict.fromkeys(kernels.KERNELS, 0), dict.fromkeys(kernels.KERNELS, 0)
     per_step["fused_decode_attention"] = per_prefill["flash_attention"] = L
-    if sg:
+    if rt:
+        for d in (per_step, per_prefill):
+            d.update(quant_matmul_rt=proj + head, grouped_quant_matmul_rt=3 * moe)
+    elif sg:
         for d in (per_step, per_prefill):
             d.update(quant_matmul_sg=proj + head, grouped_quant_matmul_sg=3 * moe)
     else:
@@ -1623,8 +1646,9 @@ def phase_model(model, cfg, phase, name, runs=3, beside=None):
     samples = [_decode_run(model, prompt) for _ in range(runs)]
     counts = kernels.launches()
     L = cfg.num_hidden_layers
-    sg = not model.params.layers[0].attn.wqkv.is_w4g128
-    per_step, per_prefill = _path_launches(cfg, model.act_quant, sg)
+    wqkv = model.params.layers[0].attn.wqkv
+    per_step, per_prefill = _path_launches(cfg, model.act_quant, not wqkv.is_w4g128,
+                                           not wqkv.is_templated)
     expected = {k: runs * (per_prefill[k] + DECODE_STEPS * per_step[k]) for k in counts}
     check(counts == expected, f"launch counts {counts} != expected {expected}")
     check(all(counts[k] > 0 for k, v in per_step.items() if v > 0),
@@ -2767,7 +2791,7 @@ def _random_qt(gen, N, K, bits, group_size, copies=1):
     from tiny_llm_tpu_torch.ops.quantize import QuantizedTensor, padded_k
 
     dev = torch.device("cuda")
-    kp, levels = padded_k(K), (1 << bits) - 1
+    kp, levels = padded_k(K, group_size), (1 << bits) - 1
     out = []
     for _ in range(copies):
         packed = torch.randint(-(2**31), 2**31, (N, kp * bits // 32), dtype=torch.int32,
@@ -4994,6 +5018,7 @@ def phase_agent(model, cfg):
     del plain
     paged = Qwen3Model(model.params, cfg, max_seq_len=MAX_SEQ_LEN)
     paged.enable_paged_attention(num_pages=MAX_SEQ_LEN // PAGE_SIZE + 1, page_size=PAGE_SIZE)
+    check(paged.page_pool.native_index is not None, "the agent's paged session is not native")
     paged_rows, rewinds = run_turns(paged, convo, paged=True)
     del paged
     for name, rows in (("plain", plain_rows), ("paged", paged_rows)):
@@ -5939,6 +5964,392 @@ def phase_overlap():
                                      "machine has one"}})
 
 
+# ---------------------------------------------------------------------------
+# The last API differences, the run-time-width walks, the native page index
+# and SP, TP, DP and EP as torch.distributed ranks.
+
+# Group sizes the templated instances do not cover: one below 32, one
+# above 128 and one that does not divide 128 (JAX's `quantize` takes each).
+RT_WIDTHS = ((4, 16), (8, 256), (4, 80))
+RT_MODEL_WIDTH = (4, 256)  # every Qwen3-4B and 30B-A3B K divides by 256
+
+
+def phase_sg_widths(cfg, moe_cfg, contract):
+    """Rows 17 and 20 at group sizes outside their templated instances:
+    the run-time-width walks (csrc/qmm_rt.cuh) against their plain
+    versions, held per element (2 bf16 ulps + 1e-3 of max) and to 1 % of
+    max. Dense: Qwen3-4B's qkv at W4 g16, W8 g256 and W4 g80, and an N-tail
+    (1001 x 2560 + res) at W4 g80, at M = 1, 4, 33 and 1024; grouped:
+    30B-A3B's gate and down at W4 g16 and W8 g256, T = 1 (one expert's row),
+    4 (four experts' rows), 33, 1024 (128 tokens' top-8) and 24 with
+    experts 0-4 and 121-127 empty. Then, at W4 g256, Qwen3-4B at 4 layers
+    and 30B-A3B at MOE_LAYERS: one decode step each for the kernel line, a
+    B = 1 decode run with exact launches (the walks' own path) and 4-layer
+    parity. Returns the two runs' launches."""
+    from tiny_llm_tpu_torch.kernels import moe_matmul as km
+    from tiny_llm_tpu_torch.kernels import quant_matmul as qm
+    from tiny_llm_tpu_torch.models import Qwen3Model, synthetic_quantized_params
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rng = np.random.default_rng(11)
+    run = functools.partial(_dense_cases, "quant_matmul_rt", qm.TPU_KERNEL_SG, gen=gen,
+                            cuda_fn=qm.quant_matmul_rt_cuda, plain_fn=qm.quant_matmul_plain,
+                            peak=BF16_FLOPS, route_plain=lambda M: ("walk", qm.quant_matmul_plain))
+    N, K = _k1_shapes(cfg)["qkv"][:2]
+    cases = []
+    for bits, gs in RT_WIDTHS:
+        cases += run(ws=_random_qt(gen, N, K, bits, gs, copies=2), Ms=(1, 4, 33, 1024),
+                     residuals=(False,), label="qkv")
+    cases += run(ws=_random_qt(gen, 1001, K, 4, 80, copies=2), Ms=(1, 4, 33, 1024),
+                 residuals=(True,), label="N-tail")
+    from types import SimpleNamespace
+
+    E, k = moe_cfg.num_experts, moe_cfg.num_experts_per_tok
+    t33 = _routing(rng, 4, E, k)
+    t33[int(np.flatnonzero(t33 == 0)[0])] += 1  # a row of an expert the tokens left empty
+    specs = [("T=1: one expert's row", np.bincount([17], minlength=E)),
+             ("T=4: four experts' rows", np.bincount([3, 40, 77, 120], minlength=E)),
+             ("T=33: four tokens' top-8 and a row", t33),
+             ("T=24, experts 0-4 and 121-127 empty", np.concatenate([
+                 np.zeros(5, int), rng.multinomial(24, np.full(E - 12, 1 / (E - 12))),
+                 np.zeros(7, int)])),
+             ("T=1024: 128 tokens' top-8", _routing(rng, 128, E, k))]
+    shapes = {"w_gate": (moe_cfg.moe_intermediate_size, moe_cfg.hidden_size),
+              "w_down": (moe_cfg.hidden_size, moe_cfg.moe_intermediate_size)}
+    for bits, gs in RT_WIDTHS[:2]:
+        drawn = {p: [type(q)(q.packed.view(E, Nn, -1), q.scales.view(E, Nn, -1),
+                             q.biases.view(E, Nn, -1), Nn, Kk, q.k_padded, gs, bits)
+                     for q in _random_qt(gen, E * Nn, Kk, bits, gs, copies=2)]
+                 for p, (Nn, Kk) in shapes.items()}
+        mlps = [SimpleNamespace(**{p: drawn[p][i] for p in shapes}) for i in range(2)]
+        del drawn
+        cases += [dict(c, model="qwen3-30b-a3b", route="walk") for c in _grouped_kernel_cases(
+            mlps, moe_cfg, gen, specs, "grouped_quant_matmul_rt",
+            km.grouped_quant_matmul_rt_cuda, km.grouped_quant_matmul_plain, km.TPU_KERNEL_SG,
+            per_element=True)]
+        del mlps
+        torch.cuda.empty_cache()
+    emit({"phase": "sg_widths", "widths": [f"W{b} g{g}" for b, g in RT_WIDTHS],
+          "cases": cases})
+    bits, gs = RT_MODEL_WIDTH
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    rt = Qwen3Model(synthetic_quantized_params(cfg4, seed=0, group_size=gs, bits=bits), cfg4,
+                    max_seq_len=MAX_SEQ)
+    contract["quant_matmul_rt"] = _dense_step(
+        rt.params, cfg4, gen, qm.quant_matmul_rt_cuda, qm.quant_matmul_plain, "quant_matmul_rt",
+        qm.SOURCE_SG, "tiny_llm_tpu/kernels/quant_matmul.py:79", f"4B (4 layers) W{bits} g{gs}",
+        BF16_FLOPS, head=True)
+    counts = phase_model(rt, cfg4, "sg_widths_model", f"qwen3-4b W{bits} g{gs}, 4 layers",
+                         runs=1)
+    del rt
+    torch.cuda.empty_cache()
+    phase_parity(cfg, "sg_widths_model", bits=bits, group_size=gs)
+    moe_rt = Qwen3Model(synthetic_quantized_params(moe_cfg, seed=0, group_size=gs, bits=bits),
+                        moe_cfg, max_seq_len=MAX_SEQ)
+    contract["grouped_quant_matmul_rt"] = _grouped_step(
+        [layer.mlp for layer in moe_rt.params.layers], moe_cfg, gen, rng,
+        km.grouped_quant_matmul_rt_cuda, km.grouped_quant_matmul_plain,
+        "grouped_quant_matmul_rt", km.SOURCE_SG, "tiny_llm_tpu/kernels/moe_matmul.py:74",
+        f"30B-A3B W{bits} g{gs}")
+    moe_counts = phase_model(moe_rt, moe_cfg, "sg_widths_moe", f"qwen3-30b-a3b W{bits} g{gs}",
+                             runs=1)
+    del moe_rt
+    torch.cuda.empty_cache()
+    return counts, moe_counts
+
+
+API_MASK_CASES = ((1, 1), (1, 16), (1, 128), (4, 1), (4, 16), (4, 128))  # (B, L)
+
+
+def _lockstep(models: dict, prompt, steps: int, lead: str) -> dict:
+    """Each model's last-position logits over a prefill and `steps` decode
+    steps on a dense cache, one step a call, teacher-forced by `lead`'s
+    greedy tokens; and each model's launches in its last step."""
+    from tiny_llm_tpu_torch import kernels
+
+    caches = {n: m.create_kv_cache() for n, m in models.items()}
+    logits = {n: [m(prompt, 0, caches[n], logits_to_keep=1)[0, -1].float()]
+              for n, m in models.items()}
+    launched = {}
+    for s in range(steps):
+        tok = [[int(logits[lead][-1].argmax())]]
+        for n, m in models.items():
+            kernels.reset_launches()
+            logits[n].append(m(tok, PROMPT_LEN + s, caches[n])[0, -1].float())
+            launched[n] = _nonzero(kernels.launches())
+    for c in caches.values():
+        c.release()
+    return {n: (logits[n], launched[n]) for n in models}
+
+
+def phase_api(cfg, moe_cfg, params):
+    """The API the JAX package has and the port lacked until now, on the
+    card. (1) paged_attention(mask=None), non-causal over each row's whole
+    context, on row 15's kernel (the prefix-state walk with prefix_lens =
+    context_lens, its o) against its plain route at B = 1 and 4, L = 1, 16
+    and 128, Qwen3-4B's heads and n_rep 8 (30B-A3B's), a shuffled 40-page
+    pool: o per element within _state_tol, the causal plain route as the
+    control that must miss it wherever L > 1 (at one query the two are one
+    function); one launch of row 15 a call, no other kernel; an array mask
+    on the kernel route raises. (2) A 4-layer Qwen3-4B decode with
+    fused_attn=False (the JAX package's unfused chain: K1, the row write,
+    K3's L <= 16 route) against the fused route and the plain route,
+    teacher-forced logits within 5 % of the plain route's largest, and
+    exact launches a step. (3) TLT_ACT_QUANT=int8 at construction and
+    TLT_PAIR_ACT=bf16 (the module's tier, which the import reads; the read
+    itself is held on the CPU) give the routes and launches a step of
+    act_quant="int8" and of the W4A16 model."""
+    import os
+
+    from tiny_llm_tpu_torch import kernels
+    from tiny_llm_tpu_torch.kernels import paged_attention as pa
+    from tiny_llm_tpu_torch.kernels import quant_matmul as qm
+    from tiny_llm_tpu_torch.models import Qwen3Model
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    P, ps, D = 40, PAGE_SIZE, cfg.head_dim
+    cases = []
+    for label, c in (("qwen3-4b", cfg), ("qwen3-30b-a3b", moe_cfg)):
+        hq, hkv = c.num_attention_heads, c.num_key_value_heads
+        kp = torch.randn((P, hkv, ps, D), generator=gen, device="cuda").to(torch.bfloat16)
+        vp = torch.randn((P, hkv, ps, D), generator=gen, device="cuda").to(torch.bfloat16)
+        for B, L in API_MASK_CASES:
+            q = torch.randn((B, hq, L, D), generator=gen, device="cuda").to(torch.bfloat16)
+            perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(B * L)) + 1
+            bt = perm[: B * 8].reshape(B, 8).to(torch.int32).cuda()
+            lens = torch.tensor([700, 300, 1000, 129][:B], dtype=torch.int32, device="cuda")
+            sc = D**-0.5
+            kernels.reset_launches()
+            got = pa.paged_attention(q, kp, vp, bt, lens, mask=None)
+            torch.cuda.synchronize()
+            launched = _nonzero(kernels.launches())
+            check(launched == {"paged_prefix_state": 1}, f"mask=None launched {launched}")
+            want = pa.paged_attention(q, kp, vp, bt, lens, mask=None, impl="torch")
+            k, v = pa.gather_pages_dense(kp, vp, bt)
+            S = k.shape[2]
+            ok = (torch.arange(S, device="cuda")[None, None, :] < lens[:, None, None].long())
+            tol = _state_tol(q, k, v, ok.expand(B, L, S), sc, want)
+            del k, v
+            rows = _over_tol(got, want, tol)
+            what = f"mask=None {label} B={B} L={L}"
+            check(max(rows) <= 1, f"{what}: {max(rows)} times its tolerance")
+            causal = pa.paged_attention(q, kp, vp, bt, lens, impl="torch")
+            ctl = _over_tol(causal, want, tol)
+            check(L == 1 or all(r > 1 for r in ctl), f"{what}: causal within tolerance: {ctl}")
+            kern = graph_ms(lambda: pa.paged_attention(q, kp, vp, bt, lens, mask=None))
+            plain = event_ms(lambda: pa.paged_attention(q, kp, vp, bt, lens, mask=None,
+                                                        impl="torch"), reps=2)
+            vis = torch.arange(S, device="cuda")[None, None, None, :] < lens[:, None, None, None]
+            kk, vv = pa.gather_pages_dense(kp, vp, bt)
+            rep = hq // hkv
+            kk, vv = kk.repeat_interleave(rep, 1), vv.repeat_interleave(rep, 1)
+            lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=vis, scale=sc))
+            del kk, vv
+            keys = int(lens.sum())
+            bms, by = bound(keys * hkv * D * 2 * 2 + 2 * q.numel() * 2, 4 * keys * hq * L * D)
+            cases.append({"kernel": "paged_prefix_state", "case": f"paged_attention(mask=None) "
+                          f"{label} B={B} L={L} lens={lens.tolist()}", "launches": launched,
+                          "max_err": max_err(got, want), "err_over_tol_per_batch_row": rows,
+                          "tol": TOL_ATTENTION, "control": "mask='causal' (plain)",
+                          "control_err_over_tol_per_batch_row": ctl, "kernel_ms": kern,
+                          "plain_ms": plain, "library_ms": lib,
+                          "library": "SDPA, each row's keys below its length",
+                          "bound_ms": bms, "bound_by": by})
+    try:
+        pa.paged_attention(q, kp, vp, bt, lens, mask=torch.zeros((L, 20), device="cuda"),
+                           impl="cuda")
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "an array mask on the kernel route did not raise")
+    # (2) The unfused decode chain at 4 layers.
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    p4 = dataclasses.replace(params, layers=params.layers[:4])
+    prompt = np.random.default_rng(13).integers(0, cfg.vocab_size, size=(1, PROMPT_LEN))
+    runs = _lockstep({name: Qwen3Model(p4, cfg4, max_seq_len=256, **kw) for name, kw in (
+        ("unfused", {"fused_attn": False}), ("fused", {}),
+        ("plain", {"impl": "torch", "fused_attn": False}))}, prompt, 8, "plain")
+    want_step = {"quant_matmul": 17, "flash_attention": 4}
+    check(runs["unfused"][1] == want_step, f"unfused step launched {runs['unfused'][1]}")
+    check(runs["fused"][1] == {"quant_matmul": 17, "fused_decode_attention": 4},
+          f"fused step launched {runs['fused'][1]}")
+    worst = {}
+    for name in ("unfused", "fused"):
+        errs = []
+        for a, b in zip(runs[name][0], runs["plain"][0]):
+            errs.append(float((a - b).abs().max()) / (5e-2 * float(b.abs().max())))
+        worst[name] = max(errs)
+        check(worst[name] <= 1, f"{name} decode against the plain route: {worst[name]}")
+    # (3) The knobs against their explicit arguments.
+    knobs = {}
+
+    def step_launches(model):
+        return _lockstep({"m": model}, prompt, 1, "m")["m"][1]
+
+    os.environ["TLT_ACT_QUANT"] = "int8"
+    try:
+        knob = Qwen3Model(p4, cfg4, max_seq_len=256)
+    finally:
+        del os.environ["TLT_ACT_QUANT"]
+    explicit = Qwen3Model(p4, cfg4, max_seq_len=256, act_quant="int8")
+    knobs["TLT_ACT_QUANT=int8"] = {"knob": step_launches(knob),
+                                   "act_quant='int8'": step_launches(explicit)}
+    check(knob.act_quant == "int8" and len(set(map(str, knobs["TLT_ACT_QUANT=int8"].values())))
+          == 1 and "quant_matmul_a8" in knobs["TLT_ACT_QUANT=int8"]["knob"],
+          f"TLT_ACT_QUANT: {knobs['TLT_ACT_QUANT=int8']}")
+    saved, qm.PAIR_ACT_DEFAULT = qm.PAIR_ACT_DEFAULT, "bf16"
+    try:
+        knobs["TLT_PAIR_ACT=bf16"] = {"knob": step_launches(explicit),
+                                      "w4a16": step_launches(Qwen3Model(p4, cfg4, max_seq_len=256))}
+    finally:
+        qm.PAIR_ACT_DEFAULT = saved
+    check(len(set(map(str, knobs["TLT_PAIR_ACT=bf16"].values()))) == 1
+          and "quant_matmul_a8" not in knobs["TLT_PAIR_ACT=bf16"]["knob"],
+          f"TLT_PAIR_ACT: {knobs['TLT_PAIR_ACT=bf16']}")
+    emit({"phase": "api", "mask_none_cases": cases, "array_mask_on_kernel_route": "raised",
+          "fused_attn": {"layers": 4, "steps": 8, "tol": "5% of max |plain logit|",
+                         "worst_err_over_tol": worst, "launches_per_step": {
+                             n: r[1] for n, r in runs.items()}},
+          "knobs": knobs})
+
+
+def _replay_us(ops, native, pages):
+    """Host seconds of one replay of `ops` on a fresh pool, and its reads."""
+    from tiny_llm_tpu_torch.kv import PagePool
+    from tiny_llm_tpu_torch.kv.trace import replay
+
+    pool = PagePool(num_layers=1, num_pages=pages, num_kv_heads=1, page_size=PAGE_SIZE,
+                    head_dim=8, device="cpu", native=native)
+    t0 = time.perf_counter()
+    seen = replay(ops, pool)
+    return time.perf_counter() - t0, seen
+
+
+def _agent_decode_rates() -> dict:
+    """Each turn's decode tok/s of the agent phase's dense and paged
+    sessions (from its line)."""
+    line = next(p for p in PHASES if p.get("phase") == "agent")
+    return {k: [r["decode_tok_s"] for r in line[k]] for k in ("dense", "paged")}
+
+
+def phase_native_index(ops, serving_pool):
+    """The native page index (tiny_llm_tpu_torch/native over its own
+    csrc/page_allocator.cpp, g++ into build/): `serving` ran on it. The
+    bookkeeping that serving's campaigns did on its pool (kv/trace.py
+    PoolRecorder: requests created, pages ensured, tokens advanced and
+    rewound, releases, slots, block tables, offsets) replayed on fresh
+    pools of each backend in turns (native, Python, Python, native): host
+    us per block table (one a model step) and per op, medians; every read
+    equal (page ids, tables, offsets, free pages, reuse counts). The
+    agent's paged decode tok/s beside dense, from `agent`."""
+    check(serving_pool.native_index is not None, "serving ran without the native index")
+    steps = sum(op[0] == "table" for op in ops)
+    pages = serving_pool.num_pages
+    times, reads = {True: [], False: []}, {}
+    for native in (None, False, False, None):
+        s, seen = _replay_us(ops, native, pages)
+        times[native is None].append(s)
+        reads[native is None] = seen
+    same = len(reads[True]) == len(reads[False]) and all(
+        np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(reads[True], reads[False]))
+    check(same, "the native and the Python bookkeeping read differently")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    emit({"phase": "native_index", "ops": len(ops), "block_tables": steps, "pool_pages": pages,
+          "order": "native, Python, Python, native",
+          "native_us_per_step": med[True] / steps * 1e6,
+          "python_us_per_step": med[False] / steps * 1e6,
+          "native_us_per_op": med[True] / len(ops) * 1e6,
+          "python_us_per_op": med[False] / len(ops) * 1e6,
+          "reads_equal": same, "reads": len(reads[True]),
+          "agent_decode_tok_s": _agent_decode_rates()})
+
+
+def phase_ranks(cfg, moe_cfg, params, moe_params):
+    """SP, TP, DP and EP as one-rank NCCL groups on the card (initialize()
+    with an explicit tcp://localhost address, world 1): each strategy's
+    rank form (ShardingConfig(rank_axis=...)) against its in-process form
+    on the same card, bit for bit: Qwen3-4B at 4 layers through SPAttention,
+    TPAttention with its weights split over tp, and its weights replicated
+    over dp, and Qwen3-30B-A3B at MOE_LAYERS through EPMoE's experts over
+    tp (a PROMPT_LEN prefill and 4 greedy decode steps on a dense cache,
+    every step's logits); and at Qwen3-4B's heads SPAttention.paged (decode
+    states) and DPPagedAttention.paged. At one rank nothing splits: the
+    groups' collectives run (all_gather, all_reduce) on the card, and ranks
+    on distinct cards are not run (one GPU)."""
+    import os
+
+    import torch.distributed as dist
+
+    from tiny_llm_tpu_torch.kv import DenseKVCache
+    from tiny_llm_tpu_torch.models import Qwen3Model
+    from tiny_llm_tpu_torch.parallel import (DPPagedAttention, EPMoE, ShardingConfig,
+                                             SPAttention, TPAttention, initialize, make_mesh,
+                                             shard_params)
+
+    def run(model, c, steps=4):
+        cache = DenseKVCache(c.num_hidden_layers, 1, c.num_key_value_heads, 256, c.head_dim,
+                             device="cuda")
+        prompt = np.random.default_rng(17).integers(0, c.vocab_size, size=(1, PROMPT_LEN))
+        out = [model(prompt, cache=cache)[:, -1]]
+        for _ in range(steps):
+            out.append(model([[int(out[-1].argmax())]], cache=cache)[:, -1])
+        return torch.stack(out)
+
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    p4 = dataclasses.replace(params, layers=params.layers[:4])
+    saved = {k: os.environ.pop(k) for k in LAUNCHER_ENV if k in os.environ}
+    results = {}
+    try:
+        check(initialize(f"tcp://localhost:{_free_port()}", num_processes=1, process_id=0),
+              "initialize joined no group")
+        try:
+            dev = [torch.device("cuda")]
+
+            def scfg(axis, ranks):
+                mesh = make_mesh(dp=1, tp=1, devices=dev)
+                return ShardingConfig(mesh, rank_axis=axis if ranks else None)
+
+            for name, axis, c, p, build in (
+                    ("sp", "tp", cfg4, p4, lambda s, pp, cc: Qwen3Model(
+                        pp, cc, max_seq_len=256, attn_impl=SPAttention(s))),
+                    ("tp", "tp", cfg4, p4, lambda s, pp, cc: Qwen3Model(
+                        shard_params(pp, s), cc, max_seq_len=256, attn_impl=TPAttention(s))),
+                    ("dp", "dp", cfg4, p4, lambda s, pp, cc: Qwen3Model(
+                        shard_params(pp, s), cc, max_seq_len=256)),
+                    ("ep", "tp", moe_cfg, moe_params, lambda s, pp, cc: Qwen3Model(
+                        shard_params(pp, s), cc, max_seq_len=256))):
+                got = run(build(scfg(axis, True), p, c), c)
+                want = run(build(scfg(axis, False), p, c), c)
+                check(bool(torch.isfinite(want.float()).all()), f"{name}: non-finite logits")
+                check(torch.equal(got, want), f"{name}: the one-rank group differs from the "
+                      f"in-process form by {max_err(got, want)}")
+                results[name] = {"layers": c.num_hidden_layers, "steps": 4, "bit_equal": True}
+            # The paged strategies at Qwen3-4B's heads, decode states and rows.
+            gen = torch.Generator(device="cuda").manual_seed(17)
+            hq, hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+            kp = torch.randn((16, hkv, PAGE_SIZE, D), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            vp = torch.randn_like(kp)
+            q = torch.randn((2, hq, 1, D), generator=gen, device="cuda").to(torch.bfloat16)
+            bt = torch.tensor([[1, 2, 3, -1], [4, 5, -1, -1]], dtype=torch.int32, device="cuda")
+            lens = torch.tensor([300, 200], dtype=torch.int32, device="cuda")
+            for name, cls in (("sp_paged", SPAttention), ("dp_paged", DPPagedAttention)):
+                axis = "dp" if cls is DPPagedAttention else "tp"
+                got = cls(scfg(axis, True)).paged(q, kp, vp, bt, lens)
+                want = cls(scfg(axis, False)).paged(q, kp, vp, bt, lens)
+                check(torch.equal(got, want), f"{name}: the one-rank group differs")
+                results[name] = {"B": 2, "L": 1, "bit_equal": True}
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        os.environ.update(saved)
+    check(backend == "nccl", f"backend {backend}")
+    emit({"phase": "ranks", "world": 1, "backend": backend, "strategies": results,
+          "distinct_cards": "not run: the machine has one GPU"})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase line, the kernel line, the card "
@@ -5948,6 +6359,8 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from tiny_llm_tpu_torch.kv import PagePool
+    from tiny_llm_tpu_torch.kv.trace import PoolRecorder
     from tiny_llm_tpu_torch.models import QWEN3_CONFIGS, Qwen3Model, synthetic_quantized_params
 
     torch.manual_seed(0)
@@ -5992,6 +6405,8 @@ def main() -> int:
     # The agent's generation sessions on the dense model's weights.
     agent_counts = phase_agent(model, cfg)
     torch.cuda.empty_cache()
+    # The paged mask, the unfused decode and the knobs, on the same weights.
+    phase_api(cfg, moe_cfg, model.params)
     # Tensor parallelism on the dense model's weights (before serving
     # attaches a page pool to it).
     phase_tp_model(model, cfg)
@@ -5999,6 +6414,8 @@ def main() -> int:
     # the overlapped TP matmuls and the runtime on the card.
     phase_pp_model(model, cfg, moe, moe_cfg)
     phase_overlap()
+    # SP, TP, DP and EP as one-rank NCCL groups against their in-process forms.
+    phase_ranks(cfg, moe_cfg, model.params, moe.params)
     phase_paged_parity(cfg)
     # The three-launch paged decode (paged_fused_one=False) on the same
     # weights: its serving campaigns are taken in turns with `serving`'s.
@@ -6008,9 +6425,17 @@ def main() -> int:
     m3 = Qwen3Model(params, cfg, max_seq_len=MAX_SEQ, paged_fused_one=False)
     for m in (m3, a8):
         m.enable_paged_attention(num_pages=POOL_PAGES, page_size=PAGE_SIZE)
+    # The three-launch route keeps its pages in Python (native=False): its
+    # campaigns' tokens, held equal to serving's (native), hold the two
+    # bookkeeping backends to the same tokens.
+    m3.page_pool = PagePool(cfg.num_hidden_layers, POOL_PAGES, cfg.num_key_value_heads,
+                            PAGE_SIZE, cfg.head_dim, native=False)
     turns = [{"model": m3, "warm": SERVING_WARM}, {"model": a8, "warm": SERVING_WARM}]
-    serving_counts = phase_serving(model, cfg, "serving", "qwen3-4b", n_runs=SERVING_RUNS,
-                                   turns=turns)
+    with PoolRecorder() as recorder:
+        serving_counts = phase_serving(model, cfg, "serving", "qwen3-4b", n_runs=SERVING_RUNS,
+                                       turns=turns)
+    phase_native_index(recorder.ops_of(model.page_pool), model.page_pool)
+    del recorder
     paged3_counts = phase_paged3_serving(m3, cfg, turns[0])
     phase_a8_serving(a8, cfg, turns[1])
     # Data parallelism, held to the serving campaign's tokens.
@@ -6072,6 +6497,7 @@ def main() -> int:
     del moe, moe_params
     torch.cuda.empty_cache()
     sg_moe_counts = phase_sg_moe(moe_cfg, contract, moe_w4a16)
+    rt_counts, rt_moe_counts = phase_sg_widths(cfg, moe_cfg, contract)
     phase_dense_moe(moe_cfg)
     phase_cli()
     # Launches on each kernel's own path: the dense 4B run for K1-K3, the
@@ -6086,6 +6512,7 @@ def main() -> int:
            "fused_qkv_prep": paged3_counts,
            "quant_matmul_a8": a8_counts, "quant_matmul_sg": sg_counts,
            "grouped_quant_matmul_a8": a8_moe_counts, "grouped_quant_matmul_sg": sg_moe_counts,
+           "quant_matmul_rt": rt_counts, "grouped_quant_matmul_rt": rt_moe_counts,
            "grouped_quant_matmul": moe_counts, **{n: serving_counts for n in PAGED},
            **{n: long_counts for n in SPLIT}}
     for name, entry in contract.items():
@@ -6096,7 +6523,8 @@ def main() -> int:
                              ("quant_matmul", "fused_decode_attention", "flash_attention",
                               *PAGED, "grouped_quant_matmul", *SPLIT, "quant_matmul_a8",
                               "quant_matmul_sg", "grouped_quant_matmul_a8",
-                              "grouped_quant_matmul_sg", *SP, "flash_attention_masked",
+                              "grouped_quant_matmul_sg", "quant_matmul_rt",
+                              "grouped_quant_matmul_rt", *SP, "flash_attention_masked",
                               "fused_qkv_prep", "axpby")]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

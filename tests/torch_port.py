@@ -36,7 +36,8 @@ def qt_to_numpy(qt: JaxQT) -> dict:
 
 
 def params_to_numpy(params) -> dict:
-    """The JAX package's unfused Qwen3Params as the bridge's nested dict."""
+    """The JAX package's unfused Qwen3Params (quantized; dense or MoE
+    layers) as the bridge's nested dict."""
     layers = []
     for layer in params.layers:
         a, m = layer.attn, layer.mlp
@@ -51,6 +52,7 @@ def params_to_numpy(params) -> dict:
             "mlp": {
                 "w_gate": qt_to_numpy(m.w_gate), "w_up": qt_to_numpy(m.w_up),
                 "w_down": qt_to_numpy(m.w_down),
+                **({"w_router": qt_to_numpy(m.w_router)} if hasattr(m, "w_router") else {}),
             },
         })
     return {

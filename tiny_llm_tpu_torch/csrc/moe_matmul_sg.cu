@@ -46,7 +46,16 @@
 //    the k-split over a cluster where the tiles are few) on row 17's bodies
 //    at the experts' width (qmm_tc.cuh b16:: with BITS, GSZ).
 // One launch a call on both routes; a launch failure is returned.
+//
+// A group size outside the templated widths (any other that divides K)
+// takes `tlt_grouped_quant_matmul_sg_rt` at every T: qmm_rt.cuh's
+// run-time-width SIMT walk, `moe_sg_rt_walk`, grid (column blocks of
+// RT_WARPS, row blocks of RT_ROWS); each block finds its rows' experts by
+// scanning the group sizes, and runs the walk once for each run of rows
+// that share an expert. Rows past the groups are written 0. One launch a
+// call.
 #include "moe_walk.cuh"
+#include "qmm_rt.cuh"
 
 namespace {
 
@@ -334,6 +343,41 @@ cudaError_t b16_walk(const __nv_bfloat16* x, const uint32_t* w, const __nv_bfloa
                                g.ranks, st, x, wmap, s, b, gs, out, T, N, Kp, E, g.ranks, g.cap);
 }
 
+// Columns blockIdx.x * RT_WARPS + warp, sorted rows [blockIdx.y * RT_ROWS,
+// + RT_ROWS), each row on its expert's weight (gs: the E group sizes).
+template <int BITS>
+__global__ void __launch_bounds__(32 * qmm_rt::RT_WARPS) moe_sg_rt_walk(
+    const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ b,
+    const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int T, int N, int Kp, int E,
+    int gsz) {
+  const int n = blockIdx.x * qmm_rt::RT_WARPS + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const int t0 = blockIdx.y * qmm_rt::RT_ROWS, rows = min(qmm_rt::RT_ROWS, T - t0);
+  const int G = Kp / gsz, wpr = Kp / (32 / BITS);
+  int e = 0, end = __ldg(gs);  // the expert of row t0 and the end of its rows
+  while (e < E && t0 >= end) {
+    ++e;
+    if (e < E) end += __ldg(gs + e);
+  }
+  for (int r = 0; r < rows;) {
+    const int t = t0 + r;
+    while (e < E && t >= end) {
+      ++e;
+      if (e < E) end += __ldg(gs + e);
+    }
+    const int run = e < E ? min(rows - r, end - t) : rows - r;  // rows past the groups: 0
+    float acc[qmm_rt::RT_ROWS] = {};
+    if (e < E) {
+      const size_t row = (size_t)e * N + n;
+      qmm_rt::walk_row<BITS>(x + (size_t)t * Kp, run, w + row * wpr, s + row * G, b + row * G,
+                             Kp, gsz, acc);
+    }
+    qmm_rt::store_rows(acc, run, nullptr, out + (size_t)t * N, n, N);
+    r += run;
+  }
+}
+
 template <int BITS, int GSZ>
 cudaError_t launch(const __nv_bfloat16* x, const uint32_t* w, const __nv_bfloat16* s,
                    const __nv_bfloat16* b, const int* gs, __nv_bfloat16* out, int T, int N,
@@ -374,3 +418,36 @@ extern "C" int tlt_grouped_quant_matmul_sg(const void* x, const void* w, const v
 
 // The route for T grouped rows: 0 the GEMV walk, 1 the bf16 tile walk.
 extern "C" int tlt_grouped_quant_matmul_sg_route(int T) { return T >= SG_B16_MIN_T ? 1 : 0; }
+
+// The run-time-width walk: experts of any bits in {2, 4, 8} and any group
+// size that divides Kp (the templated widths run tlt_grouped_quant_matmul_sg).
+extern "C" int tlt_grouped_quant_matmul_sg_rt(const void* x, const void* w, const void* s,
+                                              const void* b, const void* group_sizes,
+                                              void* out, int T, int N, int Kp, int E, int bits,
+                                              int group_size, void* stream) {
+  if (T <= 0 || N <= 0 || E <= 0 || group_size <= 0 || Kp % group_size != 0 ||
+      Kp % qmm::KU != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + qmm_rt::RT_WARPS - 1) / qmm_rt::RT_WARPS,
+                  (T + qmm_rt::RT_ROWS - 1) / qmm_rt::RT_ROWS);
+  const dim3 block(32 * qmm_rt::RT_WARPS);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const uint32_t*>(w);
+  const auto* sp = static_cast<const __nv_bfloat16*>(s);
+  const auto* bp = static_cast<const __nv_bfloat16*>(b);
+  const auto* gp = static_cast<const int*>(group_sizes);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+#define TLT_RT_CASE(B)                                                                    \
+  case B:                                                                                 \
+    moe_sg_rt_walk<B><<<grid, block, 0, st>>>(xp, wp, sp, bp, gp, op, T, N, Kp, E,         \
+                                              group_size);                                \
+    break;
+  switch (bits) {
+    TLT_RT_CASE(2) TLT_RT_CASE(4) TLT_RT_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef TLT_RT_CASE
+  return (int)cudaGetLastError();
+}

@@ -28,6 +28,12 @@
 //    warpgroup MMAs (HGMMA) run on the stage before, k-split clusters
 //    where the output tiles do not fill the SMs.
 // One launch a call on every route; a launch failure is returned.
+//
+// A group size outside the templated widths (any other that divides K)
+// takes `tlt_quant_matmul_sg_rt` at every M: the run-time-width SIMT walk of
+// qmm_rt.cuh, `qmm_sg_rt_walk`, grid (column blocks of RT_WARPS, row blocks
+// of RT_ROWS). One launch a call.
+#include "qmm_rt.cuh"
 #include "qmm_tc.cuh"
 #include "qmm_tile.cuh"
 
@@ -141,6 +147,24 @@ cudaError_t launch(const __nv_bfloat16* x, const uint32_t* w, const __nv_bfloat1
   return cudaGetLastError();
 }
 
+// Columns blockIdx.x * RT_WARPS + warp, rows [blockIdx.y * RT_ROWS, + RT_ROWS).
+template <int BITS>
+__global__ void __launch_bounds__(32 * qmm_rt::RT_WARPS) qmm_sg_rt_walk(
+    const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ b,
+    const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out, int M, int N,
+    int Kp, int gsz) {
+  const int n = blockIdx.x * qmm_rt::RT_WARPS + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const int m0 = blockIdx.y * qmm_rt::RT_ROWS, rows = min(qmm_rt::RT_ROWS, M - m0);
+  const int G = Kp / gsz;
+  float acc[qmm_rt::RT_ROWS] = {};
+  qmm_rt::walk_row<BITS>(x + (size_t)m0 * Kp, rows, w + (size_t)n * (Kp / (32 / BITS)),
+                         s + (size_t)n * G, b + (size_t)n * G, Kp, gsz, acc);
+  qmm_rt::store_rows(acc, rows, res == nullptr ? nullptr : res + (size_t)m0 * N,
+                     out + (size_t)m0 * N, n, N);
+}
+
 }  // namespace
 
 extern "C" int tlt_quant_matmul_sg(const void* x, const void* w, const void* s,
@@ -170,4 +194,34 @@ extern "C" int tlt_quant_matmul_sg(const void* x, const void* w, const void* s,
 // The route for M rows: 0 the GEMV, 1 the bf16 tile, 2 the staged tile.
 extern "C" int tlt_quant_matmul_sg_route(int M) {
   return M >= STAGED_MIN_ROWS ? 2 : M >= B16_MIN_ROWS ? 1 : 0;
+}
+
+// The run-time-width walk: any bits in {2, 4, 8} and any group size that
+// divides Kp (the templated widths run tlt_quant_matmul_sg).
+extern "C" int tlt_quant_matmul_sg_rt(const void* x, const void* w, const void* s,
+                                      const void* b, const void* res, void* out, int M, int N,
+                                      int Kp, int bits, int group_size, void* stream) {
+  if (M <= 0 || N <= 0 || group_size <= 0 || Kp % group_size != 0 || Kp % qmm::KU != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + qmm_rt::RT_WARPS - 1) / qmm_rt::RT_WARPS,
+                  (M + qmm_rt::RT_ROWS - 1) / qmm_rt::RT_ROWS);
+  const dim3 block(32 * qmm_rt::RT_WARPS);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const uint32_t*>(w);
+  const auto* sp = static_cast<const __nv_bfloat16*>(s);
+  const auto* bp = static_cast<const __nv_bfloat16*>(b);
+  const auto* rp = static_cast<const __nv_bfloat16*>(res);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+#define TLT_RT_CASE(B)                                                                   \
+  case B:                                                                                \
+    qmm_sg_rt_walk<B><<<grid, block, 0, st>>>(xp, wp, sp, bp, rp, op, M, N, Kp, group_size); \
+    break;
+  switch (bits) {
+    TLT_RT_CASE(2) TLT_RT_CASE(4) TLT_RT_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef TLT_RT_CASE
+  return (int)cudaGetLastError();
 }

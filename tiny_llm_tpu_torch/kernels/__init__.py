@@ -44,6 +44,8 @@ KERNELS = {
     "quant_matmul_sg": (quant_matmul, "SG_LAUNCHES"),
     "grouped_quant_matmul_a8": (moe_matmul, "A8_LAUNCHES"),
     "grouped_quant_matmul_sg": (moe_matmul, "SG_LAUNCHES"),
+    "quant_matmul_rt": (quant_matmul, "RT_LAUNCHES"),
+    "grouped_quant_matmul_rt": (moe_matmul, "RT_LAUNCHES"),
     "flash_decode_state": (flash_attention, "DECODE_STATE_LAUNCHES"),
     "paged_decode_state": (paged_attention, "DECODE_STATE_LAUNCHES"),
     "flash_attention_masked": (flash_attention, "MASKED_LAUNCHES"),

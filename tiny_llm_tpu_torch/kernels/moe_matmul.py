@@ -21,7 +21,10 @@ width.
     (`tlt_grouped_quant_matmul_sg`): below SG_B16_MIN_T rows a GEMV walk of
     its own over (expert, column block) units, above them the W4A16
     kernel's bf16 tile walk at the experts' width. Both compute the plain
-    version's f32 fold.
+    version's f32 fold. Experts of a group size outside its templated
+    instances run `tlt_grouped_quant_matmul_sg_rt` in the same source at
+    every T: a SIMT walk that takes the group size at run time
+    (csrc/qmm_rt.cuh).
   * `_gqmm_gather_kernel` (wrapper `_gqmm_gather_pallas`), the JAX
     package's expert-gather schedule of the W4A16 function for T <= 256
     rows (TLT_MOE_DECODE=gather), is covered by the W4A16 kernel: the same
@@ -62,6 +65,7 @@ A8_MAX_ROWS = 128  # the JAX pair walk's a8 gate (T <= 128)
 LAUNCHES = 0  # W4A16
 A8_LAUNCHES = 0
 SG_LAUNCHES = 0
+RT_LAUNCHES = 0  # the any-width kernel's run-time-width walk
 
 
 def _per_expert(plain, x, qt, group_sizes, partial=False):
@@ -134,7 +138,7 @@ def _launch(fn_name, x, qt, group_sizes, extra=()):
         if not t.is_contiguous():
             raise ValueError("weight tensors and group_sizes must be contiguous")
     out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
-    lib_name = "moe_matmul_sg" if fn_name.endswith("_sg") else "moe_matmul"
+    lib_name = "moe_matmul_sg" if "_sg" in fn_name else "moe_matmul"
     lib = build.load(lib_name)
     if fn_name.endswith("_a8"):  # ws lives until the launch is queued
         ws = a8_workspace(lib_name, fn_name, T, qt.k_padded, x.device)
@@ -191,6 +195,21 @@ def grouped_quant_matmul_sg_cuda(
     return out
 
 
+def grouped_quant_matmul_rt_cuda(
+    x: torch.Tensor, qt: QuantizedTensor, group_sizes: torch.Tensor
+) -> torch.Tensor:
+    """Launch the any-width kernel's run-time-width walk (experts of a
+    group size the templated instances do not cover); rows past the groups
+    give 0."""
+    global RT_LAUNCHES
+    if qt.is_templated:
+        raise ValueError(f"group size {qt.group_size} has a templated instance")
+    out = _launch("tlt_grouped_quant_matmul_sg_rt", x, qt, group_sizes,
+                  ((ctypes.c_int, qt.bits), (ctypes.c_int, qt.group_size)))
+    RT_LAUNCHES += 1
+    return out
+
+
 def grouped_quant_matmul(
     x: torch.Tensor,
     qt: QuantizedTensor,
@@ -205,7 +224,8 @@ def grouped_quant_matmul(
     unspecified on the card (the kernels never read the sizes on the host).
 
     act="int8" experts at T <= A8_MAX_ROWS run W4A8; other widths than
-    W4 g128 the any-width kernel; the rest the W4A16 kernel."""
+    W4 g128 the any-width kernel (its run-time-width walk outside the
+    templated group sizes); the rest the W4A16 kernel."""
     if qt.num_experts is None:
         raise ValueError("grouped_quant_matmul needs stacked expert weights [E, N, K]")
     if x.ndim != 2 or x.shape[-1] != qt.in_features:
@@ -213,6 +233,8 @@ def grouped_quant_matmul(
     cuda = resolve(impl, x) == "cuda"
     if qt.act == "int8" and x.shape[0] <= A8_MAX_ROWS:
         fn = grouped_quant_matmul_a8_cuda if cuda else grouped_quant_matmul_a8_plain
+    elif not qt.is_templated:
+        fn = grouped_quant_matmul_rt_cuda if cuda else grouped_quant_matmul_plain
     elif not qt.is_w4g128:
         fn = grouped_quant_matmul_sg_cuda if cuda else grouped_quant_matmul_plain
     else:

@@ -39,9 +39,19 @@ its own. The paged decode and prefill kernels also read a head shard of
 a pool in place: pages pool[:, h0:h1], whose pages stay a pool's page
 apart (parallel/tp_kernels.py TPAttention).
 
+`paged_attention` takes the JAX package's `mask`: "causal" (the routes
+above); None, non-causal: every query sees its row's whole context, as the
+JAX package's XLA route reads it (its Pallas route reads None as causal;
+the port follows the XLA route, as it does for flash_attention), which on
+the card is the prefix-state walk's function with prefix_lens =
+context_lens (row 15's kernel, its o); or an additive array mask placed as
+the JAX package's `_place_user_mask` places it, right-aligned at each row's
+context end, on the plain route only: the JAX Pallas route refuses array
+masks, and so does the port's kernel route.
+
 `paged_attention` also takes an attention-strategy object as `impl` (one
 with `.paged`, as parallel.SPAttention): the call is then the strategy's,
-as in the JAX package.
+`mask` included, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from .flash_attention import (
     _causal_mask,
     _split_state,
     attention_state_plain,
+    flash_attention_masked_plain,
     flash_attention_plain,
 )
 
@@ -412,6 +423,40 @@ def paged_prefix_state(
     return paged_prefix_state_plain(q, key_pages, value_pages, block_table, prefix_lens, scale)
 
 
+def place_user_mask(mask: torch.Tensor, B: int, L: int, S: int,
+                    context_lens: torch.Tensor) -> torch.Tensor:
+    """An additive mask over each row's last s_vis keys ([L, s_vis],
+    [B, L, s_vis] or [B, 1, L, s_vis]) placed in the gathered frame
+    [B, 1, L, S] f32, right-aligned at each row's context end, 0 elsewhere
+    (the JAX package's `_place_user_mask`)."""
+    dev = context_lens.device
+    m = mask.to(device=dev, dtype=torch.float32)
+    if m.ndim == 2:
+        m = m[None, None]
+    elif m.ndim == 3:
+        m = m[:, None]
+    s_vis = m.shape[-1]
+    m = m.expand(B, 1, L, s_vis)
+    ctx = context_lens.to(torch.int64)[:, None, None, None]
+    col = torch.arange(S, device=dev)[None, None, None, :]
+    start = ctx - s_vis
+    idx = (col - start).clamp(0, s_vis - 1).expand(B, 1, L, S)
+    inside = (col >= start) & (col < ctx)
+    return torch.where(inside, torch.gather(m, -1, idx), 0.0)
+
+
+def paged_attention_masked_plain(q, key_pages, value_pages, block_table, context_lens, mask,
+                                 scale: float):
+    """The plain route of an additive array mask: gather the pages, then
+    every query sees the keys below context_lens[b] plus the placed mask
+    (place_user_mask), at the kernels' rounding points
+    (flash_attention_masked_plain)."""
+    k, v = gather_pages_dense(key_pages, value_pages, block_table)
+    lens = context_lens.to(device=q.device)
+    placed = place_user_mask(mask, q.shape[0], q.shape[2], k.shape[2], lens)
+    return flash_attention_masked_plain(q, k, v, lens, placed, scale)
+
+
 def paged_attention(
     q: torch.Tensor,  # [B, Hq, L, D] — the last L tokens of each context
     key_pages: torch.Tensor,  # [P, Hkv, ps, D] — one layer's pages
@@ -419,13 +464,35 @@ def paged_attention(
     block_table: torch.Tensor,  # [B, max_pages] int32, -1 padded
     context_lens: torch.Tensor,  # [B] int32, including the current queries
     scale: float | None = None,
+    mask: torch.Tensor | str | None = "causal",
     impl=None,
 ) -> torch.Tensor:
-    """Causal attention of the last L positions of each row over its pages."""
+    """Attention of the last L positions of each row over its pages: causal
+    ("causal"), non-causal over the whole context (None), or with an
+    additive array mask (the plain route only; see the module docstring)."""
+    if isinstance(mask, str) and mask != "causal":
+        raise ValueError(f"mask {mask!r}: expected 'causal', None or an array")
     if impl is not None and not isinstance(impl, str):
-        return impl.paged(q, key_pages, value_pages, block_table, context_lens, scale=scale)
+        return impl.paged(q, key_pages, value_pages, block_table, context_lens, scale=scale,
+                          mask=mask)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if resolve(impl, q) == "torch":
+    cuda = resolve(impl, q) == "cuda"
+    if mask is None:
+        if not cuda:
+            return paged_prefix_state_plain(q, key_pages, value_pages, block_table,
+                                            context_lens, scale)[0]
+        if not key_pages.is_contiguous() or not value_pages.is_contiguous():
+            raise ValueError("mask=None runs the prefix-state walk, which takes whole "
+                             "contiguous pools, not a head shard of one")
+        return paged_prefix_state_cuda(q, key_pages, value_pages, block_table, context_lens,
+                                       scale)[0]
+    if not isinstance(mask, str):
+        if cuda:
+            raise ValueError("an array mask has no kernel route (the JAX package's Pallas "
+                             "route takes mask 'causal' or None): pass impl='torch'")
+        return paged_attention_masked_plain(q, key_pages, value_pages, block_table,
+                                            context_lens, mask, scale)
+    if not cuda:
         return paged_attention_plain(q, key_pages, value_pages, block_table, context_lens, scale)
     fn = paged_decode_cuda if q.shape[2] <= DECODE_MAX_L else paged_prefill_cuda
     return fn(q, key_pages, value_pages, block_table, context_lens, scale)

@@ -20,7 +20,12 @@ the W4A8 kernel and the any-width kernel.
     weights other than W4 g128 (bits 2, 4, 8; groups 32, 64, 128) at any
     M; csrc/quant_matmul_sg.cu (`tlt_quant_matmul_sg`), K1's three routes
     with their bodies made generic over the width, gated by constants of
-    that source, which `sg_route` asks.
+    that source, which `sg_route` asks. A group size outside those
+    instances (any other that divides K, which the JAX package's
+    `quantize` takes and its any-width Pallas kernel runs as a static
+    argument) runs `tlt_quant_matmul_sg_rt` in the same source at every
+    M: a SIMT walk that takes the group size at run time
+    (csrc/qmm_rt.cuh), whose plain version is `quant_matmul_plain`.
 
 `quant_matmul` dispatches as the JAX package's `quantized_matmul` does and
 launches the chosen kernel for CUDA tensors; for CPU tensors (or when
@@ -38,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import os
 
 import torch
 
@@ -55,10 +61,16 @@ K1_ROUTES = ("gemv", "b16", "staged")  # tlt_quant_matmul_route's (and _sg_route
 STAGED_MIN_ROWS = 33  # csrc/quant_matmul.cu's gate of K1's staged tile
 SG_STAGED_MIN_ROWS = 33  # csrc/quant_matmul_sg.cu's gate of the any-width staged tile
 
+# The activation tier of act="int8" weights when a call names none:
+# TLT_PAIR_ACT, read once at import as the JAX package reads it ("int8";
+# "bf16" gives W4A16-exact products on the same weights).
+PAIR_ACT_DEFAULT = os.environ.get("TLT_PAIR_ACT", "int8")
+
 # Kernel launches since the last reset (see kernels.reset_launches).
 LAUNCHES = 0  # K1
 A8_LAUNCHES = 0
 SG_LAUNCHES = 0
+RT_LAUNCHES = 0  # the any-width kernel's run-time-width walk
 
 
 def quant_matmul_plain(
@@ -160,7 +172,7 @@ def _launch(fn_name, x, qt, residual, extra=()):
         if residual.shape != (M, N) or residual.device != x.device:
             raise ValueError(f"residual {tuple(residual.shape)} != ({M}, {N})")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    lib_name = "quant_matmul_sg" if fn_name.endswith("_sg") else "quant_matmul"
+    lib_name = "quant_matmul_sg" if "_sg" in fn_name else "quant_matmul"
     lib = build.load(lib_name)
     if fn_name.endswith("_a8"):  # ws lives until the launch is queued
         ws = a8_workspace(lib_name, fn_name, M, qt.k_padded, x.device)
@@ -220,26 +232,51 @@ def quant_matmul_sg_cuda(
     return out
 
 
+def quant_matmul_rt_cuda(
+    x: torch.Tensor, qt: QuantizedTensor, residual: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Launch the any-width kernel's run-time-width walk. x [M, K] bf16
+    CUDA, a weight of bits 2, 4 or 8 in groups of any size the templated
+    instances do not cover; returns [M, N] bf16."""
+    global RT_LAUNCHES
+    if qt.is_templated:
+        raise ValueError(f"group size {qt.group_size} has a templated instance "
+                         "(quant_matmul_cuda, quant_matmul_sg_cuda)")
+    out = _launch("tlt_quant_matmul_sg_rt", x, qt, residual,
+                  ((ctypes.c_int, qt.bits), (ctypes.c_int, qt.group_size)))
+    RT_LAUNCHES += 1
+    return out
+
+
 def quant_matmul(
     x: torch.Tensor,
     qt: QuantizedTensor,
     residual: torch.Tensor | None = None,
     impl: str | None = None,
+    act: str | None = None,
 ) -> torch.Tensor:
     """y = x @ dequant(qt).T (+ residual). x [..., in_features] -> [..., N] bf16.
 
-    act="int8" weights at <= A8_MAX_ROWS rows run W4A8; other widths than
-    W4 g128 the any-width kernel; the rest K1. The plain versions round as
-    the card's route for those rows does (STAGED_MIN_ROWS,
-    SG_STAGED_MIN_ROWS)."""
+    act="int8" weights at <= A8_MAX_ROWS rows run W4A8 when their tier,
+    `act` or else PAIR_ACT_DEFAULT (TLT_PAIR_ACT), is "int8", K1 when it
+    is "bf16"; other widths than W4 g128 the any-width kernel (its
+    run-time-width walk outside the templated group sizes); the rest K1.
+    The plain versions round as the card's route for those rows does
+    (STAGED_MIN_ROWS, SG_STAGED_MIN_ROWS; the walk at every M as
+    quant_matmul_plain)."""
     if x.shape[-1] != qt.in_features:
         raise ValueError(f"x K={x.shape[-1]} vs weight K={qt.in_features}")
+    if act not in (None, "bf16", "int8"):
+        raise ValueError(f"act {act!r}: expected None, 'bf16' or 'int8'")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, qt.in_features)
     r2 = None if residual is None else residual.reshape(-1, qt.out_features)
     cuda = resolve(impl, x) == "cuda"
-    if qt.act == "int8" and x2.shape[0] <= A8_MAX_ROWS:
+    a8 = qt.act == "int8" and (act or PAIR_ACT_DEFAULT) == "int8"
+    if a8 and x2.shape[0] <= A8_MAX_ROWS:
         fn = quant_matmul_a8_cuda if cuda else quant_matmul_a8_plain
+    elif not qt.is_templated:
+        fn = quant_matmul_rt_cuda if cuda else quant_matmul_plain
     elif cuda:
         fn = quant_matmul_cuda if qt.is_w4g128 else quant_matmul_sg_cuda
     else:
@@ -278,7 +315,7 @@ def quantized_matmul(
         qt = dataclasses.replace(qt, act=act)
     if norm_weight is not None:
         x = rms_norm(x, norm_weight, eps)
-    out = quant_matmul(x, qt, residual if bias is None else None, impl=impl)
+    out = quant_matmul(x, qt, residual if bias is None else None, impl=impl, act=act)
     if bias is not None:
         out = (out.to(torch.float32) + bias.to(torch.float32)).to(out.dtype)
         if residual is not None:

@@ -14,21 +14,27 @@ per-request handles and the slot-multiplexed batch cache.
   idle batch rows never touch a live page. It is never allocated.
 * The model writes pages in place; these objects keep only the host-side
   bookkeeping (page ids, offsets) and the ledger counters the serving
-  metrics read. Pure Python, the JAX package's `native=False` semantics:
-  free pages pop from the end of [P-1, ..., 1], so pages 1, 2, 3, ... come
-  out first and freed pages are reused last-in first-out.
+  metrics read: free pages pop from the end of [P-1, ..., 1], so pages 1,
+  2, 3, ... come out first and freed pages are reused last-in first-out.
+  An unstriped pool keeps it in C++ by default (`native=None`), as the JAX
+  package does: the native page index (native/page_allocator.py over
+  csrc/page_allocator.cpp) holds the free list, each request's pages and
+  offset, and assembles block tables; `native=False` keeps it in Python,
+  with the same page ids, tables and counters. A native index that cannot
+  be built raises (naming native=False); nothing falls back on its own.
 * `stripe_shards` (a pool whose page axis the sequence-parallel attention
   splits over that many shards, parallel/sp_attention.py): one such free
   list per shard's page range, and each allocation takes from the shard
   with the most free pages (the lowest on a tie), so every request's
-  context spreads evenly over the shards.
+  context spreads evenly over the shards. Pure Python, as in the JAX
+  package.
 * `dp_shards` (a pool whose page axis data parallelism splits into one
   stripe per replica, parallel/dp.py): the opposite of SP striping.
   Allocation is pinned: every page of a request comes from one stripe
   (PagedKVCache.shard, by default the stripe with the most free pages), so
   a replica never reads another's page. Page s * P_loc is replica s's own
   trash page and is never allocated; a full stripe raises PoolExhausted
-  even while another has room.
+  even while another has room. Pure Python, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ class PagePool:
         device: str | torch.device = "cuda",
         stripe_shards: int | None = None,
         dp_shards: int | None = None,
+        native: bool | None = None,
     ):
         if num_pages < 2:
             raise ValueError("a pool needs the trash page and at least one more")
@@ -80,12 +87,26 @@ class PagePool:
         self.value_pages = torch.zeros(shape, dtype=dtype, device=self.device)
         self.stripe_shards = stripe_shards
         self.dp_shards = dp_shards
+        if native and (stripe_shards or dp_shards):
+            raise ValueError("striped and pinned pools keep their bookkeeping in Python")
+        self.native_index = None
+        if native is not False and not (stripe_shards or dp_shards):
+            from ..native import NativePageIndex
+
+            try:
+                self.native_index = NativePageIndex(num_pages)
+            except (RuntimeError, OSError) as e:
+                raise RuntimeError(f"the native page index did not build ({e}); pass "
+                                   "native=False for the Python bookkeeping") from e
         self.reset()
         self._reused = 0
         self._ever_allocated: set[int] = set()
 
     def reset(self) -> None:
         """Every page but the trash pages free again (the ledger stays)."""
+        if self.native_index is not None:
+            self.native_index.reset()
+            return
         n, P = self.stripe_shards or self.dp_shards or 1, self.num_pages
         p_loc = P // n
         trash = {s * p_loc for s in range(n)} if self.dp_shards else {0}
@@ -97,6 +118,8 @@ class PagePool:
 
     @property
     def free_pages(self) -> int:
+        if self.native_index is not None:
+            return self.native_index.free_pages
         return sum(len(f) for f in self._free_by_shard)
 
     def update_tensors(self, key_pages, value_pages) -> None:
@@ -121,6 +144,8 @@ class PagePool:
 
     @property
     def reused_page_allocations(self) -> int:
+        if self.native_index is not None:
+            return self.native_index.reused_page_allocations
         return self._reused
 
     def least_loaded_shard(self) -> int:
@@ -133,6 +158,8 @@ class PagePool:
     def allocate_page(self, shard: int | None = None) -> int:
         """A free page: of stripe `shard` in a dp-striped pool (required
         there), else of the fullest shard."""
+        if self.native_index is not None:
+            return self.native_index.allocate_page()
         if self.dp_shards:
             if shard is None:
                 raise ValueError("a dp-striped pool allocates in a pinned shard")
@@ -155,60 +182,96 @@ class PagePool:
         return page
 
     def free_page(self, page: int) -> None:
+        if self.native_index is not None:
+            self.native_index.free_page(page)
+            return
         self._free_by_shard[page // (self.num_pages // len(self._free_by_shard))].append(page)
 
 
 class PagedKVCache(KVCache):
-    """Per-request logical view: page ids + token offset. In a dp-striped
-    pool every page comes from stripe `shard` (default: the pool's least
-    loaded)."""
+    """Per-request logical view: page ids + token offset, in the pool's
+    native index or here. In a dp-striped pool every page comes from
+    stripe `shard` (default: the pool's least loaded)."""
 
     def __init__(self, pool: PagePool, shard: int | None = None):
         self.pool = pool
+        self._native = pool.native_index
         if pool.dp_shards and shard is None:
             shard = pool.least_loaded_shard()
         self.shard = shard
-        self.page_ids: list[int] = []
-        self._offset = 0
+        if self._native is not None:
+            self._req = self._native.request_create()
+        else:
+            self._page_ids: list[int] = []
+            self._offset = 0
         self._released = False
 
     @property
     def offset(self) -> int:
+        if self._native is not None:
+            return self._native.request_offset(self._req)
         return self._offset
 
     @property
     def num_pages(self) -> int:
-        return len(self.page_ids)
+        if self._native is not None:
+            return self._native.request_num_pages(self._req)
+        return len(self._page_ids)
+
+    @property
+    def page_ids(self) -> list[int]:
+        """The request's pages, in order (a copy)."""
+        if self._native is not None:
+            return self._native.block_table([self._req], self.num_pages)[0].tolist()
+        return list(self._page_ids)
 
     def ensure_capacity(self, new_offset: int) -> None:
         """Allocate pages so positions [0, new_offset) are backed."""
         ps = self.pool.page_size
+        if self._native is not None:
+            self._native.request_ensure(self._req, new_offset, ps)
+            return
         needed = (new_offset + ps - 1) // ps
-        while len(self.page_ids) < needed:
-            self.page_ids.append(self.pool.allocate_page(self.shard))
+        while len(self._page_ids) < needed:
+            self._page_ids.append(self.pool.allocate_page(self.shard))
 
     def advance(self, n: int) -> None:
         """Record n appended tokens (pages must already be ensured)."""
-        if self._offset + n > len(self.page_ids) * self.pool.page_size:
-            raise ValueError(f"advance past the {len(self.page_ids)} ensured pages")
-        self._offset += n
+        if self._native is not None:
+            ok = self._native.request_advance(self._req, n, self.pool.page_size)
+        else:
+            ok = self._offset + n <= len(self._page_ids) * self.pool.page_size
+            self._offset += n if ok else 0
+        if not ok:
+            raise ValueError(f"advance past the {self.num_pages} ensured pages")
 
     def rewind(self, n: int) -> None:
         """Drop the newest n tokens and free whole trailing pages."""
+        ps = self.pool.page_size
+        if self._native is not None:
+            if not self._native.request_rewind(self._req, n, ps):
+                raise ValueError(f"rewind {n} past offset {self.offset}")
+            return
         if n > self._offset:
             raise ValueError(f"rewind {n} past offset {self._offset}")
         self._offset -= n
-        ps = self.pool.page_size
         needed = (self._offset + ps - 1) // ps
-        while len(self.page_ids) > needed:
-            self.pool.free_page(self.page_ids.pop())
+        while len(self._page_ids) > needed:
+            self.pool.free_page(self._page_ids.pop())
 
     def release(self) -> None:
         if self._released:
             return
-        for p in self.page_ids:
-            self.pool.free_page(p)
-        self.page_ids = []
+        if self._native is not None:
+            # The index recycles the handle: keep the offset here, as the
+            # Python bookkeeping does, and read nothing from it again.
+            self._offset, self._page_ids = self.offset, []
+            self._native.request_release(self._req)
+            self._native = None
+        else:
+            for p in self._page_ids:
+                self.pool.free_page(p)
+            self._page_ids = []
         self._released = True
 
     def materialize(self) -> None:
@@ -217,9 +280,11 @@ class PagedKVCache(KVCache):
     def block_table_row(self, width: int) -> list[int]:
         """The first `width` page ids, -1 padded. A request can hold more
         pages than the width only in decode-burst steps past the model's
-        max_seq_len, whose tokens the scheduler discards; the JAX package's
-        native index truncates the same way."""
-        return (self.page_ids + [-1] * width)[:width]
+        max_seq_len, whose tokens the scheduler discards; the native index
+        truncates the same way."""
+        if self._native is not None:
+            return self._native.block_table([self._req], width)[0].tolist()
+        return (self._page_ids + [-1] * width)[:width]
 
 
 class PagedBatchingKVCache(KVCache):
@@ -240,7 +305,15 @@ class PagedBatchingKVCache(KVCache):
 
     @property
     def offsets(self) -> np.ndarray:
+        if self._native_slots():
+            return self.pool.native_index.offsets([-1 if c is None else c._req
+                                                   for c in self.slots])
         return np.asarray([(c.offset if c is not None else 0) for c in self.slots], np.int32)
+
+    def _native_slots(self) -> bool:
+        """Whether every installed slot lives in the pool's native index."""
+        return self.pool.native_index is not None and all(
+            c is None or c._native is not None for c in self.slots)
 
     @property
     def active(self) -> np.ndarray:
@@ -276,7 +349,12 @@ class PagedBatchingKVCache(KVCache):
         self.pool.materialize()
 
     def block_table(self, width: int | None = None) -> np.ndarray:
+        """The slots' -1-padded block table [slots, width] (an idle slot's
+        row all -1), assembled by the native index where the pool has one."""
         w = width or max((c.num_pages for c in self.slots if c is not None), default=1)
+        if self._native_slots():
+            return self.pool.native_index.block_table(
+                [-1 if c is None else c._req for c in self.slots], w)
         return np.asarray(
             [c.block_table_row(w) if c is not None else [-1] * w for c in self.slots], np.int32
         )

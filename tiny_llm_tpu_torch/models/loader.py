@@ -119,7 +119,7 @@ def synthetic_quantized_params(
 
     def qlin(*shape: int) -> QuantizedTensor:  # ([E,] N, K)
         *lead, n, k = shape
-        kp = padded_k(k)
+        kp = padded_k(k, group_size)
         packed = torch.randint(
             -(2**31), 2**31, (*lead, n, kp * bits // 32), dtype=torch.int32, generator=gen,
             device=dev,

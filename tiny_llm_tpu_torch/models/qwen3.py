@@ -14,7 +14,11 @@ run on the card and on the CPU; only the bodies of the kernels differ
     ops/moe.py), which dispatches the same way (W4A8 at <= 128 rows);
   * a decode step (L == 1) goes through K2 (kernels/fused_decode_attention)
     with the qkv projection fused and interleaved per KV head — over the
-    dense slab, or its paged twin over the page pool; with
+    dense slab, or its paged twin over the page pool; with `fused_attn=False`
+    (TLT_FUSED_ATTN=0, read once at construction, as in the JAX package) it
+    takes the JAX package's unfused chain instead: the qkv projection, the
+    split with QK-norm and RoPE, the k/v row write, then K3's L <= 16 route
+    over the slab (or the paged decode kernel over the pages); with
     `paged_fused_one=False` (TLT_PAGED_FUSED_ONE=0, read once at
     construction, as in the JAX package) a paged decode step takes the
     JAX package's three-launch route instead, here two launches per layer:
@@ -203,7 +207,7 @@ def _linear(x, w: Weight, residual=None, impl=None):
     copy)."""
     if isinstance(w, ShardedWeight):
         if w.dim == "batch":
-            return replica_rows(x, w, lambda xs, s, r: _linear(xs, w.parts[s], r, impl), residual)
+            return replica_rows(x, w, lambda xs, s, r: _linear(xs, w.part(s), r, impl), residual)
         return sharded_linear(x, w, residual=residual, impl=impl)
     if isinstance(w, QuantizedTensor):
         return quant_matmul(x, w, residual=residual, impl=impl)
@@ -217,6 +221,14 @@ def _norm_linear(x, w: Weight, norm_w, eps: float, impl=None):
     if norm_w is not None:
         x = rms_norm(x, norm_w, eps)
     return _linear(x, w, impl=impl)
+
+
+def _is_sharded(params: Qwen3Params) -> bool:
+    """Whether any layer weight is split or replicated over a mesh (the
+    port's counterpart of the JAX package's `_is_multidevice`)."""
+    return any(isinstance(getattr(part, f.name), ShardedWeight)
+               for b in params.layers for part in (b.attn, b.mlp)
+               for f in dataclasses.fields(part))
 
 
 def act_dtype(params: Qwen3Params) -> torch.dtype:
@@ -416,13 +428,14 @@ def forward_step(
     logits_to_keep: int | None,
     impl: str | None = None,
     attn_impl=None,
+    fused_attn: bool = True,
 ) -> torch.Tensor:
     """One cached step (prompt chunk or decode step): writes this chunk's
     k/v into the slab at `offsets` and returns logits [B, L_keep, V].
     `attn_impl`: an attention strategy (with .flash), or None for `impl`'s
-    kernels."""
+    kernels. `fused_attn` False: a decode step takes the unfused chain."""
     h = forward_layers(params.layers, cfg, rope_tabs, _embed(params, tokens), offsets, keys,
-                       values, impl=impl, attn_impl=attn_impl)
+                       values, impl=impl, attn_impl=attn_impl, fused_attn=fused_attn)
     if logits_to_keep is not None:
         h = h[:, -logits_to_keep:, :]
     h = rms_norm(h, params.final_norm, cfg.rms_norm_eps)
@@ -440,12 +453,13 @@ def forward_layers(
     *,
     impl: str | None = None,
     attn_impl=None,
+    fused_attn: bool = True,
 ) -> torch.Tensor:
     """Run `layers` on the residual `h`: each layer writes its k/v into the
-    slab at `offsets` (slab layer i is layers[i]) and attends, K2 at L == 1,
-    K3 above (or the strategy `attn_impl`). Returns the residual after the
-    range. forward_step runs every layer through it; a pipeline stage runs
-    its own range."""
+    slab at `offsets` (slab layer i is layers[i]) and attends, K2 at L == 1
+    (unless `fused_attn` is False), K3 above (or the strategy `attn_impl`).
+    Returns the residual after the range. forward_step runs every layer
+    through it; a pipeline stage runs its own range."""
     B, L, _ = h.shape
     dev = h.device
     scale = cfg.head_dim**-0.5
@@ -453,7 +467,7 @@ def forward_layers(
     hkv = cfg.num_key_value_heads
     n_rep = cfg.num_attention_heads // hkv
     offs = _offsets_tensor(offsets, dev)
-    decode = L == 1 and attn_impl is None  # the fused decode route: K2 per layer
+    decode = L == 1 and attn_impl is None and fused_attn  # the fused decode route: K2 per layer
     if decode:
         # The RoPE rows are gathered once per step and shared by all layers.
         pos = offs.to(torch.long)
@@ -519,6 +533,7 @@ def forward_decode_burst_dense(
     top_k: int | None = None,
     top_p: float | None = None,
     generator: torch.Generator | None = None,
+    fused_attn: bool = True,
 ) -> torch.Tensor:
     """`steps` decode steps from `tokens0` at `offset`; returns the emitted
     tokens [steps, B] on the device. Greedy when temp == 0, else
@@ -528,7 +543,7 @@ def forward_decode_burst_dense(
     return _decode_loop(
         lambda tokens, s: forward_step(
             params, cfg, rope_tabs, tokens[:, None], [offset + s] * B, keys, values,
-            logits_to_keep=1, impl=impl, attn_impl=attn_impl,
+            logits_to_keep=1, impl=impl, attn_impl=attn_impl, fused_attn=fused_attn,
         ),
         tokens0, steps, temp, top_k, top_p, generator,
     )
@@ -612,6 +627,7 @@ def forward_step_paged(
     local_attention: bool = False,
     split_attention: bool = False,
     fused_one: bool = True,
+    fused_attn: bool = True,
 ) -> torch.Tensor:
     """One model step over the page pool (prompt chunk or decode step):
     writes this chunk's k/v into the pages the block table names and
@@ -627,7 +643,8 @@ def forward_step_paged(
     non-causally, combined); otherwise paged attention reads the pages.
     `attn_impl`: an attention strategy (with .flash and .paged) that runs
     the attention of every step, decode steps unfused; None for `impl`'s
-    kernels."""
+    kernels. `fused_attn` False: decode steps unfused too (the qkv split,
+    the page write, then the paged decode kernel)."""
     B, L = tokens.shape
     dev = tokens.device
     ps = key_pages.shape[3]
@@ -641,7 +658,7 @@ def forward_step_paged(
     # _page_targets); clamp rather than index out of range.
     rope_pos = positions.clamp(max=rope_tabs[0].shape[0] - 1)
     h = _embed(params, tokens)
-    decode = L == 1 and attn_impl is None  # the fused paged decode route
+    decode = L == 1 and attn_impl is None and fused_attn  # the fused paged decode route
     attn_with = impl if attn_impl is None else attn_impl
     if decode:
         cos_row, sin_row = rope_tabs[0][rope_pos[:, 0]], rope_tabs[1][rope_pos[:, 0]]
@@ -698,6 +715,7 @@ def forward_decode_burst_paged(
     top_p: float | None = None,
     generator: torch.Generator | None = None,
     fused_one: bool = True,
+    fused_attn: bool = True,
 ) -> torch.Tensor:
     """`steps` paged decode steps for every row; returns the emitted tokens
     [steps, B] on the device. Greedy when temp == 0, else sampled on the
@@ -708,6 +726,7 @@ def forward_decode_burst_paged(
         lambda tokens, s: forward_step_paged(
             params, cfg, rope_tabs, tokens[:, None], offsets0 + s, key_pages, value_pages,
             block_table, logits_to_keep=1, impl=impl, attn_impl=attn_impl, fused_one=fused_one,
+            fused_attn=fused_attn,
         ),
         tokens0, steps, temp, top_k, top_p, generator,
     )
@@ -845,8 +864,14 @@ class Qwen3Model:
     `.flash` and `.paged` (parallel.SPAttention), which then runs every
     attention while the matmuls keep `impl`.
     `act_quant` "int8" is the W4A8 tier (convert_projection_layouts after
-    fuse_projections, as in the JAX package); None or "bf16" keeps W4A16.
-    The port reads no environment default for it.
+    fuse_projections, as in the JAX package, except on sharded params, as
+    the JAX package skips multi-device params); "bf16" keeps W4A16; None
+    reads TLT_ACT_QUANT once here ("bf16" unless set), as the JAX package
+    does at construction.
+    `fused_attn` (None: TLT_FUSED_ATTN, on unless "0", read here once):
+    False takes decode steps through the JAX package's unfused chain (see
+    the module docstring); mixed bursts then take the decode rows' unfused
+    route too, as the JAX package's mixed step needs both knobs.
     `paged_fused_one` (None: TLT_PAGED_FUSED_ONE, "1" unless set, read here
     once, as the JAX package reads it at construction): False takes paged
     decode steps through the JAX package's three-launch route (here the
@@ -863,6 +888,7 @@ class Qwen3Model:
         act_quant: str | None = None,
         attn_impl=None,
         paged_fused_one: bool | None = None,
+        fused_attn: bool | None = None,
     ):
         self.device = check_device(device)
         if attn_impl is not None and not (hasattr(attn_impl, "flash")
@@ -873,11 +899,11 @@ class Qwen3Model:
             raise ValueError(
                 f"params live on {params.embedding.device}, model device is {self.device}"
             )
-        self.act_quant = act_quant or "bf16"
+        self.act_quant = act_quant or os.environ.get("TLT_ACT_QUANT", "bf16")
         if self.act_quant not in ("bf16", "int8"):
-            raise ValueError(f"act_quant {act_quant!r}: expected None, 'bf16' or 'int8'")
+            raise ValueError(f"act_quant {self.act_quant!r}: expected None, 'bf16' or 'int8'")
         self.params = fuse_projections(params)
-        if self.act_quant == "int8":
+        if self.act_quant == "int8" and not _is_sharded(params):
             self.params = convert_projection_layouts(self.params, "pair_t")
         self.cfg = cfg
         self.impl = impl
@@ -897,6 +923,9 @@ class Qwen3Model:
         if paged_fused_one is None:
             paged_fused_one = os.environ.get("TLT_PAGED_FUSED_ONE", "1") == "1"
         self.paged_fused_one = bool(paged_fused_one)
+        if fused_attn is None:
+            fused_attn = os.environ.get("TLT_FUSED_ATTN", "1") != "0"
+        self.fused_attn = bool(fused_attn)
 
     def enable_paged_attention(self, num_pages: int | None = None, page_size: int = 128):
         """Attach a page pool: create_kv_cache() and create_batching_kv_cache()
@@ -990,7 +1019,7 @@ class Qwen3Model:
             torch.from_numpy(p_chunks).to(dev), torch.from_numpy(p_offsets).to(dev),
             torch.from_numpy(p_tables).to(dev), torch.from_numpy(p_last).to(dev), p_gens,
             steps=steps, impl=self.impl, temp=temp, top_k=top_k, top_p=top_p,
-            generator=generator, fused_one=self.paged_fused_one,
+            generator=generator, fused_one=self.paged_fused_one and self.fused_attn,
         )
         both = torch.cat([toks.reshape(-1), comp]).cpu().numpy().astype(np.int32)
         for c in cache.slots:
@@ -1069,7 +1098,7 @@ class Qwen3Model:
         logits = forward_step(
             self.params, self.cfg, self._rope_tables, tokens, offsets,
             cache.keys, cache.values, logits_to_keep=logits_to_keep, impl=self.impl,
-            attn_impl=self.attn_impl,
+            attn_impl=self.attn_impl, fused_attn=self.fused_attn,
         )
         cache.advance(L)
         return logits
@@ -1099,7 +1128,7 @@ class Qwen3Model:
         logits = forward_step(
             self.params, self.cfg, self._rope_tables, tokens, [int(o) for o in offs],
             cache.keys, cache.values, logits_to_keep=logits_to_keep, impl=self.impl,
-            attn_impl=self.attn_impl,
+            attn_impl=self.attn_impl, fused_attn=self.fused_attn,
         )
         cache.offsets = np.where(cache.active, offs + L, cache.offsets).astype(np.int32)
         return logits
@@ -1133,7 +1162,7 @@ class Qwen3Model:
             local_attention=bool(L > 1 and np.all(offs == 0)),
             split_attention=bool(self.attn_impl is None and L >= SPLIT_PREFILL_MIN_CHUNK
                                  and np.any(offs > 0)),
-            fused_one=self.paged_fused_one,
+            fused_one=self.paged_fused_one, fused_attn=self.fused_attn,
         )
         if isinstance(cache, PagedBatchingKVCache):
             for c in cache.slots:
@@ -1164,7 +1193,7 @@ class Qwen3Model:
         toks = forward_decode_burst_dense(
             self.params, self.cfg, self._rope_tables, tokens0, cache.offset,
             cache.keys, cache.values, steps=steps, impl=self.impl, attn_impl=self.attn_impl,
-            temp=temp, top_k=top_k, top_p=top_p, generator=generator,
+            temp=temp, top_k=top_k, top_p=top_p, generator=generator, fused_attn=self.fused_attn,
         )
         cache.advance(steps)
         return toks.cpu().numpy().astype(np.int32)
@@ -1198,7 +1227,7 @@ class Qwen3Model:
             torch.from_numpy(offs).to(self.device), cache.pool.key_pages,
             cache.pool.value_pages, torch.from_numpy(table).to(self.device), steps=steps,
             impl=self.impl, attn_impl=self.attn_impl, temp=temp, top_k=top_k, top_p=top_p,
-            generator=generator, fused_one=self.paged_fused_one,
+            generator=generator, fused_one=self.paged_fused_one, fused_attn=self.fused_attn,
         )
         out = toks.cpu().numpy().astype(np.int32)
         for c in cache.slots:

@@ -166,7 +166,7 @@ def moe_forward(
     replica's copies."""
     if isinstance(w_gate, ShardedWeight) and w_gate.dim == "batch":
         return replica_rows(x, w_gate, lambda xs, s, _: moe_forward(
-            xs, replica(w_router, s), w_gate.parts[s], w_up.parts[s], w_down.parts[s],
+            xs, replica(w_router, s), w_gate.part(s), w_up.part(s), w_down.part(s),
             num_experts_per_tok, norm_topk_prob, impl))
     B, L, D = x.shape
     k = num_experts_per_tok
@@ -198,7 +198,8 @@ def expert_rows(
     in the sorted order: [T, D]. Experts split over a mesh axis run shard
     by shard on their segments of the rows (see the module docstring),
     each at most `capacity` rows (None: dropless); rows dropped by the
-    capacity give 0."""
+    capacity give 0. The shards' outputs merge in shard order (over ranks:
+    gathered, then added in the same order)."""
     if not isinstance(w_gate, ShardedWeight):
         gate = grouped_matmul(xs, w_gate, sizes, impl=impl)
         up = grouped_matmul(xs, w_up, sizes, impl=impl)
@@ -212,17 +213,23 @@ def expert_rows(
     starts = torch.cat([zero, torch.cumsum(sizes, 0, dtype=torch.int32)])  # [E + 1]
     ar = torch.arange(C, device=home)
     padded = torch.cat([xs, xs.new_zeros((C, D))])
-    frame = None
-    for s, (e0, e1) in enumerate(w_gate.bounds):
+    def segment(s: int) -> torch.Tensor:
+        """Shard s's C rows from its segment's start."""
+        return starts[w_gate.bounds[s][0]].to(torch.long) + ar
+
+    outs = {}
+    for s in w_gate.held:
+        e0, e1 = w_gate.bounds[s]
         ends = torch.clamp(torch.cumsum(sizes[e0:e1], 0, dtype=torch.int32), max=C)
-        idx = starts[e0].to(torch.long) + ar  # the shard's segment, C rows from its start
         dev = w_gate.devices[s]
-        rows, sz = padded.index_select(0, idx).to(dev), torch.diff(ends, prepend=zero).to(dev)
-        h = swiglu(grouped_matmul(rows, w_gate.parts[s], sz, impl, partial=True),
-                   grouped_matmul(rows, w_up.parts[s], sz, impl, partial=True))
-        out = grouped_matmul(h, w_down.parts[s], sz, impl, partial=True).to(home)
-        out = torch.where((ar < ends[-1])[:, None], out, 0)
-        if frame is None:
-            frame = out.new_zeros((T + C, out.shape[-1]))
-        frame.index_add_(0, idx, out)  # the shards' segments are disjoint
+        rows = padded.index_select(0, segment(s)).to(dev)
+        sz = torch.diff(ends, prepend=zero).to(dev)
+        h = swiglu(grouped_matmul(rows, w_gate.part(s), sz, impl, partial=True),
+                   grouped_matmul(rows, w_up.part(s), sz, impl, partial=True))
+        out = grouped_matmul(h, w_down.part(s), sz, impl, partial=True).to(home)
+        outs[s] = torch.where((ar < ends[-1])[:, None], out, 0)
+    outs = w_gate.axis_impl.gather(outs, home)
+    frame = outs[0].new_zeros((T + C, outs[0].shape[-1]))
+    for s, out in enumerate(outs):
+        frame.index_add_(0, segment(s), out)  # the shards' segments are disjoint
     return frame[:T]

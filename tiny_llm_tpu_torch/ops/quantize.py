@@ -5,7 +5,10 @@ Semantics are those of tiny_llm_tpu/ops/quantize.py: weights split into
 groups of `group_size` along the input dimension, each group with a scale
 and a bias, `w = q * scale + bias`, q an unsigned `bits`-bit code. The
 port takes bits in {2, 4, 8} (the JAX package's `_values_per_word`) and
-group sizes in {32, 64, 128} (those of MLX exports); other widths raise.
+any group size that divides K, as the JAX package's `quantize` does. The
+kernels hold templated instances for groups of 32, 64 and 128 (those of
+MLX exports, TEMPLATED_GROUP_SIZES); every other group size runs their
+run-time-width walk (kernels/quant_matmul.py, kernels/moe_matmul.py).
 
 Storage layout (the port's own, chosen for Hopper; the JAX package's
 "magic_t" and "pair_t" are TPU sublane tricks and "sg" a TPU lane trick):
@@ -22,11 +25,13 @@ packed [E, N, K_pad * bits / 32], scales and biases [E, N, G].
 
 Why: every output row's K is one contiguous run of bytes, so a warp that
 owns a row streams it with 16-byte loads, and one 16-code fragment of a
-tensor-core tile is a few adjacent words. K pads to a multiple of 128
-(every Qwen3 K already is; the JAX "magic_t" layout pads to 512, its "sg"
-layout to 32 / bits groups): every group size divides 128, so a 16-byte
-load (16, 32 or 64 codes) lies inside one group or holds whole groups, and
-a 128-deep tensor-core stage holds whole groups. Padded groups dequantize
+tensor-core tile is a few adjacent words. K pads to a multiple of
+k_align(group_size) = lcm(128, group_size) (every Qwen3 K already is a
+multiple of 128; the JAX "magic_t" layout pads to 512, its "sg" layout to
+32 / bits groups): at the templated group sizes, which divide 128, a
+16-byte load (16, 32 or 64 codes) lies inside one group or holds whole
+groups, and a 128-deep tensor-core stage holds whole groups; at any other
+size the padded K still holds whole groups and whole 128-code stages. Padded groups dequantize
 to 0 (code 0, scale 1, bias 0). The tied embedding and the LM head share
 one tensor: a row gather for the embedding and the matmul for the head
 both read rows. The words are stored as int32 because torch has few uint32
@@ -45,6 +50,7 @@ wherever it runs.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -52,18 +58,25 @@ import torch
 GROUP_SIZE = 128
 BITS = 4
 SUPPORTED_BITS = (2, 4, 8)
-SUPPORTED_GROUP_SIZES = (32, 64, 128)
-K_ALIGN = 128  # K pads to a multiple of this (every supported group size divides it)
+TEMPLATED_GROUP_SIZES = (32, 64, 128)  # the kernels' compiled widths; others run at run time
+K_ALIGN = 128  # K pads to a multiple of lcm(K_ALIGN, group_size) (k_align)
 MAGIC_SUPERGROUP = 512  # the JAX "magic_t"/"pair_t" K padding unit
 
 
 def check_width(bits: int, group_size: int) -> None:
-    """Raise ValueError for a width the port's layout and kernels do not take."""
-    if bits not in SUPPORTED_BITS or group_size not in SUPPORTED_GROUP_SIZES:
+    """Raise ValueError for a width the port's layout does not take: bits
+    outside {2, 4, 8} or a group size below 1."""
+    if bits not in SUPPORTED_BITS or int(group_size) != group_size or group_size < 1:
         raise ValueError(
-            f"the port takes bits in {SUPPORTED_BITS} and group sizes in "
-            f"{SUPPORTED_GROUP_SIZES}, not bits={bits} group_size={group_size}"
+            f"the port takes bits in {SUPPORTED_BITS} and a positive group size, not "
+            f"bits={bits} group_size={group_size}"
         )
+
+
+def k_align(group_size: int = GROUP_SIZE) -> int:
+    """The K padding unit of a group size: lcm(K_ALIGN, group_size), so the
+    padded K holds whole groups and whole 128-code tile stages."""
+    return math.lcm(K_ALIGN, group_size)
 
 
 @dataclasses.dataclass
@@ -91,6 +104,12 @@ class QuantizedTensor:
         return self.packed.shape[0] if self.packed.ndim == 3 else None
 
     @property
+    def is_templated(self) -> bool:
+        """A group size the kernels hold compiled instances for; any other
+        runs their run-time-width walk."""
+        return self.group_size in TEMPLATED_GROUP_SIZES
+
+    @property
     def is_w4g128(self) -> bool:
         """W4 group 128: the width of K1 and the grouped W4A16 kernel."""
         return (self.bits, self.group_size) == (BITS, GROUP_SIZE)
@@ -110,8 +129,9 @@ class QuantizedTensor:
         )
 
 
-def padded_k(k: int) -> int:
-    return -(-k // K_ALIGN) * K_ALIGN
+def padded_k(k: int, group_size: int = GROUP_SIZE) -> int:
+    unit = k_align(group_size)
+    return -(-k // unit) * unit
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +233,12 @@ def from_codes(
     (a leading expert dim, if any, is kept).
 
     Codes and groups past `in_features` are dropped and the port's own
-    padding (to a multiple of K_ALIGN) is applied: code 0, scale 1, bias 0."""
+    padding (to a multiple of k_align(group_size)) is applied: code 0,
+    scale 1, bias 0."""
     check_width(bits, group_size)
     *lead, N = codes.shape[:-1]
     K = in_features
-    kp = padded_k(K)
+    kp = padded_k(K, group_size)
     G = kp // group_size
     q = torch.zeros((*lead, N, kp), dtype=torch.int32, device=codes.device)
     q[..., :K] = codes[..., :K].to(torch.int32)
@@ -302,7 +323,7 @@ def from_mlx_packing(
     words = mlx_weight.view(torch.int32) if mlx_weight.dtype == torch.uint32 else mlx_weight
     K = words.shape[-1] * (32 // bits)
     s, b = scales.to(torch.bfloat16), biases.to(torch.bfloat16)
-    if K != padded_k(K) or words.dtype != torch.int32:
+    if K != padded_k(K, group_size) or words.dtype != torch.int32:
         return from_codes(unpack_mlx(words.to(torch.int32), bits), s, b, K, group_size, bits)
     return QuantizedTensor(
         packed=words.contiguous(), scales=s.contiguous(), biases=b.contiguous(),

@@ -32,6 +32,14 @@ model's matmuls run part by part, in one process, one after another:
 
 Nothing falls back: a part runs the same kernel the unsharded weight
 would, at the part's shape, and a shape the kernel refuses raises.
+
+A weight's axis (`comm`, ops/axis.py) holds its positions in this process
+(a LocalAxis, the default: `parts` holds every position's part) or one per
+rank of a torch.distributed group (a GroupAxis: `parts` holds this rank's
+part alone). The same code runs both: each held part's product, then the
+axis's collective in position order (a gather for out-feature parts,
+replica blocks and expert segments; an ordered sum for in-feature
+partials), so the ranks' result is bit-equal to the in-process one.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from typing import Any, Callable
 import torch
 
 from ..kernels.quant_matmul import quant_matmul
+from .axis import LocalAxis
 from .basics import dense_linear
 from .quantize import QuantizedTensor, concat_out_features, padded_k
 
@@ -52,10 +61,12 @@ DIMS = ("out", "in", "expert")  # shard_weight's splits; replicate() makes "batc
 class ShardedWeight:
     """A weight split over mesh axis `axis` on logical dim `dim`.
 
-    parts[s] lives on devices[s] and covers [bounds[s][0], bounds[s][1]) of
-    the split dim. For dim "in" a quantized part covers the whole groups
-    from column `k0s[s]` (<= bounds[s][0]) and x outside its bounds is
-    zeroed. For dim "batch" every part is the whole weight (no bounds)."""
+    Position s lives on devices[s] and covers [bounds[s][0], bounds[s][1])
+    of the split dim; `parts` holds the parts of the positions this process
+    holds (`held`: every position, or a rank's own under a GroupAxis
+    `comm`). For dim "in" a quantized part covers the whole groups from
+    column `k0s[s]` (<= bounds[s][0]) and x outside its bounds is zeroed.
+    For dim "batch" every part is the whole weight (no bounds)."""
 
     parts: tuple
     dim: str
@@ -65,6 +76,20 @@ class ShardedWeight:
     shape: tuple  # the logical full shape: (N, K) or (E, N, K)
     k0s: tuple = ()  # dim "in": each part's first column (group-aligned)
     halves: bool = False  # a fused [gate; up]: part s is [gate_s; up_s]
+    comm: Any = None  # the axis (ops/axis.py); None: every position in this process
+
+    @property
+    def axis_impl(self):
+        return self.comm if self.comm is not None else LocalAxis(self.devices)
+
+    @property
+    def held(self) -> tuple:
+        """The positions whose parts `parts` holds, in order."""
+        return tuple(self.axis_impl.positions)
+
+    def part(self, position: int):
+        """The part of a held position."""
+        return self.parts[self.held.index(position)]
 
     @property
     def out_features(self) -> int:
@@ -119,9 +144,12 @@ def _cols(w, lo: int, hi: int) -> tuple[Any, int]:
     if not isinstance(w, QuantizedTensor):
         return w[..., lo:hi].clone(), lo
     gs = w.group_size
+    if gs * w.bits % 32:
+        raise ValueError(f"an in-feature split copies whole words a group: group size {gs} "
+                         f"at {w.bits} bits is not")
     g0, g1 = lo // gs, -(-hi // gs)
     k0, k1 = g0 * gs, min(g1 * gs, w.in_features)
-    kp = padded_k(k1 - k0)
+    kp = padded_k(k1 - k0, gs)
     wpg = gs * w.bits // 32  # words a group
     G = kp // gs
     packed = w.packed.new_zeros((*w.packed.shape[:-1], kp * w.bits // 32))
@@ -150,16 +178,21 @@ def _even(n: int, parts: int, what: str, unit: int = 1) -> list[tuple[int, int]]
 
 
 def shard_weight(w, dim: str, axis: str, devices, *, unit: int = 1,
-                 halves: bool = False) -> ShardedWeight:
+                 halves: bool = False, comm=None) -> ShardedWeight:
     """Split w (QuantizedTensor or dense tensor; [N, K] or stacked
     [E, N, K]) over len(devices) shards on `dim`, each part a copy on its
     device. `unit`: the split dim's granularity (a head's rows: whole heads
-    per shard). `halves`: w is a fused [gate; up], split half by half."""
+    per shard). `halves`: w is a fused [gate; up], split half by half.
+    `comm`: the axis (ops/axis.py); a GroupAxis keeps only this rank's
+    part."""
     if dim not in DIMS:
         raise ValueError(f"dim {dim!r}: expected one of {DIMS}")
     n = len(devices)
+    if comm is not None and comm.size != n:
+        raise ValueError(f"{n} shards over an axis of {comm.size} positions")
     if n == 1 and torch.device(devices[0]) == w.device:
-        return w  # an axis of one shard on the weight's own device: nothing to split
+        return w  # an axis of one shard on the weight's own device (or rank): nothing to split
+    held = range(n) if comm is None else comm.positions
     shape = logical_shape(w)
     stacked, N, K = (None, *shape) if len(shape) == 2 else shape
     k0s: tuple = ()
@@ -167,54 +200,63 @@ def shard_weight(w, dim: str, axis: str, devices, *, unit: int = 1,
         if stacked is None:
             raise ValueError("an expert split needs a stacked [E, N, K] weight")
         bounds = _even(stacked, n, "num_experts")
-        parts = [_experts(w, lo, hi) for lo, hi in bounds]
+        parts = [_experts(w, *bounds[p]) for p in held]
     elif dim == "out":
         if halves:
             half = N // 2
             bounds = _even(half, n, "each half's out-features", unit)
             parts = [_cat_rows([_rows(w, lo, hi), _rows(w, half + lo, half + hi)])
-                     for lo, hi in bounds]
+                     for lo, hi in (bounds[p] for p in held)]
         else:
             bounds = _even(N, n, "out-features", unit)
-            parts = [_rows(w, lo, hi) for lo, hi in bounds]
+            parts = [_rows(w, *bounds[p]) for p in held]
     else:
         bounds = _even(K, n, "in-features")
-        cols = [_cols(w, lo, hi) for lo, hi in bounds]
-        parts, k0s = [p for p, _ in cols], tuple(k0 for _, k0 in cols)
-    return ShardedWeight(parts=tuple(p.to(d) for p, d in zip(parts, devices)), dim=dim,
-                         axis=axis, devices=tuple(devices), bounds=tuple(bounds), shape=shape,
-                         k0s=k0s, halves=halves)
+        gs = w.group_size if isinstance(w, QuantizedTensor) else 1
+        k0s = tuple(lo // gs * gs for lo, _ in bounds)
+        parts = [_cols(w, *bounds[p])[0] for p in held]
+    return ShardedWeight(parts=tuple(part.to(devices[p]) for part, p in zip(parts, held)),
+                         dim=dim, axis=axis, devices=tuple(devices), bounds=tuple(bounds),
+                         shape=shape, k0s=k0s, halves=halves, comm=comm)
 
 
-def replicate(parts, axis: str, devices) -> ShardedWeight:
+def replicate(parts, axis: str, devices, comm=None) -> ShardedWeight:
     """A weight replicated over the data-parallel mesh axis `axis`: parts[s]
     is replica s's copy on devices[s] (the same tensor where that is its
     own device; or the weight split again over another axis, on that
-    replica's devices)."""
+    replica's devices). Under a GroupAxis `comm`, `parts` is this rank's
+    replica alone."""
     return ShardedWeight(parts=tuple(parts), dim="batch", axis=axis, devices=tuple(devices),
-                         bounds=(), shape=logical_shape(parts[0]))
+                         bounds=(), shape=logical_shape(parts[0]), comm=comm)
 
 
 def replica_rows(x: torch.Tensor, w: ShardedWeight, fn: Callable, residual=None) -> torch.Tensor:
-    """fn(x block, s, residual block) for each replica s of a weight
+    """fn(x block, s, residual block) for each held replica s of a weight
     replicated over a data-parallel axis: x's leading dim in contiguous
-    equal blocks, block s on replica s's device; rows that do not divide
-    over the replicas (a single pending prefill) run on replica 0. The
-    outputs are concatenated on x's device."""
-    n, home, B = len(w.parts), x.device, x.shape[0]
-    step = B // n if B % n == 0 else B
-    outs = []
-    for s in range(B // step):
+    equal blocks, block s on replica s's device, the blocks gathered in
+    order on x's device; rows that do not divide over the replicas (a
+    single pending prefill) run whole on replica 0 (on each rank, on its
+    own replica: the same weight)."""
+    ax, home, B = w.axis_impl, x.device, x.shape[0]
+    n = ax.size
+    if B % n:
+        s = w.held[0]
+        return fn(x.to(w.devices[s]), s, None if residual is None
+                  else residual.to(w.devices[s])).to(home)
+    step = B // n
+    outs = {}
+    for s in w.held:
         lo, hi, d = s * step, (s + 1) * step, w.devices[s]
         r = None if residual is None else residual[lo:hi].to(d)
-        outs.append(fn(x[lo:hi].to(d), s, r).to(home))
+        outs[s] = fn(x[lo:hi].to(d), s, r)
+    outs = ax.gather(outs, home)
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def replica(w, s: int):
     """Replica s's copy of a weight replicated over a data-parallel axis;
     any other weight as it is."""
-    return w.parts[s] if isinstance(w, ShardedWeight) and w.dim == "batch" else w
+    return w.part(s) if isinstance(w, ShardedWeight) and w.dim == "batch" else w
 
 
 def _cat_rows(ws):
@@ -240,8 +282,8 @@ def zip_parts(fn: Callable[..., Any], *ws: ShardedWeight, halves: bool = False) 
     if halves:
         bounds = head.bounds
     else:
-        offs = [sum(w.bounds[s][0] for w in ws) for s in range(len(parts))]
-        bounds = tuple((o, o + out_features_of(p)) for o, p in zip(offs, parts))
+        bounds = tuple((sum(w.bounds[s][0] for w in ws), sum(w.bounds[s][1] for w in ws))
+                       for s in range(len(head.bounds)))
     return dataclasses.replace(head, parts=parts, bounds=bounds,
                                shape=(*head.shape[:-2], N, head.in_features), halves=halves)
 
@@ -251,30 +293,33 @@ def sharded_apply(x: torch.Tensor, w: ShardedWeight, op: Callable, residual=None
     part, residual_part) per part on the part's device. An in-feature
     split sums the parts' products in f32 (op may return them in f32),
     adds the residual in f32 and rounds to x's dtype once."""
-    home = x.device
+    home, ax = x.device, w.axis_impl
     if w.dim == "out":
-        outs = []
-        for p, d, (lo, hi) in zip(w.parts, w.devices, w.bounds):
+        outs = {}
+        for s, p in zip(w.held, w.parts):
+            d, (lo, hi) = w.devices[s], w.bounds[s]
             r = None
             if residual is not None:
                 if w.halves:
                     raise ValueError("a fused gate/up takes no residual")
                 r = residual[..., lo:hi].to(d)
-            outs.append(op(x.to(d), p, r).to(home))
+            outs[s] = op(x.to(d), p, r)
+        outs = ax.gather(outs, home)
         if w.halves:
             halves = [o.chunk(2, dim=-1) for o in outs]
             return torch.cat([h[0] for h in halves] + [h[1] for h in halves], dim=-1)
         return torch.cat(outs, dim=-1)
     if w.dim != "in":
         raise ValueError(f"a {w.dim!r} split runs through ops/moe.py or replica_rows")
-    acc = None
-    for p, d, (lo, hi), k0 in zip(w.parts, w.devices, w.bounds, w.k0s):
+    partial = {}
+    for s, p in zip(w.held, w.parts):
+        d, (lo, hi), k0 = w.devices[s], w.bounds[s], w.k0s[s]
         xs = x[..., k0 : k0 + in_features_of(p)]
         if lo > k0 or hi < k0 + xs.shape[-1]:
             col = torch.arange(xs.shape[-1], device=xs.device) + k0
             xs = xs * ((col >= lo) & (col < hi)).to(xs.dtype)
-        part = op(xs.to(d), p, None).to(device=home, dtype=torch.float32)
-        acc = part if acc is None else acc + part
+        partial[s] = op(xs.to(d), p, None).to(torch.float32)
+    acc = ax.sum(partial, home)  # in position order: the ranks' sum is the in-process one
     if residual is not None:
         acc = acc + residual.to(torch.float32)
     return acc.to(x.dtype)

@@ -36,6 +36,14 @@ puts every page a row owns in its replica's stripe, so that writes what
 rather than in its replica's trash page, and no one reads either.
 `paged_update` is the JAX package's stripe-local write, for a caller
 that writes one stripe by itself.
+
+Over ranks (ShardingConfig.rank_axis = the dp axis) replica r is rank r:
+it runs its own rows through its copy of the weights (ops/sharded.py
+replica_rows) and its own rows' attention over its own stripe, reading no
+other stripe, and the replicas' rows are gathered in order (ops/axis.py).
+The pending prefill's decode states combine over the ranks as the SP
+states do; its longer chunks (and a non-causal chunk) gather the stripes
+first.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import DECODE_MAX_L, paged_attention, paged_decode_state
 from ..kv.paged import PagedBatchingKVCache, PagePool
 from .sharding import ShardingConfig, kv_cache_spec
-from .sp_attention import _combine
+from .sp_attention import combine_states, gather_shards
 
 __all__ = ["DPPagedAttention", "DPPagedBatchingKVCache", "DPServing", "dp_paged_pool_spec"]
 
@@ -93,6 +101,9 @@ class DPPagedAttention:
             raise ValueError(f"num_pages {pages.shape[0]} must divide over dp = {self._dp}")
         return pages.shape[0] // self._dp
 
+    def _axis(self):
+        return self.scfg.axis_impl(self.scfg.dp_axis)
+
     def flash(self, q, k, v, lens=None, scale=None):
         """Chunk-local causal attention (the first chunk of a request over
         its own k/v): each replica's rows where B splits, else one call."""
@@ -101,37 +112,45 @@ class DPPagedAttention:
             return flash_attention(q, k, v, lens, scale=scale, impl=self.impl)
         if lens is None:
             lens = torch.full((B,), k.shape[2], dtype=torch.int32, device=q.device)
-        return torch.cat([flash_attention(q[rows], k[rows], v[rows], lens[rows], scale=scale,
-                                          impl=self.impl)
-                          for _, rows in self._replica_rows(B)])
+        ax, rb = self._axis(), B // self._dp
+        outs = {r: flash_attention(q[r * rb : (r + 1) * rb], k[r * rb : (r + 1) * rb],
+                                   v[r * rb : (r + 1) * rb], lens[r * rb : (r + 1) * rb],
+                                   scale=scale, impl=self.impl) for r in ax.positions}
+        return torch.cat(ax.gather(outs, q.device))
 
-    def paged(self, q, key_pages, value_pages, block_table, context_lens, scale=None):
-        """Causal attention of q [B, Hq, L, D] over a dp-striped pool
-        [P, Hkv, ps, D] whose rows obey the pinning (every page of a row in
-        its replica's stripe)."""
+    def paged(self, q, key_pages, value_pages, block_table, context_lens, scale=None,
+              mask="causal"):
+        """Attention of q [B, Hq, L, D] over a dp-striped pool [P, Hkv, ps,
+        D] whose rows obey the pinning (every page of a row in its
+        replica's stripe); mask "causal" or None (see paged_attention)."""
+        if not (mask is None or (isinstance(mask, str) and mask == "causal")):
+            raise ValueError("data-parallel paged attention takes mask 'causal' or None")
         B, L = q.shape[0], q.shape[2]
         P_loc = self._stripe(key_pages)
+        ax = self._axis()
         if self._dp_ok(B):
-            outs = []
-            for r, rows in self._replica_rows(B):
-                lo, bt = r * P_loc, block_table[rows]
+            rb, outs = B // self._dp, {}
+            for r in ax.positions:
+                rows, lo = slice(r * rb, (r + 1) * rb), r * P_loc
+                bt = block_table[rows]
                 bt_local = torch.where(bt >= 0, bt - lo, -1)  # rebased to the stripe
-                outs.append(paged_attention(q[rows], key_pages[lo : lo + P_loc],
-                                            value_pages[lo : lo + P_loc], bt_local,
-                                            context_lens[rows], scale=scale, impl=self.impl))
-            return torch.cat(outs)
-        if L > DECODE_MAX_L:
+                outs[r] = paged_attention(q[rows], key_pages[lo : lo + P_loc],
+                                          value_pages[lo : lo + P_loc], bt_local,
+                                          context_lens[rows], scale=scale, mask=mask,
+                                          impl=self.impl)
+            return torch.cat(ax.gather(outs, q.device))
+        if L > DECODE_MAX_L or (mask is None and L > 1):
             # Every page of the row lies in one stripe: the pool's paged
-            # prefill over the global table reads exactly the pinned
+            # attention over the global table reads exactly the pinned
             # replica's pages (the JAX package merges the replicas' states).
-            return paged_attention(q, key_pages, value_pages, block_table, context_lens,
-                                   scale=scale, impl=self.impl)
-        return _combine([
-            paged_decode_state(q, key_pages[r * P_loc : (r + 1) * P_loc],
-                               value_pages[r * P_loc : (r + 1) * P_loc], block_table,
-                               context_lens, r * P_loc, scale, self.impl)
-            for r in range(self._dp)
-        ])
+            return paged_attention(q, gather_shards(ax, key_pages, 0),
+                                   gather_shards(ax, value_pages, 0), block_table, context_lens,
+                                   scale=scale, mask=mask, impl=self.impl)
+        return combine_states(ax, {
+            r: paged_decode_state(q, key_pages[r * P_loc : (r + 1) * P_loc],
+                                  value_pages[r * P_loc : (r + 1) * P_loc], block_table,
+                                  context_lens, r * P_loc, scale, self.impl)
+            for r in ax.positions})
 
     def paged_update(self, kp_i, vp_i, k, v, page_idx_raw, slot):
         """Write this step's k/v [B, Hkv, L, D] into one layer's dp-striped

@@ -11,7 +11,10 @@ expert weights:
      input) and runs gate, up, SwiGLU and down through the grouped kernels
      on its local experts (ops/moe.py expert_rows).
   3. One sum of the shards' disjoint segments merges them: the receive
-     half of the all-to-all, one collective a layer.
+     half of the all-to-all, one collective a layer. Over ranks
+     (ShardingConfig.rank_axis = `axis`) each rank holds its own experts'
+     weights alone and runs its own segment; the segments are gathered
+     and merged in shard order on every rank (ops/moe.py expert_rows).
 
 `capacity_factor=None` is dropless (a shard's buffer holds every row). A
 finite factor bounds a shard at ceil(T f / n) rows; the overflow is dropped
@@ -60,7 +63,8 @@ class EPMoE:
                     raise ValueError(f"expert weights split on {w.dim!r} over {w.axis!r}, "
                                      f"not on the experts over {self.axis!r}")
                 return w
-            return shard_weight(w, "expert", self.axis, devices)
+            return shard_weight(w, "expert", self.axis, devices,
+                                comm=scfg.axis_impl(self.axis))
 
         self.w_router = w_router
         self.w_gate, self.w_up, self.w_down = split(w_gate), split(w_up), split(w_down)

@@ -3,15 +3,18 @@ axis, shared by the pipeline (parallel/pipeline.py) and the overlapped TP
 matmuls (parallel/overlap.py).
 
 An axis has n positions; a hop delivers the tensor that position p sends to
-position p + 1 (mod n). Two implementations, one interface:
+position p + 1 (mod n). Two implementations, one interface, each the axis
+of ops/axis.py (whose collectives the SP, TP, DP and EP strategies use)
+with the hop added:
 
-  * `LocalRing`: every position in this process, position p on devices[p]
-    (the port's mesh devices). The hop is a copy to the next position's
-    device; on one card `.to()` returns the tensor itself.
-  * `GroupRing`: position r is rank r of a torch.distributed process
-    group, holding its own tensors. The hop is one `dist.batch_isend_irecv`
-    of this rank's sends and receives, issued by `start` and completed by
-    `wait`, so a caller overlaps it with compute issued in between.
+  * `LocalRing` (a LocalAxis): every position in this process, position p
+    on devices[p] (the port's mesh devices). The hop is a copy to the next
+    position's device; on one card `.to()` returns the tensor itself.
+  * `GroupRing` (a GroupAxis): position r is rank r of a torch.distributed
+    process group, holding its own tensors. The hop is one
+    `dist.batch_isend_irecv` of this rank's sends and receives, issued by
+    `start` and completed by `wait`, so a caller overlaps it with compute
+    issued in between.
 
 `positions` says which positions this process holds: all of them in a
 LocalRing, its own rank in a GroupRing. `start(sends, expect)` takes a dict
@@ -24,6 +27,8 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from ..ops.axis import GroupAxis, LocalAxis
 
 
 class Hop:
@@ -40,30 +45,18 @@ class Hop:
         return self._received
 
 
-class LocalRing:
+class LocalRing(LocalAxis):
     """An axis whose positions all live in this process, position p on
     devices[p]."""
-
-    def __init__(self, devices):
-        self.devices = [torch.device(d) for d in devices]
-        self.size = len(self.devices)
-        self.positions = range(self.size)
 
     def start(self, sends: dict, expect: dict | None = None) -> Hop:
         n = self.size
         return Hop({(p + 1) % n: t.to(self.devices[(p + 1) % n]) for p, t in sends.items()})
 
 
-class GroupRing:
+class GroupRing(GroupAxis):
     """An axis over the ranks of a process group (None: the default group),
     rank r at position r, its tensors on `device`."""
-
-    def __init__(self, group=None, device: str | torch.device = "cuda"):
-        self.group = group
-        self.device = torch.device(device)
-        self.size = dist.get_world_size(group)
-        self.rank = dist.get_rank(group)
-        self.positions = (self.rank,)
 
     def peer(self, position: int) -> int:
         """The global rank of an axis position."""
@@ -77,7 +70,7 @@ class GroupRing:
                              f"{sorted(set(sends) | set(expect))}")
         if self.size == 1:  # the position sends to itself
             return Hop(dict(sends))
-        received = {p: torch.empty(shape, dtype=dtype, device=self.device)
+        received = {p: torch.empty(shape, dtype=dtype, device=self._device)
                     for p, (shape, dtype) in expect.items()}
         ops = [dist.P2POp(dist.isend, t.contiguous(), self.peer(self.rank + 1), self.group)
                for t in sends.values()]

@@ -22,6 +22,13 @@ partitioned, as the JAX package replicates it: an in-feature part keeps
 the groups its columns touch (ops/sharded.py). Other widths split G with
 K, as the JAX "sg" layout does.
 
+Over ranks: `rank_axis` names the mesh axis whose positions are the ranks
+of a torch.distributed process group (`group`, None for the default
+group), one position a rank; every other axis stays in the process. The
+splits and the strategies then keep this rank's part of that axis alone,
+and their collectives run over the group (ops/axis.py GroupAxis), in the
+same code and the same order as the in-process form.
+
 `shard_params` is the counterpart of jax.device_put with a NamedSharding:
 each split weight becomes an ops.sharded.ShardedWeight whose parts are
 copies on the mesh devices along its axis; over a dp axis, each matmul
@@ -34,8 +41,10 @@ part).
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 from ..models.qwen3 import AttentionParams, MLPParams, MoEParams, Qwen3Params
+from ..ops.axis import GroupAxis, LocalAxis
 from ..ops.quantize import QuantizedTensor
 from ..ops.sharded import (ShardedWeight, in_features_of, out_features_of, replicate,
                            shard_weight)
@@ -50,6 +59,21 @@ class ShardingConfig:
     # Composed EP x TP: the MoE expert axis's mesh axis; None shards experts
     # over tp_axis.
     ep_axis: str | None = None
+    # The mesh axis whose positions are the ranks of `group` (None: every
+    # axis in this process).
+    rank_axis: str | None = None
+    group: Any = None
+
+    def axis_impl(self, axis: str, **at: int):
+        """The axis `axis` (ops/axis.py) as seen from mesh position `at`:
+        the group's ranks for rank_axis, else its devices in this process."""
+        if axis == self.rank_axis:
+            n = self.mesh.shape[axis]
+            ax = GroupAxis(self.group, self.mesh.devices_along(axis, **at)[0])
+            if ax.size != n:
+                raise ValueError(f"axis {axis!r} of {n} positions over a group of {ax.size}")
+            return ax
+        return LocalAxis(self.mesh.devices_along(axis, **at))
 
 
 def _qt_spec(w: QuantizedTensor, row, col, expert=None) -> QuantizedTensor:
@@ -130,16 +154,19 @@ def shard_params(params: Qwen3Params, cfg: ShardingConfig) -> Qwen3Params:
             if isinstance(w, ShardedWeight):
                 raise ValueError("params are sharded already")
     mesh, dp = cfg.mesh, cfg.dp_axis
+    if cfg.rank_axis is not None and sum(v > 1 for v in mesh.shape.values()) > 1:
+        raise NotImplementedError("over ranks the port splits one mesh axis: the rank axis")
     n_dp = mesh.shape.get(dp, 1)
-    if n_dp == 1:
+    if n_dp == 1 and cfg.rank_axis != dp:
         return _shard_replica(params, cfg, {})
-    reps = [_shard_replica(params, cfg, {dp: r}) for r in range(n_dp)]
+    comm = cfg.axis_impl(dp)
+    reps = [_shard_replica(params, cfg, {dp: r}) for r in comm.positions]
     devs = mesh.devices_along(dp)
 
     def merge(objs):
         return dataclasses.replace(objs[0], **{
             f.name: None if getattr(objs[0], f.name) is None
-            else replicate([getattr(o, f.name) for o in objs], dp, devs)
+            else replicate([getattr(o, f.name) for o in objs], dp, devs, comm)
             for f in dataclasses.fields(objs[0]) if f.name in _MATMULS})
 
     return dataclasses.replace(
@@ -161,11 +188,14 @@ def _shard_replica(params: Qwen3Params, cfg: ShardingConfig, at: dict) -> Qwen3P
     def home(w):
         return w if w is None or not at else w.to(tp_devs[0])
 
+    def split(w, dim, axis=tp, devs=tp_devs, **kw):
+        return shard_weight(w, dim, axis, devs, comm=cfg.axis_impl(axis, **at), **kw)
+
     def heads(w, rows_per_head):
-        return None if w is None else shard_weight(w, "out", tp, tp_devs, unit=rows_per_head)
+        return None if w is None else split(w, "out", unit=rows_per_head)
 
     def attn(a: AttentionParams):
-        d, wo = a.q_norm.shape[-1], shard_weight(a.wo, "in", tp, tp_devs)
+        d, wo = a.q_norm.shape[-1], split(a.wo, "in")
         if a.wqkv is not None:
             n, k = out_features_of(a.wqkv), in_features_of(a.wo)  # hkv (n_rep + 2) d, hkv n_rep d
             return dataclasses.replace(a, wqkv=heads(a.wqkv, n // ((n - k) // (2 * d))), wo=wo)
@@ -175,12 +205,13 @@ def _shard_replica(params: Qwen3Params, cfg: ShardingConfig, at: dict) -> Qwen3P
 
     def experts(w, feature_dim):
         if cfg.ep_axis is None:
-            return shard_weight(w, "expert", tp, tp_devs)
+            return split(w, "expert")
         ep = cfg.ep_axis
-        outer = shard_weight(w, "expert", ep, mesh.devices_along(ep, **at))
+        outer = split(w, "expert", ep, mesh.devices_along(ep, **at))
         return dataclasses.replace(outer, parts=tuple(
-            shard_weight(p, feature_dim, tp, mesh.devices_along(tp, **at, **{ep: e}))
-            for e, p in enumerate(outer.parts)))
+            shard_weight(p, feature_dim, tp, mesh.devices_along(tp, **at, **{ep: e}),
+                         comm=cfg.axis_impl(tp, **at, **{ep: e}))
+            for e, p in zip(outer.held, outer.parts)))
 
     def mlp(m):
         if isinstance(m, MoEParams):
@@ -189,12 +220,10 @@ def _shard_replica(params: Qwen3Params, cfg: ShardingConfig, at: dict) -> Qwen3P
                                        w_up=experts(m.w_up, "out"),
                                        w_down=experts(m.w_down, "in"))
         if m.w_gate_up is not None:
-            return dataclasses.replace(
-                m, w_gate_up=shard_weight(m.w_gate_up, "out", tp, tp_devs, halves=True),
-                w_down=shard_weight(m.w_down, "in", tp, tp_devs))
-        return dataclasses.replace(m, w_gate=shard_weight(m.w_gate, "out", tp, tp_devs),
-                                   w_up=shard_weight(m.w_up, "out", tp, tp_devs),
-                                   w_down=shard_weight(m.w_down, "in", tp, tp_devs))
+            return dataclasses.replace(m, w_gate_up=split(m.w_gate_up, "out", halves=True),
+                                       w_down=split(m.w_down, "in"))
+        return dataclasses.replace(m, w_gate=split(m.w_gate, "out"),
+                                   w_up=split(m.w_up, "out"), w_down=split(m.w_down, "in"))
 
     return dataclasses.replace(params, lm_head=home(params.lm_head), layers=[
         dataclasses.replace(b, attn=attn(b.attn), mlp=mlp(b.mlp)) for b in params.layers])

@@ -11,7 +11,10 @@ this with a shard_map over the mesh; the port runs the shards one after
 another in one process, each on its mesh device, batch rows split over
 `dp` where they divide. A shard's KV is a view of the slab or the pool
 (its heads, its rows), which K3 and the paged kernels read in place; it
-is copied only to reach a shard on another device.
+is copied only to reach a shard on another device. Over ranks
+(ShardingConfig.rank_axis = the tp axis) each rank runs its own head shard
+alone, reading its heads of the slab or pool only, and the shards' outputs
+are gathered in head order (ops/axis.py).
 
 Pass a TPAttention as the model's `attn_impl`.
 """
@@ -41,27 +44,23 @@ class TPAttention:
         self.tp = shape[scfg.tp_axis]
         self.dp = shape.get(scfg.dp_axis, 1)
 
-    def _blocks(self, B: int, hq: int, hkv: int):
-        """(device, batch rows, q heads, KV heads) of every (dp, tp) shard:
-        rows split over dp where B divides, else every row on each tp
-        shard of replica 0."""
+    def _run(self, B: int, hq: int, hkv: int, fn, like: torch.Tensor) -> torch.Tensor:
+        """fn(device, batch rows, q heads, KV heads) of every held (dp, tp)
+        shard, its outputs [rows, heads, L, D] put back into [B, Hq, L, D]:
+        rows split over dp where B divides, else every row on each tp shard
+        of replica 0; the tp shards' heads gathered in order."""
         if hq % self.tp or hkv % self.tp:
             raise ValueError(f"{hq} / {hkv} heads do not divide over tp = {self.tp}")
         dp = self.dp if B % self.dp == 0 else 1
         rb, qh, kh = B // dp, hq // self.tp, hkv // self.tp
-        mesh, ax = self.scfg.mesh, self.scfg.tp_axis
+        blocks = []
         for r in range(dp):
-            devs = mesh.devices_along(ax, **({self.scfg.dp_axis: r} if dp > 1 else {}))
-            for t, dev in enumerate(devs):
-                yield (dev, slice(r * rb, (r + 1) * rb), slice(t * qh, (t + 1) * qh),
-                       slice(t * kh, (t + 1) * kh))
-
-    @staticmethod
-    def _assemble(outs, B: int, dp_rows: int, like: torch.Tensor) -> torch.Tensor:
-        """Shard outputs [rows, heads, L, D] back into [B, Hq, L, D]."""
-        per_row = len(outs) // (B // dp_rows)
-        rows = [torch.cat(outs[i : i + per_row], dim=1) for i in range(0, len(outs), per_row)]
-        return torch.cat(rows, dim=0).to(like.device)
+            ax = self.scfg.axis_impl(self.scfg.tp_axis,
+                                     **({self.scfg.dp_axis: r} if dp > 1 else {}))
+            outs = {t: fn(ax.device(t), slice(r * rb, (r + 1) * rb), slice(t * qh, (t + 1) * qh),
+                          slice(t * kh, (t + 1) * kh)) for t in ax.positions}
+            blocks.append(torch.cat(ax.gather(outs, like.device), dim=1))
+        return torch.cat(blocks, dim=0)
 
     def flash(self, q, k, v, lens=None, scale=None):
         """Causal attention of q [B, Hq, L, D] over the slab k/v
@@ -69,27 +68,32 @@ class TPAttention:
         B, Hq, L, D = q.shape
         if lens is None:
             lens = torch.full((B,), k.shape[2], dtype=torch.int32, device=q.device)
-        outs, rows_per = [], B
-        for dev, rows, qh, kh in self._blocks(B, Hq, k.shape[1]):
-            rows_per = rows.stop - rows.start
-            outs.append(flash_attention(
-                q[rows, qh].contiguous().to(dev), k[rows, kh].to(dev), v[rows, kh].to(dev),
-                lens[rows].to(dev), scale=scale, impl=self.impl))
-        return self._assemble(outs, B, rows_per, q)
+        return self._run(B, Hq, k.shape[1], lambda dev, rows, qh, kh: flash_attention(
+            q[rows, qh].contiguous().to(dev), k[rows, kh].to(dev), v[rows, kh].to(dev),
+            lens[rows].to(dev), scale=scale, impl=self.impl), q)
 
-    def paged(self, q, key_pages, value_pages, block_table, context_lens, scale=None):
-        """Causal attention of q [B, Hq, L, D] over one layer's page pool
-        [P, Hkv, ps, D], the pool's KV heads split over tp; the block
-        table and lengths are the same for every head shard."""
-        B = q.shape[0]
-        outs, rows_per = [], B
-        for dev, rows, qh, kh in self._blocks(B, q.shape[1], key_pages.shape[1]):
-            rows_per = rows.stop - rows.start
-            outs.append(paged_attention(
-                q[rows, qh].contiguous().to(dev), key_pages[:, kh].to(dev),
-                value_pages[:, kh].to(dev), block_table[rows].to(dev),
-                context_lens[rows].to(dev), scale=scale, impl=self.impl))
-        return self._assemble(outs, B, rows_per, q)
+    def paged(self, q, key_pages, value_pages, block_table, context_lens, scale=None,
+              mask="causal"):
+        """Attention of q [B, Hq, L, D] over one layer's page pool
+        [P, Hkv, ps, D] (see paged_attention), the pool's KV heads split
+        over tp; the block table, the lengths and a shared mask are the
+        same for every head shard (a per-row mask takes the shard's rows).
+        A mask other than "causal" runs on a contiguous copy of the head
+        shard (the prefix-state walk takes whole pools)."""
+        def rows_of(rows):
+            per_row = torch.is_tensor(mask) and mask.ndim >= 3
+            return mask[rows] if per_row else mask
+
+        def pages(p, kh, dev):
+            shard = p[:, kh].to(dev)
+            return shard if isinstance(mask, str) else shard.contiguous()
+
+        return self._run(q.shape[0], q.shape[1], key_pages.shape[1],
+                         lambda dev, rows, qh, kh: paged_attention(
+                             q[rows, qh].contiguous().to(dev), pages(key_pages, kh, dev),
+                             pages(value_pages, kh, dev), block_table[rows].to(dev),
+                             context_lens[rows].to(dev), scale=scale, mask=rows_of(rows),
+                             impl=self.impl), q)
 
 
 def paged_pool_spec(scfg: ShardingConfig) -> tuple:

@@ -143,6 +143,7 @@ def batch_generate(
     batch_size: int = 5,
     prefill_step: int = 128,
     progress_callback: Callable | None = None,
+    use_paged: bool | None = None,
     max_output_tokens: int | None = None,
     metrics: ServingMetrics | None = None,
     decode_burst: int = 8,
@@ -169,7 +170,9 @@ def batch_generate(
     prompts inside the decode bursts instead, in `mixed_chunk`-token
     sub-chunks, where the model supports it (a paged pool whose page size
     `mixed_chunk` divides); misaligned offsets and a prefill with no active
-    slot take the classic path."""
+    slot take the classic path. `use_paged` is taken and ignored, as in the
+    JAX package: the model's cache objects carry the paged/dense choice."""
+    del use_paged
     sampler = make_sampler(temp, top_p, top_k) if temp > 0 else None
     burst_gen = torch.Generator(device=model.device).manual_seed(seed) if temp > 0 else None
     if arrival_times is not None:
